@@ -1,0 +1,464 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
+once), holds each kernel against its plain PyTorch version at the shapes
+the serving path gives it and times both, then drives the port's main path:
+MultiATGCN at the DC-237 flagship width, served in the int8 weight-stream
+configuration by ``PredictService.from_experiment`` over HTTP at buckets 1,
+4 and 16, plus one f32 request at bucket 16. Weights are random, drawn from
+a seeded generator; the data is the port's synthetic DC-237 dataset
+(bench.py's arguments). The encoder states and model-space outputs of the
+int8, bf16 and f32 runs are then held against the same weights on the CPU
+(plain versions of the kernels), and two faults planted in B2 must fail
+those checks. Every phase raises on failure; nothing is caught. The output
+ends with a JSON line listing the kernels and a JSON line
+``{"ok": true, "device": {...}}``.
+
+Without a CUDA device, or without the repository around it, it exits with
+an error and prints no result.
+"""
+
+import itertools
+import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "outputs", "chip_smoke")
+
+# H100 SXM data-sheet peaks (dense): HBM bandwidth and bf16 tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_NOTE = "H100 SXM data sheet: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense"
+
+N, B, T, H, K = 237, 16, 24, 64, 5            # flagship DC-237 widths
+NUM_LAYERS = 2
+BUCKETS = (1, 4, B)                           # the batch buckets the main path serves
+TIMING_REPS = 30
+# At the initialiser's scale the node-conditioned weights put about 1% of the
+# gate biases into the pre-activations, so a wrong B2 would move the states
+# by under 1%. The smoke model's AGCN weight pools are drawn at this gain
+# instead, which makes both the x- and h-side terms (B2's) comparable to
+# the biases.
+POOL_GAIN = 30.0
+# End-to-end bounds on the relative max error (normalised by the reference's
+# max |value|) of the encoder states and of the model-space output (before
+# the scaler inverse and the group de-z-scoring), whichever is larger. Each
+# is a few times its reading on an H100 and far below what a planted fault
+# in B2 gives (see _fault_controls). Runs that round to bf16 (int8 and bf16)
+# differ between the card and the CPU by more than f32 runs do: a last-bit
+# difference in f32 can move a bf16 rounding by one step (2^-8 relative),
+# which the recurrence carries on. The bf16 run on the card against the CPU,
+# which launches no kernel of the port, shows the size of that effect.
+BOUND_F32 = 1e-5               # f32 on the card vs on the CPU
+BOUND_BF16 = 5e-3              # int8 or bf16 on the card vs on the CPU; int8 vs bf16
+
+
+def say(msg):
+    print(msg, flush=True)
+
+
+def _bound_ms(num_bytes, flops):
+    t_bytes = num_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _time_ms(torch, fn, reps=TIMING_REPS):
+    """Median device time of one call (CUDA events), L2 flushed before each."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _ptxas_summary(report):
+    """One line from nvcc's -Xptxas -v report: kernels, most registers, spill bytes."""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
+    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", report))
+    return "{} kernel(s), at most {} registers, {} bytes of spills".format(
+        len(regs), max(regs, default=0), spills)
+
+
+def kernel_phase(torch):
+    """Each kernel vs its plain version at the main path's shapes, timed."""
+    from multistgraph_tpu_torch.ops.layout import force_default_layout, force_default_layout_plain
+    from multistgraph_tpu_torch.ops.node_apply import (
+        _pad_nodes, node_apply_q8, node_apply_q8_plain, quantize_node_weights)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dev = torch.device("cuda")
+    lines = []
+    ki = K * H
+    n_pad = -(-N // 32) * 32
+    # the int8 requests of the main path launch B2 at buckets 1, 4 and 16
+    for b, (cell, o) in itertools.product(BUCKETS, (("gate", 2 * H), ("update", H))):
+        hh = torch.randn(N, b, ki, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn(N, ki, o, generator=g, device=dev) * 0.1
+        wq, s = quantize_node_weights(w.to(torch.bfloat16))
+        wq, s = _pad_nodes(wq, 0, n_pad), _pad_nodes(s, 0, n_pad)
+        got = node_apply_q8(hh, wq, s)
+        want = node_apply_q8_plain(hh, wq, s)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        # the same products in f32; only the summation order differs
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+        w_deq = (wq[:N].float() * s[:N]).to(torch.bfloat16)
+        num_bytes = N * b * ki * 2 + N * ki * o + N * o * 4 + N * b * o * 4
+        bound, by = _bound_ms(num_bytes, 2 * N * b * ki * o)
+        lines.append({
+            "name": "node_apply_q8", "shape": "{} N={} B={} KI={} O={}".format(cell, N, b, ki, o),
+            "replaces": "multistgraph_tpu/ops/node_apply.py:238 node_apply_q8",
+            "max_abs_err": (got - want).abs().max().item(), "tolerance": "rtol 1e-5, atol 1e-5*max|plain|",
+            "kernel_ms": _time_ms(torch, lambda: node_apply_q8(hh, wq, s)),
+            "plain_ms": _time_ms(torch, lambda: node_apply_q8_plain(hh, wq, s)),
+            "library_ms": _time_ms(torch, lambda: torch.bmm(hh, w_deq)),
+            "library": "torch.bmm on pre-dequantized bf16 weights",
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
+        })
+    xw = torch.randn(T, B, N, 3 * H, generator=g, device=dev)
+    for cell, view in (("gate_x", xw[..., : 2 * H]), ("upd_x", xw[..., 2 * H:])):
+        got = force_default_layout(view)
+        want = force_default_layout_plain(view)
+        torch.cuda.synchronize()
+        if not (got.is_contiguous() and torch.equal(got, want)):
+            raise AssertionError("layout_copy differs from its plain version on " + cell)
+        num_bytes = 2 * view.numel() * view.element_size()
+        bound, by = _bound_ms(num_bytes, 0)
+        lines.append({
+            "name": "force_default_layout", "shape": "{} {} f32 view of (...,{})".format(
+                cell, tuple(view.shape), 3 * H),
+            "replaces": "multistgraph_tpu/ops/layout.py:40 _launder/force_default_layout",
+            "max_abs_err": (got - want).abs().max().item(), "tolerance": "bit-identical",
+            "kernel_ms": _time_ms(torch, lambda: force_default_layout(view)),
+            "plain_ms": _time_ms(torch, lambda: force_default_layout_plain(view)),
+            "library_ms": _time_ms(torch, lambda: view.contiguous()),
+            "library": "x.contiguous()",
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
+        })
+    for line in lines:
+        say(json.dumps(line))
+    return lines
+
+
+def _serving_args(raw_dir):
+    """bench.py's DC-237 configuration plus the int8 weight stream."""
+    return {
+        "data_dir": raw_dir,
+        "cache_dir": os.path.join(WORK, "dataset_cache"),
+        "output_dir": os.path.join(WORK, "outputs"),
+        "exp_id": "chip_smoke", "cache_dataset": False,
+        "input_window": T, "output_window": T,
+        "len_closeness": 2, "len_period": 1, "len_trend": 1,
+        "interval_period": 7, "interval_trend": 28,
+        "load_external": True, "load_dynamic": False, "add_time_in_day": True,
+        "groupstd": True, "add_static": True,
+        "adjtype": "multi", "adpadj": "bidirection",
+        "rnn_units": H, "num_layers": NUM_LAYERS, "embed_dim_node": 20,
+        "batch_size": B, "train_rate": 0.7, "eval_rate": 0.15, "seed": 0,
+        "compute_dtype": "bfloat16", "weight_stream_quant": "int8",
+    }
+
+
+def _post(url, x):
+    body = json.dumps({"x": x.tolist()}).encode()
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        reply = json.loads(r.read())
+    import numpy as np
+
+    return np.asarray(reply["prediction"], np.float32)
+
+
+def _rel_err(a, b):
+    import numpy as np
+
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def _model_out(torch, service, x):
+    """The model's encoder states (B, T, N, H) and its output in model space
+    (before the scaler inverse, the group de-z-scoring and the clip). At
+    random weights the output varies little with the input, so a wrong B2
+    shows far more in the states, on which it acts."""
+    from unittest import mock
+
+    model = service.model
+    encoder = model._encoder
+    states = []
+
+    def spy(*args):
+        states.append(encoder(*args))
+        return states[-1]
+
+    with torch.no_grad(), mock.patch.object(model, "_encoder", spy):
+        y = model(torch.tensor(x, device=service.device))
+    return {"states": states[0].float().cpu().numpy(), "output": y.float().cpu().numpy()}
+
+
+def _errs(a, b):
+    """Relative max error of the states and of the output, and the larger."""
+    e = {k: _rel_err(a[k], b[k]) for k in ("states", "output")}
+    return dict(e, max=max(e.values()))
+
+
+def _fault_controls(torch, service, x_all, cpu_ref, bf16_ref):
+    """Show that the end-to-end checks fail a wrong B2: plant a fault in the
+    model's B2 calls, rerun the int8 model on the card at every bucket, and
+    return each check's smallest error over the buckets for each fault."""
+    from unittest import mock
+
+    from multistgraph_tpu_torch.models import multi_atgcn
+    from multistgraph_tpu_torch.ops.node_apply import node_apply_q8
+
+    faults = {
+        "B2 scale dropped": lambda hh, wq, s: node_apply_q8(hh, wq, s) / s[: hh.shape[0]],
+        "B2 output zeroed": lambda hh, wq, s: torch.zeros_like(node_apply_q8(hh, wq, s)),
+    }
+    errs = {}
+    for name, fault in faults.items():
+        with mock.patch.object(multi_atgcn, "node_apply_q8", fault):
+            ys = {b: _model_out(torch, service, x_all[:b]) for b in BUCKETS}
+        errs[name] = {"int8 card vs CPU": min(_errs(ys[b], cpu_ref[b])["max"] for b in BUCKETS),
+                      "int8 vs bf16": min(_errs(ys[b], bf16_ref[b])["max"] for b in BUCKETS)}
+    return errs
+
+
+def _bucket_ms(service, x, reps=20):
+    service.predict(x)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        service.predict(x)  # returns host numpy: the device work is done
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _device_share(torch, service, x, wall_ms):
+    """Device time of one request by kernel (torch.profiler), against the
+    request's unprofiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    service.predict(x)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        service.predict(x)
+    rows = []
+    for e in prof.key_averages():
+        # kernels and copies only: a CPU op's self device time repeats its kernels'
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    return {
+        "bucket": service._bucket(len(x)), "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if rows else "not measured",
+        "device_idle_share": 1.0 - busy_ms / wall_ms if rows else "not measured",
+        "device_ops": sum(r[1] for r in rows),
+        "top": [{"name": k[:70], "count": c, "ms": ms} for ms, c, k in rows[:8]],
+    }
+
+
+def serving_phase(torch):
+    import numpy as np
+
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.data import get_dataset
+    from multistgraph_tpu_torch.data.synthetic import make_synthetic_dataset
+    from multistgraph_tpu_torch.models import get_model
+    from multistgraph_tpu_torch.ops.layout import force_default_layout
+    from multistgraph_tpu_torch.ops.node_apply import node_apply_q8
+    from multistgraph_tpu_torch.serving import PredictService, make_server
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    raw_dir = os.path.join(WORK, "raw_data")
+    t0 = time.time()
+    make_synthetic_dataset(raw_dir, "SYN_DC237", num_nodes=N, len_time=24 * 151,
+                           node_mean=30.169, node_std=84.023, seed=42)
+    say("dataset written in {:.1f}s".format(time.time() - t0))
+    args = _serving_args(raw_dir)
+    task, model_name, ds_name = "traffic_state_pred", "MultiATGCN", "SYN_DC237"
+    config = load_config(task, model_name, ds_name, other_args=args)
+    t0 = time.time()
+    dataset = get_dataset(config)
+    _, _, test_loader = dataset.get_data()
+    feature = dataset.get_data_feature()
+    say("dataset read in {:.1f}s: test x {}".format(time.time() - t0, tuple(test_loader.x.shape)))
+    model = get_model(config, feature, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("weights_pool"):
+                p.mul_(POOL_GAIN)
+    state_dict = {k: v.cpu() for k, v in model.state_dict().items()}
+    cache = os.path.join(args["output_dir"], "chip_smoke", "model_cache",
+                         "{}_{}.pt".format(model_name, ds_name))
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    torch.save((state_dict, {}), cache)
+
+    t0 = time.time()
+    service = PredictService.from_experiment(task, model_name, ds_name, other_args=args, max_batch=B)
+    say("from_experiment in {:.1f}s".format(time.time() - t0))
+    if not service.model.uses_int8_stream:
+        raise AssertionError("the served model does not take the int8 weight-stream path")
+    x_all = test_loader.x[:B].cpu().numpy()
+
+    def variant(device=None, **overrides):
+        cfg = load_config(task, model_name, ds_name, other_args=dict(args, **overrides))
+        m = get_model(cfg, feature, device=device)
+        m.load_state_dict(state_dict)
+        return PredictService(m, feature["scaler"], max_batch=B,
+                              ct_visit_mstd=feature["ct_visit_mstd"], device=device)
+
+    f32_service = variant(compute_dtype=None, weight_stream_quant=None)
+    bf16_service = variant(weight_stream_quant=None)
+
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = "http://{}:{}/predict".format(*server.server_address)
+        # ---- the main path: counts from 0, three int8 requests (buckets 1,
+        # 4, 16), one f32 request (bucket 16)
+        node_apply_q8.launches = 0
+        force_default_layout.launches = 0
+        replies = {}
+        for batch in (1, 3, B):
+            replies[batch] = _post(url, x_all[:batch])
+        int8_counts = (node_apply_q8.launches, force_default_layout.launches)
+        y_f32 = f32_service.predict(x_all)
+        launches = {"node_apply_q8": node_apply_q8.launches,
+                    "force_default_layout": force_default_layout.launches}
+        # ----
+        per_forward = 2 * T * NUM_LAYERS
+        if int8_counts != (3 * per_forward, 0):
+            raise AssertionError("int8 requests launched (B2, B3) = {}, want ({}, 0)".format(
+                int8_counts, 3 * per_forward))
+        if launches != {"node_apply_q8": 3 * per_forward, "force_default_layout": 2 * NUM_LAYERS}:
+            raise AssertionError("f32 request launched {}".format(launches))
+        say("launches on the main path: {} (B2 {} per int8 forward, B3 {} per f32 forward)".format(
+            launches, per_forward, 2 * NUM_LAYERS))
+
+        for batch, y in replies.items():
+            if y.shape != (batch, T, N, 1) or not np.isfinite(y).all() or (y < 0).any():
+                raise AssertionError("bad reply for batch {}: shape {}".format(batch, y.shape))
+            np.testing.assert_allclose(y, service.predict(x_all[:batch]), rtol=1e-5, atol=1e-4)
+        if y_f32.shape != (B, T, N, 1) or not np.isfinite(y_f32).all() or (y_f32 < 0).any():
+            raise AssertionError("bad f32 reply")
+        np.testing.assert_allclose(y_f32, f32_service.predict(x_all), rtol=1e-5, atol=1e-4)
+        health = json.loads(urllib.request.urlopen(url.replace("/predict", "/health"), timeout=60).read())
+        say("health: " + json.dumps(health))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+    # ---- request latency per bucket, before any work on the host's CPU
+    # threads (the CPU runs below) can compete with the launching thread
+    latency = {}
+    for name, svc in (("int8", service), ("bf16", bf16_service), ("f32", f32_service)):
+        latency[name] = {str(svc._bucket(batch)): _bucket_ms(svc, x_all[:batch]) for batch in (1, 3, B)}
+    say(json.dumps({"ms_per_request_by_bucket": latency}))
+    for name, svc in (("int8", service), ("f32", f32_service)):
+        share = _device_share(torch, svc, x_all[:B], latency[name][str(B)])
+        say(json.dumps({"device_time_per_request": name, **share}))
+
+    # ---- correctness in model space at every bucket, against the same
+    # weights on the CPU (plain versions of the kernels) and in bf16
+    out = {name: {b: _model_out(torch, svc, x_all[:b]) for b in BUCKETS}
+           for name, svc in (("int8", service), ("bf16", bf16_service), ("f32", f32_service),
+                             ("int8 CPU", variant("cpu")),
+                             ("bf16 CPU", variant("cpu", weight_stream_quant=None)),
+                             ("f32 CPU", variant("cpu", compute_dtype=None, weight_stream_quant=None)))}
+    pairs = {"int8 card vs CPU": ("int8", "int8 CPU", BOUND_BF16),
+             "bf16 card vs CPU": ("bf16", "bf16 CPU", BOUND_BF16),
+             "f32 card vs CPU": ("f32", "f32 CPU", BOUND_F32),
+             "int8 vs bf16": ("int8", "bf16", BOUND_BF16),
+             "int8 vs f32": ("int8", "f32", None)}
+    errs = {check: {str(b): _errs(out[a][b], out[ref][b]) for b in BUCKETS}
+            for check, (a, ref, _) in pairs.items()}
+    controls = _fault_controls(torch, service, x_all, out["int8 CPU"], out["bf16"])
+    say(json.dumps({"model_space_rel_err": errs, "bounds": {c: p[2] for c, p in pairs.items()},
+                    "planted_faults_min_rel_err": controls}))
+    for check, (_, _, bound) in pairs.items():
+        if bound is not None and not max(e["max"] for e in errs[check].values()) < bound:
+            raise AssertionError("{}: rel max err {} over the bound {}".format(check, errs[check], bound))
+    for fault, fault_errs in controls.items():
+        for check, err in fault_errs.items():
+            if not err > pairs[check][2]:
+                raise AssertionError("{} passes the check {} ({:.3e})".format(fault, check, err))
+    return launches
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from multistgraph_tpu_torch.ops import _cuda
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    say(smi)
+    say("torch {} cuda {}".format(torch.__version__, torch.version.cuda))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.time()
+    reports = _cuda.build()
+    say("kernels built in {:.1f}s".format(time.time() - t0))
+    for name, out in reports.items():
+        say("  {}: {}".format(name, _ptxas_summary(out)))
+
+    lines = kernel_phase(torch)
+    launches = serving_phase(torch)
+
+    kernels = []
+    for name, source in (("node_apply_q8", "multistgraph_tpu_torch/csrc/node_apply_q8.cu"),
+                         ("force_default_layout", "multistgraph_tpu_torch/csrc/layout_copy.cu")):
+        rows = [r for r in lines if r["name"] == name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": rows[0]["replaces"].split()[0],
+            "launches": launches[name],
+            "shapes": [r["shape"] for r in rows],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            # one call at each of the main path's shapes, summed
+            "ms": sum(r["kernel_ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_us"] for r in rows) / 1e3,
+            "bound_by": rows[0]["bound_by"],
+            "library_ms": sum(r["library_ms"] for r in rows),
+        })
+    say(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                            "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,126 @@
+"""Default configuration values for the port's slice, layered like the JAX package.
+
+A copy of the part of multistgraph_tpu/config/defaults.py that the
+``traffic_state_pred/MultiATGCN`` -> ``MTHDataset`` path reads: the task
+binding of MultiATGCN, its model defaults, the MTHDataset data defaults and
+the executor and evaluator defaults, which also merge into a run's config.
+Values reproduce the reference defaults
+(ref: libcity/config/model/traffic_state_pred/MultiATGCN.json:1-31,
+ libcity/config/data/MTHDataset.json:1-21,
+ libcity/config/executor/TrafficStateExecutor.json:1-33,
+ libcity/config/evaluator/TrafficStateEvaluator.json:1-5).
+"""
+
+TASK_CONFIG = {
+    "traffic_state_pred": {
+        "allowed_model": ["MultiATGCN"],
+        "models": {
+            "MultiATGCN": {
+                "dataset_class": "MTHDataset",
+                "executor": "TrafficStateExecutor",
+                "evaluator": "TrafficStateEvaluator",
+            },
+        },
+    },
+}
+
+MODEL_DEFAULTS = {
+    "traffic_state_pred/MultiATGCN": {
+        "embed_dim_node": 20,
+        "embed_dim_adj": 20,
+        "rnn_units": 64,
+        "num_layers": 2,
+        "cheb_order": 2,
+        "use_3tu": True,
+        "node_specific_off": False,
+        "gcn_off": False,
+        "fnn_off": False,
+        "bidir_adj_mx": False,
+        "batch_size": 16,
+        "adpadj": "none",
+        "adjtype": "cosine",
+        "scaler": "standard",
+        "add_static": False,
+        "ext_scaler": "none",
+        "learner": "adam",
+        "learning_rate": 0.003,
+        "lr_decay": True,
+        "lr_scheduler": "multisteplr",
+        "lr_decay_ratio": 0.75,
+        "steps": [5, 10, 20, 30],
+        "clip_grad_norm": True,
+        "max_grad_norm": 5,
+    },
+}
+
+DATA_DEFAULTS = {
+    "MTHDataset": {
+        "batch_size": 64,
+        "cache_dataset": True,
+        "num_workers": 0,
+        "pad_with_last_sample": True,
+        "train_rate": 0.7,
+        "eval_rate": 0.1,
+        "scaler": "standard",
+        "load_external": False,
+        "normal_external": False,
+        "ext_scaler": "none",
+        "input_window": 12,
+        "output_window": 12,
+        "add_time_in_day": False,
+        "add_day_in_week": False,
+        "len_closeness": 1,
+        "len_period": 1,
+        "len_trend": 2,
+        "interval_period": 1,
+        "interval_trend": 7,
+    },
+}
+
+EXECUTOR_DEFAULTS = {
+    "TrafficStateExecutor": {
+        "gpu": True,
+        "gpu_id": 0,
+        "max_epoch": 100,
+        "train_loss": "none",
+        "epoch": 0,
+        "learner": "adam",
+        "learning_rate": 0.01,
+        "weight_decay": 0,
+        "lr_epsilon": 1e-8,
+        "lr_beta1": 0.9,
+        "lr_beta2": 0.999,
+        "lr_alpha": 0.99,
+        "lr_momentum": 0,
+        "lr_decay": False,
+        "lr_scheduler": "multisteplr",
+        "lr_decay_ratio": 0.1,
+        "steps": [5, 20, 40, 70],
+        "step_size": 10,
+        "lr_T_max": 30,
+        "lr_eta_min": 0,
+        "lr_patience": 10,
+        "lr_threshold": 1e-4,
+        "clip_grad_norm": False,
+        "max_grad_norm": 1.0,
+        "use_early_stop": False,
+        "patience": 50,
+        "log_level": "INFO",
+        "log_every": 1,
+        "saved_model": True,
+        "load_best_epoch": True,
+        "hyper_tune": False,
+    },
+}
+
+EVALUATOR_DEFAULTS = {
+    "TrafficStateEvaluator": {
+        "metrics": [
+            "MAE", "MAPE", "MSE", "RMSE",
+            "masked_MAE", "masked_MAPE", "masked_MSE", "masked_RMSE",
+            "R2", "EVAR",
+        ],
+        "evaluator_mode": "single",
+        "save_mode": ["csv"],
+    },
+}

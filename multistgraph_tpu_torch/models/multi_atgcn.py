@@ -1,0 +1,576 @@
+"""MultiATGCN forward as a PyTorch nn.Module.
+
+Counterpart of multistgraph_tpu/models/multi_atgcn.py (ref:
+libcity/model/traffic_flow_prediction/MultiATGCN.py:59-430), forward only:
+multi-head temporal fusion, the static-conditioned initial state, the
+adaptive-graph-convolution GRU encoder with node-conditioned weights and a
+learned per-(layer, step) mix with a residual GRU, and the conv head. The
+JAX package's design carries over: supports built once per forward, the
+support gate folded into the pool, the x-part of every step hoisted out of
+the scan into one batched contraction, node-conditioned weights expanded
+once per forward. The scan is a Python loop over T.
+
+Three numeric modes, as in JAX:
+  * ``compute_dtype=None``: exact f32. The hoisted per-step stacks go
+    through the layout-copy kernel (ops/layout.py), once per layer;
+  * ``compute_dtype='bfloat16'``: graph and weight contractions on
+    bf16-rounded operands with f32 accumulation;
+  * ``weight_stream_quant='int8'`` with bf16 (and fused_bptt, and the graph
+    conv on): the N-major encoder whose h-side weights are quantized per
+    forward and applied by the int8 kernel (ops/node_apply.py), two
+    launches per step per layer.
+
+bf16 rounding points follow JAX exactly: an operand is rounded to bf16 and
+then contracted in f32 (bf16 -> f32 is exact), and a result JAX leaves in
+bf16 is rounded once. ``torch.einsum`` on bf16 tensors would round
+elsewhere.
+
+Parameter names and layouts are the reference's torch ``state_dict``
+(Linear weights (out, in), ``end_conv.weight`` (out, t_conv, 1, H)), so a
+reference checkpoint loads as it is. No training path in this slice.
+"""
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multistgraph_tpu_torch.graph import views as graph_views
+from multistgraph_tpu_torch.models import initializers
+from multistgraph_tpu_torch.ops import layout as layout_ops
+from multistgraph_tpu_torch.ops.node_apply import _pad_nodes, node_apply_q8, quantize_node_weights
+from multistgraph_tpu_torch.utils import resolve_device
+
+HOURS_PER_BLOCK = 24  # the reference hardcodes 24-step fusion blocks (ref :373-393)
+
+_AGG_SPEC = "knm,bmc->bknc"        # supports @ h (per scan step)
+_APPLY_SPEC = "bkni,nkio->bno"     # node-conditioned weight apply
+
+
+def _round(a: torch.Tensor, dtype) -> torch.Tensor:
+    """a rounded to `dtype` and widened back to f32 (identity for dtype None)."""
+    return a if dtype is None else a.to(dtype).float()
+
+
+def _mm(spec: str, a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """einsum of `dtype`-rounded operands, accumulated in f32."""
+    return torch.einsum(spec, _round(a, dtype), _round(b, dtype))
+
+
+class _Affine(nn.Module):
+    """A Linear layer's parameters, (out, in) weight and (out,) bias."""
+
+    def __init__(self, dim_in: int, dim_out: int, device):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim_out, dim_in, device=device))
+        self.bias = nn.Parameter(torch.empty(dim_out, device=device))
+
+
+class _AGCNCell(nn.Module):
+    def __init__(self, e: int, ks: int, dim_in: int, dim_out: int, device):
+        super().__init__()
+        self.weights_g = nn.Parameter(torch.empty(ks, 1, 1, device=device))
+        self.weights_pool = nn.Parameter(torch.empty(e, ks, dim_in, dim_out, device=device))
+        self.bias_pool = nn.Parameter(torch.empty(e, dim_out, device=device))
+
+
+class _GatePair(nn.Module):
+    """The gate and update cells of one GRU layer."""
+
+    def __init__(self, gate: nn.Module, update: nn.Module):
+        super().__init__()
+        self.gate = gate
+        self.update = update
+
+
+class _Encoder(nn.Module):
+    def __init__(self, num_layers, input_window, feature_final, hidden, e, ks, gcn_off, device):
+        super().__init__()
+        self.weights_gru = nn.Parameter(torch.empty(num_layers, input_window, device=device))
+        self.agru_cells = nn.ModuleList()  # empty when gcn_off
+        self.res_cells = nn.ModuleList()
+        for layer in range(num_layers):
+            dim_in = feature_final if layer == 0 else hidden
+            if not gcn_off:
+                self.agru_cells.append(_GatePair(
+                    _AGCNCell(e, ks, dim_in + hidden, 2 * hidden, device),
+                    _AGCNCell(e, ks, dim_in + hidden, hidden, device)))
+            self.res_cells.append(_GatePair(
+                _Affine(dim_in + hidden, 2 * hidden, device),
+                _Affine(dim_in + hidden, hidden, device)))
+
+
+class _StaticInit(nn.Module):
+    def __init__(self, q: int, hidden: int, device):
+        super().__init__()
+        self.embd = _Affine(q, hidden, device)
+
+
+class _EndConv(nn.Module):
+    """The conv head's parameters in torch Conv2d layout (out, t_conv, 1, H)."""
+
+    def __init__(self, out_channels: int, t_conv: int, hidden: int, device):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, t_conv, 1, hidden, device=device))
+        self.bias = nn.Parameter(torch.empty(out_channels, device=device))
+
+
+# --------------------------------------------------------------------------
+# Encoder steps (forward of multi_atgcn.py:_atgru_step_forward and
+# _atgru_step_q8; the hand-written BPTT comes with training).
+# --------------------------------------------------------------------------
+
+
+def _atgru_step(h_prev, xs, supports, wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, dtype):
+    """One B-major ATGRU + residual step; h_prev (B, N, H)."""
+    gate_x_t, upd_x_t, rg_x_t, ru_x_t, w_t = xs
+    hh = _mm(_AGG_SPEC, supports, h_prev, dtype)
+    zr = torch.sigmoid(gate_x_t + _mm(_APPLY_SPEC, hh, wg_h, dtype) + bg)
+    z, r = torch.chunk(zr, 2, dim=-1)
+    hzh = _mm(_AGG_SPEC, supports, z * h_prev, dtype)
+    hc = torch.tanh(upd_x_t + _mm(_APPLY_SPEC, hzh, wu_h, dtype) + bu)
+    h_agru = r * h_prev + (1.0 - r) * hc
+    zr2 = torch.sigmoid(rg_x_t + h_agru @ rg_h + rg_b)
+    z2, r2 = torch.chunk(zr2, 2, dim=-1)
+    hc_res = torch.tanh(ru_x_t + (z2 * h_agru) @ ru_h + ru_b)
+    h_res = r2 * h_agru + (1.0 - r2) * hc_res
+    return w_t * h_agru + (1.0 - w_t) * h_res
+
+
+def _quantize_h_weights(wg_h, wu_h, block=32):
+    """Quantize the h-side weights per forward and zero-pad N to a block
+    multiple, as the JAX package does for its 32-node kernel blocks (the
+    CUDA kernel ignores the pad rows)."""
+    n, kk, ii, og = wg_h.shape
+    ou = wu_h.shape[3]
+    n_pad = -(-n // block) * block
+    wgq, wgs = quantize_node_weights(wg_h.reshape(n, kk * ii, og))
+    wuq, wus = quantize_node_weights(wu_h.reshape(n, kk * ii, ou))
+    return (_pad_nodes(wgq, 0, n_pad), _pad_nodes(wgs, 0, n_pad),
+            _pad_nodes(wuq, 0, n_pad), _pad_nodes(wus, 0, n_pad))
+
+
+def _bf16_matmul(a, b_rounded, dtype):
+    """``cast(a) @ cast(b)`` with a bf16 result, as JAX computes it."""
+    return (_round(a, dtype) @ b_rounded).to(dtype)
+
+
+def _atgru_step_q8(h_prev, xs, supports_r, wq8, bg, bu, rg_h_r, ru_h_r, rg_b, ru_b, dtype):
+    """One N-major step streaming int8 weights; h_prev (N, B, H) f32.
+
+    supports_r, rg_h_r, ru_h_r are pre-rounded to bf16 (the per-step cast of
+    a loop invariant). hh/hzh are rounded to bf16 after the aggregation and
+    the int8 apply returns f32, so the carry is promoted to f32 as in JAX.
+    """
+    wgq, wgs, wuq, wus = wq8
+    n, b, _ = h_prev.shape
+    gate_x_t, upd_x_t, rg_x_t, ru_x_t, w_t = xs
+    hh = torch.einsum("knm,mbc->nbkc", supports_r, _round(h_prev, dtype))
+    hh = hh.to(dtype).reshape(n, b, -1).contiguous()
+    zr = torch.sigmoid(gate_x_t + node_apply_q8(hh, wgq, wgs) + bg[:, None])
+    z, r = torch.chunk(zr, 2, dim=-1)
+    hzh = torch.einsum("knm,mbc->nbkc", supports_r, _round(z * h_prev, dtype))
+    hzh = hzh.to(dtype).reshape(n, b, -1).contiguous()
+    hc = torch.tanh(upd_x_t + node_apply_q8(hzh, wuq, wus) + bu[:, None])
+    h_agru = r * h_prev + (1.0 - r) * hc
+    zr2 = torch.sigmoid(rg_x_t + _bf16_matmul(h_agru, rg_h_r, dtype) + rg_b)
+    z2, r2 = torch.chunk(zr2, 2, dim=-1)
+    hc_res = torch.tanh(ru_x_t + _bf16_matmul(z2 * h_agru, ru_h_r, dtype) + ru_b)
+    h_res = r2 * h_agru + (1.0 - r2) * hc_res
+    return w_t * h_agru + (1.0 - w_t) * h_res
+
+
+class MultiATGCN(nn.Module):
+    """Input x: (B, T_total, N, F); output: (B, Tout, N, output_dim)."""
+
+    def __init__(self, *, num_nodes, input_window, output_window, start_dim, end_dim, ext_dim,
+                 hidden_dim, num_layers, cheb_k, embed_dim_node, embed_dim_adj, adjtype, adpadj,
+                 add_time_in_day, add_day_in_week, load_dynamic, gcn_off, fnn_off,
+                 node_specific_off, len_closeness, len_period, len_trend, supports_static,
+                 static_proj=None, fused_bptt=True, weight_stream_quant=None, compute_dtype=None,
+                 device="cpu"):
+        super().__init__()
+        self.num_nodes = num_nodes
+        self.input_window = input_window
+        self.output_window = output_window
+        self.start_dim = start_dim
+        self.end_dim = end_dim
+        self.ext_dim = ext_dim
+        self.hidden_dim = hidden_dim
+        self.num_layers = num_layers
+        self.cheb_k = cheb_k
+        self.adjtype = adjtype
+        self.adpadj = adpadj
+        self.add_time_in_day = add_time_in_day
+        self.add_day_in_week = add_day_in_week
+        self.load_dynamic = load_dynamic
+        self.gcn_off = gcn_off
+        self.fnn_off = fnn_off
+        self.node_specific_off = node_specific_off
+        self.len_closeness = len_closeness
+        self.len_period = len_period
+        self.len_trend = len_trend
+        self.fused_bptt = fused_bptt
+        self.weight_stream_quant = weight_stream_quant
+        self.compute_dtype = None if compute_dtype is None else getattr(torch, compute_dtype)
+
+        n, out, h = num_nodes, self.output_dim, hidden_dim
+        e = 1 if node_specific_off else embed_dim_node
+        if node_specific_off:
+            # frozen all-ones embedding, not a parameter (MultiATGCN.py:350-354)
+            self.register_buffer("node_emb", torch.ones(n, 1, device=device), persistent=False)
+        else:
+            self.node_emb = nn.Parameter(torch.empty(n, e, device=device))
+        self.node_vec1 = nn.Parameter(torch.empty(n, embed_dim_adj, device=device))
+        self.node_vec2 = nn.Parameter(torch.empty(embed_dim_adj, n, device=device))
+        self.weight_ts = nn.ParameterList(
+            [nn.Parameter(torch.empty(1, HOURS_PER_BLOCK, n, out, device=device))
+             for _ in range(self.len_ts)])
+        self.weight_tsg = nn.Parameter(torch.empty(self.len_ts, device=device))
+        self.encoder = _Encoder(num_layers, input_window, self.feature_final, h, e,
+                                self.num_supports, gcn_off, device)
+        self.register_buffer("supports_static",
+                             torch.as_tensor(supports_static, dtype=torch.float32, device=device),
+                             persistent=False)
+        if static_proj is not None:
+            self.register_buffer("static_proj",
+                                 torch.as_tensor(static_proj, dtype=torch.float32, device=device),
+                                 persistent=False)
+            self.static_initial_gru = _StaticInit(static_proj.shape[1], h, device)
+        else:
+            self.static_proj = None
+        t_conv = 1 if fnn_off else input_window
+        self.end_conv = _EndConv(output_window * out, t_conv, h, device)
+
+    # ------------------------------------------------------------ properties
+    @property
+    def output_dim(self) -> int:
+        return self.end_dim - self.start_dim
+
+    @property
+    def time_index_dim(self) -> int:
+        if self.add_time_in_day and self.add_day_in_week:
+            return 8
+        if self.add_time_in_day:
+            return 1
+        if self.add_day_in_week:
+            return 7
+        return 0
+
+    @property
+    def feature_final(self) -> int:
+        return self.output_dim + self.ext_dim
+
+    @property
+    def num_supports(self) -> int:
+        """Total stacked supports = reference's cheb_ks (MultiATGCN.py:65-70)."""
+        if self.adjtype == "multi" and self.adpadj in ("bidirection", "unidirection"):
+            return 1 + (self.cheb_k - 1) * 4
+        if self.adjtype == "multi":
+            return 1 + (self.cheb_k - 1) * 3
+        return self.cheb_k
+
+    @property
+    def len_ts(self) -> int:
+        return (self.len_closeness + self.len_period + self.len_trend) // HOURS_PER_BLOCK
+
+    @property
+    def uses_int8_stream(self) -> bool:
+        """The JAX package's dispatch condition (multi_atgcn.py:736-737)."""
+        return (self.weight_stream_quant == "int8" and self.fused_bptt
+                and self.compute_dtype is not None and not self.gcn_off)
+
+    # ------------------------------------------------------------------ init
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator, overrides=None) -> None:
+        """xavier_uniform (torch fans) for dim>1, U[0,1) for vectors, Linear
+        weights as dense kernels; drawn on the CPU from `generator` in
+        parameter order. `overrides` maps a name to a fixed initial value."""
+        overrides = overrides or {}
+        for name, p in self.named_parameters():
+            if name in overrides:
+                value = torch.as_tensor(np.asarray(overrides[name]), dtype=torch.float32)
+            elif name.startswith(("encoder.res_cells.", "static_initial_gru.")) and p.dim() == 2:
+                value = initializers.dense_kernel_init((p.shape[1], p.shape[0]), generator)
+            else:
+                value = initializers.torch_style_init(tuple(p.shape), generator)
+            p.copy_(value)
+
+    # ------------------------------------------------------------ components
+    def _build_supports(self) -> torch.Tensor:
+        """Stack all supports (K_total, N, N), adaptive terms first (ref :87-101)."""
+        base = self.supports_static
+        if self.adpadj == "none":
+            return base
+        if self.adpadj == "unidirection":
+            logits = torch.relu(self.node_vec1 @ self.node_vec2)
+        elif self.adpadj == "bidirection":
+            logits = torch.relu(self.node_emb @ self.node_emb.T)
+        else:
+            raise ValueError("unknown adpadj {!r}".format(self.adpadj))
+        adaptive = torch.softmax(logits, dim=1)
+        eye = torch.eye(self.num_nodes, dtype=torch.float32, device=adaptive.device)
+        terms = [adaptive]
+        prev2, prev1 = eye, adaptive
+        for _ in range(2, self.cheb_k):
+            nxt = 2.0 * adaptive @ prev1 - prev2
+            terms.append(nxt)
+            prev2, prev1 = prev1, nxt
+        adaptive_stack = torch.stack(terms, dim=0)
+        if self.adjtype == "multi":
+            return torch.cat([base[:1], adaptive_stack, base[1:]], dim=0)
+        return torch.cat([eye[None], adaptive_stack], dim=0)
+
+    def _cell_weights(self, cell: _AGCNCell, dtype=None):
+        """Node-conditioned weights split into (W_x, W_h) plus bias.
+
+        W[n,k,i,o] = node_emb[n,:] . pool[:,k,i,o], scaled by
+        softmax(weights_g) over k when adjtype='multi'. With `dtype` the gate
+        is folded into the small pool and the two halves are expanded from
+        bf16 operands and rounded to bf16 (multi_atgcn.py:652-684).
+        """
+        h = self.hidden_dim
+        emb = self.node_emb
+        if dtype is None:
+            w = torch.einsum("nd,dkio->nkio", emb, cell.weights_pool)
+            if self.adjtype == "multi":
+                gate = torch.softmax(cell.weights_g, dim=0)  # (K,1,1)
+                w = w * gate[None, :, 0, 0][:, :, None, None]
+            bias = emb @ cell.bias_pool
+            dim_in = w.shape[2] - h
+            return w[:, :, :dim_in], w[:, :, dim_in:], bias
+        pool = cell.weights_pool
+        if self.adjtype == "multi":
+            gate = torch.softmax(cell.weights_g, dim=0)
+            pool = pool * gate[None, :, 0, 0][:, :, None, None]
+        pool = _round(pool, dtype)
+        emb_r = _round(emb, dtype)
+        dim_in = pool.shape[2] - h
+        w_x = torch.einsum("nd,dkio->nkio", emb_r, pool[:, :, :dim_in]).to(dtype)
+        w_h = torch.einsum("nd,dkio->nkio", emb_r, pool[:, :, dim_in:]).to(dtype)
+        bias = emb @ cell.bias_pool
+        return w_x, w_h, bias
+
+    def _res_weights(self, layer: int, dim_in: int):
+        """Residual GRU kernels (in, out) split into x and h parts, plus biases."""
+        res = self.encoder.res_cells[layer]
+        rgk, ruk = res.gate.weight.T, res.update.weight.T
+        return rgk[:dim_in], ruk[:dim_in], rgk[dim_in:], ruk[dim_in:], res.gate.bias, res.update.bias
+
+    def _encoder_q8(self, x, init_state, supports):
+        """int8-weight-streamed N-major encoder; every per-step tensor is
+        N-major (T, N, B, *), with one transpose at entry and one at exit."""
+        dtype = self.compute_dtype
+        h = self.hidden_dim
+        weights_gru = torch.sigmoid(self.encoder.weights_gru)
+        current = x.permute(1, 2, 0, 3)  # (T, N, B, C)
+        supports_r = _round(supports, dtype)
+        for layer_idx, cells in enumerate(self.encoder.agru_cells):
+            state = init_state[layer_idx].permute(1, 0, 2)  # (N, B, H)
+            t_len, dim_in = current.shape[0], current.shape[-1]
+            w_seq = weights_gru[layer_idx][:t_len]
+            rg_xk, ru_xk, rg_h, ru_h, rg_b, ru_b = self._res_weights(layer_idx, dim_in)
+            res_x = torch.einsum("tnbc,cd->tnbd", current, torch.cat([rg_xk, ru_xk], dim=1))
+            rg_x, ru_x = res_x[..., : 2 * h].to(dtype), res_x[..., 2 * h:].to(dtype)
+            wg_x, wg_h, bg = self._cell_weights(cells.gate, dtype)
+            wu_x, wu_h, bu = self._cell_weights(cells.update, dtype)
+            hx = torch.einsum("knm,tmbc->tnbkc", supports, current)
+            xw = torch.einsum("tnbki,nkio->tnbo", _round(hx, dtype),
+                              torch.cat([wg_x, wu_x], dim=3).float())
+            gate_x, upd_x = xw[..., : 2 * h].to(dtype), xw[..., 2 * h:].to(dtype)
+            wq8 = _quantize_h_weights(wg_h, wu_h)
+            rg_h_r, ru_h_r = _round(rg_h, dtype), _round(ru_h, dtype)
+            states = []
+            for t in range(t_len):
+                state = _atgru_step_q8(
+                    state, (gate_x[t], upd_x[t], rg_x[t], ru_x[t], w_seq[t]), supports_r, wq8,
+                    bg, bu, rg_h_r, ru_h_r, rg_b, ru_b, dtype)
+                states.append(state)
+            current = torch.stack(states)  # (T, N, B, H)
+        return current.permute(2, 0, 1, 3)  # (B, T, N, H)
+
+    def _encoder(self, x, init_state, supports):
+        """x: (B, T, N, C) -> per-step states of the last layer (B, T, N, H)."""
+        if x.shape[2] != self.num_nodes:
+            raise ValueError("node-dimension mismatch: {} vs {}".format(x.shape[2], self.num_nodes))
+        if self.uses_int8_stream:
+            return self._encoder_q8(x, init_state, supports)
+        dtype = self.compute_dtype
+        h = self.hidden_dim
+        weights_gru = torch.sigmoid(self.encoder.weights_gru)
+        current = x.permute(1, 0, 2, 3)  # (T, B, N, C)
+        for layer_idx in range(self.num_layers):
+            state = init_state[layer_idx]  # (B, N, H)
+            t_len, dim_in = current.shape[0], current.shape[-1]
+            w_seq = weights_gru[layer_idx][:t_len]
+            rg_xk, ru_xk, rg_h, ru_h, rg_b, ru_b = self._res_weights(layer_idx, dim_in)
+            res_x = torch.einsum("tbnc,cd->tbnd", current, torch.cat([rg_xk, ru_xk], dim=1))
+            rg_x, ru_x = res_x[..., : 2 * h], res_x[..., 2 * h:]
+            states = []
+            if not self.gcn_off:
+                cells = self.encoder.agru_cells[layer_idx]
+                wg_x, wg_h, bg = self._cell_weights(cells.gate, dtype)
+                wu_x, wu_h, bu = self._cell_weights(cells.update, dtype)
+                hx = torch.einsum("knm,tbmc->tbknc", supports, current)
+                w_x = torch.cat([wg_x, wu_x], dim=3)
+                if dtype is not None:
+                    hx, w_x = hx.to(dtype).float(), w_x.float()
+                xw = torch.einsum("tbkni,nkio->tbno", hx, w_x)
+                gate_x, upd_x = xw[..., : 2 * h], xw[..., 2 * h:]
+                if dtype is not None:
+                    gate_x, upd_x = gate_x.to(dtype), upd_x.to(dtype)
+                    rg_x, ru_x = rg_x.to(dtype), ru_x.to(dtype)
+                else:
+                    # one dense copy of each strided per-step stack (kernel B3)
+                    gate_x = layout_ops.force_default_layout(gate_x)
+                    upd_x = layout_ops.force_default_layout(upd_x)
+                for t in range(t_len):
+                    state = _atgru_step(
+                        state, (gate_x[t], upd_x[t], rg_x[t], ru_x[t], w_seq[t]), supports,
+                        wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, dtype)
+                    states.append(state)
+            else:
+                for t in range(t_len):  # plain GRU only (ref :187-192)
+                    z_r = torch.sigmoid(rg_x[t] + state @ rg_h + rg_b)
+                    z, r = torch.chunk(z_r, 2, dim=-1)
+                    hc = torch.tanh(ru_x[t] + (z * state) @ ru_h + ru_b)
+                    state = r * state + (1.0 - r) * hc
+                    states.append(state)
+            current = torch.stack(states)  # (T, B, N, H)
+        return current.permute(1, 0, 2, 3)
+
+    # --------------------------------------------------------------- forward
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        source = x[:, :, :, self.start_dim: self.end_dim]
+        # without the period/trend heads (Tout < 6) only closeness is read
+        total_len = (self.len_closeness + self.len_period + self.len_trend
+                     if self.output_window >= 6 else self.len_closeness)
+        if source.shape[1] < total_len:
+            raise ValueError("input has {} steps but the active temporal heads need {}".format(
+                source.shape[1], total_len))
+
+        # multi-head temporal fusion (ref :366-393)
+        head_gate = torch.softmax(self.weight_tsg, dim=0)
+        fused = source.new_zeros((source.shape[0], HOURS_PER_BLOCK, self.num_nodes, self.output_dim))
+        groups = [(0, self.len_closeness)]
+        if self.output_window >= 6:
+            groups += [(self.len_closeness, self.len_period),
+                       (self.len_closeness + self.len_period, self.len_trend)]
+        head = 0
+        for begin, length in groups:
+            for _ in range(length // HOURS_PER_BLOCK):
+                block = source[:, begin: begin + HOURS_PER_BLOCK]
+                fused = fused + head_gate[head] * block * self.weight_ts[head]
+                begin += HOURS_PER_BLOCK
+                head += 1
+
+        # re-append calendar and dynamic external features (ref :396-402)
+        parts = [fused]
+        if self.time_index_dim:
+            parts.append(x[:, : self.input_window, :, self.end_dim: self.end_dim + self.time_index_dim])
+        if self.load_dynamic:
+            parts.append(x[:, : self.input_window, :, self.end_dim + self.time_index_dim:])
+        enc_in = torch.cat(parts, dim=-1) if len(parts) > 1 else fused
+
+        batch = source.shape[0]
+        shape = (self.num_layers, batch, self.num_nodes, self.hidden_dim)
+        if self.static_proj is not None:
+            emb = torch.relu(F.linear(self.static_proj, self.static_initial_gru.embd.weight,
+                                      self.static_initial_gru.embd.bias))  # (N, H)
+            init_state = emb[None, None].expand(shape)
+        else:
+            init_state = x.new_zeros(shape)
+
+        states = self._encoder(enc_in, init_state, self._build_supports())  # (B, T, N, H)
+        if self.fnn_off:
+            states = states[:, -1:]
+
+        # conv output head as a (T*H -> Tout*out) contraction (ref :340-344,416-418)
+        b, t, n, h = states.shape
+        flat = states.permute(0, 2, 1, 3).reshape(b, n, t * h)
+        kernel = self.end_conv.weight.reshape(self.end_conv.weight.shape[0], t * h)
+        out = F.linear(flat, kernel, self.end_conv.bias)
+        return out.reshape(b, n, self.output_window, self.output_dim).permute(0, 2, 1, 3)
+
+
+def build_multi_atgcn(config, data_feature, device=None,
+                      generator: Optional[torch.Generator] = None) -> MultiATGCN:
+    """Construct the module from config + data_feature (ref :221-354) on
+    `device` (CUDA unless "cpu" is asked for), its weights drawn from
+    `generator` (default: seeded with config['seed'])."""
+    device = resolve_device(device)
+    # load_dynamic couples dataset and model with opposite defaults (dataset
+    # True, model False); fail here rather than in a shape error downstream
+    load_dynamic = config.get("load_dynamic", False)
+    ext_dim = data_feature.get("ext_dim", 1)
+    add_tid = config.get("add_time_in_day", False)
+    add_dow = config.get("add_day_in_week", False)
+    time_index_dim = 8 if (add_tid and add_dow) else (1 if add_tid else (7 if add_dow else 0))
+    if not load_dynamic and ext_dim > time_index_dim:
+        raise ValueError(
+            "Inconsistent load_dynamic: the dataset fused {} external feature "
+            "column(s) into X (ext_dim={} > time_index_dim={}) but the model "
+            "was built with load_dynamic=False, so its input width would not "
+            "match. Set load_dynamic explicitly in the config: true to feed "
+            "the .ext columns to the encoder, false to keep them out of the "
+            "dataset as well (the dataset defaults load_dynamic to TRUE, the "
+            "model to FALSE — reference quirk, traffic_state_datatset.py:35 "
+            "vs MultiATGCN.py:312).".format(ext_dim - time_index_dim, ext_dim, time_index_dim))
+    num_nodes = data_feature.get("num_nodes", 1)
+    static = data_feature.get("static", None)
+    adjtype = config.get("adjtype", "od")
+    cheb_k = config.get("cheb_order", 2)
+    embed_dim_node = config.get("embed_dim_node", 10)
+    embed_dim_adj = config.get("embed_dim_adj", 10)
+
+    base_adj, support_pairs = graph_views.build_views(
+        data_feature.get("adj_mx", None), static, data_feature.get("coordinate", None),
+        num_nodes, adjtype)
+    supports_static = graph_views.stack_static_supports(support_pairs, cheb_k)
+    static_proj = None
+    if static is not None:
+        static_proj = initializers.pca_project(static, min(num_nodes, embed_dim_node))
+
+    model = MultiATGCN(
+        num_nodes=num_nodes,
+        input_window=config.get("input_window", 1),
+        output_window=config.get("output_window", 1),
+        start_dim=config.get("start_dim", 0),
+        end_dim=config.get("end_dim", 1),
+        ext_dim=ext_dim,
+        hidden_dim=config.get("rnn_units", 64),
+        num_layers=config.get("num_layers", 2),
+        cheb_k=cheb_k,
+        embed_dim_node=embed_dim_node,
+        embed_dim_adj=embed_dim_adj,
+        adjtype=adjtype,
+        adpadj=config.get("adpadj", "bidirection"),
+        add_time_in_day=add_tid,
+        add_day_in_week=add_dow,
+        load_dynamic=load_dynamic,
+        gcn_off=config.get("gcn_off", False),
+        fnn_off=config.get("fnn_off", False),
+        node_specific_off=config.get("node_specific_off", False),
+        len_closeness=data_feature.get("len_closeness", 0),
+        len_period=data_feature.get("len_period", 0),
+        len_trend=data_feature.get("len_trend", 0),
+        supports_static=supports_static,
+        static_proj=static_proj,
+        fused_bptt=config.get("fused_bptt", True),
+        weight_stream_quant=config.get("weight_stream_quant", None),
+        compute_dtype=config.get("compute_dtype", None),
+        device=device,
+    )
+    overrides = {}
+    if config.get("svd_init", False):
+        # the reference's (overwritten) SVD/PCA init recipe, opt-in
+        overrides["node_vec1"], overrides["node_vec2"] = initializers.svd_lowrank_embeddings(
+            base_adj, embed_dim_adj)
+        if static is not None and not model.node_specific_off:
+            overrides["node_emb"] = initializers.pca_project(static, min(num_nodes, embed_dim_node))
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(config.get("seed", 0)))
+    model.init_parameters(generator, overrides)
+    return model.eval()
