@@ -5,17 +5,23 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each kernel against its plain PyTorch version at the shapes
-the serving path gives it and times both, then drives the port's main path:
-MultiATGCN at the DC-237 flagship width, served in the int8 weight-stream
-configuration by ``PredictService.from_experiment`` over HTTP at buckets 1,
-4 and 16, plus one f32 request at bucket 16. Weights are random, drawn from
-a seeded generator; the data is the port's synthetic DC-237 dataset
-(bench.py's arguments). The encoder states and model-space outputs of the
-int8, bf16 and f32 runs are then held against the same weights on the CPU
-(plain versions of the kernels), and two faults planted in B2 must fail
-those checks. Every phase raises on failure; nothing is caught. The output
-ends with a JSON line listing the kernels and a JSON line
-``{"ok": true, "device": {...}}``.
+the serving and training paths give it (and B2 at batch 256) and times
+both, then drives the port's two paths at the DC-237 flagship width
+(bench.py's arguments, the port's synthetic DC-237 dataset, random weights
+from a seeded generator):
+  * serving: MultiATGCN in the int8 weight-stream configuration, served by
+    ``PredictService.from_experiment`` over HTTP at buckets 1, 4 and 16,
+    plus one f32 request at bucket 16. The encoder states and model-space
+    outputs of the int8, bf16 and f32 runs are held against the same
+    weights on the CPU, and two faults planted in B2 must fail those checks;
+  * training: the int8 configuration trained through ``get_executor`` (3
+    warm-up and 20 timed steps at batch 16, one validation pass), then a
+    few f32 and bf16 steps, each with exact launch counts per step. One
+    step's loss and every parameter gradient on the card are held against
+    the CPU at the same weights and batch in int8, bf16 and f32, and faults
+    planted in B2t and in B3's backward must fail those checks.
+Every phase raises on failure; nothing is caught. The output ends with a
+JSON line listing the kernels and a JSON line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository around it, it exits with
 an error and prints no result.
@@ -23,6 +29,7 @@ an error and prints no result.
 
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -63,6 +70,22 @@ POOL_GAIN = 30.0
 BOUND_F32 = 1e-5               # f32 on the card vs on the CPU
 BOUND_BF16 = 5e-3              # int8 or bf16 on the card vs on the CPU; int8 vs bf16
 
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20   # int8 training steps at batch B
+MODE_STEPS = 3                      # timed f32 and bf16 training steps (after 1 warm-up)
+LEARNING_RATE = 3e-3                # bench.py's fixed rate
+LARGE_BATCH = 256                   # B2 at a batch the kernel once refused
+GRAD_BATCH = 4                      # the gradient check's batch
+# Gradient check, card vs CPU: the relative max error of every parameter
+# gradient (max |card - CPU| over max |CPU|), the largest over the
+# parameters, and of the loss. Each bound is a few times its reading on an
+# H100 and far below what a fault planted in B2t or in B3's backward gives.
+# The check model's AGCN pools are drawn at POOL_GAIN, as the serving
+# check's: at the initialiser's scale the h-side weights are so small that
+# zeroing B2t's output moves the gradients by little more than bf16
+# rounding does (see PERF.md).
+BOUND_GRAD_F32 = 3e-6
+BOUND_GRAD_BF16 = 3e-2
+
 
 def say(msg):
     print(msg, flush=True)
@@ -100,19 +123,30 @@ def _ptxas_summary(report):
         len(regs), max(regs, default=0), spills)
 
 
+def _within_one_bf16_step(got, want):
+    """|got - want| <= 2^-7 |want| + 2^-7 * 1e-3 max|want| elementwise: one
+    bf16 step (8 significant bits), with a floor for sums that cancel."""
+    got, want = got.float(), want.float()
+    bound = 2.0 ** -7 * (want.abs() + 1e-3 * want.abs().max())
+    return bool(((got - want).abs() <= bound).all())
+
+
 def kernel_phase(torch):
     """Each kernel vs its plain version at the main path's shapes, timed."""
-    from multistgraph_tpu_torch.ops.layout import force_default_layout, force_default_layout_plain
+    from multistgraph_tpu_torch.ops.layout import (
+        _ForceDefaultLayout, force_default_layout, force_default_layout_plain)
     from multistgraph_tpu_torch.ops.node_apply import (
-        _pad_nodes, node_apply_q8, node_apply_q8_plain, quantize_node_weights)
+        _pad_nodes, node_apply_q8, node_apply_q8_plain, node_apply_q8_t, node_apply_q8_t_plain,
+        quantize_node_weights)
 
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     lines = []
     ki = K * H
     n_pad = -(-N // 32) * 32
-    # the int8 requests of the main path launch B2 at buckets 1, 4 and 16
-    for b, (cell, o) in itertools.product(BUCKETS, (("gate", 2 * H), ("update", H))):
+    # the int8 requests of the main path launch B2 at buckets 1, 4 and 16,
+    # int8 training at 16; batch 256 shows that any batch runs
+    for b, (cell, o) in itertools.product(BUCKETS + (LARGE_BATCH,), (("gate", 2 * H), ("update", H))):
         hh = torch.randn(N, b, ki, generator=g, device=dev).to(torch.bfloat16)
         w = torch.randn(N, ki, o, generator=g, device=dev) * 0.1
         wq, s = quantize_node_weights(w.to(torch.bfloat16))
@@ -135,6 +169,38 @@ def kernel_phase(torch):
             "library_ms": _time_ms(torch, lambda: torch.bmm(hh, w_deq)),
             "library": "torch.bmm on pre-dequantized bf16 weights",
             "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
+            "main_path": b in BUCKETS,
+        })
+    # the int8 reverse scan launches B2t at the training batch, gate and update
+    for cell, o in (("gate", 2 * H), ("update", H)):
+        dpre = torch.randn(N, B, o, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn(N, ki, o, generator=g, device=dev) * 0.1
+        wq, s = quantize_node_weights(w.to(torch.bfloat16))
+        wq, s = _pad_nodes(wq, 0, n_pad), _pad_nodes(s, 0, n_pad)
+        got = node_apply_q8_t(dpre, wq, s)
+        want = node_apply_q8_t_plain(dpre, wq, s)
+        torch.cuda.synchronize()
+        # the same bf16-rounded products in f32; only the summation order
+        # differs, which can move the final bf16 rounding by one step
+        if got.dtype != torch.bfloat16 or not _within_one_bf16_step(got, want):
+            raise AssertionError("node_apply_q8_t differs from its plain version on " + cell)
+        d_lib = (dpre.float() * s[:N]).to(torch.bfloat16)
+        # the scale lies on the cotangent, so the library call takes the int8
+        # weights widened to bf16 (exact), transposed ahead of time
+        w_t = wq[:N].to(torch.bfloat16).transpose(1, 2).contiguous()
+        num_bytes = N * B * o * 2 + N * ki * o + N * o * 4 + N * B * ki * 2
+        bound, by = _bound_ms(num_bytes, 2 * N * B * ki * o)
+        lines.append({
+            "name": "node_apply_q8_t", "shape": "{} N={} B={} KI={} O={}".format(cell, N, B, ki, o),
+            "replaces": "multistgraph_tpu/ops/node_apply.py:267 node_apply_q8_t",
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "tolerance": "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|",
+            "kernel_ms": _time_ms(torch, lambda: node_apply_q8_t(dpre, wq, s)),
+            "plain_ms": _time_ms(torch, lambda: node_apply_q8_t_plain(dpre, wq, s)),
+            "library_ms": _time_ms(torch, lambda: torch.bmm(d_lib, w_t)),
+            "library": "torch.bmm of the scaled bf16 cotangent with the int8 weights pre-widened to bf16, transposed",
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
+            "main_path": True,
         })
     xw = torch.randn(T, B, N, 3 * H, generator=g, device=dev)
     for cell, view in (("gate_x", xw[..., : 2 * H]), ("upd_x", xw[..., 2 * H:])):
@@ -155,6 +221,30 @@ def kernel_phase(torch):
             "library_ms": _time_ms(torch, lambda: view.contiguous()),
             "library": "x.contiguous()",
             "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
+            "main_path": True,
+        })
+    # the f32 backward copies the reverse scan's cotangents of gate_x/upd_x,
+    # dense (T,B,N,2H) and (T,B,N,H) stacks
+    for cell, width in (("d gate_x", 2 * H), ("d upd_x", H)):
+        cot = torch.randn(T, B, N, width, generator=g, device=dev)
+        got = _ForceDefaultLayout.backward(None, cot)
+        want = force_default_layout_plain(cot)
+        torch.cuda.synchronize()
+        if not (got.is_contiguous() and got.data_ptr() != cot.data_ptr() and torch.equal(got, want)):
+            raise AssertionError("layout_copy backward differs from its plain version on " + cell)
+        num_bytes = 2 * cot.numel() * cot.element_size()
+        bound, by = _bound_ms(num_bytes, 0)
+        lines.append({
+            "name": "force_default_layout_bwd", "shape": "{} {} f32 cotangent".format(cell, tuple(cot.shape)),
+            "replaces": "multistgraph_tpu/ops/layout.py:40 _launder via force_default_layout's VJP (:60-61)",
+            "max_abs_err": (got - want).abs().max().item(), "tolerance": "bit-identical",
+            "kernel_ms": _time_ms(torch, lambda: _ForceDefaultLayout.backward(None, cot)),
+            "plain_ms": _time_ms(torch, lambda: force_default_layout_plain(cot)),
+            # x.contiguous() returns a contiguous cotangent itself; clone copies
+            "library_ms": _time_ms(torch, lambda: cot.clone()),
+            "library": "x.clone() (x.contiguous() copies nothing for a dense cotangent)",
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
+            "main_path": True,
         })
     for line in lines:
         say(json.dumps(line))
@@ -254,14 +344,16 @@ def _bucket_ms(service, x, reps=20):
     return statistics.median(times)
 
 
-def _device_share(torch, service, x, wall_ms):
-    """Device time of one request by kernel (torch.profiler), against the
-    request's unprofiled wall time."""
+def _device_time(torch, fn, wall_ms):
+    """Device time of one call of `fn` by kernel (torch.profiler), against
+    its unprofiled wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    service.predict(x)
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        service.predict(x)
+        fn()
+        torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
         # kernels and copies only: a CPU op's self device time repeats its kernels'
@@ -274,7 +366,7 @@ def _device_share(torch, service, x, wall_ms):
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     return {
-        "bucket": service._bucket(len(x)), "wall_ms": wall_ms,
+        "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if rows else "not measured",
         "device_idle_share": 1.0 - busy_ms / wall_ms if rows else "not measured",
         "device_ops": sum(r[1] for r in rows),
@@ -282,24 +374,34 @@ def _device_share(torch, service, x, wall_ms):
     }
 
 
+def _device_share(torch, service, x, wall_ms):
+    """Device time of one request by kernel, against its wall time."""
+    return dict(bucket=service._bucket(len(x)), **_device_time(torch, lambda: service.predict(x), wall_ms))
+
+
+def make_dataset():
+    """The port's synthetic DC-237 dataset (bench.py's: 237 nodes, 151 days
+    hourly, seed 42) under WORK, read by the training and serving phases."""
+    from multistgraph_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    t0 = time.time()
+    make_synthetic_dataset(os.path.join(WORK, "raw_data"), "SYN_DC237", num_nodes=N,
+                           len_time=24 * 151, node_mean=30.169, node_std=84.023, seed=42)
+    say("dataset written in {:.1f}s".format(time.time() - t0))
+
+
 def serving_phase(torch):
     import numpy as np
 
     from multistgraph_tpu_torch.config import load_config
     from multistgraph_tpu_torch.data import get_dataset
-    from multistgraph_tpu_torch.data.synthetic import make_synthetic_dataset
     from multistgraph_tpu_torch.models import get_model
     from multistgraph_tpu_torch.ops.layout import force_default_layout
     from multistgraph_tpu_torch.ops.node_apply import node_apply_q8
     from multistgraph_tpu_torch.serving import PredictService, make_server
 
-    shutil.rmtree(WORK, ignore_errors=True)
-    raw_dir = os.path.join(WORK, "raw_data")
-    t0 = time.time()
-    make_synthetic_dataset(raw_dir, "SYN_DC237", num_nodes=N, len_time=24 * 151,
-                           node_mean=30.169, node_std=84.023, seed=42)
-    say("dataset written in {:.1f}s".format(time.time() - t0))
-    args = _serving_args(raw_dir)
+    args = _serving_args(os.path.join(WORK, "raw_data"))
     task, model_name, ds_name = "traffic_state_pred", "MultiATGCN", "SYN_DC237"
     config = load_config(task, model_name, ds_name, other_args=args)
     t0 = time.time()
@@ -412,6 +514,200 @@ def serving_phase(torch):
     return launches
 
 
+# ------------------------------------------------------------------ training
+
+_MODES = {  # config overrides of the int8 serving/training arguments
+    "int8": {},
+    "bf16": {"weight_stream_quant": None},
+    "f32": {"compute_dtype": None, "weight_stream_quant": None},
+}
+
+
+def _counters():
+    from multistgraph_tpu_torch.ops.layout import force_default_layout
+    from multistgraph_tpu_torch.ops.node_apply import node_apply_q8, node_apply_q8_t
+
+    return node_apply_q8, node_apply_q8_t, force_default_layout
+
+
+def _reset_counts():
+    b2, b2t, b3 = _counters()
+    b2.launches = b2t.launches = b3.launches = b3.backward_launches = 0
+
+
+def _read_counts():
+    b2, b2t, b3 = _counters()
+    return {"node_apply_q8": b2.launches, "node_apply_q8_t": b2t.launches,
+            "force_default_layout": b3.launches, "force_default_layout_bwd": b3.backward_launches}
+
+
+def _executor(torch, mode, feature, state_dict, device=None):
+    """An executor for `mode` on the smoke's training arguments, holding `state_dict`."""
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.executor import get_executor
+    from multistgraph_tpu_torch.executor.optimizers import set_learning_rate
+    from multistgraph_tpu_torch.models import get_model
+
+    args = dict(_serving_args(os.path.join(WORK, "raw_data")), exp_id="chip_smoke_train",
+                saved_model=False, tensorboard=False, **_MODES[mode])
+    cfg = load_config("traffic_state_pred", "MultiATGCN", "SYN_DC237", other_args=args)
+    model = get_model(cfg, feature, device=device)
+    model.load_state_dict(state_dict)
+    executor = get_executor(cfg, model, feature, device=device)
+    set_learning_rate(executor.optimizer, LEARNING_RATE)
+    return executor
+
+
+def _timed_steps(torch, executor, batches, warmup, want_per_step):
+    """`warmup` steps, then the rest timed on the host clock with the
+    launch counts from 0; raises unless every count is exactly
+    want_per_step x steps and every loss is finite."""
+    losses = [float(executor.train_step(b)) for b in batches[:warmup]]
+    torch.cuda.synchronize()
+    _reset_counts()
+    timed, marks = [], [time.perf_counter()]
+    for b in batches[warmup:]:
+        timed.append(executor.train_step(b))
+        torch.cuda.synchronize()  # per-step times; the step's own loss read is deferred
+        marks.append(time.perf_counter())
+    counts = _read_counts()
+    steps = len(batches) - warmup
+    want = {k: want_per_step.get(k, 0) * steps for k in counts}
+    if counts != want:
+        raise AssertionError("{} training steps launched {}, want {}".format(steps, counts, want))
+    losses += [float(v) for v in timed]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite training loss: {}".format(losses))
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return statistics.median(step_ms), losses, counts, step_ms
+
+
+def training_phase(torch):
+    """int8 training through get_executor at the flagship width (the main
+    path), one validation pass, then f32 and bf16 steps; the launch counts
+    of each window, and the weights and batch for the gradient check."""
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.data import get_dataset
+    from multistgraph_tpu_torch.models import get_model
+
+    args = dict(_serving_args(os.path.join(WORK, "raw_data")), exp_id="chip_smoke_train")
+    cfg = load_config("traffic_state_pred", "MultiATGCN", "SYN_DC237", other_args=args)
+    dataset = get_dataset(cfg)
+    train, val, _ = dataset.get_data()
+    feature = dataset.get_data_feature()
+    # the seeded initialiser's weights, at their own scale
+    init = get_model(cfg, feature, device="cpu", generator=torch.Generator().manual_seed(0))
+    state_dict = {k: v.clone() for k, v in init.state_dict().items()}
+    executor = _executor(torch, "int8", feature, state_dict)
+    if not executor.model.uses_int8_stream:
+        raise AssertionError("the trained model does not take the int8 weight-stream path")
+    perm = train.epoch_permutation()
+    batches = [executor.batch(train, idx) for idx in perm[: TRAIN_WARMUP + TRAIN_STEPS]]
+    per_step = 2 * T * NUM_LAYERS
+    windows = {}
+    ms, losses, windows["int8 training"], step_ms = _timed_steps(
+        torch, executor, batches, TRAIN_WARMUP,
+        {"node_apply_q8": per_step, "node_apply_q8_t": per_step})
+    record = {"train_batches": len(train), "batch": B, "steps": TRAIN_STEPS, "ms_per_step": ms,
+              "step_ms": step_ms,
+              "epochs_per_hour": 3600.0 / (ms / 1e3 * len(train)),
+              "first_loss": losses[0], "last_loss": losses[-1],
+              "device_time_per_step": _device_time(torch, lambda: executor.train_step(batches[-1]), ms)}
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    val_loss = executor._valid_epoch(val)
+    record["validation"] = {"batches": len(val), "loss": val_loss,
+                            "seconds": time.perf_counter() - t0}
+    windows["validation"] = _read_counts()
+    if windows["validation"] != {"node_apply_q8": per_step * len(val), "node_apply_q8_t": 0,
+                                 "force_default_layout": 0, "force_default_layout_bwd": 0}:
+        raise AssertionError("validation launched {}".format(windows["validation"]))
+    if not math.isfinite(val_loss):
+        raise AssertionError("non-finite validation loss")
+
+    for mode, want in (("f32", {"force_default_layout": 2 * NUM_LAYERS,
+                                "force_default_layout_bwd": 2 * NUM_LAYERS}), ("bf16", {})):
+        ex = _executor(torch, mode, feature, state_dict)
+        ms, mode_losses, windows[mode + " training"], mode_step_ms = _timed_steps(
+            torch, ex, batches[: 1 + MODE_STEPS], 1, want)
+        record[mode] = {"steps": MODE_STEPS, "ms_per_step": ms, "step_ms": mode_step_ms,
+                        "losses": mode_losses,
+                        "epochs_per_hour": 3600.0 / (ms / 1e3 * len(train))}
+    say(json.dumps({"training": record}))
+    say("launches per window: " + json.dumps(windows))
+    grad_batch = {k: v[:GRAD_BATCH].cpu() for k, v in batches[0].items()}
+    return windows, feature, state_dict, grad_batch
+
+
+def _grads(torch, mode, feature, state_dict, batch, device=None):
+    """One step's loss (dropout off) and every parameter gradient, on the CPU."""
+    executor = _executor(torch, mode, feature, state_dict, device=device)
+    dev = executor.device
+    loss = executor.loss_fn({k: v.to(dev) for k, v in batch.items()}, train=False)
+    loss.backward()
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
+             for n, p in executor.model.named_parameters()}
+    return loss.detach().float().cpu(), grads
+
+
+def _grad_err(a, b):
+    """Relative max error of the loss and of every gradient (over the
+    reference's max |value|; parameters the loss does not reach are
+    skipped). A non-finite value counts as an infinite error."""
+    loss_a, grads_a = a
+    loss_b, grads_b = b
+
+    def rel(x, ref):
+        e = float((x - ref).abs().max() / ref.abs().max())
+        return e if math.isfinite(e) else float("inf")
+
+    errs = {n: rel(grads_a[n], g) for n, g in grads_b.items() if g.abs().max() > 0}
+    worst = max(errs, key=errs.get)
+    loss_err = rel(loss_a, loss_b)
+    return {"loss": loss_err, "worst_param": worst, "max": max(errs[worst], loss_err)}
+
+
+def gradient_phase(torch, feature, state_dict, batch):
+    """Card vs CPU gradients in int8, bf16 and f32, and the planted faults."""
+    from unittest import mock
+
+    from multistgraph_tpu_torch.models import multi_atgcn
+    from multistgraph_tpu_torch.ops import layout as layout_ops
+    from multistgraph_tpu_torch.ops.node_apply import node_apply_q8_t
+
+    gained = {k: v * POOL_GAIN if k.endswith("weights_pool") else v for k, v in state_dict.items()}
+    bounds = {"int8": BOUND_GRAD_BF16, "bf16": BOUND_GRAD_BF16, "f32": BOUND_GRAD_F32}
+    cpu = {m: _grads(torch, m, feature, gained, batch, device="cpu") for m in _MODES}
+    errs = {m: _grad_err(_grads(torch, m, feature, gained, batch), cpu[m]) for m in _MODES}
+
+    def b3_zeroed(ctx, g):
+        return torch.zeros_like(layout_ops._copy(g, "backward_launches"))
+
+    faults = {
+        "B2t scale dropped": ("int8", mock.patch.object(
+            multi_atgcn, "node_apply_q8_t", lambda d, wq, s: node_apply_q8_t(d, wq, torch.ones_like(s)))),
+        "B2t output zeroed": ("int8", mock.patch.object(
+            multi_atgcn, "node_apply_q8_t", lambda d, wq, s: torch.zeros_like(node_apply_q8_t(d, wq, s)))),
+        "B3 cotangent zeroed": ("f32", mock.patch.object(
+            layout_ops._ForceDefaultLayout, "backward", staticmethod(b3_zeroed))),
+    }
+    controls = {}
+    for name, (mode, patch) in faults.items():
+        with patch:
+            controls[name] = _grad_err(_grads(torch, mode, feature, gained, batch), cpu[mode])
+    say(json.dumps({"gradient_rel_err_card_vs_cpu": errs, "bounds": bounds,
+                    "planted_faults": controls, "pool_gain": POOL_GAIN, "batch": GRAD_BATCH}))
+    for mode, err in errs.items():
+        if not err["max"] < bounds[mode]:
+            raise AssertionError("{} gradients, card vs CPU: {} over the bound {}".format(mode, err, bounds[mode]))
+    for name, (mode, _) in faults.items():
+        if not controls[name]["max"] > bounds[mode]:
+            raise AssertionError("{} passes the {} gradient check ({})".format(name, mode, controls[name]))
+    return errs, controls
+
+
+
 def main():
     import torch
 
@@ -435,16 +731,27 @@ def main():
         say("  {}: {}".format(name, _ptxas_summary(out)))
 
     lines = kernel_phase(torch)
-    launches = serving_phase(torch)
+    make_dataset()
+    # training (this slice's main path) is timed before any phase runs the
+    # model on the host's CPU, which slows the launching thread afterwards
+    windows, feature, state_dict, grad_batch = training_phase(torch)
+    serving_launches = serving_phase(torch)
+    gradient_phase(torch, feature, state_dict, grad_batch)
+    windows["serving"] = dict(serving_launches, node_apply_q8_t=0, force_default_layout_bwd=0)
 
     kernels = []
     for name, source in (("node_apply_q8", "multistgraph_tpu_torch/csrc/node_apply_q8.cu"),
-                         ("force_default_layout", "multistgraph_tpu_torch/csrc/layout_copy.cu")):
-        rows = [r for r in lines if r["name"] == name]
+                         ("node_apply_q8_t", "multistgraph_tpu_torch/csrc/node_apply_q8_t.cu"),
+                         ("force_default_layout", "multistgraph_tpu_torch/csrc/layout_copy.cu"),
+                         ("force_default_layout_bwd", "multistgraph_tpu_torch/csrc/layout_copy.cu")):
+        rows = [r for r in lines if r["name"] == name and r["main_path"]]
+        launches = sum(w[name] for w in windows.values())
+        if launches == 0:
+            raise AssertionError("{} was launched no time on the main path".format(name))
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": rows[0]["replaces"].split()[0],
-            "launches": launches[name],
+            "launches": launches,
             "shapes": [r["shape"] for r in rows],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             # one call at each of the main path's shapes, summed

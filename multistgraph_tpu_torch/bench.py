@@ -1,0 +1,124 @@
+"""Training throughput of MultiATGCN on the DC-237 flagship workload, on one GPU.
+
+The port's twin of the repository's bench.py: the same synthetic DC-237
+dataset (237 nodes, hourly, closeness 2 / period 1 / trend 1 at 7/28-day
+strides, 24-step horizon, multi-view supports with the bidirectional
+adaptive view, static features, batch 16, bf16 matmuls) and the same
+arguments, trained by the port's executor: one warm-up epoch, then
+TIMED_EPOCHS timed epochs at a fixed rate of 3e-3. ``--quant-stream``
+streams the h-side weights int8 through kernels B2 and B2t.
+
+Run:  python -m multistgraph_tpu_torch.bench [--quant-stream]
+
+Prints one JSON line: epochs/hr and ms/step on the card, the dtype and
+weight stream, and the card's name and power limit (nvidia-smi).
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+from multistgraph_tpu_torch.config import load_config
+from multistgraph_tpu_torch.data import get_dataset
+from multistgraph_tpu_torch.data.synthetic import make_synthetic_dataset
+from multistgraph_tpu_torch.executor import get_executor
+from multistgraph_tpu_torch.models import get_model
+from multistgraph_tpu_torch.utils import resolve_device
+
+NUM_NODES = 237
+LEN_TIME = 24 * 151  # Jan 1 - May 31 hourly, like DC
+TIMED_EPOCHS = 3
+LEARNING_RATE = 3e-3
+
+
+def log(msg):
+    print(msg, file=sys.stderr, flush=True)
+
+
+def bench_args(work_dir: str) -> dict:
+    """bench.py's DC-237 arguments (bench.py:92-111), rooted at `work_dir`."""
+    return {
+        "data_dir": os.path.join(work_dir, "raw_data"),
+        "cache_dir": os.path.join(work_dir, "dataset_cache"),
+        "output_dir": os.path.join(work_dir, "outputs"),
+        "exp_id": "bench",
+        "input_window": 24, "output_window": 24,
+        "len_closeness": 2, "len_period": 1, "len_trend": 1,
+        "interval_period": 7, "interval_trend": 28,
+        "load_external": True, "load_dynamic": False, "add_time_in_day": True,
+        "groupstd": True, "add_static": True,
+        "adjtype": "multi", "adpadj": "bidirection",
+        "batch_size": 16, "train_rate": 0.7, "eval_rate": 0.15,
+        "max_epoch": TIMED_EPOCHS, "saved_model": False, "use_early_stop": False,
+        "seed": 0, "compute_dtype": "bfloat16", "tensorboard": False,
+    }
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--quant-stream", action="store_true",
+                    help="stream the h-side node-conditioned weights int8 through kernels B2/B2t")
+    ap.add_argument("--work-dir", default=os.path.join("outputs", "bench_torch"),
+                    help="where the synthetic dataset and run outputs go")
+    cli = ap.parse_args(argv)
+    device = resolve_device(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    args = bench_args(cli.work_dir)
+    ds_name = "SYN_DC237"
+    if not os.path.exists(os.path.join(args["data_dir"], ds_name, "config.json")):
+        log("generating synthetic DC-237 dataset ...")
+        make_synthetic_dataset(args["data_dir"], ds_name, num_nodes=NUM_NODES, len_time=LEN_TIME,
+                               node_mean=30.169, node_std=84.023, seed=42)
+    if cli.quant_stream:
+        args["weight_stream_quant"] = "int8"
+    config = load_config("traffic_state_pred", "MultiATGCN", ds_name, other_args=args)
+    t0 = time.time()
+    dataset = get_dataset(config, device)
+    train_loader, _, _ = dataset.get_data()
+    feature = dataset.get_data_feature()
+    log("data ready in {:.1f}s ({} train batches)".format(time.time() - t0, len(train_loader)))
+    executor = get_executor(config, get_model(config, feature, device=device), feature, device=device)
+
+    def run_epoch():
+        loss = executor.train_epoch(train_loader, LEARNING_RATE)  # reads the loss: a host sync
+        torch.cuda.synchronize()
+        return loss
+
+    t0 = time.time()
+    loss = run_epoch()
+    log("warm-up epoch {:.1f}s, loss {:.4f}".format(time.time() - t0, loss))
+    t0 = time.time()
+    for _ in range(TIMED_EPOCHS):
+        loss = run_epoch()
+    epoch_seconds = (time.time() - t0) / TIMED_EPOCHS
+    step_ms = 1e3 * epoch_seconds / len(train_loader)
+    log("epoch {:.3f}s | {:.2f} ms/step | final loss {:.4f} | {}".format(
+        epoch_seconds, step_ms, loss, torch.cuda.get_device_name(0)))
+    print(json.dumps({
+        "metric": "epochs_per_hour_dc237",
+        "value": 3600.0 / epoch_seconds,
+        "unit": "epochs/hr",
+        "ms_per_step": step_ms,
+        "train_batches": len(train_loader),
+        "final_loss": loss,
+        "dtype": config.get("compute_dtype", "float32"),
+        "weight_stream": "int8" if cli.quant_stream else config.get("compute_dtype", "float32"),
+        "card": card(),
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -42,6 +42,9 @@ class Config:
             raise KeyError("{} is not in the config".format(key))
         return self._config[key]
 
+    def __setitem__(self, key: str, value: Any) -> None:
+        self._config[key] = value
+
     def __contains__(self, key: str) -> bool:
         return key in self._config
 

@@ -43,6 +43,10 @@ class DeviceDataLoader:
             self._rng.shuffle(order)
         return order[: self.num_batches * self.batch_size].reshape(self.num_batches, self.batch_size)
 
+    def ordered_permutation(self) -> np.ndarray:
+        """(num_batches, B) sample indices in dataset order (eval/test)."""
+        return np.arange(self.num_batches * self.batch_size).reshape(self.num_batches, self.batch_size)
+
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         for idx in self.epoch_permutation():
             idx = torch.as_tensor(idx, device=self.x.device)

@@ -1,8 +1,8 @@
-"""MultiATGCN forward as a PyTorch nn.Module.
+"""MultiATGCN as a PyTorch nn.Module, with its training backward.
 
 Counterpart of multistgraph_tpu/models/multi_atgcn.py (ref:
-libcity/model/traffic_flow_prediction/MultiATGCN.py:59-430), forward only:
-multi-head temporal fusion, the static-conditioned initial state, the
+libcity/model/traffic_flow_prediction/MultiATGCN.py:59-430): multi-head
+temporal fusion, the static-conditioned initial state, the
 adaptive-graph-convolution GRU encoder with node-conditioned weights and a
 learned per-(layer, step) mix with a residual GRU, and the conv head. The
 JAX package's design carries over: supports built once per forward, the
@@ -25,9 +25,15 @@ then contracted in f32 (bf16 -> f32 is exact), and a result JAX leaves in
 bf16 is rounded once. ``torch.einsum`` on bf16 tensors would round
 elsewhere.
 
+Training: each encoder layer is a ``torch.autograd.Function`` with the
+JAX package's hand-written BPTT (``fused_atgru_layer`` and, on the int8
+path, ``fused_atgru_layer_q8``, whose reverse loop launches the transposed
+int8 kernel B2t); ``fused_bptt=False`` takes plain autograd of the step
+loop instead. Dropout acts on the encoder states in train mode.
+
 Parameter names and layouts are the reference's torch ``state_dict``
 (Linear weights (out, in), ``end_conv.weight`` (out, t_conv, 1, H)), so a
-reference checkpoint loads as it is. No training path in this slice.
+reference checkpoint loads as it is.
 """
 
 from typing import Optional
@@ -40,7 +46,13 @@ from torch import nn
 from multistgraph_tpu_torch.graph import views as graph_views
 from multistgraph_tpu_torch.models import initializers
 from multistgraph_tpu_torch.ops import layout as layout_ops
-from multistgraph_tpu_torch.ops.node_apply import _pad_nodes, node_apply_q8, quantize_node_weights
+from multistgraph_tpu_torch.ops import losses
+from multistgraph_tpu_torch.ops.node_apply import (
+    _pad_nodes,
+    node_apply_q8,
+    node_apply_q8_t,
+    quantize_node_weights,
+)
 from multistgraph_tpu_torch.utils import resolve_device
 
 HOURS_PER_BLOCK = 24  # the reference hardcodes 24-step fusion blocks (ref :373-393)
@@ -118,13 +130,36 @@ class _EndConv(nn.Module):
 
 
 # --------------------------------------------------------------------------
-# Encoder steps (forward of multi_atgcn.py:_atgru_step_forward and
-# _atgru_step_q8; the hand-written BPTT comes with training).
+# Encoder steps and the hand-written BPTT (multi_atgcn.py:114-459).
+#
+# Under autograd, one encoder layer is one torch.autograd.Function, as the
+# JAX package makes it one custom VJP. Its forward runs the step loop
+# without recording a graph and stacks the small per-step intermediates
+# (zr, hc, h_agru, zr2, hc_res) in the compute dtype. Its backward
+# recomputes the two large aggregation stacks hh/hzh in two bulk einsums,
+# runs the reverse loop, whose only accumulators are the supports
+# cotangent (f32) and the residual-GRU kernels, and forms each weight
+# gradient in one contraction over (T, B). Letting autograd trace the loop
+# instead would accumulate an (N,K,I,O) weight cotangent at every step.
+# Without autograd (serving, validation) the encoder runs the same steps
+# and stacks nothing.
 # --------------------------------------------------------------------------
+
+_BULK_AGG_SPEC = "knm,tbmc->nkbtc"  # bulk recompute of hh/hzh stacks (bwd)
+_DW_SPEC = "nkbti,tbno->nkio"       # one-shot weight-gradient contraction
+_DAPPLY_SPEC = "bno,nkio->bkni"     # W^T apply in the reverse loop
+_DSUP_SPEC = "bknc,bmc->knm"        # supports-cotangent accumulation
+_DAGGT_SPEC = "knm,bknc->bmc"       # supports^T applied to dhh/dhzh
+# the same four for the N-major int8 layer (multi_atgcn.py:396-447)
+_Q8_BULK_AGG_SPEC = "knm,tmbc->nkbtc"
+_Q8_DW_SPEC = "nkbti,tnbo->nkio"
+_Q8_DSUP_SPEC = "nbkc,mbc->knm"
+_Q8_DAGGT_SPEC = "knm,nbkc->mbc"
 
 
 def _atgru_step(h_prev, xs, supports, wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, dtype):
-    """One B-major ATGRU + residual step; h_prev (B, N, H)."""
+    """One B-major ATGRU + residual step; h_prev (B, N, H). Returns the new
+    state and the intermediates the backward reads."""
     gate_x_t, upd_x_t, rg_x_t, ru_x_t, w_t = xs
     hh = _mm(_AGG_SPEC, supports, h_prev, dtype)
     zr = torch.sigmoid(gate_x_t + _mm(_APPLY_SPEC, hh, wg_h, dtype) + bg)
@@ -136,7 +171,7 @@ def _atgru_step(h_prev, xs, supports, wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b
     z2, r2 = torch.chunk(zr2, 2, dim=-1)
     hc_res = torch.tanh(ru_x_t + (z2 * h_agru) @ ru_h + ru_b)
     h_res = r2 * h_agru + (1.0 - r2) * hc_res
-    return w_t * h_agru + (1.0 - w_t) * h_res
+    return w_t * h_agru + (1.0 - w_t) * h_res, (zr, hc, h_agru, zr2, hc_res)
 
 
 def _quantize_h_weights(wg_h, wu_h, block=32):
@@ -163,6 +198,7 @@ def _atgru_step_q8(h_prev, xs, supports_r, wq8, bg, bu, rg_h_r, ru_h_r, rg_b, ru
     supports_r, rg_h_r, ru_h_r are pre-rounded to bf16 (the per-step cast of
     a loop invariant). hh/hzh are rounded to bf16 after the aggregation and
     the int8 apply returns f32, so the carry is promoted to f32 as in JAX.
+    Returns the new state and the intermediates the backward reads.
     """
     wgq, wgs, wuq, wus = wq8
     n, b, _ = h_prev.shape
@@ -179,7 +215,199 @@ def _atgru_step_q8(h_prev, xs, supports_r, wq8, bg, bu, rg_h_r, ru_h_r, rg_b, ru
     z2, r2 = torch.chunk(zr2, 2, dim=-1)
     hc_res = torch.tanh(ru_x_t + _bf16_matmul(z2 * h_agru, ru_h_r, dtype) + ru_b)
     h_res = r2 * h_agru + (1.0 - r2) * hc_res
-    return w_t * h_agru + (1.0 - w_t) * h_res
+    return w_t * h_agru + (1.0 - w_t) * h_res, (zr, hc, h_agru, zr2, hc_res)
+
+
+def _sum_outer(a, b):
+    """einsum('..c,..o->co') over all leading dims, operands widened to f32."""
+    return a.reshape(-1, a.shape[-1]).float().T @ b.reshape(-1, b.shape[-1]).float()
+
+
+def _step_backward(carry, xs, supports, rg_h, ru_h, dtype, apply_t, dsup_spec, daggt_spec):
+    """One reverse step (multi_atgcn.py:198-234 and :400-435), for either
+    layout: ``apply_t(name, dpre)`` applies the transposed node-conditioned
+    weights of cell ``name`` ("gate" or "update") to a pre-activation
+    cotangent. Intermediates may be bf16: every mixed product promotes to
+    f32, and a product of two bf16 terms stays bf16, as in JAX."""
+    dh, d_sup, d_rg_h, d_ru_h = carry
+    dy, h_prev, zr, hc, h_agru, zr2, hc_res, w_t = xs
+    dh = dh + dy
+    z, r = torch.chunk(zr, 2, dim=-1)
+    z2, r2 = torch.chunk(zr2, 2, dim=-1)
+    h_res = r2 * h_agru + (1.0 - r2) * hc_res
+    # mix: h_new = w_t h_agru + (1-w_t) h_res
+    dw_t = ((h_agru - h_res) * dh).sum()
+    dh_agru = w_t * dh
+    dh_res = (1.0 - w_t) * dh
+    # residual GRU backward
+    dr2 = (h_agru - hc_res) * dh_res
+    dh_agru = dh_agru + r2 * dh_res
+    dpre_ru = (1.0 - r2) * dh_res * (1.0 - hc_res * hc_res)
+    dz2h = dpre_ru @ ru_h.T
+    dz2 = dz2h * h_agru
+    dh_agru = dh_agru + dz2h * z2
+    d_ru_h = d_ru_h + _sum_outer(z2 * h_agru, dpre_ru)
+    dpre_rg = torch.cat([dz2, dr2], dim=-1) * zr2 * (1.0 - zr2)
+    dh_agru = dh_agru + dpre_rg @ rg_h.T
+    d_rg_h = d_rg_h + _sum_outer(h_agru, dpre_rg)
+    # AGRU backward: h_agru = r h_prev + (1-r) hc
+    dr = (h_prev - hc) * dh_agru
+    dh_prev = r * dh_agru
+    dpre_u = (1.0 - r) * dh_agru * (1.0 - hc * hc)
+    dhzh = apply_t("update", dpre_u)
+    d_sup = d_sup + _mm(dsup_spec, dhzh, z * h_prev, dtype)
+    dzh = _mm(daggt_spec, supports, dhzh, dtype)
+    dz = dzh * h_prev
+    dh_prev = dh_prev + dzh * z
+    dpre_g = torch.cat([dz, dr], dim=-1) * zr * (1.0 - zr)
+    dhh = apply_t("gate", dpre_g)
+    d_sup = d_sup + _mm(dsup_spec, dhh, h_prev, dtype)
+    dh_prev = dh_prev + _mm(daggt_spec, supports, dhh, dtype)
+    return (dh_prev, d_sup, d_rg_h, d_ru_h), (dpre_g, dpre_u, dpre_rg, dpre_ru, dw_t)
+
+
+def _scan_forward(step, state0, xs_seq, keep):
+    """Run `step` over T; returns the stacked states and the stacked
+    intermediates, each passed through `keep`."""
+    states, inters = [], []
+    h = state0
+    for xs in zip(*xs_seq):
+        h, inter = step(h, xs)
+        states.append(h)
+        inters.append(tuple(keep(a) for a in inter))
+    return torch.stack(states), [torch.stack(s) for s in zip(*inters)]
+
+
+def _scan_backward(dstates, state0, states, inter_stacks, w_seq, carry, step_back):
+    """The reverse loop; returns the final carry, the stacked per-step
+    cotangents (dpre_g, dpre_u, dpre_rg, dpre_ru, dw_seq) and the stacked
+    previous states h_{t-1}."""
+    h_prev_s = torch.cat([state0[None], states[:-1]], dim=0)
+    outs = []
+    for t in reversed(range(states.shape[0])):
+        xs = (dstates[t], h_prev_s[t]) + tuple(s[t] for s in inter_stacks) + (w_seq[t],)
+        carry, out = step_back(carry, xs)
+        outs.append(out)
+    return carry, [torch.stack(s[::-1]) for s in zip(*outs)], h_prev_s
+
+
+class _FusedATGRULayer(torch.autograd.Function):
+    """B-major encoder layer (multi_atgcn.py:141-263): gate_x/upd_x/rg_x/ru_x
+    (T,B,N,*), state0 (B,N,H) -> states (T,B,N,H). dtype None (exact f32) or
+    torch.bfloat16 (bf16-rounded contraction operands, f32 sums)."""
+
+    @staticmethod
+    def forward(ctx, dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
+                wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0):
+        def step(h, xs):
+            return _atgru_step(h, xs, supports, wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, dtype)
+
+        keep = (lambda a: a) if dtype is None else (lambda a: a.to(dtype))
+        states, stacks = _scan_forward(step, state0, (gate_x, upd_x, rg_x, ru_x, w_seq), keep)
+        ctx.dtype = dtype
+        ctx.dtypes = tuple(a.dtype for a in (gate_x, upd_x, rg_x, ru_x, wg_h, wu_h))
+        ctx.save_for_backward(w_seq, supports, wg_h, wu_h, rg_h, ru_h, state0, states, *stacks)
+        return states
+
+    @staticmethod
+    def backward(ctx, dstates):
+        w_seq, supports, wg_h, wu_h, rg_h, ru_h, state0, states, *stacks = ctx.saved_tensors
+        dtype = ctx.dtype
+        weights = {"gate": wg_h, "update": wu_h}
+
+        def step_back(carry, xs):
+            return _step_backward(carry, xs, supports, rg_h, ru_h, dtype,
+                                  lambda cell, d: _mm(_DAPPLY_SPEC, d, weights[cell], dtype),
+                                  _DSUP_SPEC, _DAGGT_SPEC)
+
+        carry0 = tuple(torch.zeros_like(a) for a in (state0, supports, rg_h, ru_h))
+        (dstate0, d_sup, d_rg_h, d_ru_h), cots, h_prev_s = _scan_backward(
+            dstates, state0, states, stacks, w_seq, carry0, step_back)
+        dpre_g_s, dpre_u_s, dpre_rg_s, dpre_ru_s, dw_seq = cots
+        # the two large aggregation stacks, recomputed in bulk for the dW
+        # contractions only (the reverse loop never reads them)
+        hh_s = _mm(_BULK_AGG_SPEC, supports, h_prev_s, dtype)
+        z_s = torch.chunk(stacks[0], 2, dim=-1)[0]
+        hzh_s = _mm(_BULK_AGG_SPEC, supports, z_s * h_prev_s, dtype)
+        gx_t, ux_t, rgx_t, rux_t, wg_t, wu_t = ctx.dtypes
+        d_wg_h = _mm(_DW_SPEC, hh_s, dpre_g_s, dtype).to(wg_t)
+        d_wu_h = _mm(_DW_SPEC, hzh_s, dpre_u_s, dtype).to(wu_t)
+        return (None, dpre_g_s.to(gx_t), dpre_u_s.to(ux_t), dpre_rg_s.to(rgx_t),
+                dpre_ru_s.to(rux_t), dw_seq, d_sup, d_wg_h, d_wu_h,
+                dpre_g_s.sum((0, 1)), dpre_u_s.sum((0, 1)), d_rg_h, d_ru_h,
+                dpre_rg_s.sum((0, 1, 2)), dpre_ru_s.sum((0, 1, 2)), dstate0)
+
+
+class _FusedATGRULayerQ8(torch.autograd.Function):
+    """N-major, int8-weight-streamed twin (multi_atgcn.py:341-459):
+    gate_x/upd_x/rg_x/ru_x (T,N,B,*) bf16, state0 (N,B,H) -> states
+    (T,N,B,H). The h-side weights are quantized once per call; the forward
+    applies them with B2 (two launches per step) and the reverse loop with
+    B2t (two per step). The weight gradients are straight-through: the
+    full-precision (T,B) contraction of the exact path."""
+
+    @staticmethod
+    def forward(ctx, dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
+                wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0):
+        wq8 = _quantize_h_weights(wg_h, wu_h)
+        supports_r = _round(supports, dtype)
+        rg_h_r, ru_h_r = _round(rg_h, dtype), _round(ru_h, dtype)
+
+        def step(h, xs):
+            return _atgru_step_q8(h, xs, supports_r, wq8, bg, bu, rg_h_r, ru_h_r, rg_b, ru_b, dtype)
+
+        states, stacks = _scan_forward(step, state0, (gate_x, upd_x, rg_x, ru_x, w_seq),
+                                       lambda a: a.to(dtype))
+        ctx.dtype = dtype
+        ctx.dtypes = tuple(a.dtype for a in (gate_x, upd_x, rg_x, ru_x, wg_h, wu_h))
+        ctx.kk = wg_h.shape[1]
+        ctx.save_for_backward(w_seq, supports, rg_h, ru_h, state0, *wq8, states, *stacks)
+        return states
+
+    @staticmethod
+    def backward(ctx, dstates):
+        w_seq, supports, rg_h, ru_h, state0, wgq, wgs, wuq, wus, states, *stacks = ctx.saved_tensors
+        dtype = ctx.dtype
+        n, b, hdim = state0.shape
+        weights = {"gate": (wgq, wgs), "update": (wuq, wus)}
+
+        def apply_t(cell, dpre):
+            return node_apply_q8_t(dpre.to(dtype), *weights[cell]).reshape(n, b, ctx.kk, hdim)
+
+        def step_back(carry, xs):
+            return _step_backward(carry, xs, supports, rg_h, ru_h, dtype, apply_t,
+                                  _Q8_DSUP_SPEC, _Q8_DAGGT_SPEC)
+
+        carry0 = tuple(torch.zeros_like(a) for a in (state0, supports, rg_h, ru_h))
+        (dstate0, d_sup, d_rg_h, d_ru_h), cots, h_prev_s = _scan_backward(
+            dstates, state0, states, stacks, w_seq, carry0, step_back)
+        dpre_g_s, dpre_u_s, dpre_rg_s, dpre_ru_s, dw_seq = cots
+        hh_s = _mm(_Q8_BULK_AGG_SPEC, supports, h_prev_s, dtype)
+        z_s = torch.chunk(stacks[0], 2, dim=-1)[0]
+        hzh_s = _mm(_Q8_BULK_AGG_SPEC, supports, z_s * h_prev_s, dtype)
+        gx_t, ux_t, rgx_t, rux_t, wg_t, wu_t = ctx.dtypes
+        d_wg_h = _mm(_Q8_DW_SPEC, hh_s, dpre_g_s, dtype).to(wg_t)
+        d_wu_h = _mm(_Q8_DW_SPEC, hzh_s, dpre_u_s, dtype).to(wu_t)
+        return (None, dpre_g_s.to(gx_t), dpre_u_s.to(ux_t), dpre_rg_s.to(rgx_t),
+                dpre_ru_s.to(rux_t), dw_seq, d_sup, d_wg_h, d_wu_h,
+                dpre_g_s.sum((0, 2)), dpre_u_s.sum((0, 2)), d_rg_h, d_ru_h,
+                dpre_rg_s.sum((0, 1, 2)), dpre_ru_s.sum((0, 1, 2)), dstate0)
+
+
+def fused_atgru_layer(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
+                      wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0):
+    """States (T,B,N,H) of one B-major encoder layer, with the hand-written
+    BPTT; arguments in the order of the JAX ``fused_atgru_layer``."""
+    return _FusedATGRULayer.apply(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
+                                  wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0)
+
+
+def fused_atgru_layer_q8(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
+                         wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0):
+    """States (T,N,B,H) of one N-major int8 encoder layer, with the
+    hand-written BPTT; arguments in the order of the JAX ``fused_atgru_layer_q8``."""
+    return _FusedATGRULayerQ8.apply(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
+                                    wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0)
 
 
 class MultiATGCN(nn.Module):
@@ -190,7 +418,7 @@ class MultiATGCN(nn.Module):
                  add_time_in_day, add_day_in_week, load_dynamic, gcn_off, fnn_off,
                  node_specific_off, len_closeness, len_period, len_trend, supports_static,
                  static_proj=None, fused_bptt=True, weight_stream_quant=None, compute_dtype=None,
-                 device="cpu"):
+                 dropout_rate=0.1, device="cpu"):
         super().__init__()
         self.num_nodes = num_nodes
         self.input_window = input_window
@@ -213,6 +441,7 @@ class MultiATGCN(nn.Module):
         self.len_period = len_period
         self.len_trend = len_trend
         self.fused_bptt = fused_bptt
+        self.dropout_rate = dropout_rate  # on the encoder states, in train mode (JAX :493,925)
         self.weight_stream_quant = weight_stream_quant
         self.compute_dtype = None if compute_dtype is None else getattr(torch, compute_dtype)
 
@@ -380,11 +609,15 @@ class MultiATGCN(nn.Module):
             xw = torch.einsum("tnbki,nkio->tnbo", _round(hx, dtype),
                               torch.cat([wg_x, wu_x], dim=3).float())
             gate_x, upd_x = xw[..., : 2 * h].to(dtype), xw[..., 2 * h:].to(dtype)
+            if torch.is_grad_enabled():
+                current = fused_atgru_layer_q8(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
+                                               wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state)
+                continue
             wq8 = _quantize_h_weights(wg_h, wu_h)
             rg_h_r, ru_h_r = _round(rg_h, dtype), _round(ru_h, dtype)
             states = []
             for t in range(t_len):
-                state = _atgru_step_q8(
+                state, _ = _atgru_step_q8(
                     state, (gate_x[t], upd_x[t], rg_x[t], ru_x[t], w_seq[t]), supports_r, wq8,
                     bg, bu, rg_h_r, ru_h_r, rg_b, ru_b, dtype)
                 states.append(state)
@@ -426,8 +659,13 @@ class MultiATGCN(nn.Module):
                     # one dense copy of each strided per-step stack (kernel B3)
                     gate_x = layout_ops.force_default_layout(gate_x)
                     upd_x = layout_ops.force_default_layout(upd_x)
+                if self.fused_bptt and torch.is_grad_enabled():
+                    current = fused_atgru_layer(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
+                                                wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state)
+                    continue
+                # no autograd, or plain autograd of the step loop (fused_bptt off)
                 for t in range(t_len):
-                    state = _atgru_step(
+                    state, _ = _atgru_step(
                         state, (gate_x[t], upd_x[t], rg_x[t], ru_x[t], w_seq[t]), supports,
                         wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, dtype)
                     states.append(state)
@@ -441,8 +679,20 @@ class MultiATGCN(nn.Module):
             current = torch.stack(states)  # (T, B, N, H)
         return current.permute(1, 0, 2, 3)
 
+    def _dropout(self, states, train: bool, generator: Optional[torch.Generator]):
+        """Inverted dropout at ``dropout_rate`` in train mode (flax
+        nn.Dropout: keep with probability 1 - rate, scale by 1/(1 - rate))."""
+        if not train or self.dropout_rate == 0.0:
+            return states
+        keep = torch.empty_like(states).bernoulli_(1.0 - self.dropout_rate, generator=generator)
+        return states * keep / (1.0 - self.dropout_rate)
+
     # --------------------------------------------------------------- forward
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train`` turns dropout on (rate ``dropout_rate``, keep mask drawn
+        from ``generator``, which lies on x's device), as the JAX module's
+        ``train`` flag does."""
         source = x[:, :, :, self.start_dim: self.end_dim]
         # without the period/trend heads (Tout < 6) only closeness is read
         total_len = (self.len_closeness + self.len_period + self.len_trend
@@ -486,6 +736,7 @@ class MultiATGCN(nn.Module):
         states = self._encoder(enc_in, init_state, self._build_supports())  # (B, T, N, H)
         if self.fnn_off:
             states = states[:, -1:]
+        states = self._dropout(states, train, generator)
 
         # conv output head as a (T*H -> Tout*out) contraction (ref :340-344,416-418)
         b, t, n, h = states.shape
@@ -493,6 +744,19 @@ class MultiATGCN(nn.Module):
         kernel = self.end_conv.weight.reshape(self.end_conv.weight.shape[0], t * h)
         out = F.linear(flat, kernel, self.end_conv.bias)
         return out.reshape(b, n, self.output_window, self.output_dim).permute(0, 2, 1, 3)
+
+
+def make_loss_fn(model: MultiATGCN, scaler):
+    """calculate_loss (JAX multi_atgcn.py:1036-1045, ref :422-427): masked MAE
+    on the inverse-transformed prediction and truth, null_val 0.
+    ``loss_fn(batch, train, generator)``: ``train`` turns dropout on."""
+
+    def loss_fn(batch, train: bool = True, generator: Optional[torch.Generator] = None):
+        pred = model(batch["X"], train=train, generator=generator)
+        y_true = batch["y"][..., model.start_dim: model.end_dim]
+        return losses.masked_mae(scaler.inverse_transform(pred), scaler.inverse_transform(y_true), 0.0)
+
+    return loss_fn
 
 
 def build_multi_atgcn(config, data_feature, device=None,

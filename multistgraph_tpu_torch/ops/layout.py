@@ -15,7 +15,13 @@ force_default_layout; its source note gives the bound and design); CPU
 tensors take the plain version, a contiguous ``clone``. The values are
 bit-identical either way. It takes 4-byte elements (the f32 stacks of the
 main path), rank <= 4 and fewer than 2^31 elements, and raises on anything
-else. Forward only: the backward comes with training.
+else.
+
+``force_default_layout`` is differentiable like its JAX custom VJP
+(layout.py:50-64): the backward runs the same copy on the cotangent (the
+reverse scan's dpre stacks, f32 on the main path), under the same checks.
+Forward and backward launches are counted apart:
+``force_default_layout.launches`` and ``force_default_layout.backward_launches``.
 """
 
 import ctypes
@@ -42,8 +48,9 @@ def _kernel():
     return fn
 
 
-def force_default_layout(x: torch.Tensor) -> torch.Tensor:
-    """A fresh contiguous copy of ``x`` (4-byte elements, rank <= 4), bit-identical to it."""
+def _copy(x: torch.Tensor, counter: str) -> torch.Tensor:
+    """A fresh contiguous copy of ``x``; a kernel launch adds one to
+    ``force_default_layout.<counter>``."""
     if x.dim() > _MAX_RANK:
         raise ValueError("force_default_layout takes rank <= {}, got {}".format(_MAX_RANK, x.dim()))
     if x.element_size() != 4:
@@ -68,8 +75,25 @@ def force_default_layout(x: torch.Tensor) -> torch.Tensor:
         rc = fn(x.data_ptr(), y.data_ptr(), *sizes, *strides, stream)
     if rc != 0:
         raise RuntimeError("layout_copy kernel launch failed: CUDA error {}".format(rc))
-    force_default_layout.launches += 1
+    setattr(force_default_layout, counter, getattr(force_default_layout, counter) + 1)
     return y
 
 
+class _ForceDefaultLayout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _copy(x, "launches")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _copy(g, "backward_launches")
+
+
+def force_default_layout(x: torch.Tensor) -> torch.Tensor:
+    """A fresh contiguous copy of ``x`` (4-byte elements, rank <= 4),
+    bit-identical to it; its gradient is the same copy of the cotangent."""
+    return _ForceDefaultLayout.apply(x)
+
+
 force_default_layout.launches = 0
+force_default_layout.backward_launches = 0

@@ -1,11 +1,13 @@
 """The port runs without JAX, flax, pandas and the JAX package.
 
 A fresh interpreter blocks the top-level modules ``jax``, ``jaxlib``,
-``flax``, ``pandas`` and ``multistgraph_tpu`` (by exact name:
+``flax``, ``optax``, ``pandas`` and ``multistgraph_tpu`` (by exact name:
 ``multistgraph_tpu_torch`` starts with ``multistgraph_tpu`` and must stay
-importable), imports every module of the port, writes a small synthetic
-dataset with the port's generator, and serves one CPU predict through
-``from_experiment``.
+importable), imports every module of the port (the training slice's
+executor, evaluator, losses, optimizers, pipeline, run_model and bench
+among them), writes a small synthetic dataset with the port's generator,
+serves one CPU predict through ``from_experiment``, then takes one int8
+training step through ``get_executor`` and evaluates the test split.
 """
 
 import os
@@ -16,21 +18,34 @@ import textwrap
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = textwrap.dedent(r"""
-    import importlib, importlib.abc, os, pkgutil, sys
+    import importlib, importlib.abc, importlib.machinery, os, pkgutil, sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "pandas", "multistgraph_tpu"}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "pandas", "multistgraph_tpu"}
 
-    class Block(importlib.abc.MetaPathFinder):
+    # Blocked modules look absent: find_spec gives a spec without an origin
+    # (torch probes for optional modules, pandas among them, that way) and
+    # importing one raises.
+    class Block(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+
         def find_spec(self, name, path=None, target=None):
             if name.split(".")[0] in BLOCKED:
-                raise ImportError("blocked import of " + name)
+                return importlib.machinery.ModuleSpec(name, self)
             return None
+
+        def create_module(self, spec):
+            raise ImportError("blocked import of " + spec.name)
+
+        def exec_module(self, module):
+            raise ImportError("blocked import of " + module.__name__)
 
     sys.meta_path.insert(0, Block())
 
     import multistgraph_tpu_torch
     for info in pkgutil.walk_packages(multistgraph_tpu_torch.__path__, "multistgraph_tpu_torch."):
         importlib.import_module(info.name)
+    for name in ("executor.executor", "executor.optimizers", "evaluator.evaluator", "ops.losses",
+                 "utils.seeds", "utils.tbwriter", "pipeline", "run_model", "bench"):
+        assert "multistgraph_tpu_torch." + name in sys.modules, name
 
     import numpy as np
     import torch
@@ -60,13 +75,22 @@ _SCRIPT = textwrap.dedent(r"""
                                              other_args=args, device="cpu")
     y = service.predict(test.x[:3].numpy())
     assert y.shape == (3, 6, 6, 1) and np.isfinite(y).all(), y.shape
+
+    from multistgraph_tpu_torch.executor import get_executor
+    train, _, _ = ds.get_data()
+    executor = get_executor(cfg, model, ds.get_data_feature(), device="cpu")
+    loss = executor.train_step(executor.batch(train, train.epoch_permutation()[0]))
+    assert torch.isfinite(loss), loss
+    result = executor.evaluate(test)
+    assert np.isfinite(result["masked_MAE"]).all(), result
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED_OK")
 """)
 
 
 def test_port_imports_and_serves_without_jax_pandas_or_the_jax_package(tmp_path):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # one intra-op thread, as the port's other CPU tests use beside other workers
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _SCRIPT, str(tmp_path)], cwd=str(tmp_path),
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
