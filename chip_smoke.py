@@ -6,7 +6,7 @@ Run from the repository root:  python3 chip_smoke.py
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each kernel against its plain PyTorch version at the shapes
 the serving and training paths give it (and B2 at batch 256) and times
-both, then drives the port's two paths at the DC-237 flagship width
+both, then drives MultiATGCN's two paths at the DC-237 flagship width
 (bench.py's arguments, the port's synthetic DC-237 dataset, random weights
 from a seeded generator):
   * serving: MultiATGCN in the int8 weight-stream configuration, served by
@@ -20,6 +20,17 @@ from a seeded generator):
     step's loss and every parameter gradient on the card are held against
     the CPU at the same weights and batch in int8, bf16 and f32, and faults
     planted in B2t and in B3's backward must fail those checks.
+Then the sparse path, SparseATGCN at its defaults' full width on the
+synthetic large graph of 49,152 nodes (4,946 tiles of 128x128):
+  * the SpMM (B4/B6) and SDDMM (B5) kernels against their plain versions
+    at every width the path gives them, timed, beside their bounds and a
+    PyTorch library call each;
+  * training through ``get_executor`` (2 warm-up and 10 timed steps at
+    batch 2) with exact launch counts derived from the model, one
+    validation and one evaluation pass, and serving the saved experiment
+    through ``from_experiment`` at buckets 1 and 2;
+  * at 4,096 nodes, the model output and one step's loss and gradients on
+    the card against the CPU, failed by faults planted in each kernel.
 Every phase raises on failure; nothing is caught. The output ends with a
 JSON line listing the kernels and a JSON line ``{"ok": true, "device": {...}}``.
 
@@ -91,9 +102,9 @@ def say(msg):
     print(msg, flush=True)
 
 
-def _bound_ms(num_bytes, flops):
+def _bound_ms(num_bytes, flops, peak_flops=PEAK_BF16_FLOPS):
     t_bytes = num_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -352,8 +363,10 @@ def _device_time(torch, fn, wall_ms):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
         # kernels and copies only: a CPU op's self device time repeats its kernels'
@@ -369,6 +382,9 @@ def _device_time(torch, fn, wall_ms):
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if rows else "not measured",
         "device_idle_share": 1.0 - busy_ms / wall_ms if rows else "not measured",
+        # the same against the profiled call's own wall time (the profiler's overhead included)
+        "profiled_wall_ms": profiled_ms,
+        "profiled_idle_share": 1.0 - busy_ms / profiled_ms if rows else "not measured",
         "device_ops": sum(r[1] for r in rows),
         "top": [{"name": k[:70], "count": c, "ms": ms} for ms, c, k in rows[:8]],
     }
@@ -526,19 +542,21 @@ _MODES = {  # config overrides of the int8 serving/training arguments
 def _counters():
     from multistgraph_tpu_torch.ops.layout import force_default_layout
     from multistgraph_tpu_torch.ops.node_apply import node_apply_q8, node_apply_q8_t
+    from multistgraph_tpu_torch.ops.spmm import bsr_spmm, sampled_matmul
 
-    return node_apply_q8, node_apply_q8_t, force_default_layout
+    return node_apply_q8, node_apply_q8_t, force_default_layout, bsr_spmm, sampled_matmul
 
 
 def _reset_counts():
-    b2, b2t, b3 = _counters()
-    b2.launches = b2t.launches = b3.launches = b3.backward_launches = 0
+    b2, b2t, b3, b46, b5 = _counters()
+    b2.launches = b2t.launches = b3.launches = b3.backward_launches = b46.launches = b5.launches = 0
 
 
 def _read_counts():
-    b2, b2t, b3 = _counters()
+    b2, b2t, b3, b46, b5 = _counters()
     return {"node_apply_q8": b2.launches, "node_apply_q8_t": b2t.launches,
-            "force_default_layout": b3.launches, "force_default_layout_bwd": b3.backward_launches}
+            "force_default_layout": b3.launches, "force_default_layout_bwd": b3.backward_launches,
+            "bsr_spmm": b46.launches, "sampled_matmul": b5.launches}
 
 
 def _executor(torch, mode, feature, state_dict, device=None):
@@ -621,7 +639,8 @@ def training_phase(torch):
                             "seconds": time.perf_counter() - t0}
     windows["validation"] = _read_counts()
     if windows["validation"] != {"node_apply_q8": per_step * len(val), "node_apply_q8_t": 0,
-                                 "force_default_layout": 0, "force_default_layout_bwd": 0}:
+                                 "force_default_layout": 0, "force_default_layout_bwd": 0,
+                                 "bsr_spmm": 0, "sampled_matmul": 0}:
         raise AssertionError("validation launched {}".format(windows["validation"]))
     if not math.isfinite(val_loss):
         raise AssertionError("non-finite validation loss")
@@ -707,6 +726,377 @@ def gradient_phase(torch, feature, state_dict, batch):
     return errs, controls
 
 
+# ------------------------------------------------------------------ sparse
+# SparseATGCN at the scale point of BASELINE.json config 4 and
+# tools/bench_large_graph.py: 49,152 nodes at degree 16 (4,946 nonzero
+# 128x128 tiles), the model and data defaults of config/defaults.py
+# (hidden 64, 2 layers, embed_dim_adj 16, the unidirectional adaptive view
+# with the sampled softmax, remat, batch 2, 12 steps in, 3 out, len_time
+# 240), f32, random weights from the config's seed.
+SP_TASK, SP_MODEL, SP_DATASET = "traffic_state_pred", "SparseATGCN", "SYN_LARGE_49K"
+SP_NODES, SP_CHECK_NODES = 49152, 4096
+SP_T, SP_B, SP_H = 12, 2, 64
+SP_WARMUP, SP_STEPS = 2, 10
+SP_SPMM_WIDTHS = (16, 24, 64, 128, 1536)   # sddmm dE, layer-0 hoist, serving step, step, layer-1 hoist
+SP_B5_WIDTHS = (16, 24, 128, 1536)         # forward scores, then adaptive dV at each SpMM width
+PEAK_F32_FLOPS = 67e12
+PEAK_F32_NOTE = "H100 SXM data sheet: 3.35 TB/s HBM, 67 TFLOP/s f32 (CUDA cores; TF32 is off)"
+# Card vs CPU at 4,096 nodes (373 tiles), same configuration and weights:
+# the relative max error (max |card - CPU| over max |CPU|) of the model
+# output, and of one step's loss and every parameter gradient (largest over
+# the parameters). 1e-4 each before the first run; an H100 read 4.45e-7
+# (output) and 1.72e-6 (node_vec2's gradient), f32 sums in other orders
+# over 24 recurrent steps, so the bounds are 4.5x and 4.1x those readings.
+# The planted faults read 0.587 (output) and 0.356 / 0.217 (gradients).
+BOUND_SPARSE_OUT = 2e-6
+BOUND_SPARSE_GRAD = 7e-6
+
+
+def _sparse_args(num_nodes, exp_id):
+    return {"output_dir": os.path.join(WORK, "outputs"), "exp_id": exp_id, "num_nodes": num_nodes,
+            "avg_degree": 16, "seed": 0, "tensorboard": False}
+
+
+def _sparse_launches(model, steps=1, train=False):
+    """bsr_spmm and sampled_matmul launches of `steps` forwards (or training
+    steps) of `model` at SP_T input steps, derived from the code:
+      forward, per layer: one hoisted aggregation of the input and two per
+        step (h and z*h), each one SpMM per static support and one for the
+        adaptive view; one sampled matmul for the adaptive scores;
+      training adds: the per-step aggregations again under remat
+        (torch.utils.checkpoint recomputes each step); dX of every SpMM
+        whose input needs a gradient, i.e. all but layer 0's hoisted input
+        (the data) and h at t=0 (zeros); dV, a sampled matmul, of every
+        adaptive SpMM; and the SDDMM's backward, dE1 and dE2, two SpMMs."""
+    layers, t = model.num_layers, SP_T
+    per_agg = model.num_static + int(model.has_adaptive)
+    spmm = layers * per_agg * (1 + 2 * t)
+    b5 = int(model.has_adaptive)
+    if train:
+        spmm += layers * per_agg * 2 * t if model.remat else 0
+        spmm += layers * per_agg * (2 * t - 1) + per_agg * (layers - 1)
+        if model.has_adaptive:
+            spmm += 2
+            b5 += layers * (1 + 2 * t)
+    return {"bsr_spmm": spmm * steps, "sampled_matmul": b5 * steps}
+
+
+def _bsr_csr_pattern(torch, row_ptr, col_of, nb):
+    """The CSR expansion (crow, col) of a BSR block pattern, every entry of
+    every tile (for torch.sparse.sampled_addmm)."""
+    block = 128
+    cols = (col_of.long()[:, None] * block + torch.arange(block, device=col_of.device)).reshape(-1)
+    counts = (row_ptr[1:] - row_ptr[:-1]).long() * block                 # entries per node row
+    crow = torch.zeros(nb * block + 1, dtype=torch.long, device=col_of.device)
+    crow[1:] = torch.cumsum(counts.repeat_interleave(block), 0)
+    bounds = row_ptr.tolist()
+    parts = [cols[bounds[r] * block: bounds[r + 1] * block].repeat(block) for r in range(nb)]
+    return crow, torch.cat(parts)
+
+
+def sparse_kernel_phase(torch):
+    """bsr_spmm and sampled_matmul vs their plain versions on the 49,152-node
+    graph at the widths the main path gives them, timed, with their bounds
+    and one PyTorch library call each."""
+    from multistgraph_tpu_torch.ops import spmm as sp
+    from multistgraph_tpu_torch.ops.bsr import random_spatial_graph
+
+    t0 = time.time()
+    graph, _ = random_spatial_graph(SP_NODES, 16, seed=0)
+    say("49,152-node graph built in {:.1f}s: {} tiles in {} row blocks".format(
+        time.time() - t0, graph.nnz_blocks, graph.num_row_blocks))
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    nb, nnz, n_pad = graph.num_row_blocks, graph.nnz_blocks, graph.padded_nodes
+    values = torch.from_numpy(graph.values).to(dev)
+    row = torch.from_numpy(graph.row_of).to(dev)
+    col = torch.from_numpy(graph.col_of).to(dev)
+    row_ptr = sp.row_ptr_of(row, nb)
+    tile_bytes = nnz * 128 * 128 * 4
+    index_bytes = (2 * nnz + nb + 1) * 4
+    lines = []
+
+    def spmm_rows(values, row, row_ptr, col, widths, what):
+        bsr = torch.sparse_bsr_tensor(row_ptr, col, values, size=(n_pad, n_pad))
+        for feat in widths:
+            x = torch.randn(n_pad, feat, generator=g, device=dev)
+            got = sp.bsr_spmm(values, row, row_ptr, col, x, nb)
+            want = sp.spmm_plain(values, row, col, x, out_blocks=nb)
+            torch.cuda.synchronize()
+            scale = want.abs().max().item()
+            # the same f32 products, summed in another order
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+            num_bytes = tile_bytes + index_bytes + 2 * n_pad * feat * 4
+            flops = 2 * nnz * 128 * 128 * feat
+            bound, by = _bound_ms(num_bytes, flops, PEAK_F32_FLOPS)
+            library_ms, library = _library_ms(torch, lambda: bsr @ x,
+                                              "torch.sparse_bsr_tensor(row_ptr, col_of, values) @ x")
+            stream = feat % 128 == 0  # the width JAX sends to spmm_stream (B6), else the block-grid kernel (B4)
+            lines.append({
+                "name": "bsr_spmm", "shape": "N={} nnz={} F={}{}".format(n_pad, nnz, feat, what),
+                "replaces": ("multistgraph_tpu/ops/spmm_stream.py:303 spmm_stream" if stream
+                             else "multistgraph_tpu/ops/spmm.py:87 _spmm_blockgrid"),
+                "max_abs_err": (got - want).abs().max().item(), "tolerance": "rtol 1e-5, atol 1e-5*max|plain|",
+                "kernel_ms": _time_ms(torch, lambda: sp.bsr_spmm(values, row, row_ptr, col, x, nb)),
+                "plain_ms": _time_ms(torch, lambda: sp.spmm_plain(values, row, col, x, out_blocks=nb), reps=10),
+                "library_ms": library_ms, "library": library,
+                "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops,
+                "peak": PEAK_F32_NOTE, "main_path": True,
+            })
+
+    spmm_rows(values, row, row_ptr, col, SP_SPMM_WIDTHS, "")
+    # the backward's dX walks the block-transposed graph, whose hub-column
+    # row blocks hold a tile from every row block
+    v_t, r_t, c_t = sp.bsr_transpose(values, row, col, nb)
+    spmm_rows(v_t, r_t, sp.row_ptr_of(r_t, nb), c_t, (128, 1536), " transposed (backward dX)")
+    del v_t
+    crow, ccol = _bsr_csr_pattern(torch, row_ptr, col, nb)
+    for d in SP_B5_WIDTHS:
+        a = torch.randn(n_pad, d, generator=g, device=dev)
+        bt = torch.randn(n_pad, d, generator=g, device=dev)
+        got = sp.sampled_matmul(a, bt, row, col)
+        want = sp.sampled_matmul_plain(a, bt, row, col)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+        num_bytes = 2 * n_pad * d * 4 + 2 * nnz * 4 + tile_bytes
+        flops = 2 * nnz * 128 * 128 * d
+        bound, by = _bound_ms(num_bytes, flops, PEAK_F32_FLOPS)
+        csr = torch.sparse_csr_tensor(crow, ccol, torch.ones(ccol.numel(), device=dev), size=(n_pad, n_pad))
+        library_ms, library = _library_ms(
+            torch, lambda: torch.sparse.sampled_addmm(csr, a, bt.t(), beta=0.0),
+            "torch.sparse.sampled_addmm on the CSR expansion of the pattern")
+        if library_ms is None:
+            a_t = a.reshape(-1, 128, d).index_select(0, row)
+            b_t = bt.reshape(-1, 128, d).index_select(0, col)
+            library_ms = _time_ms(torch, lambda: torch.bmm(a_t, b_t.transpose(1, 2)), reps=10)
+            library = "torch.bmm of the pre-gathered tiles (sampled_addmm refused: {})".format(library)
+        lines.append({
+            "name": "sampled_matmul", "shape": "N={} nnz={} d={}".format(n_pad, nnz, d),
+            "replaces": "multistgraph_tpu/ops/spmm.py:129 _sampled_matmul_impl",
+            "max_abs_err": (got - want).abs().max().item(), "tolerance": "rtol 1e-5, atol 1e-5*max|plain|",
+            "kernel_ms": _time_ms(torch, lambda: sp.sampled_matmul(a, bt, row, col)),
+            "plain_ms": _time_ms(torch, lambda: sp.sampled_matmul_plain(a, bt, row, col), reps=10),
+            "library_ms": library_ms, "library": library,
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops, "peak": PEAK_F32_NOTE,
+            "main_path": True,
+        })
+        del a, bt, got, want, csr
+    del crow, ccol, values
+    torch.cuda.empty_cache()
+    for line in lines:
+        say(json.dumps(line))
+    return lines
+
+
+def _library_ms(torch, fn, label):
+    """Time one PyTorch library call, or (None, the reason) if it refuses
+    these inputs: a yardstick only, never called by the port."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        return None, "{} refused: {}".format(label, str(exc).splitlines()[0][:160])
+    return _time_ms(torch, fn, reps=10), label
+
+
+def sparse_phase(torch):
+    """SparseATGCN's main path at 49,152 nodes: training through
+    get_executor with exact launch counts per step, one validation and one
+    evaluation pass, and serving the saved experiment through
+    from_experiment at buckets 1 and 2."""
+    import numpy as np
+
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.data import get_dataset
+    from multistgraph_tpu_torch.executor import get_executor
+    from multistgraph_tpu_torch.models import get_model
+    from multistgraph_tpu_torch.serving import PredictService
+
+    args = _sparse_args(SP_NODES, "chip_smoke_sparse")
+    cfg = load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=args)
+    t0 = time.time()
+    dataset = get_dataset(cfg)
+    train, val, test = dataset.get_data()
+    feature = dataset.get_data_feature()
+    graph = feature["bsr_graph"]
+    setup = {"dataset_s": time.time() - t0, "nodes": graph.num_nodes, "padded": graph.padded_nodes,
+             "tiles": graph.nnz_blocks, "train_batches": len(train), "val_batches": len(val),
+             "test_batches": len(test)}
+    model = get_model(cfg, feature)
+    executor = get_executor(cfg, model, feature)
+    if (model.hidden_dim, model.num_layers, model.embed_dim_adj, model.remat, model.has_adaptive,
+            model.adaptive_softmax, cfg["batch_size"], cfg["input_window"]) != (
+            SP_H, 2, 16, True, True, "sampled", SP_B, SP_T):
+        raise AssertionError("the sparse configuration is not the defaults' full width")
+    setup["model_s"] = time.time() - t0 - setup["dataset_s"]
+    say(json.dumps({"sparse_setup": setup}))
+
+    windows = {}
+    perm = train.epoch_permutation()
+    batches = [executor.batch(train, idx) for idx in perm[: SP_WARMUP + SP_STEPS]]
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(executor.train_step(b)) for b in batches[:SP_WARMUP]]
+    torch.cuda.synchronize()
+    _reset_counts()
+    timed, marks = [], [time.perf_counter()]
+    for b in batches[SP_WARMUP:]:
+        timed.append(executor.train_step(b))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    windows["sparse training"] = _read_counts()
+    want = dict(_sparse_launches(model, SP_STEPS, train=True), node_apply_q8=0, node_apply_q8_t=0,
+                force_default_layout=0, force_default_layout_bwd=0)
+    if windows["sparse training"] != want:
+        raise AssertionError("{} sparse training steps launched {}, want {}".format(
+            SP_STEPS, windows["sparse training"], want))
+    losses += [float(v) for v in timed]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite sparse training loss: {}".format(losses))
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    ms = statistics.median(step_ms)
+    record = {"steps": SP_STEPS, "batch": SP_B, "ms_per_step": ms, "step_ms": step_ms,
+              "epochs_per_hour": 3600.0 / (ms / 1e3 * len(train)), "losses": losses,
+              "launches_per_step": _sparse_launches(model, train=True),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "device_time_per_step": _device_time(torch, lambda: executor.train_step(batches[-1]), ms)}
+
+    per_forward = _sparse_launches(model)
+    _reset_counts()
+    t0 = time.perf_counter()
+    val_loss = executor._valid_epoch(val)
+    record["validation"] = {"batches": len(val), "loss": val_loss, "seconds": time.perf_counter() - t0}
+    windows["sparse validation"] = _read_counts()
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = executor.evaluate(test)
+    record["evaluation"] = {"batches": len(test), "seconds": time.perf_counter() - t0,
+                            "masked_MAE": [float(v) for v in result["masked_MAE"]]}
+    windows["sparse evaluation"] = _read_counts()
+    for name, n in (("sparse validation", len(val)), ("sparse evaluation", len(test))):
+        if _sparse_counts_of(windows[name]) != {k: v * n for k, v in per_forward.items()}:
+            raise AssertionError("{} launched {}, want {} per batch".format(name, windows[name], per_forward))
+    if not (math.isfinite(val_loss) and np.isfinite(result["masked_MAE"]).all()):
+        raise AssertionError("non-finite sparse validation loss or test metrics")
+
+    cache = os.path.join(args["output_dir"], args["exp_id"], "model_cache",
+                         "{}_{}.pt".format(SP_MODEL, SP_DATASET))
+    executor.save_model(cache)
+    t0 = time.perf_counter()
+    service = PredictService.from_experiment(SP_TASK, SP_MODEL, SP_DATASET, other_args=args, max_batch=SP_B)
+    record["from_experiment_s"] = time.perf_counter() - t0
+    x = test.x[:SP_B].cpu().numpy()
+    _reset_counts()
+    replies = {b: service.predict(x[:b]) for b in (1, SP_B)}
+    windows["sparse serving"] = _read_counts()
+    if _sparse_counts_of(windows["sparse serving"]) != {k: 2 * v for k, v in per_forward.items()}:
+        raise AssertionError("sparse serving launched {}, want {} per request".format(
+            windows["sparse serving"], per_forward))
+    with torch.no_grad():
+        direct = executor.model(test.x[:SP_B])
+    want_y = np.maximum(feature["scaler"].inverse_transform(direct).cpu().numpy(), 0.0)
+    for b, y in replies.items():
+        if y.shape != (b, 3, graph.padded_nodes, 1) or not np.isfinite(y).all():
+            raise AssertionError("bad sparse reply for batch {}: {}".format(b, y.shape))
+        np.testing.assert_allclose(y, want_y[:b], rtol=1e-5, atol=1e-4)
+    latency = {str(b): _bucket_ms(service, x[:b], reps=5) for b in (1, SP_B)}
+    record["serving"] = {"ms_per_request_by_bucket": latency,
+                         "device_time_per_request": _device_time(
+                             torch, lambda: service.predict(x), latency[str(SP_B)])}
+    say(json.dumps({"sparse": record}))
+    say("sparse launches per window: " + json.dumps(windows))
+    del executor, service, model, dataset, train, val, test, batches
+    torch.cuda.empty_cache()
+    return windows
+
+
+def _sparse_counts_of(counts):
+    return {k: counts[k] for k in ("bsr_spmm", "sampled_matmul")}
+
+
+def _sparse_run(torch, model, scaler, batch):
+    """The model output on batch X (no autograd), then one step's loss and
+    every parameter gradient, as host tensors."""
+    from multistgraph_tpu_torch.ops.losses import make_loss_fn
+
+    dev = next(model.parameters()).device
+    b = {k: v.to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        out = model(b["X"]).float().cpu()
+    model.zero_grad(set_to_none=True)
+    loss = make_loss_fn(model, scaler)(b, train=True)
+    loss.backward()
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
+             for n, p in model.named_parameters()}
+    return out, (loss.detach().float().cpu(), grads)
+
+
+def sparse_check_phase(torch):
+    """Card vs CPU at 4,096 nodes, same configuration and weights: the model
+    output, one step's loss and every gradient; faults planted in each
+    kernel must fail the checks."""
+    from unittest import mock
+
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.data import get_dataset
+    from multistgraph_tpu_torch.models import get_model
+    from multistgraph_tpu_torch.ops import spmm as sp
+
+    args = _sparse_args(SP_CHECK_NODES, "chip_smoke_sparse_check")
+    cfg = load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=args)
+    dataset = get_dataset(cfg, device="cpu")
+    train, _, _ = dataset.get_data()
+    feature = dataset.get_data_feature()
+    cpu_model = get_model(cfg, feature, device="cpu")
+    state_dict = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    card_model = get_model(cfg, feature)
+    card_model.load_state_dict(state_dict)
+    batch = {"X": train.x[:SP_B], "y": train.y[:SP_B]}
+    scaler = feature["scaler"]
+    t0 = time.perf_counter()
+    cpu_out, cpu_grads = _sparse_run(torch, cpu_model, scaler, batch)
+    cpu_s = time.perf_counter() - t0
+    card_out, card_grads = _sparse_run(torch, card_model, scaler, batch)
+    errs = {"output": _rel_err(card_out.numpy(), cpu_out.numpy()), "gradients": _grad_err(card_grads, cpu_grads)}
+
+    real_forward, real_backward = sp._SpMM.forward, sp._SpMM.backward
+
+    def spmm_row_block_zeroed(ctx, *a):
+        y = real_forward(ctx, *a)  # bsr_spmm's output
+        y[:128] = 0.0
+        return y
+
+    def dv_tile_dropped(ctx, dy):
+        dvalues, *rest = real_backward(ctx, dy)
+        if dvalues is not None:  # sampled_matmul's dV of an adaptive SpMM
+            dvalues[0] = 0.0
+        return (dvalues, *rest)
+
+    faults = {"bsr_spmm row block 0 zeroed": mock.patch.object(sp._SpMM, "forward",
+                                                               staticmethod(spmm_row_block_zeroed)),
+              "sampled_matmul dV tile 0 dropped": mock.patch.object(sp._SpMM, "backward",
+                                                                    staticmethod(dv_tile_dropped))}
+    controls = {}
+    for name, patch in faults.items():
+        with patch:
+            out, grads = _sparse_run(torch, card_model, scaler, batch)
+        controls[name] = {"output": _rel_err(out.numpy(), cpu_out.numpy()),
+                          "gradients": _grad_err(grads, cpu_grads)}
+    say(json.dumps({"sparse_card_vs_cpu": {"nodes": SP_CHECK_NODES, "tiles": feature["bsr_graph"].nnz_blocks,
+                                           "errors": errs, "cpu_seconds": cpu_s},
+                    "bounds": {"output": BOUND_SPARSE_OUT, "gradients": BOUND_SPARSE_GRAD},
+                    "planted_faults": controls}))
+    if not errs["output"] < BOUND_SPARSE_OUT:
+        raise AssertionError("sparse output, card vs CPU: {} over {}".format(errs["output"], BOUND_SPARSE_OUT))
+    if not errs["gradients"]["max"] < BOUND_SPARSE_GRAD:
+        raise AssertionError("sparse gradients, card vs CPU: {} over {}".format(errs["gradients"], BOUND_SPARSE_GRAD))
+    if not controls["bsr_spmm row block 0 zeroed"]["output"] > BOUND_SPARSE_OUT:
+        raise AssertionError("the planted SpMM fault passes the sparse output check")
+    for name, c in controls.items():
+        if not c["gradients"]["max"] > BOUND_SPARSE_GRAD:
+            raise AssertionError("{} passes the sparse gradient check ({})".format(name, c["gradients"]))
+    return errs, controls
+
 
 def main():
     import torch
@@ -731,23 +1121,29 @@ def main():
         say("  {}: {}".format(name, _ptxas_summary(out)))
 
     lines = kernel_phase(torch)
+    lines += sparse_kernel_phase(torch)
     make_dataset()
-    # training (this slice's main path) is timed before any phase runs the
-    # model on the host's CPU, which slows the launching thread afterwards
+    # the training paths are timed before any phase runs a model on the
+    # host's CPU, which slows the launching thread afterwards
     windows, feature, state_dict, grad_batch = training_phase(torch)
+    windows.update(sparse_phase(torch))
     serving_launches = serving_phase(torch)
     gradient_phase(torch, feature, state_dict, grad_batch)
     windows["serving"] = dict(serving_launches, node_apply_q8_t=0, force_default_layout_bwd=0)
+    sparse_check_phase(torch)
 
     kernels = []
     for name, source in (("node_apply_q8", "multistgraph_tpu_torch/csrc/node_apply_q8.cu"),
                          ("node_apply_q8_t", "multistgraph_tpu_torch/csrc/node_apply_q8_t.cu"),
                          ("force_default_layout", "multistgraph_tpu_torch/csrc/layout_copy.cu"),
-                         ("force_default_layout_bwd", "multistgraph_tpu_torch/csrc/layout_copy.cu")):
+                         ("force_default_layout_bwd", "multistgraph_tpu_torch/csrc/layout_copy.cu"),
+                         ("bsr_spmm", "multistgraph_tpu_torch/csrc/bsr_spmm.cu"),
+                         ("sampled_matmul", "multistgraph_tpu_torch/csrc/sampled_matmul.cu")):
         rows = [r for r in lines if r["name"] == name and r["main_path"]]
-        launches = sum(w[name] for w in windows.values())
+        launches = sum(w.get(name, 0) for w in windows.values())
         if launches == 0:
             raise AssertionError("{} was launched no time on the main path".format(name))
+        library = [r["library_ms"] for r in rows]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": rows[0]["replaces"].split()[0],
@@ -758,9 +1154,12 @@ def main():
             "ms": sum(r["kernel_ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_us"] for r in rows) / 1e3,
-            "bound_by": rows[0]["bound_by"],
-            "library_ms": sum(r["library_ms"] for r in rows),
+            "bound_by": max(rows, key=lambda r: r["bound_us"])["bound_by"],
+            "library_ms": None if None in library else sum(library),
         })
+        also = sorted({r["replaces"].split()[0] for r in rows} - {kernels[-1]["replaces"]})
+        if also:
+            kernels[-1]["also_replaces"] = also
     say(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}), flush=True)

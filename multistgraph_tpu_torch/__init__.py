@@ -1,10 +1,11 @@
 """multistgraph_tpu_torch — the PyTorch and CUDA port of multistgraph_tpu.
 
 The port grows beside the JAX package, slice by slice, and is held against
-it by the tests. This slice serves MultiATGCN: config, atomic data and MTH
-windowing, the multi-view graph supports, the model forward (f32, bf16 and
-the int8 weight-stream path), and the bucketed predict service with its
-HTTP front.
+it by the tests. It serves and trains MultiATGCN (config, atomic data and
+MTH windowing, the multi-view graph supports, f32, bf16 and the int8
+weight-stream path, the executor and evaluator, the bucketed predict
+service with its HTTP front), and SparseATGCN on block-sparse graphs of the
+synthetic large-graph dataset (f32, plain BSR form).
 
 The package imports torch, numpy and scipy, and nothing of JAX, flax,
 pandas or multistgraph_tpu. Entry points (``PredictService``,
@@ -13,10 +14,12 @@ CUDA unless the caller passes ``device="cpu"``.
 
 Layer map (module names mirror the JAX package):
     config/    — layered config precedence
-    data/      — csv atomic readers, scalers, MTH windows, device tensors
+    data/      — csv atomic readers, scalers, MTH windows, device tensors,
+                 the synthetic large-graph dataset
     graph/     — Laplacians, haversine geometry, multi-view supports
-    models/    — MultiATGCN as an nn.Module
-    ops/       — the hand-written CUDA kernels (csrc/) and their plain twins
+    models/    — MultiATGCN and SparseATGCN as nn.Modules
+    ops/       — the hand-written CUDA kernels (csrc/) and their plain twins,
+                 BSR graphs and the sparse products' autograd
     serving.py — bucketed predict service + HTTP
 """
 

@@ -1,9 +1,10 @@
 """Default configuration values for the port's slice, layered like the JAX package.
 
-A copy of the part of multistgraph_tpu/config/defaults.py that the
-``traffic_state_pred/MultiATGCN`` -> ``MTHDataset`` path reads: the task
-binding of MultiATGCN, its model defaults, the MTHDataset data defaults and
-the executor and evaluator defaults, which also merge into a run's config.
+A copy of the part of multistgraph_tpu/config/defaults.py that the port's
+two paths read: ``traffic_state_pred/MultiATGCN`` -> ``MTHDataset`` and
+``traffic_state_pred/SparseATGCN`` -> ``SyntheticLargeGraphDataset``, with
+their task bindings, model and data defaults, and the executor and
+evaluator defaults, which also merge into a run's config.
 Values reproduce the reference defaults
 (ref: libcity/config/model/traffic_state_pred/MultiATGCN.json:1-31,
  libcity/config/data/MTHDataset.json:1-21,
@@ -13,10 +14,15 @@ Values reproduce the reference defaults
 
 TASK_CONFIG = {
     "traffic_state_pred": {
-        "allowed_model": ["MultiATGCN"],
+        "allowed_model": ["MultiATGCN", "SparseATGCN"],
         "models": {
             "MultiATGCN": {
                 "dataset_class": "MTHDataset",
+                "executor": "TrafficStateExecutor",
+                "evaluator": "TrafficStateEvaluator",
+            },
+            "SparseATGCN": {
+                "dataset_class": "SyntheticLargeGraphDataset",
                 "executor": "TrafficStateExecutor",
                 "evaluator": "TrafficStateEvaluator",
             },
@@ -25,6 +31,22 @@ TASK_CONFIG = {
 }
 
 MODEL_DEFAULTS = {
+    "traffic_state_pred/SparseATGCN": {
+        "rnn_units": 64,
+        "num_layers": 2,
+        "embed_dim_adj": 16,
+        "embed_dim_node": 8,
+        "adpadj": "unidirection",
+        "node_conditioned": "off",
+        "remat": True,
+        "batch_size": 2,
+        "scaler": "standard",
+        "learner": "adam",
+        "learning_rate": 0.003,
+        "clip_grad_norm": True,
+        "max_grad_norm": 5,
+        "groupstd": False,
+    },
     "traffic_state_pred/MultiATGCN": {
         "embed_dim_node": 20,
         "embed_dim_adj": 20,
@@ -54,6 +76,22 @@ MODEL_DEFAULTS = {
 }
 
 DATA_DEFAULTS = {
+    "SyntheticLargeGraphDataset": {
+        "num_nodes": 4096,
+        "avg_degree": 16,
+        # hybrid graph representation: None | 'hub' | 'tail' | 'band' (only
+        # None is ported; the others raise, ROADMAP.md A.6)
+        "graph_split": None,
+        "graph_band_packed": False,
+        "len_time": 240,
+        "batch_size": 2,
+        "pad_with_last_sample": True,
+        "train_rate": 0.7,
+        "eval_rate": 0.15,
+        "scaler": "standard",
+        "input_window": 12,
+        "output_window": 3,
+    },
     "MTHDataset": {
         "batch_size": 64,
         "cache_dataset": True,

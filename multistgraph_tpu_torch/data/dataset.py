@@ -7,7 +7,8 @@ split, scaler fit on train, ``use_3tu=False`` truncation and
 get_data_feature() keys. Tables the JAX package keeps as DataFrames
 (``coordinate``, ``ct_visit_mstd``) are column dicts here. The split cache
 is an .npz under its own file name (``torch_`` prefix), so it never
-collides with the JAX package's cache. No data_parallel, no large graphs.
+collides with the JAX package's cache. No data_parallel. The synthetic
+large-graph dataset of SparseATGCN is data/large_graph.py.
 """
 
 import os
@@ -277,9 +278,16 @@ class MTHDataset(TrafficStateDataset):
         return feature
 
 
+def _large_graph_dataset(config, device=None):
+    from multistgraph_tpu_torch.data.large_graph import SyntheticLargeGraphDataset
+
+    return SyntheticLargeGraphDataset(config, device)
+
+
 DATASET_REGISTRY = {
     "TrafficStateDataset": TrafficStateDataset,
     "MTHDataset": MTHDataset,
+    "SyntheticLargeGraphDataset": _large_graph_dataset,
 }
 
 

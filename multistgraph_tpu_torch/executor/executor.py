@@ -43,8 +43,8 @@ from multistgraph_tpu_torch.executor.optimizers import (
     clip_by_global_norm,
     set_learning_rate,
 )
-from multistgraph_tpu_torch.models.multi_atgcn import make_loss_fn
 from multistgraph_tpu_torch.ops import losses
+from multistgraph_tpu_torch.ops.losses import make_loss_fn
 from multistgraph_tpu_torch.utils import ensure_dir, get_logger, resolve_device
 
 _NAMED_LOSSES = {

@@ -46,7 +46,6 @@ from torch import nn
 from multistgraph_tpu_torch.graph import views as graph_views
 from multistgraph_tpu_torch.models import initializers
 from multistgraph_tpu_torch.ops import layout as layout_ops
-from multistgraph_tpu_torch.ops import losses
 from multistgraph_tpu_torch.ops.node_apply import (
     _pad_nodes,
     node_apply_q8,
@@ -744,19 +743,6 @@ class MultiATGCN(nn.Module):
         kernel = self.end_conv.weight.reshape(self.end_conv.weight.shape[0], t * h)
         out = F.linear(flat, kernel, self.end_conv.bias)
         return out.reshape(b, n, self.output_window, self.output_dim).permute(0, 2, 1, 3)
-
-
-def make_loss_fn(model: MultiATGCN, scaler):
-    """calculate_loss (JAX multi_atgcn.py:1036-1045, ref :422-427): masked MAE
-    on the inverse-transformed prediction and truth, null_val 0.
-    ``loss_fn(batch, train, generator)``: ``train`` turns dropout on."""
-
-    def loss_fn(batch, train: bool = True, generator: Optional[torch.Generator] = None):
-        pred = model(batch["X"], train=train, generator=generator)
-        y_true = batch["y"][..., model.start_dim: model.end_dim]
-        return losses.masked_mae(scaler.inverse_transform(pred), scaler.inverse_transform(y_true), 0.0)
-
-    return loss_fn
 
 
 def build_multi_atgcn(config, data_feature, device=None,

@@ -1,11 +1,13 @@
-"""Model registry + factory; MultiATGCN only in this slice."""
+"""Model registry + factory: MultiATGCN and SparseATGCN."""
 
 from typing import Callable, Dict
 
 from multistgraph_tpu_torch.models.multi_atgcn import build_multi_atgcn
+from multistgraph_tpu_torch.models.sparse_atgcn import build_sparse_atgcn_from_feature
 
 MODEL_REGISTRY: Dict[str, Callable] = {
     "MultiATGCN": build_multi_atgcn,
+    "SparseATGCN": build_sparse_atgcn_from_feature,
 }
 
 

@@ -1,0 +1,297 @@
+"""SparseATGCN as a PyTorch nn.Module: the MultiATGCN recurrence at 50k-1M nodes.
+
+Counterpart of the single-chip plain-BSR path of
+multistgraph_tpu/models/sparse_atgcn.py. Graph convolution inside GRU
+gates, over block-sparse supports:
+  * the static support is a BSR graph (ops/bsr.py), aggregated by the SpMM
+    kernel (ops/spmm.py: bsr_spmm, csrc/bsr_spmm.cu);
+  * the adaptive view is relu(E1 E2) sampled at the graph's block pattern
+    (the SDDMM kernel, csrc/sampled_matmul.cu) and row-normalised by a
+    sparse softmax ('sampled' or 'dense_corrected'), then aggregated by
+    the same SpMM;
+  * the weight pools are shared (``node_conditioned='off'``) or factored
+    through a node embedding ('factored');
+  * the recurrence is a Python loop over T per layer; the input part of
+    every step is aggregated once per layer (hoisted), and ``remat=True``
+    checkpoints each step (torch.utils.checkpoint), as jax.checkpoint does.
+
+Graph arrays are buffers registered with ``persistent=False``: the JAX
+executor re-derives its zero-initialised 'graph' collection from the
+dataset at init and keeps that form on load, so the port rebuilds them
+from the dataset too and the tiles (324 MB per support at 49,152 nodes)
+stay out of every checkpoint. Parameters keep the JAX package's flat names
+and shapes (``node_vec1``, ``l0_gate_pool``, ``end_kernel``, ...). Only f32
+compute is ported; the multi-chip backend, the hub/tail/band graph forms
+and bf16 compute raise NotImplementedError naming their ROADMAP.md item.
+"""
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from multistgraph_tpu_torch.models.initializers import torch_style_init
+from multistgraph_tpu_torch.ops.bsr import BSRGraph, row_ptr_from_rows
+from multistgraph_tpu_torch.ops.spmm import (
+    bsr_transpose,
+    sddmm_relu,
+    sparse_row_softmax,
+    sparse_row_softmax_dense_corrected,
+    spmm_pret,
+)
+from multistgraph_tpu_torch.utils import resolve_device
+
+
+class SparseATGCN(nn.Module):
+    """Input x: (B, T, N_pad, F) -> (B, Tout, N_pad, output_dim).
+
+    ``supports``: BSRGraphs of the static supports; ``adaptive_pattern``:
+    (row_of, col_of) numpy block pattern of the adaptive view, or None.
+    """
+
+    def __init__(self, num_nodes: int, output_window: int, output_dim: int, hidden_dim: int,
+                 num_layers: int, embed_dim_adj: int, supports=(), adaptive_pattern=None,
+                 node_conditioned: str = "off", embed_dim_node: int = 8, block: int = 128,
+                 remat: bool = False, adaptive_softmax: str = "sampled", device=None):
+        super().__init__()
+        if node_conditioned not in ("off", "factored"):
+            raise ValueError("node_conditioned must be 'off' or 'factored', got {!r}".format(node_conditioned))
+        if adaptive_softmax not in ("sampled", "dense_corrected"):
+            raise ValueError("unknown adaptive_softmax {!r}".format(adaptive_softmax))
+        self.num_nodes = num_nodes
+        self.output_window = output_window
+        self.output_dim = output_dim
+        self.hidden_dim = hidden_dim
+        self.num_layers = num_layers
+        self.embed_dim_adj = embed_dim_adj
+        self.node_conditioned = node_conditioned
+        self.embed_dim_node = embed_dim_node
+        self.block = block
+        self.remat = remat
+        self.adaptive_softmax = adaptive_softmax
+        self.num_static = len(supports)
+        self.has_adaptive = adaptive_pattern is not None
+        nb = num_nodes // block
+
+        def buffer(name, arr):
+            self.register_buffer(name, torch.as_tensor(np.ascontiguousarray(arr), device=device),
+                                 persistent=False)
+
+        for i, g in enumerate(supports):
+            buffer("support{}_values".format(i), g.values)
+            buffer("support{}_row".format(i), g.row_of)
+            buffer("support{}_col".format(i), g.col_of)
+            buffer("support{}_row_ptr".format(i), row_ptr_from_rows(g.row_of, nb))
+        if self.has_adaptive:
+            row, col = adaptive_pattern
+            buffer("adaptive_row", np.asarray(row, np.int32))
+            buffer("adaptive_col", np.asarray(col, np.int32))
+            buffer("adaptive_row_ptr", row_ptr_from_rows(row, nb))
+
+        def param(name, shape):
+            self.register_parameter(name, nn.Parameter(torch.empty(shape, device=device)))
+
+        n, h, ks = num_nodes, hidden_dim, self.num_supports
+        if self.has_adaptive:
+            param("node_vec1", (n, embed_dim_adj))
+            param("node_vec2", (embed_dim_adj, n))
+        if node_conditioned == "factored":
+            param("node_emb", (n, embed_dim_node))
+        for layer in range(num_layers):
+            dim_in = 1 if layer == 0 else h  # the target channel only, at scale
+            for cell, dim_out in (("gate", 2 * h), ("update", h)):
+                if node_conditioned == "factored":
+                    param("l{}_{}_pool".format(layer, cell), (embed_dim_node, ks, dim_in + h, dim_out))
+                    param("l{}_{}_bias".format(layer, cell), (embed_dim_node, dim_out))
+                else:
+                    param("l{}_{}_pool".format(layer, cell), (ks, dim_in + h, dim_out))
+                    param("l{}_{}_bias".format(layer, cell), (1, dim_out))
+        param("end_kernel", (h, output_window * output_dim))
+        param("end_bias", (1, output_window * output_dim))
+
+    @property
+    def num_supports(self) -> int:
+        return 1 + self.num_static + (1 if self.has_adaptive else 0)
+
+    # target-channel bounds, read by the loss and the executor
+    @property
+    def start_dim(self) -> int:
+        return 0
+
+    @property
+    def end_dim(self) -> int:
+        return self.output_dim
+
+    def init_parameters(self, generator: torch.Generator):
+        """xavier_uniform with torch's fan rules (U[0,1) for vectors), as the
+        JAX package's torch_style_init and dense_kernel_init draw them; the
+        draws come from a CPU generator, in parameter order."""
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch_style_init(tuple(p.shape), generator))
+
+    # -------------------------------------------------------------- supports
+    def _static(self, i):
+        return tuple(getattr(self, "support{}_{}".format(i, part)) for part in ("values", "row", "col", "row_ptr"))
+
+    def _adaptive_values(self):
+        """The adaptive view's normalised tiles and the dense-corrected
+        softmax's background (None for 'sampled')."""
+        row, col, row_ptr = self.adaptive_row, self.adaptive_col, self.adaptive_row_ptr
+        scores = sddmm_relu(self.node_vec1, self.node_vec2, row, col, block=self.block, row_ptr=row_ptr)
+        nb = self.num_nodes // self.block
+        if self.adaptive_softmax == "dense_corrected":
+            return sparse_row_softmax_dense_corrected(scores, row, nb, self.num_nodes)
+        return sparse_row_softmax(scores, row, nb), None
+
+    def _precompute_transposes(self, adaptive):
+        """Block transposes of every loop-invariant operand, once per
+        forward (detached: the outputs do not depend on them), so that no
+        step's backward transposes a support again. Without autograd there
+        is no backward and nothing to transpose."""
+        if not torch.is_grad_enabled():
+            return [None] * self.num_static, None
+        nb = self.num_nodes // self.block
+        support_prets = [bsr_transpose(v, r, c, nb) for v, r, c, _ in map(self._static, range(self.num_static))]
+        adaptive_pret = None
+        if adaptive is not None:
+            adaptive_pret = bsr_transpose(adaptive[0].detach(), self.adaptive_row, self.adaptive_col, nb)
+        return support_prets, adaptive_pret
+
+    def _aggregate(self, x_flat, adaptive, support_prets, adaptive_pret):
+        """x_flat (N_pad, F) -> (K, N_pad, F): identity and each support applied."""
+        outs = [x_flat]
+        for i, pre_t in enumerate(support_prets):
+            values, row, col, row_ptr = self._static(i)
+            outs.append(spmm_pret(values, pre_t, row, col, x_flat, block=self.block, row_ptr=row_ptr))
+        if adaptive is not None:
+            vals, background = adaptive
+            y = spmm_pret(vals, adaptive_pret, self.adaptive_row, self.adaptive_col, x_flat,
+                          block=self.block, row_ptr=self.adaptive_row_ptr)
+            if background is not None:
+                # rank-1 exp(0) background of the dense reference softmax
+                y = y + background.reshape(-1, 1) * x_flat.sum(dim=0, keepdim=True)
+            outs.append(y)
+        return torch.stack(outs, dim=0)
+
+    def _mix(self, h_stack, layer, cell):
+        """h_stack (K, N, B, C) -> (N, B, out) through the weight pool."""
+        pool = getattr(self, "l{}_{}_pool".format(layer, cell))
+        bias = getattr(self, "l{}_{}_bias".format(layer, cell))
+        if self.node_conditioned == "factored":
+            u = torch.einsum("knbi,dkio->nbdo", h_stack, pool)
+            out = torch.einsum("nbdo,nd->nbo", u, self.node_emb)
+            return out + (self.node_emb @ bias)[:, None, :]
+        # sum of K full-row products, in the JAX package's order
+        kk, n, b, ii = h_stack.shape
+        out = h_stack[0].reshape(n * b, ii) @ pool[0]
+        for k in range(1, kk):
+            out = out + h_stack[k].reshape(n * b, ii) @ pool[k]
+        return out.reshape(n, b, -1) + bias[0][None, None, :]
+
+    # ---------------------------------------------------------------- forward
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+        """``train`` and ``generator`` are accepted for the executor's loss:
+        the model has no dropout."""
+        b, t, n, _ = x.shape
+        if n != self.num_nodes:
+            raise ValueError("expected padded node dim {}, got {}".format(self.num_nodes, n))
+        adaptive = self._adaptive_values() if self.has_adaptive else None
+        support_prets, adaptive_pret = self._precompute_transposes(adaptive)
+        hdim = self.hidden_dim
+
+        def aggregate(x_flat):
+            return self._aggregate(x_flat, adaptive, support_prets, adaptive_pret)
+
+        current = x.permute(1, 2, 0, 3)  # (T, N, B, C): SpMM consumes (N_pad, B*C)
+        for layer in range(self.num_layers):
+            dim_in = current.shape[-1]
+            # the input part of every step, aggregated at once; (N, T*B*C)
+            # in row-major order (at B*C = 1 the reshape alone is a strided view)
+            flat = current.reshape(t, n, b * dim_in).transpose(0, 1).reshape(n, t * b * dim_in).contiguous()
+            agg_x = aggregate(flat)
+            agg_x = agg_x.reshape(-1, n, t, b, dim_in).permute(2, 0, 1, 3, 4)  # (T, K, N, B, C)
+
+            def step(hstate, agg_x_t, layer=layer):
+                agg_h = aggregate(hstate.reshape(n, b * hdim)).reshape(-1, n, b, hdim)
+                z_r = torch.sigmoid(self._mix(torch.cat([agg_x_t, agg_h], dim=-1), layer, "gate"))
+                z, r = torch.split(z_r, hdim, dim=-1)
+                agg_zh = aggregate((z * hstate).reshape(n, b * hdim)).reshape(-1, n, b, hdim)
+                hc = torch.tanh(self._mix(torch.cat([agg_x_t, agg_zh], dim=-1), layer, "update"))
+                return r * hstate + (1.0 - r) * hc
+
+            hstate = x.new_zeros(n, b, hdim)
+            states = []
+            for ti in range(t):
+                if self.remat and torch.is_grad_enabled():
+                    hstate = checkpoint(step, hstate, agg_x[ti], use_reentrant=False)
+                else:
+                    hstate = step(hstate, agg_x[ti])
+                states.append(hstate)
+            current = torch.stack(states)  # (T, N, B, H)
+
+        out = current[-1] @ self.end_kernel + self.end_bias[0]
+        out = out.reshape(n, b, self.output_window, self.output_dim)
+        return out.permute(1, 2, 0, 3)
+
+
+def _unsupported(config, graph):
+    """NotImplementedError for the JAX package's options this port lacks."""
+    if config.get("node_parallel", False):
+        raise NotImplementedError("node_parallel (the edge-partitioned multi-chip backend) is not "
+                                  "ported yet: ROADMAP.md A.7 (spmm_boundary/spmm_sharded)")
+    if config.get("graph_band_packed", False) or not isinstance(graph, BSRGraph):
+        raise NotImplementedError("the hub/tail/band graph forms (HybridGraph, TailGraph, BandGraph, "
+                                  "graph_band_packed) are not ported yet: ROADMAP.md A.6, the band slice")
+    if config.get("compute_dtype", None) is not None:
+        raise NotImplementedError("SparseATGCN compute_dtype={!r} is not ported yet: ROADMAP.md A.6 "
+                                  "(bf16 with ops/precision.py)".format(config.get("compute_dtype")))
+
+
+def build_sparse_atgcn(graph: BSRGraph, config, device=None,
+                       generator: Optional[torch.Generator] = None) -> SparseATGCN:
+    """SparseATGCN over one static BSR support (plus the adaptive view
+    sampled at its block pattern unless ``adpadj`` is 'none') on `device`
+    (CUDA unless "cpu" is asked for), its weights drawn from `generator`
+    (default: seeded with config['seed'])."""
+    _unsupported(config, graph)
+    device = resolve_device(device)
+    adaptive = None
+    if config.get("adpadj", "none") != "none":
+        row_np, col_np = graph.row_of, graph.col_of
+        # adaptive_max_blocks: the adaptive view samples only the K
+        # statically heaviest blocks (JAX sparse_atgcn.py:653-657)
+        max_blocks = config.get("adaptive_max_blocks", 0)
+        if max_blocks and graph.values.shape[0] > max_blocks:
+            mass = np.abs(graph.values).sum(axis=(1, 2))
+            keep = np.sort(np.argpartition(-mass, max_blocks)[:max_blocks])
+            row_np, col_np = row_np[keep], col_np[keep]
+        adaptive = (row_np, col_np)
+    model = SparseATGCN(
+        num_nodes=graph.padded_nodes,
+        output_window=config.get("output_window", 1),
+        output_dim=config.get("output_dim", 1),
+        hidden_dim=config.get("rnn_units", 64),
+        num_layers=config.get("num_layers", 2),
+        embed_dim_adj=config.get("embed_dim_adj", 16),
+        supports=(graph,),
+        adaptive_pattern=adaptive,
+        node_conditioned=config.get("node_conditioned", "off"),
+        embed_dim_node=config.get("embed_dim_node", 8),
+        block=graph.block,
+        remat=config.get("remat", False),
+        adaptive_softmax=config.get("adaptive_softmax", "sampled"),
+        device=device,
+    )
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(config.get("seed", 0)))
+    model.init_parameters(generator)
+    return model.eval()
+
+
+def build_sparse_atgcn_from_feature(config, data_feature, device=None,
+                                    generator: Optional[torch.Generator] = None) -> SparseATGCN:
+    """Registry builder: the graph arrives as data_feature['bsr_graph']."""
+    return build_sparse_atgcn(data_feature["bsr_graph"], config, device=device, generator=generator)

@@ -103,3 +103,18 @@ def explained_variance_score(preds, labels):
     """As sklearn.explained_variance_score(labels, preds)."""
     preds, labels = _f32(preds).reshape(-1), _f32(labels).reshape(-1)
     return 1.0 - torch.var(labels - preds, correction=0) / torch.var(labels, correction=0)
+
+
+def make_loss_fn(model, scaler):
+    """A model's own training loss, for every model of the port (JAX
+    multi_atgcn.py:1036-1047, ref :422-427): masked MAE on the
+    inverse-transformed prediction and truth, null_val 0, the truth cut to
+    the model's target channels ``start_dim:end_dim``.
+    ``loss_fn(batch, train, generator)``: ``train`` turns dropout on."""
+
+    def loss_fn(batch, train: bool = True, generator=None):
+        pred = model(batch["X"], train=train, generator=generator)
+        y_true = batch["y"][..., model.start_dim: model.end_dim]
+        return masked_mae(scaler.inverse_transform(pred), scaler.inverse_transform(y_true), 0.0)
+
+    return loss_fn

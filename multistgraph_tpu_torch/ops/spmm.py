@@ -1,0 +1,283 @@
+"""Block-sparse SpMM and SDDMM with autograd: kernels B4/B6 and B5.
+
+Counterpart of multistgraph_tpu/ops/spmm.py on the plain BSR form
+(ops/bsr.py). Two kernels carry every sparse product of the SparseATGCN
+path, forward and backward:
+
+  * ``bsr_spmm``: Y = A X with A in BSR form, the hand-written CUDA kernel
+    of csrc/bsr_spmm.cu. It replaces both Pallas SpMM kernels of the JAX
+    package, multistgraph_tpu/ops/spmm.py:_spmm_blockgrid (B4) and
+    multistgraph_tpu/ops/spmm_stream.py:spmm_stream (B6), which compute the
+    same function and between which JAX chooses by a TPU alignment rule;
+  * ``sampled_matmul``: (A B^T) at the graph's nonzero blocks, the
+    hand-written CUDA kernel of csrc/sampled_matmul.cu, which replaces
+    multistgraph_tpu/ops/spmm.py:_sampled_matmul_impl (B5). Its second
+    operand comes as rows (n_pad, d), so no caller passes a strided view.
+
+Each wrapper launches its kernel for CUDA tensors, counts the launch in
+``.launches``, and raises on what the kernel does not take; for CPU tensors
+it takes its plain PyTorch version (``spmm_plain``, ``sampled_matmul_plain``).
+There is no fall back from one to the other.
+
+The backward passes close under the same two kernels, term for term as the
+JAX custom VJPs (spmm.py:183-206, 234-252, 287-298):
+  * d/dX  SpMM  = SpMM with the block-transposed graph;
+  * d/dA  SpMM  = sampled_matmul(dY, X) at the graph pattern;
+  * d/dE1 SDDMM = SpMM(mask.dS, E2^T);  d/dE2 = SpMM(transpose(mask.dS), E1)^T.
+A term whose input needs no gradient is skipped (``ctx.needs_input_grad``):
+XLA drops the same terms from the JAX program, e.g. dA of a static support,
+whose values the model stops gradients at.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from multistgraph_tpu_torch.ops import _cuda
+
+BLOCK = 128  # the kernels' tile edge; the plain versions take any block
+
+
+def row_ptr_of(row_of: torch.Tensor, num_row_blocks: int) -> torch.Tensor:
+    """CSR-of-blocks offsets (num_row_blocks + 1,) int32 of a row-major-sorted
+    row index array, on its device (ops/bsr.py:row_ptr_from_rows on the host)."""
+    bounds = torch.arange(num_row_blocks + 1, dtype=row_of.dtype, device=row_of.device)
+    return torch.searchsorted(row_of, bounds, side="left", out_int32=True)
+
+
+# ----------------------------------------------------------- plain versions
+def spmm_plain(values, row_of, col_of, x, block: int = BLOCK, out_blocks=None):
+    """Y = A X by gather, batched matmul and index_add_ (JAX spmm_jax,
+    spmm.py:142-155); contributions are added in nnz order, as the Pallas
+    kernel accumulates them."""
+    n_pad, feat = x.shape
+    nb = out_blocks if out_blocks is not None else n_pad // block
+    contrib = torch.bmm(values, x.reshape(-1, block, feat).index_select(0, col_of))
+    out = x.new_zeros(nb, block, feat).index_add_(0, row_of, contrib)
+    return out.reshape(nb * block, feat)
+
+
+def sampled_matmul_plain(a, bt, row_of, col_of, block: int = BLOCK):
+    """(a @ bt^T) at the nonzero blocks: (nnz, block, block)."""
+    d = a.shape[1]
+    ab = a.reshape(-1, block, d).index_select(0, row_of)
+    bb = bt.reshape(-1, block, d).index_select(0, col_of)
+    return torch.bmm(ab, bb.transpose(1, 2))
+
+
+def bsr_transpose(values, row_of, col_of, n_blocks: int):
+    """Block transpose: swap row and column, transpose the tiles, re-sort
+    row-major (JAX spmm.py:158-167). One gather-copy of the values."""
+    key = col_of.long() * n_blocks + row_of.long()
+    perm = torch.argsort(key, stable=True)
+    v_t = torch.index_select(values.transpose(1, 2), 0, perm).contiguous()
+    return v_t, col_of[perm], row_of[perm]
+
+
+# ------------------------------------------------------------ CUDA wrappers
+@functools.cache
+def _kernel(name: str, entry: str):
+    fn = getattr(_cuda.library(name), entry)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _run(name, entry, tensors, ints, device):
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _kernel(name, entry)(*[t.data_ptr() for t in tensors], *ints, stream)
+    if rc != 0:
+        raise RuntimeError("{} kernel launch failed: CUDA error {}".format(name, rc))
+
+
+def _check_common(name, floats, ints):
+    """float32 and int32 operands, contiguous, on one CPU or CUDA device."""
+    for t in floats:
+        if t.dtype != torch.float32:
+            raise TypeError("{} takes float32 operands, got {}".format(name, t.dtype))
+    for t in ints:
+        if t.dtype != torch.int32:
+            raise TypeError("{} takes int32 block indices, got {}".format(name, t.dtype))
+    tensors = list(floats) + list(ints)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("{} operands lie on different devices".format(name))
+    if tensors[0].device.type not in ("cpu", "cuda"):
+        raise ValueError("{} runs on CUDA or CPU tensors, not {}".format(name, tensors[0].device))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("{} takes contiguous tensors".format(name))
+
+
+def bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks: int):
+    """Y = A X: (out_blocks*block, F) float32.
+
+    values (nnz, block, block), row_of/col_of (nnz,) and row_ptr
+    (out_blocks+1,) int32 of a row-major-sorted pattern, x (n_in, F) with
+    n_in a multiple of block. CPU tensors take the plain version; CUDA
+    tensors launch csrc/bsr_spmm.cu (block 128) or raise.
+    """
+    _check_common("bsr_spmm", (values, x), (row_of, row_ptr, col_of))
+    if values.dim() != 3 or values.shape[1] != values.shape[2] or x.dim() != 2:
+        raise ValueError("bsr_spmm takes values (nnz,b,b) and x (n,F), got {} and {}".format(
+            tuple(values.shape), tuple(x.shape)))
+    nnz, block = values.shape[0], values.shape[1]
+    if x.shape[0] % block or tuple(row_of.shape) != (nnz,) or tuple(col_of.shape) != (nnz,) \
+            or tuple(row_ptr.shape) != (out_blocks + 1,):
+        raise ValueError("bsr_spmm shape mismatch: values {}, row_of {}, row_ptr {}, col_of {}, "
+                         "x {}, out_blocks {}".format(tuple(values.shape), tuple(row_of.shape),
+                                                      tuple(row_ptr.shape), tuple(col_of.shape),
+                                                      tuple(x.shape), out_blocks))
+    if x.device.type == "cpu":
+        return spmm_plain(values, row_of, col_of, x, block=block, out_blocks=out_blocks)
+    if block != BLOCK:
+        raise ValueError("the bsr_spmm kernel takes {0}x{0} tiles, got {1}".format(BLOCK, block))
+    feat = x.shape[1]
+    out = torch.empty((out_blocks * block, feat), dtype=torch.float32, device=x.device)
+    if out.numel():
+        _run("bsr_spmm", "bsr_spmm_fwd", (values, row_ptr, col_of, x, out), (out_blocks, feat), x.device)
+        bsr_spmm.launches += 1
+    return out
+
+
+def sampled_matmul(a, bt, row_of, col_of):
+    """(a @ bt^T) at the nonzero blocks: (nnz, 128, 128) float32.
+
+    a (n_a, d) and bt (n_b, d) with n_a, n_b multiples of 128; row_of and
+    col_of (nnz,) int32 index a's and bt's 128-row blocks. CPU tensors take
+    the plain version; CUDA tensors launch csrc/sampled_matmul.cu or raise.
+    """
+    _check_common("sampled_matmul", (a, bt), (row_of, col_of))
+    if a.dim() != 2 or bt.dim() != 2 or a.shape[1] != bt.shape[1] or a.shape[0] % BLOCK \
+            or bt.shape[0] % BLOCK or row_of.shape != col_of.shape or row_of.dim() != 1:
+        raise ValueError("sampled_matmul shape mismatch: a {}, bt {}, row_of {}, col_of {}".format(
+            tuple(a.shape), tuple(bt.shape), tuple(row_of.shape), tuple(col_of.shape)))
+    if a.device.type == "cpu":
+        return sampled_matmul_plain(a, bt, row_of, col_of)
+    nnz = row_of.shape[0]
+    out = torch.empty((nnz, BLOCK, BLOCK), dtype=torch.float32, device=a.device)
+    if nnz:
+        _run("sampled_matmul", "sampled_matmul_fwd", (a, bt, row_of, col_of, out), (nnz, a.shape[1]),
+             a.device)
+        sampled_matmul.launches += 1
+    return out
+
+
+bsr_spmm.launches = 0
+sampled_matmul.launches = 0
+
+
+# ---------------------------------------------------------------- autograd
+class _SpMM(torch.autograd.Function):
+    """Y = A X; A's tiles and X differentiable. ``graph`` = (row_of, row_ptr,
+    col_of); ``pre_t`` = a precomputed bsr_transpose of A (detached), or
+    None to transpose in the backward."""
+
+    @staticmethod
+    def forward(ctx, values, x, graph, pre_t, out_blocks):
+        row_of, row_ptr, col_of = graph
+        ctx.graph, ctx.pre_t = graph, pre_t
+        ctx.x_blocks = x.shape[0] // values.shape[1]
+        need_v, need_x = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        ctx.save_for_backward(values if need_x and pre_t is None else None, x if need_v else None)
+        return bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks)
+
+    @staticmethod
+    def backward(ctx, dy):
+        values, x = ctx.saved_tensors
+        row_of, _, col_of = ctx.graph
+        dy = dy.contiguous()
+        dvalues = dx = None
+        if ctx.needs_input_grad[1]:
+            nb = ctx.x_blocks
+            if ctx.pre_t is not None:
+                v_t, r_t, c_t = ctx.pre_t
+            else:
+                # sort-key multiplier must exceed every row id (rectangular A)
+                v_t, r_t, c_t = bsr_transpose(values, row_of, col_of, max(nb, dy.shape[0] // values.shape[1]))
+            dx = bsr_spmm(v_t, r_t, row_ptr_of(r_t, nb), c_t, dy, nb)
+        if ctx.needs_input_grad[0]:
+            dvalues = sampled_matmul(dy, x, row_of, col_of)
+        return dvalues, dx, None, None, None
+
+
+def _graph(row_of, col_of, row_ptr, out_blocks):
+    return (row_of, row_ptr if row_ptr is not None else row_ptr_of(row_of, out_blocks), col_of)
+
+
+def spmm(values, row_of, col_of, x, block: int = BLOCK, out_blocks=None, row_ptr=None):
+    """Y = A X; values (nnz, b, b) float32, row_of/col_of (nnz,) int32 sorted
+    by row, x (padded_nodes, F). Differentiable in values and x. out_blocks
+    sets the output's row-block count when it differs from x's; row_ptr, if
+    given, is row_ptr_of(row_of, out_blocks)."""
+    nb = out_blocks if out_blocks is not None else x.shape[0] // block
+    return _SpMM.apply(values, x, _graph(row_of, col_of, row_ptr, nb), None, nb)
+
+
+def spmm_pret(values, pre_t, row_of, col_of, x, block: int = BLOCK, out_blocks=None, row_ptr=None):
+    """``spmm`` with a precomputed block transpose ``pre_t = (v_t, r_t, c_t)``
+    (from bsr_transpose, detached) steering the backward dX pass, so a
+    loop-invariant operand is transposed once per forward, not per step.
+    ``pre_t=None`` (no backward to come) is ``spmm``."""
+    nb = out_blocks if out_blocks is not None else x.shape[0] // block
+    return _SpMM.apply(values, x, _graph(row_of, col_of, row_ptr, nb), pre_t, nb)
+
+
+class _SDDMMReLU(torch.autograd.Function):
+    """relu(E1 E2) at the pattern; e1 (n_pad, d), e2 (d, n_pad)."""
+
+    @staticmethod
+    def forward(ctx, e1, e2, graph, block):
+        row_of, _, col_of = graph
+        ctx.graph, ctx.block = graph, block
+        out = sampled_matmul(e1, e2.t().contiguous(), row_of, col_of).clamp_min_(0.0)
+        ctx.save_for_backward(e1, e2, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, ds):
+        e1, e2, out = ctx.saved_tensors
+        row_of, row_ptr, col_of = ctx.graph
+        dm = torch.where(out > 0, ds, 0.0)
+        n_blocks = e1.shape[0] // ctx.block
+        de1 = de2 = None
+        if ctx.needs_input_grad[0]:
+            de1 = bsr_spmm(dm, row_of, row_ptr, col_of, e2.t().contiguous(), n_blocks)
+        if ctx.needs_input_grad[1]:
+            m_t, r_t, c_t = bsr_transpose(dm, row_of, col_of, n_blocks)
+            de2 = bsr_spmm(m_t, r_t, row_ptr_of(r_t, n_blocks), c_t, e1.contiguous(), n_blocks).t()
+        return de1, de2, None, None
+
+
+def sddmm_relu(e1, e2, row_of, col_of, block: int = BLOCK, row_ptr=None):
+    """relu(E1 @ E2) at the graph's nonzero blocks -> (nnz, block, block):
+    the adaptive-adjacency scores before row normalisation. Differentiable
+    in e1 (n_pad, d) and e2 (d, n_pad)."""
+    return _SDDMMReLU.apply(e1, e2, _graph(row_of, col_of, row_ptr, e1.shape[0] // block), block)
+
+
+# ---------------------------------------------------------------- softmaxes
+def _row_sums(per_block_rowsum, row_of, num_row_blocks):
+    """segment_sum over the tiles of each row block: (num_row_blocks, block)."""
+    zeros = per_block_rowsum.new_zeros(num_row_blocks, per_block_rowsum.shape[1])
+    return zeros.index_add(0, row_of, per_block_rowsum)
+
+
+def sparse_row_softmax(values, row_of, num_row_blocks: int):
+    """Row-normalise BSR scores: exp(v) / sum over the row's sampled entries
+    with v > 0 (JAX spmm.py:311-331; the deviation from the dense
+    reference's softmax is documented there)."""
+    exp_vals = torch.where(values > 0, torch.exp(values), 0.0)
+    totals = _row_sums(exp_vals.sum(dim=2), row_of, num_row_blocks)
+    denom = totals.index_select(0, row_of).clamp_min(1e-9)
+    return exp_vals / denom[:, :, None]
+
+
+def sparse_row_softmax_dense_corrected(values, row_of, num_row_blocks: int, num_nodes: int):
+    """The exact sparse form of the dense softmax(relu(E1 E2)) (JAX
+    spmm.py:334-353): (exp(v)-1)/Z_i at the pattern plus the rank-1
+    background 1/Z_i, Z_i = N + sum (exp(v)-1). Returns (values, background
+    (num_row_blocks, block))."""
+    expm1 = torch.where(values > 0, torch.expm1(values), 0.0)
+    z = num_nodes + _row_sums(expm1.sum(dim=2), row_of, num_row_blocks)
+    return expm1 / z.index_select(0, row_of)[:, :, None], 1.0 / z

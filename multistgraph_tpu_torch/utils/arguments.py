@@ -1,5 +1,5 @@
 """CLI flags for the port's entry points (counterpart of
-multistgraph_tpu/utils/arguments.py, limited to the flags this slice reads)."""
+multistgraph_tpu/utils/arguments.py, limited to the flags the port reads)."""
 
 import argparse
 
@@ -46,6 +46,15 @@ GENERAL_ARGUMENTS = {
     "embed_dim_node": int,
     "compute_dtype": str,
     "weight_stream_quant": str,
+    # large-graph (SparseATGCN) configs
+    "num_nodes": int,            # synthetic graph size
+    "avg_degree": int,
+    "len_time": int,
+    "graph_split": str,          # none only; hub | tail | band are not ported
+    "graph_band_packed": str2bool,
+    "remat": str2bool,           # checkpoint each step of the recurrence
+    "adaptive_max_blocks": int,  # cap the adaptive pattern
+    "use_early_stop": str2bool,
 }
 
 

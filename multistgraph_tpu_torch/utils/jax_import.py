@@ -1,11 +1,17 @@
-"""Carry MultiATGCN weights from the JAX package's flat flax names.
+"""Carry model weights from the JAX package's flat flax names.
 
-The port names its parameters after the reference's torch ``state_dict``;
-the JAX package names them flat (``l0_gate_pool``, ``end_conv_kernel``,
-...). This is the port's own copy of the mapping and the layout transposes
-of multistgraph_tpu/utils/torch_import.py (``_torch_entries``): Linear
-kernels (in, out) become (out, in) weights and the conv head's (t_conv*H,
-out) kernel becomes the Conv2d weight (out, t_conv, 1, H).
+MultiATGCN: the port names its parameters after the reference's torch
+``state_dict``; the JAX package names them flat (``l0_gate_pool``,
+``end_conv_kernel``, ...). This is the port's own copy of the mapping and
+the layout transposes of multistgraph_tpu/utils/torch_import.py
+(``_torch_entries``): Linear kernels (in, out) become (out, in) weights
+and the conv head's (t_conv*H, out) kernel becomes the Conv2d weight (out,
+t_conv, 1, H).
+
+SparseATGCN has no reference torch model, so the port keeps the JAX names
+and shapes: its weights carry over as they are. The JAX 'graph'
+collection is not a parameter and is not carried: both packages rebuild
+it from the dataset.
 """
 
 from typing import Dict, Tuple
@@ -13,8 +19,12 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from multistgraph_tpu_torch.models.sparse_atgcn import SparseATGCN
+
 
 def _torch_entry(name: str, value: np.ndarray, model) -> Tuple[str, np.ndarray]:
+    if isinstance(model, SparseATGCN):
+        return name, value
     if name in ("node_emb", "node_vec1", "node_vec2", "weight_tsg"):
         return name, value
     if name.startswith("weight_ts_"):

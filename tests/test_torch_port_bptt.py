@@ -28,11 +28,8 @@ from multistgraph_tpu.models.multi_atgcn import fused_atgru_layer as jax_layer
 from multistgraph_tpu.models.multi_atgcn import fused_atgru_layer_q8 as jax_layer_q8
 from multistgraph_tpu.models.multi_atgcn import make_loss_fn as jax_make_loss_fn
 from multistgraph_tpu_torch.models import build_multi_atgcn
-from multistgraph_tpu_torch.models.multi_atgcn import (
-    fused_atgru_layer,
-    fused_atgru_layer_q8,
-    make_loss_fn,
-)
+from multistgraph_tpu_torch.models.multi_atgcn import fused_atgru_layer, fused_atgru_layer_q8
+from multistgraph_tpu_torch.ops.losses import make_loss_fn
 from multistgraph_tpu_torch.utils.jax_import import state_dict_from_jax
 
 
