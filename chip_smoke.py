@@ -31,6 +31,18 @@ synthetic large graph of 49,152 nodes (4,946 tiles of 128x128):
     through ``from_experiment`` at buckets 1 and 2;
   * at 4,096 nodes, the model output and one step's loss and gradients on
     the card against the CPU, failed by faults planted in each kernel.
+Then the band form of the same graph (graph_split 'band': diagonals -2..2,
+1,914 tiles, hub columns):
+  * the band kernels B7 (planes), B8 (packed rows), B9 dX and B9 dV against
+    their plain versions at every width the path gives them, timed, beside
+    their bounds and a torch.bmm library call each;
+  * training on the planes through ``get_executor`` (2 warm-up and 10 timed
+    steps) with exact launch counts, one validation and one evaluation
+    pass, and the saved experiment served from packed rows
+    (graph_band_packed) at buckets 1 and 2, launching B8 and no B7, its
+    replies held against the planes';
+  * at 4,096 nodes, output, loss and gradients on the card against the CPU
+    in both storage forms, failed by faults planted in B7, B8 and B9 dX.
 Every phase raises on failure; nothing is caught. The output ends with a
 JSON line listing the kernels and a JSON line ``{"ok": true, "device": {...}}``.
 
@@ -539,24 +551,33 @@ _MODES = {  # config overrides of the int8 serving/training arguments
 }
 
 
+# the band kernels' wrappers (ops/band.py), each with its own launch count
+BAND_WRAPPERS = ("band_spmm", "band_spmm_packed", "band_dx", "band_dx_packed", "band_dv", "band_dv_packed")
+SPARSE_KERNELS = ("bsr_spmm", "sampled_matmul") + BAND_WRAPPERS
+
+
 def _counters():
+    """{name: (object holding the count, attribute)} of every kernel wrapper."""
+    from multistgraph_tpu_torch.ops import band
     from multistgraph_tpu_torch.ops.layout import force_default_layout
     from multistgraph_tpu_torch.ops.node_apply import node_apply_q8, node_apply_q8_t
     from multistgraph_tpu_torch.ops.spmm import bsr_spmm, sampled_matmul
 
-    return node_apply_q8, node_apply_q8_t, force_default_layout, bsr_spmm, sampled_matmul
+    counters = {"node_apply_q8": (node_apply_q8, "launches"), "node_apply_q8_t": (node_apply_q8_t, "launches"),
+                "force_default_layout": (force_default_layout, "launches"),
+                "force_default_layout_bwd": (force_default_layout, "backward_launches"),
+                "bsr_spmm": (bsr_spmm, "launches"), "sampled_matmul": (sampled_matmul, "launches")}
+    counters.update({name: (getattr(band, name), "launches") for name in BAND_WRAPPERS})
+    return counters
 
 
 def _reset_counts():
-    b2, b2t, b3, b46, b5 = _counters()
-    b2.launches = b2t.launches = b3.launches = b3.backward_launches = b46.launches = b5.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def _read_counts():
-    b2, b2t, b3, b46, b5 = _counters()
-    return {"node_apply_q8": b2.launches, "node_apply_q8_t": b2t.launches,
-            "force_default_layout": b3.launches, "force_default_layout_bwd": b3.backward_launches,
-            "bsr_spmm": b46.launches, "sampled_matmul": b5.launches}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 def _executor(torch, mode, feature, state_dict, device=None):
@@ -638,9 +659,7 @@ def training_phase(torch):
     record["validation"] = {"batches": len(val), "loss": val_loss,
                             "seconds": time.perf_counter() - t0}
     windows["validation"] = _read_counts()
-    if windows["validation"] != {"node_apply_q8": per_step * len(val), "node_apply_q8_t": 0,
-                                 "force_default_layout": 0, "force_default_layout_bwd": 0,
-                                 "bsr_spmm": 0, "sampled_matmul": 0}:
+    if windows["validation"] != dict(dict.fromkeys(windows["validation"], 0), node_apply_q8=per_step * len(val)):
         raise AssertionError("validation launched {}".format(windows["validation"]))
     if not math.isfinite(val_loss):
         raise AssertionError("non-finite validation loss")
@@ -758,27 +777,36 @@ def _sparse_args(num_nodes, exp_id):
 
 
 def _sparse_launches(model, steps=1, train=False):
-    """bsr_spmm and sampled_matmul launches of `steps` forwards (or training
-    steps) of `model` at SP_T input steps, derived from the code:
+    """Launches of every sparse kernel wrapper in `steps` forwards (or
+    training steps) of `model` at SP_T input steps, derived from the code:
       forward, per layer: one hoisted aggregation of the input and two per
-        step (h and z*h), each one SpMM per static support and one for the
-        adaptive view; one sampled matmul for the adaptive scores;
+        step (h and z*h); each applies every static support's BSR part
+        (bsr_spmm) or band (band_spmm on planes, band_spmm_packed on packed
+        rows), and the adaptive view (bsr_spmm); one sampled matmul for the
+        adaptive scores;
       training adds: the per-step aggregations again under remat
-        (torch.utils.checkpoint recomputes each step); dX of every SpMM
+        (torch.utils.checkpoint recomputes each step); dX of every product
         whose input needs a gradient, i.e. all but layer 0's hoisted input
-        (the data) and h at t=0 (zeros); dV, a sampled matmul, of every
-        adaptive SpMM; and the SDDMM's backward, dE1 and dE2, two SpMMs."""
+        (the data) and h at t=0 (zeros): bsr_spmm on the transposed graph,
+        band_dx for a band; dV, a sampled matmul, of every adaptive SpMM
+        (the static supports' values are constants: no band_dv); and the
+        SDDMM's backward, dE1 and dE2, two SpMMs."""
     layers, t = model.num_layers, SP_T
-    per_agg = model.num_static + int(model.has_adaptive)
-    spmm = layers * per_agg * (1 + 2 * t)
-    b5 = int(model.has_adaptive)
-    if train:
-        spmm += layers * per_agg * 2 * t if model.remat else 0
-        spmm += layers * per_agg * (2 * t - 1) + per_agg * (layers - 1)
-        if model.has_adaptive:
-            spmm += 2
-            b5 += layers * (1 + 2 * t)
-    return {"bsr_spmm": spmm * steps, "sampled_matmul": b5 * steps}
+    aggs = layers * (1 + 2 * t)
+    recompute = layers * 2 * t if train and model.remat else 0
+    dx = layers * (2 * t - 1) + (layers - 1) if train else 0
+    supports = [model._support(i) for i in range(model.num_static)]
+    bsr = sum(model._has_bsr(sv) for sv in supports) + int(model.has_adaptive)
+    planes = sum("band_values" in sv for sv in supports)
+    packed = sum("band_packed" in sv for sv in supports)
+    counts = dict.fromkeys(SPARSE_KERNELS, 0)
+    counts.update({
+        "bsr_spmm": bsr * (aggs + recompute + dx) + (2 if train and model.has_adaptive else 0),
+        "sampled_matmul": int(model.has_adaptive) * (1 + (aggs if train else 0)),
+        "band_spmm": planes * (aggs + recompute), "band_dx": planes * dx,
+        "band_spmm_packed": packed * (aggs + recompute), "band_dx_packed": packed * dx,
+    })
+    return {k: v * steps for k, v in counts.items()}
 
 
 def _bsr_csr_pattern(torch, row_ptr, col_of, nb):
@@ -945,8 +973,7 @@ def sparse_phase(torch):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
     windows["sparse training"] = _read_counts()
-    want = dict(_sparse_launches(model, SP_STEPS, train=True), node_apply_q8=0, node_apply_q8_t=0,
-                force_default_layout=0, force_default_layout_bwd=0)
+    want = dict(dict.fromkeys(windows["sparse training"], 0), **_sparse_launches(model, SP_STEPS, train=True))
     if windows["sparse training"] != want:
         raise AssertionError("{} sparse training steps launched {}, want {}".format(
             SP_STEPS, windows["sparse training"], want))
@@ -1011,7 +1038,7 @@ def sparse_phase(torch):
 
 
 def _sparse_counts_of(counts):
-    return {k: counts[k] for k in ("bsr_spmm", "sampled_matmul")}
+    return {k: counts[k] for k in SPARSE_KERNELS}
 
 
 def _sparse_run(torch, model, scaler, batch):
@@ -1098,6 +1125,318 @@ def sparse_check_phase(torch):
     return errs, controls
 
 
+# ------------------------------------------------------------------- band
+# The band form of the same 49,152-node graph (graph_split 'band', the JAX
+# package's fastest trainable form): diagonals -2..2 over 384 row blocks
+# (1,914 tiles, 126 MB of f32 planes), the 8 hub columns of the 38,787
+# edges left, no COO tail; the adaptive view samples the band's tiles. The
+# same model defaults, trained on the planes and served from packed rows
+# (graph_band_packed). Widths each kernel takes on the main path:
+BAND_B7_WIDTHS = (24, 128, 1536)                 # layer-0 hoist, per-step h and z*h, layer-1 hoist
+BAND_B8_WIDTHS = (12, 64, 768, 24, 128, 1536)    # the same at serving buckets 1 and 2
+BAND_DX_WIDTHS = (128, 1536)                     # dX of the per-step aggregations and of layer 1's hoist
+BAND_DV_WIDTHS = (128, 1536)                     # B9 dV: off the path (the support's values are
+                                                 # constants), held at the path's widths
+# Card vs CPU at 4,096 nodes in the band form (planes and packed rows), the
+# same relative max errors as BOUND_SPARSE_*: 1e-4 until first read; an
+# H100 read 5.09e-7 / 3.82e-7 (output, planes / packed) and 7.36e-7 /
+# 8.41e-7 (gradients, node_vec2), so the bounds are 3.9x and 4.2x the
+# larger readings. The planted faults read 0.041 / 0.421 (output, B7 / B8)
+# and 0.995 (gradients, B9 dX).
+BOUND_BAND_OUT = 2e-6
+BOUND_BAND_GRAD = 3.5e-6
+
+
+def band_kernel_phase(torch):
+    """B7, B8, B9 dX and B9 dV vs their plain versions on the 49,152-node
+    band at every width the main path gives them, timed, with their bounds
+    and one PyTorch library call each (torch.bmm of packed rows against
+    overlapping windows of the zero-padded operand)."""
+    import numpy as np
+
+    from multistgraph_tpu_torch.ops import band
+    from multistgraph_tpu_torch.ops.bsr import random_spatial_graph
+
+    t0 = time.time()
+    graph, _ = random_spatial_graph(SP_NODES, 16, seed=0, split="band")
+    offsets = tuple(int(o) for o in graph.offsets)
+    radius = band.band_radius(offsets)
+    nb, n_pad, block = graph.num_row_blocks, graph.padded_nodes, graph.block
+    tiles = int(np.any(graph.band_values != 0, axis=(2, 3)).sum())  # the tiles this graph holds
+    say("49,152-node band built in {:.1f}s: offsets {}, {} tiles in {} row blocks, {} edges left".format(
+        time.time() - t0, offsets, tiles, nb, graph.rest_w.shape[0]))
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    planes = torch.from_numpy(graph.band_values).to(dev)
+    packed = torch.from_numpy(band.pack_band_rows(graph.band_values, offsets, radius)).to(dev)
+    packed_t = torch.from_numpy(band.pack_band_rows_transposed(graph.band_values, offsets, radius)).to(dev)
+    width = (2 * radius + 1) * block
+    tile_bytes = tiles * block * block * 4
+    lines = []
+
+    def windows(x):
+        """(R, W, F) view: the 2 radius + 1 row blocks around each row block of the zero-padded x."""
+        feat = x.shape[1]
+        xp = torch.nn.functional.pad(x.reshape(nb, block, feat), (0, 0, 0, 0, radius, radius))
+        return xp.as_strided((nb, width, feat), (block * feat, feat, 1))
+
+    def row(name, replaces, feat, kernel, plain, library, label, main_path=True, library_check=True):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        # the same f32 products, summed in another order
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+        if library_check:  # the yardstick computes the same function
+            torch.testing.assert_close(library().reshape(want.shape), want, rtol=1e-4, atol=1e-4 * scale)
+        # tiles read (or, for dV, written) once, the two (N_pad, F) operands once
+        num_bytes = tile_bytes + 2 * n_pad * feat * 4
+        flops = 2 * tiles * block * block * feat
+        bound, by = _bound_ms(num_bytes, flops, PEAK_F32_FLOPS)
+        library_ms, label = _library_ms(torch, library, label)
+        lines.append({
+            "name": name, "shape": "R={} offsets={} tiles={} F={}".format(nb, offsets, tiles, feat),
+            "replaces": replaces, "max_abs_err": (got - want).abs().max().item(),
+            "tolerance": "rtol 1e-5, atol 1e-5*max|plain|",
+            "kernel_ms": _time_ms(torch, kernel), "plain_ms": _time_ms(torch, plain, reps=10),
+            "library_ms": library_ms, "library": label,
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops, "peak": PEAK_F32_NOTE,
+            "main_path": main_path,
+        })
+
+    for feat in BAND_B7_WIDTHS:
+        x = torch.randn(n_pad, feat, generator=g, device=dev)
+        xw = windows(x)
+        row("band_spmm", "multistgraph_tpu/ops/band.py:222 band_fwd_pallas", feat,
+            lambda: band.band_spmm(planes, offsets, x), lambda: band.band_plain(planes, offsets, x),
+            lambda: torch.bmm(packed, xw), "torch.bmm(packed rows, windows of the padded x)")
+    for feat in BAND_B8_WIDTHS:
+        x = torch.randn(n_pad, feat, generator=g, device=dev)
+        xw = windows(x)
+        row("band_spmm_packed", "multistgraph_tpu/ops/band.py:352 band_fwd_slab_pallas", feat,
+            lambda: band.band_spmm_packed(packed, radius, x), lambda: band.band_packed_plain(packed, radius, x),
+            lambda: torch.bmm(packed, xw), "torch.bmm(packed rows, windows of the padded x)")
+    for feat in BAND_DX_WIDTHS:
+        dy = torch.randn(n_pad, feat, generator=g, device=dev)
+        dyw = windows(dy)
+        row("band_dx", "multistgraph_tpu/ops/band.py:462 band_dx_pallas", feat,
+            lambda: band.band_dx(planes, offsets, dy), lambda: band.band_dx_plain(planes, offsets, dy),
+            lambda: torch.bmm(packed_t, dyw), "torch.bmm(transposed packed rows, windows of the padded dy)")
+    for feat in BAND_DV_WIDTHS:
+        x = torch.randn(n_pad, feat, generator=g, device=dev)
+        dy = torch.randn(n_pad, feat, generator=g, device=dev)
+        xw, dyb = windows(x), dy.reshape(nb, block, feat)
+        row("band_dv", "multistgraph_tpu/ops/band.py:405 band_dv_pallas", feat,
+            lambda: band.band_dv(dy, x, offsets), lambda: band.band_dv_plain(dy, x, offsets),
+            lambda: torch.bmm(dyb, xw.transpose(1, 2)), "torch.bmm(dy blocks, windows of the padded x transposed)",
+            main_path=False, library_check=False)
+    del planes, packed, packed_t
+    torch.cuda.empty_cache()
+    for line in lines:
+        say(json.dumps(line))
+    return lines
+
+
+def band_phase(torch):
+    """SparseATGCN's band form at 49,152 nodes: training on the planes
+    through get_executor with exact launch counts per step, one validation
+    and one evaluation pass, then the saved experiment served from packed
+    rows through from_experiment at buckets 1 and 2 (B8, no B7), its replies
+    held against the planes'."""
+    import numpy as np
+
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.data import get_dataset
+    from multistgraph_tpu_torch.executor import get_executor
+    from multistgraph_tpu_torch.models import get_model
+    from multistgraph_tpu_torch.ops.band import BandGraph
+    from multistgraph_tpu_torch.serving import PredictService
+
+    args = dict(_sparse_args(SP_NODES, "chip_smoke_band"), graph_split="band")
+    cfg = load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=args)
+    t0 = time.time()
+    dataset = get_dataset(cfg)
+    train, val, test = dataset.get_data()
+    feature = dataset.get_data_feature()
+    graph = feature["bsr_graph"]
+    if not isinstance(graph, BandGraph):
+        raise AssertionError("graph_split='band' gave a {}".format(type(graph).__name__))
+    setup = {"dataset_s": time.time() - t0, "nodes": graph.num_nodes, "padded": graph.padded_nodes,
+             "offsets": [int(o) for o in graph.offsets], "edges_left": int(graph.rest_w.shape[0]),
+             "train_batches": len(train), "val_batches": len(val), "test_batches": len(test)}
+    model = get_model(cfg, feature)
+    executor = get_executor(cfg, model, feature)
+    if (model.hidden_dim, model.num_layers, model.embed_dim_adj, model.remat, model.has_adaptive,
+            model.adaptive_softmax, cfg["batch_size"], cfg["input_window"]) != (
+            SP_H, 2, 16, True, True, "sampled", SP_B, SP_T):
+        raise AssertionError("the band configuration is not the defaults' full width")
+    setup["support"] = {n: list(b.shape) for n, b in model.named_buffers()}
+    setup["model_s"] = time.time() - t0 - setup["dataset_s"]
+    say(json.dumps({"band_setup": setup}))
+
+    windows = {}
+    perm = train.epoch_permutation()
+    batches = [executor.batch(train, idx) for idx in perm[: SP_WARMUP + SP_STEPS]]
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(executor.train_step(b)) for b in batches[:SP_WARMUP]]
+    torch.cuda.synchronize()
+    _reset_counts()
+    timed, marks = [], [time.perf_counter()]
+    for b in batches[SP_WARMUP:]:
+        timed.append(executor.train_step(b))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    windows["band training"] = _read_counts()
+    want = dict(dict.fromkeys(windows["band training"], 0), **_sparse_launches(model, SP_STEPS, train=True))
+    if windows["band training"] != want:
+        raise AssertionError("{} band training steps launched {}, want {}".format(
+            SP_STEPS, windows["band training"], want))
+    losses += [float(v) for v in timed]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite band training loss: {}".format(losses))
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    ms = statistics.median(step_ms)
+    record = {"steps": SP_STEPS, "batch": SP_B, "ms_per_step": ms, "step_ms": step_ms,
+              "epochs_per_hour": 3600.0 / (ms / 1e3 * len(train)), "losses": losses,
+              "launches_per_step": {k: v for k, v in _sparse_launches(model, train=True).items() if v},
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "device_time_per_step": _device_time(torch, lambda: executor.train_step(batches[-1]), ms)}
+
+    per_forward = _sparse_launches(model)
+    _reset_counts()
+    t0 = time.perf_counter()
+    val_loss = executor._valid_epoch(val)
+    record["validation"] = {"batches": len(val), "loss": val_loss, "seconds": time.perf_counter() - t0}
+    windows["band validation"] = _read_counts()
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = executor.evaluate(test)
+    record["evaluation"] = {"batches": len(test), "seconds": time.perf_counter() - t0,
+                            "masked_MAE": [float(v) for v in result["masked_MAE"]]}
+    windows["band evaluation"] = _read_counts()
+    for name, n in (("band validation", len(val)), ("band evaluation", len(test))):
+        if _sparse_counts_of(windows[name]) != {k: v * n for k, v in per_forward.items()}:
+            raise AssertionError("{} launched {}, want {} per batch".format(name, windows[name], per_forward))
+    if not (math.isfinite(val_loss) and np.isfinite(result["masked_MAE"]).all()):
+        raise AssertionError("non-finite band validation loss or test metrics")
+
+    cache = os.path.join(args["output_dir"], args["exp_id"], "model_cache",
+                         "{}_{}.pt".format(SP_MODEL, SP_DATASET))
+    executor.save_model(cache)
+    t0 = time.perf_counter()
+    service = PredictService.from_experiment(SP_TASK, SP_MODEL, SP_DATASET,
+                                             other_args=dict(args, graph_band_packed=True), max_batch=SP_B)
+    record["from_experiment_s"] = time.perf_counter() - t0
+    if not hasattr(service.model, "support0_band_packed") or hasattr(service.model, "support0_band_values"):
+        raise AssertionError("the served band model does not hold packed rows only")
+    x = test.x[:SP_B].cpu().numpy()
+    served_per_forward = _sparse_launches(service.model)
+    _reset_counts()
+    replies = {b: service.predict(x[:b]) for b in (1, SP_B)}
+    windows["band serving"] = _read_counts()
+    if _sparse_counts_of(windows["band serving"]) != {k: 2 * v for k, v in served_per_forward.items()} \
+            or windows["band serving"]["band_spmm"] or not windows["band serving"]["band_spmm_packed"]:
+        raise AssertionError("packed band serving launched {}, want {} per request".format(
+            windows["band serving"], served_per_forward))
+    with torch.no_grad():
+        planes_out = executor.model(test.x[:SP_B])  # the plane form, the same weights
+    want_y = np.maximum(feature["scaler"].inverse_transform(planes_out).cpu().numpy(), 0.0)
+    for b, y in replies.items():
+        if y.shape != (b, 3, graph.padded_nodes, 1) or not np.isfinite(y).all():
+            raise AssertionError("bad packed band reply for batch {}: {}".format(b, y.shape))
+        # planes and packed rows: the same products summed in another order
+        np.testing.assert_allclose(y, want_y[:b], rtol=1e-5, atol=1e-4)
+    record["packed_vs_planes_max_abs"] = max(float(np.abs(y - want_y[:b]).max()) for b, y in replies.items())
+    latency = {str(b): _bucket_ms(service, x[:b], reps=5) for b in (1, SP_B)}
+    record["serving"] = {"ms_per_request_by_bucket": latency,
+                         "device_time_per_request": _device_time(
+                             torch, lambda: service.predict(x), latency[str(SP_B)])}
+    say(json.dumps({"band": record}))
+    say("band launches per window: " + json.dumps(windows))
+    del executor, service, model, dataset, train, val, test, batches
+    torch.cuda.empty_cache()
+    return windows
+
+
+def band_check_phase(torch):
+    """Card vs CPU at 4,096 nodes in the band form, on planes and on packed
+    rows, same configuration and weights: the model output, one step's loss
+    and every gradient; a fault planted in each band kernel of the path must
+    fail its check."""
+    from unittest import mock
+
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.data import get_dataset
+    from multistgraph_tpu_torch.models import get_model
+    from multistgraph_tpu_torch.ops import band
+
+    args = dict(_sparse_args(SP_CHECK_NODES, "chip_smoke_band_check"), graph_split="band")
+    dataset = get_dataset(load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=args), device="cpu")
+    train, _, _ = dataset.get_data()
+    feature = dataset.get_data_feature()
+    batch = {"X": train.x[:SP_B], "y": train.y[:SP_B]}
+    scaler = feature["scaler"]
+    models, cpu_runs, errs = {}, {}, {}
+    for form, packed in (("planes", False), ("packed", True)):
+        cfg = load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=dict(args, graph_band_packed=packed))
+        cpu_model = get_model(cfg, feature, device="cpu")
+        if models:  # the planes model's weights
+            cpu_model.load_state_dict(models["planes"].state_dict())
+        card_model = get_model(cfg, feature)
+        card_model.load_state_dict(cpu_model.state_dict())
+        models[form] = card_model
+        t0 = time.perf_counter()
+        cpu_runs[form] = _sparse_run(torch, cpu_model, scaler, batch)
+        cpu_s = time.perf_counter() - t0
+        out, grads = _sparse_run(torch, card_model, scaler, batch)
+        errs[form] = {"output": _rel_err(out.numpy(), cpu_runs[form][0].numpy()),
+                      "gradients": _grad_err(grads, cpu_runs[form][1]), "cpu_seconds": cpu_s}
+
+    real_forward, real_backward = band._BandSpMM.forward, band._BandSpMM.backward
+
+    def diagonal_dropped(ctx, values, x, offsets, radius):  # B7 skips the first diagonal
+        return real_forward(ctx, values[1:], x, offsets[1:], radius)
+
+    def slot_zeroed(ctx, values, x, offsets, radius):  # B8 skips the main diagonal's slot
+        values = values.clone()
+        values[:, :, radius * 128:(radius + 1) * 128] = 0.0
+        return real_forward(ctx, values, x, offsets, radius)
+
+    def row_block_zeroed(ctx, dy):  # B9 dX loses row block 0
+        dvalues, dx, *rest = real_backward(ctx, dy)
+        if dx is not None:
+            dx[:128] = 0.0
+        return (dvalues, dx, *rest)
+
+    def patch(fn, which="forward"):
+        return mock.patch.object(band._BandSpMM, which, staticmethod(fn))
+
+    faults = {"B7 diagonal dropped": ("planes", "output", patch(diagonal_dropped)),
+              "B9 dX row block 0 zeroed": ("planes", "gradients", patch(row_block_zeroed, "backward")),
+              "B8 slot zeroed": ("packed", "output", patch(slot_zeroed))}
+    controls = {}
+    for name, (form, _, fault) in faults.items():
+        with fault:
+            out, grads = _sparse_run(torch, models[form], scaler, batch)
+        controls[name] = {"output": _rel_err(out.numpy(), cpu_runs[form][0].numpy()),
+                          "gradients": _grad_err(grads, cpu_runs[form][1])}
+    say(json.dumps({"band_card_vs_cpu": {"nodes": SP_CHECK_NODES, "offsets": [int(o) for o in
+                                                                              feature["bsr_graph"].offsets],
+                                         "errors": errs},
+                    "bounds": {"output": BOUND_BAND_OUT, "gradients": BOUND_BAND_GRAD},
+                    "planted_faults": controls}))
+    for form, e in errs.items():
+        if not e["output"] < BOUND_BAND_OUT:
+            raise AssertionError("band {} output, card vs CPU: {} over {}".format(form, e["output"], BOUND_BAND_OUT))
+        if not e["gradients"]["max"] < BOUND_BAND_GRAD:
+            raise AssertionError("band {} gradients, card vs CPU: {} over {}".format(
+                form, e["gradients"], BOUND_BAND_GRAD))
+    for name, (_, check, _) in faults.items():
+        err = controls[name][check] if check == "output" else controls[name][check]["max"]
+        if not err > (BOUND_BAND_OUT if check == "output" else BOUND_BAND_GRAD):
+            raise AssertionError("{} passes the band {} check ({})".format(name, check, err))
+    return errs, controls
+
+
 def main():
     import torch
 
@@ -1122,15 +1461,18 @@ def main():
 
     lines = kernel_phase(torch)
     lines += sparse_kernel_phase(torch)
+    lines += band_kernel_phase(torch)
     make_dataset()
     # the training paths are timed before any phase runs a model on the
     # host's CPU, which slows the launching thread afterwards
     windows, feature, state_dict, grad_batch = training_phase(torch)
     windows.update(sparse_phase(torch))
+    windows.update(band_phase(torch))
     serving_launches = serving_phase(torch)
     gradient_phase(torch, feature, state_dict, grad_batch)
     windows["serving"] = dict(serving_launches, node_apply_q8_t=0, force_default_layout_bwd=0)
     sparse_check_phase(torch)
+    band_check_phase(torch)
 
     kernels = []
     for name, source in (("node_apply_q8", "multistgraph_tpu_torch/csrc/node_apply_q8.cu"),
@@ -1138,7 +1480,10 @@ def main():
                          ("force_default_layout", "multistgraph_tpu_torch/csrc/layout_copy.cu"),
                          ("force_default_layout_bwd", "multistgraph_tpu_torch/csrc/layout_copy.cu"),
                          ("bsr_spmm", "multistgraph_tpu_torch/csrc/bsr_spmm.cu"),
-                         ("sampled_matmul", "multistgraph_tpu_torch/csrc/sampled_matmul.cu")):
+                         ("sampled_matmul", "multistgraph_tpu_torch/csrc/sampled_matmul.cu"),
+                         ("band_spmm", "multistgraph_tpu_torch/csrc/band_spmm.cu"),
+                         ("band_spmm_packed", "multistgraph_tpu_torch/csrc/band_spmm.cu"),
+                         ("band_dx", "multistgraph_tpu_torch/csrc/band_spmm.cu")):
         rows = [r for r in lines if r["name"] == name and r["main_path"]]
         launches = sum(w.get(name, 0) for w in windows.values())
         if launches == 0:

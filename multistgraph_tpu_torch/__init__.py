@@ -5,7 +5,8 @@ it by the tests. It serves and trains MultiATGCN (config, atomic data and
 MTH windowing, the multi-view graph supports, f32, bf16 and the int8
 weight-stream path, the executor and evaluator, the bucketed predict
 service with its HTTP front), and SparseATGCN on block-sparse graphs of the
-synthetic large-graph dataset (f32, plain BSR form).
+synthetic large-graph dataset (f32; the plain BSR form and the hub, tail
+and band forms, the band as per-offset planes or packed rows).
 
 The package imports torch, numpy and scipy, and nothing of JAX, flax,
 pandas or multistgraph_tpu. Entry points (``PredictService``,
@@ -19,7 +20,7 @@ Layer map (module names mirror the JAX package):
     graph/     — Laplacians, haversine geometry, multi-view supports
     models/    — MultiATGCN and SparseATGCN as nn.Modules
     ops/       — the hand-written CUDA kernels (csrc/) and their plain twins,
-                 BSR graphs and the sparse products' autograd
+                 BSR, hub/tail and band graphs and the sparse products' autograd
     serving.py — bucketed predict service + HTTP
 """
 

@@ -79,8 +79,8 @@ DATA_DEFAULTS = {
     "SyntheticLargeGraphDataset": {
         "num_nodes": 4096,
         "avg_degree": 16,
-        # hybrid graph representation: None | 'hub' | 'tail' | 'band' (only
-        # None is ported; the others raise, ROADMAP.md A.6)
+        # hybrid graph representation: None | 'hub' | 'tail' | 'band'; the
+        # band stored as packed rows with graph_band_packed (serving)
         "graph_split": None,
         "graph_band_packed": False,
         "len_time": 240,

@@ -2,12 +2,13 @@
 
 Counterpart of multistgraph_tpu/data/large_graph.py. There are no atomic
 files at this scale (a 1M-node hourly CSV would be billions of rows): the
-graph (ops/bsr.py:random_spatial_graph, plain BSR) and the per-node series
-are synthesised in memory from the same numpy streams as the JAX package,
-then windowed, split, scaled and uploaded like any dataset. Registered as
+graph (ops/bsr.py:random_spatial_graph; plain BSR, or the hub, tail or band
+form that ``graph_split`` names) and the per-node series are synthesised in
+memory from the same numpy streams as the JAX package, then windowed,
+split, scaled and uploaded like any dataset. Registered as
 ``SyntheticLargeGraphDataset``, so ``run_model --model SparseATGCN
---dataset SYN_LARGE_*`` runs end to end. ``node_parallel`` (node-sharded
-splits) is not ported (ROADMAP.md A.7).
+--dataset SYN_LARGE_* [--graph_split band]`` runs end to end.
+``node_parallel`` (node-sharded splits) is not ported (ROADMAP.md A.7).
 """
 
 from typing import Dict
@@ -83,8 +84,8 @@ class SyntheticLargeGraphDataset:
         loaders = generate_dataloaders(splits, self.batch_size, pad_with_last_sample=self.pad_with_last_sample,
                                        seed=self.seed, device=self.device)
         self.num_batches = loaders[0].num_batches
-        self._logger.info("synthetic large graph: %d nodes (%d padded), %d edges, %d tiles, %d train batches",
-                          self.num_nodes, self.graph.padded_nodes, self.num_edges, self.graph.nnz_blocks,
+        self._logger.info("synthetic large graph: %d nodes (%d padded), %d edges as a %s, %d train batches",
+                          self.num_nodes, self.graph.padded_nodes, self.num_edges, type(self.graph).__name__,
                           self.num_batches)
         return loaders
 

@@ -1,10 +1,15 @@
 """SparseATGCN as a PyTorch nn.Module: the MultiATGCN recurrence at 50k-1M nodes.
 
-Counterpart of the single-chip plain-BSR path of
+Counterpart of the single-chip path of
 multistgraph_tpu/models/sparse_atgcn.py. Graph convolution inside GRU
 gates, over block-sparse supports:
   * the static support is a BSR graph (ops/bsr.py), aggregated by the SpMM
-    kernel (ops/spmm.py: bsr_spmm, csrc/bsr_spmm.cu);
+    kernel (ops/spmm.py: bsr_spmm, csrc/bsr_spmm.cu), or one of the split
+    forms of ``graph_split``: BSR plus dense hub columns (HybridGraph) or a
+    COO tail (TailGraph), ops/hybrid.py; or band diagonals (BandGraph,
+    ops/band.py: the band kernels of csrc/band_spmm.cu) with the rest of the
+    edges as hub columns and a COO tail, the band stored as per-offset
+    planes or, with ``graph_band_packed``, as packed rows;
   * the adaptive view is relu(E1 E2) sampled at the graph's block pattern
     (the SDDMM kernel, csrc/sampled_matmul.cu) and row-normalised by a
     sparse softmax ('sampled' or 'dense_corrected'), then aggregated by
@@ -19,10 +24,12 @@ Graph arrays are buffers registered with ``persistent=False``: the JAX
 executor re-derives its zero-initialised 'graph' collection from the
 dataset at init and keeps that form on load, so the port rebuilds them
 from the dataset too and the tiles (324 MB per support at 49,152 nodes)
-stay out of every checkpoint. Parameters keep the JAX package's flat names
-and shapes (``node_vec1``, ``l0_gate_pool``, ``end_kernel``, ...). Only f32
-compute is ported; the multi-chip backend, the hub/tail/band graph forms
-and bf16 compute raise NotImplementedError naming their ROADMAP.md item.
+stay out of every checkpoint; so a model trained on band planes serves in
+the packed form with no checkpoint migration. Parameters keep the JAX
+package's flat names and shapes (``node_vec1``, ``l0_gate_pool``,
+``end_kernel``, ...), the same for every graph form. Only f32 compute is
+ported; the multi-chip backend and bf16 compute raise NotImplementedError
+naming their ROADMAP.md item.
 """
 
 from typing import Optional
@@ -33,7 +40,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from multistgraph_tpu_torch.models.initializers import torch_style_init
+from multistgraph_tpu_torch.ops.band import BandGraph, band_radius, pack_band_rows, spmm_band, spmm_band_packed
 from multistgraph_tpu_torch.ops.bsr import BSRGraph, row_ptr_from_rows
+from multistgraph_tpu_torch.ops.hybrid import HybridGraph, TailGraph, spmm_hub, spmm_tail, split_hub_columns
 from multistgraph_tpu_torch.ops.spmm import (
     bsr_transpose,
     sddmm_relu,
@@ -47,8 +56,14 @@ from multistgraph_tpu_torch.utils import resolve_device
 class SparseATGCN(nn.Module):
     """Input x: (B, T, N_pad, F) -> (B, Tout, N_pad, output_dim).
 
-    ``supports``: BSRGraphs of the static supports; ``adaptive_pattern``:
-    (row_of, col_of) numpy block pattern of the adaptive view, or None.
+    ``supports``: the static supports, each a mapping of numpy arrays as
+    JAX's support mapping (sparse_atgcn.py:52-67): a BSR part ``values``,
+    ``row``, ``col``; hub columns ``hub_values``, ``hub_cols``; a COO tail
+    ``tail_w``, ``tail_src``, ``tail_dst``; a band as ``band_values`` with
+    ``band_offsets_static`` or ``band_packed`` with ``band_radius_static``.
+    Keys ending in ``_static`` hold host metadata, not arrays.
+    ``adaptive_pattern``: (row_of, col_of) numpy block pattern of the
+    adaptive view, or None.
     """
 
     def __init__(self, num_nodes: int, output_window: int, output_dim: int, hidden_dim: int,
@@ -79,11 +94,15 @@ class SparseATGCN(nn.Module):
             self.register_buffer(name, torch.as_tensor(np.ascontiguousarray(arr), device=device),
                                  persistent=False)
 
-        for i, g in enumerate(supports):
-            buffer("support{}_values".format(i), g.values)
-            buffer("support{}_row".format(i), g.row_of)
-            buffer("support{}_col".format(i), g.col_of)
-            buffer("support{}_row_ptr".format(i), row_ptr_from_rows(g.row_of, nb))
+        self._support_parts, self._support_static = [], []
+        for i, support in enumerate(supports):
+            parts = {k: v for k, v in support.items() if not k.endswith("_static")}
+            if "values" in parts:
+                parts["row_ptr"] = row_ptr_from_rows(parts["row"], nb)
+            for part, arr in parts.items():
+                buffer("support{}_{}".format(i, part), arr)
+            self._support_parts.append(tuple(parts))
+            self._support_static.append({k: v for k, v in support.items() if k.endswith("_static")})
         if self.has_adaptive:
             row, col = adaptive_pattern
             buffer("adaptive_row", np.asarray(row, np.int32))
@@ -133,8 +152,13 @@ class SparseATGCN(nn.Module):
                 p.copy_(torch_style_init(tuple(p.shape), generator))
 
     # -------------------------------------------------------------- supports
-    def _static(self, i):
-        return tuple(getattr(self, "support{}_{}".format(i, part)) for part in ("values", "row", "col", "row_ptr"))
+    def _support(self, i):
+        """Static support i's device arrays by part name."""
+        return {part: getattr(self, "support{}_{}".format(i, part)) for part in self._support_parts[i]}
+
+    @staticmethod
+    def _has_bsr(sv):
+        return "values" in sv and sv["values"].shape[0] > 0
 
     def _adaptive_values(self):
         """The adaptive view's normalised tiles and the dense-corrected
@@ -154,7 +178,10 @@ class SparseATGCN(nn.Module):
         if not torch.is_grad_enabled():
             return [None] * self.num_static, None
         nb = self.num_nodes // self.block
-        support_prets = [bsr_transpose(v, r, c, nb) for v, r, c, _ in map(self._static, range(self.num_static))]
+        support_prets = []
+        for i in range(self.num_static):
+            sv = self._support(i)
+            support_prets.append(bsr_transpose(sv["values"], sv["row"], sv["col"], nb) if self._has_bsr(sv) else None)
         adaptive_pret = None
         if adaptive is not None:
             adaptive_pret = bsr_transpose(adaptive[0].detach(), self.adaptive_row, self.adaptive_col, nb)
@@ -164,8 +191,24 @@ class SparseATGCN(nn.Module):
         """x_flat (N_pad, F) -> (K, N_pad, F): identity and each support applied."""
         outs = [x_flat]
         for i, pre_t in enumerate(support_prets):
-            values, row, col, row_ptr = self._static(i)
-            outs.append(spmm_pret(values, pre_t, row, col, x_flat, block=self.block, row_ptr=row_ptr))
+            # JAX's order and form (sparse_atgcn.py:330-366): band, BSR, hub, tail
+            sv, static = self._support(i), self._support_static[i]
+            y = None
+            if "band_packed" in sv:
+                y = spmm_band_packed(sv["band_packed"], static["band_radius_static"], x_flat)
+            elif "band_values" in sv:
+                y = spmm_band(sv["band_values"], static["band_offsets_static"], x_flat)
+            if self._has_bsr(sv):
+                yb = spmm_pret(sv["values"], pre_t, sv["row"], sv["col"], x_flat, block=self.block,
+                               row_ptr=sv["row_ptr"])
+                y = yb if y is None else y + yb
+            if y is None:  # the split left nothing dense
+                y = torch.zeros_like(x_flat)
+            if "hub_values" in sv:
+                y = y + spmm_hub(sv["hub_values"], sv["hub_cols"], x_flat)
+            if "tail_w" in sv:
+                y = y + spmm_tail(sv["tail_w"], sv["tail_src"], sv["tail_dst"], x_flat, x_flat.shape[0])
+            outs.append(y)
         if adaptive is not None:
             vals, background = adaptive
             y = spmm_pret(vals, adaptive_pret, self.adaptive_row, self.adaptive_col, x_flat,
@@ -237,38 +280,89 @@ class SparseATGCN(nn.Module):
         return out.permute(1, 2, 0, 3)
 
 
-def _unsupported(config, graph):
+def _unsupported(config):
     """NotImplementedError for the JAX package's options this port lacks."""
     if config.get("node_parallel", False):
         raise NotImplementedError("node_parallel (the edge-partitioned multi-chip backend) is not "
                                   "ported yet: ROADMAP.md A.7 (spmm_boundary/spmm_sharded)")
-    if config.get("graph_band_packed", False) or not isinstance(graph, BSRGraph):
-        raise NotImplementedError("the hub/tail/band graph forms (HybridGraph, TailGraph, BandGraph, "
-                                  "graph_band_packed) are not ported yet: ROADMAP.md A.6, the band slice")
     if config.get("compute_dtype", None) is not None:
         raise NotImplementedError("SparseATGCN compute_dtype={!r} is not ported yet: ROADMAP.md A.6 "
                                   "(bf16 with ops/precision.py)".format(config.get("compute_dtype")))
 
 
-def build_sparse_atgcn(graph: BSRGraph, config, device=None,
-                       generator: Optional[torch.Generator] = None) -> SparseATGCN:
-    """SparseATGCN over one static BSR support (plus the adaptive view
-    sampled at its block pattern unless ``adpadj`` is 'none') on `device`
-    (CUDA unless "cpu" is asked for), its weights drawn from `generator`
-    (default: seeded with config['seed'])."""
-    _unsupported(config, graph)
-    device = resolve_device(device)
+def _band_support(graph: BandGraph, config):
+    """The band decomposition's support and adaptive pattern (JAX
+    sparse_atgcn.py:566-612): the band as planes or packed rows, the hub
+    columns of the remaining edges, and a COO tail of the rest; the adaptive
+    view samples the band's tiles, in row-major order."""
+    offsets = np.asarray(graph.offsets)
+    if config.get("graph_band_packed", False):
+        radius = band_radius(offsets)
+        support = {"band_packed": pack_band_rows(graph.band_values, offsets, radius),
+                   "band_radius_static": radius, "band_offsets_static": offsets}
+    else:
+        support = {"band_values": graph.band_values, "band_offsets_static": offsets}
+    hy = split_hub_columns(graph.rest_src, graph.rest_dst, graph.rest_w, graph.num_nodes, graph.block)
+    if hy.num_hubs > 0:
+        support["hub_values"] = hy.hub_values
+        support["hub_cols"] = hy.hub_cols
+    non_hub = ~np.isin(graph.rest_dst, hy.hub_cols)
+    if non_hub.any():
+        order = np.argsort(graph.rest_src[non_hub], kind="stable")
+        support["tail_w"] = graph.rest_w[non_hub][order]
+        support["tail_src"] = graph.rest_src[non_hub][order].astype(np.int32)
+        support["tail_dst"] = graph.rest_dst[non_hub][order].astype(np.int32)
+    adaptive = None
+    if config.get("adpadj", "none") != "none":
+        nb = graph.num_row_blocks
+        rows = [np.arange(max(0, -int(o)), min(nb, nb - int(o))) for o in offsets]
+        cols = [r + int(o) for r, o in zip(rows, offsets)]
+        rows = np.concatenate(rows) if rows else np.zeros(0, np.int64)
+        cols = np.concatenate(cols) if cols else np.zeros(0, np.int64)
+        order = np.lexsort((cols, rows))
+        adaptive = (rows[order].astype(np.int32), cols[order].astype(np.int32))
+    return support, adaptive
+
+
+def _bsr_support(graph, config):
+    """A BSR support, with the hub columns of a HybridGraph or the COO tail of
+    a TailGraph; the adaptive view samples the BSR remainder's tiles, or
+    only the `adaptive_max_blocks` statically heaviest (JAX
+    sparse_atgcn.py:630-658)."""
+    extra = {}
+    if isinstance(graph, HybridGraph):
+        extra = {"hub_values": graph.hub_values, "hub_cols": graph.hub_cols}
+        graph = graph.bsr
+    elif isinstance(graph, TailGraph):
+        extra = {"tail_w": graph.tail_w, "tail_src": graph.tail_src, "tail_dst": graph.tail_dst}
+        graph = graph.bsr
+    support = {"values": graph.values, "row": graph.row_of, "col": graph.col_of, **extra}
     adaptive = None
     if config.get("adpadj", "none") != "none":
         row_np, col_np = graph.row_of, graph.col_of
-        # adaptive_max_blocks: the adaptive view samples only the K
-        # statically heaviest blocks (JAX sparse_atgcn.py:653-657)
         max_blocks = config.get("adaptive_max_blocks", 0)
         if max_blocks and graph.values.shape[0] > max_blocks:
             mass = np.abs(graph.values).sum(axis=(1, 2))
             keep = np.sort(np.argpartition(-mass, max_blocks)[:max_blocks])
             row_np, col_np = row_np[keep], col_np[keep]
         adaptive = (row_np, col_np)
+    return support, adaptive
+
+
+def build_sparse_atgcn(graph, config, device=None, generator: Optional[torch.Generator] = None) -> SparseATGCN:
+    """SparseATGCN over one static support, a BSRGraph, HybridGraph,
+    TailGraph or BandGraph (plus the adaptive view unless ``adpadj`` is
+    'none'), on `device` (CUDA unless "cpu" is asked for), its weights drawn
+    from `generator` (default: seeded with config['seed'])."""
+    _unsupported(config)
+    if isinstance(graph, BandGraph):
+        support, adaptive = _band_support(graph, config)
+    elif isinstance(graph, (BSRGraph, HybridGraph, TailGraph)):
+        support, adaptive = _bsr_support(graph, config)
+    else:
+        raise TypeError("build_sparse_atgcn takes a BSRGraph, HybridGraph, TailGraph or BandGraph, "
+                        "got {}".format(type(graph).__name__))
+    device = resolve_device(device)
     model = SparseATGCN(
         num_nodes=graph.padded_nodes,
         output_window=config.get("output_window", 1),
@@ -276,7 +370,7 @@ def build_sparse_atgcn(graph: BSRGraph, config, device=None,
         hidden_dim=config.get("rnn_units", 64),
         num_layers=config.get("num_layers", 2),
         embed_dim_adj=config.get("embed_dim_adj", 16),
-        supports=(graph,),
+        supports=(support,),
         adaptive_pattern=adaptive,
         node_conditioned=config.get("node_conditioned", "off"),
         embed_dim_node=config.get("embed_dim_node", 8),

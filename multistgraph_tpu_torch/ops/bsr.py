@@ -13,9 +13,9 @@ offsets that the CUDA SpMM walks (multistgraph_tpu/ops/spmm_stream.py:63).
 
 The builders draw the same random numbers in the same order and accumulate
 duplicate edges with ``np.add.at`` in the same order as the JAX package's
-numpy path, so a seed gives bit-identical graphs. Node reorderings (RCM,
-community), the native builder and the hub/tail/band splits are not ported
-yet (ROADMAP.md A.6).
+numpy path, so a seed gives bit-identical graphs. ``random_spatial_graph``
+also gives the split forms (ops/hybrid.py, ops/band.py). Node reorderings
+(RCM, community) and the native builder are not ported yet (ROADMAP.md A.6).
 """
 
 from dataclasses import dataclass
@@ -43,6 +43,10 @@ class BSRGraph:
     @property
     def nnz_blocks(self) -> int:
         return int(self.values.shape[0])
+
+    @property
+    def nnz_edges(self) -> int:
+        return int((self.values != 0).sum())
 
     def to_dense(self) -> np.ndarray:
         n = self.padded_nodes
@@ -88,15 +92,12 @@ def bsr_from_dense(adj: np.ndarray, block: int = 128) -> BSRGraph:
 
 def random_spatial_graph(num_nodes: int, avg_degree: int = 16, locality: int = 256,
                          num_hubs: int = 8, hub_fraction: float = 0.05, seed: int = 0,
-                         block: int = 128, split: str = None) -> Tuple[BSRGraph, int]:
+                         block: int = 128, split: str = None) -> Tuple[object, int]:
     """Spatially-local graph plus a few hub nodes (power-law-ish degree):
     most edges join nearby node ids (|dst - src| <= locality), a fraction
-    lands on global hubs. Returns (graph, num_edges). Only the plain BSR
-    form (``split`` None or 'none') is ported."""
-    if split not in (None, "none"):
-        raise NotImplementedError(
-            "graph_split={!r} (hub/tail/band forms) is not ported yet: ROADMAP.md A.6, "
-            "the band slice".format(split))
+    lands on global hubs. Returns (graph, num_edges): a BSRGraph, or with
+    ``split`` 'hub' | 'tail' | 'band' the HybridGraph, TailGraph or
+    BandGraph of the same edges."""
     rng = np.random.default_rng(seed)
     num_edges = num_nodes * avg_degree
     n_local = int(num_edges * (1 - hub_fraction))
@@ -110,6 +111,18 @@ def random_spatial_graph(num_nodes: int, avg_degree: int = 16, locality: int = 2
     src = np.concatenate([src_local, src_hub])
     dst = np.concatenate([dst_local, dst_hub])
     w = rng.uniform(0.1, 1.0, num_edges).astype(np.float32)
+    if split == "hub":
+        from multistgraph_tpu_torch.ops.hybrid import split_hub_columns
+
+        return split_hub_columns(src, dst, w, num_nodes, block), num_edges
+    if split == "tail":
+        from multistgraph_tpu_torch.ops.hybrid import split_scattered_tail
+
+        return split_scattered_tail(src, dst, w, num_nodes, block), num_edges
+    if split == "band":
+        from multistgraph_tpu_torch.ops.band import split_band
+
+        return split_band(src, dst, w, num_nodes, block), num_edges
     return bsr_from_coo(src, dst, w, num_nodes, block), num_edges
 
 

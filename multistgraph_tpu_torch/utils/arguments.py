@@ -50,8 +50,8 @@ GENERAL_ARGUMENTS = {
     "num_nodes": int,            # synthetic graph size
     "avg_degree": int,
     "len_time": int,
-    "graph_split": str,          # none only; hub | tail | band are not ported
-    "graph_band_packed": str2bool,
+    "graph_split": str,          # none | hub | tail | band
+    "graph_band_packed": str2bool,  # band form stored as packed rows (serving)
     "remat": str2bool,           # checkpoint each step of the recurrence
     "adaptive_max_blocks": int,  # cap the adaptive pattern
     "use_early_stop": str2bool,

@@ -8,7 +8,8 @@ executor, evaluator, losses, optimizers, pipeline, run_model and bench
 among them), writes a small synthetic dataset with the port's generator,
 serves one CPU predict through ``from_experiment``, then takes one int8
 training step through ``get_executor`` and evaluates the test split, and
-takes one SparseATGCN training step on the synthetic large-graph dataset.
+takes one SparseATGCN training step on the synthetic large-graph dataset,
+in the plain BSR form and in the band form.
 """
 
 import os
@@ -46,7 +47,7 @@ _SCRIPT = textwrap.dedent(r"""
         importlib.import_module(info.name)
     for name in ("executor.executor", "executor.optimizers", "evaluator.evaluator", "ops.losses",
                  "utils.seeds", "utils.tbwriter", "pipeline", "run_model", "bench", "ops.bsr",
-                 "ops.spmm", "models.sparse_atgcn", "data.large_graph"):
+                 "ops.spmm", "ops.band", "ops.hybrid", "models.sparse_atgcn", "data.large_graph"):
         assert "multistgraph_tpu_torch." + name in sys.modules, name
 
     import numpy as np
@@ -89,13 +90,16 @@ _SCRIPT = textwrap.dedent(r"""
     sargs = {"output_dir": os.path.join(work, "out"), "exp_id": "iso_sparse", "num_nodes": 200,
              "avg_degree": 8, "len_time": 40, "input_window": 4, "output_window": 2, "batch_size": 2,
              "rnn_units": 4, "embed_dim_adj": 3, "tensorboard": False}
-    scfg = load_config("traffic_state_pred", "SparseATGCN", "SYN_LARGE", other_args=sargs)
-    sds = get_dataset(scfg, device="cpu")
-    strain, _, _ = sds.get_data()
-    sexec = get_executor(scfg, get_model(scfg, sds.get_data_feature(), device="cpu"), sds.get_data_feature(),
-                         device="cpu")
-    loss = sexec.train_step(sexec.batch(strain, strain.epoch_permutation()[0]))
-    assert torch.isfinite(loss), loss
+    for split in ("none", "band"):
+        scfg = load_config("traffic_state_pred", "SparseATGCN", "SYN_LARGE",
+                           other_args=dict(sargs, graph_split=split))
+        sds = get_dataset(scfg, device="cpu")
+        strain, _, _ = sds.get_data()
+        smodel = get_model(scfg, sds.get_data_feature(), device="cpu")
+        assert hasattr(smodel, "support0_band_values") == (split == "band")
+        sexec = get_executor(scfg, smodel, sds.get_data_feature(), device="cpu")
+        loss = sexec.train_step(sexec.batch(strain, strain.epoch_permutation()[0]))
+        assert torch.isfinite(loss), loss
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED_OK")
 """)

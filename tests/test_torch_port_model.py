@@ -24,6 +24,15 @@ N, TIN, TOUT = 8, 24, 6
 LEN_C, LEN_P, LEN_T = 2, 1, 1  # in input_window multiples
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, as the port's other CPU tests use beside other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _features(with_static, seed=3):
     rng = np.random.default_rng(seed)
     adj = np.abs(rng.normal(size=(N, N))).astype(np.float32)

@@ -1,6 +1,7 @@
 """The port's SparseATGCN against the JAX package's: the forward and one
-loss's gradient for every parameter, from the same weights (carried over
-with utils/jax_import.py) on the same numpy-seeded inputs.
+loss's gradient for every parameter, from the same seeded random weights
+(drawn in the JAX parameter tree's shapes, carried over with
+utils/jax_import.py) on the same numpy-seeded inputs.
 
 Two 128-node blocks (N_PAD 256), hidden 8, T 4, 2 layers, over a random
 BSR graph; the JAX Pallas kernels run in interpret mode, as
@@ -19,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from multistgraph_tpu.models.sparse_atgcn import build_sparse_atgcn as jax_build, init_with_graph
+from multistgraph_tpu.models.sparse_atgcn import build_sparse_atgcn as jax_build
 from multistgraph_tpu.ops import bsr as jax_bsr
 from multistgraph_tpu_torch.models.sparse_atgcn import build_sparse_atgcn
 from multistgraph_tpu_torch.ops import bsr
@@ -72,8 +73,11 @@ def test_forward_and_gradients_match_jax(case):
     cot = rng.normal(size=(B, 3, N_PAD, 1)).astype(np.float32)
 
     jmodel = jax_build(jax_bsr.bsr_from_dense(dense), cfg, interpret=True)
-    variables = init_with_graph(jmodel, jax.random.PRNGKey(0), jnp.asarray(x))
-    params = variables["params"]
+    # seeded random weights in the parameter tree's shapes: no init program to compile
+    shapes = jax.eval_shape(lambda k, xx: jmodel.init(k, xx, train=False), jax.random.PRNGKey(0), jnp.asarray(x))
+    wrng = np.random.default_rng(7)
+    params = {k: (wrng.normal(size=v.shape) * 0.3).astype(np.float32) for k, v in shapes["params"].items()}
+    variables = jmodel.attach_graph({"params": params})
 
     def jloss(p):
         out = jmodel.apply({**variables, "params": p}, jnp.asarray(x), train=False)
@@ -117,12 +121,26 @@ def test_graph_is_not_part_of_the_state_dict():
 
 @pytest.mark.parametrize("option,match", [
     ({"node_parallel": True}, "ROADMAP.md A.7"),
-    ({"graph_band_packed": True}, "ROADMAP.md A.6"),
     ({"compute_dtype": "bfloat16"}, "ROADMAP.md A.6"),
 ])
 def test_unported_options_raise(option, match):
     with pytest.raises(NotImplementedError, match=match):
         build_sparse_atgcn(bsr.bsr_from_dense(_graph()), _config(**option), device="cpu")
+
+
+def test_graph_band_packed_builds_the_packed_rows_and_no_planes():
+    """graph_band_packed stores a band graph's support as packed rows and
+    no planes; on a plain BSR graph it changes nothing, as in the JAX
+    builder."""
+    from multistgraph_tpu_torch.ops.band import BandGraph
+
+    band_graph = bsr.random_spatial_graph(1000, 16, seed=1, split="band")[0]
+    assert isinstance(band_graph, BandGraph)
+    names = {n for n, _ in build_sparse_atgcn(band_graph, _config(graph_band_packed=True),
+                                              device="cpu").named_buffers()}
+    assert "support0_band_packed" in names and "support0_band_values" not in names
+    plain = build_sparse_atgcn(bsr.bsr_from_dense(_graph()), _config(graph_band_packed=True), device="cpu")
+    assert {"support0_values", "support0_row_ptr"} <= {n for n, _ in plain.named_buffers()}
 
 
 def test_adaptive_max_blocks_samples_the_blocks_jax_samples():

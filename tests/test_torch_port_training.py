@@ -11,15 +11,20 @@ Tolerances, each with its reason:
     ~6e-6 relative (the readings: 6.4e-6 for Adam, 3.5e-6 for RMSprop with
     momentum and clipping, below 1e-6 for the rest);
   * the executor, 2 epochs in f32 without dropout from the same initial
-    weights through the same shuffles, with SGD: per-epoch train and
-    validation loss rtol 1e-5, evaluation metrics and the per-horizon
-    group de-z-scored rows rtol 1e-4 (the readings agree to 7 digits).
-    With Adam, the model's default: losses rtol 2e-3, metrics rtol 2e-2.
-    Adam takes a step of about the learning rate for every parameter
-    whatever the size of its gradient, so a last-bit difference in a
-    near-zero gradient can flip a step; two epochs carry that to 4.2e-4 in
-    the second epoch's loss and 3.8e-3 in the metrics (readings), while the
-    first epoch's loss agrees to 6 digits.
+    weights through the same shuffles, on a 12-day series (15 training
+    batches per epoch), with SGD: per-epoch train and validation loss
+    rtol 1e-5, evaluation metrics and the per-horizon group de-z-scored
+    rows rtol 1e-4 (the readings agree to 7 digits in the losses, 1.6e-5
+    in the metrics). With Adam, the model's default: losses rtol 2e-5,
+    metrics and rows rtol 1e-3. Adam takes a step of about the learning
+    rate for every parameter whatever the size of its gradient, so a
+    last-bit difference in a near-zero gradient can flip a step. The
+    readings at this seed are 1.1e-6 in the losses and 5.1e-5 in the
+    metrics and rows; over four other (data, model) seeds (0, 1), (1, 2),
+    (2, 3) at most 3.2e-6 and 1.7e-4, so the limits are about 6x the
+    largest. A flip can carry it much further: seeds (5, 7) read 4.8e-5
+    and 0.37 (a metric near zero), and a 35-day series (64 batches per
+    epoch) read 4.2e-4 and 3.8e-3.
 A training step on the card is tests/test_torch_port_training_cuda.py,
 which imports no JAX.
 """
@@ -241,7 +246,7 @@ def _trans_rows(eval_dir):
 
 
 # learner overrides -> (loss rtol, metric rtol); see the module docstring
-LEARNERS = {"adam": ({}, 2e-3, 2e-2), "sgd": ({"learner": "sgd", "learning_rate": 0.01}, 1e-5, 1e-4)}
+LEARNERS = {"adam": ({}, 2e-5, 1e-3), "sgd": ({"learner": "sgd", "learning_rate": 0.01}, 1e-5, 1e-4)}
 
 
 @pytest.fixture(scope="module", params=sorted(LEARNERS))
@@ -251,7 +256,7 @@ def trained(request, tmp_path_factory):
     overrides, loss_rtol, metric_rtol = LEARNERS[request.param]
     root = str(tmp_path_factory.mktemp("port_training"))
     raw = os.path.join(root, "raw")
-    make_synthetic_dataset(raw, DATASET, num_nodes=12, len_time=24 * 35, seed=3)
+    make_synthetic_dataset(raw, DATASET, num_nodes=12, len_time=24 * 12, seed=3)
 
     jargs = dict(_args(raw, os.path.join(root, "jax")), **overrides)
     jcfg = jax_load_config(TASK, MODEL, DATASET, other_args=jargs)
