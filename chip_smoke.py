@@ -43,6 +43,17 @@ Then the band form of the same graph (graph_split 'band': diagonals -2..2,
     replies held against the planes';
   * at 4,096 nodes, output, loss and gradients on the card against the CPU
     in both storage forms, failed by faults planted in B7, B8 and B9 dX.
+Then the node-apply design harness and the card's stream calibration:
+  * B1 and B1t (the factored node apply and its transpose) at the
+    flagship gate and update cells in f32 and bf16, B11 A (per-node dots),
+    B (B1's kernel on rows) and D (the read floor) at the harness shapes,
+    B10 (the column-sum read) over 256 MB at three block shapes and one
+    point of B12's stream-rate sweep, each against its plain version,
+    timed beside its bound and a library call; faults planted in B1 (the
+    d = 0 term dropped) and B1t (a node block zeroed) must fail the checks;
+  * the port's bench_node_dots, bench_hbm_peak and bench_stream_rate run on
+    the card with the launch counts from 0: each of those kernels must be
+    launched in that window.
 Every phase raises on failure; nothing is caught. The output ends with a
 JSON line listing the kernels and a JSON line ``{"ok": true, "device": {...}}``.
 
@@ -50,6 +61,7 @@ Without a CUDA device, or without the repository around it, it exits with
 an error and prints no result.
 """
 
+import importlib
 import itertools
 import json
 import math
@@ -57,7 +69,6 @@ import os
 import re
 import shutil
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -122,20 +133,9 @@ def _bound_ms(num_bytes, flops, peak_flops=PEAK_BF16_FLOPS):
 
 def _time_ms(torch, fn, reps=TIMING_REPS):
     """Median device time of one call (CUDA events), L2 flushed before each."""
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from multistgraph_tpu_torch.tools.timing import event_ms
+
+    return event_ms(fn, reps=reps)
 
 
 def _ptxas_summary(report):
@@ -146,12 +146,27 @@ def _ptxas_summary(report):
         len(regs), max(regs, default=0), spills)
 
 
-def _within_one_bf16_step(got, want):
-    """|got - want| <= 2^-7 |want| + 2^-7 * 1e-3 max|want| elementwise: one
-    bf16 step (8 significant bits), with a floor for sums that cancel."""
+def _over_bound(got, want, rel=1e-5, bf16_step=False):
+    """The largest |got - want| over its elementwise bound (inf where the
+    shapes or dtypes differ). By default rtol rel with atol rel*max|want|:
+    the same products summed in another order. bf16_step: one bf16 step,
+    2^-7 |want| + 2^-7 * 1e-3 max|want| (8 significant bits, with a floor
+    for sums that cancel)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf")
     got, want = got.float(), want.float()
-    bound = 2.0 ** -7 * (want.abs() + 1e-3 * want.abs().max())
-    return bool(((got - want).abs() <= bound).all())
+    if bf16_step:
+        bound = 2.0 ** -7 * (want.abs() + 1e-3 * want.abs().max())
+    else:
+        bound = rel * (want.abs() + want.abs().max())
+    diff = (got - want).abs()
+    # 0 where equal, so a zero bound divides nothing; a NaN stays a NaN
+    return (diff / bound).masked_fill(diff == 0, 0.0).max().item()
+
+
+def _hold(ratio, what):
+    if not ratio <= 1.0:
+        raise AssertionError("{}: {:.3g} of its bound".format(what, ratio))
 
 
 def kernel_phase(torch):
@@ -177,9 +192,8 @@ def kernel_phase(torch):
         got = node_apply_q8(hh, wq, s)
         want = node_apply_q8_plain(hh, wq, s)
         torch.cuda.synchronize()
-        scale = want.abs().max().item()
         # the same products in f32; only the summation order differs
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+        _hold(_over_bound(got, want), "node_apply_q8 vs its plain version on " + cell)
         w_deq = (wq[:N].float() * s[:N]).to(torch.bfloat16)
         num_bytes = N * b * ki * 2 + N * ki * o + N * o * 4 + N * b * o * 4
         bound, by = _bound_ms(num_bytes, 2 * N * b * ki * o)
@@ -205,8 +219,7 @@ def kernel_phase(torch):
         torch.cuda.synchronize()
         # the same bf16-rounded products in f32; only the summation order
         # differs, which can move the final bf16 rounding by one step
-        if got.dtype != torch.bfloat16 or not _within_one_bf16_step(got, want):
-            raise AssertionError("node_apply_q8_t differs from its plain version on " + cell)
+        _hold(_over_bound(got, want, bf16_step=True), "node_apply_q8_t vs its plain version on " + cell)
         d_lib = (dpre.float() * s[:N]).to(torch.bfloat16)
         # the scale lies on the cotangent, so the library call takes the int8
         # weights widened to bf16 (exact), transposed ahead of time
@@ -568,6 +581,8 @@ def _counters():
                 "force_default_layout_bwd": (force_default_layout, "backward_launches"),
                 "bsr_spmm": (bsr_spmm, "launches"), "sampled_matmul": (sampled_matmul, "launches")}
     counters.update({name: (getattr(band, name), "launches") for name in BAND_WRAPPERS})
+    counters.update({name: (getattr(importlib.import_module("multistgraph_tpu_torch." + module), name), "launches")
+                     for name, module in HARNESS_WRAPPERS})
     return counters
 
 
@@ -851,9 +866,8 @@ def sparse_kernel_phase(torch):
             got = sp.bsr_spmm(values, row, row_ptr, col, x, nb)
             want = sp.spmm_plain(values, row, col, x, out_blocks=nb)
             torch.cuda.synchronize()
-            scale = want.abs().max().item()
             # the same f32 products, summed in another order
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+            _hold(_over_bound(got, want), "bsr_spmm vs its plain version at F={}{}".format(feat, what))
             num_bytes = tile_bytes + index_bytes + 2 * n_pad * feat * 4
             flops = 2 * nnz * 128 * 128 * feat
             bound, by = _bound_ms(num_bytes, flops, PEAK_F32_FLOPS)
@@ -885,8 +899,7 @@ def sparse_kernel_phase(torch):
         got = sp.sampled_matmul(a, bt, row, col)
         want = sp.sampled_matmul_plain(a, bt, row, col)
         torch.cuda.synchronize()
-        scale = want.abs().max().item()
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+        _hold(_over_bound(got, want), "sampled_matmul vs its plain version at D={}".format(d))
         num_bytes = 2 * n_pad * d * 4 + 2 * nnz * 4 + tile_bytes
         flops = 2 * nnz * 128 * 128 * d
         bound, by = _bound_ms(num_bytes, flops, PEAK_F32_FLOPS)
@@ -1183,11 +1196,11 @@ def band_kernel_phase(torch):
     def row(name, replaces, feat, kernel, plain, library, label, main_path=True, library_check=True):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        scale = want.abs().max().item()
         # the same f32 products, summed in another order
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+        _hold(_over_bound(got, want), "{} vs its plain version at F={}".format(name, feat))
         if library_check:  # the yardstick computes the same function
-            torch.testing.assert_close(library().reshape(want.shape), want, rtol=1e-4, atol=1e-4 * scale)
+            _hold(_over_bound(library().reshape(want.shape), want, rel=1e-4),
+                  "{}'s library call vs its plain version at F={}".format(name, feat))
         # tiles read (or, for dV, written) once, the two (N_pad, F) operands once
         num_bytes = tile_bytes + 2 * n_pad * feat * 4
         flops = 2 * tiles * block * block * feat
@@ -1437,6 +1450,214 @@ def band_check_phase(torch):
     return errs, controls
 
 
+# ------------------------------------------------------------ node-apply harness
+
+# B1/B1t cells: the DC-237 flagship encoder's gate (O = 2H) and update (O = H)
+FACTORED_D = 20                       # embed_dim_node at the flagship
+# the harness's shapes (tools/bench_node_dots.py:41-46): T, B, NP, KI, O, D, BLK
+HARNESS = dict(T=24, B=16, NP=256, KI=320, O=192, D=20, BLK=32)
+B10_MB, B10_BLOCKS = 256, ((512, 512), (2048, 512), (2048, 1024))   # tools/bench_hbm_peak.py:230-232
+RATE_STREAMS, RATE_BLOCK_MB, RATE_TOTAL_MB = 4, 2, 512              # one point of the stream-rate sweep
+HARNESS_WRAPPERS = (("node_factored_apply", "ops.node_apply"), ("node_factored_apply_t", "ops.node_apply"),
+                    ("node_factored_rows", "ops.node_apply"), ("node_dots", "ops.node_dots"),
+                    ("node_dots_floor", "ops.stream_read"), ("column_sum_read", "ops.stream_read"),
+                    ("stream_rate_read", "ops.stream_read"))
+
+
+def _bf16_step(got, want):
+    return _over_bound(got, want, bf16_step=True)
+
+
+def node_harness_phase(torch):
+    """B1, B1t, B11 A/B/D, B10 and B12's stream rate against their plain
+    versions at the flagship and harness shapes, timed beside their bounds
+    and library calls; faults planted in B1 and B1t; then the port's three
+    tools driven on the card with the launch counts from 0. Returns (rows,
+    launches in the tools' window)."""
+    from multistgraph_tpu_torch.ops import node_apply, stream_read
+    from multistgraph_tpu_torch.ops.node_dots import node_dots, node_dots_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    lines = []
+
+    def randn(*shape, dtype=torch.float32, scale=0.1):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    def row(name, replaces, shape, got, want, check, tolerance, kernel, plain, library, label,
+            num_bytes, flops, peak_flops, peak_note, main_path=True, reps=TIMING_REPS):
+        torch.cuda.synchronize()
+        _hold(check(got, want), "{} vs its plain version at {}".format(name, shape))
+        bound, by = _bound_ms(num_bytes, flops, peak_flops)
+        lines.append({
+            "name": name, "shape": shape, "replaces": replaces,
+            "max_abs_err": (got.float() - want.float()).abs().max().item(), "tolerance": tolerance,
+            "kernel_ms": _time_ms(torch, kernel, reps=reps), "plain_ms": _time_ms(torch, plain, reps=reps),
+            "library_ms": None if library is None else _time_ms(torch, library, reps=reps), "library": label,
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops, "peak": peak_note,
+            "main_path": main_path,
+        })
+
+    # B1 and B1t at the flagship cells, f32 and bf16 operands (the harness
+    # runs them in bf16, its main path)
+    ki = K * H
+    faults = {}
+    for (cell, o), dtype in itertools.product((("gate", 2 * H), ("update", H)), (torch.float32, torch.bfloat16)):
+        bf = dtype == torch.bfloat16
+        peak, note = (PEAK_BF16_FLOPS, PEAK_NOTE) if bf else (PEAK_F32_FLOPS, PEAK_F32_NOTE)
+        size = 2 if bf else 4
+        hh = randn(B, K, N, H, dtype=dtype)
+        e = randn(N, FACTORED_D)
+        pool = randn(FACTORED_D, K, H, o, dtype=dtype)
+        mat, mat_t = node_apply.pool_to_kernel_layout(pool)
+        shape = "{} {} B={} K={} N={} I={} D={} O={}".format(cell, str(dtype)[6:], B, K, N, H, FACTORED_D, o)
+        flops = 2 * B * N * ki * FACTORED_D * o
+        got = node_apply.node_factored_apply(hh, e, mat)
+        want = node_apply.node_factored_apply_plain(hh, e, mat)
+        pool4, e_lib = mat.reshape(K, H, FACTORED_D, o), e.to(dtype)
+        row("node_factored_apply", "multistgraph_tpu/ops/node_apply.py:107 node_factored_apply", shape,
+            got, want, _over_bound, "rtol 1e-5, atol 1e-5*max|plain|",
+            lambda: node_apply.node_factored_apply(hh, e, mat),
+            lambda: node_apply.node_factored_apply_plain(hh, e, mat),
+            lambda: torch.einsum("bkni,nd,kido->bno", hh, e_lib, pool4),
+            "torch.einsum('bkni,nd,kido->bno') in the operands' dtype",
+            hh.numel() * size + e.numel() * 4 + mat.numel() * size + B * N * o * 4, flops, peak, note,
+            main_path=bf)
+        # planted fault: B1 without its d = 0 term
+        e0 = e.clone()
+        e0[:, 0] = 0
+        faults["B1 d=0 term dropped, " + shape] = _over_bound(node_apply.node_factored_apply(hh, e0, mat), want)
+        dpre = randn(B, N, o, dtype=dtype)
+        got = node_apply.node_factored_apply_t(dpre, e, mat_t)
+        want = node_apply.node_factored_apply_t_plain(dpre, e, mat_t)
+        check, tol = (_bf16_step, "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|") if bf else (
+            _over_bound, "rtol 1e-5, atol 1e-5*max|plain|")
+        pool4t = mat_t.reshape(K, FACTORED_D, o, H)
+        row("node_factored_apply_t", "multistgraph_tpu/ops/node_apply.py:137 node_factored_apply_t", shape,
+            got, want, check, tol,
+            lambda: node_apply.node_factored_apply_t(dpre, e, mat_t),
+            lambda: node_apply.node_factored_apply_t_plain(dpre, e, mat_t),
+            lambda: torch.einsum("bno,nd,kdoi->bkni", dpre, e_lib, pool4t),
+            "torch.einsum('bno,nd,kdoi->bkni') in the operands' dtype",
+            dpre.numel() * size + e.numel() * 4 + mat_t.numel() * size + B * ki * N * size, flops, peak, note,
+            main_path=bf)
+        # planted fault: B1t with its first node block (64 rows) zeroed
+        bad = got.clone()
+        bad[:, :, :64] = 0
+        faults["B1t node block 0 zeroed, " + shape] = check(bad, want)
+    for fault, ratio in faults.items():
+        if not ratio > 1.0:
+            raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
+    say(json.dumps({"planted_faults_over_bound": faults}))
+
+    # B11 A, B and D at the harness shapes
+    hs = HARNESS
+    hh = randn(hs["T"], hs["B"], hs["NP"] * hs["KI"], dtype=torch.bfloat16)
+    w = randn(hs["NP"], hs["KI"], hs["O"], dtype=torch.bfloat16)
+    s = torch.full((1, 1), 0.0123, device=dev)
+    in_bytes = (hh.numel() + w.numel()) * 2
+    harness_shape = "T={T} B={B} NP={NP} KI={KI} O={O}".format(**hs)
+    dots_flops = 2 * hs["T"] * hs["B"] * hs["NP"] * hs["KI"] * hs["O"]
+    hh_nodes = hh.reshape(hs["T"] * hs["B"], hs["NP"], hs["KI"]).transpose(0, 1).contiguous()
+    row("node_dots", "tools/bench_node_dots.py:91 make_a", harness_shape,
+        node_dots(hh, w, s), node_dots_plain(hh, w, s), _bf16_step,
+        "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|",
+        lambda: node_dots(hh, w, s), lambda: node_dots_plain(hh, w, s), lambda: torch.bmm(hh_nodes, w),
+        "torch.bmm over nodes of all T steps' rows (NP, T*B, KI) @ (NP, KI, O), hh pre-permuted",
+        in_bytes + hs["B"] * hs["NP"] * hs["O"] * 2, dots_flops, PEAK_BF16_FLOPS, PEAK_NOTE)
+    rows_n = hs["B"] * hs["NP"]
+    hh_rows = hh.reshape(hs["T"], rows_n, hs["KI"])
+    e_rows = randn(hs["NP"], hs["D"], dtype=torch.bfloat16).repeat(hs["B"], 1)
+    pool = randn(hs["KI"], hs["D"] * hs["O"], dtype=torch.bfloat16)
+    pool3 = pool.view(hs["KI"], hs["D"], hs["O"])
+    row("node_factored_rows", "tools/bench_node_dots.py:127 make_b", harness_shape + " D={D} rows".format(**hs),
+        node_apply.node_factored_rows(hh_rows, e_rows, pool, s),
+        node_apply.node_factored_rows_plain(hh_rows, e_rows, pool, s), _bf16_step,
+        "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|",
+        lambda: node_apply.node_factored_rows(hh_rows, e_rows, pool, s),
+        lambda: node_apply.node_factored_rows_plain(hh_rows, e_rows, pool, s),
+        lambda: torch.einsum("tri,rd,ido->tro", hh_rows, e_rows, pool3),
+        "torch.einsum('tri,rd,ido->tro') in bf16 over all T steps, no scalar",
+        hh.numel() * 2 + e_rows.numel() * 2 + pool.numel() * 2 + rows_n * hs["O"] * 2,
+        dots_flops * hs["D"], PEAK_BF16_FLOPS, PEAK_NOTE, reps=10)
+    # The plain versions of A and B compute only the last step, the one that
+    # reaches the output; the kernels compute all T, as the TPU grid does. A
+    # kernel that skipped the overwritten steps would take about its one-step
+    # time at T steps, so its time must grow with T.
+    for line, one_step in ((lines[-2], lambda: node_dots(hh[-1:], w, s)),
+                           (lines[-1], lambda: node_apply.node_factored_rows(hh_rows[-1:], e_rows, pool, s))):
+        line["kernel_ms_one_step"] = _time_ms(torch, one_step)
+        growth = line["kernel_ms"] / line["kernel_ms_one_step"]
+        if not growth > hs["T"] / 4:
+            raise AssertionError("{} takes {:.3g}x its one-step time at T={}: not every step ran".format(
+                line["name"], growth, hs["T"]))
+
+    def bit_equal(got, want):
+        return 0.0 if torch.equal(got, want) else float("inf")
+
+    def same_checksum(name, got, want):
+        if stream_read.checksum_value(got[1]) != stream_read.checksum_value(want[1]):
+            raise AssertionError("{}'s checksum differs: not every byte was read".format(name))
+        return got[0], want[0]
+
+    got, want = same_checksum("node_dots_floor", stream_read.node_dots_floor(hh, w, s, hs["BLK"]),
+                              stream_read.node_dots_floor_plain(hh, w, s, hs["BLK"]))
+    row("node_dots_floor", "tools/bench_node_dots.py:158 make_d", harness_shape, got, want,
+        bit_equal, "bit-identical, checksum exact",
+        lambda: stream_read.node_dots_floor(hh, w, s, hs["BLK"]),
+        lambda: stream_read.node_dots_floor_plain(hh, w, s, hs["BLK"]),
+        lambda: (hh.sum(dtype=torch.float32), w.sum(dtype=torch.float32)),
+        "hh.sum() and w.sum() (two calls) over the same bytes",
+        in_bytes + hs["B"] * hs["O"] * 2, 0, PEAK_BF16_FLOPS, PEAK_NOTE)
+    del hh, w, hh_nodes, hh_rows, e_rows, pool, pool3
+
+    # B10 at the TPU bench's three block shapes over 256 MB of bf16
+    for block_rows, width in B10_BLOCKS:
+        rows = B10_MB * 1024 * 1024 // (2 * width)
+        x = randn(rows, width, dtype=torch.bfloat16, scale=1.0)
+        got, want = same_checksum("column_sum_read", stream_read.column_sum_read(x, s, block_rows),
+                                  stream_read.column_sum_read_plain(x, s, block_rows))
+        row("column_sum_read", "tools/bench_hbm_peak.py:156 pallas_read",
+            "{} MB bf16 ({}, {}) blocks {}x{}".format(B10_MB, rows, width, block_rows, width), got, want,
+            _over_bound, "rtol 1e-5, atol 1e-5*max|plain| (f32 column sums in another order); checksum exact",
+            lambda: stream_read.column_sum_read(x, s, block_rows),
+            lambda: stream_read.column_sum_read_plain(x, s, block_rows),
+            lambda: x.sum(dtype=torch.float32), "x.sum() over the same bytes",
+            x.numel() * 2 + stream_read.COLUMNS * 4, 0, PEAK_BF16_FLOPS, PEAK_NOTE, reps=10)
+        del x
+    # one point of the stream-rate sweep: 4 streams of 2 MB blocks, 512 MB
+    rows_per_block = RATE_BLOCK_MB * 1024 * 1024 // (2 * 512)
+    grid = RATE_TOTAL_MB * 1024 * 1024 // (2 * 512 * RATE_STREAMS) // rows_per_block
+    arrays = [randn(grid, rows_per_block, 512, dtype=torch.bfloat16, scale=1.0) for _ in range(RATE_STREAMS)]
+    got, want = same_checksum("stream_rate_read", stream_read.stream_rate_read(arrays, s),
+                              stream_read.stream_rate_read_plain(arrays, s))
+    row("stream_rate_read", "tools/bench_stream_rate.py:57 make",
+        "{} streams x ({}, {}, 512) bf16, {} MB".format(RATE_STREAMS, grid, rows_per_block, RATE_TOTAL_MB),
+        got, want, bit_equal, "bit-identical, checksum exact",
+        lambda: stream_read.stream_rate_read(arrays, s), lambda: stream_read.stream_rate_read_plain(arrays, s),
+        None, "none: no one PyTorch call reads n arrays", RATE_TOTAL_MB * 1024 * 1024 + 512 * 4, 0,
+        PEAK_BF16_FLOPS, PEAK_NOTE, reps=10)
+    del arrays
+    torch.cuda.empty_cache()
+    for line in lines:
+        say(json.dumps(line))
+
+    # the port's three tools on the card, launches counted from 0
+    _reset_counts()
+    t0 = time.time()
+    for tool in ("bench_node_dots", "bench_hbm_peak", "bench_stream_rate"):
+        record = importlib.import_module("multistgraph_tpu_torch.tools." + tool).main([])
+        if not record:
+            raise AssertionError("{} returned no record".format(tool))
+    window = _read_counts()
+    say("node-apply harness and stream tools ran in {:.1f}s; launches: {}".format(time.time() - t0, json.dumps(
+        {k: v for k, v in window.items() if v})))
+    for name, _ in HARNESS_WRAPPERS:
+        if window[name] == 0:
+            raise AssertionError("{} was launched no time by the harness tools".format(name))
+    return lines, window
+
+
 def main():
     import torch
 
@@ -1445,9 +1666,9 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from multistgraph_tpu_torch.ops import _cuda
+    from multistgraph_tpu_torch.tools.timing import card
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card()
     say(smi)
     say("torch {} cuda {}".format(torch.__version__, torch.version.cuda))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1473,6 +1694,8 @@ def main():
     windows["serving"] = dict(serving_launches, node_apply_q8_t=0, force_default_layout_bwd=0)
     sparse_check_phase(torch)
     band_check_phase(torch)
+    harness_lines, windows["node harness"] = node_harness_phase(torch)
+    lines += harness_lines
 
     kernels = []
     for name, source in (("node_apply_q8", "multistgraph_tpu_torch/csrc/node_apply_q8.cu"),
@@ -1483,7 +1706,14 @@ def main():
                          ("sampled_matmul", "multistgraph_tpu_torch/csrc/sampled_matmul.cu"),
                          ("band_spmm", "multistgraph_tpu_torch/csrc/band_spmm.cu"),
                          ("band_spmm_packed", "multistgraph_tpu_torch/csrc/band_spmm.cu"),
-                         ("band_dx", "multistgraph_tpu_torch/csrc/band_spmm.cu")):
+                         ("band_dx", "multistgraph_tpu_torch/csrc/band_spmm.cu"),
+                         ("node_factored_apply", "multistgraph_tpu_torch/csrc/node_factored.cu"),
+                         ("node_factored_apply_t", "multistgraph_tpu_torch/csrc/node_factored_t.cu"),
+                         ("node_factored_rows", "multistgraph_tpu_torch/csrc/node_factored.cu"),
+                         ("node_dots", "multistgraph_tpu_torch/csrc/node_dots.cu"),
+                         ("node_dots_floor", "multistgraph_tpu_torch/csrc/stream_read.cu"),
+                         ("column_sum_read", "multistgraph_tpu_torch/csrc/stream_read.cu"),
+                         ("stream_rate_read", "multistgraph_tpu_torch/csrc/stream_read.cu")):
         rows = [r for r in lines if r["name"] == name and r["main_path"]]
         launches = sum(w.get(name, 0) for w in windows.values())
         if launches == 0:

@@ -17,7 +17,6 @@ weight stream, and the card's name and power limit (nvidia-smi).
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -28,6 +27,7 @@ from multistgraph_tpu_torch.data import get_dataset
 from multistgraph_tpu_torch.data.synthetic import make_synthetic_dataset
 from multistgraph_tpu_torch.executor import get_executor
 from multistgraph_tpu_torch.models import get_model
+from multistgraph_tpu_torch.tools.timing import card
 from multistgraph_tpu_torch.utils import resolve_device
 
 NUM_NODES = 237
@@ -57,12 +57,6 @@ def bench_args(work_dir: str) -> dict:
         "max_epoch": TIMED_EPOCHS, "saved_model": False, "use_early_stop": False,
         "seed": 0, "compute_dtype": "bfloat16", "tensorboard": False,
     }
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def main(argv=None):

@@ -7,7 +7,8 @@ and times them in turns, base, new, new, base, for several rounds, at the
 serving and training shapes (N=237, KI=320, gate O=128 and update O=64, at
 batches 1, 4 and 16). The unchanged layout-copy kernel (B3) is timed in each
 round as a control for drift of the card. Times are CUDA-event medians with
-the L2 flushed before each call, as chip_smoke.py takes them.
+the L2 flushed before each call (``tools.timing.event_ms``, as chip_smoke.py
+takes them).
 
 Run from the repository root:
     python -m multistgraph_tpu_torch.tools.ab_node_apply --base <dir of the other checkout>
@@ -28,6 +29,7 @@ import torch
 from multistgraph_tpu_torch.ops import _cuda
 from multistgraph_tpu_torch.ops.layout import force_default_layout
 from multistgraph_tpu_torch.ops.node_apply import _pad_nodes, quantize_node_weights
+from multistgraph_tpu_torch.tools.timing import card, event_ms
 
 N, KI = 237, 320
 SHAPES = [(b, cell, o) for b in (1, 4, 16) for cell, o in (("gate", 128), ("update", 64))]
@@ -41,22 +43,6 @@ def _load(source: str, out_dir: str, tag: str):
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _time_ms(fn, reps=30):
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def main(argv=None):
@@ -89,14 +75,13 @@ def main(argv=None):
                                 N, b, KI, wq.shape[2], stream)
                         if rc != 0:
                             raise RuntimeError("launch failed: CUDA error {}".format(rc))
-                    samples.setdefault((version, b, cell), []).append(_time_ms(call))
+                    samples.setdefault((version, b, cell), []).append(event_ms(call))
                 samples.setdefault(("control", "B3 gate_x", ""), []).append(
-                    _time_ms(lambda: force_default_layout(view)))
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+                    event_ms(lambda: force_default_layout(view)))
+    name = card()
     for (version, b, cell), ms in samples.items():
         print(json.dumps({"version": version, "batch": b, "cell": cell, "median_us": statistics.median(ms) * 1e3,
-                          "samples_us": [m * 1e3 for m in ms], "card": card}), flush=True)
+                          "samples_us": [m * 1e3 for m in ms], "card": name}), flush=True)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ among them), writes a small synthetic dataset with the port's generator,
 serves one CPU predict through ``from_experiment``, then takes one int8
 training step through ``get_executor`` and evaluates the test split, and
 takes one SparseATGCN training step on the synthetic large-graph dataset,
-in the plain BSR form and in the band form.
+in the plain BSR form and in the band form, and runs the node-apply
+harness's numerics on the CPU at its documented reduced size
+(``bench_node_dots --device cpu --small``).
 """
 
 import os
@@ -47,7 +49,9 @@ _SCRIPT = textwrap.dedent(r"""
         importlib.import_module(info.name)
     for name in ("executor.executor", "executor.optimizers", "evaluator.evaluator", "ops.losses",
                  "utils.seeds", "utils.tbwriter", "pipeline", "run_model", "bench", "ops.bsr",
-                 "ops.spmm", "ops.band", "ops.hybrid", "models.sparse_atgcn", "data.large_graph"):
+                 "ops.spmm", "ops.band", "ops.hybrid", "models.sparse_atgcn", "data.large_graph",
+                 "ops.node_dots", "ops.stream_read", "tools.timing", "tools.bench_node_dots",
+                 "tools.bench_hbm_peak", "tools.bench_stream_rate"):
         assert "multistgraph_tpu_torch." + name in sys.modules, name
 
     import numpy as np
@@ -100,6 +104,8 @@ _SCRIPT = textwrap.dedent(r"""
         sexec = get_executor(scfg, smodel, sds.get_data_feature(), device="cpu")
         loss = sexec.train_step(sexec.batch(strain, strain.epoch_permutation()[0]))
         assert torch.isfinite(loss), loss
+    from multistgraph_tpu_torch.tools import bench_node_dots
+    assert bench_node_dots.main(["--device", "cpu", "--small"]) is None
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED_OK")
 """)
