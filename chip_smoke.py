@@ -54,6 +54,21 @@ Then the node-apply design harness and the card's stream calibration:
   * the port's bench_node_dots, bench_hbm_peak and bench_stream_rate run on
     the card with the launch counts from 0: each of those kernels must be
     launched in that window.
+Then SparseATGCN in bf16 on the band form at 1,000,000 nodes (the JAX
+package's 1M configuration, at T=12 and batch 2, no adaptive view):
+  * B7, B8, B9 dX and B9 dV in bf16 against their plain versions at every
+    width the path gives them, within one bf16 step, and the probe kernels
+    window_dot (P1, P3) and band_slab (P2, per-row and batched) at the
+    probe tool's shapes, each timed beside its bound and a library call;
+    a wrong window start and a stale row block planted in their outputs
+    must fail the checks;
+  * the port's probe_band_stream on the card, every probe launched and OK;
+  * bench_large_graph's training (2 warm-up and 5 timed steps) with exact
+    launch counts and finite losses, and its packed serving at buckets 1
+    and 2 (B8, no B7), the replies held against the planes';
+  * at 4,096 nodes, bf16 output, loss and gradients on the card against
+    the CPU on planes and packed rows, failed by faults planted in B7, B8
+    and B9 dX.
 Every phase raises on failure; nothing is caught. The output ends with a
 JSON line listing the kernels and a JSON line ``{"ok": true, "device": {...}}``.
 
@@ -571,7 +586,7 @@ SPARSE_KERNELS = ("bsr_spmm", "sampled_matmul") + BAND_WRAPPERS
 
 def _counters():
     """{name: (object holding the count, attribute)} of every kernel wrapper."""
-    from multistgraph_tpu_torch.ops import band
+    from multistgraph_tpu_torch.ops import band, band_probe
     from multistgraph_tpu_torch.ops.layout import force_default_layout
     from multistgraph_tpu_torch.ops.node_apply import node_apply_q8, node_apply_q8_t
     from multistgraph_tpu_torch.ops.spmm import bsr_spmm, sampled_matmul
@@ -581,6 +596,9 @@ def _counters():
                 "force_default_layout_bwd": (force_default_layout, "backward_launches"),
                 "bsr_spmm": (bsr_spmm, "launches"), "sampled_matmul": (sampled_matmul, "launches")}
     counters.update({name: (getattr(band, name), "launches") for name in BAND_WRAPPERS})
+    counters.update({"window_dot": (band_probe.window_dot, "launches"),
+                     "band_slab": (band_probe.band_slab, "launches"),
+                     "band_slab_batched": (band_probe.band_slab, "batched_launches")})
     counters.update({name: (getattr(importlib.import_module("multistgraph_tpu_torch." + module), name), "launches")
                      for name, module in HARNESS_WRAPPERS})
     return counters
@@ -791,9 +809,9 @@ def _sparse_args(num_nodes, exp_id):
             "avg_degree": 16, "seed": 0, "tensorboard": False}
 
 
-def _sparse_launches(model, steps=1, train=False):
+def _sparse_launches(model, steps=1, train=False, t=SP_T):
     """Launches of every sparse kernel wrapper in `steps` forwards (or
-    training steps) of `model` at SP_T input steps, derived from the code:
+    training steps) of `model` at `t` input steps, derived from the code:
       forward, per layer: one hoisted aggregation of the input and two per
         step (h and z*h); each applies every static support's BSR part
         (bsr_spmm) or band (band_spmm on planes, band_spmm_packed on packed
@@ -806,7 +824,7 @@ def _sparse_launches(model, steps=1, train=False):
         band_dx for a band; dV, a sampled matmul, of every adaptive SpMM
         (the static supports' values are constants: no band_dv); and the
         SDDMM's backward, dE1 and dE2, two SpMMs."""
-    layers, t = model.num_layers, SP_T
+    layers = model.num_layers
     aggs = layers * (1 + 2 * t)
     recompute = layers * 2 * t if train and model.remat else 0
     dx = layers * (2 * t - 1) + (layers - 1) if train else 0
@@ -1154,8 +1172,9 @@ BAND_DV_WIDTHS = (128, 1536)                     # B9 dV: off the path (the supp
 # same relative max errors as BOUND_SPARSE_*: 1e-4 until first read; an
 # H100 read 5.09e-7 / 3.82e-7 (output, planes / packed) and 7.36e-7 /
 # 8.41e-7 (gradients, node_vec2), so the bounds are 3.9x and 4.2x the
-# larger readings. The planted faults read 0.041 / 0.421 (output, B7 / B8)
-# and 0.995 (gradients, B9 dX).
+# larger readings. The planted faults read 0.041 / 0.421 (output, B7
+# without its first diagonal / B8) and 0.995 (gradients, B9 dX); B7's fault
+# now drops the main diagonal.
 BOUND_BAND_OUT = 2e-6
 BOUND_BAND_GRAD = 3.5e-6
 
@@ -1370,11 +1389,12 @@ def band_phase(torch):
     return windows
 
 
-def band_check_phase(torch):
+def band_check_phase(torch, label="band", bound_out=BOUND_BAND_OUT, bound_grad=BOUND_BAND_GRAD, **overrides):
     """Card vs CPU at 4,096 nodes in the band form, on planes and on packed
     rows, same configuration and weights: the model output, one step's loss
     and every gradient; a fault planted in each band kernel of the path must
-    fail its check."""
+    fail its check. `overrides` change the configuration (the bf16 phase's
+    compute_dtype and adpadj), `label` names the record."""
     from unittest import mock
 
     from multistgraph_tpu_torch.config import load_config
@@ -1382,7 +1402,8 @@ def band_check_phase(torch):
     from multistgraph_tpu_torch.models import get_model
     from multistgraph_tpu_torch.ops import band
 
-    args = dict(_sparse_args(SP_CHECK_NODES, "chip_smoke_band_check"), graph_split="band")
+    args = dict(_sparse_args(SP_CHECK_NODES, "chip_smoke_{}_check".format(label.replace(" ", "_"))),
+                graph_split="band", **overrides)
     dataset = get_dataset(load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=args), device="cpu")
     train, _, _ = dataset.get_data()
     feature = dataset.get_data_feature()
@@ -1406,8 +1427,9 @@ def band_check_phase(torch):
 
     real_forward, real_backward = band._BandSpMM.forward, band._BandSpMM.backward
 
-    def diagonal_dropped(ctx, values, x, offsets, radius):  # B7 skips the first diagonal
-        return real_forward(ctx, values[1:], x, offsets[1:], radius)
+    def diagonal_dropped(ctx, values, x, offsets, radius):  # B7 skips the main diagonal
+        keep = [i for i, o in enumerate(offsets) if o != 0]
+        return real_forward(ctx, values[keep], x, tuple(offsets[i] for i in keep), radius)
 
     def slot_zeroed(ctx, values, x, offsets, radius):  # B8 skips the main diagonal's slot
         values = values.clone()
@@ -1423,7 +1445,7 @@ def band_check_phase(torch):
     def patch(fn, which="forward"):
         return mock.patch.object(band._BandSpMM, which, staticmethod(fn))
 
-    faults = {"B7 diagonal dropped": ("planes", "output", patch(diagonal_dropped)),
+    faults = {"B7 main diagonal dropped": ("planes", "output", patch(diagonal_dropped)),
               "B9 dX row block 0 zeroed": ("planes", "gradients", patch(row_block_zeroed, "backward")),
               "B8 slot zeroed": ("packed", "output", patch(slot_zeroed))}
     controls = {}
@@ -1432,22 +1454,340 @@ def band_check_phase(torch):
             out, grads = _sparse_run(torch, models[form], scaler, batch)
         controls[name] = {"output": _rel_err(out.numpy(), cpu_runs[form][0].numpy()),
                           "gradients": _grad_err(grads, cpu_runs[form][1])}
-    say(json.dumps({"band_card_vs_cpu": {"nodes": SP_CHECK_NODES, "offsets": [int(o) for o in
-                                                                              feature["bsr_graph"].offsets],
-                                         "errors": errs},
-                    "bounds": {"output": BOUND_BAND_OUT, "gradients": BOUND_BAND_GRAD},
+    say(json.dumps({label + " card vs CPU": {"nodes": SP_CHECK_NODES, "config": overrides,
+                                             "offsets": [int(o) for o in feature["bsr_graph"].offsets],
+                                             "errors": errs},
+                    "bounds": {"output": bound_out, "gradients": bound_grad},
                     "planted_faults": controls}))
     for form, e in errs.items():
-        if not e["output"] < BOUND_BAND_OUT:
-            raise AssertionError("band {} output, card vs CPU: {} over {}".format(form, e["output"], BOUND_BAND_OUT))
-        if not e["gradients"]["max"] < BOUND_BAND_GRAD:
-            raise AssertionError("band {} gradients, card vs CPU: {} over {}".format(
-                form, e["gradients"], BOUND_BAND_GRAD))
+        if not e["output"] < bound_out:
+            raise AssertionError("{} {} output, card vs CPU: {} over {}".format(label, form, e["output"], bound_out))
+        if not e["gradients"]["max"] < bound_grad:
+            raise AssertionError("{} {} gradients, card vs CPU: {} over {}".format(
+                label, form, e["gradients"], bound_grad))
     for name, (_, check, _) in faults.items():
         err = controls[name][check] if check == "output" else controls[name][check]["max"]
-        if not err > (BOUND_BAND_OUT if check == "output" else BOUND_BAND_GRAD):
-            raise AssertionError("{} passes the band {} check ({})".format(name, check, err))
+        if not err > (bound_out if check == "output" else bound_grad):
+            raise AssertionError("{} passes the {} {} check ({})".format(name, label, check, err))
     return errs, controls
+
+
+# ------------------------------------------------------------- band, bf16
+# SparseATGCN in bf16 on the band form at 1,000,000 nodes: the JAX package's
+# 1M training and serving configuration (BASELINE.json config 5; its
+# tools/bench_large_graph.py `1000000 16 8 1 band --dtype bf16 --adpadj
+# none`), here at the defaults' T = 12 and batch 2, hidden 64, 2 layers,
+# remat, through the port's bench_large_graph: diagonals -2..2 over 7,813
+# row blocks (1.28 GB of bf16 planes), 8 hub columns, no COO tail, no
+# adaptive view. Widths each band kernel takes on that path:
+BF_ARGV = ["1000000", "16", "12", "2", "band", "--dtype", "bf16", "--adpadj", "none"]
+BF_T, BF_B = 12, 2
+BF_STEPS, BF_CALLS = 5, 3                        # timed training steps and serving calls per bucket
+BF_B7_WIDTHS = (24, 128, 1536)                   # layer-0 hoist T*B, per-step B*H, layer-1 hoist T*B*H
+BF_B8_WIDTHS = (12, 64, 768, 24, 128, 1536)      # the same at serving buckets 1 and 2
+BF_DX_WIDTHS = (128, 1536)                       # dX of the per-step aggregations and of layer 1's hoist
+BF_DV_WIDTHS = (128, 1536)                       # B9 dV: off the path (constant values), held at its widths
+# The plain versions run on 128-column slices of x (the same function,
+# column by column): at F = 1536 their f32 stack of windows would be 30.7 GB.
+BF_PLAIN_COLUMNS = 128
+# the probe tool's shapes (tools/probe_band_stream.py): P1 C=4 b=128 W=384
+# F=128, P3 one window of 640 rows, P2 R=8192 radius 2 F=128 chunk_rows 8
+PROBE_ROWS, PROBE_RADIUS, PROBE_FEAT, PROBE_CHUNK = 8192, 2, 128, 8
+# Card vs CPU at 4,096 nodes in bf16 (planes and packed rows), relative max
+# errors as BOUND_BAND_*: both sides round to bf16 at every op, the card's
+# sums (kernels, cuBLAS) in other orders, so a last-bit difference moves a
+# bf16 rounding by one step (2^-8) and the recurrence carries it on. An
+# H100 read 8.77e-3 (output) and 3.32e-3 (gradients, l1_update_pool), the
+# same on planes and packed rows, so the bounds are 3.4x and 4.5x those
+# readings. The planted faults read 0.346 (output, B8 main slot zeroed) and
+# 0.085 / 0.737 (gradients, B9 dX row block 0 / B8); B7 without its first
+# diagonal (-4, sparse at 4,096 nodes) read only 0.038, so the B7 fault
+# drops the main diagonal.
+BOUND_BF16_OUT = 3e-2
+BOUND_BF16_GRAD = 1.5e-2
+
+
+def _bf16_kernel_rows(torch, graph):
+    """B7, B8, B9 dX and B9 dV in bf16 against their plain versions on the
+    1M band at every width the path gives them, within one bf16 step,
+    timed beside their bounds and a bf16 torch.bmm library call each."""
+    from multistgraph_tpu_torch.ops import band
+
+    offsets = tuple(int(o) for o in graph.offsets)
+    radius = band.band_radius(offsets)
+    nb, n_pad, block = graph.num_row_blocks, graph.padded_nodes, graph.block
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    planes = torch.from_numpy(graph.band_values).to(dev)
+    tiles = int((planes != 0).any(dim=3).any(dim=2).sum())  # the tiles this graph holds
+    planes = planes.bfloat16()
+    packed = band.pack_band_rows(planes, offsets, radius)
+    packed_t = band.pack_band_rows_transposed(planes, offsets, radius)
+    width = (2 * radius + 1) * block
+    lines = []
+
+    def windows(x):
+        feat = x.shape[1]
+        xp = torch.nn.functional.pad(x.reshape(nb, block, feat), (0, 0, 0, 0, radius, radius))
+        return xp.as_strided((nb, width, feat), (block * feat, feat, 1))
+
+    def by_columns(fn, *xs):
+        """fn on 128-column slices of its (N_pad, F) operands, concatenated."""
+        feat = xs[0].shape[1]
+        return torch.cat([fn(*(a[:, c:c + BF_PLAIN_COLUMNS].contiguous() for a in xs))
+                          for c in range(0, feat, BF_PLAIN_COLUMNS)], dim=1)
+
+    def dv_by_columns(fn, dy, x):
+        """dV summed over 128-column slices in f32, rounded once to bf16."""
+        total = None
+        for c in range(0, x.shape[1], BF_PLAIN_COLUMNS):
+            part = fn(dy[:, c:c + BF_PLAIN_COLUMNS].contiguous(), x[:, c:c + BF_PLAIN_COLUMNS].contiguous())
+            total = part if total is None else total + part
+        return total.to(torch.bfloat16)
+
+    def row(name, replaces, feat, kernel, plain, library, label, main_path=True):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        # the same exact products summed in f32 in another order, then rounded once
+        _hold(_bf16_step(got, want), "{} bf16 vs its plain version at F={}".format(name, feat))
+        max_abs_err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        num_bytes = tiles * block * block * 2 + 2 * n_pad * feat * 2
+        flops = 2 * tiles * block * block * feat
+        bound, by = _bound_ms(num_bytes, flops, PEAK_BF16_FLOPS)
+        library_ms, label = _library_ms(torch, library, label)
+        lines.append({
+            "name": name, "bf16_path": True, "shape": "R={} offsets={} tiles={} F={} bf16".format(
+                nb, offsets, tiles, feat),
+            "replaces": replaces, "max_abs_err": max_abs_err,
+            "tolerance": "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|",
+            "kernel_ms": _time_ms(torch, kernel), "plain_ms": _time_ms(torch, plain, reps=10),
+            "library_ms": library_ms, "library": label,
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops, "peak": PEAK_NOTE,
+            "main_path": main_path,
+        })
+
+    def randn(feat):
+        return torch.randn(n_pad, feat, generator=g, device=dev).bfloat16()
+
+    lib_label = "torch.bmm(packed rows, windows of the padded x) in bf16"
+    for feat in BF_B7_WIDTHS:
+        x = randn(feat)
+        xw = windows(x)
+        row("band_spmm", "multistgraph_tpu/ops/band.py:222 band_fwd_pallas", feat,
+            lambda: band.band_spmm(planes, offsets, x),
+            lambda: by_columns(lambda xc: band.band_plain(planes, offsets, xc), x),
+            lambda: torch.bmm(packed, xw), lib_label)
+    for feat in BF_B8_WIDTHS:
+        x = randn(feat)
+        xw = windows(x)
+        row("band_spmm_packed", "multistgraph_tpu/ops/band.py:352 band_fwd_slab_pallas", feat,
+            lambda: band.band_spmm_packed(packed, radius, x),
+            lambda: by_columns(lambda xc: band.band_packed_plain(packed, radius, xc), x),
+            lambda: torch.bmm(packed, xw), lib_label)
+    for feat in BF_DX_WIDTHS:
+        dy = randn(feat)
+        dyw = windows(dy)
+        row("band_dx", "multistgraph_tpu/ops/band.py:462 band_dx_pallas", feat,
+            lambda: band.band_dx(planes, offsets, dy),
+            lambda: by_columns(lambda dc: band.band_dx_plain(planes, offsets, dc), dy),
+            lambda: torch.bmm(packed_t, dyw), "torch.bmm(transposed packed rows, windows of the padded dy) in bf16")
+    for feat in BF_DV_WIDTHS:
+        x, dy = randn(feat), randn(feat)
+        xw, dyb = windows(x), dy.reshape(nb, block, feat)
+        row("band_dv", "multistgraph_tpu/ops/band.py:405 band_dv_pallas", feat,
+            lambda: band.band_dv(dy, x, offsets),
+            lambda: dv_by_columns(lambda dc, xc: band.band_dv_plain(dc, xc, offsets, out_dtype=torch.float32), dy, x),
+            lambda: torch.bmm(dyb, xw.transpose(1, 2)), "torch.bmm(dy blocks, windows of the padded x transposed) in bf16",
+            main_path=False)
+    del planes, packed, packed_t
+    torch.cuda.empty_cache()
+    return lines, tiles
+
+
+def _probe_kernel_rows(torch):
+    """window_dot (P1, P3) and band_slab per-row and batched (P2) against
+    their plain versions at the probe tool's shapes, timed beside their
+    bounds and a library call; a wrong window start planted in window_dot
+    and a stale row block planted in band_slab's output must fail the
+    checks. Returns (rows, {fault: its error over the bound})."""
+    import numpy as np
+
+    from multistgraph_tpu_torch.ops import band_probe as bp
+
+    dev = torch.device("cuda")
+    lines, faults = [], {}
+
+    def row(name, replaces, shape, got, want, kernel, plain, library, label, num_bytes, flops, peak, note):
+        torch.cuda.synchronize()
+        _hold(_over_bound(got, want), "{} vs its plain version at {}".format(name, shape))
+        bound, by = _bound_ms(num_bytes, flops, peak)
+        lines.append({
+            "name": name, "bf16_path": True, "shape": shape, "replaces": replaces,
+            "max_abs_err": (got - want).abs().max().item(),
+            "tolerance": "rtol 1e-5, atol 1e-5*max|plain|", "kernel_ms": _time_ms(torch, kernel),
+            "plain_ms": _time_ms(torch, plain, reps=10), "library_ms": _time_ms(torch, library, reps=10),
+            "library": label, "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops,
+            "peak": note, "main_path": True,
+        })
+
+    # P1: the JAX tool's inputs (numpy seed 0), windows of the stacked operand
+    c, w, f = 4, 384, 128
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy(rng.normal(size=(c, 128, w)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(c * w, f)).astype(np.float32)).to(dev)
+    starts = [i * w for i in range(c)]
+    want = bp.window_dot_plain(v, x, starts)
+    row("window_dot", "tools/probe_band_stream.py:58 probe_batched_dot", "P1 C=4 b=128 W=384 F=128 f32",
+        bp.window_dot(v, x, starts), want, lambda: bp.window_dot(v, x, starts),
+        lambda: bp.window_dot_plain(v, x, starts), lambda: torch.bmm(v, x.view(c, w, f)),
+        "torch.bmm(v, x as (C, W, F))", (v.numel() + x.numel() + c * 128 * f) * 4, 2 * c * 128 * w * f,
+        PEAK_F32_FLOPS, PEAK_F32_NOTE)
+    faults["window_dot, window start one row late"] = _over_bound(bp.window_dot(v, x, [s + 1 for s in starts[:-1]]
+                                                                                + starts[-1:]), want)
+    # P3: the JAX tool's inputs (numpy seed 1), one window at row 128
+    rng = np.random.default_rng(1)
+    xs = torch.from_numpy(rng.normal(size=(8 * 128, 128)).astype(np.float32)).to(dev)
+    v3 = torch.from_numpy(rng.normal(size=(1, 128, 640)).astype(np.float32)).to(dev)
+    want = bp.window_dot_plain(v3, xs, [128])
+    row("window_dot", "tools/probe_band_stream.py:86 probe_slice_reshape", "P3 b=128 W=640 F=128 f32",
+        bp.window_dot(v3, xs, [128]), want, lambda: bp.window_dot(v3, xs, [128]),
+        lambda: bp.window_dot_plain(v3, xs, [128]), lambda: v3[0] @ xs[128:768],
+        "v @ x[1:6].reshape(640, 128) (torch.mm)", (v3.numel() + 640 * 128 + 128 * 128) * 4,
+        2 * 128 * 640 * 128, PEAK_F32_FLOPS, PEAK_F32_NOTE)
+    faults["window_dot P3, window start at 0"] = _over_bound(bp.window_dot(v3, xs, [0]), want)
+    # P2 at the 1M point: the tool's generator seed 2
+    r, radius, f = PROBE_ROWS, PROBE_RADIUS, PROBE_FEAT
+    gen = torch.Generator(device=dev).manual_seed(2)
+    v_pack = torch.randn(r, 128, (2 * radius + 1) * 128, generator=gen, device=dev).bfloat16()
+    xp = torch.randn(r + 2 * radius, 128, f, generator=gen, device=dev).bfloat16()
+    xw = xp.as_strided((r, (2 * radius + 1) * 128, f), (128 * f, f, 1))
+    want = bp.band_slab_plain(v_pack, xp, radius)
+    num_bytes = v_pack.numel() * 2 + xp.numel() * 2 + r * 128 * f * 4
+    for name, batched in (("band_slab", False), ("band_slab_batched", True)):
+        got = bp.band_slab(v_pack, xp, radius, PROBE_CHUNK, batched)
+        row(name, "tools/probe_band_stream.py:182 probe_streams", "P2 R={} radius={} F={} chunk_rows={} bf16{}".format(
+            r, radius, f, PROBE_CHUNK, " batched" if batched else ""), got, want,
+            lambda b=batched: bp.band_slab(v_pack, xp, radius, PROBE_CHUNK, b),
+            lambda: bp.band_slab_plain(v_pack, xp, radius), lambda: torch.bmm(v_pack, xw),
+            "torch.bmm(packed rows, overlapping windows of xp) in bf16", num_bytes,
+            2 * r * 128 * (2 * radius + 1) * 128 * f, PEAK_BF16_FLOPS, PEAK_NOTE)
+        # one row block of a slab left holding a stale buffer: another input's output
+        stale = got.clone()
+        stale[PROBE_CHUNK + 3] = bp.band_slab(v_pack, xp.roll(1, dims=0), radius, PROBE_CHUNK, batched)[PROBE_CHUNK + 3]
+        faults["{}, row block {} stale".format(name, PROBE_CHUNK + 3)] = _over_bound(stale, want)
+        del got, stale
+    del v_pack, xp, xw, want
+    torch.cuda.empty_cache()
+    for fault, ratio in faults.items():
+        if not ratio > 1.0:
+            raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
+    return lines, faults
+
+
+def band_bf16_phase(torch):
+    """SparseATGCN in bf16 on the band form at 1,000,000 nodes: the bf16
+    band kernels and the probe kernels against their plain versions, the
+    port's probe tool on the card, bench_large_graph's training steps with
+    exact launch counts and its packed serving at buckets 1 and 2 (B8, no
+    B7) held against the planes, and card vs CPU at 4,096 nodes in bf16
+    with faults planted in B7, B8 and B9 dX (band_bf16_check_phase, run
+    after the timed phases). Returns (rows, windows)."""
+    import numpy as np
+
+    from multistgraph_tpu_torch.tools import bench_large_graph, probe_band_stream
+
+    cli = bench_large_graph.parse_args(BF_ARGV + ["--iters", str(BF_STEPS)])
+    t0 = time.time()
+    graph = bench_large_graph.build_graph(cli)
+    setup = {"graph_s": time.time() - t0, "nodes": graph.num_nodes, "padded": graph.padded_nodes,
+             "offsets": [int(o) for o in graph.offsets], "edges_left": int(graph.rest_w.shape[0])}
+    t0 = time.time()
+    lines, setup["tiles"] = _bf16_kernel_rows(torch, graph)
+    setup["kernel_rows_s"] = time.time() - t0
+    t0 = time.time()
+    probe_lines, probe_faults = _probe_kernel_rows(torch)
+    lines += probe_lines
+    setup["probe_rows_s"] = time.time() - t0
+    for line in lines:
+        say(json.dumps(line))
+    say(json.dumps({"band_bf16_setup": setup, "probe_planted_faults_over_bound": probe_faults}))
+
+    windows = {}
+    _reset_counts()
+    t0 = time.time()
+    probe = probe_band_stream.main([])
+    windows["band bf16 probe tool"] = _read_counts()
+    say("probe tool ran in {:.1f}s; launches: {}".format(time.time() - t0, json.dumps(
+        {k: v for k, v in windows["band bf16 probe tool"].items() if v})))
+    if not probe["ok"] or not all(probe[p]["launches"] for p in ("P1", "P3")) or not all(
+            probe["P2"][v]["launches"] for v in ("per-c dots", "batched dot")):
+        raise AssertionError("the probe tool failed or skipped a probe: {}".format(probe))
+    for name in ("window_dot", "band_slab", "band_slab_batched"):
+        if not windows["band bf16 probe tool"][name]:
+            raise AssertionError("{} was launched no time by the probe tool".format(name))
+
+    # training through the tool, launch counts from 0 before the timed steps
+    train = bench_large_graph.run(cli, graph=graph, before_timed=_reset_counts)
+    windows["band bf16 training"] = _read_counts()
+    model, record = train["model"], train["record"]
+    want = dict(dict.fromkeys(windows["band bf16 training"], 0),
+                **_sparse_launches(model, BF_STEPS, train=True, t=BF_T))
+    if windows["band bf16 training"] != want:
+        raise AssertionError("{} bf16 band training steps launched {}, want {}".format(
+            BF_STEPS, windows["band bf16 training"], want))
+    losses = record["extras"]["losses"]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite bf16 band training loss: {}".format(losses))
+    step_ms = record["extras"]["step_seconds"] * 1e3
+    record["extras"]["device_time_per_step"] = _device_time(torch, train["again"], step_ms)
+    record["extras"]["launches_per_step"] = {k: v for k, v in _sparse_launches(model, train=True, t=BF_T).items()
+                                             if v}
+    say(json.dumps({"band bf16 training": record}))
+    del train
+
+    # packed serving through the tool at buckets 1 and 2, held against the
+    # planes at the same weights
+    model.eval()
+    serving = {}
+    for b in (1, BF_B):
+        scli = bench_large_graph.parse_args(["1000000", "16", str(BF_T), str(b), "band", "--dtype", "bf16",
+                                             "--adpadj", "none", "--serve", "--band-packed",
+                                             "--iters", str(BF_CALLS)])
+        served = bench_large_graph.run(scli, graph=graph, before_timed=_reset_counts)
+        key = "band bf16 serving b{}".format(b)
+        windows[key] = _read_counts()
+        per_call = _sparse_launches(served["model"], t=BF_T)
+        if _sparse_counts_of(windows[key]) != {k: v * BF_CALLS for k, v in per_call.items()} \
+                or windows[key]["band_spmm"] or not windows[key]["band_spmm_packed"]:
+            raise AssertionError("packed bf16 serving launched {}, want {} per call".format(windows[key], per_call))
+        model.load_state_dict(served["model"].state_dict())
+        with torch.no_grad():
+            planes_out = model(served["x"])
+        out = served["out"]
+        if out.shape != (b, 3, graph.padded_nodes, 1) or out.dtype != torch.float32 or not torch.isfinite(out).all():
+            raise AssertionError("bad packed bf16 reply for batch {}: {} {}".format(b, out.shape, out.dtype))
+        diff = (out - planes_out).abs().max().item()
+        scale = planes_out.abs().max().item()
+        # the same products in the same order: one bf16 step of the largest reply at most
+        if not diff <= 2.0 ** -7 * scale:
+            raise AssertionError("packed bf16 replies differ from the planes' by {} (largest {})".format(diff, scale))
+        rec = served["record"]
+        rec["extras"]["packed_vs_planes_max_abs"] = diff
+        rec["extras"]["device_time_per_call"] = _device_time(torch, served["again"], rec["value"])
+        serving[b] = rec
+        say(json.dumps({key: rec}))
+        del served, planes_out, out
+    del model
+    torch.cuda.empty_cache()
+    return lines, windows
+
+
+def band_bf16_check_phase(torch):
+    """Card vs CPU at 4,096 nodes in bf16 on the band form without the
+    adaptive view, planes and packed rows, faults planted in B7, B8, B9 dX."""
+    return band_check_phase(torch, label="band bf16", bound_out=BOUND_BF16_OUT, bound_grad=BOUND_BF16_GRAD,
+                            compute_dtype="bfloat16", adpadj="none")
 
 
 # ------------------------------------------------------------ node-apply harness
@@ -1689,38 +2029,54 @@ def main():
     windows, feature, state_dict, grad_batch = training_phase(torch)
     windows.update(sparse_phase(torch))
     windows.update(band_phase(torch))
+    bf16_lines, bf16_windows = band_bf16_phase(torch)
+    lines += bf16_lines
+    windows.update(bf16_windows)
     serving_launches = serving_phase(torch)
     gradient_phase(torch, feature, state_dict, grad_batch)
     windows["serving"] = dict(serving_launches, node_apply_q8_t=0, force_default_layout_bwd=0)
     sparse_check_phase(torch)
     band_check_phase(torch)
+    band_bf16_check_phase(torch)
     harness_lines, windows["node harness"] = node_harness_phase(torch)
     lines += harness_lines
 
     kernels = []
-    for name, source in (("node_apply_q8", "multistgraph_tpu_torch/csrc/node_apply_q8.cu"),
-                         ("node_apply_q8_t", "multistgraph_tpu_torch/csrc/node_apply_q8_t.cu"),
-                         ("force_default_layout", "multistgraph_tpu_torch/csrc/layout_copy.cu"),
-                         ("force_default_layout_bwd", "multistgraph_tpu_torch/csrc/layout_copy.cu"),
-                         ("bsr_spmm", "multistgraph_tpu_torch/csrc/bsr_spmm.cu"),
-                         ("sampled_matmul", "multistgraph_tpu_torch/csrc/sampled_matmul.cu"),
-                         ("band_spmm", "multistgraph_tpu_torch/csrc/band_spmm.cu"),
-                         ("band_spmm_packed", "multistgraph_tpu_torch/csrc/band_spmm.cu"),
-                         ("band_dx", "multistgraph_tpu_torch/csrc/band_spmm.cu"),
-                         ("node_factored_apply", "multistgraph_tpu_torch/csrc/node_factored.cu"),
-                         ("node_factored_apply_t", "multistgraph_tpu_torch/csrc/node_factored_t.cu"),
-                         ("node_factored_rows", "multistgraph_tpu_torch/csrc/node_factored.cu"),
-                         ("node_dots", "multistgraph_tpu_torch/csrc/node_dots.cu"),
-                         ("node_dots_floor", "multistgraph_tpu_torch/csrc/stream_read.cu"),
-                         ("column_sum_read", "multistgraph_tpu_torch/csrc/stream_read.cu"),
-                         ("stream_rate_read", "multistgraph_tpu_torch/csrc/stream_read.cu")):
-        rows = [r for r in lines if r["name"] == name and r["main_path"]]
-        launches = sum(w.get(name, 0) for w in windows.values())
-        if launches == 0:
-            raise AssertionError("{} was launched no time on the main path".format(name))
+    csrc = "multistgraph_tpu_torch/csrc/"
+    # (entry, launch counter and rows' name, source, whether the entry is the
+    # 1M bf16 path's): the bf16 band forms count the launches and rows of the
+    # 1M bf16 windows and the rest those of the other paths; the probe
+    # kernels launch only in the 1M bf16 phase
+    for entry, name, source, bf16_path in (
+            ("node_apply_q8", "node_apply_q8", "node_apply_q8.cu", False),
+            ("node_apply_q8_t", "node_apply_q8_t", "node_apply_q8_t.cu", False),
+            ("force_default_layout", "force_default_layout", "layout_copy.cu", False),
+            ("force_default_layout_bwd", "force_default_layout_bwd", "layout_copy.cu", False),
+            ("bsr_spmm", "bsr_spmm", "bsr_spmm.cu", False),
+            ("sampled_matmul", "sampled_matmul", "sampled_matmul.cu", False),
+            ("band_spmm", "band_spmm", "band_spmm.cu", False),
+            ("band_spmm_packed", "band_spmm_packed", "band_spmm.cu", False),
+            ("band_dx", "band_dx", "band_spmm.cu", False),
+            ("band_spmm_bf16", "band_spmm", "band_spmm.cu", True),
+            ("band_spmm_packed_bf16", "band_spmm_packed", "band_spmm.cu", True),
+            ("band_dx_bf16", "band_dx", "band_spmm.cu", True),
+            ("window_dot", "window_dot", "band_probe.cu", True),
+            ("band_slab", "band_slab", "band_probe.cu", True),
+            ("band_slab_batched", "band_slab_batched", "band_probe.cu", True),
+            ("node_factored_apply", "node_factored_apply", "node_factored.cu", False),
+            ("node_factored_apply_t", "node_factored_apply_t", "node_factored_t.cu", False),
+            ("node_factored_rows", "node_factored_rows", "node_factored.cu", False),
+            ("node_dots", "node_dots", "node_dots.cu", False),
+            ("node_dots_floor", "node_dots_floor", "stream_read.cu", False),
+            ("column_sum_read", "column_sum_read", "stream_read.cu", False),
+            ("stream_rate_read", "stream_rate_read", "stream_read.cu", False)):
+        rows = [r for r in lines if r["name"] == name and r["main_path"] and r.get("bf16_path", False) == bf16_path]
+        launches = sum(w.get(name, 0) for key, w in windows.items() if key.startswith("band bf16") == bf16_path)
+        if launches == 0 or not rows:
+            raise AssertionError("{} was launched no time on the main path, or has no row".format(entry))
         library = [r["library_ms"] for r in rows]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": entry, "route": "cuda", "source": csrc + source,
             "replaces": rows[0]["replaces"].split()[0],
             "launches": launches,
             "shapes": [r["shape"] for r in rows],

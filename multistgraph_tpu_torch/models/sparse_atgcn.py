@@ -27,9 +27,18 @@ from the dataset too and the tiles (324 MB per support at 49,152 nodes)
 stay out of every checkpoint; so a model trained on band planes serves in
 the packed form with no checkpoint migration. Parameters keep the JAX
 package's flat names and shapes (``node_vec1``, ``l0_gate_pool``,
-``end_kernel``, ...), the same for every graph form. Only f32 compute is
-ported; the multi-chip backend and bf16 compute raise NotImplementedError
-naming their ROADMAP.md item.
+``end_kernel``, ...), the same for every graph form.
+
+``compute_dtype='bfloat16'`` is JAX's mixed precision (sparse_atgcn.py:
+111-118): the floating graph arrays are stored in bf16 at build time, the
+activations, weight pools and head are cast to bf16 at use, the
+cotangents are rounded to bf16 at the per-step input stack and the
+layer-output stack (ops/precision.py), and the predictions come back in
+f32; parameters and optimizer state stay f32. It is ported for the band
+form with its hub columns and COO tail and without the adaptive view (the
+1,000,000-node configuration); a bf16 forward that would reach the BSR
+kernels (B4/B5/B6) or the adaptive view raises NotImplementedError naming
+ROADMAP.md A.6.1, and the multi-chip backend raises naming A.7.
 """
 
 from typing import Optional
@@ -43,6 +52,7 @@ from multistgraph_tpu_torch.models.initializers import torch_style_init
 from multistgraph_tpu_torch.ops.band import BandGraph, band_radius, pack_band_rows, spmm_band, spmm_band_packed
 from multistgraph_tpu_torch.ops.bsr import BSRGraph, row_ptr_from_rows
 from multistgraph_tpu_torch.ops.hybrid import HybridGraph, TailGraph, spmm_hub, spmm_tail, split_hub_columns
+from multistgraph_tpu_torch.ops.precision import round_cotangent
 from multistgraph_tpu_torch.ops.spmm import (
     bsr_transpose,
     sddmm_relu,
@@ -63,13 +73,15 @@ class SparseATGCN(nn.Module):
     ``band_offsets_static`` or ``band_packed`` with ``band_radius_static``.
     Keys ending in ``_static`` hold host metadata, not arrays.
     ``adaptive_pattern``: (row_of, col_of) numpy block pattern of the
-    adaptive view, or None.
+    adaptive view, or None. ``compute_dtype``: None (f32) or
+    torch.bfloat16; the floating graph arrays are stored in it.
     """
 
     def __init__(self, num_nodes: int, output_window: int, output_dim: int, hidden_dim: int,
                  num_layers: int, embed_dim_adj: int, supports=(), adaptive_pattern=None,
                  node_conditioned: str = "off", embed_dim_node: int = 8, block: int = 128,
-                 remat: bool = False, adaptive_softmax: str = "sampled", device=None):
+                 remat: bool = False, adaptive_softmax: str = "sampled", device=None,
+                 compute_dtype=None):
         super().__init__()
         if node_conditioned not in ("off", "factored"):
             raise ValueError("node_conditioned must be 'off' or 'factored', got {!r}".format(node_conditioned))
@@ -86,13 +98,16 @@ class SparseATGCN(nn.Module):
         self.block = block
         self.remat = remat
         self.adaptive_softmax = adaptive_softmax
+        self.compute_dtype = compute_dtype
         self.num_static = len(supports)
         self.has_adaptive = adaptive_pattern is not None
         nb = num_nodes // block
 
         def buffer(name, arr):
-            self.register_buffer(name, torch.as_tensor(np.ascontiguousarray(arr), device=device),
-                                 persistent=False)
+            t = torch.as_tensor(np.ascontiguousarray(arr), device=device)
+            if compute_dtype is not None and t.is_floating_point():
+                t = t.to(compute_dtype)  # stored narrow, as JAX's attach_graph casts (sparse_atgcn.py:216-222)
+            self.register_buffer(name, t, persistent=False)
 
         self._support_parts, self._support_static = [], []
         for i, support in enumerate(supports):
@@ -219,14 +234,19 @@ class SparseATGCN(nn.Module):
             outs.append(y)
         return torch.stack(outs, dim=0)
 
+    def _cast(self, a):
+        """`a` in the compute dtype, cast at use (parameters stay f32)."""
+        return a if self.compute_dtype is None else a.to(self.compute_dtype)
+
     def _mix(self, h_stack, layer, cell):
         """h_stack (K, N, B, C) -> (N, B, out) through the weight pool."""
-        pool = getattr(self, "l{}_{}_pool".format(layer, cell))
-        bias = getattr(self, "l{}_{}_bias".format(layer, cell))
+        pool = self._cast(getattr(self, "l{}_{}_pool".format(layer, cell)))
+        bias = self._cast(getattr(self, "l{}_{}_bias".format(layer, cell)))
         if self.node_conditioned == "factored":
+            emb = self._cast(self.node_emb)
             u = torch.einsum("knbi,dkio->nbdo", h_stack, pool)
-            out = torch.einsum("nbdo,nd->nbo", u, self.node_emb)
-            return out + (self.node_emb @ bias)[:, None, :]
+            out = torch.einsum("nbdo,nd->nbo", u, emb)
+            return out + (emb @ bias)[:, None, :]
         # sum of K full-row products, in the JAX package's order
         kk, n, b, ii = h_stack.shape
         out = h_stack[0].reshape(n * b, ii) @ pool[0]
@@ -248,16 +268,26 @@ class SparseATGCN(nn.Module):
         def aggregate(x_flat):
             return self._aggregate(x_flat, adaptive, support_prets, adaptive_pret)
 
-        current = x.permute(1, 2, 0, 3)  # (T, N, B, C): SpMM consumes (N_pad, B*C)
+        cdt = self.compute_dtype
+        current = self._cast(x).permute(1, 2, 0, 3)  # (T, N, B, C): SpMM consumes (N_pad, B*C)
         for layer in range(self.num_layers):
             dim_in = current.shape[-1]
             # the input part of every step, aggregated at once; (N, T*B*C)
             # in row-major order (at B*C = 1 the reshape alone is a strided view)
             flat = current.reshape(t, n, b * dim_in).transpose(0, 1).reshape(n, t * b * dim_in).contiguous()
+            del current  # the copy in `flat` is all the rest of the layer reads
             agg_x = aggregate(flat)
-            agg_x = agg_x.reshape(-1, n, t, b, dim_in).permute(2, 0, 1, 3, 4)  # (T, K, N, B, C)
+            del flat
+            # (T, K, N, B, C), one view per step: unbind's backward stacks the
+            # steps' gradients once, where indexing would add a zero-filled
+            # copy of the whole stack per step (6 GB a step in bf16 at 1M nodes)
+            agg_xs = agg_x.reshape(-1, n, t, b, dim_in).permute(2, 0, 1, 3, 4).unbind(0)
+            del agg_x
 
             def step(hstate, agg_x_t, layer=layer):
+                if cdt is not None:
+                    # where JAX rounds the per-step input's cotangent (sparse_atgcn.py:433-439)
+                    agg_x_t = round_cotangent(agg_x_t, cdt)
                 agg_h = aggregate(hstate.reshape(n, b * hdim)).reshape(-1, n, b, hdim)
                 z_r = torch.sigmoid(self._mix(torch.cat([agg_x_t, agg_h], dim=-1), layer, "gate"))
                 z, r = torch.split(z_r, hdim, dim=-1)
@@ -265,29 +295,56 @@ class SparseATGCN(nn.Module):
                 hc = torch.tanh(self._mix(torch.cat([agg_x_t, agg_zh], dim=-1), layer, "update"))
                 return r * hstate + (1.0 - r) * hc
 
-            hstate = x.new_zeros(n, b, hdim)
+            hstate = agg_xs[0].new_zeros(n, b, hdim)
             states = []
             for ti in range(t):
                 if self.remat and torch.is_grad_enabled():
-                    hstate = checkpoint(step, hstate, agg_x[ti], use_reentrant=False)
+                    hstate = checkpoint(step, hstate, agg_xs[ti], use_reentrant=False)
                 else:
-                    hstate = step(hstate, agg_x[ti])
+                    hstate = step(hstate, agg_xs[ti])
                 states.append(hstate)
+            del agg_xs
             current = torch.stack(states)  # (T, N, B, H)
+            del states
+            if cdt is not None:
+                # and the layer-output stack's (sparse_atgcn.py:461-465)
+                current = round_cotangent(current, cdt)
 
-        out = current[-1] @ self.end_kernel + self.end_bias[0]
+        out = current[-1] @ self._cast(self.end_kernel) + self._cast(self.end_bias[0])
         out = out.reshape(n, b, self.output_window, self.output_dim)
-        return out.permute(1, 2, 0, 3)
+        return out.permute(1, 2, 0, 3).float()  # predictions in f32, as JAX returns them
 
 
-def _unsupported(config):
-    """NotImplementedError for the JAX package's options this port lacks."""
+_COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+
+
+def _compute_dtype(config):
+    name = config.get("compute_dtype", None)
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError("SparseATGCN compute_dtype must be one of {}, got {!r}".format(
+            sorted(k for k in _COMPUTE_DTYPES if k), name))
+    return _COMPUTE_DTYPES[name]
+
+
+def _unsupported(config, support, adaptive):
+    """NotImplementedError for the JAX package's options this port lacks: the
+    multi-chip backend, and a bf16 forward that would reach the BSR kernels
+    or the adaptive view."""
     if config.get("node_parallel", False):
         raise NotImplementedError("node_parallel (the edge-partitioned multi-chip backend) is not "
                                   "ported yet: ROADMAP.md A.7 (spmm_boundary/spmm_sharded)")
-    if config.get("compute_dtype", None) is not None:
-        raise NotImplementedError("SparseATGCN compute_dtype={!r} is not ported yet: ROADMAP.md A.6 "
-                                  "(bf16 with ops/precision.py)".format(config.get("compute_dtype")))
+    if _compute_dtype(config) is None:
+        return
+    reaches = []
+    if "values" in support and support["values"].shape[0] > 0:
+        reaches.append("a BSR support (B4/B6 in bf16)")
+    if adaptive is not None:
+        reaches.append("the adaptive view (B5 and the adaptive SpMM in bf16)")
+    if reaches:
+        raise NotImplementedError(
+            "SparseATGCN compute_dtype='bfloat16' is ported for the band form without the adaptive view "
+            "(graph_split='band', adpadj='none'); this configuration reaches {}: ROADMAP.md A.6.1".format(
+                " and ".join(reaches)))
 
 
 def _band_support(graph: BandGraph, config):
@@ -354,7 +411,6 @@ def build_sparse_atgcn(graph, config, device=None, generator: Optional[torch.Gen
     TailGraph or BandGraph (plus the adaptive view unless ``adpadj`` is
     'none'), on `device` (CUDA unless "cpu" is asked for), its weights drawn
     from `generator` (default: seeded with config['seed'])."""
-    _unsupported(config)
     if isinstance(graph, BandGraph):
         support, adaptive = _band_support(graph, config)
     elif isinstance(graph, (BSRGraph, HybridGraph, TailGraph)):
@@ -362,6 +418,7 @@ def build_sparse_atgcn(graph, config, device=None, generator: Optional[torch.Gen
     else:
         raise TypeError("build_sparse_atgcn takes a BSRGraph, HybridGraph, TailGraph or BandGraph, "
                         "got {}".format(type(graph).__name__))
+    _unsupported(config, support, adaptive)
     device = resolve_device(device)
     model = SparseATGCN(
         num_nodes=graph.padded_nodes,
@@ -378,6 +435,7 @@ def build_sparse_atgcn(graph, config, device=None, generator: Optional[torch.Gen
         remat=config.get("remat", False),
         adaptive_softmax=config.get("adaptive_softmax", "sampled"),
         device=device,
+        compute_dtype=_compute_dtype(config),
     )
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.get("seed", 0)))

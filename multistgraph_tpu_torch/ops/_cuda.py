@@ -22,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("node_apply_q8", "node_apply_q8_t", "layout_copy", "bsr_spmm", "sampled_matmul", "band_spmm",
-           "node_factored", "node_factored_t", "node_dots", "stream_read")
+           "node_factored", "node_factored_t", "node_dots", "stream_read", "band_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -29,6 +29,17 @@ zero-padded x, dV "rif,orjf->orij", dX by shifted adds into a padded
 buffer whose core is returned. The kernels form no padded copy: they read x
 with bounds checks and write dX straight into (N_pad, F).
 
+Types, as the JAX package's (band.py:587-588,623,678,691-692,727-736):
+float32 or bfloat16 operands. The kernel wrappers take the tiles and x of
+one dtype; ``spmm_band`` casts the planes to x's dtype inside its autograd
+Function and ``spmm_band_packed`` casts the packed rows before it, where
+JAX casts them. Products of bf16 values are exact in f32 and every sum is
+f32, in the kernels and in the plain versions alike (which widen to f32,
+sum in f32 and round once), so the two differ only in summation order. The
+forward and dX round once to x's dtype; dV to the values' dtype, so bf16 x
+with f32 planes gives an f32 dV and a bf16 dX. The backward rounds dy to
+x's dtype before its kernels.
+
 Not ported, being TPU dispatch or memory mechanisms: the Pallas/einsum
 switch (``_pallas_mode``, MSG_BAND_PALLAS, ``_tile_kernels_for_training``),
 the VMEM budgets of the slab kernel, the feature chunking of the stacked
@@ -47,6 +58,7 @@ from multistgraph_tpu_torch.ops import _cuda
 from multistgraph_tpu_torch.ops.spmm import BLOCK, _check_common
 
 MAX_OFFSETS = 8  # offsets the kernels take by value (split_band keeps at most 8 by default)
+DTYPES = (torch.float32, torch.bfloat16)  # operand dtypes of the kernels
 
 
 @dataclass(frozen=True)
@@ -114,30 +126,38 @@ def band_radius(offsets) -> int:
     return max((abs(int(o)) for o in offsets), default=0)
 
 
-def pack_band_rows(band_values: np.ndarray, offs, radius: int) -> np.ndarray:
+def pack_band_rows(band_values, offs, radius: int):
     """(O, R, b, b) diagonals -> (R, b, W) packed rows, W = (2 radius + 1) b:
-    slot o + radius of row block r holds V_o[r]; absent offsets are zero."""
+    slot o + radius of row block r holds V_o[r]; absent offsets are zero.
+    Takes a numpy array or a tensor (packed on its device) and keeps its
+    dtype, as JAX's works on numpy or jnp arrays."""
     _, r_blocks, b, _ = band_values.shape
     w = (2 * radius + 1) * b
-    packed = np.zeros((r_blocks, b, w), band_values.dtype)
+    if isinstance(band_values, torch.Tensor):
+        packed = band_values.new_zeros((r_blocks, b, w))
+    else:
+        packed = np.zeros((r_blocks, b, w), band_values.dtype)
     for i, o in enumerate(offs):
         sl = (int(o) + radius) * b
         packed[:, :, sl:sl + b] = band_values[i]
     return packed
 
 
-def pack_band_rows_transposed(band_values: np.ndarray, offs, radius: int) -> np.ndarray:
+def pack_band_rows_transposed(band_values, offs, radius: int):
     """Packed form of A^T: A^T's diagonal at offset -o holds V_o[r]^T at
-    row block r + o. Same slot layout as pack_band_rows."""
+    row block r + o. Same slot layout, inputs and dtype as pack_band_rows."""
     _, r_blocks, b, _ = band_values.shape
     w = (2 * radius + 1) * b
-    packed = np.zeros((r_blocks, b, w), band_values.dtype)
+    if isinstance(band_values, torch.Tensor):
+        packed = band_values.new_zeros((r_blocks, b, w))
+    else:
+        packed = np.zeros((r_blocks, b, w), band_values.dtype)
     for i, o in enumerate(offs):
         o = int(o)
         lo, hi = max(0, o), min(r_blocks, r_blocks + o)
         src = band_values[i, lo - o if o < 0 else 0: r_blocks - o if o > 0 else r_blocks]
         sl = (-o + radius) * b
-        packed[lo:hi, :, sl:sl + b] = np.transpose(src, (0, 2, 1))
+        packed[lo:hi, :, sl:sl + b] = src.swapaxes(1, 2)
     return packed
 
 
@@ -160,75 +180,79 @@ def _shifted_adds(contrib, shifts, n_blocks, radius):
 
 def band_plain(band_values, offsets: Sequence[int], x, block: int = BLOCK):
     """y = A_band x: the stacked einsum "orij,orjf->rif" over slices of the
-    zero-padded x (JAX _band_apply)."""
+    zero-padded x (JAX _band_apply), in f32, rounded once to x's dtype."""
     n_pad, feat = x.shape
     nb = n_pad // block
     radius = band_radius(offsets)
-    xp = _padded_blocks(x, block, radius)
+    xp = _padded_blocks(x.float(), block, radius)
     xs = torch.stack([xp[radius + o: radius + o + nb] for o in offsets])
-    return torch.einsum("orij,orjf->rif", band_values, xs).reshape(n_pad, feat)
+    return torch.einsum("orij,orjf->rif", band_values.float(), xs).reshape(n_pad, feat).to(x.dtype)
 
 
 def band_dx_plain(band_values, offsets: Sequence[int], dy, block: int = BLOCK):
     """dx = A_band^T dy: contributions "orij,rif->orjf" added at block r + o
-    of a padded buffer (JAX _band_bwd); the buffer's core."""
+    of a padded buffer (JAX _band_bwd); the buffer's core, rounded once to
+    dy's dtype."""
     n_pad, feat = dy.shape
     nb = n_pad // block
     radius = band_radius(offsets)
-    contrib = torch.einsum("orij,rif->orjf", band_values, dy.reshape(nb, block, feat))
-    return _shifted_adds(contrib, [radius + o for o in offsets], nb, radius).reshape(n_pad, feat)
+    contrib = torch.einsum("orij,rif->orjf", band_values.float(), dy.float().reshape(nb, block, feat))
+    return _shifted_adds(contrib, [radius + o for o in offsets], nb, radius).reshape(n_pad, feat).to(dy.dtype)
 
 
-def band_dv_plain(dy, x, offsets: Sequence[int], block: int = BLOCK):
+def band_dv_plain(dy, x, offsets: Sequence[int], block: int = BLOCK, out_dtype=None):
     """dV[o, r] = dy[r] x[r + o]^T: "rif,orjf->orij" (zero where r + o is
-    outside the graph)."""
+    outside the graph), rounded once to out_dtype (default x's)."""
     n_pad, feat = x.shape
     nb = n_pad // block
     radius = band_radius(offsets)
-    xp = _padded_blocks(x, block, radius)
+    xp = _padded_blocks(x.float(), block, radius)
     xs = torch.stack([xp[radius + o: radius + o + nb] for o in offsets])
-    return torch.einsum("rif,orjf->orij", dy.reshape(nb, block, feat), xs)
+    return torch.einsum("rif,orjf->orij", dy.float().reshape(nb, block, feat), xs).to(out_dtype or x.dtype)
 
 
 def band_packed_plain(v_pack, radius: int, x, block: int = BLOCK):
     """y = A_band x from the packed rows: "rijw,jrwf->rif" on the
     (R, b, 2r+1, b) view against the 2r+1 windows of the padded x (JAX
-    _band_packed_apply)."""
+    _band_packed_apply), in f32, rounded once to x's dtype."""
     n_pad, feat = x.shape
     nb, n_off = n_pad // block, 2 * radius + 1
-    xp = _padded_blocks(x, block, radius)
+    xp = _padded_blocks(x.float(), block, radius)
     xs = torch.stack([xp[j:j + nb] for j in range(n_off)])
-    vr = v_pack.reshape(nb, block, n_off, block)
-    return torch.einsum("rijw,jrwf->rif", vr, xs).reshape(n_pad, feat)
+    vr = v_pack.float().reshape(nb, block, n_off, block)
+    return torch.einsum("rijw,jrwf->rif", vr, xs).reshape(n_pad, feat).to(x.dtype)
 
 
 def band_dx_packed_plain(v_pack, radius: int, dy, block: int = BLOCK):
     """dx = A_band^T dy from the packed rows: "rijw,rif->jrwf" added at block
-    j of the padded buffer (JAX _band_packed_bwd); the buffer's core."""
+    j of the padded buffer (JAX _band_packed_bwd); the buffer's core,
+    rounded once to dy's dtype."""
     n_pad, feat = dy.shape
     nb, n_off = n_pad // block, 2 * radius + 1
-    vr = v_pack.reshape(nb, block, n_off, block)
-    contrib = torch.einsum("rijw,rif->jrwf", vr, dy.reshape(nb, block, feat))
-    return _shifted_adds(contrib, range(n_off), nb, radius).reshape(n_pad, feat)
+    vr = v_pack.float().reshape(nb, block, n_off, block)
+    contrib = torch.einsum("rijw,rif->jrwf", vr, dy.float().reshape(nb, block, feat))
+    return _shifted_adds(contrib, range(n_off), nb, radius).reshape(n_pad, feat).to(dy.dtype)
 
 
-def band_dv_packed_plain(dy, x, radius: int, block: int = BLOCK):
-    """dV_pack[r, i, (j, w)] = sum_f dy[r, i, f] xp[r + j, w, f]."""
+def band_dv_packed_plain(dy, x, radius: int, block: int = BLOCK, out_dtype=None):
+    """dV_pack[r, i, (j, w)] = sum_f dy[r, i, f] xp[r + j, w, f], rounded
+    once to out_dtype (default x's)."""
     n_pad, feat = x.shape
     nb, n_off = n_pad // block, 2 * radius + 1
-    xp = _padded_blocks(x, block, radius)
+    xp = _padded_blocks(x.float(), block, radius)
     xs = torch.stack([xp[j:j + nb] for j in range(n_off)])
-    dv = torch.einsum("rif,jrwf->rijw", dy.reshape(nb, block, feat), xs)
-    return dv.reshape(nb, block, n_off * block)
+    dv = torch.einsum("rif,jrwf->rijw", dy.float().reshape(nb, block, feat), xs)
+    return dv.reshape(nb, block, n_off * block).to(out_dtype or x.dtype)
 
 
 # ------------------------------------------------------------ CUDA wrappers
 @functools.cache
 def _kernel(entry: str):
     fn = getattr(_cuda.library("band_spmm"), entry)
-    # values/dy, x, out; R, F, slots, radius, packed, (transposed); 8 offsets; stream
-    n_ints = 5 + (entry == "band_spmm_launch") + MAX_OFFSETS
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    # values/dy, x, out; R, F, slots, radius, packed, then transposed and
+    # dtype (band_spmm_launch) or in and out dtypes (band_dv_launch); 8
+    # offsets; stream
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (7 + MAX_OFFSETS) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -244,8 +268,9 @@ def _launch(entry, tensors, ints, offsets, device):
 
 def _check_band(name, values, x, n_slots, packed):
     """values (O, R, b, b) planes or (R, b, (2r+1) b) packed rows against x
-    (R b, F); on CUDA only 128-row tiles and at most MAX_OFFSETS planes."""
-    _check_common(name, (values, x), ())
+    (R b, F), of one dtype, float32 or bfloat16; on CUDA only 128-row tiles
+    and at most MAX_OFFSETS planes."""
+    _check_common(name, (values, x), (), DTYPES)
     if x.dim() != 2:
         raise ValueError("{} takes x (n, F), got {}".format(name, tuple(x.shape)))
     if packed:
@@ -268,8 +293,9 @@ def _check_band(name, values, x, n_slots, packed):
 
 
 def _check_dv(name, dy, x, n_slots, packed):
-    """dy and x (R 128, F) alike; on CUDA at most MAX_OFFSETS planes."""
-    _check_common(name, (dy, x), ())
+    """dy and x (R 128, F) alike, float32 or bfloat16; on CUDA at most
+    MAX_OFFSETS planes."""
+    _check_common(name, (dy, x), (), DTYPES)
     if dy.shape != x.shape or x.dim() != 2 or x.shape[0] % BLOCK:
         raise ValueError("{} shape mismatch: dy {}, x {}".format(name, tuple(dy.shape), tuple(x.shape)))
     if x.device.type == "cuda" and not packed and n_slots > MAX_OFFSETS:
@@ -281,24 +307,33 @@ def _offsets(offsets):
     return tuple(int(o) for o in np.asarray(offsets).reshape(-1))
 
 
+def _dtype_code(dtype):
+    if dtype not in DTYPES:
+        raise TypeError("the band kernels write float32 or bfloat16, not {}".format(dtype))
+    return int(dtype == torch.bfloat16)
+
+
 def _launch_spmm(values, x, nb, n_slots, radius, packed, transposed, offsets):
     out = torch.empty_like(x)
     if out.numel():
         _launch("band_spmm_launch", (values, x, out),
-                (nb, x.shape[1], n_slots, radius, int(packed), int(transposed)), offsets, x.device)
+                (nb, x.shape[1], n_slots, radius, int(packed), int(transposed), _dtype_code(x.dtype)),
+                offsets, x.device)
     return out
 
 
-def _launch_dv(dy, x, nb, n_slots, radius, packed, offsets):
+def _launch_dv(dy, x, nb, n_slots, radius, packed, offsets, out_dtype):
     shape = (nb, BLOCK, n_slots * BLOCK) if packed else (n_slots, nb, BLOCK, BLOCK)
-    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    out = torch.empty(shape, dtype=out_dtype, device=x.device)
     if out.numel():
-        _launch("band_dv_launch", (dy, x, out), (nb, x.shape[1], n_slots, radius, int(packed)), offsets, x.device)
+        _launch("band_dv_launch", (dy, x, out),
+                (nb, x.shape[1], n_slots, radius, int(packed), _dtype_code(x.dtype), _dtype_code(out_dtype)),
+                offsets, x.device)
     return out
 
 
 def band_spmm(band_values, offsets, x):
-    """B7: y = A_band x on planes, (N_pad, F) float32. band_values (O, R, b, b),
+    """B7: y = A_band x on planes, (N_pad, F) in x's dtype. band_values (O, R, b, b),
     offsets host ints (O,), x (R b, F). CPU tensors take the plain version;
     CUDA tensors launch csrc/band_spmm.cu or raise."""
     offsets = _offsets(offsets)
@@ -343,25 +378,28 @@ def band_dx_packed(v_pack, radius: int, dy):
     return out
 
 
-def band_dv(dy, x, offsets):
-    """B9 dV: dV[o, r] = dy[r] x[r + o]^T, (O, R, 128, 128) float32, zero
-    tiles where r + o falls outside the graph."""
+def band_dv(dy, x, offsets, out_dtype=None):
+    """B9 dV: dV[o, r] = dy[r] x[r + o]^T, (O, R, 128, 128) in out_dtype (the
+    values' dtype; default x's), zero tiles where r + o falls outside the
+    graph."""
     offsets = _offsets(offsets)
     nb = _check_dv("band_dv", dy, x, len(offsets), False)
+    out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return band_dv_plain(dy, x, offsets)
-    out = _launch_dv(dy, x, nb, len(offsets), band_radius(offsets), False, offsets)
+        return band_dv_plain(dy, x, offsets, out_dtype=out_dtype)
+    out = _launch_dv(dy, x, nb, len(offsets), band_radius(offsets), False, offsets, out_dtype)
     band_dv.launches += 1
     return out
 
 
-def band_dv_packed(dy, x, radius: int):
+def band_dv_packed(dy, x, radius: int, out_dtype=None):
     """B9 dV's kernel writing the packed layout (R, 128, (2 radius + 1) 128)."""
     radius = int(radius)
     nb = _check_dv("band_dv_packed", dy, x, 2 * radius + 1, True)
+    out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return band_dv_packed_plain(dy, x, radius)
-    out = _launch_dv(dy, x, nb, 2 * radius + 1, radius, True, ())
+        return band_dv_packed_plain(dy, x, radius, out_dtype=out_dtype)
+    out = _launch_dv(dy, x, nb, 2 * radius + 1, radius, True, (), out_dtype)
     band_dv_packed.launches += 1
     return out
 
@@ -374,11 +412,15 @@ for _fn in (band_spmm, band_spmm_packed, band_dx, band_dx_packed, band_dv, band_
 class _BandSpMM(torch.autograd.Function):
     """y = A_band x on planes (``radius`` None) or packed rows; the values and
     x differentiable. A term whose input needs no gradient is skipped, as
-    XLA drops it from the JAX program (the model's static band values)."""
+    XLA drops it from the JAX program (the model's static band values).
+    The values are cast to x's dtype here, as JAX's _band_apply casts them
+    (band.py:678), and dV is returned in the values' own dtype (band.py:736)."""
 
     @staticmethod
     def forward(ctx, values, x, offsets, radius):
         ctx.offsets, ctx.radius = offsets, radius
+        ctx.values_dtype, ctx.x_dtype = values.dtype, x.dtype
+        values = values.to(x.dtype)
         need_v, need_x = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
         ctx.save_for_backward(values if need_x else None, x if need_v else None)
         if radius is None:
@@ -388,13 +430,14 @@ class _BandSpMM(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         values, x = ctx.saved_tensors
-        dy = dy.contiguous()
+        dy = dy.to(ctx.x_dtype).contiguous()  # JAX rounds dy to x's dtype (band.py:623,727)
         packed = ctx.radius is not None
         dvalues = dx = None
         if ctx.needs_input_grad[1]:
             dx = band_dx_packed(values, ctx.radius, dy) if packed else band_dx(values, ctx.offsets, dy)
         if ctx.needs_input_grad[0]:
-            dvalues = band_dv_packed(dy, x, ctx.radius) if packed else band_dv(dy, x, ctx.offsets)
+            vdt = ctx.values_dtype
+            dvalues = band_dv_packed(dy, x, ctx.radius, vdt) if packed else band_dv(dy, x, ctx.offsets, vdt)
         return dvalues, dx, None, None
 
 
@@ -409,5 +452,7 @@ def spmm_band(band_values, offsets, x):
 
 def spmm_band_packed(v_pack, radius: int, x):
     """Y = A_band X from packed rows (R, b, (2 radius + 1) b) (the serving
-    form of graph_band_packed). Differentiable in v_pack and x."""
-    return _BandSpMM.apply(v_pack, x, (), int(radius))
+    form of graph_band_packed). Differentiable in v_pack and x. The rows are
+    cast to x's dtype before the product, as JAX casts them (band.py:587),
+    so their gradient is rounded to x's dtype on its way back."""
+    return _BandSpMM.apply(v_pack.to(x.dtype), x, (), int(radius))

@@ -144,15 +144,18 @@ def split_scattered_tail(src: np.ndarray, dst: np.ndarray, weights: np.ndarray, 
 
 def spmm_tail(tail_w, tail_src, tail_dst, x, num_out: int):
     """Y[tail_src] += tail_w * X[tail_dst]: one gather, one scale and one
-    index_add_ (JAX: take, scale, segment_sum). On the CPU the sums run in
-    edge order, as segment_sum's; on the card index_add_ adds with atomics."""
-    contrib = tail_w[:, None] * x.index_select(0, tail_dst)
+    index_add_ (JAX: take, scale, segment_sum), in x's dtype (JAX casts the
+    sum to it, hybrid.py:228-231). On the CPU the sums run in edge order, as
+    segment_sum's; on the card index_add_ adds with atomics."""
+    contrib = tail_w.to(x.dtype)[:, None] * x.index_select(0, tail_dst)
     return x.new_zeros(num_out, x.shape[1]).index_add_(0, tail_src, contrib)
 
 
 def spmm_hub(hub_values, hub_cols, x):
-    """A[:, hubs] @ X[hubs]: the dense skinny hub columns' product."""
-    return hub_values @ x.index_select(0, hub_cols)
+    """A[:, hubs] @ X[hubs]: the dense skinny hub columns' product, in x's
+    dtype (the model stores its hub columns in its compute dtype, as JAX's
+    attach_graph does, so the cast is free there)."""
+    return hub_values.to(x.dtype) @ x.index_select(0, hub_cols)
 
 
 def spmm_tail_hybrid(values, row_of, col_of, tail_w, tail_src, tail_dst, x, block: int = BLOCK):

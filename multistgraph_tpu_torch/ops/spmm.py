@@ -92,11 +92,16 @@ def _run(name, entry, tensors, ints, device):
         raise RuntimeError("{} kernel launch failed: CUDA error {}".format(name, rc))
 
 
-def _check_common(name, floats, ints):
-    """float32 and int32 operands, contiguous, on one CPU or CUDA device."""
+def _check_common(name, floats, ints, dtypes=(torch.float32,)):
+    """Floating operands of one dtype from `dtypes` and int32 indices,
+    contiguous, on one CPU or CUDA device. Only the band kernels take
+    bfloat16 so far; the BSR kernels' bf16 forms are ROADMAP.md A.6.1."""
     for t in floats:
-        if t.dtype != torch.float32:
-            raise TypeError("{} takes float32 operands, got {}".format(name, t.dtype))
+        if t.dtype not in dtypes or t.dtype != floats[0].dtype:
+            allowed = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            later = "" if torch.bfloat16 in dtypes else " (bf16 operands: ROADMAP.md A.6.1)"
+            raise TypeError("{} takes {} operands of one dtype{}, got {}".format(
+                name, allowed, later, [str(f.dtype) for f in floats]))
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError("{} takes int32 block indices, got {}".format(name, t.dtype))

@@ -11,7 +11,9 @@ training step through ``get_executor`` and evaluates the test split, and
 takes one SparseATGCN training step on the synthetic large-graph dataset,
 in the plain BSR form and in the band form, and runs the node-apply
 harness's numerics on the CPU at its documented reduced size
-(``bench_node_dots --device cpu --small``).
+(``bench_node_dots --device cpu --small``), the band-stream probes'
+(``probe_band_stream --small``) and one bf16 band step of the large-graph
+bench (``bench_large_graph ... --dtype bf16 --device cpu``).
 """
 
 import os
@@ -51,7 +53,8 @@ _SCRIPT = textwrap.dedent(r"""
                  "utils.seeds", "utils.tbwriter", "pipeline", "run_model", "bench", "ops.bsr",
                  "ops.spmm", "ops.band", "ops.hybrid", "models.sparse_atgcn", "data.large_graph",
                  "ops.node_dots", "ops.stream_read", "tools.timing", "tools.bench_node_dots",
-                 "tools.bench_hbm_peak", "tools.bench_stream_rate"):
+                 "tools.bench_hbm_peak", "tools.bench_stream_rate", "ops.band_probe", "ops.precision",
+                 "tools.bench_large_graph", "tools.probe_band_stream"):
         assert "multistgraph_tpu_torch." + name in sys.modules, name
 
     import numpy as np
@@ -106,6 +109,11 @@ _SCRIPT = textwrap.dedent(r"""
         assert torch.isfinite(loss), loss
     from multistgraph_tpu_torch.tools import bench_node_dots
     assert bench_node_dots.main(["--device", "cpu", "--small"]) is None
+    from multistgraph_tpu_torch.tools import bench_large_graph, probe_band_stream
+    assert probe_band_stream.main(["--small"])["ok"]
+    record = bench_large_graph.main(["512", "8", "2", "1", "band", "--dtype", "bf16", "--adpadj", "none",
+                                     "--hidden", "4", "--iters", "1", "--device", "cpu"])
+    assert np.isfinite(record["extras"]["losses"]).all(), record
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED_OK")
 """)
