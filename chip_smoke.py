@@ -50,7 +50,11 @@ Then the node-apply design harness and the card's stream calibration:
     B10 (the column-sum read) over 256 MB at three block shapes and one
     point of B12's stream-rate sweep, each against its plain version,
     timed beside its bound and a library call; faults planted in B1 (the
-    d = 0 term dropped) and B1t (a node block zeroed) must fail the checks;
+    d = 0 term dropped), B1t (a node block zeroed), B11 A (the last 16-wide
+    slice of the contraction dropped) and B11 B (the same, and e's last
+    column zeroed) must fail the checks; B11 A and B's 24 steps must outlast
+    their one step by the least time 23 steps take at the card's peaks, and
+    a planted step-skip must fail that;
   * the port's bench_node_dots, bench_hbm_peak and bench_stream_rate run on
     the card with the launch counts from 0: each of those kernels must be
     launched in that window.
@@ -91,10 +95,11 @@ import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "outputs", "chip_smoke")
+sys.path.insert(0, ROOT)
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and bf16 tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
+from multistgraph_tpu_torch.tools.timing import PEAK_BF16_FLOPS, PEAK_BYTES_PER_S  # noqa: E402
+
 PEAK_NOTE = "H100 SXM data sheet: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense"
 
 N, B, T, H, K = 237, 16, 24, 64, 5            # flagship DC-237 widths
@@ -1804,6 +1809,15 @@ HARNESS_WRAPPERS = (("node_factored_apply", "ops.node_apply"), ("node_factored_a
                     ("stream_rate_read", "ops.stream_read"))
 
 
+DESIGN_B11_A = ("tensor cores: wgmma m64n192k16 bf16->f32; the node's weight tile resident in shared memory for "
+                "all steps; 64-row tiles of four steps' rows by TMA from a producer warp through an mbarrier ring; "
+                "results staged for 16-byte stores in step order")
+DESIGN_B11_B = ("tensor cores: wgmma m64nNk16 bf16->f32, N = several d x the column tile gathered by a 5-d TMA view "
+                "of the pool; a producer warp and an mbarrier ring; each step's rows staged once by cp.async; "
+                "e folded in f32 per d")
+DESIGN_B1_BF16 = DESIGN_B11_B
+
+
 def _bf16_step(got, want):
     return _over_bound(got, want, bf16_step=True)
 
@@ -1811,11 +1825,13 @@ def _bf16_step(got, want):
 def node_harness_phase(torch):
     """B1, B1t, B11 A/B/D, B10 and B12's stream rate against their plain
     versions at the flagship and harness shapes, timed beside their bounds
-    and library calls; faults planted in B1 and B1t; then the port's three
+    and library calls; faults planted in B1, B1t, B11 A and B11 B; every
+    step of B11 A and B shown to run; then the port's three
     tools driven on the card with the launch counts from 0. Returns (rows,
     launches in the tools' window)."""
     from multistgraph_tpu_torch.ops import node_apply, stream_read
     from multistgraph_tpu_torch.ops.node_dots import node_dots, node_dots_plain
+    from multistgraph_tpu_torch.tools import timing
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -1825,11 +1841,11 @@ def node_harness_phase(torch):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
 
     def row(name, replaces, shape, got, want, check, tolerance, kernel, plain, library, label,
-            num_bytes, flops, peak_flops, peak_note, main_path=True, reps=TIMING_REPS):
+            num_bytes, flops, peak_flops, peak_note, main_path=True, reps=TIMING_REPS, design=None):
         torch.cuda.synchronize()
         _hold(check(got, want), "{} vs its plain version at {}".format(name, shape))
         bound, by = _bound_ms(num_bytes, flops, peak_flops)
-        lines.append({
+        lines.append(({"design": design} if design else {}) | {
             "name": name, "shape": shape, "replaces": replaces,
             "max_abs_err": (got.float() - want.float()).abs().max().item(), "tolerance": tolerance,
             "kernel_ms": _time_ms(torch, kernel, reps=reps), "plain_ms": _time_ms(torch, plain, reps=reps),
@@ -1862,7 +1878,7 @@ def node_harness_phase(torch):
             lambda: torch.einsum("bkni,nd,kido->bno", hh, e_lib, pool4),
             "torch.einsum('bkni,nd,kido->bno') in the operands' dtype",
             hh.numel() * size + e.numel() * 4 + mat.numel() * size + B * N * o * 4, flops, peak, note,
-            main_path=bf)
+            main_path=bf, design=DESIGN_B1_BF16 if bf else None)
         # planted fault: B1 without its d = 0 term
         e0 = e.clone()
         e0[:, 0] = 0
@@ -1885,10 +1901,6 @@ def node_harness_phase(torch):
         bad = got.clone()
         bad[:, :, :64] = 0
         faults["B1t node block 0 zeroed, " + shape] = check(bad, want)
-    for fault, ratio in faults.items():
-        if not ratio > 1.0:
-            raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
-    say(json.dumps({"planted_faults_over_bound": faults}))
 
     # B11 A, B and D at the harness shapes
     hs = HARNESS
@@ -1899,38 +1911,77 @@ def node_harness_phase(torch):
     harness_shape = "T={T} B={B} NP={NP} KI={KI} O={O}".format(**hs)
     dots_flops = 2 * hs["T"] * hs["B"] * hs["NP"] * hs["KI"] * hs["O"]
     hh_nodes = hh.reshape(hs["T"] * hs["B"], hs["NP"], hs["KI"]).transpose(0, 1).contiguous()
+    want_a = node_dots_plain(hh, w, s)
     row("node_dots", "tools/bench_node_dots.py:91 make_a", harness_shape,
-        node_dots(hh, w, s), node_dots_plain(hh, w, s), _bf16_step,
+        node_dots(hh, w, s), want_a, _bf16_step,
         "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|",
         lambda: node_dots(hh, w, s), lambda: node_dots_plain(hh, w, s), lambda: torch.bmm(hh_nodes, w),
         "torch.bmm over nodes of all T steps' rows (NP, T*B, KI) @ (NP, KI, O), hh pre-permuted",
-        in_bytes + hs["B"] * hs["NP"] * hs["O"] * 2, dots_flops, PEAK_BF16_FLOPS, PEAK_NOTE)
+        in_bytes + hs["B"] * hs["NP"] * hs["O"] * 2, dots_flops, PEAK_BF16_FLOPS, PEAK_NOTE,
+        design=DESIGN_B11_A)
+    # planted fault: B11 A without the last 16-wide slice of its contraction
+    w_bad = w.clone()
+    w_bad[:, -16:] = 0
+    faults["B11 A last k16 slice dropped, " + harness_shape] = _bf16_step(node_dots(hh, w_bad, s), want_a)
+    del w_bad
     rows_n = hs["B"] * hs["NP"]
     hh_rows = hh.reshape(hs["T"], rows_n, hs["KI"])
     e_rows = randn(hs["NP"], hs["D"], dtype=torch.bfloat16).repeat(hs["B"], 1)
     pool = randn(hs["KI"], hs["D"] * hs["O"], dtype=torch.bfloat16)
     pool3 = pool.view(hs["KI"], hs["D"], hs["O"])
+    want_b = node_apply.node_factored_rows_plain(hh_rows, e_rows, pool, s)
     row("node_factored_rows", "tools/bench_node_dots.py:127 make_b", harness_shape + " D={D} rows".format(**hs),
-        node_apply.node_factored_rows(hh_rows, e_rows, pool, s),
-        node_apply.node_factored_rows_plain(hh_rows, e_rows, pool, s), _bf16_step,
+        node_apply.node_factored_rows(hh_rows, e_rows, pool, s), want_b, _bf16_step,
         "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|",
         lambda: node_apply.node_factored_rows(hh_rows, e_rows, pool, s),
         lambda: node_apply.node_factored_rows_plain(hh_rows, e_rows, pool, s),
         lambda: torch.einsum("tri,rd,ido->tro", hh_rows, e_rows, pool3),
         "torch.einsum('tri,rd,ido->tro') in bf16 over all T steps, no scalar",
         hh.numel() * 2 + e_rows.numel() * 2 + pool.numel() * 2 + rows_n * hs["O"] * 2,
-        dots_flops * hs["D"], PEAK_BF16_FLOPS, PEAK_NOTE, reps=10)
+        dots_flops * hs["D"], PEAK_BF16_FLOPS, PEAK_NOTE, reps=10, design=DESIGN_B11_B)
+    # planted faults: B11 B without the last 16-wide slice of its
+    # contraction, and without e's last column
+    pool_bad = pool.clone()
+    pool_bad[-16:] = 0
+    e_bad = e_rows.clone()
+    e_bad[:, -1] = 0
+    faults["B11 B last k16 slice dropped, " + harness_shape] = _bf16_step(
+        node_apply.node_factored_rows(hh_rows, e_rows, pool_bad, s), want_b)
+    faults["B11 B e's last d column zeroed, " + harness_shape] = _bf16_step(
+        node_apply.node_factored_rows(hh_rows, e_bad, pool, s), want_b)
+    del pool_bad, e_bad
+    for fault, ratio in faults.items():
+        if not ratio > 1.0:
+            raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
+    say(json.dumps({"planted_faults_over_bound": faults}))
     # The plain versions of A and B compute only the last step, the one that
     # reaches the output; the kernels compute all T, as the TPU grid does. A
     # kernel that skipped the overwritten steps would take about its one-step
-    # time at T steps, so its time must grow with T.
-    for line, one_step in ((lines[-2], lambda: node_dots(hh[-1:], w, s)),
-                           (lines[-1], lambda: node_apply.node_factored_rows(hh_rows[-1:], e_rows, pool, s))):
-        line["kernel_ms_one_step"] = _time_ms(torch, one_step)
-        growth = line["kernel_ms"] / line["kernel_ms_one_step"]
-        if not growth > hs["T"] / 4:
-            raise AssertionError("{} takes {:.3g}x its one-step time at T={}: not every step ran".format(
-                line["name"], growth, hs["T"]))
+    # time at T steps, so the T - 1 extra steps must take at least their own
+    # bytes or operations at the card's peaks (timing.every_step_ran). The
+    # planted step-skip, the one-step time in the T-step time's place, must
+    # fail that check.
+    # The T-step and one-step times are taken in turns (5 rounds of 10
+    # calls each, the median of the rounds' medians), so that a drift of
+    # the card between the two readings does not decide the check.
+    step_rows = hs["B"] * hs["NP"] * hs["KI"]
+    for line, all_steps, one_step, step_flops in (
+            (lines[-2], lambda: node_dots(hh, w, s), lambda: node_dots(hh[-1:], w, s), dots_flops // hs["T"]),
+            (lines[-1], lambda: node_apply.node_factored_rows(hh_rows, e_rows, pool, s),
+             lambda: node_apply.node_factored_rows(hh_rows[-1:], e_rows, pool, s),
+             dots_flops // hs["T"] * hs["D"])):
+        rounds = [(_time_ms(torch, all_steps, reps=10), _time_ms(torch, one_step, reps=10)) for _ in range(5)]
+        line["kernel_ms_in_turns"] = [a for a, _ in rounds]
+        line["kernel_ms_one_step_in_turns"] = [o for _, o in rounds]
+        every = statistics.median(line["kernel_ms_in_turns"])
+        one = line["kernel_ms_one_step"] = statistics.median(line["kernel_ms_one_step_in_turns"])
+        floor = line["extra_steps_floor_ms"] = timing.step_floor_ms(hs["T"], step_rows * 2, step_flops)
+        if not timing.every_step_ran(every, one, hs["T"], step_rows * 2, step_flops):
+            raise AssertionError("{}: {} steps take {:.4g} ms, one step {:.4g} ms, under the {:.4g} ms the "
+                                 "extra steps need: not every step ran ({})".format(
+                                     line["name"], hs["T"], every, one, floor, rounds))
+        if timing.every_step_ran(one, one, hs["T"], step_rows * 2, step_flops):
+            raise AssertionError("{}: the planted step-skip passes the every-step check".format(line["name"]))
 
     def bit_equal(got, want):
         return 0.0 if torch.equal(got, want) else float("inf")
@@ -2004,7 +2055,6 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
     from multistgraph_tpu_torch.ops import _cuda
     from multistgraph_tpu_torch.tools.timing import card
 

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
 use by ``nvcc`` for ``sm_90a`` into ``multistgraph_tpu_torch/_build/`` (a
-git-ignored directory), under a file name keyed on a hash of the source and
-the flags, so an edited source is rebuilt and a built one is reused. The
-build writes a temporary file and renames it into place, so processes that
+git-ignored directory), under a file name keyed on a hash of the source,
+the shared ``csrc/*.cuh`` headers and the flags, so an edited source is
+rebuilt and a built one is reused. The build writes a temporary file and renames it into place, so processes that
 build at once never load a half-written library. Nothing here runs at
 import time: this module is imported on machines without nvcc or a card.
 """
@@ -42,8 +42,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / (name + ".cu")
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The built library's path, keyed on the source, the shared headers of
+    csrc/ and the flags."""
+    text = (CSRC / (name + ".cu")).read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / "lib{}-{}.so".format(name, digest)
 
 

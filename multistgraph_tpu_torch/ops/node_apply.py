@@ -174,15 +174,36 @@ node_apply_q8_t.launches = 0
 # ---------------------------------------------------------------- factored form (B1, B1t)
 
 _FLOATS = (torch.float32, torch.bfloat16)
-# Shared memory of the factored kernels (csrc/node_factored*.cu): B1 keeps
-# its 64 rows' K*I activations transposed with a row stride of 68 floats,
-# a 32x64 pool chunk and the rows' D embeddings; B1t its q tile (O x 68
-# floats) and a 32x64 chunk of pool_t.
+# Shared memory of the factored kernels (csrc/node_factored*.cu): B1 in f32
+# keeps its 64 rows' K*I activations transposed with a row stride of 68
+# floats, a 32x64 pool chunk and the rows' D embeddings; B1t its q tile
+# (O x 68 floats) and a 32x64 chunk of pool_t. B1 in bf16 keeps its tile's
+# rows x K*I activations (K*I padded to a multiple of 64), a ring of 4 pool
+# chunks of 64 x (d x columns) bf16, the f32 sums over d of its rows x columns
+# and 8 mbarriers; of its tiles (rows, columns, d a chunk), the kernel takes
+# one that fits.
 _ROW_STRIDE, _CHUNK_FLOATS, _TILE_ROWS = 68, 32 * 64, 64
+_WG_CHUNK, _WG_STAGES = 64, 4
+_WG_TILES = ((192, 32, 5), (128, 48, 4), (128, 32, 4), (128, 16, 8))
 
 
-def _factored_smem(ki, d):
+def _wg_smem(ki, rows, cols, dg):
+    kic = -(-ki // _WG_CHUNK) * _WG_CHUNK
+    return (rows * kic + _WG_STAGES * _WG_CHUNK * dg * cols) * 2 + rows * cols * 4 + 2 * _WG_STAGES * 8
+
+
+def _factored_smem(ki, d, dtype):
+    if dtype == torch.bfloat16:
+        return min(_wg_smem(ki, *tile) for tile in _WG_TILES)
     return (ki * _ROW_STRIDE + _CHUNK_FLOATS + _TILE_ROWS * d) * 4
+
+
+def _factored_max_ki(d, dtype):
+    """The largest K*I whose tiles fit a block's shared memory."""
+    if dtype == torch.bfloat16:
+        return max(ki for ki in range(_WG_CHUNK, 4096, _WG_CHUNK)
+                   if _factored_smem(ki, d, dtype) <= _MAX_SMEM)
+    return (_MAX_SMEM - _factored_smem(0, d, dtype)) // (_ROW_STRIDE * 4)
 
 
 def _factored_t_smem(o):
@@ -305,9 +326,9 @@ def node_factored_apply(hh: torch.Tensor, e: torch.Tensor, poolmat: torch.Tensor
                           poolmat.shape[0] * poolmat.shape[1])
     if poolmat.shape[:2] != (kk, ii):
         raise ValueError("{} shape mismatch: hh {}, poolmat {}".format(name, tuple(hh.shape), tuple(poolmat.shape)))
-    if _factored_smem(kk * ii, dd) > _MAX_SMEM:
+    if _factored_smem(kk * ii, dd, hh.dtype) > _MAX_SMEM:
         raise ValueError("{} takes K*I of at most {}, got {}".format(
-            name, (_MAX_SMEM - _factored_smem(0, dd)) // (_ROW_STRIDE * 4), kk * ii))
+            name, _factored_max_ki(dd, hh.dtype), kk * ii))
     if hh.device.type == "cpu":
         return node_factored_apply_plain(hh, e, poolmat)
     out = torch.empty((b, n, oo), dtype=torch.float32, device=hh.device)
@@ -370,9 +391,8 @@ def node_factored_rows(hh_rows: torch.Tensor, e_rows: torch.Tensor, pool: torch.
     dd = e_rows.shape[1]
     oo = _factored_shapes(name, rows, e_rows.shape[0], dd, pool.shape[1], ki, pool.shape[0])
     _check_same_place(name, hh_rows, s)
-    if _factored_smem(ki, dd) > _MAX_SMEM:
-        raise ValueError("{} takes KI of at most {}, got {}".format(
-            name, (_MAX_SMEM - _factored_smem(0, dd)) // (_ROW_STRIDE * 4), ki))
+    if _factored_smem(ki, dd, hh_rows.dtype) > _MAX_SMEM:
+        raise ValueError("{} takes KI of at most {}, got {}".format(name, _factored_max_ki(dd, hh_rows.dtype), ki))
     if hh_rows.device.type == "cpu":
         return node_factored_rows_plain(hh_rows, e_rows, pool, s)
     out = torch.empty((rows, oo), dtype=torch.bfloat16, device=hh_rows.device)

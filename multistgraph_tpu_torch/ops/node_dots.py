@@ -18,7 +18,21 @@ import torch
 from multistgraph_tpu_torch.ops import _cuda
 
 _MAX_SMEM = 227 * 1024
-_TILE_O, _TILE_B = 64, 16  # the kernel's column tile and activation rows staged at a time
+# csrc/node_dots.cu keeps a node's (KI x 192)-column weight tile resident in
+# shared memory, streams 64-row activation tiles (four 16-row units) in
+# 64-column chunks through a ring of 4 buffers and stages each tile's 64 x
+# (192 + 8) results, KI padded to a multiple of 64, bf16, beside the ring's
+# mbarriers
+_TILE_O, _CHUNK, _STAGES = 192, 64, 4
+_FIXED = (_STAGES * 64 * _CHUNK + 64 * (_TILE_O + 8)) * 2 + 2 * _STAGES * 8   # and 8 mbarriers
+
+
+def _smem(ki: int) -> int:
+    return -(-ki // _CHUNK) * _CHUNK * _TILE_O * 2 + _FIXED
+
+
+# the largest KI whose tiles fit a block's shared memory
+_MAX_KI = (_MAX_SMEM - _FIXED) // (_TILE_O * 2) // _CHUNK * _CHUNK
 
 
 def node_dots_plain(hh: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -52,9 +66,8 @@ def node_dots(hh: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tenso
     np_, ki, o = w.shape
     if width != np_ * ki:
         raise ValueError("node_dots shape mismatch: hh {}, w {}".format(tuple(hh.shape), tuple(w.shape)))
-    if (ki * _TILE_O + _TILE_B * ki) * 4 > _MAX_SMEM:
-        raise ValueError("node_dots takes KI of at most {}, got {}".format(
-            _MAX_SMEM // ((_TILE_O + _TILE_B) * 4), ki))
+    if _smem(ki) > _MAX_SMEM:
+        raise ValueError("node_dots takes KI of at most {}, got {}".format(_MAX_KI, ki))
     if not (hh.device == w.device == s.device) or hh.device.type not in ("cpu", "cuda"):
         raise ValueError("node_dots operands lie on different devices or not on CPU or CUDA")
     if not (hh.is_contiguous() and w.is_contiguous()):

@@ -40,6 +40,7 @@ import torch
 
 from multistgraph_tpu_torch.ops import node_apply, stream_read
 from multistgraph_tpu_torch.ops.node_dots import node_dots, node_dots_plain
+from multistgraph_tpu_torch.tools import timing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, K, N, I, D, O = 2, 3, 140, 8, 4, 16   # tests/test_node_apply.py's shapes
@@ -332,6 +333,74 @@ def test_wrappers_reject_wrong_dtypes_ranks_and_devices():
                                       torch.zeros(2, 2, 8, dtype=torch.bfloat16)], s)
 
 
+@pytest.mark.parametrize("ki,fits", [(448, True), (449, False)])
+def test_node_dots_shared_memory_limit(ki, fits):
+    """csrc/node_dots.cu keeps the node's (KI x 192) weight tile (KI padded
+    to 64), a ring of four 64 x 64 activation chunks and a 64-row result
+    tile in shared memory: KI up to 448 fits."""
+    hh = torch.ones(1, 2, ki, dtype=torch.bfloat16)
+    w = torch.ones(1, ki, 8, dtype=torch.bfloat16)
+    s = torch.zeros(1, 1)
+    if fits:
+        assert torch.equal(node_dots(hh, w, s), torch.full((2, 8), float(ki), dtype=torch.bfloat16))
+    else:
+        with pytest.raises(ValueError, match="node_dots takes KI of at most 448, got 449"):
+            node_dots(hh, w, s)
+
+
+@pytest.mark.parametrize("dtype,ki,fits", [(torch.bfloat16, 576, True), (torch.bfloat16, 577, False),
+                                           (torch.float32, 820, True), (torch.float32, 821, False)])
+def test_factored_shared_memory_limits(dtype, ki, fits):
+    """B1 in bf16 keeps its tile's rows of K*I activations (padded to 64), a
+    ring of four pool chunks and its f32 sums; its smallest tile (128 rows,
+    16 columns) holds K*I up to 576, whatever D; in f32 the earlier
+    layout (D = 4 here) takes up to 820."""
+    e = torch.ones(3, 4)
+    hh = torch.ones(2, 1, 3, ki, dtype=dtype)
+    mat = torch.ones(1, ki, 4 * 5, dtype=dtype)
+    rows = torch.ones(1, 3, ki, dtype=torch.bfloat16)
+    pool = torch.ones(ki, 4 * 5, dtype=torch.bfloat16)
+    s = torch.zeros(1, 1)
+    if fits:
+        assert torch.equal(node_apply.node_factored_apply(hh, e, mat), torch.full((2, 3, 5), 4.0 * ki))
+        if dtype == torch.bfloat16:
+            want = torch.full((3, 5), 4.0 * ki).to(torch.bfloat16)
+            assert torch.equal(node_apply.node_factored_rows(rows, e, pool, s), want)
+        return
+    with pytest.raises(ValueError, match="node_factored_apply takes K.I of at most {}, got {}".format(ki - 1, ki)):
+        node_apply.node_factored_apply(hh, e, mat)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="node_factored_rows takes KI of at most 576, got 577"):
+            node_apply.node_factored_rows(rows, e, pool, s)
+
+
+# B11 A and B at the harness shapes: one step's activations, its operations
+_STEP_A = (16 * 256 * 320 * 2, 2 * 16 * 256 * 320 * 192)
+_STEP_B = (16 * 256 * 320 * 2, 2 * 16 * 256 * 320 * 20 * 192)
+
+
+@pytest.mark.parametrize("step,by_bytes", [(_STEP_A, True), (_STEP_B, False)])
+def test_step_floor_is_the_extra_steps_at_the_peaks(step, by_bytes):
+    step_bytes, step_flops = step
+    floor = timing.step_floor_ms(24, step_bytes, step_flops)
+    per_step = step_bytes / 3.35e12 if by_bytes else step_flops / 989e12
+    assert floor == pytest.approx(23 * per_step * 1e3, rel=1e-12)
+    assert timing.step_floor_ms(1, step_bytes, step_flops) == 0.0
+
+
+@pytest.mark.parametrize("step,ms_all,ms_one", [(_STEP_A, 0.052, 0.016), (_STEP_A, 1.332, 0.0833),
+                                                (_STEP_B, 0.55, 0.03), (_STEP_B, 12.96, 0.652)])
+def test_every_step_check_passes_honest_timings_and_fails_a_step_skip(step, ms_all, ms_one):
+    """Readings shaped like the tensor-core and the earlier SIMT kernels' pass;
+    the one-step time in the T-step time's place (a kernel that skipped the
+    overwritten steps) fails, as does a kernel that ran a quarter of them."""
+    step_bytes, step_flops = step
+    assert timing.every_step_ran(ms_all, ms_one, 24, step_bytes, step_flops)
+    assert not timing.every_step_ran(ms_one, ms_one, 24, step_bytes, step_flops)
+    floor = timing.step_floor_ms(24, step_bytes, step_flops)
+    assert not timing.every_step_ran(ms_one + floor / 4, ms_one, 24, step_bytes, step_flops)
+
+
 def test_node_dots_plain_keeps_the_last_step():
     """Earlier steps are overwritten: only hh[T-1] reaches the output."""
     rng = np.random.default_rng(9)
@@ -414,6 +483,126 @@ def test_cuda_harness_kernels_match_plain(cuda, ki, o):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert stream_read.checksum_value(words) == stream_read.checksum_value(want_words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("ki,o", [(40, 24), (36, 18)])
+@pytest.mark.parametrize("b", [1, 4, 16, 20])
+def test_cuda_node_dots_tensor_core_edges(cuda, b, ki, o, t):
+    """B11 A on wgmma: B other than 16 leaves a partial or second 16-row
+    unit, KI = 40 and 36 are not multiples of 16 (36 and O = 18 not of 8
+    either: element loads), O = 18 and 24 leave a ragged column tile."""
+    g = torch.Generator().manual_seed(100 * b + ki + t)
+    np_ = 5
+    hh = _randn(g, t, b, np_ * ki, dtype=torch.bfloat16)
+    w = _randn(g, np_, ki, o, dtype=torch.bfloat16)
+    s = torch.full((1, 1), -0.25, device="cuda")
+    before = node_dots.launches
+    got = node_dots(hh, w, s)
+    assert node_dots.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_within_one_bf16_step(got.float().cpu().numpy(), node_dots_plain(hh, w, s).float().cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("rows,ki,d,o", [(100, 40, 3, 24), (77, 36, 2, 18), (300, 24, 5, 40), (129, 48, 1, 72)])
+def test_cuda_factored_rows_tensor_core_edges(cuda, rows, ki, d, o, t):
+    """B11 B on wgmma: ragged M (rows not a multiple of the 64- or 128-row
+    tile), K*I not a multiple of 16 (and 36 not of 8), O not a multiple of 8
+    or of the column tile; every step overwrites the last."""
+    g = torch.Generator().manual_seed(rows + ki + t)
+    hh_rows = _randn(g, t, rows, ki, dtype=torch.bfloat16)
+    e_rows = _randn(g, rows, d, dtype=torch.bfloat16)
+    pool = _randn(g, ki, d * o, dtype=torch.bfloat16)
+    s = torch.full((1, 1), 0.5, device="cuda")
+    got = node_apply.node_factored_rows(hh_rows, e_rows, pool, s)
+    torch.cuda.synchronize()
+    _assert_within_one_bf16_step(got.float().cpu().numpy(),
+                                 node_apply.node_factored_rows_plain(hh_rows, e_rows, pool, s).float().cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o", [40, 18])
+@pytest.mark.parametrize("tile", [0, 1, 2, 3])
+def test_cuda_factored_every_tile_matches_plain(cuda, tile, o):
+    """Each of B1's bf16 tiles (192x32, 128x48, 128x32, 128x16; the wrapper
+    takes one by the grid) through the kernel's tiled entry, on ragged rows,
+    D not a multiple of the d a product takes, and O = 40 (TMA) or 18
+    (element loads), within one bf16 step of the plain version."""
+    import ctypes
+
+    from multistgraph_tpu_torch.ops import _cuda
+
+    fn = _cuda.library("node_factored").node_factored_fwd_tile
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    g = torch.Generator().manual_seed(tile * 100 + o)
+    t, rows, ki, d = 2, 300, 48, 7
+    hh_rows = _randn(g, t, rows, ki, dtype=torch.bfloat16)
+    e_rows = _randn(g, rows, d)
+    pool = _randn(g, ki, d * o, dtype=torch.bfloat16)
+    s = torch.full((1, 1), 0.5, device="cuda")
+    out = torch.empty(rows, o, dtype=torch.bfloat16, device="cuda")
+    rc = fn(hh_rows.data_ptr(), e_rows.data_ptr(), pool.data_ptr(), s.data_ptr(), out.data_ptr(), t, 1, 1, rows, ki,
+            d, o, 1, 1, tile, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    _assert_within_one_bf16_step(out.float().cpu().numpy(),
+                                 node_apply.node_factored_rows_plain(hh_rows, e_rows, pool, s).float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_node_dots_second_column_tile_and_partial_row_tile(cuda):
+    """B11 A at B = 16 (TMA) with O = 200 (a second, ragged 192-column
+    tile) and 9 steps (a partial last 64-row tile), within one bf16 step of
+    the plain version."""
+    g = torch.Generator().manual_seed(192)
+    t, b, np_, ki, o = 9, 16, 3, 72, 200
+    hh = _randn(g, t, b, np_ * ki, dtype=torch.bfloat16)
+    w = _randn(g, np_, ki, o, dtype=torch.bfloat16)
+    s = torch.full((1, 1), -0.25, device="cuda")
+    got = node_dots(hh, w, s)
+    torch.cuda.synchronize()
+    _assert_within_one_bf16_step(got.float().cpu().numpy(), node_dots_plain(hh, w, s).float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_unaligned_tma_operand_raises(cuda):
+    """Where the shape takes TMA, an operand whose address is not 16-byte
+    aligned cannot be viewed: the launch fails and the wrapper raises, rather
+    than take the element loads unannounced."""
+    g = torch.Generator().manual_seed(7)
+    t, b, np_, ki, o, d = 1, 16, 2, 32, 16, 2
+    hh = _randn(g, t * b * np_ * ki + 1, dtype=torch.bfloat16)[1:].view(t, b, np_ * ki)
+    w = _randn(g, np_, ki, o, dtype=torch.bfloat16)
+    s = torch.zeros(1, 1, device="cuda")
+    with pytest.raises(RuntimeError, match="node_dots kernel launch failed"):
+        node_dots(hh, w, s)
+    pool = _randn(g, ki * d * o + 1, dtype=torch.bfloat16)[1:].view(ki, d * o)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        node_apply.node_factored_rows(_randn(g, 1, 70, ki, dtype=torch.bfloat16),
+                                      _randn(g, 70, d, dtype=torch.bfloat16), pool, s)
+
+
+@pytest.mark.cuda
+def test_cuda_harness_kernels_at_the_full_harness_shape(cuda):
+    """B11 A and B once at T=24, B=16, NP=256, KI=320, O=192, D=20."""
+    g = torch.Generator().manual_seed(24)
+    t, b, np_, ki, o, d = 24, 16, 256, 320, 192, 20
+    hh = _randn(g, t, b, np_ * ki, dtype=torch.bfloat16, scale=0.1)
+    w = _randn(g, np_, ki, o, dtype=torch.bfloat16, scale=0.1)
+    s = torch.full((1, 1), 0.0123, device="cuda")
+    got = node_dots(hh, w, s)
+    torch.cuda.synchronize()
+    _assert_within_one_bf16_step(got.float().cpu().numpy(), node_dots_plain(hh, w, s).float().cpu().numpy())
+    hh_rows = hh.reshape(t, b * np_, ki)
+    e_rows = _randn(g, np_, d, dtype=torch.bfloat16, scale=0.1).repeat(b, 1)
+    pool = _randn(g, ki, d * o, dtype=torch.bfloat16, scale=0.1)
+    got = node_apply.node_factored_rows(hh_rows, e_rows, pool, s)
+    torch.cuda.synchronize()
+    _assert_within_one_bf16_step(got.float().cpu().numpy(),
+                                 node_apply.node_factored_rows_plain(hh_rows, e_rows, pool, s).float().cpu().numpy())
 
 
 @pytest.mark.cuda
