@@ -60,12 +60,16 @@ Then the node-apply design harness and the card's stream calibration:
     launched in that window.
 Then SparseATGCN in bf16 on the band form at 1,000,000 nodes (the JAX
 package's 1M configuration, at T=12 and batch 2, no adaptive view):
-  * B7, B8, B9 dX and B9 dV in bf16 against their plain versions at every
-    width the path gives them, within one bf16 step, and the probe kernels
-    window_dot (P1, P3) and band_slab (P2, per-row and batched) at the
-    probe tool's shapes, each timed beside its bound and a library call;
-    a wrong window start and a stale row block planted in their outputs
-    must fail the checks;
+  * B7, B8, B9 dX and B9 dV in bf16 (on the tensor cores) against their
+    plain versions at every width the path gives them, within one bf16
+    step, each row naming how x came in (TMA or element loads), and the
+    probe kernels window_dot (P1, P3) and band_slab (P2, per-row and
+    batched) at the probe tool's shapes, each timed beside its bound and a
+    library call; three faults planted inside the bf16 band kernels (a
+    k16 slice dropped, the main diagonal skipped, the graph's last row
+    block read as outside it) at F = 12, 24 and 128, and a wrong window
+    start and a stale row block planted in the probes' outputs, must fail
+    the checks;
   * the port's probe_band_stream on the card, every probe launched and OK;
   * bench_large_graph's training (2 warm-up and 5 timed steps) with exact
     launch counts and finite losses, and its packed serving at buckets 1
@@ -164,6 +168,20 @@ def _ptxas_summary(report):
     spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", report))
     return "{} kernel(s), at most {} registers, {} bytes of spills".format(
         len(regs), max(regs, default=0), spills)
+
+
+def _ptxas_kernels(report, marker):
+    """[kernel, registers, spill bytes] from nvcc's -Xptxas -v report for
+    each entry function whose mangled name holds `marker`."""
+    rows = []
+    for block in report.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if marker in name:
+            regs = re.search(r"Used (\d+) registers", block)
+            spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", block))
+            short = re.search(r"[a-z_]*" + re.escape(marker) + r"\w{0,16}", name).group(0)
+            rows.append([short, int(regs.group(1)) if regs else None, spills])
+    return rows
 
 
 def _over_bound(got, want, rel=1e-5, bf16_step=False):
@@ -1492,6 +1510,9 @@ BF_B7_WIDTHS = (24, 128, 1536)                   # layer-0 hoist T*B, per-step B
 BF_B8_WIDTHS = (12, 64, 768, 24, 128, 1536)      # the same at serving buckets 1 and 2
 BF_DX_WIDTHS = (128, 1536)                       # dX of the per-step aggregations and of layer 1's hoist
 BF_DV_WIDTHS = (128, 1536)                       # B9 dV: off the path (constant values), held at its widths
+# widths at which each fault the bf16 kernels can plant must fail the check:
+# F=12 takes x by element loads, F=24 and 128 by TMA
+BF_FAULT_WIDTHS = (12, 24, 128)
 # The plain versions run on 128-column slices of x (the same function,
 # column by column): at F = 1536 their f32 stack of windows would be 30.7 GB.
 BF_PLAIN_COLUMNS = 128
@@ -1529,7 +1550,7 @@ def _bf16_kernel_rows(torch, graph):
     packed = band.pack_band_rows(planes, offsets, radius)
     packed_t = band.pack_band_rows_transposed(planes, offsets, radius)
     width = (2 * radius + 1) * block
-    lines = []
+    lines, faults = [], {}
 
     def windows(x):
         feat = x.shape[1]
@@ -1550,12 +1571,18 @@ def _bf16_kernel_rows(torch, graph):
             total = part if total is None else total + part
         return total.to(torch.bfloat16)
 
-    def row(name, replaces, feat, kernel, plain, library, label, main_path=True):
+    def row(name, replaces, feat, kernel, plain, library, label, main_path=True, plant=False):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         # the same exact products summed in f32 in another order, then rounded once
         _hold(_bf16_step(got, want), "{} bf16 vs its plain version at F={}".format(name, feat))
         max_abs_err = (got.float() - want.float()).abs().max().item()
+        if plant:  # each fault the kernel can plant must fail the same check
+            for kind in band.FAULTS:
+                with band.planted_fault(kind):
+                    bad = kernel()
+                faults["{} F={} ({}): {}".format(name, feat, band.bf16_load_path(feat), kind)] = _bf16_step(bad, want)
+                del bad
         del got, want
         num_bytes = tiles * block * block * 2 + 2 * n_pad * feat * 2
         flops = 2 * tiles * block * block * feat
@@ -1564,6 +1591,7 @@ def _bf16_kernel_rows(torch, graph):
         lines.append({
             "name": name, "bf16_path": True, "shape": "R={} offsets={} tiles={} F={} bf16".format(
                 nb, offsets, tiles, feat),
+            "design": _band_design(band, name, feat), "loads": band.bf16_load_path(feat),
             "replaces": replaces, "max_abs_err": max_abs_err,
             "tolerance": "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|",
             "kernel_ms": _time_ms(torch, kernel), "plain_ms": _time_ms(torch, plain, reps=10),
@@ -1582,21 +1610,22 @@ def _bf16_kernel_rows(torch, graph):
         row("band_spmm", "multistgraph_tpu/ops/band.py:222 band_fwd_pallas", feat,
             lambda: band.band_spmm(planes, offsets, x),
             lambda: by_columns(lambda xc: band.band_plain(planes, offsets, xc), x),
-            lambda: torch.bmm(packed, xw), lib_label)
+            lambda: torch.bmm(packed, xw), lib_label, plant=feat in BF_FAULT_WIDTHS)
     for feat in BF_B8_WIDTHS:
         x = randn(feat)
         xw = windows(x)
         row("band_spmm_packed", "multistgraph_tpu/ops/band.py:352 band_fwd_slab_pallas", feat,
             lambda: band.band_spmm_packed(packed, radius, x),
             lambda: by_columns(lambda xc: band.band_packed_plain(packed, radius, xc), x),
-            lambda: torch.bmm(packed, xw), lib_label)
+            lambda: torch.bmm(packed, xw), lib_label, plant=feat in BF_FAULT_WIDTHS)
     for feat in BF_DX_WIDTHS:
         dy = randn(feat)
         dyw = windows(dy)
         row("band_dx", "multistgraph_tpu/ops/band.py:462 band_dx_pallas", feat,
             lambda: band.band_dx(planes, offsets, dy),
             lambda: by_columns(lambda dc: band.band_dx_plain(planes, offsets, dc), dy),
-            lambda: torch.bmm(packed_t, dyw), "torch.bmm(transposed packed rows, windows of the padded dy) in bf16")
+            lambda: torch.bmm(packed_t, dyw), "torch.bmm(transposed packed rows, windows of the padded dy) in bf16",
+            plant=feat in BF_FAULT_WIDTHS)
     for feat in BF_DV_WIDTHS:
         x, dy = randn(feat), randn(feat)
         xw, dyb = windows(x), dy.reshape(nb, block, feat)
@@ -1604,10 +1633,26 @@ def _bf16_kernel_rows(torch, graph):
             lambda: band.band_dv(dy, x, offsets),
             lambda: dv_by_columns(lambda dc, xc: band.band_dv_plain(dc, xc, offsets, out_dtype=torch.float32), dy, x),
             lambda: torch.bmm(dyb, xw.transpose(1, 2)), "torch.bmm(dy blocks, windows of the padded x transposed) in bf16",
-            main_path=False)
+            main_path=False, plant=feat in BF_FAULT_WIDTHS)
     del planes, packed, packed_t
     torch.cuda.empty_cache()
-    return lines, tiles
+    for fault, ratio in faults.items():
+        if not ratio > 1.0:
+            raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
+    return lines, tiles, faults
+
+
+def _band_design(band, name, feat):
+    """What the bf16 band kernel runs at width feat (csrc/band_spmm.cu)."""
+    loads = band.bf16_load_path(feat)
+    if name == "band_dv":
+        return ("tensor cores: wgmma m64n128k16 bf16->f32 per (slot, row block) tile over F in K=64 chunks, dy[r] "
+                "and x[r+o] K-major under the 128-byte swizzle by {}; one block per row block; a producer warp and "
+                "an mbarrier ring; tiles staged per warp for 16-byte stores").format(loads)
+    n = next((n for n in (16, 24, 32, 64, 128) if feat <= n), 256)
+    return ("tensor cores: wgmma m64n{}k16 bf16->f32; tile chunks (K=64) by TMA as {} A; x's rows by {} as MN-major "
+            "B, all under the 128-byte swizzle; a producer warp and an mbarrier ring; two consumer warpgroups of 64 "
+            "rows").format(n, "MN-major (transposed)" if name == "band_dx" else "K-major", loads)
 
 
 def _probe_kernel_rows(torch):
@@ -1708,7 +1753,7 @@ def band_bf16_phase(torch):
     setup = {"graph_s": time.time() - t0, "nodes": graph.num_nodes, "padded": graph.padded_nodes,
              "offsets": [int(o) for o in graph.offsets], "edges_left": int(graph.rest_w.shape[0])}
     t0 = time.time()
-    lines, setup["tiles"] = _bf16_kernel_rows(torch, graph)
+    lines, setup["tiles"], band_faults = _bf16_kernel_rows(torch, graph)
     setup["kernel_rows_s"] = time.time() - t0
     t0 = time.time()
     probe_lines, probe_faults = _probe_kernel_rows(torch)
@@ -1716,7 +1761,8 @@ def band_bf16_phase(torch):
     setup["probe_rows_s"] = time.time() - t0
     for line in lines:
         say(json.dumps(line))
-    say(json.dumps({"band_bf16_setup": setup, "probe_planted_faults_over_bound": probe_faults}))
+    say(json.dumps({"band_bf16_setup": setup, "band_planted_faults_over_bound": band_faults,
+                    "probe_planted_faults_over_bound": probe_faults}))
 
     windows = {}
     _reset_counts()
@@ -2067,8 +2113,11 @@ def main():
     t0 = time.time()
     reports = _cuda.build()
     say("kernels built in {:.1f}s".format(time.time() - t0))
-    for name, out in reports.items():
-        say("  {}: {}".format(name, _ptxas_summary(out)))
+    for name in _cuda.SOURCES:
+        say("  {}: {}".format(name, _ptxas_summary(reports[name]) if name in reports else "built before this run"))
+    if "band_spmm" in reports:  # the bf16 band kernels on the tensor cores, one by one
+        say(json.dumps({"band_spmm tensor-core kernels [name, registers, spill bytes]": _ptxas_kernels(
+            reports["band_spmm"], "_tc_kernel")}))
 
     lines = kernel_phase(torch)
     lines += sparse_kernel_phase(torch)
@@ -2141,6 +2190,9 @@ def main():
         also = sorted({r["replaces"].split()[0] for r in rows} - {kernels[-1]["replaces"]})
         if also:
             kernels[-1]["also_replaces"] = also
+        loads = sorted({r["loads"] for r in rows if "loads" in r})
+        if loads:  # how the bf16 band kernels took x at the path's widths
+            kernels[-1]["loads"] = loads
     say(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}), flush=True)

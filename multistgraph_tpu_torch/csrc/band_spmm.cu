@@ -8,15 +8,14 @@
 //   packed  (R, 128, (2 radius + 1) 128): slot s of row block r holds the
 //           tile at offset s - radius (zero for an offset the graph lacks).
 // x, dy, out are (R*128, F) row-major; any F >= 1. Rows r + o outside
-// [0, R) contribute nothing: x is read with that bound, no padded copy.
+// [0, R) contribute nothing: their slot is skipped, no padded copy is made.
 // Operands are float32 or bfloat16, the tiles and x of one type (the
-// wrapper casts as JAX does). Each element is widened to f32 as it is
-// loaded, so a product of two bf16 values is exact and every sum is f32,
-// the Pallas kernels' rounding (preferred_element_type=f32); the forward
-// and dX round their f32 sums once to the operands' type, as JAX casts the
-// result to x's dtype (multistgraph_tpu/ops/band.py:235,477,701), and dV
-// rounds once to the values' type, which may differ from the operands'
-// (band.py:642,736).
+// wrapper casts as JAX does). A product of two bf16 values is exact in f32
+// and every sum is f32, the Pallas kernels' rounding
+// (preferred_element_type=f32); the forward and dX round their f32 sums once
+// to the operands' type, as JAX casts the result to x's dtype
+// (multistgraph_tpu/ops/band.py:235,477,701), and dV rounds once to the
+// values' type, which may differ from the operands' (band.py:642,736).
 //
 // band_spmm_launch, transposed = 0 (forward):
 //   out[r] = sum_s T_s(r) @ x[r + o_s]
@@ -30,34 +29,70 @@
 //   out tile (s, r) = dy[r] @ x[r + o_s]^T, zero where r + o_s is outside
 //   [0, R); written in the planes or the packed layout.
 //
-// Bound on an H100: the forward and dX are one (128x128)(128xF) product
-// per present tile: at the 49,152-node band (5 diagonals, ~1,914 tiles)
-// and F=128 that is 8.0 GFLOP, 0.12 ms at the 67 TFLOP/s f32 peak against
-// 0.05 ms for the 126 MB of planes (bytes bound below F of about 55). dV
-// contracts over F: the same FLOPs, writing the planes. This first design
-// is bsr_spmm.cu's, plain f32 FMAs: one thread block per (output row
-// block, feature tile of 16*TN columns); the block walks the row's
-// diagonals, staging each tile in 128x32 chunks (transposed on the way in
-// for dX: neighbouring threads read neighbouring columns of one tile row
-// and store them down a padded shared-memory column, without bank
+// What bounds them on an H100: the forward and dX are one (128x128)(128xF)
+// product per present tile, dV the same FLOPs contracting over F and
+// writing the tiles. In bf16 at 1,000,000 nodes (7,813 row blocks, 39,059
+// tiles, 1.28 GB of planes) the bytes bound them below F of about 300: at
+// F=128 the planes, x and out take 0.535 ms at 3.35 TB/s and the 164 GFLOP
+// 0.17 ms on the bf16 tensor cores (989 TFLOP/s), but 2.4 ms as f32 FMAs on
+// the CUDA cores; at F=1536 the 1.97 TFLOP (2.0 ms) come near the bytes
+// (2.2 ms). In f32 at the 49,152-node band (~1,914 tiles) and F=128 the 8.0
+// GFLOP take 0.12 ms at the 67 TFLOP/s f32 peak against 0.05 ms of bytes:
+// tensor cores would take f32 in TF32, three decimal digits.
+//
+// bf16 operands: tensor cores (wgmma m64nNk16, bf16 from shared memory, f32
+// sums in registers). One block per (output row block, N = 16-256 feature
+// columns: the narrowest of 16, 24, 32, 64, 128 and 256 that holds F, else
+// 256) has two consumer warpgroups of 64 output rows and one producer warp.
+// The producer walks the row's present slots and streams each product in
+// K = 64 chunks through an mbarrier ring (3-4 stages, 72-192 KB): the
+// tile's chunk by TMA, K-major for the forward, MN-major for dX (the
+// transposed tile is read as it lies, wgmma's transpose-A bit), and x's
+// matching 64 rows as MN-major B, by TMA where F % 8 == 0 (zero past F),
+// else by element loads (a row of F=12 is 24 bytes: no 16-byte copy fits
+// it). Every operand lies under the 128-byte swizzle, so TMA moves 128-byte
+// rows: with 8x8 core matrices (16-byte rows) the same kernel streamed at
+// ~1.9 TB/s, 1.36 ms at F=128 against 0.66 ms now. Each chunk's four k16
+// products go out while the previous chunk's finish, whose stage is then
+// released. Two blocks share an SM up to N=128; blocks run in (row block,
+// feature tile) order, so a tile's feature blocks and the five row blocks
+// that read one x block run together and L2 serves the repeats. At F=128
+// the bytes bound it (the tile stream at the card's ~2.7 TB/s read rate);
+// at F=1536 the L2: each output element costs ~15 bytes of L2 reads (x
+// read by five row blocks, a tile by six feature blocks), ~22.5 GB.
+// Persistent blocks walking tiles a grid apart ran 15-20% slower than this
+// grid, N = 128 at F=1536 7% slower. dV: one block per row block walks its
+// slots; each (s, r) tile is one 128x128 product over F in K = 64 chunks
+// (dy[r] and x[r + o_s] both K-major, by TMA where F % 8 == 0), zero where
+// r + o_s is outside the graph, staged per warp in shared memory and
+// stored in 16-byte units along whole rows (scattered 4-byte stores of its
+// 1.28 GB of tiles took 1.12 ms at F=128, 0.82-0.89 ms staged). At F=1536
+// dV reads dy[r] once per slot and x once per row block that uses it, 48
+// bytes of L2 reads an output element, which bounds it. A view that the
+// shape allows and cuTensorMapEncodeTiled refuses (an operand that is not
+// 16-byte aligned) is a launch error. The *_fault entries plant a fault
+// (a k16 slice dropped, a slot skipped, the graph's edge a block short)
+// for checks that must catch one.
+//
+// f32 operands: bsr_spmm.cu's design, plain f32 FMAs: one thread block per
+// (output row block, feature tile of 16*TN columns); the block walks the
+// row's diagonals, staging each tile in 128x32 chunks (transposed on the
+// way in for dX: neighbouring threads read neighbouring columns of one tile
+// row and store them down a padded shared-memory column, without bank
 // conflicts) with the matching 32 rows of x; each of the 256 threads keeps
 // 8 rows x TN columns in registers and writes them once, so dX needs no
 // atomics and no zero fill: a row with no tile writes zeros. dV is
-// sampled_matmul.cu's kernel on one tile per block. Tensor cores and
-// pipelined loads come later. In bf16 at 1,000,000 nodes (7,813 row blocks,
-// 1.28 GB of planes) and F=128 the bytes bound is ~0.53 ms and the 164
-// GFLOP take ~0.17 ms on bf16 tensor cores, but ~2.4 ms as f32 FMAs on the
-// CUDA cores, which is what bounds this design: the bf16 form halves the
-// bytes and leaves the arithmetic as it is.
+// sampled_matmul.cu's kernel on one tile per block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_sm90.cuh"
+
 namespace {
 
 __device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T narrow(float v);
@@ -218,14 +253,15 @@ band_dv_kernel(const T* __restrict__ dy, const T* __restrict__ x, OutT* __restri
       ot[(size_t)(ty + 16 * j) * ld + tx + 16 * l] = narrow<OutT>(acc[j][l]);
 }
 
-template <bool TRANS, bool PACKED, typename T>
-cudaError_t launch_spmm(const void* values, const void* x, void* out, int R, int F, int n_slots,
-                        int radius, const Offsets& offs, cudaStream_t stream) {
-  const T* v = static_cast<const T*>(values);
-  const T* xx = static_cast<const T*>(x);
-  T* o = static_cast<T*>(out);
+
+template <bool TRANS, bool PACKED>
+cudaError_t launch_spmm_f32(const void* values, const void* x, void* out, int R, int F, int n_slots, int radius,
+                            const Offsets& offs, cudaStream_t stream) {
+  const float* v = static_cast<const float*>(values);
+  const float* xx = static_cast<const float*>(x);
+  float* o = static_cast<float*>(out);
 #define BAND_LAUNCH(TN)                                                                       \
-  band_spmm_kernel<TN, TRANS, PACKED, T>                                                       \
+  band_spmm_kernel<TN, TRANS, PACKED, float>                                                   \
       <<<dim3((unsigned)((F + 16 * TN - 1) / (16 * TN)), (unsigned)R), kThreads, 0, stream>>>( \
           v, xx, o, R, F, n_slots, radius, offs)
   if (F <= 16) BAND_LAUNCH(1);
@@ -236,63 +272,448 @@ cudaError_t launch_spmm(const void* values, const void* x, void* out, int R, int
   return cudaGetLastError();
 }
 
+template <bool PACKED, typename OutT>
+cudaError_t launch_dv_f32(const void* dy, const void* x, void* out, int R, int d, int n_slots, int radius,
+                          const Offsets& offs, cudaStream_t stream) {
+  const dim3 grid((unsigned)R, (unsigned)n_slots);
+  band_dv_kernel<PACKED, float, OutT><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(dy), static_cast<const float*>(x), static_cast<OutT*>(out), R, d, n_slots, radius,
+      offs);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- bf16 operands: tensor cores
+
+using namespace wgmma_sm90;
+
+// Faults the bf16 kernels plant on request, for checks that must fail them:
+constexpr int kFaultK16 = 1;    // the k16 slice holding a product's last contraction element dropped
+constexpr int kFaultSlot = 2;   // the middle slot skipped (the main diagonal of offsets -r..r)
+constexpr int kFaultEdge = 3;   // the last row block read as outside the graph
+
+constexpr int kKc = 64;                       // contraction rows of one ring stage
+constexpr int kConsumers = 256;               // two warpgroups of 64 output rows
+constexpr int kTcThreads = kConsumers + 32;   // and one producer warp
+constexpr int kChunkA = kBlock * kKc;         // elements of a stage's tile (or dy) chunk
+constexpr int kDvStages = 2;
+constexpr int kStageLd = kBlock + 8;          // row stride of dV's per-warp output staging (conflict-free)
+
+struct Band {
+  int R, F, n_slots, radius, packed, fault;
+  Offsets offs;
+};
+
+// The operand's row block of slot s for output row block r (r + o, or r - o
+// for the transpose), or -1 where it lies outside the graph: the slot adds
+// nothing (dV writes its tile as zeros).
+__device__ __forceinline__ int slot_source(const Band& a, int s, int r, bool trans) {
+  if (a.fault == kFaultSlot && s == a.n_slots / 2) return -1;
+  const int o = a.packed ? s - a.radius : a.offs.v[s];
+  const int src = trans ? r - o : r + o;
+  return src >= 0 && src < (a.fault == kFaultEdge ? a.R - 1 : a.R) ? src : -1;
+}
+
+template <int BN>
+struct SpmmTile {
+  static constexpr int kStages = BN == 128 ? 3 : 4;
+  static constexpr int kMinBlocks = BN == 256 ? 1 : 2;   // blocks an SM: shared memory and registers allow
+  static constexpr int kWidthB = BN < 64 ? 64 : BN;      // columns of an operand chunk: whole 128-byte rows
+  static constexpr int kChunkB = kKc * kWidthB;
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * (kChunkA + kChunkB) * sizeof(__nv_bfloat16) +
+                                  2 * kStages * sizeof(uint64_t);
+};
+
+// The dynamic shared memory from its first 1024-byte boundary (the
+// swizzle's atoms are aligned to it; the launch adds 1024 bytes).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// out[r][:, f0 .. f0 + BN] for r = blockIdx.y, f0 = BN blockIdx.x. v_map is a
+// 2-d view of the tiles (planes (O R 128, 128) or packed rows (R 128, W))
+// under the 128-byte swizzle: for the forward one box is a 64-wide chunk of
+// a tile's 128 rows (K-major A, rows of 64 k); for the transpose, two boxes
+// of 64 of its rows by 64 columns (MN-major A, two 64-row blocks of M).
+// x_map views x likewise: a box is 64 rows by 64 columns (MN-major B), one
+// for each 64 of the chunk's columns, where tma_x (F % 8 == 0); else the
+// producer loads elements into the same layout.
+template <int BN, bool TRANS>
+__global__ void __launch_bounds__(kTcThreads, SpmmTile<BN>::kMinBlocks)
+band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap x_map,
+                    int tma_x, const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out, Band a) {
+  using Tile = SpmmTile<BN>;
+  constexpr int S = Tile::kStages;
+  constexpr int kBlocksB = Tile::kWidthB / 64;   // 64-column blocks of an operand chunk
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);          // S tile chunks: 128 x 64
+  __nv_bfloat16* bs = as + (size_t)S * kChunkA;                         // S operand chunks: 64 x kWidthB
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + (size_t)S * Tile::kChunkB);
+  uint64_t* empty = full + S;
+
+  const int r = blockIdx.y, f0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 2);   // one arrival per consumer warpgroup
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer warp: chunk g is the kc-th half of the g/2-th present slot
+    const int lane = tid - kConsumers;
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    int g = 0;
+    for (int s = 0; s < a.n_slots; ++s) {
+      const int src = slot_source(a, s, r, TRANS);
+      if (src < 0) continue;
+      // the tile's first row and column in the view
+      const int trow = TRANS ? src : r;
+      const int row0 = a.packed ? trow * kBlock : (s * a.R + trow) * kBlock;
+      const int col0 = a.packed ? s * kBlock : 0;
+      for (int kc = 0; kc < kBlock / kKc; ++kc, ++g) {
+        const int st = g % S;
+        if (g >= S) mbar_wait(empty + st, ((g / S) & 1) ^ 1);
+        __nv_bfloat16* ad = as + (size_t)st * kChunkA;
+        __nv_bfloat16* bd = bs + (size_t)st * Tile::kChunkB;
+        const int k0 = src * kBlock + kc * kKc;   // the operand's first row of the chunk
+        if (!tma_x) {
+          // element (k, c) of the chunk, zero past F, at its swizzled place
+          unsigned char* bb = reinterpret_cast<unsigned char*>(bd);
+#pragma unroll 4
+          for (int q = lane; q < kKc * BN; q += 32) {
+            const int k = q / BN, c = q - k * BN, f = f0 + c;
+            *reinterpret_cast<__nv_bfloat16*>(bb + (c / 64) * 8192 + sw128(k * 128 + (c % 64) * 2)) =
+                f < a.F ? x[(size_t)(k0 + k) * a.F + f] : zero;
+          }
+          fence_proxy_async();
+          __syncwarp();
+        }
+        if (lane == 0) {
+          mbar_arrive_tx(full + st, (kChunkA + (tma_x ? Tile::kChunkB : 0)) * (unsigned)sizeof(__nv_bfloat16));
+          if (TRANS) {
+            tma_load_2d(ad, &v_map, col0, row0 + kc * kKc, full + st);
+            tma_load_2d(ad + 64 * kKc, &v_map, col0 + 64, row0 + kc * kKc, full + st);
+          } else {
+            tma_load_2d(ad, &v_map, col0 + kc * kKc, row0, full + st);
+          }
+          if (tma_x)
+            for (int j = 0; j < kBlocksB; ++j) tma_load_2d(bd + j * 64 * kKc, &x_map, f0 + 64 * j, k0, full + st);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns output rows 64 wg .. 64 wg + 63
+    const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int g = 0;
+    for (int s = 0; s < a.n_slots; ++s) {
+      if (slot_source(a, s, r, TRANS) < 0) continue;
+      for (int kc = 0; kc < kBlock / kKc; ++kc, ++g) {
+        const int st = g % S;
+        mbar_wait(full + st, (g / S) & 1);
+        // the warpgroup's 64 rows of the tile chunk: 8 KB in, K-major
+        // (64 rows of 64 k) and MN-major (64 k of 64 rows) alike
+        const unsigned char* ad = reinterpret_cast<const unsigned char*>(as + (size_t)st * kChunkA) + wg * 8192;
+        const unsigned char* bd = reinterpret_cast<const unsigned char*>(bs + (size_t)st * Tile::kChunkB);
+        const int skip = a.fault == kFaultK16 && kc == kBlock / kKc - 1 ? kKc / 16 - 1 : -1;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kKc / 16; ++ks)
+          if (ks != skip)
+            Wgmma<BN>::template mma_t<TRANS ? 1 : 0, 1>(
+                acc, TRANS ? desc_sw128(ad + 2048 * ks, 8192u) : desc_sw128(ad + 32 * ks, 16u),
+                desc_sw128(bd + 2048 * ks, 8192u), 1);
+        wgmma_commit();
+        if (g > 0) {
+          wgmma_wait<1>();   // the previous chunk's products are done: free its stage
+          if (tid % 128 == 0) mbar_arrive(empty + (g - 1) % S);
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      __nv_bfloat16* row = out + ((size_t)r * kBlock + 64 * wg + 16 * warp + lane / 4 + 8 * h) * a.F + f0;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        store_pair(row, 8 * j + 2 * (lane % 4), a.F - f0, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// Tile (s, r) = dy[r] @ x[r + o_s]^T for r = blockIdx.x and every slot s, in
+// the values' type. dy_map and x_map are 2-d views of dy and x under the
+// 128-byte swizzle whose box, 128 rows of 64 features, lands as K-major
+// cores, where tma (F % 8 == 0); else the producer loads elements into the
+// same layout. Features past F read as zero.
+template <typename OutT>
+__global__ void __launch_bounds__(kTcThreads, sizeof(OutT) == 2 ? 2 : 1)   // f32 staging leaves room for one
+band_dv_tc_kernel(const __grid_constant__ CUtensorMap dy_map, const __grid_constant__ CUtensorMap x_map, int tma,
+                  const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ x, OutT* __restrict__ out,
+                  Band a) {
+  constexpr int S = kDvStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);   // S chunks of dy[r]: 128 x 64
+  __nv_bfloat16* bs = as + (size_t)S * kChunkA;                  // S chunks of x[r + o_s]: 128 x 64
+  OutT* staged = reinterpret_cast<OutT*>(bs + (size_t)S * kChunkA);  // 16 x kStageLd outputs a consumer warp
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + (size_t)kConsumers / 32 * 16 * kStageLd);
+  uint64_t* empty = full + S;
+
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int n_chunks = (a.F + kKc - 1) / kKc;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 2);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    const int lane = tid - kConsumers;
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    int g = 0;
+    for (int s = 0; s < a.n_slots; ++s) {
+      const int c = slot_source(a, s, r, false);
+      if (c < 0) continue;
+      for (int kc = 0; kc < n_chunks; ++kc, ++g) {
+        const int st = g % S;
+        if (g >= S) mbar_wait(empty + st, ((g / S) & 1) ^ 1);
+        __nv_bfloat16* ad = as + (size_t)st * kChunkA;
+        __nv_bfloat16* bd = bs + (size_t)st * kChunkA;
+        if (tma) {
+          if (lane == 0) {
+            mbar_arrive_tx(full + st, 2 * kChunkA * (unsigned)sizeof(__nv_bfloat16));
+            tma_load_2d(ad, &dy_map, kc * kKc, r * kBlock, full + st);
+            tma_load_2d(bd, &x_map, kc * kKc, c * kBlock, full + st);
+          }
+        } else {
+          const __nv_bfloat16* dyr = dy + (size_t)r * kBlock * a.F;
+          const __nv_bfloat16* xc = x + (size_t)c * kBlock * a.F;
+          unsigned char* ab = reinterpret_cast<unsigned char*>(ad);
+          unsigned char* bb = reinterpret_cast<unsigned char*>(bd);
+#pragma unroll 4
+          for (int q = lane; q < kChunkA; q += 32) {
+            const int i = q / kKc, k = q % kKc, f = kc * kKc + k;
+            const int o = sw128(i * 128 + k * 2);
+            *reinterpret_cast<__nv_bfloat16*>(ab + o) = f < a.F ? dyr[(size_t)i * a.F + f] : zero;
+            *reinterpret_cast<__nv_bfloat16*>(bb + o) = f < a.F ? xc[(size_t)i * a.F + f] : zero;
+          }
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(full + st);
+        }
+      }
+    }
+  } else {
+    const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int ld = a.packed ? a.n_slots * kBlock : kBlock;
+    // the k16 slices of the last chunk that hold part of the contraction
+    const int last_ks = (a.F - 1) % kKc / 16;
+    int g = 0;
+    for (int s = 0; s < a.n_slots; ++s) {
+      float acc[kBlock / 2];
+#pragma unroll
+      for (int i = 0; i < kBlock / 2; ++i) acc[i] = 0.f;
+      if (slot_source(a, s, r, false) >= 0) {
+        for (int kc = 0; kc < n_chunks; ++kc, ++g) {
+          const int st = g % S;
+          mbar_wait(full + st, (g / S) & 1);
+          const unsigned char* ad = reinterpret_cast<const unsigned char*>(as + (size_t)st * kChunkA) + wg * 8192;
+          const unsigned char* bd = reinterpret_cast<const unsigned char*>(bs + (size_t)st * kChunkA);
+          const bool last = kc == n_chunks - 1;
+          const int skip = a.fault == kFaultK16 && last ? last_ks : -1;
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kKc / 16; ++ks)
+            if ((!last || ks <= last_ks) && ks != skip)
+              Wgmma<kBlock>::template mma_t<0, 0>(acc, desc_sw128(ad + 32 * ks, 16u), desc_sw128(bd + 32 * ks, 16u),
+                                                  1);
+          wgmma_commit();
+          if (kc > 0) {
+            wgmma_wait<1>();
+            if (tid % 128 == 0) mbar_arrive(empty + (g - 1) % S);
+          }
+        }
+        wgmma_wait<0>();
+        if (tid % 128 == 0) mbar_arrive(empty + (g - 1) % S);
+      }
+      // the warp's 16 rows of the tile through shared memory, so that they
+      // leave in 16-byte stores along whole rows
+      OutT* stage = staged + (size_t)(tid / 32) * 16 * kStageLd;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+          store_pair(stage + (lane / 4 + 8 * h) * kStageLd, 8 * j + 2 * (lane % 4), kBlock, acc[4 * j + 2 * h],
+                     acc[4 * j + 2 * h + 1]);
+      __syncwarp();
+      OutT* tile = out + (a.packed ? (size_t)r * kBlock * ld + (size_t)s * kBlock
+                                   : ((size_t)s * a.R + r) * kBlock * kBlock) +
+                   (size_t)(64 * wg + 16 * warp) * ld;
+      constexpr int kVec = 16 / sizeof(OutT), kPerRow = kBlock / kVec;
+#pragma unroll 2
+      for (int q = lane; q < 16 * kPerRow; q += 32) {
+        const int i = q / kPerRow, c = (q % kPerRow) * kVec;
+        *reinterpret_cast<uint4*>(tile + (size_t)i * ld + c) = *reinterpret_cast<const uint4*>(stage + i * kStageLd + c);
+      }
+      __syncwarp();   // the staging is read before the next slot writes it
+    }
+  }
+}
+
+// A 2-d view of a row-major (rows, cols) bf16 array, cols % 8 == 0, under
+// the 128-byte swizzle, whose box is box_rows rows of 64 columns.
+cudaError_t rows_view(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return encode_tiled<2>(map, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <int BN, bool TRANS>
+cudaError_t launch_spmm_tc(const void* values, const void* x, void* out, const Band& a, cudaStream_t stream) {
+  auto kernel = band_spmm_tc_kernel<BN, TRANS>;
+  const size_t smem = SpmmTile<BN>::kSmem;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // the tiles: planes (O R 128, 128) or packed rows (R 128, W); a box is 128
+  // rows (forward) or 64 rows (transpose) of 64 columns
+  const int rows = a.packed ? a.R * kBlock : a.n_slots * a.R * kBlock;
+  const int cols = a.packed ? a.n_slots * kBlock : kBlock;
+  CUtensorMap v_map = {}, x_map = {};
+  err = rows_view(&v_map, values, rows, cols, TRANS ? kKc : kBlock);
+  if (err != cudaSuccess) return err;
+  const int tma_x = a.F % 8 == 0;
+  if (tma_x) {
+    err = rows_view(&x_map, x, a.R * kBlock, a.F, kKc);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)((a.F + BN - 1) / BN), (unsigned)a.R);
+  kernel<<<grid, kTcThreads, smem, stream>>>(v_map, x_map, tma_x, static_cast<const __nv_bfloat16*>(x),
+                                             static_cast<__nv_bfloat16*>(out), a);
+  return cudaGetLastError();
+}
+
+// the narrowest wgmma N of 16, 24, 32, 64, 128 that holds F, else 256
+template <bool TRANS>
+cudaError_t launch_spmm_bf16(const void* values, const void* x, void* out, const Band& a, cudaStream_t stream) {
+  if (a.F <= 16) return launch_spmm_tc<16, TRANS>(values, x, out, a, stream);
+  if (a.F <= 24) return launch_spmm_tc<24, TRANS>(values, x, out, a, stream);
+  if (a.F <= 32) return launch_spmm_tc<32, TRANS>(values, x, out, a, stream);
+  if (a.F <= 64) return launch_spmm_tc<64, TRANS>(values, x, out, a, stream);
+  if (a.F <= 128) return launch_spmm_tc<128, TRANS>(values, x, out, a, stream);
+  return launch_spmm_tc<256, TRANS>(values, x, out, a, stream);
+}
+
+template <typename OutT>
+cudaError_t launch_dv_bf16(const void* dy, const void* x, void* out, const Band& a, cudaStream_t stream) {
+  auto kernel = band_dv_tc_kernel<OutT>;
+  const size_t smem = 1024 + (size_t)kDvStages * 2 * kChunkA * sizeof(__nv_bfloat16) +
+                      (size_t)kConsumers / 32 * 16 * kStageLd * sizeof(OutT) + 2 * kDvStages * sizeof(uint64_t);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap dy_map = {}, x_map = {};
+  const int tma = a.F % 8 == 0;
+  if (tma) {
+    err = rows_view(&dy_map, dy, a.R * kBlock, a.F, kBlock);
+    if (err == cudaSuccess) err = rows_view(&x_map, x, a.R * kBlock, a.F, kBlock);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<(unsigned)a.R, kTcThreads, smem, stream>>>(dy_map, x_map, tma, static_cast<const __nv_bfloat16*>(dy),
+                                                      static_cast<const __nv_bfloat16*>(x), static_cast<OutT*>(out),
+                                                      a);
+  return cudaGetLastError();
+}
+
 Offsets make_offsets(int o0, int o1, int o2, int o3, int o4, int o5, int o6, int o7) {
   Offsets offs = {{o0, o1, o2, o3, o4, o5, o6, o7}};
   return offs;
 }
 
-template <bool TRANS, bool PACKED>
-cudaError_t launch_spmm_typed(int dtype, const void* v, const void* x, void* out, int R, int F, int n_slots,
-                              int radius, const Offsets& offs, cudaStream_t stream) {
-  return dtype ? launch_spmm<TRANS, PACKED, __nv_bfloat16>(v, x, out, R, F, n_slots, radius, offs, stream)
-               : launch_spmm<TRANS, PACKED, float>(v, x, out, R, F, n_slots, radius, offs, stream);
-}
-
-template <bool PACKED, typename T, typename OutT>
-cudaError_t launch_dv(const void* dy, const void* x, void* out, int R, int d, int n_slots, int radius,
-                      const Offsets& offs, cudaStream_t stream) {
-  const dim3 grid((unsigned)R, (unsigned)n_slots);
-  band_dv_kernel<PACKED, T, OutT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<OutT*>(out), R, d, n_slots, radius, offs);
-  return cudaGetLastError();
-}
-
-template <bool PACKED>
-cudaError_t launch_dv_typed(int in_dtype, int out_dtype, const void* dy, const void* x, void* out, int R,
-                            int d, int n_slots, int radius, const Offsets& offs, cudaStream_t stream) {
-  if (in_dtype)
-    return out_dtype ? launch_dv<PACKED, __nv_bfloat16, __nv_bfloat16>(dy, x, out, R, d, n_slots, radius, offs, stream)
-                     : launch_dv<PACKED, __nv_bfloat16, float>(dy, x, out, R, d, n_slots, radius, offs, stream);
-  return out_dtype ? launch_dv<PACKED, float, __nv_bfloat16>(dy, x, out, R, d, n_slots, radius, offs, stream)
-                   : launch_dv<PACKED, float, float>(dy, x, out, R, d, n_slots, radius, offs, stream);
-}
-
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() after the launch. For the
-// planes, n_slots = O <= 8 and o0..o7 the offsets; for packed rows, n_slots =
-// 2 radius + 1 and the offsets are implied. dtype (and in_dtype, out_dtype):
-// 0 float32, 1 bfloat16.
-extern "C" int band_spmm_launch(const void* values, const void* x, void* out, int n_blocks, int feat,
-                                int n_slots, int radius, int packed, int transposed, int dtype, int o0,
-                                int o1, int o2, int o3, int o4, int o5, int o6, int o7, void* stream) {
+// As band_spmm_launch, with a fault planted in the bf16 kernel (0: none, 1:
+// the k16 slice holding each product's last contraction element dropped, 2:
+// the middle slot skipped, 3: the last row block read as outside the
+// graph); float32 operands take no fault.
+extern "C" int band_spmm_launch_fault(const void* values, const void* x, void* out, int n_blocks, int feat,
+                                      int n_slots, int radius, int packed, int transposed, int dtype, int o0,
+                                      int o1, int o2, int o3, int o4, int o5, int o6, int o7, int fault,
+                                      void* stream) {
   if (n_blocks == 0 || feat == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Offsets offs = make_offsets(o0, o1, o2, o3, o4, o5, o6, o7);
-  if (transposed) {
-    return packed ? (int)launch_spmm_typed<true, true>(dtype, values, x, out, n_blocks, feat, n_slots, radius, offs, s)
-                  : (int)launch_spmm_typed<true, false>(dtype, values, x, out, n_blocks, feat, n_slots, radius, offs, s);
+  if (dtype) {
+    const Band a = {n_blocks, feat, n_slots, radius, packed, fault, offs};
+    return transposed ? (int)launch_spmm_bf16<true>(values, x, out, a, s)
+                      : (int)launch_spmm_bf16<false>(values, x, out, a, s);
   }
-  return packed ? (int)launch_spmm_typed<false, true>(dtype, values, x, out, n_blocks, feat, n_slots, radius, offs, s)
-                : (int)launch_spmm_typed<false, false>(dtype, values, x, out, n_blocks, feat, n_slots, radius, offs, s);
+  if (fault) return (int)cudaErrorInvalidValue;
+  if (transposed) {
+    return packed ? (int)launch_spmm_f32<true, true>(values, x, out, n_blocks, feat, n_slots, radius, offs, s)
+                  : (int)launch_spmm_f32<true, false>(values, x, out, n_blocks, feat, n_slots, radius, offs, s);
+  }
+  return packed ? (int)launch_spmm_f32<false, true>(values, x, out, n_blocks, feat, n_slots, radius, offs, s)
+                : (int)launch_spmm_f32<false, false>(values, x, out, n_blocks, feat, n_slots, radius, offs, s);
+}
+
+// Launches on `stream`; returns cudaGetLastError() after the launch, or the
+// error of a TMA view where the bf16 kernel takes one (the tiles always, x
+// where F % 8 == 0) and it cannot be encoded. For the planes, n_slots = O <=
+// 8 and o0..o7 the offsets; for packed rows, n_slots = 2 radius + 1 and the
+// offsets are implied. dtype (and in_dtype, out_dtype): 0 float32, 1
+// bfloat16.
+extern "C" int band_spmm_launch(const void* values, const void* x, void* out, int n_blocks, int feat,
+                                int n_slots, int radius, int packed, int transposed, int dtype, int o0,
+                                int o1, int o2, int o3, int o4, int o5, int o6, int o7, void* stream) {
+  return band_spmm_launch_fault(values, x, out, n_blocks, feat, n_slots, radius, packed, transposed, dtype, o0, o1,
+                                o2, o3, o4, o5, o6, o7, 0, stream);
+}
+
+// As band_dv_launch, with a fault planted in the bf16 kernel (as
+// band_spmm_launch_fault's; 1 drops the k16 slice holding the last
+// feature); float32 operands take no fault.
+extern "C" int band_dv_launch_fault(const void* dy, const void* x, void* out, int n_blocks, int feat,
+                                    int n_slots, int radius, int packed, int in_dtype, int out_dtype, int o0,
+                                    int o1, int o2, int o3, int o4, int o5, int o6, int o7, int fault,
+                                    void* stream) {
+  if (n_blocks == 0 || n_slots == 0) return (int)cudaSuccess;
+  const Offsets offs = make_offsets(o0, o1, o2, o3, o4, o5, o6, o7);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype) {
+    const Band a = {n_blocks, feat, n_slots, radius, packed, fault, offs};
+    return out_dtype ? (int)launch_dv_bf16<__nv_bfloat16>(dy, x, out, a, s) : (int)launch_dv_bf16<float>(dy, x, out, a, s);
+  }
+  if (fault) return (int)cudaErrorInvalidValue;
+  if (packed)
+    return out_dtype ? (int)launch_dv_f32<true, __nv_bfloat16>(dy, x, out, n_blocks, feat, n_slots, radius, offs, s)
+                     : (int)launch_dv_f32<true, float>(dy, x, out, n_blocks, feat, n_slots, radius, offs, s);
+  return out_dtype ? (int)launch_dv_f32<false, __nv_bfloat16>(dy, x, out, n_blocks, feat, n_slots, radius, offs, s)
+                   : (int)launch_dv_f32<false, float>(dy, x, out, n_blocks, feat, n_slots, radius, offs, s);
 }
 
 extern "C" int band_dv_launch(const void* dy, const void* x, void* out, int n_blocks, int feat,
                               int n_slots, int radius, int packed, int in_dtype, int out_dtype, int o0,
                               int o1, int o2, int o3, int o4, int o5, int o6, int o7, void* stream) {
-  if (n_blocks == 0 || n_slots == 0) return (int)cudaSuccess;
-  const Offsets offs = make_offsets(o0, o1, o2, o3, o4, o5, o6, o7);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return packed ? (int)launch_dv_typed<true>(in_dtype, out_dtype, dy, x, out, n_blocks, feat, n_slots, radius, offs, s)
-                : (int)launch_dv_typed<false>(in_dtype, out_dtype, dy, x, out, n_blocks, feat, n_slots, radius, offs, s);
+  return band_dv_launch_fault(dy, x, out, n_blocks, feat, n_slots, radius, packed, in_dtype, out_dtype, o0, o1, o2,
+                              o3, o4, o5, o6, o7, 0, stream);
 }

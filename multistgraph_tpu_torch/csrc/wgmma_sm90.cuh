@@ -1,6 +1,7 @@
 // Warpgroup tensor-core, TMA and mbarrier primitives for Hopper (sm_90a), shared by
-// the kernels that run bf16 products on wgmma: node_dots.cu (B11 A) and
-// node_factored.cu (B1 / B11 B, bf16 operands).
+// the kernels that run bf16 products on wgmma: node_dots.cu (B11 A),
+// node_factored.cu (B1 / B11 B, bf16 operands) and band_spmm.cu (B7, B8, B9
+// dX and B9 dV, bf16 operands).
 //
 // Shared-memory operands are kept as 8x8 "core matrices" of bf16, each 128
 // contiguous bytes (8 rows of 16 bytes), without swizzle. An operand of X
@@ -11,24 +12,31 @@
 //
 // elements, KG = K / 8: the cores of one 8-row group lie side by side along K
 // (128 bytes apart, the descriptor's leading byte offset) and the groups
-// KG * 128 bytes apart (its stride byte offset). A is K-major (a row's 8
-// consecutive k are one 16-byte core row); B is MN-major (8 consecutive
-// output columns of one k are one core row), so a row-major (K, N) matrix
-// in device memory lands in it by 16-byte copies and wgmma reads it
-// transposed (imm-trans-b = 1). Wgmma<N>::mma(d, desc_a, desc_b, scale_d)
-// is one m64nNk16 product, f32 sums, d = A B + (scale_d ? d : 0); thread t
-// of the warpgroup holds d[4j + v] of row 16 (t/32) + (t%32)/4 + 8 (v/2),
-// column 8j + 2 (t%4) + v%2.
+// KG * 128 bytes apart (its stride byte offset). In a K-major operand a
+// row's 8 consecutive k are one 16-byte core row; in an MN-major one, 8
+// consecutive rows (output rows of A, columns of B) of one k are, so a
+// row-major (K, N) matrix in device memory lands as MN-major B by 16-byte
+// copies, and a row-major (K, M) one as MN-major A (A transposed). Either
+// way the descriptor takes the K-neighbour core offset as its leading and
+// the M/N-neighbour one as its stride byte offset (pinned on an H100 for
+// K-major and MN-major A and B). Wgmma<N>::mma_t<TA, TB>(d, desc_a, desc_b,
+// scale_d) is one m64nNk16 product, f32 sums, d = A B + (scale_d ? d : 0),
+// with A MN-major where TA = 1 and B MN-major where TB = 1 (mma: TA = 0, TB
+// = 1); thread t of the warpgroup holds d[4j + v] of row 16 (t/32) +
+// (t%32)/4 + 8 (v/2), column 8j + 2 (t%4) + v%2.
 //
 // cp_async16 copies 16 bytes from device memory to shared memory without
 // registers, or writes 16 zero bytes when `valid` is false (the source is
 // then not read, but must be a valid address). Shared memory written by
 // cp.async or plain stores is made visible to wgmma by fence_proxy_async()
 // in each writing thread before the barrier that precedes the wgmma.
-// tma_load_5d copies a box of a tiled view (encode_tiled) into shared
-// memory in one instruction and complete on an mbarrier; a view whose
+// tma_load_2d and tma_load_5d copy a box of a tiled view (encode_tiled) into
+// shared memory in one instruction and complete on an mbarrier; a view whose
 // innermost dims are (8 elements, 8 rows) lands each 8x8 block as one core
-// matrix, in the order of its outer dims.
+// matrix, in the order of its outer dims. Box elements outside the view land
+// as zeros. TMA copies a box row by row: rows of 16 bytes held the band
+// kernels' streams to ~1.9 TB/s on an H100, so they take 128-byte rows
+// under the 128-byte swizzle (sw128, desc_sw128 below).
 
 #pragma once
 
@@ -81,6 +89,21 @@ __device__ __forceinline__ uint64_t desc(const void* p, unsigned lbo, unsigned s
 // apart along K, row groups kg * 128 bytes apart
 __device__ __forceinline__ uint64_t desc(const void* p, int kg) { return desc(p, 128u, (unsigned)kg * 128u); }
 
+// The 128-byte swizzle: rows of 128 bytes (64 bf16), eight to a 1024-byte
+// atom (1024-byte aligned), the 16-byte unit u of row i stored at unit u ^
+// (i % 8), as TMA writes a box whose inner dim is 128 bytes under
+// CU_TENSOR_MAP_SWIZZLE_128B. sw128(o) is where byte o of the unswizzled
+// layout lies. A K-major operand is its rows of 64 k, 8-row groups 1024
+// bytes apart (the stride byte offset; the leading one is unused), a k16
+// slice 32 bytes further along the row; an MN-major one is its k rows of
+// 64 output rows (A) or columns (B), 8-k groups 1024 bytes apart (stride)
+// and 64-wide blocks of M or N `lbo` bytes apart (leading), a k16 slice
+// 2048 bytes further.
+__device__ __forceinline__ int sw128(int o) { return o ^ (((o >> 7) & 7) << 4); }
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, unsigned lbo) {
+  return desc(p, lbo, 1024u) | (1ull << 62);
+}
+
 // mbarriers: init (arrival count), arrive, arrive with an expected byte
 // count for a bulk copy, and wait for the phase of the given parity
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
@@ -111,6 +134,13 @@ __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// one bulk tensor copy of a 2-dimensional box, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::
+          "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
 // one bulk tensor copy of a 5-dimensional box, completing on `bar`
 __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3, int c4,
                                             uint64_t* bar) {
@@ -120,9 +150,9 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, i
       "r"(smem_addr(bar))
       : "memory");
 }
-// Encodes an R-dimensional tiled view of a bf16 array for tma_load_5d:
-// dims and the byte strides of dims 1..R-1, innermost first, the box, no
-// swizzle, zero fill out of bounds. Returns cudaErrorMisalignedAddress for
+// Encodes an R-dimensional tiled view of a bf16 array for tma_load_2d/5d:
+// dims and the byte strides of dims 1..R-1, innermost first, the box, the
+// swizzle (none by default), zero fill out of bounds. Returns cudaErrorMisalignedAddress for
 // a base that is not 16-byte aligned, cudaErrorNotSupported where
 // cuTensorMapEncodeTiled cannot be found and cudaErrorInvalidValue where
 // it refuses the view.
@@ -132,7 +162,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
 
 template <int R>
 cudaError_t encode_tiled(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[R],
-                         const cuuint64_t (&strides)[R - 1], const cuuint32_t (&box)[R]) {
+                         const cuuint64_t (&strides)[R - 1], const cuuint32_t (&box)[R],
+                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   static EncodeTiled encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -146,18 +177,100 @@ cudaError_t encode_tiled(CUtensorMap* map, const void* base, const cuuint64_t (&
   cuuint32_t ones[R];
   for (int i = 0; i < R; ++i) ones[i] = 1;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(base), dims, strides, box, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess
              : cudaErrorInvalidValue;
 }
 
+// Wgmma<N>::mma_t<TA, TB>(d, desc_a, desc_b, scale_d) is one m64nNk16 product:
+// TA = 0 reads A K-major, 1 MN-major (bf16 allows both from shared
+// memory); TB likewise for B. mma(...) is mma_t<0, 1>.
 template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<16> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma_t(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+    mma_t<0, 1>(d, da, db, scale_d);
+  }
+};
+
+template <>
+struct Wgmma<24> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma_t(float (&d)[12], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+        "}, %12, %13, p, 1, 1, %15, %16;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[12], uint64_t da, uint64_t db, int scale_d) {
+    mma_t<0, 1>(d, da, db, scale_d);
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma_t(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    mma_t<0, 1>(d, da, db, scale_d);
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma_t(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    mma_t<0, 1>(d, da, db, scale_d);
+  }
+};
+
+template <>
 struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma_t(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -166,7 +279,7 @@ struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -175,13 +288,17 @@ struct Wgmma<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    mma_t<0, 1>(d, da, db, scale_d);
   }
 };
 
 template <>
 struct Wgmma<160> {
-  static __device__ __forceinline__ void mma(float (&d)[80], uint64_t da, uint64_t db, int scale_d) {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma_t(float (&d)[80], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
@@ -191,7 +308,7 @@ struct Wgmma<160> {
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
         "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
-        "}, %80, %81, p, 1, 1, 0, 1;\n}\n"
+        "}, %80, %81, p, 1, 1, %83, %84;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -202,13 +319,17 @@ struct Wgmma<160> {
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
           "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[80], uint64_t da, uint64_t db, int scale_d) {
+    mma_t<0, 1>(d, da, db, scale_d);
   }
 };
 
 template <>
 struct Wgmma<192> {
-  static __device__ __forceinline__ void mma(float (&d)[96], uint64_t da, uint64_t db, int scale_d) {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma_t(float (&d)[96], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
@@ -219,7 +340,7 @@ struct Wgmma<192> {
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
         "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-        "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+        "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -232,9 +353,53 @@ struct Wgmma<192> {
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
           "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
           "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[96], uint64_t da, uint64_t db, int scale_d) {
+    mma_t<0, 1>(d, da, db, scale_d);
   }
 };
+
+template <>
+struct Wgmma<256> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma_t(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    mma_t<0, 1>(d, da, db, scale_d);
+  }
+};
+
 
 // Stores two neighbouring outputs (v0 at column o, v1 at o + 1) of row `p`
 // (pointing at column 0), as one 4-byte (bf16) or 8-byte (f32) store where

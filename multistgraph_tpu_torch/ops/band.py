@@ -26,8 +26,14 @@ wrapper launches its kernel for CUDA tensors, counts the launch in
 it takes its plain PyTorch version, which keeps JAX's band algebra
 (band.py:672-759, 609-642): the forward "orij,orjf->rif" over slices of a
 zero-padded x, dV "rif,orjf->orij", dX by shifted adds into a padded
-buffer whose core is returned. The kernels form no padded copy: they read x
-with bounds checks and write dX straight into (N_pad, F).
+buffer whose core is returned. The kernels form no padded copy: they skip
+a slot whose operand row block lies outside the graph and write dX
+straight into (N_pad, F). bf16 operands run on the tensor cores (wgmma, the
+tiles by TMA, x by TMA where F % 8 == 0, else by element loads:
+``bf16_load_path``); a TMA view that the shape allows and
+cuTensorMapEncodeTiled refuses (an operand that is not 16-byte aligned)
+raises. ``planted_fault`` plants a fault in them for the checks that must
+catch one.
 
 Types, as the JAX package's (band.py:587-588,623,678,691-692,727-736):
 float32 or bfloat16 operands. The kernel wrappers take the tiles and x of
@@ -46,6 +52,7 @@ the VMEM budgets of the slab kernel, the feature chunking of the stacked
 einsum and the 128-column padding of ``_band_packed_apply``.
 """
 
+import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -246,22 +253,51 @@ def band_dv_packed_plain(dy, x, radius: int, block: int = BLOCK, out_dtype=None)
 
 
 # ------------------------------------------------------------ CUDA wrappers
+# Faults the bf16 (tensor-core) kernels plant on request, for checks that
+# must fail them (chip_smoke.py): the k16 slice holding each product's last
+# contraction element dropped, the middle slot skipped (the main diagonal of
+# offsets -r..r), the last row block read as outside the graph.
+FAULTS = {"k16": 1, "slot": 2, "edge": 3}
+_planted = 0
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """Launch the bf16 kernels with the fault FAULTS[kind] planted in them
+    while the block runs (f32 operands then raise)."""
+    global _planted
+    code = FAULTS[kind]
+    _planted = code
+    try:
+        yield
+    finally:
+        _planted = 0
+
+
+def bf16_load_path(feat: int) -> str:
+    """How the bf16 kernels bring x (dy) in at width `feat`: by TMA where its
+    rows are whole 16-byte units, else by element loads (csrc/band_spmm.cu)."""
+    return "TMA" if feat % 8 == 0 else "element loads"
+
+
 @functools.cache
 def _kernel(entry: str):
     fn = getattr(_cuda.library("band_spmm"), entry)
     # values/dy, x, out; R, F, slots, radius, packed, then transposed and
     # dtype (band_spmm_launch) or in and out dtypes (band_dv_launch); 8
-    # offsets; stream
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (7 + MAX_OFFSETS) + [ctypes.c_void_p]
+    # offsets; the fault (the *_fault entries); stream
+    extra = int(entry.endswith("_fault"))
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (7 + MAX_OFFSETS + extra) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(entry, tensors, ints, offsets, device):
     offs = list(offsets) + [0] * (MAX_OFFSETS - len(offsets))
+    fault = (entry + "_fault", _planted) if _planted else (entry,)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel(entry)(*[t.data_ptr() for t in tensors], *ints, *offs, stream)
+        rc = _kernel(fault[0])(*[t.data_ptr() for t in tensors], *ints, *offs, *fault[1:], stream)
     if rc != 0:
         raise RuntimeError("{} kernel launch failed: CUDA error {}".format(entry, rc))
 

@@ -1,0 +1,166 @@
+"""A/B timing of two versions of the band kernels on one GPU.
+
+Builds ``csrc/band_spmm.cu`` of this checkout and of another one (e.g. the
+parent commit unpacked with ``git archive``) with the port's nvcc flags,
+loads both with ctypes (they share one C interface: ``band_spmm_launch``
+and ``band_dv_launch``) and times them in turns, base, new, new, base, for
+several rounds, at the 1,000,000-node band of the bf16 path (7,813 row
+blocks, diagonals -2..2, 39,059 tiles; random values, zero where a tile
+falls outside the graph):
+  * bf16 at every width the path gives each kernel: B7 (planes) at F = 24,
+    128, 1536; B8 (packed rows) at F = 12, 64, 768 (bucket 1) and 24, 128,
+    1536 (bucket 2); B9 dX (planes) and B9 dV (planes, bf16 values) at F =
+    128 and 1536;
+  * f32 at F = 128 and 1536 for each of the four.
+The unchanged layout-copy kernel (B3) is timed in each round as a control
+for drift of the card. Before timing, each new output is held against the
+base's: one bf16 step for bf16, rtol 1e-5 with atol 1e-5 max|base| for
+f32 (the same products summed in another order). Times are CUDA-event
+medians with the L2 flushed before each call (``tools.timing.event_ms``,
+as chip_smoke.py takes them).
+
+Run from the repository root:
+    python -m multistgraph_tpu_torch.tools.ab_band --base <dir of the other checkout>
+Prints one JSON line per (version, kernel, shape) with the median over
+rounds, and the card's name and power limit.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import tempfile
+
+import torch
+
+from multistgraph_tpu_torch.ops import _cuda
+from multistgraph_tpu_torch.ops.band import MAX_OFFSETS, pack_band_rows
+from multistgraph_tpu_torch.ops.layout import force_default_layout
+from multistgraph_tpu_torch.tools.timing import card, event_ms
+
+BLOCK, ROW_BLOCKS, OFFSETS, RADIUS = 128, 7813, (-2, -1, 0, 1, 2), 2
+BF16_WIDTHS = {"B7": (24, 128, 1536), "B8": (12, 64, 768, 24, 128, 1536), "B9 dX": (128, 1536),
+               "B9 dV": (128, 1536)}
+F32_WIDTHS = (128, 1536)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ENTRIES = ("band_spmm_launch", "band_dv_launch")   # values/dy, x, out; 7 ints; 8 offsets; stream
+
+
+def _build(root: str, out_dir: str, tag: str) -> ctypes.CDLL:
+    lib_path = os.path.join(out_dir, "libband_spmm-{}.so".format(tag))
+    source = os.path.join(root, "multistgraph_tpu_torch", "csrc", "band_spmm.cu")
+    proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib_path, source], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed for band_spmm of {}:\n{}{}".format(root, proc.stdout, proc.stderr))
+    lib = ctypes.CDLL(lib_path)
+    for entry in ENTRIES:
+        fn = getattr(lib, entry)
+        fn.argtypes = [_P] * 3 + [_I] * (7 + MAX_OFFSETS) + [_P]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _planes(g, dtype):
+    """(5, R, 128, 128) random tiles, zero where r + o falls outside the graph."""
+    v = torch.randn(len(OFFSETS), ROW_BLOCKS, BLOCK, BLOCK, generator=g, device="cuda").to(dtype)
+    for i, o in enumerate(OFFSETS):
+        if o < 0:
+            v[i, :-o] = 0
+        elif o > 0:
+            v[i, ROW_BLOCKS - o:] = 0
+    return v
+
+
+def _cases(g):
+    """[(kernel, shape, entry, pointer args, int args, output)] at the shapes
+    the module docstring names."""
+    cases = []
+    n = ROW_BLOCKS * BLOCK
+    offs = list(OFFSETS) + [0] * (MAX_OFFSETS - len(OFFSETS))
+    for dtype, widths in ((torch.bfloat16, BF16_WIDTHS), (torch.float32, dict.fromkeys(BF16_WIDTHS, F32_WIDTHS))):
+        planes = _planes(g, dtype)
+        packed = pack_band_rows(planes, OFFSETS, RADIUS)
+        dv_out = torch.empty_like(planes)
+        code = int(dtype == torch.bfloat16)
+        operands = {}   # one x, dy and output per width, shared by the kernels
+        for kernel, feats in widths.items():
+            for feat in feats:
+                if feat not in operands:
+                    operands[feat] = [torch.randn(n, feat, generator=g, device="cuda").to(dtype) for _ in range(2)]
+                    operands[feat].append(torch.empty_like(operands[feat][0]))
+                x, dy, out = operands[feat]
+                shape = "F={} {}".format(feat, str(dtype)[6:])
+                if kernel == "B9 dV":
+                    out = dv_out
+                    cases.append((kernel, shape, "band_dv_launch", (dy, x, out),
+                                  [ROW_BLOCKS, feat, len(OFFSETS), RADIUS, 0, code, code] + offs, out))
+                    continue
+                values, n_slots, is_packed = (packed, 2 * RADIUS + 1, 1) if kernel == "B8" else (
+                    planes, len(OFFSETS), 0)
+                cases.append((kernel, shape, "band_spmm_launch", (values, x, out),
+                              [ROW_BLOCKS, feat, n_slots, RADIUS, is_packed, int(kernel == "B9 dX"), code] + offs,
+                              out))
+    return cases
+
+
+def _call(lib, entry, ptrs, ints, stream):
+    rc = getattr(lib, entry)(*[p.data_ptr() for p in ptrs], *ints, stream)
+    if rc != 0:
+        raise RuntimeError("{} failed: CUDA error {}".format(entry, rc))
+
+
+def _hold(got, ref, what):
+    """One bf16 step for bf16, rtol 1e-5 with atol 1e-5 max|ref| for f32."""
+    got, want = got.float(), ref.float()
+    if ref.dtype == torch.bfloat16:
+        bound = 2.0 ** -7 * (want.abs() + 1e-3 * want.abs().max())
+    else:
+        bound = 1e-5 * (want.abs() + want.abs().max())
+    if not bool(((got - want).abs() <= bound).all()):
+        raise AssertionError("{}: the new version's output differs from the base's".format(what))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--base", required=True, help="root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--reps", type=int, default=10, help="timed calls per sample")
+    cli = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = _cases(g)
+    view = torch.randn(24, 16, 237, 192, generator=g, device="cuda")[..., :128]
+    stream = torch.cuda.current_stream().cuda_stream
+    samples = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {"base": _build(cli.base, tmp, "base"), "new": _build(here, tmp, "new")}
+        for kernel, shape, entry, ptrs, ints, out in cases:
+            _call(libs["base"], entry, ptrs, ints, stream)
+            ref = out.clone()
+            _call(libs["new"], entry, ptrs, ints, stream)
+            torch.cuda.synchronize()
+            _hold(out, ref, "{} {}".format(kernel, shape))
+            del ref
+        for _ in range(cli.rounds):
+            for version in ("base", "new", "new", "base"):
+                lib = libs[version]
+                for kernel, shape, entry, ptrs, ints, _ in cases:
+                    samples.setdefault((version, kernel, shape), []).append(event_ms(
+                        lambda entry=entry, ptrs=ptrs, ints=ints: _call(lib, entry, ptrs, ints, stream),
+                        reps=cli.reps))
+                samples.setdefault(("control", "B3", "gate_x (24,16,237,128) f32"), []).append(
+                    event_ms(lambda: force_default_layout(view)))
+    name = card()
+    for (version, kernel, shape), ms in samples.items():
+        print(json.dumps({"version": version, "kernel": kernel, "shape": shape,
+                          "median_us": statistics.median(ms) * 1e3, "samples_us": [m * 1e3 for m in ms],
+                          "card": name}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,6 +7,13 @@ layout's dX and dV), and csrc/band_probe.cu (``window_dot``, P1 and P3;
 odd shapes; the bf16 autograd terms on the card against the CPU; and one
 bf16 band-form SparseATGCN training step with its exact launch counts.
 
+The tensor-core forms of B7, B8, B9 dX and dV are held at the 1M path's
+widths and beyond, on both of their load paths (x by TMA where F % 8 == 0,
+else by element loads), at radius 0-3, with gaps in the offsets, on one row
+block and on the first and last ones, where slots fall outside the graph;
+an operand that is not 16-byte aligned at a TMA width must raise, and each
+fault planted in them must fail the one-bf16-step check.
+
 Every test is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_port_band_bf16_cuda.py
@@ -100,6 +107,97 @@ def test_cuda_bf16_packed_kernels_match_plain(cuda, radius, feat):
     assert band.band_spmm_packed.launches == before + 1
     _within_a_bf16_step(band.band_dx_packed(v_pack, radius, dy), band.band_dx_packed_plain(v_pack, radius, dy))
     _within_a_bf16_step(band.band_dv_packed(dy, x, radius), band.band_dv_packed_plain(dy, x, radius))
+
+
+def _misaligned(cuda, rows, feat, seed):
+    """A (rows, feat) bf16 operand 2 bytes past a 16-byte boundary."""
+    buf = _randn(cuda, rows * feat + 1, seed=seed)
+    return buf[1:].view(rows, feat)
+
+
+def _bf16_step_ratio(got, want):
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    bound = 2.0 ** -7 * (want.abs() + 1e-3 * want.abs().max())
+    diff = (got - want).abs()
+    return (diff / bound).masked_fill(diff == 0, 0.0).max().item()
+
+
+# offsets at radius 0-3, with gaps; every case's first and last row blocks
+# have slots outside the graph
+TC_OFFSETS = [(0,), (-1, 0, 1), (-3, 0, 2), (-3, -2, -1, 0, 1, 2, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [8, 12, 24, 128, 136, 1536])
+@pytest.mark.parametrize("offsets", TC_OFFSETS, ids=lambda o: "offsets" + "_".join(map(str, o)))
+@pytest.mark.parametrize("nb", [1, 6], ids=["one_row_block", "six_row_blocks"])
+def test_cuda_tensor_core_band_kernels_match_plain(cuda, nb, offsets, feat):
+    """Planes and packed rows: B7 / B8, B9 dX on both, dV on both in bf16 and
+    in f32 (bf16 operands into f32 values)."""
+    v = _planes(cuda, offsets, nb, seed=feat + nb)
+    radius = band.band_radius(offsets)
+    v_pack = band.pack_band_rows(v, offsets, radius)
+    x = _randn(cuda, nb * BLOCK, feat, seed=11)
+    dy = _randn(cuda, nb * BLOCK, feat, seed=12)
+    names = ("band_spmm", "band_spmm_packed", "band_dx", "band_dx_packed", "band_dv", "band_dv_packed")
+    before = {n: getattr(band, n).launches for n in names}
+    _within_a_bf16_step(band.band_spmm(v, offsets, x), band.band_plain(v, offsets, x))
+    _within_a_bf16_step(band.band_spmm_packed(v_pack, radius, x), band.band_packed_plain(v_pack, radius, x))
+    _within_a_bf16_step(band.band_dx(v, offsets, dy), band.band_dx_plain(v, offsets, dy))
+    _within_a_bf16_step(band.band_dx_packed(v_pack, radius, dy), band.band_dx_packed_plain(v_pack, radius, dy))
+    _within_a_bf16_step(band.band_dv(dy, x, offsets), band.band_dv_plain(dy, x, offsets))
+    _within_a_bf16_step(band.band_dv_packed(dy, x, radius), band.band_dv_packed_plain(dy, x, radius))
+    _close_f32(band.band_dv(dy, x, offsets, out_dtype=torch.float32),
+               band.band_dv_plain(dy, x, offsets, out_dtype=torch.float32))
+    _close_f32(band.band_dv_packed(dy, x, radius, out_dtype=torch.float32),
+               band.band_dv_packed_plain(dy, x, radius, out_dtype=torch.float32))
+    assert {n: getattr(band, n).launches - before[n] for n in names} == {
+        "band_spmm": 1, "band_spmm_packed": 1, "band_dx": 1, "band_dx_packed": 1, "band_dv": 2, "band_dv_packed": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_band_kernels_raise_on_a_misaligned_operand(cuda):
+    """At a TMA width (F % 8 == 0) an operand that is not 16-byte aligned
+    cannot be viewed: the launch fails and the wrapper raises."""
+    offsets, nb, feat = (-1, 0, 1), 3, 128
+    v = _planes(cuda, offsets, nb, seed=0)
+    v_pack = band.pack_band_rows(v, offsets, 1)
+    x, dy = _misaligned(cuda, nb * BLOCK, feat, 1), _randn(cuda, nb * BLOCK, feat, seed=2)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    for call in (lambda: band.band_spmm(v, offsets, x), lambda: band.band_spmm_packed(v_pack, 1, x),
+                 lambda: band.band_dx(v, offsets, x), lambda: band.band_dx_packed(v_pack, 1, x),
+                 lambda: band.band_dv(dy, x, offsets), lambda: band.band_dv(x, dy, offsets),
+                 lambda: band.band_dv_packed(dy, x, 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            call()
+    # at F = 12 the element loads take it
+    x12 = _misaligned(cuda, nb * BLOCK, 12, 3)
+    _within_a_bf16_step(band.band_spmm(v, offsets, x12), band.band_plain(v, offsets, x12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [12, 128])
+@pytest.mark.parametrize("fault", sorted(band.FAULTS))
+def test_cuda_tensor_core_planted_faults_fail_the_check(cuda, fault, feat):
+    """Each fault planted in the bf16 kernels takes every form past one bf16
+    step of its plain version; f32 operands take no fault."""
+    offsets, nb, radius = (-2, -1, 0, 1, 2), 6, 2
+    v = _planes(cuda, offsets, nb, seed=feat)
+    v_pack = band.pack_band_rows(v, offsets, radius)
+    x, dy = _randn(cuda, nb * BLOCK, feat, seed=13), _randn(cuda, nb * BLOCK, feat, seed=14)
+    cases = ((lambda: band.band_spmm(v, offsets, x), band.band_plain(v, offsets, x)),
+             (lambda: band.band_spmm_packed(v_pack, radius, x), band.band_packed_plain(v_pack, radius, x)),
+             (lambda: band.band_dx(v, offsets, dy), band.band_dx_plain(v, offsets, dy)),
+             (lambda: band.band_dx_packed(v_pack, radius, dy), band.band_dx_packed_plain(v_pack, radius, dy)),
+             (lambda: band.band_dv(dy, x, offsets), band.band_dv_plain(dy, x, offsets)),
+             (lambda: band.band_dv_packed(dy, x, radius), band.band_dv_packed_plain(dy, x, radius)))
+    for call, want in cases:
+        assert _bf16_step_ratio(call(), want) <= 1.0
+        with band.planted_fault(fault):
+            assert _bf16_step_ratio(call(), want) > 1.0
+    with band.planted_fault(fault), pytest.raises(RuntimeError, match="launch failed"):
+        band.band_spmm(v.float(), offsets, x.float())
 
 
 @pytest.mark.cuda

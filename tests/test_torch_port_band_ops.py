@@ -280,6 +280,29 @@ def test_band_wrappers_reject_what_the_kernels_do_not_take(graph):
     assert not band.spmm_band(v[:0], (), torch.ones(1024, 4)).any()  # no diagonal: zeros, as JAX
 
 
+@pytest.mark.parametrize("feat, path", [(1, "element loads"), (8, "TMA"), (12, "element loads"), (24, "TMA"),
+                                        (136, "TMA")])
+def test_bf16_kernels_take_x_by_tma_only_in_whole_16_byte_rows(feat, path):
+    assert band.bf16_load_path(feat) == path
+
+
+def test_planted_faults_are_scoped_and_leave_the_cpu_path_alone(graph):
+    """A planted fault reaches only the kernels' fault entries for the calls
+    inside its block; CPU tensors take the plain version all the same."""
+    v = _t(graph.band_values)
+    offs = tuple(int(o) for o in graph.offsets)
+    x = torch.ones(1024, 4)
+    want = band.band_spmm(v, offs, x)
+    with pytest.raises(KeyError):
+        with band.planted_fault("no such fault"):
+            pass
+    for kind in sorted(band.FAULTS):
+        with band.planted_fault(kind):
+            assert band._planted == band.FAULTS[kind]
+            torch.testing.assert_close(band.band_spmm(v, offs, x), want, rtol=0, atol=0)
+        assert band._planted == 0
+
+
 # ------------------------------------------------------------- hub and tail
 def _hy_inputs(seed):
     src, dst, w = _edges(seed=seed, noise_frac=0.3)
