@@ -49,8 +49,11 @@ Then the node-apply design harness and the card's stream calibration:
     B (B1's kernel on rows) and D (the read floor) at the harness shapes,
     B10 (the column-sum read) over 256 MB at three block shapes and one
     point of B12's stream-rate sweep, each against its plain version,
-    timed beside its bound and a library call; faults planted in B1 (the
-    d = 0 term dropped), B1t (a node block zeroed), B11 A (the last 16-wide
+    timed beside its bound and a library call (B1's and B1t's einsums with
+    the order torch contracts them in and that order's FLOPs); faults
+    planted in B1 (the d = 0 term dropped), B1t (a node block zeroed, and
+    inside its bf16 kernel d = 0 dropped and the contraction's last k16
+    slice dropped), B11 A (the last 16-wide
     slice of the contraction dropped) and B11 B (the same, and e's last
     column zeroed) must fail the checks; B11 A and B's 24 steps must outlast
     their one step by the least time 23 steps take at the card's peaks, and
@@ -67,9 +70,10 @@ package's 1M configuration, at T=12 and batch 2, no adaptive view):
     batched) at the probe tool's shapes, each timed beside its bound and a
     library call; three faults planted inside the bf16 band kernels (a
     k16 slice dropped, the main diagonal skipped, the graph's last row
-    block read as outside it) at F = 12, 24 and 128, and a wrong window
-    start and a stale row block planted in the probes' outputs, must fail
-    the checks;
+    block read as outside it) at F = 12, 24 and 128, a wrong window start
+    and a stale row block planted in the probes' outputs, and two faults
+    planted inside band_slab's kernel (a k16 slice dropped, the window read
+    one row block late) must fail the checks;
   * the port's probe_band_stream on the card, every probe launched and OK;
   * bench_large_graph's training (2 warm-up and 5 timed steps) with exact
     launch counts and finite losses, and its packed serving at buckets 1
@@ -1722,17 +1726,34 @@ def _probe_kernel_rows(torch):
             lambda: bp.band_slab_plain(v_pack, xp, radius), lambda: torch.bmm(v_pack, xw),
             "torch.bmm(packed rows, overlapping windows of xp) in bf16", num_bytes,
             2 * r * 128 * (2 * radius + 1) * 128 * f, PEAK_BF16_FLOPS, PEAK_NOTE)
+        lines[-1]["design"] = _slab_design(bp.slab_tile(f, radius, PROBE_CHUNK, batched), batched)
         # one row block of a slab left holding a stale buffer: another input's output
         stale = got.clone()
         stale[PROBE_CHUNK + 3] = bp.band_slab(v_pack, xp.roll(1, dims=0), radius, PROBE_CHUNK, batched)[PROBE_CHUNK + 3]
         faults["{}, row block {} stale".format(name, PROBE_CHUNK + 3)] = _over_bound(stale, want)
         del got, stale
+        # the faults the kernel plants inside itself
+        for kind in sorted(bp.FAULTS):
+            with bp.planted_fault(kind):
+                bad = bp.band_slab(v_pack, xp, radius, PROBE_CHUNK, batched)
+            faults["{}, planted in the kernel: {}".format(name, kind)] = _over_bound(bad, want)
+            del bad
     del v_pack, xp, xw, want
     torch.cuda.empty_cache()
     for fault, ratio in faults.items():
         if not ratio > 1.0:
             raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
     return lines, faults
+
+
+def _slab_design(tile, batched):
+    """What band_slab's kernel runs (csrc/band_probe.cu) at feature tile `tile`."""
+    return ("tensor cores: wgmma m64n{}k16 bf16->f32; packed-row chunks (K=64) as K-major A and the window's rows of "
+            "xp as MN-major B by TMA under the 128-byte swizzle; {}; f32 sums staged per warp for 16-byte "
+            "stores").format(tile, "two rings, each with its producer warp and one warpgroup taking whole row blocks "
+                                   "(two m64 products a k16 slice)" if batched else
+                             "one ring of four stages and one producer warp; two warpgroups share each row block "
+                             "and walk the slab's row blocks in turn")
 
 
 def band_bf16_phase(torch):
@@ -1862,6 +1883,11 @@ DESIGN_B11_B = ("tensor cores: wgmma m64nNk16 bf16->f32, N = several d x the col
                 "of the pool; a producer warp and an mbarrier ring; each step's rows staged once by cp.async; "
                 "e folded in f32 per d")
 DESIGN_B1_BF16 = DESIGN_B11_B
+DESIGN_B1T_BF16 = ("tensor cores: wgmma m64nNk16 bf16->f32 with A from registers: each thread's dpre fragments "
+                   "loaded once, multiplied by its rows' e[n,d] in bf16 (q, the Pallas rounding) per d; pool_t's "
+                   "chunks (64 o of one d x several k x 64 i) by a 4-d TMA view under the 128-byte swizzle, each "
+                   "d's o zero-padded on its own; a producer warp and an mbarrier ring; results staged per warp "
+                   "for 16-byte stores along I; tile {} (rows x k a block)")
 
 
 def _bf16_step(got, want):
@@ -1925,6 +1951,7 @@ def node_harness_phase(torch):
             "torch.einsum('bkni,nd,kido->bno') in the operands' dtype",
             hh.numel() * size + e.numel() * 4 + mat.numel() * size + B * N * o * 4, flops, peak, note,
             main_path=bf, design=DESIGN_B1_BF16 if bf else None)
+        lines[-1]["library_order"] = timing.einsum_order("bkni,nd,kido->bno", hh, e_lib, pool4)
         # planted fault: B1 without its d = 0 term
         e0 = e.clone()
         e0[:, 0] = 0
@@ -1942,11 +1969,20 @@ def node_harness_phase(torch):
             lambda: torch.einsum("bno,nd,kdoi->bkni", dpre, e_lib, pool4t),
             "torch.einsum('bno,nd,kdoi->bkni') in the operands' dtype",
             dpre.numel() * size + e.numel() * 4 + mat_t.numel() * size + B * ki * N * size, flops, peak, note,
-            main_path=bf)
+            main_path=bf, design=DESIGN_B1T_BF16.format(node_apply.factored_t_tile(B, K, N, H)) if bf else None)
+        lines[-1]["library_order"] = timing.einsum_order("bno,nd,kdoi->bkni", dpre, e_lib, pool4t)
+        if bf:  # how the bf16 kernel took pool_t
+            lines[-1]["loads"] = node_apply.factored_t_load_path(H)
         # planted fault: B1t with its first node block (64 rows) zeroed
         bad = got.clone()
         bad[:, :, :64] = 0
         faults["B1t node block 0 zeroed, " + shape] = check(bad, want)
+        if bf:  # the faults the bf16 kernel plants inside itself
+            for kind in sorted(node_apply.FAULTS):
+                with node_apply.planted_fault(kind):
+                    bad = node_apply.node_factored_apply_t(dpre, e, mat_t)
+                faults["B1t planted in the kernel: {}, {}".format(kind, shape)] = check(bad, want)
+        del bad
 
     # B11 A, B and D at the harness shapes
     hs = HARNESS
@@ -2115,9 +2151,17 @@ def main():
     say("kernels built in {:.1f}s".format(time.time() - t0))
     for name in _cuda.SOURCES:
         say("  {}: {}".format(name, _ptxas_summary(reports[name]) if name in reports else "built before this run"))
-    if "band_spmm" in reports:  # the bf16 band kernels on the tensor cores, one by one
-        say(json.dumps({"band_spmm tensor-core kernels [name, registers, spill bytes]": _ptxas_kernels(
-            reports["band_spmm"], "_tc_kernel")}))
+    # the tensor-core kernels of the band and B1t sources, one by one, and
+    # any wgmma the assembler had to serialize
+    for name, marker in (("band_spmm", "_tc_kernel"), ("band_probe", "_tc_kernel"),
+                         ("node_factored_t", "_wgmma_kernel")):
+        if name in reports:
+            say(json.dumps({"{} tensor-core kernels [name, registers, spill bytes]".format(name): _ptxas_kernels(
+                reports[name], marker)}))
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "Performance Loss" in line:
+                say("  {}: {}".format(name, line.strip()))
 
     lines = kernel_phase(torch)
     lines += sparse_kernel_phase(torch)

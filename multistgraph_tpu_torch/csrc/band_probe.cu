@@ -17,37 +17,56 @@
 //   out[r] = V_pack[r] @ xp[r : r + 2 radius + 1].reshape((2 radius + 1) 128, F)
 // V_pack (R, 128, W = (2 radius + 1) 128) and xp (R + 2 radius, 128, F)
 // bf16, out (R, 128, F) f32; the window of row block r is the contiguous
-// rows r*128 .. r*128 + W of xp. Each element is widened to f32 as it is
-// loaded: bf16 products are exact and every sum is f32, as the TPU
-// kernel's preferred_element_type=f32 dots. The TPU design covers
-// chunk_rows row blocks per grid step and brings their packed rows and the
-// shared x window in by double-buffered DMA, so that the chunk_rows + 2
-// radius x blocks are read once for all chunk_rows products. Here one
-// thread block covers a slab of chunk_rows row blocks and one tile of FT
-// feature columns: it stages the slab's x window (chunk_rows + 2 radius
-// blocks x FT columns) in shared memory once, with cp.async, and streams
-// the packed rows through shared memory in 128 x 16 chunks, double
-// buffered with cp.async, as the TPU kernel's DMA double buffer does. The
-// TPU scratch, (2, cr, 128, 640) bf16 + (2, cr + 4, 128, 128), is 3.4 MB at
-// cr = 8; a block has 227 KB, so the packed rows come in k-chunks and F in
-// tiles (FT = 64 columns at cr = 8: 192 KB of window). The feature tile
-// varies fastest over the grid, so the F / FT blocks of one slab run
-// together and the second read of its packed rows comes from L2.
-//   batched = 0 (the TPU kernel's per-row dots): all 8 warps work on one
-//     row block's 128 x FT product at a time, sharing each staged chunk of
-//     its packed row, and run the slab's row blocks in turn;
-//   batched = 1 (the TPU kernel's one batched dot per slab): the warps
-//     split over the slab's row blocks at once, each warp streaming its own
-//     row block's packed row through its own double buffer (FT = 16).
+// rows r*128 .. r*128 + W of xp. bf16 products are exact in f32 and every
+// sum is f32, as the TPU kernel's preferred_element_type=f32 dots; the
+// sums are stored unrounded. The TPU design covers chunk_rows row blocks
+// per grid step and brings their packed rows and the shared x window in by
+// double-buffered DMA (3.4 MB of VMEM at chunk_rows 8), so that the x
+// window is read once for the slab's products.
+//
 // Bound on an H100 at the 1M point (R = 8192, radius 2, F = 128): 1.34 GB
 // of packed rows + 0.27 GB of xp + 0.54 GB of f32 out is 0.64 ms at 3.35
-// TB/s; the 172 GFLOP are 0.17 ms on bf16 tensor cores but 2.6 ms as f32
-// FMAs on the CUDA cores, which bound this first design. Tensor cores
-// (mma on the staged bf16 tiles) come later.
+// TB/s; the 172 GFLOP take 0.17 ms on the bf16 tensor cores but 2.6 ms as
+// f32 FMAs on the CUDA cores, which held the first, SIMT design to 7.5-8.0
+// ms. Here it runs on the tensor cores: B8's main loop (band_spmm.cu's
+// band_spmm_tc_kernel on packed rows) over the slab. One block covers a
+// slab of chunk_rows row blocks and N = BN feature columns (the narrowest
+// of 16, 24, 32, 64, 128 and 256 that holds F, else 256; batched at most
+// 128), has 256 consumer threads (two warpgroups) and one producer warp
+// per ring. The producer's lane 0 streams each product in K = 64 chunks by
+// TMA under the 128-byte swizzle: the packed row's 128 x 64 chunk as
+// K-major A, the window's matching 64 rows of xp (contiguous, so no slot is
+// skipped and no edge is masked: xp is padded) as MN-major B, zero past F.
+// A 227 KB block holds no 3.4 MB window, so each row block reads its window
+// again, from L2 (x read by five row blocks, as in B8). Each chunk's four
+// k16 products go out while the previous chunk's finish, whose stage is
+// then released. A row block's f32 sums leave through a per-warp staging
+// area in 16-column groups, as 16-byte stores along the rows.
+//   batched = 0 (the TPU kernel's per-row dots): one ring of four stages;
+//     both warpgroups share each stage, warpgroup w owning rows 64 w ..
+//     64 w + 63 of one row block, and the block walks the slab's row blocks
+//     in turn, the ring running on across them;
+//   batched = 1 (the TPU kernel's one batched dot per slab): two rings of
+//     three stages, each with its own producer warp; warpgroup w takes row
+//     blocks w, w + 2, ... of the slab, all 128 rows of each (two m64
+//     products a k16 slice), both at once.
+// chunk_rows and batched are launch shapes only: every row block's product
+// is the same. Measured at the 1M point on an H100 (PERF.md): two per-row
+// blocks an SM (three stages each) ran 12% slower than one; six stages, two
+// sets of sums (a row block's stores after its successor's first products)
+// and stores straight from the accumulators each came within 1% of this
+// design. Batched runs ahead of per-row (0.90 against 0.98 ms).
+// band_slab_launch_fault plants a fault (the k16 slice holding each row
+// block's last contraction element dropped; each window read one row block
+// late) for checks that must catch one. A view that the shape allows and
+// cuTensorMapEncodeTiled refuses (an operand that is not 16-byte aligned)
+// is a launch error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -109,195 +128,189 @@ window_dot_kernel(const float* __restrict__ v, const float* __restrict__ x, cons
 
 // ------------------------------------------------------------ band_slab
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kB = 128;             // tile edge
-constexpr int kKC = 16;             // k columns of a packed row staged per pass
-constexpr int kVLd = kKC + 8;       // staged row stride (48 bytes: 16-byte rows, no bank conflicts)
-constexpr int kVBuf = kB * kVLd;    // one staged chunk, elements
+using namespace wgmma_sm90;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+constexpr int kB = 128;                      // tile edge
+constexpr int kKc = 64;                      // contraction rows of one ring stage
+constexpr int kChunkA = kB * kKc;            // elements of a stage's packed-row chunk
+constexpr int kConsumers = 256;              // two warpgroups
+constexpr int kStageCols = 16;               // output columns staged at a time
+constexpr int kStageLd = kStageCols + 8;     // staged row stride: the float2 writes are conflict-free
+constexpr int kFaultK16 = 1;                 // the k16 slice holding a row block's last contraction element dropped
+constexpr int kFaultLate = 2;                // each window read one row block late
+constexpr size_t kMaxSmem = 232448;          // 227 KB, the most a block may ask for on an H100
 
-// The slab's x window, (rows + 2 radius) blocks of 128 rows x FT columns,
-// into shared memory in 16-byte pieces (columns past F are not read).
-template <int FT>
-__device__ __forceinline__ void stage_window(bf16* xwin, const bf16* xp, int slab0, int win_blocks, int F,
-                                             int f0, int tid) {
-  constexpr int kPieces = FT / 8;
-  const bf16* src = xp + (size_t)slab0 * kB * F + f0;
-  for (int q = tid; q < win_blocks * kB * kPieces; q += kThreads) {
-    const int row = q / kPieces, p = q % kPieces;
-    if (f0 + p * 8 < F) cp_async16(xwin + (size_t)row * FT + p * 8, src + (size_t)row * F + p * 8);
-  }
-}
+template <int BN, bool BATCHED>
+struct SlabTile {
+  static constexpr int kRings = BATCHED ? 2 : 1;         // a ring (and producer warp) per warpgroup when batched
+  static constexpr int kStages = BATCHED ? 3 : 4;
+  static constexpr int kWidthB = BN < 64 ? 64 : BN;       // columns of a window chunk: whole 128-byte rows
+  static constexpr int kChunkB = kKc * kWidthB;
+  static constexpr int kThreads = kConsumers + 32 * kRings;
+  static constexpr size_t kSmem = 1024 + (size_t)kRings * kStages * (kChunkA + kChunkB) * sizeof(bf16) +
+                                  (size_t)kConsumers / 32 * 16 * kStageLd * sizeof(float) +
+                                  2 * kRings * kStages * sizeof(uint64_t);
+  static_assert(kSmem <= kMaxSmem, "a band_slab tile exceeds a block's shared memory");
+};
 
-// Columns kc*16 .. kc*16+15 of the 128 rows of one packed row block, by
-// `n` threads numbered `t`.
-__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* vrow, int W, int kc, int t, int n) {
-  for (int q = t; q < kB * (kKC / 8); q += n) {
-    const int row = q / (kKC / 8), p = q % (kKC / 8);
-    cp_async16(dst + row * kVLd + p * 8, vrow + (size_t)row * W + kc * kKC + p * 8);
-  }
-}
+// out[r][:, f0 .. f0 + BN] for the row blocks r of slab blockIdx.y (chunk_rows
+// cr of them, the last slab may be short), f0 = BN blockIdx.x. v_map views
+// the packed rows as (R 128, W) and x_map xp as ((R + n_off - 1) 128, F),
+// both under the 128-byte swizzle, boxes of 128 and 64 rows by 64 columns.
+template <int BN, bool BATCHED>
+__global__ void __launch_bounds__(SlabTile<BN, BATCHED>::kThreads, 1)
+band_slab_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap x_map,
+                    float* __restrict__ out, int R, int F, int n_off, int cr, int fault) {
+  using Tile = SlabTile<BN, BATCHED>;
+  constexpr int S = Tile::kStages, kRings = Tile::kRings, kHalves = BATCHED ? 2 : 1;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  bf16* as = reinterpret_cast<bf16*>(smem);                          // ring p's stage s: as + (p S + s) kChunkA
+  bf16* bs = as + (size_t)kRings * S * kChunkA;                      // ... bs + (p S + s) kChunkB
+  float* staged = reinterpret_cast<float*>(bs + (size_t)kRings * S * Tile::kChunkB);  // 16 x kStageLd a warp
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + (size_t)kConsumers / 32 * 16 * kStageLd);
+  uint64_t* empty = full + kRings * S;
 
-template <int CPT>
-__device__ __forceinline__ void store_cols(float* o, const float* acc) {
-  if constexpr (CPT == 4) {
-    *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  } else {
-    *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
-  }
-}
-
-// batched = 0: the block's 8 warps run one row block's product at a time.
-template <int FT>
-__global__ void __launch_bounds__(kThreads)
-band_slab_rows_kernel(const bf16* __restrict__ v, const bf16* __restrict__ xp, float* __restrict__ out, int R,
-                      int F, int n_off, int cr) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int CPT = FT >= 16 ? 4 : 2;         // columns a thread holds
-  constexpr int TX = FT / CPT, TY = kThreads / TX, RPT = kB / TY;
-  const int W = n_off * kB, kpr = W / kKC;
   const int slab0 = blockIdx.y * cr, rows = min(cr, R - slab0);
-  const int f0 = blockIdx.x * FT;
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  bf16* xwin = reinterpret_cast<bf16*>(smem);
-  bf16* vbuf = xwin + (size_t)(cr + n_off - 1) * kB * FT;
-
-  stage_window<FT>(xwin, xp, slab0, rows + n_off - 1, F, f0, tid);
-  cp_async_commit();
-  stage_chunk(vbuf, v + (size_t)slab0 * kB * W, W, 0, tid, kThreads);
-  cp_async_commit();
-
-  float acc[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int l = 0; l < CPT; ++l) acc[i][l] = 0.f;
-
-  const int steps = rows * kpr;
-  for (int t = 0; t < steps; ++t) {
-    const int j = t / kpr, kc = t % kpr;
-    if (t + 1 < steps) {
-      const int jn = (t + 1) / kpr;
-      stage_chunk(vbuf + ((t + 1) & 1) * kVBuf, v + (size_t)(slab0 + jn) * kB * W, W, (t + 1) % kpr, tid,
-                  kThreads);
+  const int f0 = blockIdx.x * BN;
+  const int chunks = n_off * (kB / kKc);    // chunks of one row block's product
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < kRings * S; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, BATCHED ? 1 : 2);   // one arrival per warpgroup that reads the ring
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // the window and step t's chunk have landed
-    __syncthreads();
-    const bf16* vs = vbuf + (t & 1) * kVBuf;
-    const bf16* xs = xwin + ((size_t)j * kB + kc * kKC) * FT;  // window row j*128 + k of the slab
-#pragma unroll
-    for (int k = 0; k < kKC; ++k) {
-      float a[RPT], bb[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) a[i] = __bfloat162float(vs[(ty + TY * i) * kVLd + k]);
-#pragma unroll
-      for (int l = 0; l < CPT; ++l) bb[l] = __bfloat162float(xs[k * FT + tx * CPT + l]);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int l = 0; l < CPT; ++l) acc[i][l] = fmaf(a[i], bb[l], acc[i][l]);
-    }
-    __syncthreads();  // this chunk's buffer is free for step t + 2
-    if (kc == kpr - 1) {
-      const int f = f0 + tx * CPT;
-      if (f < F) {
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-          store_cols<CPT>(out + ((size_t)(slab0 + j) * kB + ty + TY * i) * F + f, acc[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int l = 0; l < CPT; ++l) acc[i][l] = 0.f;
-    }
+    fence_mbar_init();
   }
-}
-
-// batched = 1: warp w runs row blocks w, w + 8, ... of the slab, each
-// through its own double buffer, all warps at once.
-template <int FT>
-__global__ void __launch_bounds__(kThreads)
-band_slab_warps_kernel(const bf16* __restrict__ v, const bf16* __restrict__ xp, float* __restrict__ out, int R,
-                       int F, int n_off, int cr) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int CPL = 4;                        // columns a lane holds
-  constexpr int LX = FT / CPL, LY = 32 / LX, RPL = kB / LY;
-  const int W = n_off * kB, kpr = W / kKC;
-  const int slab0 = blockIdx.y * cr, rows = min(cr, R - slab0);
-  const int f0 = blockIdx.x * FT;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int lx = lane % LX, ly = lane / LX;
-  bf16* xwin = reinterpret_cast<bf16*>(smem);
-  bf16* vbuf = xwin + (size_t)(cr + n_off - 1) * kB * FT + (size_t)warp * 2 * kVBuf;
-
-  stage_window<FT>(xwin, xp, slab0, rows + n_off - 1, F, f0, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
 
-  for (int j = warp; j < rows; j += kWarps) {
-    const bf16* vrow = v + (size_t)(slab0 + j) * kB * W;
-    float acc[RPL][CPL];
+  if (tid >= kConsumers) {
+    // producer warp p: row blocks p, p + kRings, ... of the slab, each
+    // window's chunk c at xp row (r + late) 128 + 64 c
+    const int p = (tid - kConsumers) / 32;
+    if (tid % 32 != 0) return;
+    const int late = fault == kFaultLate;
+    int g = 0;
+    for (int j = p; j < rows; j += kRings) {
+      const int r = slab0 + j;
+      for (int c = 0; c < chunks; ++c, ++g) {
+        const int st = p * S + g % S;
+        if (g >= S) mbar_wait(empty + st, ((g / S) & 1) ^ 1);
+        bf16* ad = as + (size_t)st * kChunkA;
+        bf16* bd = bs + (size_t)st * Tile::kChunkB;
+        mbar_arrive_tx(full + st, (kChunkA + Tile::kChunkB) * (unsigned)sizeof(bf16));
+        tma_load_2d(ad, &v_map, c * kKc, r * kB, full + st);
 #pragma unroll
-    for (int i = 0; i < RPL; ++i)
-#pragma unroll
-      for (int l = 0; l < CPL; ++l) acc[i][l] = 0.f;
-    stage_chunk(vbuf, vrow, W, 0, lane, 32);
-    cp_async_commit();
-    for (int kc = 0; kc < kpr; ++kc) {
-      if (kc + 1 < kpr) stage_chunk(vbuf + ((kc + 1) & 1) * kVBuf, vrow, W, kc + 1, lane, 32);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncwarp();
-      const bf16* vs = vbuf + (kc & 1) * kVBuf;
-      const bf16* xs = xwin + ((size_t)j * kB + kc * kKC) * FT;
-#pragma unroll
-      for (int k = 0; k < kKC; ++k) {
-        float a[RPL], bb[CPL];
-#pragma unroll
-        for (int i = 0; i < RPL; ++i) a[i] = __bfloat162float(vs[(ly + LY * i) * kVLd + k]);
-#pragma unroll
-        for (int l = 0; l < CPL; ++l) bb[l] = __bfloat162float(xs[k * FT + lx * CPL + l]);
-#pragma unroll
-        for (int i = 0; i < RPL; ++i)
-#pragma unroll
-          for (int l = 0; l < CPL; ++l) acc[i][l] = fmaf(a[i], bb[l], acc[i][l]);
+        for (int jb = 0; jb < Tile::kWidthB / 64; ++jb)
+          tma_load_2d(bd + jb * 64 * kKc, &x_map, f0 + 64 * jb, (r + late) * kB + c * kKc, full + st);
       }
-      __syncwarp();  // this chunk's buffer is free for chunk kc + 2
     }
-    const int f = f0 + lx * CPL;
-    if (f < F) {
+    return;
+  }
+
+  // consumers: per-row, warpgroup wg owns rows 64 wg .. of each row block
+  // from ring 0; batched, all 128 rows of row blocks wg, wg + 2, ... from
+  // ring wg
+  // (broadcast from lane 0, so that the compiler knows them uniform in the warp)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0), warp = __shfl_sync(0xffffffffu, tid % 128 / 32, 0);
+  const int lane = tid % 32;
+  const int ring = BATCHED ? wg : 0;
+  float* stage = staged + (size_t)(tid / 32) * 16 * kStageLd;
+  float acc[kHalves][BN / 2];
 #pragma unroll
-      for (int i = 0; i < RPL; ++i)
-        store_cols<CPL>(out + ((size_t)(slab0 + j) * kB + ly + LY * i) * F + f, acc[i]);
+  for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[h][i] = 0.f;
+  int g = 0;
+  for (int j = BATCHED ? wg : 0; j < rows; j += kRings) {
+    for (int c = 0; c < chunks; ++c, ++g) {
+      const int st = ring * S + g % S;
+      mbar_wait(full + st, (g / S) & 1);
+      // the stage's packed-row chunk: 128 rows of 64 k (a warpgroup's 64
+      // rows 8 KB apart); the window chunk: 64 k of kWidthB columns
+      const unsigned char* ad = reinterpret_cast<const unsigned char*>(as + (size_t)st * kChunkA) +
+                                (BATCHED ? 0 : wg * 8192);
+      const unsigned char* bd = reinterpret_cast<const unsigned char*>(bs + (size_t)st * Tile::kChunkB);
+      const int skip = fault == kFaultK16 && c == chunks - 1 ? kKc / 16 - 1 : -1;
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+        for (int ks = 0; ks < kKc / 16; ++ks)
+          if (ks != skip)
+            Wgmma<BN>::template mma_t<0, 1>(acc[h], desc_sw128(ad + 8192 * h + 32 * ks, 16u),
+                                            desc_sw128(bd + 2048 * ks, 8192u), c > 0 || ks > 0);
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait<1>();   // the previous chunk's products are done: free its stage
+        if (tid % 128 == 0) mbar_arrive(empty + ring * S + (g - 1) % S);
+      }
+    }
+    wgmma_wait<0>();
+    if (tid % 128 == 0) mbar_arrive(empty + ring * S + (g - 1) % S);
+    // the warp's 16 rows of each half through its staging, 16 columns at a
+    // time, stored as 16-byte units along the rows (F % 8 == 0); every trip
+    // count is known at compile time, so no lane leaves the warpgroup's path
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      float* o = out + ((size_t)(slab0 + j) * kB + 64 * (BATCHED ? h : wg) + 16 * warp) * F + f0;
+#pragma unroll
+      for (int cg = 0; cg < BN; cg += kStageCols) {
+#pragma unroll
+        for (int jj = 0; jj < kStageCols / 8; ++jj) {
+          if (cg + 8 * jj < BN) {
+            const int col = 8 * jj + 2 * (lane % 4), a = 4 * (cg / 8 + jj);
+            *reinterpret_cast<float2*>(stage + (lane / 4) * kStageLd + col) = make_float2(acc[h][a], acc[h][a + 1]);
+            *reinterpret_cast<float2*>(stage + (lane / 4 + 8) * kStageLd + col) =
+                make_float2(acc[h][a + 2], acc[h][a + 3]);
+          }
+        }
+        __syncwarp();
+        const int units = (BN - cg < kStageCols ? BN - cg : kStageCols) / 4;   // 16-byte units of a row: 2 or 4
+#pragma unroll
+        for (int it = 0; it < kStageCols / 8; ++it) {
+          if (it < units / 2) {   // 16 rows x units, 32 lanes at a time
+            const int q = lane + 32 * it, i = q / units, c4 = 4 * (q % units);
+            if (f0 + cg + c4 < F)
+              *reinterpret_cast<float4*>(o + (size_t)i * F + cg + c4) =
+                  *reinterpret_cast<const float4*>(stage + i * kStageLd + c4);
+          }
+        }
+        __syncwarp();   // the staging is read before the next group writes it
+      }
     }
   }
 }
 
-constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may ask for on an H100
-
-size_t slab_smem(int ft, int cr, int n_off, bool batched) {
-  const size_t window = (size_t)(cr + n_off - 1) * kB * ft * sizeof(bf16);
-  return window + (size_t)(batched ? kWarps : 1) * 2 * kVBuf * sizeof(bf16);
+template <int BN, bool BATCHED>
+cudaError_t launch_slab(const void* v_pack, const void* xp, float* out, int R, int F, int n_off, int cr, int fault,
+                        cudaStream_t stream) {
+  using Tile = SlabTile<BN, BATCHED>;
+  auto kernel = band_slab_tc_kernel<BN, BATCHED>;
+  cudaError_t err = allow_smem(kernel, Tile::kSmem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap v_map = {}, x_map = {};
+  err = rows_view(&v_map, v_pack, R * kB, n_off * kB, kB);
+  if (err == cudaSuccess) err = rows_view(&x_map, xp, (R + n_off - 1) * kB, F, kKc);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((F + BN - 1) / BN), (unsigned)((R + cr - 1) / cr));
+  kernel<<<grid, Tile::kThreads, Tile::kSmem, stream>>>(v_map, x_map, out, R, F, n_off, cr, fault);
+  return cudaGetLastError();
 }
 
-template <typename Kernel>
-cudaError_t launch_slab(Kernel kernel, int ft, size_t smem, const bf16* v, const bf16* xp, float* out, int R,
-                        int F, int n_off, int cr, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((F + ft - 1) / ft), (unsigned)((R + cr - 1) / cr));
-  kernel<<<grid, kThreads, smem, stream>>>(v, xp, out, R, F, n_off, cr);
-  return cudaGetLastError();
+template <bool BATCHED>
+cudaError_t launch_slab_tile(int bn, const void* v, const void* xp, float* out, int R, int F, int n_off, int cr,
+                             int fault, cudaStream_t s) {
+  switch (bn) {
+    case 16: return launch_slab<16, BATCHED>(v, xp, out, R, F, n_off, cr, fault, s);
+    case 24: return launch_slab<24, BATCHED>(v, xp, out, R, F, n_off, cr, fault, s);
+    case 32: return launch_slab<32, BATCHED>(v, xp, out, R, F, n_off, cr, fault, s);
+    case 64: return launch_slab<64, BATCHED>(v, xp, out, R, F, n_off, cr, fault, s);
+    case 128: return launch_slab<128, BATCHED>(v, xp, out, R, F, n_off, cr, fault, s);
+    default:
+      if constexpr (BATCHED) return cudaErrorInvalidValue;   // two m64 sums of N = 256 do not fit the registers
+      else return launch_slab<256, false>(v, xp, out, R, F, n_off, cr, fault, s);
+  }
 }
 
 }  // namespace
@@ -314,38 +327,37 @@ extern "C" int window_dot_launch(const void* v, const void* x, const void* start
   return (int)cudaGetLastError();
 }
 
-// The feature tile a launch of band_slab takes (0 if no tile fits the
-// shared memory): per-row, the widest of 64, 32, 16, 8 columns that fits
-// and that F needs; batched, 16 (8 where F is 8).
+// The feature tile (wgmma N) a launch of band_slab takes: the narrowest of
+// 16, 24, 32, 64, 128 and 256 (batched: 128) that holds F, else the widest;
+// 0 where the kernel takes no such launch (F not a positive multiple of 8,
+// no slot, no row block a slab).
 extern "C" int band_slab_tile(int feat, int n_off, int chunk_rows, int batched) {
-  const int widest = batched ? 16 : 64;
-  for (int ft = widest; ft >= 8; ft /= 2) {
-    if (ft > 8 && ft / 2 >= feat) continue;  // a narrower tile covers F
-    if (slab_smem(ft, chunk_rows, n_off, batched) <= kMaxSmem) return ft;
-  }
-  return 0;
+  if (feat < 1 || feat % 8 || n_off < 1 || chunk_rows < 1) return 0;
+  const int widths[] = {16, 24, 32, 64, 128};
+  for (int bn : widths)
+    if (feat <= bn) return bn;
+  return batched ? 128 : 256;
+}
+
+// As band_slab_launch, with a fault planted (0: none, 1: the k16 slice
+// holding each row block's last contraction element dropped, 2: each
+// window read one row block late).
+extern "C" int band_slab_launch_fault(const void* v_pack, const void* xp, void* out, int n_blocks, int feat,
+                                      int n_off, int chunk_rows, int batched, int fault, void* stream) {
+  if (n_blocks == 0) return (int)cudaSuccess;
+  const int bn = band_slab_tile(feat, n_off, chunk_rows, batched);
+  if (bn == 0) return (int)cudaErrorInvalidValue;
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return batched ? (int)launch_slab_tile<true>(bn, v_pack, xp, o, n_blocks, feat, n_off, chunk_rows, fault, s)
+                 : (int)launch_slab_tile<false>(bn, v_pack, xp, o, n_blocks, feat, n_off, chunk_rows, fault, s);
 }
 
 // v_pack (R, 128, n_off 128) and xp (R + n_off - 1, 128, F) bf16, out (R,
-// 128, F) f32; F a multiple of 8, every pointer 16-byte aligned.
+// 128, F) f32; F a multiple of 8. Launches on `stream`; returns
+// cudaGetLastError() after the launch, or the error of a TMA view that
+// cannot be encoded (an operand that is not 16-byte aligned).
 extern "C" int band_slab_launch(const void* v_pack, const void* xp, void* out, int n_blocks, int feat, int n_off,
                                 int chunk_rows, int batched, void* stream) {
-  if (n_blocks == 0 || feat == 0) return (int)cudaSuccess;
-  const int ft = band_slab_tile(feat, n_off, chunk_rows, batched);
-  if (ft == 0) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = slab_smem(ft, chunk_rows, n_off, batched);
-  const bf16* v = static_cast<const bf16*>(v_pack);
-  const bf16* x = static_cast<const bf16*>(xp);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batched) {
-    return ft == 16 ? (int)launch_slab(band_slab_warps_kernel<16>, ft, smem, v, x, o, n_blocks, feat, n_off, chunk_rows, s)
-                    : (int)launch_slab(band_slab_warps_kernel<8>, ft, smem, v, x, o, n_blocks, feat, n_off, chunk_rows, s);
-  }
-  switch (ft) {
-    case 64: return (int)launch_slab(band_slab_rows_kernel<64>, ft, smem, v, x, o, n_blocks, feat, n_off, chunk_rows, s);
-    case 32: return (int)launch_slab(band_slab_rows_kernel<32>, ft, smem, v, x, o, n_blocks, feat, n_off, chunk_rows, s);
-    case 16: return (int)launch_slab(band_slab_rows_kernel<16>, ft, smem, v, x, o, n_blocks, feat, n_off, chunk_rows, s);
-    default: return (int)launch_slab(band_slab_rows_kernel<8>, ft, smem, v, x, o, n_blocks, feat, n_off, chunk_rows, s);
-  }
+  return band_slab_launch_fault(v_pack, xp, out, n_blocks, feat, n_off, chunk_rows, batched, 0, stream);
 }

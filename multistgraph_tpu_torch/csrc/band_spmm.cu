@@ -323,12 +323,6 @@ struct SpmmTile {
                                   2 * kStages * sizeof(uint64_t);
 };
 
-// The dynamic shared memory from its first 1024-byte boundary (the
-// swizzle's atoms are aligned to it; the launch adds 1024 bytes).
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
-}
-
 // out[r][:, f0 .. f0 + BN] for r = blockIdx.y, f0 = BN blockIdx.x. v_map is a
 // 2-d view of the tiles (planes (O R 128, 128) or packed rows (R 128, W))
 // under the 128-byte swizzle: for the forward one box is a 64-wide chunk of
@@ -569,24 +563,6 @@ band_dv_tc_kernel(const __grid_constant__ CUtensorMap dy_map, const __grid_const
       __syncwarp();   // the staging is read before the next slot writes it
     }
   }
-}
-
-// A 2-d view of a row-major (rows, cols) bf16 array, cols % 8 == 0, under
-// the 128-byte swizzle, whose box is box_rows rows of 64 columns.
-cudaError_t rows_view(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  return encode_tiled<2>(map, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  return err;
 }
 
 template <int BN, bool TRANS>

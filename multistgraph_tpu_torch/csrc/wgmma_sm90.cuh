@@ -1,7 +1,8 @@
 // Warpgroup tensor-core, TMA and mbarrier primitives for Hopper (sm_90a), shared by
 // the kernels that run bf16 products on wgmma: node_dots.cu (B11 A),
-// node_factored.cu (B1 / B11 B, bf16 operands) and band_spmm.cu (B7, B8, B9
-// dX and B9 dV, bf16 operands).
+// node_factored.cu (B1 / B11 B, bf16 operands), node_factored_t.cu (B1t,
+// bf16 operands), band_spmm.cu (B7, B8, B9 dX and B9 dV, bf16 operands) and
+// band_probe.cu (band_slab, P2).
 //
 // Shared-memory operands are kept as 8x8 "core matrices" of bf16, each 128
 // contiguous bytes (8 rows of 16 bytes), without swizzle. An operand of X
@@ -23,7 +24,10 @@
 // scale_d) is one m64nNk16 product, f32 sums, d = A B + (scale_d ? d : 0),
 // with A MN-major where TA = 1 and B MN-major where TB = 1 (mma: TA = 0, TB
 // = 1); thread t of the warpgroup holds d[4j + v] of row 16 (t/32) +
-// (t%32)/4 + 8 (v/2), column 8j + 2 (t%4) + v%2.
+// (t%32)/4 + 8 (v/2), column 8j + 2 (t%4) + v%2. Wgmma<N>::mma_rs<TB> (N =
+// 64, 128) takes A from registers instead, in the same row and column
+// places: a[v] of thread t holds the two bf16 of row 16 (t/32) + (t%32)/4
+// + 8 (v%2), k 2 (t%4) + 8 (v/2) + 0..1, the lower k in the low half.
 //
 // cp_async16 copies 16 bytes from device memory to shared memory without
 // registers, or writes 16 zero bytes when `valid` is false (the source is
@@ -141,6 +145,14 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
           "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(bar))
       : "memory");
 }
+// one bulk tensor copy of a 4-dimensional box, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, "
+      "%5}], [%6];\n" ::"r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
 // one bulk tensor copy of a 5-dimensional box, completing on `bar`
 __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3, int c4,
                                             uint64_t* bar) {
@@ -181,6 +193,32 @@ cudaError_t encode_tiled(CUtensorMap* map, const void* base, const cuuint64_t (&
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess
              : cudaErrorInvalidValue;
+}
+
+// A 2-d view of a row-major (rows, cols) bf16 array, cols % 8 == 0, under
+// the 128-byte swizzle, whose box is box_rows rows of 64 columns.
+inline cudaError_t rows_view(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return encode_tiled<2>(map, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The dynamic shared memory from its first 1024-byte boundary (the
+// swizzle's atoms are aligned to it; a launch asks for 1024 bytes more).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory, with the SM's
+// carveout set to the most shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 // Wgmma<N>::mma_t<TA, TB>(d, desc_a, desc_b, scale_d) is one m64nNk16 product:
@@ -265,6 +303,22 @@ struct Wgmma<64> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
     mma_t<0, 1>(d, da, db, scale_d);
   }
+  // A from registers (mma_rs<TB>: B MN-major where TB = 1)
+  template <int TB>
+  static __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+  }
 };
 
 template <>
@@ -292,6 +346,28 @@ struct Wgmma<128> {
   }
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
     mma_t<0, 1>(d, da, db, scale_d);
+  }
+  // A from registers (mma_rs<TB>: B MN-major where TB = 1)
+  template <int TB>
+  static __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
   }
 };
 

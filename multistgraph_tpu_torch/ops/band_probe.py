@@ -18,15 +18,20 @@ finished form of it is B8, ops/band.py:band_fwd_slab_pallas):
     its two variants, per-row products and one batched product per slab.
 
 Both are hand-written CUDA in csrc/band_probe.cu, whose header gives the
-design. Each wrapper launches its kernel for CUDA tensors and counts the
-launch (``window_dot.launches``; ``band_slab.launches`` for the per-row
-variant, ``band_slab.batched_launches`` for the batched one), and raises on
-what the kernel does not take; for CPU tensors it takes its plain version
-(``window_dot_plain``: the einsum "cbw,cwf->cbf" over the windows;
-``band_slab_plain``: the stacked einsum of the probe's reference form on
-the packed rows, in f32).
+design (``band_slab`` on the tensor cores: wgmma fed by TMA under the
+128-byte swizzle). Each wrapper launches its kernel for CUDA tensors and
+counts the launch (``window_dot.launches``; ``band_slab.launches`` for the
+per-row variant, ``band_slab.batched_launches`` for the batched one), and
+raises on what the kernel does not take, a TMA view that
+cuTensorMapEncodeTiled refuses included; for CPU tensors it takes its
+plain version (``window_dot_plain``: the einsum "cbw,cwf->cbf" over the
+windows; ``band_slab_plain``: the stacked einsum of the probe's reference
+form on the packed rows, in f32).
+``planted_fault`` plants a fault in ``band_slab``'s kernel for the checks
+that must fail it; ``slab_tile`` reads the feature tile a launch takes.
 """
 
+import contextlib
 import ctypes
 import functools
 from typing import Sequence
@@ -36,6 +41,11 @@ import torch
 from multistgraph_tpu_torch.ops import _cuda
 
 BLOCK = 128
+# Faults band_slab's kernel plants on request, for checks that must fail it
+# (chip_smoke.py): the k16 slice holding each row block's last contraction
+# element dropped; each window read one row block late.
+FAULTS = {"k16": 1, "late": 2}
+_planted = 0
 
 
 # ----------------------------------------------------------- plain versions
@@ -59,11 +69,30 @@ def band_slab_plain(v_pack, xp, radius: int):
 def _lib():
     lib = _cuda.library("band_probe")
     lib.window_dot_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.band_slab_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.band_slab_launch_fault.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.band_slab_tile.argtypes = [ctypes.c_int] * 4
-    for fn in (lib.window_dot_launch, lib.band_slab_launch, lib.band_slab_tile):
+    for fn in (lib.window_dot_launch, lib.band_slab_launch_fault, lib.band_slab_tile):
         fn.restype = ctypes.c_int
     return lib
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """Launch band_slab's kernel with the fault FAULTS[kind] planted in it
+    while the block runs."""
+    global _planted
+    code = FAULTS[kind]
+    _planted = code
+    try:
+        yield
+    finally:
+        _planted = 0
+
+
+def slab_tile(feat: int, radius: int, chunk_rows: int, batched: bool) -> int:
+    """The feature tile (wgmma N) band_slab's kernel takes at these
+    dimensions, 0 where it takes none; read from csrc/band_probe.cu."""
+    return _lib().band_slab_tile(int(feat), 2 * int(radius) + 1, int(chunk_rows), int(batched))
 
 
 def _stream(device):
@@ -115,7 +144,8 @@ def band_slab(v_pack, xp, radius: int, chunk_rows: int = 8, batched: bool = Fals
     (R, 128, W = (2 radius + 1) 128) and xp (R + 2 radius, 128, F) bfloat16,
     (R, 128, F) float32. `chunk_rows` row blocks per slab (any R; the last
     slab may be short); `batched` picks the variant. On CUDA F must be a
-    multiple of 8 (16-byte copies of the window)."""
+    multiple of 8 (the window comes by TMA in 16-byte units) and both
+    operands 16-byte aligned (else the launch fails)."""
     _check("band_slab", (v_pack, xp), torch.bfloat16)
     radius, chunk_rows = int(radius), int(chunk_rows)
     n_off = 2 * radius + 1
@@ -126,16 +156,12 @@ def band_slab(v_pack, xp, radius: int, chunk_rows: int = 8, batched: bool = Fals
     if xp.device.type == "cpu":
         return band_slab_plain(v_pack, xp, radius)
     nb, block, feat = v_pack.shape[0], v_pack.shape[1], xp.shape[2]
-    if block != BLOCK or feat % 8 or v_pack.data_ptr() % 16 or xp.data_ptr() % 16:
-        raise ValueError("the band_slab kernel takes 128-row blocks, F a multiple of 8 and 16-byte aligned "
-                         "storage, got block {}, F {}".format(block, feat))
-    lib = _lib()
-    if lib.band_slab_tile(feat, n_off, chunk_rows, int(batched)) == 0:
-        raise ValueError("band_slab: the x window of chunk_rows={} does not fit a block's shared memory".format(
-            chunk_rows))
+    if block != BLOCK or feat % 8:
+        raise ValueError("the band_slab kernel takes 128-row blocks and F a multiple of 8, got block {}, F {}".format(
+            block, feat))
     out = torch.empty((nb, block, feat), dtype=torch.float32, device=xp.device)
-    rc = lib.band_slab_launch(v_pack.data_ptr(), xp.data_ptr(), out.data_ptr(), nb, feat, n_off, chunk_rows,
-                              int(batched), _stream(xp.device))
+    rc = _lib().band_slab_launch_fault(v_pack.data_ptr(), xp.data_ptr(), out.data_ptr(), nb, feat, n_off,
+                                       chunk_rows, int(batched), _planted, _stream(xp.device))
     if rc != 0:
         raise RuntimeError("band_slab kernel launch failed: CUDA error {}".format(rc))
     if batched:

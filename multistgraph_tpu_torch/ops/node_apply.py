@@ -13,10 +13,11 @@ with ``pool_to_kernel_layout`` giving the two pool matrices, the gate
 folded in. ``node_factored_apply`` and ``node_factored_apply_t`` launch
 csrc/node_factored.cu and csrc/node_factored_t.cu for CUDA tensors (they
 replace the Pallas kernels _apply_kernel / node_factored_apply and
-_apply_t_kernel / node_factored_apply_t) and take the plain versions for
-CPU tensors. No model path of the JAX package launches them: their caller
-is the node-apply design harness (tools/bench_node_dots.py), whose factored
-variant ``node_factored_rows`` runs on B1's kernel too. They have no VJP, as
+_apply_t_kernel / node_factored_apply_t; both run bf16 operands on the
+tensor cores, ``planted_fault`` plants a fault in B1t's) and take the plain
+versions for CPU tensors. No model path of the JAX package launches them:
+their caller is the node-apply design harness (tools/bench_node_dots.py),
+whose factored variant ``node_factored_rows`` runs on B1's kernel too. They have no VJP, as
 in JAX: B1t is the transpose a hand-written BPTT would call.
 
 The int8 weight-stream path keeps the expanded per-node weights in int8
@@ -40,6 +41,7 @@ There is no fall back from a kernel to its plain version; the source notes
 give each kernel's bound on an H100 and its design.
 """
 
+import contextlib
 import ctypes
 import functools
 
@@ -210,6 +212,51 @@ def _factored_t_smem(o):
     return (o * _ROW_STRIDE + _CHUNK_FLOATS) * 4
 
 
+# B1t in bf16 (csrc/node_factored_t.cu, tensor cores) holds its rows' dpre
+# as register fragments, 16 k16 slices at most.
+_FACTORED_T_MAX_O_BF16 = 256
+# Faults B1t's bf16 kernel plants on request, for checks that must fail it
+# (chip_smoke.py): the d = 0 term dropped; the contraction's last k16 slice
+# dropped.
+FAULTS = {"d": 1, "k16": 2}
+_planted = 0
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """Launch B1t's bf16 kernel with the fault FAULTS[kind] planted in it
+    while the block runs (f32 operands then raise)."""
+    global _planted
+    code = FAULTS[kind]
+    _planted = code
+    try:
+        yield
+    finally:
+        _planted = 0
+
+
+def factored_t_max_o(dtype: torch.dtype) -> int:
+    """The largest O that node_factored_apply_t takes in `dtype`: 256 in
+    bf16 (dpre in registers), else what the f32 q tile leaves of a block's
+    shared memory."""
+    if dtype == torch.bfloat16:
+        return _FACTORED_T_MAX_O_BF16
+    return (_MAX_SMEM - _factored_t_smem(0)) // (_ROW_STRIDE * 4)
+
+
+def factored_t_load_path(i: int) -> str:
+    """How B1t's bf16 kernel brings pool_t in at width I: by TMA where its
+    rows are whole 16-byte units, else by element loads."""
+    return "TMA" if i % 8 == 0 else "element loads"
+
+
+def factored_t_tile(b: int, k: int, n: int, i: int) -> str:
+    """The tile (rows x k a block) B1t's bf16 kernel takes at these
+    dimensions on this card, read from csrc/node_factored_t.cu."""
+    fn = _factored_kernel("node_factored_t", "node_factored_t_tile", 0, 4, stream=False)
+    return ("128x2", "128x1", "64x2", "64x1")[fn(b, k, n, i)]
+
+
 def pool_to_kernel_layout(pool: torch.Tensor, gate: torch.Tensor = None):
     """(D, K, I, O) parameter pool -> ((K, I, D*O), (K, D*O, I)) kernel mats.
 
@@ -287,9 +334,9 @@ def _factored_shapes(name, n_act, n_e, dd, d_o, ki_act, ki_mat):
 
 
 @functools.cache
-def _factored_kernel(name: str, entry: str, pointers: int, ints: int):
+def _factored_kernel(name: str, entry: str, pointers: int, ints: int, stream: bool = True):
     fn = getattr(_cuda.library(name), entry)
-    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p] * stream
     fn.restype = ctypes.c_int
     return fn
 
@@ -343,8 +390,8 @@ def node_factored_apply_t(dpre: torch.Tensor, e: torch.Tensor, poolmat_t: torch.
 
     dpre: (B, N, O) and poolmat_t: (K, D*O, I) in one dtype T, f32 or bf16;
     e: (N, D), cast to T first as JAX casts it; the result in out_dtype
-    (f32 or bf16, T by default). CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise.
+    (f32 or bf16, T by default). O up to ``factored_t_max_o(T)``. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or raise.
     """
     name = "node_factored_apply_t"
     _check_factored(name, dpre, e, poolmat_t, 3)
@@ -357,17 +404,17 @@ def node_factored_apply_t(dpre: torch.Tensor, e: torch.Tensor, poolmat_t: torch.
     if n != e.shape[0] or d_o != dd * oo:
         raise ValueError("{} shape mismatch: dpre {}, e {}, poolmat_t {}".format(
             name, tuple(dpre.shape), tuple(e.shape), tuple(poolmat_t.shape)))
-    if _factored_t_smem(oo) > _MAX_SMEM:
-        raise ValueError("{} takes O of at most {}, got {}".format(
-            name, (_MAX_SMEM - _factored_t_smem(0)) // (_ROW_STRIDE * 4), oo))
+    if oo > factored_t_max_o(dpre.dtype):
+        raise ValueError("{} takes O of at most {} in {}, got {}".format(
+            name, factored_t_max_o(dpre.dtype), dpre.dtype, oo))
     if dpre.device.type == "cpu":
         return node_factored_apply_t_plain(dpre, e, poolmat_t, out_dtype)
     out = torch.empty((b, kk, n, ii), dtype=out_dtype, device=dpre.device)
-    _launch_factored("node_factored_t", "node_factored_t_bwd",
+    _launch_factored("node_factored_t", "node_factored_t_bwd_tile",
                      (dpre.data_ptr(), e.to(dpre.dtype).contiguous().data_ptr(), poolmat_t.data_ptr(),
                       out.data_ptr()),
                      (b, kk, n, ii, dd, oo, int(dpre.dtype == torch.bfloat16),
-                      int(out_dtype == torch.bfloat16)), dpre.device)
+                      int(out_dtype == torch.bfloat16), -1, _planted), dpre.device)
     node_factored_apply_t.launches += 1
     return out
 

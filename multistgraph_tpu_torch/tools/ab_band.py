@@ -1,9 +1,10 @@
 """A/B timing of two versions of the band kernels on one GPU.
 
-Builds ``csrc/band_spmm.cu`` of this checkout and of another one (e.g. the
-parent commit unpacked with ``git archive``) with the port's nvcc flags,
-loads both with ctypes (they share one C interface: ``band_spmm_launch``
-and ``band_dv_launch``) and times them in turns, base, new, new, base, for
+Builds ``csrc/band_spmm.cu`` and ``csrc/band_probe.cu`` of this checkout
+and of another one (e.g. the parent commit unpacked with ``git archive``)
+with the port's nvcc flags, loads both with ctypes (they share one C
+interface: ``band_spmm_launch``, ``band_dv_launch`` and
+``band_slab_launch``) and times them in turns, base, new, new, base, for
 several rounds, at the 1,000,000-node band of the bf16 path (7,813 row
 blocks, diagonals -2..2, 39,059 tiles; random values, zero where a tile
 falls outside the graph):
@@ -11,7 +12,11 @@ falls outside the graph):
     128, 1536; B8 (packed rows) at F = 12, 64, 768 (bucket 1) and 24, 128,
     1536 (bucket 2); B9 dX (planes) and B9 dV (planes, bf16 values) at F =
     128 and 1536;
-  * f32 at F = 128 and 1536 for each of the four.
+  * f32 at F = 128 and 1536 for each of the four;
+  * P2 ``band_slab`` (bf16 packed rows against the padded x, f32 out),
+    per-row and batched, at the probe's point (R = 8,192 random row
+    blocks, radius 2, F = 128) with chunk_rows 8 (P2) and 16 (P4's second
+    slab).
 The unchanged layout-copy kernel (B3) is timed in each round as a control
 for drift of the card. Before timing, each new output is held against the
 base's: one bf16 step for bf16, rtol 1e-5 with atol 1e-5 max|base| for
@@ -41,26 +46,37 @@ from multistgraph_tpu_torch.ops.layout import force_default_layout
 from multistgraph_tpu_torch.tools.timing import card, event_ms
 
 BLOCK, ROW_BLOCKS, OFFSETS, RADIUS = 128, 7813, (-2, -1, 0, 1, 2), 2
+SLAB_ROWS, SLAB_FEAT, SLAB_CHUNKS = 8192, 128, (8, 16)   # P2's point (tools/probe_band_stream.py)
 BF16_WIDTHS = {"B7": (24, 128, 1536), "B8": (12, 64, 768, 24, 128, 1536), "B9 dX": (128, 1536),
                "B9 dV": (128, 1536)}
 F32_WIDTHS = (128, 1536)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-ENTRIES = ("band_spmm_launch", "band_dv_launch")   # values/dy, x, out; 7 ints; 8 offsets; stream
+# source: {entry: argument types} of the interface both versions share
+ENTRIES = {"band_spmm": {"band_spmm_launch": [_P] * 3 + [_I] * (7 + MAX_OFFSETS) + [_P],
+                         "band_dv_launch": [_P] * 3 + [_I] * (7 + MAX_OFFSETS) + [_P]},
+           "band_probe": {"band_slab_launch": [_P] * 3 + [_I] * 5 + [_P]}}
 
 
-def _build(root: str, out_dir: str, tag: str) -> ctypes.CDLL:
-    lib_path = os.path.join(out_dir, "libband_spmm-{}.so".format(tag))
-    source = os.path.join(root, "multistgraph_tpu_torch", "csrc", "band_spmm.cu")
-    proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib_path, source], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed for band_spmm of {}:\n{}{}".format(root, proc.stdout, proc.stderr))
-    lib = ctypes.CDLL(lib_path)
-    for entry in ENTRIES:
-        fn = getattr(lib, entry)
-        fn.argtypes = [_P] * 3 + [_I] * (7 + MAX_OFFSETS) + [_P]
-        fn.restype = ctypes.c_int
-    return lib
+def _build(root: str, out_dir: str, tag: str):
+    """{entry: function} of each source of ENTRIES under `root`, one nvcc
+    each, both started together."""
+    procs = {}
+    for name in ENTRIES:
+        lib_path = os.path.join(out_dir, "lib{}-{}.so".format(name, tag))
+        source = os.path.join(root, "multistgraph_tpu_torch", "csrc", name + ".cu")
+        procs[name] = (lib_path, subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib_path, source],
+                                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (lib_path, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for {} of {}:\n{}".format(name, root, out))
+        lib = ctypes.CDLL(lib_path)
+        for entry, argtypes in ENTRIES[name].items():
+            fn = fns[entry] = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return fns
 
 
 def _planes(g, dtype):
@@ -103,11 +119,19 @@ def _cases(g):
                 cases.append((kernel, shape, "band_spmm_launch", (values, x, out),
                               [ROW_BLOCKS, feat, n_slots, RADIUS, is_packed, int(kernel == "B9 dX"), code] + offs,
                               out))
+    v_pack = torch.randn(SLAB_ROWS, BLOCK, (2 * RADIUS + 1) * BLOCK, generator=g, device="cuda").bfloat16()
+    xp = torch.randn(SLAB_ROWS + 2 * RADIUS, BLOCK, SLAB_FEAT, generator=g, device="cuda").bfloat16()
+    out = torch.empty(SLAB_ROWS, BLOCK, SLAB_FEAT, device="cuda")
+    for chunk_rows in SLAB_CHUNKS:
+        for batched in (0, 1):
+            cases.append(("P2 batched" if batched else "P2 per-row",
+                          "R={} F={} chunk_rows={} bf16".format(SLAB_ROWS, SLAB_FEAT, chunk_rows), "band_slab_launch",
+                          (v_pack, xp, out), [SLAB_ROWS, SLAB_FEAT, 2 * RADIUS + 1, chunk_rows, batched], out))
     return cases
 
 
-def _call(lib, entry, ptrs, ints, stream):
-    rc = getattr(lib, entry)(*[p.data_ptr() for p in ptrs], *ints, stream)
+def _call(fns, entry, ptrs, ints, stream):
+    rc = fns[entry](*[p.data_ptr() for p in ptrs], *ints, stream)
     if rc != 0:
         raise RuntimeError("{} failed: CUDA error {}".format(entry, rc))
 
@@ -128,12 +152,13 @@ def main(argv=None):
     ap.add_argument("--base", required=True, help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=10, help="timed calls per sample")
+    ap.add_argument("--only", default="", help="time only the kernels whose name starts with this (e.g. P2)")
     cli = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = _cases(g)
+    cases = [case for case in _cases(g) if case[0].startswith(cli.only)]
     view = torch.randn(24, 16, 237, 192, generator=g, device="cuda")[..., :128]
     stream = torch.cuda.current_stream().cuda_stream
     samples = {}

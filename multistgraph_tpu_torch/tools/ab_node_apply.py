@@ -1,23 +1,29 @@
 """A/B timing of two versions of the node-apply kernels on one GPU.
 
-Builds ``csrc/node_apply_q8.cu`` (B2), ``csrc/node_dots.cu`` (B11 A) and
-``csrc/node_factored.cu`` (B1 and B11 B) of this checkout and of another
-one (e.g. the parent commit unpacked with ``git archive``) with the port's
-nvcc flags, loads both with ctypes (each pair shares one C interface:
-``node_apply_q8_fwd``, ``node_dots_fwd``, ``node_factored_fwd``) and times
+Builds ``csrc/node_apply_q8.cu`` (B2), ``csrc/node_dots.cu`` (B11 A),
+``csrc/node_factored.cu`` (B1 and B11 B) and ``csrc/node_factored_t.cu``
+(B1t) of this checkout and of another one (e.g. the parent commit unpacked
+with ``git archive``) with the port's nvcc flags, loads both with ctypes
+(each pair shares one C interface: ``node_apply_q8_fwd``,
+``node_dots_fwd``, ``node_factored_fwd``, ``node_factored_t_bwd``) and times
 them in turns, base, new, new, base, for several rounds:
   * B2 at the serving and training shapes (N=237, KI=320, gate O=128 and
     update O=64, at batches 1, 4 and 16);
   * B11 A and B11 B at the node-apply harness's shapes (T=24, B=16, NP=256,
     KI=320, O=192; B on 4,096 rows with D=20);
-  * B1 at the flagship gate (O=128) and update (O=64) cells (B=16, K=5,
-    N=237, I=64, D=20), bf16 and f32 operands.
-The unchanged layout-copy kernel (B3) is timed in each round as a control
-for drift of the card. Then, once a round, each of B1's bf16 tiles
-through ``node_factored_fwd_tile`` (192x32, 128x48, 128x32 and 128x16; the
-kernel takes one by the grid), each first held against the chosen tile's
-output (one bf16 step for a bf16 result, rtol 1e-5 with atol 1e-5
-max|ref| for an f32 one). Times are
+  * B1 and B1t at the flagship gate (O=128) and update (O=64) cells (B=16,
+    K=5, N=237, I=64, D=20), bf16 and f32 operands (B1t's f32 form, SIMT in
+    both, is a control).
+Before timing, each new output is held against the base's (one bf16 step
+for a bf16 result, rtol 1e-5 with atol 1e-5 max|base| for an f32 one). The
+unchanged layout-copy kernel (B3) is timed in each round as a control for
+drift of the card, and the library call of B1 and B1t, one torch.einsum in
+the operands' dtype, beside them; the order in which torch contracts each
+(``tools.timing.einsum_order``) is printed with its FLOPs. Then, once a
+round, each of B1's and B1t's bf16 tiles through ``node_factored_fwd_tile``
+(192x32, 128x48, 128x32 and 128x16) and ``node_factored_t_bwd_tile``
+(128x2, 128x1, 64x2 and 64x1, rows x k; each kernel takes one by the
+grid), each first held against the chosen tile's output. Times are
 CUDA-event medians with the L2 flushed before each call
 (``tools.timing.event_ms``, as chip_smoke.py takes them).
 
@@ -40,7 +46,7 @@ import torch
 from multistgraph_tpu_torch.ops import _cuda
 from multistgraph_tpu_torch.ops.layout import force_default_layout
 from multistgraph_tpu_torch.ops.node_apply import _pad_nodes, pool_to_kernel_layout, quantize_node_weights
-from multistgraph_tpu_torch.tools.timing import card, event_ms
+from multistgraph_tpu_torch.tools.timing import card, einsum_order, event_ms
 
 N, KI = 237, 320
 B2_SHAPES = [(b, cell, o) for b in (1, 4, 16) for cell, o in (("gate", 128), ("update", 64))]
@@ -50,10 +56,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # source: (entry, argument types) of the interface both versions share
 ENTRIES = {"node_apply_q8": ("node_apply_q8_fwd", [_P] * 4 + [_I] * 4 + [_P]),
            "node_dots": ("node_dots_fwd", [_P] * 4 + [_I] * 5 + [_P]),
-           "node_factored": ("node_factored_fwd", [_P] * 5 + [_I] * 9 + [_P])}
-# this checkout's entries with the tile as the last int argument
-TILED = {"node_factored": ("node_factored_fwd_tile", [_P] * 5 + [_I] * 10 + [_P], (0, 1, 2, 3))}
-TILE_NAMES = {"node_factored": {0: "192x32", 1: "128x48", 2: "128x32", 3: "128x16"}}
+           "node_factored": ("node_factored_fwd", [_P] * 5 + [_I] * 9 + [_P]),
+           "node_factored_t": ("node_factored_t_bwd", [_P] * 4 + [_I] * 8 + [_P])}
+# this checkout's entries with the tile (and, for B1t, no fault) after the
+# shared interface's int arguments: (entry, argument types, tiles, trailing ints)
+TILED = {"node_factored": ("node_factored_fwd_tile", [_P] * 5 + [_I] * 10 + [_P], (0, 1, 2, 3), ()),
+         "node_factored_t": ("node_factored_t_bwd_tile", [_P] * 4 + [_I] * 10 + [_P], (0, 1, 2, 3), (0,))}
+TILE_NAMES = {"node_factored": {0: "192x32", 1: "128x48", 2: "128x32", 3: "128x16"},
+              "node_factored_t": {0: "128x2", 1: "128x1", 2: "64x2", 3: "64x1"}}
 
 
 def _build(root: str, out_dir: str, tag: str):
@@ -82,7 +92,8 @@ def _fn(lib, entry, argtypes):
 
 def _cases(g):
     """[(kernel source, kernel, shape, pointer args, int args, output)] at the
-    shapes the module docstring names."""
+    shapes the module docstring names, and {(kernel, shape): (the library
+    call, its equation and operands)} for B1 and B1t."""
     randn = lambda *s, dtype=torch.bfloat16: (torch.randn(*s, generator=g, device="cuda") * 0.1).to(dtype)
     cases = []
     for b, cell, o in B2_SHAPES:
@@ -107,15 +118,25 @@ def _cases(g):
                   (hh.view(h["T"], rows, h["KI"]), e_rows, pool, scalar, out),
                   (h["T"], 1, 1, rows, h["KI"], h["D"], h["O"], 1, 1), out))
     c = CELL
+    library = {}
     for dtype in (torch.bfloat16, torch.float32):
+        bf = int(dtype == torch.bfloat16)
         for cell, o in (("gate", 128), ("update", 64)):
+            shape = "{} {}".format(cell, str(dtype)[6:])
             hh = randn(c["B"], c["K"], c["N"], c["I"], dtype=dtype)
             e = randn(c["N"], c["D"], dtype=torch.float32)
-            mat, _ = pool_to_kernel_layout(randn(c["D"], c["K"], c["I"], o, dtype=dtype))
+            mat, mat_t = pool_to_kernel_layout(randn(c["D"], c["K"], c["I"], o, dtype=dtype))
             out = torch.empty(c["B"], c["N"], o, device="cuda")
-            cases.append(("node_factored", "B1", "{} {}".format(cell, str(dtype)[6:]), (hh, e, mat, None, out),
-                          (1, c["B"], c["K"], c["N"], c["I"], c["D"], o, int(dtype == torch.bfloat16), 0), out))
-    return cases
+            cases.append(("node_factored", "B1", shape, (hh, e, mat, None, out),
+                          (1, c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, 0), out))
+            library[("B1", shape)] = ("bkni,nd,kido->bno", hh, e.to(dtype), mat.view(c["K"], c["I"], c["D"], o))
+            dpre = randn(c["B"], c["N"], o, dtype=dtype)
+            e_t = e.to(dtype)
+            dhh = torch.empty(c["B"], c["K"], c["N"], c["I"], dtype=dtype, device="cuda")
+            cases.append(("node_factored_t", "B1t", shape, (dpre, e_t, mat_t, dhh),
+                          (c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, bf), dhh))
+            library[("B1t", shape)] = ("bno,nd,kdoi->bkni", dpre, e_t, mat_t.view(c["K"], c["D"], o, c["I"]))
+    return cases, library
 
 
 def _call(fn, ptrs, ints, stream, *extra):
@@ -124,7 +145,7 @@ def _call(fn, ptrs, ints, stream, *extra):
         raise RuntimeError("launch failed: CUDA error {}".format(rc))
 
 
-def _hold(got, ref):
+def _hold(got, ref, what):
     """One bf16 step for a bf16 result, rtol 1e-5 with atol 1e-5 max|ref| for f32."""
     got, want = got.float(), ref.float()
     if ref.dtype == torch.bfloat16:
@@ -132,7 +153,7 @@ def _hold(got, ref):
     else:
         bound = 1e-5 * (want.abs() + want.abs().max())
     if not bool(((got - want).abs() <= bound).all()):
-        raise AssertionError("a tile's output differs from the chosen tile's")
+        raise AssertionError("{} differs from its reference".format(what))
 
 
 def main(argv=None):
@@ -144,27 +165,30 @@ def main(argv=None):
         raise SystemExit("needs a CUDA device")
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = _cases(g)
+    cases, library = _cases(g)
     view = torch.randn(24, 16, N, 192, generator=g, device="cuda")[..., :128]
     stream = torch.cuda.current_stream().cuda_stream
+    samples = {}
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"base": _build(cli.base, tmp, "base"), "new": _build(here, tmp, "new")}
         fns = {(v, name): _fn(libs[v][name], *ENTRIES[name]) for v in libs for name in ENTRIES}
-        tiled = {name: _fn(libs["new"][name], entry, types) for name, (entry, types, _) in TILED.items()}
-        # each tile of this checkout against the chosen tile's output
+        tiled = {name: _fn(libs["new"][name], entry, types) for name, (entry, types, _, _) in TILED.items()}
         for source, kernel, shape, ptrs, ints, out in cases:
-            if source not in TILED:
-                continue
-            _call(fns[("new", source)], ptrs, ints, stream)
+            # the new version against the base's output, then each of its
+            # tiles against the chosen tile's
+            _call(fns[("base", source)], ptrs, ints, stream)
             ref = out.clone()
-            for tile in TILED[source][2]:
-                if source == "node_factored" and ints[-2] == 0:
-                    continue  # f32 operands: one tile
+            _call(fns[("new", source)], ptrs, ints, stream)
+            torch.cuda.synchronize()
+            _hold(out, ref, "{} {}: the new version".format(kernel, shape))
+            if source not in TILED or ints[-2] == 0:
+                continue  # f32 operands: one tile
+            _, _, tiles, trailing = TILED[source]
+            for tile in tiles:
                 out.zero_()
-                _call(tiled[source], ptrs, ints, stream, tile)
+                _call(tiled[source], ptrs, ints, stream, tile, *trailing)
                 torch.cuda.synchronize()
-                _hold(out, ref)
-        samples = {}
+                _hold(out, ref, "{} {}: tile {}".format(kernel, shape, TILE_NAMES[source][tile]))
         for _ in range(cli.rounds):
             for version in ("base", "new", "new", "base"):
                 for source, kernel, shape, ptrs, ints, _ in cases:
@@ -173,18 +197,27 @@ def main(argv=None):
                         event_ms(lambda fn=fn, ptrs=ptrs, ints=ints: _call(fn, ptrs, ints, stream)))
                 samples.setdefault(("control", "B3", "gate_x (24,16,237,128) f32"), []).append(
                     event_ms(lambda: force_default_layout(view)))
+            for (kernel, shape), (equation, *operands) in library.items():
+                samples.setdefault(("library", kernel, shape), []).append(
+                    event_ms(lambda equation=equation, operands=operands: torch.einsum(equation, *operands)))
             for source, kernel, shape, ptrs, ints, _ in cases:
-                if source not in TILED or (source == "node_factored" and ints[-2] == 0):
+                if source not in TILED or ints[-2] == 0:
                     continue
-                for tile in TILED[source][2]:
+                _, _, tiles, trailing = TILED[source]
+                for tile in tiles:
                     fn = tiled[source]
                     samples.setdefault(("new tile " + TILE_NAMES[source][tile], kernel, shape), []).append(
-                        event_ms(lambda fn=fn, ptrs=ptrs, ints=ints, tile=tile: _call(fn, ptrs, ints, stream, tile)))
+                        event_ms(lambda fn=fn, ptrs=ptrs, ints=ints, tile=tile, trailing=trailing:
+                                 _call(fn, ptrs, ints, stream, tile, *trailing)))
     name = card()
     for (version, kernel, shape), ms in samples.items():
-        print(json.dumps({"version": version, "kernel": kernel, "shape": shape,
-                          "median_us": statistics.median(ms) * 1e3, "samples_us": [m * 1e3 for m in ms],
-                          "card": name}), flush=True)
+        line = {"version": version, "kernel": kernel, "shape": shape, "median_us": statistics.median(ms) * 1e3,
+                "samples_us": [m * 1e3 for m in ms], "card": name}
+        if version == "library":
+            equation, *operands = library[(kernel, shape)]
+            line.update(library="torch.einsum('{}') in the operands' dtype".format(equation),
+                        order=einsum_order(equation, *operands))
+        print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,11 @@ with the 50 MB L2 flushed before each call, as a caller that finds the
 cache cold sees it. Both need a CUDA device. ``every_step_ran`` reads two
 such times of a kernel that overwrites its output at each of T steps
 against the least time its T - 1 extra steps can take on the card.
+``einsum_order`` names the pairwise order in which ``torch.einsum`` takes a
+library call timed beside a kernel, and that order's FLOPs.
 """
 
+import math
 import statistics
 import subprocess
 import time
@@ -96,3 +99,40 @@ def every_step_ran(ms_all, ms_one, steps, step_bytes, step_flops, **peaks):
     steps whose results are overwritten would take about its one-step time
     at T steps and fail; an honest one cannot beat the card's peaks."""
     return ms_all - ms_one >= step_floor_ms(steps, step_bytes, step_flops, **peaks)
+
+
+def einsum_order(equation, *operands):
+    """The pairwise order in which torch.einsum contracts ``equation`` on
+    operands of these shapes: opt_einsum's path under torch's strategy
+    where ``torch.backends.opt_einsum`` is available and enabled (as
+    torch.einsum takes it), else left to right. Each step's FLOPs count 2 a
+    multiply-add where it sums an index and 1 a product where it sums none.
+    Returns {"opt_einsum", "strategy", "steps": [{"einsum", "flops"}],
+    "flops"}."""
+    inputs, out = equation.replace(" ", "").split("->")
+    terms = inputs.split(",")
+    sizes = {}
+    for term, op in zip(terms, operands):
+        sizes.update(zip(term, op.shape))
+    opt = torch.backends.opt_einsum
+    available = opt.is_available() and opt.enabled
+    if available:
+        import opt_einsum
+
+        path, _ = opt_einsum.contract_path(equation, *[tuple(op.shape) for op in operands], shapes=True,
+                                           optimize=opt.strategy)
+    else:
+        path = [(0, 1)] * (len(terms) - 1)
+    steps = []
+    for pair in path:
+        picked = [terms[n] for n in pair]
+        terms = [t for n, t in enumerate(terms) if n not in pair]
+        keep = set(out).union(*terms)
+        both = "".join(dict.fromkeys("".join(picked)))
+        result = "".join(c for c in both if c in keep)
+        products = math.prod(sizes[c] for c in both)
+        steps.append({"einsum": "{}->{}".format(",".join(picked), result),
+                      "flops": products * (2 if len(result) < len(both) else 1)})
+        terms.append(result)
+    return {"opt_einsum": available, "strategy": opt.strategy if available else None, "steps": steps,
+            "flops": sum(s["flops"] for s in steps)}

@@ -3,8 +3,9 @@
 csrc/band_spmm.cu with bfloat16 operands (B7 ``band_spmm``, B8
 ``band_spmm_packed``, B9 ``band_dx`` and ``band_dv`` and the packed
 layout's dX and dV), and csrc/band_probe.cu (``window_dot``, P1 and P3;
-``band_slab`` per-row and batched, P2), each against its plain version at
-odd shapes; the bf16 autograd terms on the card against the CPU; and one
+``band_slab`` per-row and batched, P2, on the tensor cores: every feature
+tile, radius 0-3, chunk_rows 1-16, a planted fault and a misaligned
+operand), each against its plain version at odd shapes; the bf16 autograd terms on the card against the CPU; and one
 bf16 band-form SparseATGCN training step with its exact launch counts.
 
 The tensor-core forms of B7, B8, B9 dX and dV are held at the 1M path's
@@ -241,11 +242,16 @@ def test_cuda_window_dot_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("feat", [8, 16, 24, 128, 136])
-@pytest.mark.parametrize("chunk_rows", [3, 8, 16])
+@pytest.mark.parametrize("feat", [8, 16, 24, 128, 136, 264])
+@pytest.mark.parametrize("chunk_rows", [1, 3, 8, 16])
+@pytest.mark.parametrize("radius", [0, 1, 2, 3])
 @pytest.mark.parametrize("batched", [False, True], ids=["per_row", "batched"])
-def test_cuda_band_slab_matches_plain(cuda, batched, chunk_rows, feat):
-    radius, nb = 2, 11  # 11 row blocks: a short last slab at every chunk_rows
+def test_cuda_band_slab_matches_plain(cuda, batched, radius, chunk_rows, feat):
+    """band_slab on the tensor cores: every feature tile (F = 8 and 16 take
+    N = 16, 24 N = 24, 136 and 264 a ragged last tile), radius 0-3, one row
+    block a slab and slabs longer than R; 11 row blocks leave a short last
+    slab at chunk_rows 3 and 8."""
+    nb = 11
     v_pack = _randn(cuda, nb, BLOCK, (2 * radius + 1) * BLOCK, seed=8)
     xp = _randn(cuda, nb + 2 * radius, BLOCK, feat, seed=9)
     counts = (band_probe.band_slab.launches, band_probe.band_slab.batched_launches)
@@ -253,6 +259,45 @@ def test_cuda_band_slab_matches_plain(cuda, batched, chunk_rows, feat):
                band_probe.band_slab_plain(v_pack, xp, radius))
     assert (band_probe.band_slab.launches - counts[0], band_probe.band_slab.batched_launches - counts[1]) == (
         (0, 1) if batched else (1, 0))
+
+
+def _f32_ratio(got, want):
+    """The largest error over rtol 1e-5, atol 1e-5 max|want| (over 1: the check fails)."""
+    torch.cuda.synchronize()
+    bound = 1e-5 * (want.abs() + want.abs().max())
+    return ((got - want).abs() / bound).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True], ids=["per_row", "batched"])
+@pytest.mark.parametrize("fault", sorted(band_probe.FAULTS))
+def test_cuda_band_slab_planted_faults_fail_the_check(cuda, fault, batched):
+    """Each fault planted in band_slab's kernel (a k16 slice dropped, the
+    window a row block late) takes it past the f32 check; outside the
+    block the kernel passes."""
+    radius, nb, feat = 2, 9, 128
+    v_pack = _randn(cuda, nb, BLOCK, (2 * radius + 1) * BLOCK, seed=10)
+    xp = _randn(cuda, nb + 2 * radius, BLOCK, feat, seed=11)
+    want = band_probe.band_slab_plain(v_pack, xp, radius)
+    with band_probe.planted_fault(fault):
+        assert _f32_ratio(band_probe.band_slab(v_pack, xp, radius, 4, batched), want) > 1.0
+    assert _f32_ratio(band_probe.band_slab(v_pack, xp, radius, 4, batched), want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True], ids=["per_row", "batched"])
+def test_cuda_band_slab_raises_on_a_misaligned_operand(cuda, batched):
+    """F = 128 takes the window by TMA: an operand 2 bytes past a 16-byte
+    boundary cannot be viewed, so the launch fails and the wrapper raises."""
+    radius, nb, feat = 1, 3, 128
+    v_pack = _randn(cuda, nb, BLOCK, 3 * BLOCK, seed=12)
+    xp = _randn(cuda, (nb + 2) * BLOCK * feat + 1, seed=13)[1:].view(nb + 2, BLOCK, feat)
+    assert xp.is_contiguous() and xp.data_ptr() % 16
+    with pytest.raises(RuntimeError, match="launch failed"):
+        band_probe.band_slab(v_pack, xp, radius, 2, batched)
+    v_bad = _randn(cuda, nb * BLOCK * 3 * BLOCK + 1, seed=14)[1:].view(nb, BLOCK, 3 * BLOCK)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        band_probe.band_slab(v_bad, _randn(cuda, nb + 2, BLOCK, feat, seed=15), radius, 2, batched)
 
 
 @pytest.mark.cuda

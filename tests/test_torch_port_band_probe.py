@@ -137,3 +137,18 @@ def test_bench_large_graph_runs_the_bf16_band_on_the_cpu(capsys, serve):
 def test_bench_large_graph_unported_options_raise(flag, item):
     with pytest.raises(NotImplementedError, match="ROADMAP.md " + item):
         bench_large_graph.main(["512", "8", "2", "1", "band", "--device", "cpu"] + flag)
+
+
+def test_band_slab_planted_faults_are_scoped_and_leave_the_cpu_path_alone():
+    gen = torch.Generator().manual_seed(4)
+    v_pack = torch.randn(3, 128, 3 * 128, generator=gen).bfloat16()
+    xp = torch.randn(5, 128, 8, generator=gen).bfloat16()
+    want = band_probe.band_slab(v_pack, xp, 1)
+    with pytest.raises(KeyError):
+        with band_probe.planted_fault("no such fault"):
+            pass
+    for kind in sorted(band_probe.FAULTS):
+        with band_probe.planted_fault(kind):
+            assert band_probe._planted == band_probe.FAULTS[kind]
+            assert torch.equal(band_probe.band_slab(v_pack, xp, 1, batched=True), want)
+        assert band_probe._planted == 0

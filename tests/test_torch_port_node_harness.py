@@ -374,6 +374,63 @@ def test_factored_shared_memory_limits(dtype, ki, fits):
             node_apply.node_factored_rows(rows, e, pool, s)
 
 
+@pytest.mark.parametrize("dtype,o,fits", [(torch.bfloat16, 256, True), (torch.bfloat16, 257, False),
+                                          (torch.float32, 824, True), (torch.float32, 825, False)])
+def test_factored_t_o_limits(dtype, o, fits):
+    """B1t in bf16 holds its rows' dpre as register fragments of up to 16
+    k16 slices (O up to 256); in f32 its q tile (O x 68 floats) and a 32x64
+    chunk of pool_t fit a block's shared memory up to O = 824."""
+    assert node_apply.factored_t_max_o(dtype) == (256 if dtype == torch.bfloat16 else 824)
+    dpre = torch.ones(1, 2, o, dtype=dtype)
+    e = torch.ones(2, 1)
+    mat_t = torch.ones(1, o, 3, dtype=dtype)
+    if fits:
+        want = torch.full((1, 1, 2, 3), float(o)).to(dtype)
+        assert torch.equal(node_apply.node_factored_apply_t(dpre, e, mat_t), want)
+        return
+    with pytest.raises(ValueError, match="node_factored_apply_t takes O of at most {} in".format(o - 1)):
+        node_apply.node_factored_apply_t(dpre, e, mat_t)
+
+
+@pytest.mark.parametrize("i,path", [(64, "TMA"), (8, "TMA"), (72, "TMA"), (7, "element loads"),
+                                    (12, "element loads")])
+def test_factored_t_takes_pool_t_by_tma_only_in_whole_16_byte_rows(i, path):
+    assert node_apply.factored_t_load_path(i) == path
+
+
+def test_einsum_order_names_the_contraction_torch_takes():
+    """B1t's library call at the flagship gate: through opt_einsum torch
+    forms the per-node weights first (0.70 GFLOP), left to right it forms
+    e x dpre first and then the factored contraction (6.22 GFLOP)."""
+    from multistgraph_tpu_torch.tools.timing import einsum_order
+
+    ops = [torch.empty(*s, device="meta") for s in ((16, 237, 128), (237, 20), (5, 20, 128, 64))]
+    if torch.backends.opt_einsum.is_available():
+        got = einsum_order("bno,nd,kdoi->bkni", *ops)
+        assert got["opt_einsum"] and [s["einsum"] for s in got["steps"]] == ["nd,kdoi->nkoi", "bno,nkoi->bnki"]
+        assert got["flops"] == 2 * 237 * 20 * 5 * 128 * 64 + 2 * 16 * 237 * 128 * 5 * 64
+    with torch.backends.opt_einsum.flags(enabled=False):
+        got = einsum_order("bno,nd,kdoi->bkni", *ops)
+    assert not got["opt_einsum"] and [s["einsum"] for s in got["steps"]] == ["bno,nd->bnod", "kdoi,bnod->kibn"]
+    assert got["flops"] == 16 * 237 * 128 * 20 + 2 * 16 * 237 * 128 * 20 * 5 * 64
+
+
+def test_factored_t_planted_faults_are_scoped_and_leave_the_cpu_path_alone():
+    g = torch.Generator().manual_seed(3)
+    dpre = (torch.randn(2, 5, 6, generator=g)).to(torch.bfloat16)
+    e = torch.randn(5, 2, generator=g)
+    mat_t = torch.randn(3, 12, 4, generator=g).to(torch.bfloat16)
+    want = node_apply.node_factored_apply_t(dpre, e, mat_t)
+    with pytest.raises(KeyError):
+        with node_apply.planted_fault("no such fault"):
+            pass
+    for kind in sorted(node_apply.FAULTS):
+        with node_apply.planted_fault(kind):
+            assert node_apply._planted == node_apply.FAULTS[kind]
+            assert torch.equal(node_apply.node_factored_apply_t(dpre, e, mat_t), want)
+        assert node_apply._planted == 0
+
+
 # B11 A and B at the harness shapes: one step's activations, its operations
 _STEP_A = (16 * 256 * 320 * 2, 2 * 16 * 256 * 320 * 192)
 _STEP_B = (16 * 256 * 320 * 2, 2 * 16 * 256 * 320 * 20 * 192)
@@ -456,6 +513,80 @@ def test_cuda_factored_apply_matches_plain(cuda, dtype, b, k, n, i, d, o):
         _assert_within_one_bf16_step(got_t.float().cpu().numpy(), want_t.float().cpu().numpy())
         f32 = node_apply.node_factored_apply_t(dpre, e, mat_t, out_dtype=torch.float32)
         _assert_close_to_plain(f32, node_apply.node_factored_apply_t_plain(dpre, e, mat_t, torch.float32))
+
+
+def _factored_t_tile_fn():
+    import ctypes
+
+    from multistgraph_tpu_torch.ops import _cuda
+
+    fn = _cuda.library("node_factored_t").node_factored_t_bwd_tile
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tile", [0, 1, 2, 3])
+@pytest.mark.parametrize("b,k,n,i,d,o", [(16, 5, 237, 64, 20, 128), (3, 3, 43, 7, 2, 40), (2, 2, 33, 8, 3, 18),
+                                          (1, 1, 65, 72, 4, 200), (2, 4, 50, 16, 1, 64)])
+def test_cuda_factored_t_tensor_core_tiles_and_edges(cuda, b, k, n, i, d, o, tile, out_dtype):
+    """B1t in bf16 on wgmma through each of its tiles (128 and 64 rows, one or
+    two k a block): ragged M (B*N not a multiple of the tile's rows), O = 18,
+    40 and 200 (no multiple of 16 or 64: each d's contraction padded on its
+    own), I = 7 (element loads), 8 and 16 (narrow TMA boxes), 72 (a second,
+    ragged i-block), K not a multiple of 2, and an f32 out_dtype; within one
+    bf16 step of the plain version, and rtol 1e-5 for the f32 result (the
+    same exact products of q and pool_t summed in f32 in another order)."""
+    g = torch.Generator().manual_seed(b * 1000 + i * 10 + o + tile)
+    dpre = _randn(g, b, n, o, dtype=torch.bfloat16)
+    e = _randn(g, n, d, dtype=torch.bfloat16)
+    _, mat_t = node_apply.pool_to_kernel_layout(_randn(g, d, k, i, o, dtype=torch.bfloat16))
+    want = node_apply.node_factored_apply_t_plain(dpre, e, mat_t, out_dtype)
+    out = torch.full((b, k, n, i), float("nan"), dtype=out_dtype, device="cuda")
+    rc = _factored_t_tile_fn()(dpre.data_ptr(), e.data_ptr(), mat_t.data_ptr(), out.data_ptr(), b, k, n, i, d, o, 1,
+                               int(out_dtype == torch.bfloat16), tile, 0, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    if out_dtype == torch.float32:
+        _assert_close_to_plain(out, want)
+    else:
+        _assert_within_one_bf16_step(out.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [64, 7])
+@pytest.mark.parametrize("fault", sorted(node_apply.FAULTS))
+def test_cuda_factored_t_planted_faults_fail_the_check(cuda, fault, i):
+    """Each fault planted in B1t's bf16 kernel (d = 0 dropped, the last k16
+    slice of the contraction dropped) takes it past one bf16 step, on both
+    load paths; f32 operands take no fault."""
+    g = torch.Generator().manual_seed(31 + i)
+    b, k, n, d, o = 4, 3, 70, 5, 40
+    dpre = _randn(g, b, n, o, dtype=torch.bfloat16)
+    e = _randn(g, n, d)
+    _, mat_t = node_apply.pool_to_kernel_layout(_randn(g, d, k, i, o, dtype=torch.bfloat16))
+    want = node_apply.node_factored_apply_t_plain(dpre, e, mat_t).float().cpu().numpy()
+    with node_apply.planted_fault(fault):
+        bad = node_apply.node_factored_apply_t(dpre, e, mat_t).float().cpu().numpy()
+        with pytest.raises(RuntimeError, match="launch failed"):
+            node_apply.node_factored_apply_t(dpre.float(), e, mat_t.float())
+    with pytest.raises(AssertionError):
+        _assert_within_one_bf16_step(bad, want)
+    _assert_within_one_bf16_step(node_apply.node_factored_apply_t(dpre, e, mat_t).float().cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_factored_t_unaligned_tma_operand_raises(cuda):
+    """At I % 8 == 0 B1t's bf16 kernel views pool_t by TMA: a pool_t whose
+    address is not 16-byte aligned cannot be viewed, so the launch fails and
+    the wrapper raises, rather than take the element loads unannounced."""
+    g = torch.Generator().manual_seed(9)
+    b, k, n, i, d, o = 2, 2, 40, 16, 3, 32
+    pool_t = _randn(g, k * d * o * i + 1, dtype=torch.bfloat16)[1:].view(k, d * o, i)
+    assert pool_t.is_contiguous() and pool_t.data_ptr() % 16
+    with pytest.raises(RuntimeError, match="node_factored_t kernel launch failed"):
+        node_apply.node_factored_apply_t(_randn(g, b, n, o, dtype=torch.bfloat16), _randn(g, n, d), pool_t)
 
 
 @pytest.mark.cuda
