@@ -5,21 +5,26 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each kernel against its plain PyTorch version at the shapes
-the serving and training paths give it (and B2 at batch 256) and times
-both, then drives MultiATGCN's two paths at the DC-237 flagship width
+the serving and training paths give it (and B2 and B2t at batch 256) and
+times both, with faults planted inside B2's and B2t's kernels (the last k16
+slice of the contraction dropped, B2's batch columns past the first 8
+zeroed) that must fail the hold, then drives MultiATGCN's two paths at the
+DC-237 flagship width
 (bench.py's arguments, the port's synthetic DC-237 dataset, random weights
 from a seeded generator):
   * serving: MultiATGCN in the int8 weight-stream configuration, served by
     ``PredictService.from_experiment`` over HTTP at buckets 1, 4 and 16,
     plus one f32 request at bucket 16. The encoder states and model-space
     outputs of the int8, bf16 and f32 runs are held against the same
-    weights on the CPU, and two faults planted in B2 must fail those checks;
+    weights on the CPU, and faults planted in B2 (two in its wrapper, two
+    inside its kernel) must fail those checks;
   * training: the int8 configuration trained through ``get_executor`` (3
     warm-up and 20 timed steps at batch 16, one validation pass), then a
     few f32 and bf16 steps, each with exact launch counts per step. One
     step's loss and every parameter gradient on the card are held against
     the CPU at the same weights and batch in int8, bf16 and f32, and faults
-    planted in B2t and in B3's backward must fail those checks.
+    planted in B2t (in its wrapper and inside its kernel), inside B2's
+    kernel and in B3's backward must fail those checks.
 Then the sparse path, SparseATGCN at its defaults' full width on the
 synthetic large graph of 49,152 nodes (4,946 tiles of 128x128):
   * the SpMM (B4/B6) and SDDMM (B5) kernels against their plain versions
@@ -135,7 +140,10 @@ BOUND_BF16 = 5e-3              # int8 or bf16 on the card vs on the CPU; int8 vs
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20   # int8 training steps at batch B
 MODE_STEPS = 3                      # timed f32 and bf16 training steps (after 1 warm-up)
 LEARNING_RATE = 3e-3                # bench.py's fixed rate
-LARGE_BATCH = 256                   # B2 at a batch the kernel once refused
+LARGE_BATCH = 256                   # B2 and B2t at a batch the first B2 kernel refused
+DESIGN_Q8 = ("tensor cores: wgmma m64n{}k16 bf16->f32 with the batch on N and 64 rows of {} a block; the int8 "
+             "weights streamed once by TMA into an mbarrier ring and widened to bf16 in shared memory{}; "
+             "persistent blocks")
 GRAD_BATCH = 4                      # the gradient check's batch
 # Gradient check, card vs CPU: the relative max error of every parameter
 # gradient (max |card - CPU| over max |CPU|), the largest over the
@@ -211,8 +219,23 @@ def _hold(ratio, what):
         raise AssertionError("{}: {:.3g} of its bound".format(what, ratio))
 
 
+def _q8_faults(node_apply, fn, name, args, want, batch, bf16_step=False):
+    """Each fault planted inside B2's or B2t's kernel that reaches `batch`,
+    over the bound of the check the unfaulted kernel passes."""
+    faults = {}
+    for kind, (target, code) in sorted(node_apply.Q8_FAULTS.items()):
+        if target != name or (code == 2 and batch <= 8):   # no columns past the first 8
+            continue
+        with node_apply.planted_q8_fault(kind):
+            bad = fn(*args)
+        faults[kind] = _over_bound(bad, want, bf16_step=bf16_step)
+    return faults
+
+
 def kernel_phase(torch):
-    """Each kernel vs its plain version at the main path's shapes, timed."""
+    """Each kernel vs its plain version at the main path's shapes, timed;
+    the faults planted inside B2's and B2t's kernels."""
+    from multistgraph_tpu_torch.ops import node_apply
     from multistgraph_tpu_torch.ops.layout import (
         _ForceDefaultLayout, force_default_layout, force_default_layout_plain)
     from multistgraph_tpu_torch.ops.node_apply import (
@@ -222,6 +245,7 @@ def kernel_phase(torch):
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     lines = []
+    faults = {}
     ki = K * H
     n_pad = -(-N // 32) * 32
     # the int8 requests of the main path launch B2 at buckets 1, 4 and 16,
@@ -249,10 +273,16 @@ def kernel_phase(torch):
             "library": "torch.bmm on pre-dequantized bf16 weights",
             "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
             "main_path": b in BUCKETS,
+            "design": DESIGN_Q8.format(node_apply.q8_batch_tile(b), "O", ""),
+            "loads": node_apply.q8_load_path(ki, o),
         })
-    # the int8 reverse scan launches B2t at the training batch, gate and update
-    for cell, o in (("gate", 2 * H), ("update", H)):
-        dpre = torch.randn(N, B, o, generator=g, device=dev).to(torch.bfloat16)
+        for kind, ratio in _q8_faults(node_apply, node_apply_q8, "node_apply_q8", (hh, wq, s), want,
+                                      b).items():
+            faults["{} planted in the kernel, {} B={}".format(kind, cell, b)] = ratio
+    # the int8 reverse scan launches B2t at the training batch, gate and
+    # update; batch 256 shows that any batch runs
+    for bt, (cell, o) in itertools.product((B, LARGE_BATCH), (("gate", 2 * H), ("update", H))):
+        dpre = torch.randn(N, bt, o, generator=g, device=dev).to(torch.bfloat16)
         w = torch.randn(N, ki, o, generator=g, device=dev) * 0.1
         wq, s = quantize_node_weights(w.to(torch.bfloat16))
         wq, s = _pad_nodes(wq, 0, n_pad), _pad_nodes(s, 0, n_pad)
@@ -266,10 +296,10 @@ def kernel_phase(torch):
         # the scale lies on the cotangent, so the library call takes the int8
         # weights widened to bf16 (exact), transposed ahead of time
         w_t = wq[:N].to(torch.bfloat16).transpose(1, 2).contiguous()
-        num_bytes = N * B * o * 2 + N * ki * o + N * o * 4 + N * B * ki * 2
-        bound, by = _bound_ms(num_bytes, 2 * N * B * ki * o)
+        num_bytes = N * bt * o * 2 + N * ki * o + N * o * 4 + N * bt * ki * 2
+        bound, by = _bound_ms(num_bytes, 2 * N * bt * ki * o)
         lines.append({
-            "name": "node_apply_q8_t", "shape": "{} N={} B={} KI={} O={}".format(cell, N, B, ki, o),
+            "name": "node_apply_q8_t", "shape": "{} N={} B={} KI={} O={}".format(cell, N, bt, ki, o),
             "replaces": "multistgraph_tpu/ops/node_apply.py:267 node_apply_q8_t",
             "max_abs_err": (got.float() - want.float()).abs().max().item(),
             "tolerance": "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|",
@@ -278,8 +308,26 @@ def kernel_phase(torch):
             "library_ms": _time_ms(torch, lambda: torch.bmm(d_lib, w_t)),
             "library": "torch.bmm of the scaled bf16 cotangent with the int8 weights pre-widened to bf16, transposed",
             "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
-            "main_path": True,
+            "main_path": bt == B,
+            "design": DESIGN_Q8.format(node_apply.q8_batch_tile(bt), "KI",
+                                       ", the cotangent scaled and rounded there"),
+            "loads": node_apply.q8_load_path(ki, o, transposed=True),
         })
+        for kind, ratio in _q8_faults(node_apply, node_apply_q8_t, "node_apply_q8_t", (dpre, wq, s), want,
+                                      bt, bf16_step=True).items():
+            faults["{} planted in the kernel, {} B={}".format(kind, cell, bt)] = ratio
+    for fault, ratio in faults.items():
+        if not ratio > 1.0:
+            raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
+    # the int8 path quantizes each layer's h-side weights (gate and update)
+    # in every forward, beside its 2 T launches each of B2
+    from multistgraph_tpu_torch.models.multi_atgcn import _quantize_h_weights
+
+    wg_h = torch.randn(N, K, H, 2 * H, generator=g, device=dev)
+    wu_h = torch.randn(N, K, H, H, generator=g, device=dev)
+    say(json.dumps({"int8 h-side weight quantization, one layer": {
+        "ms": _time_ms(torch, lambda: _quantize_h_weights(wg_h, wu_h)),
+        "shapes": "gate (N={}, K={}, I={}, O={}) and update (O={}) f32".format(N, K, H, 2 * H, H)}}))
     xw = torch.randn(T, B, N, 3 * H, generator=g, device=dev)
     for cell, view in (("gate_x", xw[..., : 2 * H]), ("upd_x", xw[..., 2 * H:])):
         got = force_default_layout(view)
@@ -326,6 +374,7 @@ def kernel_phase(torch):
         })
     for line in lines:
         say(json.dumps(line))
+    say(json.dumps({"B2/B2t planted_faults_over_bound": faults}))
     return lines
 
 
@@ -392,23 +441,30 @@ def _errs(a, b):
 
 def _fault_controls(torch, service, x_all, cpu_ref, bf16_ref):
     """Show that the end-to-end checks fail a wrong B2: plant a fault in the
-    model's B2 calls, rerun the int8 model on the card at every bucket, and
-    return each check's smallest error over the buckets for each fault."""
+    model's B2 calls (in the wrapper, or inside the kernel), rerun the int8
+    model on the card at every bucket the fault reaches (the batch columns
+    past the first 8: bucket 16), and return each check's smallest error
+    over those buckets for each fault."""
     from unittest import mock
 
     from multistgraph_tpu_torch.models import multi_atgcn
+    from multistgraph_tpu_torch.ops import node_apply
     from multistgraph_tpu_torch.ops.node_apply import node_apply_q8
 
     faults = {
-        "B2 scale dropped": lambda hh, wq, s: node_apply_q8(hh, wq, s) / s[: hh.shape[0]],
-        "B2 output zeroed": lambda hh, wq, s: torch.zeros_like(node_apply_q8(hh, wq, s)),
+        "B2 scale dropped": (mock.patch.object(
+            multi_atgcn, "node_apply_q8", lambda hh, wq, s: node_apply_q8(hh, wq, s) / s[: hh.shape[0]]), BUCKETS),
+        "B2 output zeroed": (mock.patch.object(
+            multi_atgcn, "node_apply_q8", lambda hh, wq, s: torch.zeros_like(node_apply_q8(hh, wq, s))), BUCKETS),
+        "B2 k16 planted in the kernel": (node_apply.planted_q8_fault("B2 k16"), BUCKETS),
+        "B2 columns planted in the kernel": (node_apply.planted_q8_fault("B2 columns"), (B,)),
     }
     errs = {}
-    for name, fault in faults.items():
-        with mock.patch.object(multi_atgcn, "node_apply_q8", fault):
-            ys = {b: _model_out(torch, service, x_all[:b]) for b in BUCKETS}
-        errs[name] = {"int8 card vs CPU": min(_errs(ys[b], cpu_ref[b])["max"] for b in BUCKETS),
-                      "int8 vs bf16": min(_errs(ys[b], bf16_ref[b])["max"] for b in BUCKETS)}
+    for name, (patch, buckets) in faults.items():
+        with patch:
+            ys = {b: _model_out(torch, service, x_all[:b]) for b in buckets}
+        errs[name] = {"int8 card vs CPU": min(_errs(ys[b], cpu_ref[b])["max"] for b in buckets),
+                      "int8 vs bf16": min(_errs(ys[b], bf16_ref[b])["max"] for b in buckets)}
     return errs
 
 
@@ -454,6 +510,9 @@ def _device_time(torch, fn, wall_ms):
         "profiled_idle_share": 1.0 - busy_ms / profiled_ms if rows else "not measured",
         "device_ops": sum(r[1] for r in rows),
         "top": [{"name": k[:70], "count": c, "ms": ms} for ms, c, k in rows[:8]],
+        # B2 and B2t (csrc/node_apply_q8.cuh), wherever they rank
+        "q8_kernels": {"count": sum(c for _, c, k in rows if "q8_kernel" in k),
+                       "ms": sum(ms for ms, _, k in rows if "q8_kernel" in k)},
     }
 
 
@@ -772,6 +831,7 @@ def gradient_phase(torch, feature, state_dict, batch):
 
     from multistgraph_tpu_torch.models import multi_atgcn
     from multistgraph_tpu_torch.ops import layout as layout_ops
+    from multistgraph_tpu_torch.ops import node_apply
     from multistgraph_tpu_torch.ops.node_apply import node_apply_q8_t
 
     gained = {k: v * POOL_GAIN if k.endswith("weights_pool") else v for k, v in state_dict.items()}
@@ -789,6 +849,10 @@ def gradient_phase(torch, feature, state_dict, batch):
             multi_atgcn, "node_apply_q8_t", lambda d, wq, s: torch.zeros_like(node_apply_q8_t(d, wq, s)))),
         "B3 cotangent zeroed": ("f32", mock.patch.object(
             layout_ops._ForceDefaultLayout, "backward", staticmethod(b3_zeroed))),
+        # inside the kernels; the check's batch (GRAD_BATCH = 4) has no
+        # columns past the first 8, where B2's third fault lies
+        "B2t k16 planted in the kernel": ("int8", node_apply.planted_q8_fault("B2t k16")),
+        "B2 k16 planted in the kernel": ("int8", node_apply.planted_q8_fault("B2 k16")),
     }
     controls = {}
     for name, (mode, patch) in faults.items():
@@ -2154,7 +2218,8 @@ def main():
     # the tensor-core kernels of the band and B1t sources, one by one, and
     # any wgmma the assembler had to serialize
     for name, marker in (("band_spmm", "_tc_kernel"), ("band_probe", "_tc_kernel"),
-                         ("node_factored_t", "_wgmma_kernel")):
+                         ("node_factored_t", "_wgmma_kernel"), ("node_apply_q8", "q8_kernel"),
+                         ("node_apply_q8_t", "q8_kernel")):
         if name in reports:
             say(json.dumps({"{} tensor-core kernels [name, registers, spill bytes]".format(name): _ptxas_kernels(
                 reports[name], marker)}))
@@ -2235,7 +2300,7 @@ def main():
         if also:
             kernels[-1]["also_replaces"] = also
         loads = sorted({r["loads"] for r in rows if "loads" in r})
-        if loads:  # how the bf16 band kernels took x at the path's widths
+        if loads:  # how the TMA kernels took their operands at the path's shapes
             kernels[-1]["loads"] = loads
     say(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

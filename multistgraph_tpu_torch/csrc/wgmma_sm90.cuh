@@ -1,8 +1,9 @@
 // Warpgroup tensor-core, TMA and mbarrier primitives for Hopper (sm_90a), shared by
 // the kernels that run bf16 products on wgmma: node_dots.cu (B11 A),
 // node_factored.cu (B1 / B11 B, bf16 operands), node_factored_t.cu (B1t,
-// bf16 operands), band_spmm.cu (B7, B8, B9 dX and B9 dV, bf16 operands) and
-// band_probe.cu (band_slab, P2).
+// bf16 operands), band_spmm.cu (B7, B8, B9 dX and B9 dV, bf16 operands),
+// band_probe.cu (band_slab, P2) and node_apply_q8.cuh (B2 and B2t, int8
+// weights widened to bf16 on chip).
 //
 // Shared-memory operands are kept as 8x8 "core matrices" of bf16, each 128
 // contiguous bytes (8 rows of 16 bytes), without swizzle. An operand of X
@@ -145,6 +146,13 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
           "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(bar))
       : "memory");
 }
+// one bulk tensor copy of a 3-dimensional box, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::
+          "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
 // one bulk tensor copy of a 4-dimensional box, completing on `bar`
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
                                             uint64_t* bar) {
@@ -162,9 +170,10 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, i
       "r"(smem_addr(bar))
       : "memory");
 }
-// Encodes an R-dimensional tiled view of a bf16 array for tma_load_2d/5d:
-// dims and the byte strides of dims 1..R-1, innermost first, the box, the
-// swizzle (none by default), zero fill out of bounds. Returns cudaErrorMisalignedAddress for
+// Encodes an R-dimensional tiled view of an array (bf16 unless `dtype` says
+// otherwise; int8 weights are viewed as UINT8) for tma_load_2d..5d: dims and
+// the byte strides of dims 1..R-1, innermost first, the box, the swizzle
+// (none by default), zero fill out of bounds. Returns cudaErrorMisalignedAddress for
 // a base that is not 16-byte aligned, cudaErrorNotSupported where
 // cuTensorMapEncodeTiled cannot be found and cudaErrorInvalidValue where
 // it refuses the view.
@@ -175,7 +184,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
 template <int R>
 cudaError_t encode_tiled(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[R],
                          const cuuint64_t (&strides)[R - 1], const cuuint32_t (&box)[R],
-                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static EncodeTiled encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -188,7 +198,7 @@ cudaError_t encode_tiled(CUtensorMap* map, const void* base, const cuuint64_t (&
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint32_t ones[R];
   for (int i = 0; i < R; ++i) ones[i] = 1;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(base), dims, strides, box, ones,
+  return encode(map, dtype, R, const_cast<void*>(base), dims, strides, box, ones,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess
@@ -226,6 +236,24 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 // memory); TB likewise for B. mma(...) is mma_t<0, 1>.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma_t(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+    mma_t<0, 1>(d, da, db, scale_d);
+  }
+};
 
 template <>
 struct Wgmma<16> {

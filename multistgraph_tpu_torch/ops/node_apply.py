@@ -35,7 +35,10 @@ kernels of csrc/node_apply_q8.cu and csrc/node_apply_q8_t.cu for CUDA
 tensors (which replace the Pallas kernels _apply_q8_kernel / node_apply_q8
 and _apply_q8_t_kernel / node_apply_q8_t) and take the plain PyTorch
 versions ``node_apply_q8_plain`` / ``node_apply_q8_t_plain`` only for CPU
-tensors. Both kernels walk the batch in tiles, so any batch runs.
+tensors. Both run on the tensor cores (csrc/node_apply_q8.cuh: the int8
+weights widened to bf16 on chip, the batch on wgmma's N) and walk the
+contraction through a ring and the batch in tiles, so any contraction and
+any batch run; ``planted_q8_fault`` plants a fault in either.
 
 There is no fall back from a kernel to its plain version; the source notes
 give each kernel's bound on an H100 and its design.
@@ -50,10 +53,10 @@ import torch
 from multistgraph_tpu_torch.ops import _cuda
 
 _MAX_SMEM = 227 * 1024  # shared memory one block may use on an H100
-# Each kernel stages one weight tile and a 32-row batch tile whose size
-# grows with the contraction length (KI forward, O transposed):
-# 32*4 + 64 bytes per unit of it.
-_MAX_CONTRACTION = _MAX_SMEM // (32 * 4 + 64)
+# B2 and B2t (csrc/node_apply_q8.cuh) stream any contraction through a
+# ring and walk any number of (64-row tile, batch tile, node) items with
+# persistent blocks; their C entries take each dimension as an int.
+_MAX_DIM = 2 ** 31 - 1
 
 
 def quantize_node_weights(w: torch.Tensor):
@@ -106,9 +109,9 @@ def _check(name, act, wq, scale, act_axis):
     if act.shape[2] != wq.shape[act_axis] or nw < n or tuple(scale.shape) != (nw, 1, o):
         raise ValueError("{} shape mismatch: activation {}, wq {}, scale {}".format(
             name, tuple(act.shape), tuple(wq.shape), tuple(scale.shape)))
-    if act.shape[2] > _MAX_CONTRACTION:
-        raise ValueError("{} takes a contraction of at most {}, got {}".format(
-            name, _MAX_CONTRACTION, act.shape[2]))
+    if max(n, act.shape[1], wq.shape[1], o) > _MAX_DIM:
+        raise ValueError("{} takes N, B, KI and O of at most {} (the kernel's int arguments), got {}, {}, {}, "
+                         "{}".format(name, _MAX_DIM, n, act.shape[1], wq.shape[1], o))
     if not (act.device == wq.device == scale.device):
         raise ValueError("{} operands lie on different devices".format(name))
     if not (act.is_contiguous() and wq.is_contiguous() and scale.is_contiguous()):
@@ -117,38 +120,75 @@ def _check(name, act, wq, scale, act_axis):
         raise ValueError("{} runs on CUDA or CPU tensors, not {}".format(name, act.device))
 
 
-@functools.cache
-def _kernel(name: str, entry: str):
-    fn = getattr(_cuda.library(name), entry)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# Faults B2's and B2t's kernels plant on request, for checks that must
+# fail them (chip_smoke.py): the contraction's last k16 slice dropped (over
+# KI in B2, over O in B2t); B2's batch columns past the first 8 of a tile
+# written as zeros.
+Q8_FAULTS = {"B2 k16": ("node_apply_q8", 1), "B2t k16": ("node_apply_q8_t", 1),
+             "B2 columns": ("node_apply_q8", 2)}
+_q8_planted = {}
 
 
-def _launch(name, entry, act, wq, scale, out):
+@contextlib.contextmanager
+def planted_q8_fault(kind: str):
+    """Launch B2's or B2t's kernel with the fault Q8_FAULTS[kind] planted in
+    it while the block runs (CPU tensors then raise: the plain versions
+    carry no fault)."""
+    name, code = Q8_FAULTS[kind]
+    _q8_planted[name] = code
+    try:
+        yield
+    finally:
+        _q8_planted.pop(name, None)
+
+
+def _q8_fault(name, device):
+    fault = _q8_planted.get(name, 0)
+    if fault and device.type != "cuda":
+        raise RuntimeError("{}: a planted fault runs only in the CUDA kernel".format(name))
+    return fault
+
+
+def q8_load_path(ki: int, o: int, transposed: bool = False) -> str:
+    """How B2's (transposed: B2t's) kernel brings its operands in: the int8
+    weights by TMA where their rows of O are whole 16-byte units, the
+    activation (hh, or B2t's dpre) where its rows of KI (O) are; else by
+    element loads."""
+    act = o if transposed else ki
+    return "weights {}, activations {}".format("TMA" if o % 16 == 0 else "element loads",
+                                               "TMA" if act % 8 == 0 else "element loads")
+
+
+def q8_batch_tile(b: int) -> int:
+    """The batch tile (wgmma's N) B2's and B2t's kernels take for a batch
+    of b, read from csrc/node_apply_q8.cuh."""
+    return _entry("node_apply_q8", "node_apply_q8_bn", 0, 1, stream=False)(b)
+
+
+def _launch(name, entry, act, wq, scale, out, fault):
     n, b, _ = act.shape
     _, ki, o = wq.shape
-    with torch.cuda.device(act.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel(name, entry)(act.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                                  n, b, ki, o, stream)
-    if rc != 0:
-        raise RuntimeError("{} kernel launch failed: CUDA error {}".format(name, rc))
+    _launch_entry(name, entry, (act.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr()),
+                  (n, b, ki, o, 0, fault), act.device)
 
 
 def node_apply_q8(hh: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """out[n,b,o] = (sum_ki hh[n,b,ki] wq[n,ki,o]) * scale[n,0,o]; (N, B, O) f32.
 
     hh: (N, B, KI) bf16; wq: (Nw, KI, O) int8 and scale: (Nw, 1, O) f32 with
-    Nw >= N (rows past N, such as block padding, are ignored). CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise.
+    Nw >= N (rows past N, such as block padding, are ignored). Any KI, O
+    and B (each, and N, below 2^31). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise, also where a tensor
+    whose rows take TMA (``q8_load_path``) does not start on a 16-byte
+    boundary.
     """
     _check("node_apply_q8", hh, wq, scale, act_axis=1)
+    fault = _q8_fault("node_apply_q8", hh.device)
     if hh.device.type == "cpu":
         return node_apply_q8_plain(hh, wq, scale)
     n, b, _ = hh.shape
     out = torch.empty((n, b, wq.shape[2]), dtype=torch.float32, device=hh.device)
-    _launch("node_apply_q8", "node_apply_q8_fwd", hh, wq, scale, out)
+    _launch("node_apply_q8", "node_apply_q8_fwd_tile", hh, wq, scale, out, fault)
     node_apply_q8.launches += 1
     return out
 
@@ -156,15 +196,19 @@ def node_apply_q8(hh: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> to
 def node_apply_q8_t(dpre: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """dhh[n,b,ki] = bf16(sum_o bf16(dpre[n,b,o] scale[n,0,o]) wq[n,ki,o]); (N, B, KI) bf16.
 
-    dpre: (N, B, O) bf16; wq, scale as ``node_apply_q8`` (Nw >= N). CPU
-    tensors take the plain version; CUDA tensors launch the kernel or raise.
+    dpre: (N, B, O) bf16; wq, scale as ``node_apply_q8`` (Nw >= N). Any KI,
+    O and B (each, and N, below 2^31). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise, also where a tensor
+    whose rows take TMA (``q8_load_path``) does not start on a 16-byte
+    boundary.
     """
     _check("node_apply_q8_t", dpre, wq, scale, act_axis=2)
+    fault = _q8_fault("node_apply_q8_t", dpre.device)
     if dpre.device.type == "cpu":
         return node_apply_q8_t_plain(dpre, wq, scale)
     n, b, _ = dpre.shape
     out = torch.empty((n, b, wq.shape[1]), dtype=torch.bfloat16, device=dpre.device)
-    _launch("node_apply_q8_t", "node_apply_q8_t_bwd", dpre, wq, scale, out)
+    _launch("node_apply_q8_t", "node_apply_q8_t_bwd_tile", dpre, wq, scale, out, fault)
     node_apply_q8_t.launches += 1
     return out
 
@@ -253,7 +297,7 @@ def factored_t_load_path(i: int) -> str:
 def factored_t_tile(b: int, k: int, n: int, i: int) -> str:
     """The tile (rows x k a block) B1t's bf16 kernel takes at these
     dimensions on this card, read from csrc/node_factored_t.cu."""
-    fn = _factored_kernel("node_factored_t", "node_factored_t_tile", 0, 4, stream=False)
+    fn = _entry("node_factored_t", "node_factored_t_tile", 0, 4, stream=False)
     return ("128x2", "128x1", "64x2", "64x1")[fn(b, k, n, i)]
 
 
@@ -334,23 +378,23 @@ def _factored_shapes(name, n_act, n_e, dd, d_o, ki_act, ki_mat):
 
 
 @functools.cache
-def _factored_kernel(name: str, entry: str, pointers: int, ints: int, stream: bool = True):
+def _entry(name: str, entry: str, pointers: int, ints: int, stream: bool = True):
     fn = getattr(_cuda.library(name), entry)
     fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p] * stream
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_factored(name, entry, pointers, ints, device):
+def _launch_entry(name, entry, pointers, ints, device):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _factored_kernel(name, entry, len(pointers), len(ints))(*pointers, *ints, stream)
+        rc = _entry(name, entry, len(pointers), len(ints))(*pointers, *ints, stream)
     if rc != 0:
         raise RuntimeError("{} kernel launch failed: CUDA error {}".format(name, rc))
 
 
 def _fwd(hh, e, pool, s, out, steps, b, kk, n, ii, dd, oo):
-    _launch_factored("node_factored", "node_factored_fwd",
+    _launch_entry("node_factored", "node_factored_fwd",
                      (hh.data_ptr(), e.data_ptr(), pool.data_ptr(), None if s is None else s.data_ptr(),
                       out.data_ptr()),
                      (steps, b, kk, n, ii, dd, oo, int(hh.dtype == torch.bfloat16),
@@ -410,7 +454,7 @@ def node_factored_apply_t(dpre: torch.Tensor, e: torch.Tensor, poolmat_t: torch.
     if dpre.device.type == "cpu":
         return node_factored_apply_t_plain(dpre, e, poolmat_t, out_dtype)
     out = torch.empty((b, kk, n, ii), dtype=out_dtype, device=dpre.device)
-    _launch_factored("node_factored_t", "node_factored_t_bwd_tile",
+    _launch_entry("node_factored_t", "node_factored_t_bwd_tile",
                      (dpre.data_ptr(), e.to(dpre.dtype).contiguous().data_ptr(), poolmat_t.data_ptr(),
                       out.data_ptr()),
                      (b, kk, n, ii, dd, oo, int(dpre.dtype == torch.bfloat16),

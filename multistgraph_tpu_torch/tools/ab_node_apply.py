@@ -1,14 +1,18 @@
 """A/B timing of two versions of the node-apply kernels on one GPU.
 
-Builds ``csrc/node_apply_q8.cu`` (B2), ``csrc/node_dots.cu`` (B11 A),
-``csrc/node_factored.cu`` (B1 and B11 B) and ``csrc/node_factored_t.cu``
-(B1t) of this checkout and of another one (e.g. the parent commit unpacked
-with ``git archive``) with the port's nvcc flags, loads both with ctypes
-(each pair shares one C interface: ``node_apply_q8_fwd``,
-``node_dots_fwd``, ``node_factored_fwd``, ``node_factored_t_bwd``) and times
-them in turns, base, new, new, base, for several rounds:
+Builds ``csrc/node_apply_q8.cu`` (B2), ``csrc/node_apply_q8_t.cu`` (B2t),
+``csrc/node_dots.cu`` (B11 A), ``csrc/node_factored.cu`` (B1 and B11 B) and
+``csrc/node_factored_t.cu`` (B1t) of this checkout and of another one (e.g.
+the parent commit unpacked with ``git archive``) with the port's nvcc
+flags, loads both with ctypes (each pair shares one C interface:
+``node_apply_q8_fwd``, ``node_apply_q8_t_bwd``, ``node_dots_fwd``,
+``node_factored_fwd``, ``node_factored_t_bwd``) and times them in turns,
+base, new, new, base, for several rounds:
   * B2 at the serving and training shapes (N=237, KI=320, gate O=128 and
-    update O=64, at batches 1, 4 and 16);
+    update O=64, at batches 1, 4 and 16) and at batch 256, and B2t at the
+    training batch 16 and at 256, gate and update, each beside its library
+    call (one torch.bmm on weights dequantized, or widened and transposed,
+    to bf16 ahead of time, B2t's cotangent scaled and rounded ahead too);
   * B11 A and B11 B at the node-apply harness's shapes (T=24, B=16, NP=256,
     KI=320, O=192; B on 4,096 rows with D=20);
   * B1 and B1t at the flagship gate (O=128) and update (O=64) cells (B=16,
@@ -23,7 +27,9 @@ the operands' dtype, beside them; the order in which torch contracts each
 round, each of B1's and B1t's bf16 tiles through ``node_factored_fwd_tile``
 (192x32, 128x48, 128x32 and 128x16) and ``node_factored_t_bwd_tile``
 (128x2, 128x1, 64x2 and 64x1, rows x k; each kernel takes one by the
-grid), each first held against the chosen tile's output. Times are
+grid), and each of B2's and B2t's batch tiles (wgmma's N = 8 to 128)
+through ``node_apply_q8_fwd_tile`` and ``node_apply_q8_t_bwd_tile``, each
+first held against the chosen tile's output. Times are
 CUDA-event medians with the L2 flushed before each call
 (``tools.timing.event_ms``, as chip_smoke.py takes them).
 
@@ -49,21 +55,30 @@ from multistgraph_tpu_torch.ops.node_apply import _pad_nodes, pool_to_kernel_lay
 from multistgraph_tpu_torch.tools.timing import card, einsum_order, event_ms
 
 N, KI = 237, 320
-B2_SHAPES = [(b, cell, o) for b in (1, 4, 16) for cell, o in (("gate", 128), ("update", 64))]
+GATES = (("gate", 128), ("update", 64))
+B2_SHAPES = [(b, cell, o) for b in (1, 4, 16, 256) for cell, o in GATES]
+B2T_SHAPES = [(b, cell, o) for b in (16, 256) for cell, o in GATES]
 HARNESS = dict(T=24, B=16, NP=256, KI=320, O=192, D=20)
 CELL = dict(B=16, K=5, N=237, I=64, D=20)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source: (entry, argument types) of the interface both versions share
 ENTRIES = {"node_apply_q8": ("node_apply_q8_fwd", [_P] * 4 + [_I] * 4 + [_P]),
+           "node_apply_q8_t": ("node_apply_q8_t_bwd", [_P] * 4 + [_I] * 4 + [_P]),
            "node_dots": ("node_dots_fwd", [_P] * 4 + [_I] * 5 + [_P]),
            "node_factored": ("node_factored_fwd", [_P] * 5 + [_I] * 9 + [_P]),
            "node_factored_t": ("node_factored_t_bwd", [_P] * 4 + [_I] * 8 + [_P])}
-# this checkout's entries with the tile (and, for B1t, no fault) after the
-# shared interface's int arguments: (entry, argument types, tiles, trailing ints)
+# this checkout's entries with the tile (and, for B1t, B2 and B2t, no
+# fault) after the shared interface's int arguments: (entry, argument
+# types, tiles, trailing ints)
+Q8_TILES = (8, 16, 24, 32, 64, 128)
 TILED = {"node_factored": ("node_factored_fwd_tile", [_P] * 5 + [_I] * 10 + [_P], (0, 1, 2, 3), ()),
-         "node_factored_t": ("node_factored_t_bwd_tile", [_P] * 4 + [_I] * 10 + [_P], (0, 1, 2, 3), (0,))}
+         "node_factored_t": ("node_factored_t_bwd_tile", [_P] * 4 + [_I] * 10 + [_P], (0, 1, 2, 3), (0,)),
+         "node_apply_q8": ("node_apply_q8_fwd_tile", [_P] * 4 + [_I] * 6 + [_P], Q8_TILES, (0,)),
+         "node_apply_q8_t": ("node_apply_q8_t_bwd_tile", [_P] * 4 + [_I] * 6 + [_P], Q8_TILES, (0,))}
 TILE_NAMES = {"node_factored": {0: "192x32", 1: "128x48", 2: "128x32", 3: "128x16"},
-              "node_factored_t": {0: "128x2", 1: "128x1", 2: "64x2", 3: "64x1"}}
+              "node_factored_t": {0: "128x2", 1: "128x1", 2: "64x2", 3: "64x1"},
+              "node_apply_q8": {t: "N={}".format(t) for t in Q8_TILES},
+              "node_apply_q8_t": {t: "N={}".format(t) for t in Q8_TILES}}
 
 
 def _build(root: str, out_dir: str, tag: str):
@@ -91,17 +106,30 @@ def _fn(lib, entry, argtypes):
 
 
 def _cases(g):
-    """[(kernel source, kernel, shape, pointer args, int args, output)] at the
-    shapes the module docstring names, and {(kernel, shape): (the library
-    call, its equation and operands)} for B1 and B1t."""
+    """[(kernel source, kernel, shape, pointer args, int args, output, whether
+    its tiles are timed)] at the shapes the module docstring names, and
+    {(kernel, shape): library call} for B1, B1t (the equation and operands
+    of a torch.einsum), B2 and B2t (a callable)."""
     randn = lambda *s, dtype=torch.bfloat16: (torch.randn(*s, generator=g, device="cuda") * 0.1).to(dtype)
     cases = []
-    for b, cell, o in B2_SHAPES:
-        hh = randn(N, b, KI)
-        wq, s = quantize_node_weights(randn(N, KI, o, dtype=torch.float32))
-        wq, s = _pad_nodes(wq, 0, 256), _pad_nodes(s, 0, 256)
-        out = torch.empty(N, b, o, device="cuda")
-        cases.append(("node_apply_q8", "B2", "B={} {}".format(b, cell), (hh, wq, s, out), (N, b, KI, o), out))
+    library = {}
+    for kernel, shapes in (("B2", B2_SHAPES), ("B2t", B2T_SHAPES)):
+        for b, cell, o in shapes:
+            act = randn(N, b, o if kernel == "B2t" else KI)
+            wq, s = quantize_node_weights(randn(N, KI, o, dtype=torch.float32))
+            wq, s = _pad_nodes(wq, 0, 256), _pad_nodes(s, 0, 256)
+            shape = "B={} {}".format(b, cell)
+            if kernel == "B2":
+                out = torch.empty(N, b, o, device="cuda")
+                w_deq = (wq[:N].float() * s[:N]).to(torch.bfloat16)
+                library[(kernel, shape)] = lambda act=act, w=w_deq: torch.bmm(act, w)
+            else:
+                out = torch.empty(N, b, KI, dtype=torch.bfloat16, device="cuda")
+                w_t = wq[:N].to(torch.bfloat16).transpose(1, 2).contiguous()
+                d_lib = (act.float() * s[:N]).to(torch.bfloat16)
+                library[(kernel, shape)] = lambda d=d_lib, w=w_t: torch.bmm(d, w)
+            cases.append(("node_apply_q8" if kernel == "B2" else "node_apply_q8_t", kernel, shape,
+                          (act, wq, s, out), (N, b, KI, o), out, True))
     h = HARNESS
     scalar = torch.full((1, 1), 0.0123, device="cuda")
     hh = randn(h["T"], h["B"], h["NP"] * h["KI"])
@@ -109,16 +137,15 @@ def _cases(g):
     out = torch.empty(h["B"], h["NP"] * h["O"], dtype=torch.bfloat16, device="cuda")
     shape = "T={T} B={B} NP={NP} KI={KI} O={O}".format(**h)
     cases.append(("node_dots", "B11 A", shape, (hh, w, scalar, out),
-                  (h["T"], h["B"], h["NP"], h["KI"], h["O"]), out))
+                  (h["T"], h["B"], h["NP"], h["KI"], h["O"]), out, False))
     rows = h["B"] * h["NP"]
     e_rows = randn(h["NP"], h["D"]).repeat(h["B"], 1).float()
     pool = randn(h["KI"], h["D"] * h["O"])
     out = torch.empty(rows, h["O"], dtype=torch.bfloat16, device="cuda")
     cases.append(("node_factored", "B11 B", shape + " D={D} rows".format(**h),
                   (hh.view(h["T"], rows, h["KI"]), e_rows, pool, scalar, out),
-                  (h["T"], 1, 1, rows, h["KI"], h["D"], h["O"], 1, 1), out))
+                  (h["T"], 1, 1, rows, h["KI"], h["D"], h["O"], 1, 1), out, False))
     c = CELL
-    library = {}
     for dtype in (torch.bfloat16, torch.float32):
         bf = int(dtype == torch.bfloat16)
         for cell, o in (("gate", 128), ("update", 64)):
@@ -128,13 +155,13 @@ def _cases(g):
             mat, mat_t = pool_to_kernel_layout(randn(c["D"], c["K"], c["I"], o, dtype=dtype))
             out = torch.empty(c["B"], c["N"], o, device="cuda")
             cases.append(("node_factored", "B1", shape, (hh, e, mat, None, out),
-                          (1, c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, 0), out))
+                          (1, c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, 0), out, bool(bf)))
             library[("B1", shape)] = ("bkni,nd,kido->bno", hh, e.to(dtype), mat.view(c["K"], c["I"], c["D"], o))
             dpre = randn(c["B"], c["N"], o, dtype=dtype)
             e_t = e.to(dtype)
             dhh = torch.empty(c["B"], c["K"], c["N"], c["I"], dtype=dtype, device="cuda")
             cases.append(("node_factored_t", "B1t", shape, (dpre, e_t, mat_t, dhh),
-                          (c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, bf), dhh))
+                          (c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, bf), dhh, bool(bf)))
             library[("B1t", shape)] = ("bno,nd,kdoi->bkni", dpre, e_t, mat_t.view(c["K"], c["D"], o, c["I"]))
     return cases, library
 
@@ -173,7 +200,7 @@ def main(argv=None):
         libs = {"base": _build(cli.base, tmp, "base"), "new": _build(here, tmp, "new")}
         fns = {(v, name): _fn(libs[v][name], *ENTRIES[name]) for v in libs for name in ENTRIES}
         tiled = {name: _fn(libs["new"][name], entry, types) for name, (entry, types, _, _) in TILED.items()}
-        for source, kernel, shape, ptrs, ints, out in cases:
+        for source, kernel, shape, ptrs, ints, out, tiled_case in cases:
             # the new version against the base's output, then each of its
             # tiles against the chosen tile's
             _call(fns[("base", source)], ptrs, ints, stream)
@@ -181,8 +208,8 @@ def main(argv=None):
             _call(fns[("new", source)], ptrs, ints, stream)
             torch.cuda.synchronize()
             _hold(out, ref, "{} {}: the new version".format(kernel, shape))
-            if source not in TILED or ints[-2] == 0:
-                continue  # f32 operands: one tile
+            if not tiled_case:
+                continue
             _, _, tiles, trailing = TILED[source]
             for tile in tiles:
                 out.zero_()
@@ -191,17 +218,19 @@ def main(argv=None):
                 _hold(out, ref, "{} {}: tile {}".format(kernel, shape, TILE_NAMES[source][tile]))
         for _ in range(cli.rounds):
             for version in ("base", "new", "new", "base"):
-                for source, kernel, shape, ptrs, ints, _ in cases:
+                for source, kernel, shape, ptrs, ints, _, _ in cases:
                     fn = fns[(version, source)]
                     samples.setdefault((version, kernel, shape), []).append(
                         event_ms(lambda fn=fn, ptrs=ptrs, ints=ints: _call(fn, ptrs, ints, stream)))
                 samples.setdefault(("control", "B3", "gate_x (24,16,237,128) f32"), []).append(
                     event_ms(lambda: force_default_layout(view)))
-            for (kernel, shape), (equation, *operands) in library.items():
-                samples.setdefault(("library", kernel, shape), []).append(
-                    event_ms(lambda equation=equation, operands=operands: torch.einsum(equation, *operands)))
-            for source, kernel, shape, ptrs, ints, _ in cases:
-                if source not in TILED or ints[-2] == 0:
+            for (kernel, shape), call in library.items():
+                if not callable(call):
+                    equation, *operands = call
+                    call = lambda equation=equation, operands=operands: torch.einsum(equation, *operands)
+                samples.setdefault(("library", kernel, shape), []).append(event_ms(call))
+            for source, kernel, shape, ptrs, ints, _, tiled_case in cases:
+                if not tiled_case:
                     continue
                 _, _, tiles, trailing = TILED[source]
                 for tile in tiles:
@@ -213,7 +242,10 @@ def main(argv=None):
     for (version, kernel, shape), ms in samples.items():
         line = {"version": version, "kernel": kernel, "shape": shape, "median_us": statistics.median(ms) * 1e3,
                 "samples_us": [m * 1e3 for m in ms], "card": name}
-        if version == "library":
+        if version == "library" and kernel in ("B2", "B2t"):
+            line.update(library="torch.bmm on bf16 weights dequantized (B2) or widened and transposed (B2t, "
+                                "beside the cotangent scaled and rounded) ahead of time")
+        elif version == "library":
             equation, *operands = library[(kernel, shape)]
             line.update(library="torch.einsum('{}') in the operands' dtype".format(equation),
                         order=einsum_order(equation, *operands))

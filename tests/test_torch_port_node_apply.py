@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from multistgraph_tpu_torch.ops import node_apply
 from multistgraph_tpu_torch.ops.layout import force_default_layout, force_default_layout_plain
 from multistgraph_tpu_torch.ops.node_apply import (
     _pad_nodes,
@@ -100,6 +101,101 @@ def test_plain_transposed_apply_matches_jax_interpret(b):
     _assert_within_one_bf16_step(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
 
 
+# edge shapes of the tensor-core kernels: batches on both sides of the
+# 8-column tiles, O that is no multiple of 16 (element loads) or of 64, KI
+# of H=16 (80) and of H=12 (60: hh rows no whole 16-byte units)
+EDGE_SHAPES = [(1, 80, 16), (8, 80, 40), (9, 320, 64), (17, 60, 128), (33, 80, 20)]
+
+
+@pytest.mark.parametrize("b,ki,o", EDGE_SHAPES)
+def test_plain_apply_matches_jax_interpret_at_edge_shapes(b, ki, o):
+    jnp = _jnp()
+    from multistgraph_tpu.ops.node_apply import node_apply_q8 as jax_apply
+
+    rng = np.random.default_rng(100 + b)
+    hh_j = jnp.asarray(rng.normal(size=(N, b, ki)).astype(np.float32)).astype(jnp.bfloat16)
+    wq, s = quantize_node_weights(torch.from_numpy(_weights(seed=b, shape=(N, ki, o))))
+    want = np.asarray(jax_apply(hh_j, jnp.asarray(wq.numpy()), jnp.asarray(s.numpy()), interpret=True))
+    hh_t = torch.from_numpy(np.array(hh_j.astype(jnp.float32))).to(torch.bfloat16)
+    # pad rows past N, as the model pads N to a 32-node block
+    got = node_apply_q8(hh_t, _pad_nodes(wq, 0, 64), _pad_nodes(s, 0, 64))
+    assert got.dtype == torch.float32 and got.shape == (N, b, o)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("b,ki,o", EDGE_SHAPES)
+def test_plain_transposed_apply_matches_jax_interpret_at_edge_shapes(b, ki, o):
+    jnp = _jnp()
+    from multistgraph_tpu.ops.node_apply import node_apply_q8_t as jax_apply_t
+
+    rng = np.random.default_rng(200 + b)
+    dpre_j = jnp.asarray(rng.normal(size=(N, b, o)).astype(np.float32)).astype(jnp.bfloat16)
+    wq, s = quantize_node_weights(torch.from_numpy(_weights(seed=b + 1, shape=(N, ki, o))))
+    want = jax_apply_t(dpre_j, jnp.asarray(wq.numpy()), jnp.asarray(s.numpy()), interpret=True)
+    dpre_t = torch.from_numpy(np.array(dpre_j.astype(jnp.float32))).to(torch.bfloat16)
+    got = node_apply_q8_t(dpre_t, _pad_nodes(wq, 0, 64), _pad_nodes(s, 0, 64))
+    assert got.dtype == torch.bfloat16 and got.shape == (N, b, ki)
+    _assert_within_one_bf16_step(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_q8_wrappers_take_any_contraction_and_refuse_only_int_overflow(transposed):
+    """The kernels stream the contraction through a ring: a long one (the
+    old kernels' shared memory held at most 1,210) runs on the CPU's plain
+    version as on the card; the refusal is a dimension past the kernel's
+    int arguments, with its message."""
+    g = torch.Generator().manual_seed(3)
+    ki, o = (8, 4096) if transposed else (4096, 8)
+    wq, s = quantize_node_weights(torch.randn(2, ki, o, generator=g))
+    act = torch.randn(2, 3, o if transposed else ki, generator=g).to(torch.bfloat16)
+    fn, plain = (node_apply_q8_t, node_apply_q8_t_plain) if transposed else (node_apply_q8, node_apply_q8_plain)
+    assert torch.equal(fn(act, wq, s), plain(act, wq, s))
+    # N, B, KI and O each at most 2^31 - 1 (B here)
+    big = 2 ** 31
+    w_shape = (1, 8, 8)
+    with pytest.raises(ValueError, match=r"N, B, KI and O of at most 2147483647 .* got 1, {}, 8, 8".format(big)):
+        fn(torch.zeros(1, big, 8, dtype=torch.bfloat16, device="meta"),
+           torch.zeros(w_shape, dtype=torch.int8, device="meta"), torch.ones(1, 1, 8, device="meta"))
+
+
+@pytest.mark.parametrize("kind", sorted(node_apply.Q8_FAULTS))
+def test_q8_planted_faults_are_scoped_and_leave_the_cpu_path_alone(kind):
+    """A fault planted in B2's or B2t's kernel holds only inside its block,
+    only for its kernel, and makes CPU tensors raise (the plain versions
+    carry no fault) instead of passing a check unfaulted."""
+    hh = torch.randn(N, B, KI).to(torch.bfloat16)
+    dpre = torch.randn(N, B, O).to(torch.bfloat16)
+    wq, s = quantize_node_weights(torch.from_numpy(_weights()))
+    calls = {"node_apply_q8": lambda: node_apply_q8(hh, wq, s), "node_apply_q8_t": lambda: node_apply_q8_t(dpre, wq, s)}
+    target, code = node_apply.Q8_FAULTS[kind]
+    with pytest.raises(KeyError):
+        with node_apply.planted_q8_fault("no such fault"):
+            pass
+    with node_apply.planted_q8_fault(kind):
+        assert node_apply._q8_planted == {target: code}
+        with pytest.raises(RuntimeError, match="planted fault"):
+            calls[target]()
+        other = next(name for name in calls if name != target)
+        calls[other]()
+    assert node_apply._q8_planted == {}
+    assert torch.equal(calls[target](), (node_apply_q8_plain(hh, wq, s) if target == "node_apply_q8"
+                                         else node_apply_q8_t_plain(dpre, wq, s)))
+
+
+@pytest.mark.parametrize("ki,o,transposed,want", [
+    (320, 128, False, "weights TMA, activations TMA"),
+    (60, 128, False, "weights TMA, activations element loads"),
+    (320, 40, False, "weights element loads, activations TMA"),
+    (60, 40, True, "weights element loads, activations TMA"),
+    (320, 20, True, "weights element loads, activations element loads"),
+    (60, 64, True, "weights TMA, activations TMA"),
+])
+def test_q8_load_path_follows_the_rows(ki, o, transposed, want):
+    """TMA takes rows of whole 16-byte units: the int8 weights' rows of O
+    bytes, the activation's rows of KI (B2) or O (B2t) bf16."""
+    assert node_apply.q8_load_path(ki, o, transposed) == want
+
+
 def test_layout_gradient_matches_the_jax_vjp_bit_for_bit():
     """The cotangent through force_default_layout of a strided view is the
     same copy as JAX's VJP (layout.py:56-64, interpret mode)."""
@@ -151,9 +247,12 @@ def test_wrappers_reject_wrong_dtypes_and_layouts():
         node_apply_q8_t(dpre[:, :, :-1].contiguous(), wq, s)
     with pytest.raises(ValueError, match="contiguous"):
         node_apply_q8_t(dpre.transpose(0, 1).contiguous().transpose(0, 1), wq, s)
-    with pytest.raises(ValueError, match="contraction"):
-        node_apply_q8_t(torch.zeros(1, 1, 4096, dtype=torch.bfloat16),
-                        torch.zeros(1, 8, 4096, dtype=torch.int8), torch.ones(1, 1, 4096))
+    # the kernels stream any contraction; what they refuse is a dimension
+    # past their int arguments
+    with pytest.raises(ValueError, match="at most 2147483647"):
+        node_apply_q8_t(torch.zeros(1, 1, 8, dtype=torch.bfloat16, device="meta"),
+                        torch.zeros(1, 2 ** 31, 8, dtype=torch.int8, device="meta"),
+                        torch.ones(1, 1, 8, device="meta"))
     # the layout copy's backward takes 4-byte cotangents only, as the forward
     # (autograd hands it the forward's dtype, f32 on the main path)
     from multistgraph_tpu_torch.ops.layout import _ForceDefaultLayout
@@ -257,3 +356,162 @@ def test_cuda_wrappers_reject_wrong_dtypes(cuda):
         node_apply_q8(hh, wq, s)
     with pytest.raises(TypeError, match="4-byte"):
         force_default_layout(hh)
+
+
+# ---------------------------------------------------------------- B2 and B2t on the tensor cores
+
+BATCHES = [1, 3, 4, 8, 15, 16, 17, 33, 64, 256]
+TILES = [8, 16, 24, 32, 64, 128]
+
+
+def _q8_operands(cuda, seed, b, ki, o, transposed, n=237, nw=256):
+    """The activation (hh, or B2t's dpre) and int8 weights and scales of n
+    nodes, padded to nw weight rows, drawn on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    act = torch.randn(n, b, o if transposed else ki, generator=g, device=cuda).to(torch.bfloat16)
+    wq, s = quantize_node_weights(torch.randn(n, ki, o, generator=g, device=cuda))
+    return act, _pad_nodes(wq, 0, nw), _pad_nodes(s, 0, nw)
+
+
+def _q8_fns(transposed):
+    return (node_apply_q8_t, node_apply_q8_t_plain) if transposed else (node_apply_q8, node_apply_q8_plain)
+
+
+def _q8_holds(got, want, transposed):
+    """B2: rtol 1e-5, atol 1e-5 max|plain| (the same products summed in
+    another order); B2t: one bf16 step."""
+    got, want = got.float(), want.float()
+    if transposed:
+        bound = 2.0 ** -7 * (want.abs() + 1e-3 * want.abs().max())
+    else:
+        bound = 1e-5 * (want.abs() + want.abs().max())
+    return bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True], ids=["B2", "B2t"])
+@pytest.mark.parametrize("ki", [80, 320])
+@pytest.mark.parametrize("o", [16, 40, 64, 128])
+@pytest.mark.parametrize("b", BATCHES)
+def test_cuda_q8_kernels_match_plain_at_every_batch(cuda, b, o, ki, transposed):
+    act, wq, s = _q8_operands(cuda, b * 1000 + o + ki, b, ki, o, transposed)
+    fn, plain = _q8_fns(transposed)
+    got = fn(act, wq, s)
+    torch.cuda.synchronize()
+    assert got.shape == (237, b, ki if transposed else o)
+    assert _q8_holds(got, plain(act, wq, s), transposed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True], ids=["B2", "B2t"])
+@pytest.mark.parametrize("ki,o", [(60, 64), (80, 20), (60, 40), (20, 8), (100, 16), (20, 48)])
+def test_cuda_q8_element_loads_match_plain(cuda, ki, o, transposed):
+    """Shapes whose rows TMA cannot take (O % 16, KI or O % 8) load those
+    operands element by element, into the same layout."""
+    fn, plain = _q8_fns(transposed)
+    for b in (4, 16, 40):
+        act, wq, s = _q8_operands(cuda, b + ki + o, b, ki, o, transposed)
+        got = fn(act, wq, s)
+        torch.cuda.synchronize()
+        assert _q8_holds(got, plain(act, wq, s), transposed), (b, node_apply.q8_load_path(ki, o, transposed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True], ids=["B2", "B2t"])
+def test_cuda_q8_offset_views_run_right_or_raise(cuda, transposed):
+    """An offset slice of whole nodes stays 16-byte aligned and runs; a view
+    that starts off a 16-byte boundary runs where its rows take element
+    loads and raises where they take TMA (the wrapper's documented rule)."""
+    fn, plain = _q8_fns(transposed)
+    n, b = 37, 16
+    for ki, o, tma in ((320, 64, True), (60, 20, False)):
+        act, wq, s = _q8_operands(cuda, ki + o, b, ki, o, transposed, n=n + 1, nw=n + 1)
+        got = fn(act[1:], wq[1:], s[1:])
+        torch.cuda.synchronize()
+        assert _q8_holds(got, plain(act[1:], wq[1:], s[1:]), transposed)
+        flat = torch.empty(act[1:].numel() + 1, dtype=act.dtype, device=cuda)
+        act_off = flat[1:].view(act[1:].shape)
+        act_off.copy_(act[1:])
+        wflat = torch.empty(wq[1:].numel() + 1, dtype=wq.dtype, device=cuda)
+        wq_off = wflat[1:].view(wq[1:].shape)
+        wq_off.copy_(wq[1:])
+        for a, w in ((act_off, wq[1:]), (act[1:], wq_off)):
+            if tma:
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    fn(a, w, s[1:])
+            else:
+                got = fn(a, w, s[1:])
+                torch.cuda.synchronize()
+                assert _q8_holds(got, plain(act[1:], wq[1:], s[1:]), transposed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(node_apply.Q8_FAULTS))
+@pytest.mark.parametrize("b", [16, 256])
+def test_cuda_q8_planted_faults_fail_the_check(cuda, kind, b):
+    """Each fault planted in B2's or B2t's kernel (the last k16 slice of the
+    contraction dropped; B2's batch columns past the first 8 zeroed) fails
+    the check the unfaulted kernel passes."""
+    target, _ = node_apply.Q8_FAULTS[kind]
+    transposed = target == "node_apply_q8_t"
+    fn, plain = _q8_fns(transposed)
+    act, wq, s = _q8_operands(cuda, b + 7, b, 320, 128, transposed)
+    want = plain(act, wq, s)
+    with node_apply.planted_q8_fault(kind):
+        bad = fn(act, wq, s)
+    good = fn(act, wq, s)
+    torch.cuda.synchronize()
+    assert _q8_holds(good, want, transposed)
+    assert not _q8_holds(bad, want, transposed)
+
+
+@pytest.mark.cuda
+def test_cuda_q8_batch_tile_is_the_narrowest_that_holds_the_batch_up_to_128(cuda):
+    batches = (1, 4, 8, 9, 16, 17, 33, 64, 65, 129, 256, 300)
+    assert [node_apply.q8_batch_tile(b) for b in batches] == [8, 8, 8, 16, 16, 24, 64, 64, 128, 128, 128, 128]
+
+
+def _launch_tile(cuda, transposed, act, wq, s, tile):
+    n, b, _ = act.shape
+    _, ki, o = wq.shape
+    out = torch.empty(n, b, ki if transposed else o, dtype=torch.bfloat16 if transposed else torch.float32,
+                      device=cuda)
+    name, entry = (("node_apply_q8_t", "node_apply_q8_t_bwd_tile") if transposed
+                   else ("node_apply_q8", "node_apply_q8_fwd_tile"))
+    node_apply._launch_entry(name, entry, (act.data_ptr(), wq.data_ptr(), s.data_ptr(), out.data_ptr()),
+                             (n, b, ki, o, tile, 0), cuda)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", TILES)
+def test_cuda_q8_every_batch_tile_matches_plain(cuda, tile):
+    """Each batch tile, at a batch of 33 (five tiles of 8, one of 64)."""
+    for transposed in (False, True):
+        act, wq, s = _q8_operands(cuda, tile, 33, 320, 128, transposed)
+        got = _launch_tile(cuda, transposed, act, wq, s, tile)
+        torch.cuda.synchronize()
+        assert _q8_holds(got, _q8_fns(transposed)[1](act, wq, s), transposed)
+
+
+@pytest.mark.cuda
+def test_cuda_q8_blocks_walk_batch_tiles_past_the_grid(cuda):
+    """More work items (batch tiles of 8) than a grid dimension's 65,535:
+    the persistent blocks walk them all."""
+    b = 8 * 65535 + 9
+    for transposed in (False, True):
+        act, wq, s = _q8_operands(cuda, 5, b, 16, 16, transposed, n=1, nw=1)
+        got = _launch_tile(cuda, transposed, act, wq, s, 8)
+        torch.cuda.synchronize()
+        assert _q8_holds(got, _q8_fns(transposed)[1](act, wq, s), transposed)
+
+
+@pytest.mark.cuda
+def test_cuda_q8_empty_contraction_writes_zeros(cuda):
+    hh = torch.zeros(5, 3, 0, dtype=torch.bfloat16, device=cuda)
+    got = node_apply_q8(hh, torch.zeros(8, 0, 16, dtype=torch.int8, device=cuda), torch.ones(8, 1, 16, device=cuda))
+    dpre = torch.zeros(5, 3, 0, dtype=torch.bfloat16, device=cuda)
+    got_t = node_apply_q8_t(dpre, torch.zeros(8, 24, 0, dtype=torch.int8, device=cuda), torch.ones(8, 1, 0, device=cuda))
+    torch.cuda.synchronize()
+    assert got.shape == (5, 3, 16) and not got.any()
+    assert got_t.shape == (5, 3, 24) and not got_t.any()
