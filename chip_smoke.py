@@ -48,6 +48,24 @@ Then the band form of the same graph (graph_split 'band': diagonals -2..2,
     replies held against the planes';
   * at 4,096 nodes, output, loss and gradients on the card against the CPU
     in both storage forms, failed by faults planted in B7, B8 and B9 dX.
+Then SparseATGCN in bf16 at 49,152 nodes with the adaptive view (the JAX
+package's headline sparse configuration), on the BSR form and on the band's
+planes:
+  * B4/B6 (bsr_spmm) and B5 (sampled_matmul) in bf16 on the tensor cores
+    against their plain versions at every width those paths give them
+    (B4/B6 forward and on the transposed graph, f32 sums; B5 bf16 tiles
+    within one bf16 step), timed beside their bounds and a library call
+    each; three faults planted inside each kernel (a k16 slice dropped, a
+    tile skipped, a row block zeroed) must fail the holds;
+  * for each form, training through ``get_executor`` (2 warm-up and 5
+    timed steps) with exact launch counts of the bf16 kernels, one
+    validation pass, and the saved experiment served through
+    ``from_experiment`` at buckets 1 and 2, with device busy time, idle
+    share and peak memory;
+  * at 4,096 nodes, bf16 output, loss and gradients on the card against
+    the CPU on the BSR, hub and tail forms (faults planted inside B4/B6 and
+    B5 must fail the checks) and on the band's planes and packed rows with
+    the adaptive view (faults in B7, B8 and B9 dX).
 Then the node-apply design harness and the card's stream calibration:
   * B1 and B1t (the factored node apply and its transpose) at the
     flagship gate and update cells in f32 and bf16, B11 A (per-node dots),
@@ -667,7 +685,8 @@ _MODES = {  # config overrides of the int8 serving/training arguments
 
 # the band kernels' wrappers (ops/band.py), each with its own launch count
 BAND_WRAPPERS = ("band_spmm", "band_spmm_packed", "band_dx", "band_dx_packed", "band_dv", "band_dv_packed")
-SPARSE_KERNELS = ("bsr_spmm", "sampled_matmul") + BAND_WRAPPERS
+# bsr_spmm and sampled_matmul count their bf16 (tensor-core) kernels' launches apart
+SPARSE_KERNELS = ("bsr_spmm", "sampled_matmul", "bsr_spmm_bf16", "sampled_matmul_bf16") + BAND_WRAPPERS
 
 
 def _counters():
@@ -680,7 +699,8 @@ def _counters():
     counters = {"node_apply_q8": (node_apply_q8, "launches"), "node_apply_q8_t": (node_apply_q8_t, "launches"),
                 "force_default_layout": (force_default_layout, "launches"),
                 "force_default_layout_bwd": (force_default_layout, "backward_launches"),
-                "bsr_spmm": (bsr_spmm, "launches"), "sampled_matmul": (sampled_matmul, "launches")}
+                "bsr_spmm": (bsr_spmm, "launches"), "sampled_matmul": (sampled_matmul, "launches"),
+                "bsr_spmm_bf16": (bsr_spmm, "bf16_launches"), "sampled_matmul_bf16": (sampled_matmul, "bf16_launches")}
     counters.update({name: (getattr(band, name), "launches") for name in BAND_WRAPPERS})
     counters.update({"window_dot": (band_probe.window_dot, "launches"),
                      "band_slab": (band_probe.band_slab, "launches"),
@@ -914,7 +934,10 @@ def _sparse_launches(model, steps=1, train=False, t=SP_T):
         (the data) and h at t=0 (zeros): bsr_spmm on the transposed graph,
         band_dx for a band; dV, a sampled matmul, of every adaptive SpMM
         (the static supports' values are constants: no band_dv); and the
-        SDDMM's backward, dE1 and dE2, two SpMMs."""
+        SDDMM's backward, dE1 and dE2, two SpMMs.
+    A bf16 model's BSR products launch the bf16 kernels, counted under
+    bsr_spmm_bf16 and sampled_matmul_bf16; its band products count under
+    the band wrappers' names, as f32 ones do."""
     layers = model.num_layers
     aggs = layers * (1 + 2 * t)
     recompute = layers * 2 * t if train and model.remat else 0
@@ -923,10 +946,11 @@ def _sparse_launches(model, steps=1, train=False, t=SP_T):
     bsr = sum(model._has_bsr(sv) for sv in supports) + int(model.has_adaptive)
     planes = sum("band_values" in sv for sv in supports)
     packed = sum("band_packed" in sv for sv in supports)
+    bf16 = "_bf16" if model.compute_dtype is not None else ""
     counts = dict.fromkeys(SPARSE_KERNELS, 0)
     counts.update({
-        "bsr_spmm": bsr * (aggs + recompute + dx) + (2 if train and model.has_adaptive else 0),
-        "sampled_matmul": int(model.has_adaptive) * (1 + (aggs if train else 0)),
+        "bsr_spmm" + bf16: bsr * (aggs + recompute + dx) + (2 if train and model.has_adaptive else 0),
+        "sampled_matmul" + bf16: int(model.has_adaptive) * (1 + (aggs if train else 0)),
         "band_spmm": planes * (aggs + recompute), "band_dx": planes * dx,
         "band_spmm_packed": packed * (aggs + recompute), "band_dx_packed": packed * dx,
     })
@@ -1561,6 +1585,329 @@ def band_check_phase(torch, label="band", bound_out=BOUND_BAND_OUT, bound_grad=B
         if not err > (bound_out if check == "output" else bound_grad):
             raise AssertionError("{} passes the {} {} check ({})".format(name, label, check, err))
     return errs, controls
+
+
+# ----------------------------------------------------------- sparse, bf16
+# SparseATGCN in bf16 at 49,152 nodes: the sparse defaults above (hidden 64,
+# 2 layers, T=12, batch 2, the unidirectional adaptive view with the sampled
+# softmax, remat) with compute_dtype 'bfloat16', the JAX package's headline
+# sparse configuration (docs/DESIGN.md:122, "bf16 with the adaptive view"),
+# on the BSR form and on the band's planes. Widths the bf16 BSR kernels take
+# on those paths:
+SPB_SPMM_WIDTHS = (12, 16, 24, 64, 128, 768, 1536)  # bucket-1 layer-0 hoist, sddmm dE, layer-0 hoist,
+#                                                     bucket-1 step, step, bucket-1 layer-1 hoist, layer-1 hoist
+SPB_DX_WIDTHS = (128, 1536)                # transposed (dX) of the per-step aggregations and of layer 1's hoist
+SPB_B5_WIDTHS = (16, 24, 128, 1536)        # forward scores, then the adaptive dV at each training width
+SPB_STEPS = 5                              # timed bf16 training steps (after SP_WARMUP)
+# widths at which each fault planted in the bf16 kernels must fail the hold:
+# x by element loads (F=12) and by TMA (F=128); B5 at d = 16 and 24 (the
+# second k16 slice half past d)
+SPB_FAULT_WIDTHS, SPB_B5_FAULT_WIDTHS = (12, 128), (16, 24)
+# bsr_spmm's bf16 form against its plain version: both sum exact products of
+# bf16 values in f32, so the f32 rule (rtol 1e-5, atol 1e-5 max|plain|)
+# held at first; an H100 read 1.17 of it on the transposed graph at
+# F=1536 (hub rows of 384 tiles: 49,152 products a sum, in the tensor
+# cores' own f32 accumulation), 0.82 at F=128 and at most 0.009 forward, so
+# the bound is rtol 4e-5 (3.4x that reading).
+SPB_SPMM_REL = 4e-5
+# Card vs CPU at 4,096 nodes in bf16 (the BSR, hub and tail forms, and the
+# band's planes and packed rows with the adaptive view), relative max errors
+# as BOUND_BF16_*: both sides round to bf16 at every op, in other orders.
+BOUND_SPARSE_BF16_OUT = 3e-2
+BOUND_SPARSE_BF16_GRAD = 1.5e-2
+
+
+def _bf16_spmm_design(feat):
+    from multistgraph_tpu_torch.ops.spmm import bf16_load_path
+
+    n = next((n for n in (16, 24, 32, 64, 128) if feat <= n), 256)
+    return ("tensor cores: wgmma m64n{}k16 bf16->f32, f32 sums stored once; the row's tiles in K=64 chunks by TMA as "
+            "K-major A; x's block col_of[p] by {} as MN-major B, under the 128-byte swizzle; a producer warp and an "
+            "mbarrier ring; two consumer warpgroups of 64 rows").format(n, bf16_load_path(feat))
+
+
+def sparse_bf16_kernel_phase(torch):
+    """bsr_spmm (B4/B6) and sampled_matmul (B5) in bf16 against their plain
+    versions on the 49,152-node graph at every width the bf16 paths give
+    them, timed beside their bounds and a PyTorch library call each; the
+    faults planted in both kernels must fail the holds."""
+    from multistgraph_tpu_torch.ops import spmm as sp
+    from multistgraph_tpu_torch.ops.bsr import random_spatial_graph
+
+    graph, _ = random_spatial_graph(SP_NODES, 16, seed=0)
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    nb, nnz, n_pad = graph.num_row_blocks, graph.nnz_blocks, graph.padded_nodes
+    values = torch.from_numpy(graph.values).to(dev).bfloat16()
+    row = torch.from_numpy(graph.row_of).to(dev)
+    col = torch.from_numpy(graph.col_of).to(dev)
+    row_ptr = sp.row_ptr_of(row, nb)
+    tile_bytes = nnz * 128 * 128 * 2
+    index_bytes = (2 * nnz + nb + 1) * 4
+    lines, faults = [], {}
+
+    def randn(feat):
+        return torch.randn(n_pad, feat, generator=g, device=dev).bfloat16()
+
+    def spmm_hold(got, want):
+        return _over_bound(got, want, rel=SPB_SPMM_REL)
+
+    def spmm_rows(values, row, row_ptr, col, widths, what):
+        try:
+            bsr = torch.sparse_bsr_tensor(row_ptr, col, values, size=(n_pad, n_pad))
+        except (RuntimeError, TypeError) as exc:
+            bsr = exc
+        for feat in widths:
+            x = randn(feat)
+            got = sp.bsr_spmm(values, row, row_ptr, col, x, nb)
+            want = sp.spmm_plain(values, row, col, x, out_blocks=nb)
+            torch.cuda.synchronize()
+            _hold(spmm_hold(got, want), "bsr_spmm bf16 vs its plain version at F={}{}".format(feat, what))
+            if feat in SPB_FAULT_WIDTHS and not what:
+                for kind in sp.FAULTS:
+                    with sp.planted_fault(kind, "bsr_spmm"):
+                        bad = sp.bsr_spmm(values, row, row_ptr, col, x, nb)
+                    faults["bsr_spmm F={} ({}): {}".format(feat, sp.bf16_load_path(feat), kind)] = spmm_hold(bad, want)
+                    del bad
+            max_abs_err = (got - want).abs().max().item()
+            del got, want
+            num_bytes = tile_bytes + index_bytes + n_pad * feat * (2 + 4)
+            flops = 2 * nnz * 128 * 128 * feat
+            bound, by = _bound_ms(num_bytes, flops, PEAK_BF16_FLOPS)
+            label = "torch.sparse_bsr_tensor(row_ptr, col_of, values) @ x in bf16"
+            if isinstance(bsr, Exception):
+                library_ms, library = None, "{} refused: {}".format(label, str(bsr).splitlines()[0][:160])
+            else:
+                library_ms, library = _library_ms(torch, lambda: bsr @ x, label)
+            if library_ms is None:
+                xg = x.reshape(-1, 128, feat).index_select(0, col)
+                library_ms = _time_ms(torch, lambda: torch.bmm(values, xg), reps=10)
+                library = ("torch.bmm of the tiles and the pre-gathered x blocks in bf16 (the gather and the row sums "
+                           "not timed; {})".format(library))
+                del xg
+            stream = feat % 128 == 0  # the width JAX sends to spmm_stream (B6), else the block-grid kernel (B4)
+            lines.append({
+                "name": "bsr_spmm_bf16", "shape": "N={} nnz={} F={} bf16{}".format(n_pad, nnz, feat, what),
+                "replaces": ("multistgraph_tpu/ops/spmm_stream.py:303 spmm_stream" if stream
+                             else "multistgraph_tpu/ops/spmm.py:87 _spmm_blockgrid"),
+                "design": _bf16_spmm_design(feat), "loads": sp.bf16_load_path(feat),
+                "max_abs_err": max_abs_err,
+                "tolerance": "rtol {0:g}, atol {0:g}*max|plain| (f32 sums)".format(SPB_SPMM_REL),
+                "kernel_ms": _time_ms(torch, lambda: sp.bsr_spmm(values, row, row_ptr, col, x, nb)),
+                "plain_ms": _time_ms(torch, lambda: sp.spmm_plain(values, row, col, x, out_blocks=nb), reps=10),
+                "library_ms": library_ms, "library": library,
+                "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops, "peak": PEAK_NOTE,
+                "main_path": True,
+            })
+            del x
+
+    spmm_rows(values, row, row_ptr, col, SPB_SPMM_WIDTHS, "")
+    # the backward's dX on the block-transposed graph (hub rows of up to 384 tiles)
+    v_t, r_t, c_t = sp.bsr_transpose(values, row, col, nb)
+    spmm_rows(v_t, r_t, sp.row_ptr_of(r_t, nb), c_t, SPB_DX_WIDTHS, " transposed (backward dX)")
+    del v_t
+    for d in SPB_B5_WIDTHS:
+        a, bt = randn(d), randn(d)
+        got = sp.sampled_matmul(a, bt, row, col)
+        want = sp.sampled_matmul_plain(a, bt, row, col)
+        torch.cuda.synchronize()
+        _hold(_over_bound(got, want, bf16_step=True), "sampled_matmul bf16 vs its plain version at d={}".format(d))
+        if d in SPB_B5_FAULT_WIDTHS:
+            for kind in sp.FAULTS:
+                with sp.planted_fault(kind, "sampled_matmul"):
+                    bad = sp.sampled_matmul(a, bt, row, col)
+                faults["sampled_matmul d={} ({}): {}".format(d, sp.bf16_load_path(d), kind)] = _over_bound(
+                    bad, want, bf16_step=True)
+                del bad
+        max_abs_err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        num_bytes = 2 * n_pad * d * 2 + 2 * nnz * 4 + tile_bytes
+        flops = 2 * nnz * 128 * 128 * d
+        bound, by = _bound_ms(num_bytes, flops, PEAK_BF16_FLOPS)
+        a_t = a.reshape(-1, 128, d).index_select(0, row)
+        b_t = bt.reshape(-1, 128, d).index_select(0, col)
+        lines.append({
+            "name": "sampled_matmul_bf16", "shape": "N={} nnz={} d={} bf16".format(n_pad, nnz, d),
+            "replaces": "multistgraph_tpu/ops/spmm.py:129 _sampled_matmul_impl",
+            "design": ("tensor cores: wgmma m64n128k16 bf16->f32 per tile over d in K=64 chunks, a[row_of] and "
+                       "bt[col_of] K-major under the 128-byte swizzle by {}; one block per tile; a producer warp and "
+                       "an mbarrier ring; bf16 tiles staged per warp for 16-byte stores").format(sp.bf16_load_path(d)),
+            "loads": sp.bf16_load_path(d), "max_abs_err": max_abs_err,
+            "tolerance": "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|",
+            "kernel_ms": _time_ms(torch, lambda: sp.sampled_matmul(a, bt, row, col)),
+            "plain_ms": _time_ms(torch, lambda: sp.sampled_matmul_plain(a, bt, row, col), reps=10),
+            "library_ms": _time_ms(torch, lambda: torch.bmm(a_t, b_t.transpose(1, 2)), reps=10),
+            "library": "torch.bmm of the pre-gathered row blocks in bf16 (the gathers not timed)",
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops, "peak": PEAK_NOTE,
+            "main_path": True,
+        })
+        del a, bt, a_t, b_t
+    del values
+    torch.cuda.empty_cache()
+    for line in lines:
+        say(json.dumps(line))
+    say(json.dumps({"sparse_bf16_planted_faults_over_bound": faults}))
+    for fault, ratio in faults.items():
+        if not ratio > 1.0:
+            raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
+    return lines
+
+
+def sparse_bf16_phase(torch, split):
+    """SparseATGCN in bf16 at 49,152 nodes with the adaptive view, on the BSR
+    form (split 'none') or the band's planes ('band'): 2 warm-up and 5 timed
+    training steps through get_executor with exact launch counts, one
+    validation pass, and the saved experiment served through
+    from_experiment at buckets 1 and 2; device busy time, idle share and
+    peak memory. The band run's windows are keyed 'band bf16 ...', with
+    the 1M path's, so its band launches count as bf16 ones."""
+    import numpy as np
+
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.data import get_dataset
+    from multistgraph_tpu_torch.executor import get_executor
+    from multistgraph_tpu_torch.models import get_model
+    from multistgraph_tpu_torch.serving import PredictService
+
+    label = "sparse bf16" if split == "none" else "band bf16 adaptive 49k"
+    args = dict(_sparse_args(SP_NODES, "chip_smoke_" + label.replace(" ", "_")), graph_split=split,
+                compute_dtype="bfloat16")
+    cfg = load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=args)
+    t0 = time.time()
+    dataset = get_dataset(cfg)
+    train, val, test = dataset.get_data()
+    feature = dataset.get_data_feature()
+    graph = feature["bsr_graph"]
+    setup = {"split": split, "dataset_s": time.time() - t0, "nodes": graph.num_nodes, "padded": graph.padded_nodes,
+             "train_batches": len(train), "val_batches": len(val)}
+    model = get_model(cfg, feature)
+    executor = get_executor(cfg, model, feature)
+    if (model.compute_dtype, model.hidden_dim, model.num_layers, model.embed_dim_adj, model.remat,
+            model.has_adaptive, model.adaptive_softmax, cfg["batch_size"], cfg["input_window"]) != (
+            torch.bfloat16, SP_H, 2, 16, True, True, "sampled", SP_B, SP_T):
+        raise AssertionError("the {} configuration is not the defaults' full width in bf16".format(label))
+    setup["support"] = {n: [list(b.shape), str(b.dtype)] for n, b in model.named_buffers()}
+    setup["model_s"] = time.time() - t0 - setup["dataset_s"]
+    say(json.dumps({label + " setup": setup}))
+
+    windows = {}
+    batches = [executor.batch(train, idx) for idx in train.epoch_permutation()[: SP_WARMUP + SPB_STEPS]]
+    per_step = _sparse_launches(model, train=True)
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, windows[label + " training"], step_ms = _timed_steps(torch, executor, batches, SP_WARMUP, per_step)
+    record = {"steps": SPB_STEPS, "batch": SP_B, "ms_per_step": ms, "step_ms": step_ms,
+              "epochs_per_hour": 3600.0 / (ms / 1e3 * len(train)), "losses": losses,
+              "launches_per_step": {k: v for k, v in per_step.items() if v},
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "device_time_per_step": _device_time(torch, lambda: executor.train_step(batches[-1]), ms)}
+
+    per_forward = _sparse_launches(model)
+    _reset_counts()
+    t0 = time.perf_counter()
+    val_loss = executor._valid_epoch(val)
+    record["validation"] = {"batches": len(val), "loss": val_loss, "seconds": time.perf_counter() - t0}
+    windows[label + " validation"] = _read_counts()
+    if _sparse_counts_of(windows[label + " validation"]) != {k: v * len(val) for k, v in per_forward.items()}:
+        raise AssertionError("{} validation launched {}, want {} per batch".format(
+            label, windows[label + " validation"], per_forward))
+    if not math.isfinite(val_loss):
+        raise AssertionError("non-finite {} validation loss".format(label))
+
+    cache = os.path.join(args["output_dir"], args["exp_id"], "model_cache", "{}_{}.pt".format(SP_MODEL, SP_DATASET))
+    executor.save_model(cache)
+    t0 = time.perf_counter()
+    service = PredictService.from_experiment(SP_TASK, SP_MODEL, SP_DATASET, other_args=args, max_batch=SP_B)
+    record["from_experiment_s"] = time.perf_counter() - t0
+    if service.model.compute_dtype != torch.bfloat16:
+        raise AssertionError("the served {} model does not compute in bf16".format(label))
+    x = test.x[:SP_B].cpu().numpy()
+    _reset_counts()
+    replies = {b: service.predict(x[:b]) for b in (1, SP_B)}
+    windows[label + " serving"] = _read_counts()
+    if _sparse_counts_of(windows[label + " serving"]) != {k: 2 * v for k, v in per_forward.items()}:
+        raise AssertionError("{} serving launched {}, want {} per request".format(
+            label, windows[label + " serving"], per_forward))
+    with torch.no_grad():
+        direct = executor.model(test.x[:SP_B])
+    want_y = np.maximum(feature["scaler"].inverse_transform(direct).cpu().numpy(), 0.0)
+    errs = {}
+    for b, y in replies.items():
+        if y.shape != (b, 3, graph.padded_nodes, 1) or not np.isfinite(y).all():
+            raise AssertionError("bad {} reply for batch {}: {}".format(label, b, y.shape))
+        # bucket 2 is the same call; bucket 1 rounds its narrower products otherwise
+        errs[b] = _rel_err(y, want_y[:b])
+        if not errs[b] < BOUND_SPARSE_BF16_OUT:
+            raise AssertionError("{} reply at bucket {} differs from the executor's model by {}".format(
+                label, b, errs[b]))
+    record["replies_vs_executor_rel"] = errs
+    latency = {str(b): _bucket_ms(service, x[:b], reps=5) for b in (1, SP_B)}
+    record["serving"] = {"ms_per_request_by_bucket": latency,
+                         "device_time_per_request": _device_time(
+                             torch, lambda: service.predict(x), latency[str(SP_B)])}
+    say(json.dumps({label: record}))
+    say("{} launches per window: {}".format(label, json.dumps(windows)))
+    del executor, service, model, dataset, train, val, test, batches
+    torch.cuda.empty_cache()
+    return windows
+
+
+def sparse_bf16_check_phase(torch):
+    """Card vs CPU at 4,096 nodes in bf16 with the adaptive view: the model
+    output, one step's loss and every gradient on the BSR, hub and tail
+    forms, faults planted inside B4/B6 and B5 (on the BSR form) failing the
+    checks; then the band's planes and packed rows (band_check_phase, faults
+    in B7, B8 and B9 dX)."""
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.data import get_dataset
+    from multistgraph_tpu_torch.models import get_model
+    from multistgraph_tpu_torch.ops import spmm as sp
+
+    errs, controls, cpu_s = {}, {}, {}
+    faults = {"B4/B6 row block 0 zeroed": ("row", "bsr_spmm"), "B4/B6 k16 slice dropped": ("k16", "bsr_spmm"),
+              "B4/B6 last tile of each row skipped": ("tile", "bsr_spmm"),
+              "B5 k16 slice dropped": ("k16", "sampled_matmul"),
+              "B5 row block 0's tiles zeroed": ("row", "sampled_matmul")}
+    for split in ("none", "hub", "tail"):
+        args = dict(_sparse_args(SP_CHECK_NODES, "chip_smoke_sparse_bf16_check"), graph_split=split,
+                    compute_dtype="bfloat16")
+        cfg = load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=args)
+        dataset = get_dataset(cfg, device="cpu")
+        train, _, _ = dataset.get_data()
+        feature = dataset.get_data_feature()
+        cpu_model = get_model(cfg, feature, device="cpu")
+        card_model = get_model(cfg, feature)
+        card_model.load_state_dict(cpu_model.state_dict())
+        batch = {"X": train.x[:SP_B], "y": train.y[:SP_B]}
+        scaler = feature["scaler"]
+        t0 = time.perf_counter()
+        cpu_out, cpu_grads = _sparse_run(torch, cpu_model, scaler, batch)
+        cpu_s[split] = time.perf_counter() - t0
+        out, grads = _sparse_run(torch, card_model, scaler, batch)
+        errs[split] = {"graph": type(feature["bsr_graph"]).__name__, "output": _rel_err(out.numpy(), cpu_out.numpy()),
+                       "gradients": _grad_err(grads, cpu_grads)}
+        if split == "none":
+            for name, (kind, kernel) in faults.items():
+                with sp.planted_fault(kind, kernel):
+                    out, grads = _sparse_run(torch, card_model, scaler, batch)
+                controls[name] = {"output": _rel_err(out.numpy(), cpu_out.numpy()),
+                                  "gradients": _grad_err(grads, cpu_grads)}
+        del cpu_model, card_model, dataset
+    say(json.dumps({"sparse bf16 card vs CPU": {"nodes": SP_CHECK_NODES, "errors": errs, "cpu_seconds": cpu_s},
+                    "bounds": {"output": BOUND_SPARSE_BF16_OUT, "gradients": BOUND_SPARSE_BF16_GRAD},
+                    "planted_faults": controls}))
+    for split, e in errs.items():
+        if not e["output"] < BOUND_SPARSE_BF16_OUT:
+            raise AssertionError("bf16 {} output, card vs CPU: {} over {}".format(split, e["output"],
+                                                                                  BOUND_SPARSE_BF16_OUT))
+        if not e["gradients"]["max"] < BOUND_SPARSE_BF16_GRAD:
+            raise AssertionError("bf16 {} gradients, card vs CPU: {} over {}".format(split, e["gradients"],
+                                                                                     BOUND_SPARSE_BF16_GRAD))
+    for name, c in controls.items():
+        if not (c["output"] > BOUND_SPARSE_BF16_OUT or c["gradients"]["max"] > BOUND_SPARSE_BF16_GRAD):
+            raise AssertionError("{} passes both bf16 checks ({})".format(name, c))
+    band = band_check_phase(torch, label="band bf16 adaptive", bound_out=BOUND_SPARSE_BF16_OUT,
+                            bound_grad=BOUND_SPARSE_BF16_GRAD, compute_dtype="bfloat16", adpadj="unidirection")
+    return errs, controls, band
 
 
 # ------------------------------------------------------------- band, bf16
@@ -2217,7 +2564,8 @@ def main():
         say("  {}: {}".format(name, _ptxas_summary(reports[name]) if name in reports else "built before this run"))
     # the tensor-core kernels of the band and B1t sources, one by one, and
     # any wgmma the assembler had to serialize
-    for name, marker in (("band_spmm", "_tc_kernel"), ("band_probe", "_tc_kernel"),
+    for name, marker in (("band_spmm", "_tc_kernel"), ("band_probe", "_tc_kernel"), ("bsr_spmm", "_tc_kernel"),
+                         ("sampled_matmul", "_tc_kernel"),
                          ("node_factored_t", "_wgmma_kernel"), ("node_apply_q8", "q8_kernel"),
                          ("node_apply_q8_t", "q8_kernel")):
         if name in reports:
@@ -2227,9 +2575,12 @@ def main():
         for line in report.splitlines():
             if "Performance Loss" in line:
                 say("  {}: {}".format(name, line.strip()))
+                if name in ("bsr_spmm", "sampled_matmul"):  # their bf16 kernels run every wgmma unconditionally
+                    raise AssertionError("ptxas serialized wgmma in {}: {}".format(name, line.strip()))
 
     lines = kernel_phase(torch)
     lines += sparse_kernel_phase(torch)
+    lines += sparse_bf16_kernel_phase(torch)
     lines += band_kernel_phase(torch)
     make_dataset()
     # the training paths are timed before any phase runs a model on the
@@ -2237,6 +2588,8 @@ def main():
     windows, feature, state_dict, grad_batch = training_phase(torch)
     windows.update(sparse_phase(torch))
     windows.update(band_phase(torch))
+    windows.update(sparse_bf16_phase(torch, "none"))
+    windows.update(sparse_bf16_phase(torch, "band"))
     bf16_lines, bf16_windows = band_bf16_phase(torch)
     lines += bf16_lines
     windows.update(bf16_windows)
@@ -2246,15 +2599,18 @@ def main():
     sparse_check_phase(torch)
     band_check_phase(torch)
     band_bf16_check_phase(torch)
+    sparse_bf16_check_phase(torch)
     harness_lines, windows["node harness"] = node_harness_phase(torch)
     lines += harness_lines
 
     kernels = []
     csrc = "multistgraph_tpu_torch/csrc/"
     # (entry, launch counter and rows' name, source, whether the entry is the
-    # 1M bf16 path's): the bf16 band forms count the launches and rows of the
-    # 1M bf16 windows and the rest those of the other paths; the probe
-    # kernels launch only in the 1M bf16 phase
+    # bf16 band path's): the bf16 band forms count the launches and rows of the
+    # 'band bf16' windows (1M, and 49k with the adaptive view) and the rest
+    # those of the other paths; the probe kernels launch only in the 1M bf16
+    # phase; the bf16 BSR kernels have counters of their own (None: every
+    # window)
     for entry, name, source, bf16_path in (
             ("node_apply_q8", "node_apply_q8", "node_apply_q8.cu", False),
             ("node_apply_q8_t", "node_apply_q8_t", "node_apply_q8_t.cu", False),
@@ -2262,6 +2618,8 @@ def main():
             ("force_default_layout_bwd", "force_default_layout_bwd", "layout_copy.cu", False),
             ("bsr_spmm", "bsr_spmm", "bsr_spmm.cu", False),
             ("sampled_matmul", "sampled_matmul", "sampled_matmul.cu", False),
+            ("bsr_spmm_bf16", "bsr_spmm_bf16", "bsr_spmm.cu", None),
+            ("sampled_matmul_bf16", "sampled_matmul_bf16", "sampled_matmul.cu", None),
             ("band_spmm", "band_spmm", "band_spmm.cu", False),
             ("band_spmm_packed", "band_spmm_packed", "band_spmm.cu", False),
             ("band_dx", "band_dx", "band_spmm.cu", False),
@@ -2278,8 +2636,10 @@ def main():
             ("node_dots_floor", "node_dots_floor", "stream_read.cu", False),
             ("column_sum_read", "column_sum_read", "stream_read.cu", False),
             ("stream_rate_read", "stream_rate_read", "stream_read.cu", False)):
-        rows = [r for r in lines if r["name"] == name and r["main_path"] and r.get("bf16_path", False) == bf16_path]
-        launches = sum(w.get(name, 0) for key, w in windows.items() if key.startswith("band bf16") == bf16_path)
+        rows = [r for r in lines if r["name"] == name and r["main_path"]
+                and (bf16_path is None or r.get("bf16_path", False) == bf16_path)]
+        launches = sum(w.get(name, 0) for key, w in windows.items()
+                       if bf16_path is None or key.startswith("band bf16") == bf16_path)
         if launches == 0 or not rows:
             raise AssertionError("{} was launched no time on the main path, or has no row".format(entry))
         library = [r["library_ms"] for r in rows]

@@ -31,14 +31,15 @@ package's flat names and shapes (``node_vec1``, ``l0_gate_pool``,
 
 ``compute_dtype='bfloat16'`` is JAX's mixed precision (sparse_atgcn.py:
 111-118): the floating graph arrays are stored in bf16 at build time, the
-activations, weight pools and head are cast to bf16 at use, the
-cotangents are rounded to bf16 at the per-step input stack and the
-layer-output stack (ops/precision.py), and the predictions come back in
-f32; parameters and optimizer state stay f32. It is ported for the band
-form with its hub columns and COO tail and without the adaptive view (the
-1,000,000-node configuration); a bf16 forward that would reach the BSR
-kernels (B4/B5/B6) or the adaptive view raises NotImplementedError naming
-ROADMAP.md A.6.1, and the multi-chip backend raises naming A.7.
+activations, weight pools, node embeddings and head are cast to bf16 at
+use, the cotangents are rounded to bf16 at the per-step input stack and
+the layer-output stack (ops/precision.py), and the predictions come back
+in f32; parameters and optimizer state stay f32. It runs on every
+single-device form (BSR, hub, tail, band on planes or packed rows) with or
+without the adaptive view: the BSR kernels take bf16 operands on the
+tensor cores and return f32 sums (B4/B6) or bf16 scores (B5), and each
+aggregation's f32 parts are summed before one cast to the compute dtype,
+where JAX casts them. The multi-chip backend raises naming ROADMAP.md A.7.
 """
 
 from typing import Optional
@@ -179,11 +180,15 @@ class SparseATGCN(nn.Module):
         """The adaptive view's normalised tiles and the dense-corrected
         softmax's background (None for 'sampled')."""
         row, col, row_ptr = self.adaptive_row, self.adaptive_col, self.adaptive_row_ptr
-        scores = sddmm_relu(self.node_vec1, self.node_vec2, row, col, block=self.block, row_ptr=row_ptr)
+        # embeddings in the compute dtype; the scores and both softmaxes' values
+        # and background come back in it (JAX sparse_atgcn.py:247,277,279)
+        scores = sddmm_relu(self._cast(self.node_vec1), self._cast(self.node_vec2), row, col, block=self.block,
+                            row_ptr=row_ptr)
         nb = self.num_nodes // self.block
         if self.adaptive_softmax == "dense_corrected":
-            return sparse_row_softmax_dense_corrected(scores, row, nb, self.num_nodes)
-        return sparse_row_softmax(scores, row, nb), None
+            vals, background = sparse_row_softmax_dense_corrected(scores, row, nb, self.num_nodes)
+            return self._cast(vals), self._cast(background)
+        return self._cast(sparse_row_softmax(scores, row, nb)), None
 
     def _precompute_transposes(self, adaptive):
         """Block transposes of every loop-invariant operand, once per
@@ -203,7 +208,11 @@ class SparseATGCN(nn.Module):
         return support_prets, adaptive_pret
 
     def _aggregate(self, x_flat, adaptive, support_prets, adaptive_pret):
-        """x_flat (N_pad, F) -> (K, N_pad, F): identity and each support applied."""
+        """x_flat (N_pad, F) -> (K, N_pad, F): identity and each support
+        applied, each cast to x_flat's dtype at the stack (JAX
+        sparse_atgcn.py:376). The BSR kernel's sums are f32, so under bf16 a
+        BSR support's hub and tail parts and the adaptive view's background
+        are added to them in f32, as JAX's y + (...).astype(y.dtype) does."""
         outs = [x_flat]
         for i, pre_t in enumerate(support_prets):
             # JAX's order and form (sparse_atgcn.py:330-366): band, BSR, hub, tail
@@ -232,7 +241,7 @@ class SparseATGCN(nn.Module):
                 # rank-1 exp(0) background of the dense reference softmax
                 y = y + background.reshape(-1, 1) * x_flat.sum(dim=0, keepdim=True)
             outs.append(y)
-        return torch.stack(outs, dim=0)
+        return torch.stack([o.to(x_flat.dtype) for o in outs], dim=0)
 
     def _cast(self, a):
         """`a` in the compute dtype, cast at use (parameters stay f32)."""
@@ -326,25 +335,12 @@ def _compute_dtype(config):
     return _COMPUTE_DTYPES[name]
 
 
-def _unsupported(config, support, adaptive):
-    """NotImplementedError for the JAX package's options this port lacks: the
-    multi-chip backend, and a bf16 forward that would reach the BSR kernels
-    or the adaptive view."""
+def _unsupported(config):
+    """NotImplementedError for the JAX package's option this port lacks: the
+    multi-chip backend."""
     if config.get("node_parallel", False):
         raise NotImplementedError("node_parallel (the edge-partitioned multi-chip backend) is not "
                                   "ported yet: ROADMAP.md A.7 (spmm_boundary/spmm_sharded)")
-    if _compute_dtype(config) is None:
-        return
-    reaches = []
-    if "values" in support and support["values"].shape[0] > 0:
-        reaches.append("a BSR support (B4/B6 in bf16)")
-    if adaptive is not None:
-        reaches.append("the adaptive view (B5 and the adaptive SpMM in bf16)")
-    if reaches:
-        raise NotImplementedError(
-            "SparseATGCN compute_dtype='bfloat16' is ported for the band form without the adaptive view "
-            "(graph_split='band', adpadj='none'); this configuration reaches {}: ROADMAP.md A.6.1".format(
-                " and ".join(reaches)))
 
 
 def _band_support(graph: BandGraph, config):
@@ -418,7 +414,7 @@ def build_sparse_atgcn(graph, config, device=None, generator: Optional[torch.Gen
     else:
         raise TypeError("build_sparse_atgcn takes a BSRGraph, HybridGraph, TailGraph or BandGraph, "
                         "got {}".format(type(graph).__name__))
-    _unsupported(config, support, adaptive)
+    _unsupported(config)
     device = resolve_device(device)
     model = SparseATGCN(
         num_nodes=graph.padded_nodes,

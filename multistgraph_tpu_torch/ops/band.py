@@ -62,10 +62,10 @@ import numpy as np
 import torch
 
 from multistgraph_tpu_torch.ops import _cuda
-from multistgraph_tpu_torch.ops.spmm import BLOCK, _check_common
+from multistgraph_tpu_torch.ops.spmm import BLOCK, DTYPES, _check_common
+from multistgraph_tpu_torch.ops.spmm import bf16_load_path  # noqa: F401  (the band kernels' rule too)
 
 MAX_OFFSETS = 8  # offsets the kernels take by value (split_band keeps at most 8 by default)
-DTYPES = (torch.float32, torch.bfloat16)  # operand dtypes of the kernels
 
 
 @dataclass(frozen=True)
@@ -274,12 +274,6 @@ def planted_fault(kind: str):
         _planted = 0
 
 
-def bf16_load_path(feat: int) -> str:
-    """How the bf16 kernels bring x (dy) in at width `feat`: by TMA where its
-    rows are whole 16-byte units, else by element loads (csrc/band_spmm.cu)."""
-    return "TMA" if feat % 8 == 0 else "element loads"
-
-
 @functools.cache
 def _kernel(entry: str):
     fn = getattr(_cuda.library("band_spmm"), entry)
@@ -306,7 +300,7 @@ def _check_band(name, values, x, n_slots, packed):
     """values (O, R, b, b) planes or (R, b, (2r+1) b) packed rows against x
     (R b, F), of one dtype, float32 or bfloat16; on CUDA only 128-row tiles
     and at most MAX_OFFSETS planes."""
-    _check_common(name, (values, x), (), DTYPES)
+    _check_common(name, (values, x), ())
     if x.dim() != 2:
         raise ValueError("{} takes x (n, F), got {}".format(name, tuple(x.shape)))
     if packed:
@@ -331,7 +325,7 @@ def _check_band(name, values, x, n_slots, packed):
 def _check_dv(name, dy, x, n_slots, packed):
     """dy and x (R 128, F) alike, float32 or bfloat16; on CUDA at most
     MAX_OFFSETS planes."""
-    _check_common(name, (dy, x), (), DTYPES)
+    _check_common(name, (dy, x), ())
     if dy.shape != x.shape or x.dim() != 2 or x.shape[0] % BLOCK:
         raise ValueError("{} shape mismatch: dy {}, x {}".format(name, tuple(dy.shape), tuple(x.shape)))
     if x.device.type == "cuda" and not packed and n_slots > MAX_OFFSETS:

@@ -15,20 +15,34 @@ path, forward and backward:
     operand comes as rows (n_pad, d), so no caller passes a strided view.
 
 Each wrapper launches its kernel for CUDA tensors, counts the launch in
-``.launches``, and raises on what the kernel does not take; for CPU tensors
-it takes its plain PyTorch version (``spmm_plain``, ``sampled_matmul_plain``).
-There is no fall back from one to the other.
+``.launches`` (float32 operands) or ``.bf16_launches`` (bfloat16 operands,
+the tensor-core kernels), and raises on what the kernel does not take; for
+CPU tensors it takes its plain PyTorch version (``spmm_plain``,
+``sampled_matmul_plain``). There is no fall back from one to the other: a
+bf16 operand on the card launches the bf16 kernel or raises, never the f32
+one. ``planted_fault`` plants a fault in the bf16 kernels for the checks
+that must catch one.
+
+Types, as the JAX package's (spmm.py:90,122-128, spmm_stream.py:306):
+float32 or bfloat16 operands of one dtype. ``bsr_spmm`` returns float32
+sums either way; ``sampled_matmul`` returns bfloat16 tiles for bf16
+operands (the f32 sums rounded once) and float32 otherwise. Products of
+bf16 values are exact in f32, so the kernels and the plain versions (which
+widen to f32 and sum in f32) differ only in summation order.
 
 The backward passes close under the same two kernels, term for term as the
 JAX custom VJPs (spmm.py:183-206, 234-252, 287-298):
   * d/dX  SpMM  = SpMM with the block-transposed graph;
   * d/dA  SpMM  = sampled_matmul(dY, X) at the graph pattern;
   * d/dE1 SDDMM = SpMM(mask.dS, E2^T);  d/dE2 = SpMM(transpose(mask.dS), E1)^T.
+With bf16 x the SpMM's backward rounds dY to bf16 once before both kernels
+(JAX spmm.py:193-194, 239-240); every term is cast to its primal's dtype.
 A term whose input needs no gradient is skipped (``ctx.needs_input_grad``):
 XLA drops the same terms from the JAX program, e.g. dA of a static support,
 whose values the model stops gradients at.
 """
 
+import contextlib
 import ctypes
 import functools
 
@@ -37,6 +51,7 @@ import torch
 from multistgraph_tpu_torch.ops import _cuda
 
 BLOCK = 128  # the kernels' tile edge; the plain versions take any block
+DTYPES = (torch.float32, torch.bfloat16)  # operand dtypes of the kernels
 
 
 def row_ptr_of(row_of: torch.Tensor, num_row_blocks: int) -> torch.Tensor:
@@ -49,21 +64,28 @@ def row_ptr_of(row_of: torch.Tensor, num_row_blocks: int) -> torch.Tensor:
 # ----------------------------------------------------------- plain versions
 def spmm_plain(values, row_of, col_of, x, block: int = BLOCK, out_blocks=None):
     """Y = A X by gather, batched matmul and index_add_ (JAX spmm_jax,
-    spmm.py:142-155); contributions are added in nnz order, as the Pallas
-    kernel accumulates them."""
+    spmm.py:142-155), float32: bf16 operands are widened, so the exact
+    products are summed in f32 with no rounding in between; contributions
+    are added in nnz order, as the Pallas kernel accumulates them."""
     n_pad, feat = x.shape
     nb = out_blocks if out_blocks is not None else n_pad // block
-    contrib = torch.bmm(values, x.reshape(-1, block, feat).index_select(0, col_of))
-    out = x.new_zeros(nb, block, feat).index_add_(0, row_of, contrib)
+    contrib = torch.bmm(values.float(), x.reshape(-1, block, feat).index_select(0, col_of).float())
+    out = torch.zeros(nb, block, feat, dtype=torch.float32, device=x.device).index_add_(0, row_of, contrib)
     return out.reshape(nb * block, feat)
 
 
 def sampled_matmul_plain(a, bt, row_of, col_of, block: int = BLOCK):
-    """(a @ bt^T) at the nonzero blocks: (nnz, block, block)."""
+    """(a @ bt^T) at the nonzero blocks: (nnz, block, block), summed in f32
+    and rounded once to bf16 for bf16 operands, float32 otherwise."""
     d = a.shape[1]
-    ab = a.reshape(-1, block, d).index_select(0, row_of)
-    bb = bt.reshape(-1, block, d).index_select(0, col_of)
-    return torch.bmm(ab, bb.transpose(1, 2))
+    ab = a.reshape(-1, block, d).index_select(0, row_of).float()
+    bb = bt.reshape(-1, block, d).index_select(0, col_of).float()
+    return torch.bmm(ab, bb.transpose(1, 2)).to(_tile_dtype(a.dtype))
+
+
+def _tile_dtype(dtype):
+    """sampled_matmul's output dtype: bf16 for bf16 operands, else f32."""
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
 
 
 def bsr_transpose(values, row_of, col_of, n_blocks: int):
@@ -76,10 +98,42 @@ def bsr_transpose(values, row_of, col_of, n_blocks: int):
 
 
 # ------------------------------------------------------------ CUDA wrappers
+# Faults the bf16 (tensor-core) kernels plant on request, for checks that
+# must fail them (chip_smoke.py): the k16 slice holding the contraction's
+# last element dropped; a tile skipped (bsr_spmm: each row block's last;
+# sampled_matmul: tile 0); row block 0 zeroed (bsr_spmm: its output rows;
+# sampled_matmul: its tiles).
+FAULTS = {"k16": 1, "tile": 2, "row": 3}
+_KERNELS = ("bsr_spmm", "sampled_matmul")
+_planted = {}
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str, kernel: str = None):
+    """Launch the bf16 kernels (or only `kernel`, 'bsr_spmm' or
+    'sampled_matmul') with the fault FAULTS[kind] planted in them while the
+    block runs."""
+    global _planted
+    if kernel not in (None,) + _KERNELS:
+        raise ValueError("planted_fault takes a kernel of {}, got {!r}".format(_KERNELS, kernel))
+    _planted = dict.fromkeys(_KERNELS if kernel is None else (kernel,), FAULTS[kind])
+    try:
+        yield
+    finally:
+        _planted = {}
+
+
+def bf16_load_path(feat: int) -> str:
+    """How the bf16 kernels here and in ops/band.py bring in an operand of
+    `feat` columns (x, dy, or both of sampled_matmul's): by TMA where its
+    rows are whole 16-byte units, else by element loads."""
+    return "TMA" if feat % 8 == 0 else "element loads"
+
+
 @functools.cache
-def _kernel(name: str, entry: str):
+def _kernel(name: str, entry: str, n_ints: int):
     fn = getattr(_cuda.library(name), entry)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -87,21 +141,19 @@ def _kernel(name: str, entry: str):
 def _run(name, entry, tensors, ints, device):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel(name, entry)(*[t.data_ptr() for t in tensors], *ints, stream)
+        rc = _kernel(name, entry, len(ints))(*[t.data_ptr() for t in tensors], *ints, stream)
     if rc != 0:
         raise RuntimeError("{} kernel launch failed: CUDA error {}".format(name, rc))
 
 
-def _check_common(name, floats, ints, dtypes=(torch.float32,)):
+def _check_common(name, floats, ints, dtypes=DTYPES):
     """Floating operands of one dtype from `dtypes` and int32 indices,
-    contiguous, on one CPU or CUDA device. Only the band kernels take
-    bfloat16 so far; the BSR kernels' bf16 forms are ROADMAP.md A.6.1."""
+    contiguous, on one CPU or CUDA device."""
     for t in floats:
         if t.dtype not in dtypes or t.dtype != floats[0].dtype:
             allowed = " or ".join(str(d).replace("torch.", "") for d in dtypes)
-            later = "" if torch.bfloat16 in dtypes else " (bf16 operands: ROADMAP.md A.6.1)"
-            raise TypeError("{} takes {} operands of one dtype{}, got {}".format(
-                name, allowed, later, [str(f.dtype) for f in floats]))
+            raise TypeError("{} takes {} operands of one dtype, got {}".format(
+                name, allowed, [str(f.dtype) for f in floats]))
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError("{} takes int32 block indices, got {}".format(name, t.dtype))
@@ -115,12 +167,14 @@ def _check_common(name, floats, ints, dtypes=(torch.float32,)):
 
 
 def bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks: int):
-    """Y = A X: (out_blocks*block, F) float32.
+    """Y = A X: (out_blocks*block, F) float32, for float32 or bfloat16
+    operands.
 
     values (nnz, block, block), row_of/col_of (nnz,) and row_ptr
     (out_blocks+1,) int32 of a row-major-sorted pattern, x (n_in, F) with
-    n_in a multiple of block. CPU tensors take the plain version; CUDA
-    tensors launch csrc/bsr_spmm.cu (block 128) or raise.
+    n_in a multiple of block, values and x of one dtype. CPU tensors take
+    the plain version; CUDA tensors launch csrc/bsr_spmm.cu (block 128; its
+    tensor-core kernel for bf16) or raise.
     """
     _check_common("bsr_spmm", (values, x), (row_of, row_ptr, col_of))
     if values.dim() != 3 or values.shape[1] != values.shape[2] or x.dim() != 2:
@@ -139,18 +193,26 @@ def bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks: int):
         raise ValueError("the bsr_spmm kernel takes {0}x{0} tiles, got {1}".format(BLOCK, block))
     feat = x.shape[1]
     out = torch.empty((out_blocks * block, feat), dtype=torch.float32, device=x.device)
-    if out.numel():
+    if not out.numel():
+        return out
+    if x.dtype == torch.bfloat16:
+        _run("bsr_spmm", "bsr_spmm_bf16", (values, row_ptr, col_of, x, out),
+             (out_blocks, feat, nnz, x.shape[0], _planted.get("bsr_spmm", 0)), x.device)
+        bsr_spmm.bf16_launches += 1
+    else:
         _run("bsr_spmm", "bsr_spmm_fwd", (values, row_ptr, col_of, x, out), (out_blocks, feat), x.device)
         bsr_spmm.launches += 1
     return out
 
 
 def sampled_matmul(a, bt, row_of, col_of):
-    """(a @ bt^T) at the nonzero blocks: (nnz, 128, 128) float32.
+    """(a @ bt^T) at the nonzero blocks: (nnz, 128, 128), bfloat16 for
+    bfloat16 operands and float32 for float32 ones.
 
-    a (n_a, d) and bt (n_b, d) with n_a, n_b multiples of 128; row_of and
-    col_of (nnz,) int32 index a's and bt's 128-row blocks. CPU tensors take
-    the plain version; CUDA tensors launch csrc/sampled_matmul.cu or raise.
+    a (n_a, d) and bt (n_b, d) of one dtype with n_a, n_b multiples of 128;
+    row_of and col_of (nnz,) int32 index a's and bt's 128-row blocks. CPU
+    tensors take the plain version; CUDA tensors launch
+    csrc/sampled_matmul.cu (its tensor-core kernel for bf16) or raise.
     """
     _check_common("sampled_matmul", (a, bt), (row_of, col_of))
     if a.dim() != 2 or bt.dim() != 2 or a.shape[1] != bt.shape[1] or a.shape[0] % BLOCK \
@@ -160,16 +222,22 @@ def sampled_matmul(a, bt, row_of, col_of):
     if a.device.type == "cpu":
         return sampled_matmul_plain(a, bt, row_of, col_of)
     nnz = row_of.shape[0]
-    out = torch.empty((nnz, BLOCK, BLOCK), dtype=torch.float32, device=a.device)
-    if nnz:
+    out = torch.empty((nnz, BLOCK, BLOCK), dtype=_tile_dtype(a.dtype), device=a.device)
+    if not nnz:
+        return out
+    if a.dtype == torch.bfloat16:
+        _run("sampled_matmul", "sampled_matmul_bf16", (a, bt, row_of, col_of, out),
+             (nnz, a.shape[1], a.shape[0], bt.shape[0], _planted.get("sampled_matmul", 0)), a.device)
+        sampled_matmul.bf16_launches += 1
+    else:
         _run("sampled_matmul", "sampled_matmul_fwd", (a, bt, row_of, col_of, out), (nnz, a.shape[1]),
              a.device)
         sampled_matmul.launches += 1
     return out
 
 
-bsr_spmm.launches = 0
-sampled_matmul.launches = 0
+bsr_spmm.launches = bsr_spmm.bf16_launches = 0
+sampled_matmul.launches = sampled_matmul.bf16_launches = 0
 
 
 # ---------------------------------------------------------------- autograd
@@ -183,6 +251,7 @@ class _SpMM(torch.autograd.Function):
         row_of, row_ptr, col_of = graph
         ctx.graph, ctx.pre_t = graph, pre_t
         ctx.x_blocks = x.shape[0] // values.shape[1]
+        ctx.dtypes = (values.dtype, x.dtype)
         need_v, need_x = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
         ctx.save_for_backward(values if need_x and pre_t is None else None, x if need_v else None)
         return bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks)
@@ -191,7 +260,9 @@ class _SpMM(torch.autograd.Function):
     def backward(ctx, dy):
         values, x = ctx.saved_tensors
         row_of, _, col_of = ctx.graph
-        dy = dy.contiguous()
+        v_dtype, x_dtype = ctx.dtypes
+        # with bf16 x, dy is rounded once before both kernels (JAX spmm.py:193-194)
+        dy = dy.to(torch.bfloat16 if x_dtype == torch.bfloat16 else dy.dtype).contiguous()
         dvalues = dx = None
         if ctx.needs_input_grad[1]:
             nb = ctx.x_blocks
@@ -200,9 +271,9 @@ class _SpMM(torch.autograd.Function):
             else:
                 # sort-key multiplier must exceed every row id (rectangular A)
                 v_t, r_t, c_t = bsr_transpose(values, row_of, col_of, max(nb, dy.shape[0] // values.shape[1]))
-            dx = bsr_spmm(v_t, r_t, row_ptr_of(r_t, nb), c_t, dy, nb)
+            dx = bsr_spmm(v_t, r_t, row_ptr_of(r_t, nb), c_t, dy, nb).to(x_dtype)
         if ctx.needs_input_grad[0]:
-            dvalues = sampled_matmul(dy, x, row_of, col_of)
+            dvalues = sampled_matmul(dy, x, row_of, col_of).to(v_dtype)
         return dvalues, dx, None, None, None
 
 
@@ -211,8 +282,9 @@ def _graph(row_of, col_of, row_ptr, out_blocks):
 
 
 def spmm(values, row_of, col_of, x, block: int = BLOCK, out_blocks=None, row_ptr=None):
-    """Y = A X; values (nnz, b, b) float32, row_of/col_of (nnz,) int32 sorted
-    by row, x (padded_nodes, F). Differentiable in values and x. out_blocks
+    """Y = A X (float32); values (nnz, b, b) and x (padded_nodes, F) of one
+    dtype, float32 or bfloat16, row_of/col_of (nnz,) int32 sorted by row.
+    Differentiable in values and x. out_blocks
     sets the output's row-block count when it differs from x's; row_ptr, if
     given, is row_ptr_of(row_of, out_blocks)."""
     nb = out_blocks if out_blocks is not None else x.shape[0] // block
@@ -229,7 +301,9 @@ def spmm_pret(values, pre_t, row_of, col_of, x, block: int = BLOCK, out_blocks=N
 
 
 class _SDDMMReLU(torch.autograd.Function):
-    """relu(E1 E2) at the pattern; e1 (n_pad, d), e2 (d, n_pad)."""
+    """relu(E1 E2) at the pattern; e1 (n_pad, d), e2 (d, n_pad). The scores
+    come in sampled_matmul's dtype (bf16 for bf16 embeddings); dE1 and dE2
+    are cast to the embeddings' dtypes (JAX spmm.py:287-298)."""
 
     @staticmethod
     def forward(ctx, e1, e2, graph, block):
@@ -247,10 +321,10 @@ class _SDDMMReLU(torch.autograd.Function):
         n_blocks = e1.shape[0] // ctx.block
         de1 = de2 = None
         if ctx.needs_input_grad[0]:
-            de1 = bsr_spmm(dm, row_of, row_ptr, col_of, e2.t().contiguous(), n_blocks)
+            de1 = bsr_spmm(dm, row_of, row_ptr, col_of, e2.t().contiguous(), n_blocks).to(e1.dtype)
         if ctx.needs_input_grad[1]:
             m_t, r_t, c_t = bsr_transpose(dm, row_of, col_of, n_blocks)
-            de2 = bsr_spmm(m_t, r_t, row_ptr_of(r_t, n_blocks), c_t, e1.contiguous(), n_blocks).t()
+            de2 = bsr_spmm(m_t, r_t, row_ptr_of(r_t, n_blocks), c_t, e1.contiguous(), n_blocks).t().to(e2.dtype)
         return de1, de2, None, None
 
 
@@ -271,18 +345,20 @@ def _row_sums(per_block_rowsum, row_of, num_row_blocks):
 def sparse_row_softmax(values, row_of, num_row_blocks: int):
     """Row-normalise BSR scores: exp(v) / sum over the row's sampled entries
     with v > 0 (JAX spmm.py:311-331; the deviation from the dense
-    reference's softmax is documented there)."""
+    reference's softmax is documented there). exp stays in the input dtype,
+    the row sums are f32, and the denominator is cast to the input dtype
+    before the division, as JAX places the roundings."""
     exp_vals = torch.where(values > 0, torch.exp(values), 0.0)
-    totals = _row_sums(exp_vals.sum(dim=2), row_of, num_row_blocks)
+    totals = _row_sums(exp_vals.sum(dim=2, dtype=torch.float32), row_of, num_row_blocks)
     denom = totals.index_select(0, row_of).clamp_min(1e-9)
-    return exp_vals / denom[:, :, None]
+    return exp_vals / denom.to(exp_vals.dtype)[:, :, None]
 
 
 def sparse_row_softmax_dense_corrected(values, row_of, num_row_blocks: int, num_nodes: int):
     """The exact sparse form of the dense softmax(relu(E1 E2)) (JAX
     spmm.py:334-353): (exp(v)-1)/Z_i at the pattern plus the rank-1
-    background 1/Z_i, Z_i = N + sum (exp(v)-1). Returns (values, background
-    (num_row_blocks, block))."""
+    background 1/Z_i, Z_i = N + sum (exp(v)-1), Z in f32. Returns (values,
+    background (num_row_blocks, block)), both in the input dtype."""
     expm1 = torch.where(values > 0, torch.expm1(values), 0.0)
-    z = num_nodes + _row_sums(expm1.sum(dim=2), row_of, num_row_blocks)
-    return expm1 / z.index_select(0, row_of)[:, :, None], 1.0 / z
+    z = num_nodes + _row_sums(expm1.sum(dim=2, dtype=torch.float32), row_of, num_row_blocks)
+    return expm1 / z.index_select(0, row_of).to(expm1.dtype)[:, :, None], (1.0 / z).to(expm1.dtype)

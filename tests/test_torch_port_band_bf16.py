@@ -35,7 +35,7 @@ from multistgraph_tpu.ops import band as jax_band
 from multistgraph_tpu.ops.precision import round_cotangent as jax_round_cotangent
 from multistgraph_tpu_torch import run_model as run_model_cli
 from multistgraph_tpu_torch.models.sparse_atgcn import build_sparse_atgcn
-from multistgraph_tpu_torch.ops import band, bsr
+from multistgraph_tpu_torch.ops import band
 from multistgraph_tpu_torch.ops.precision import round_cotangent
 from multistgraph_tpu_torch.utils.jax_import import state_dict_from_jax
 
@@ -267,19 +267,6 @@ def test_bf16_model_stores_its_graph_arrays_in_bf16(graphs):
         for name, dtype in dtypes.items():
             assert dtype == (torch.int32 if name.endswith(("_cols", "_src", "_dst")) else torch.bfloat16), name
         assert all(p.dtype == torch.float32 for p in model.parameters())
-
-
-@pytest.mark.parametrize("case", ["adaptive", "bsr", "hub", "tail"])
-def test_bf16_options_still_unported_raise(graphs, case):
-    """A bf16 forward that would reach B4/B5/B6 or the adaptive view raises
-    naming ROADMAP.md A.6.1."""
-    if case == "adaptive":
-        graph, cfg = graphs[0], _config(adpadj="unidirection")
-    else:
-        graph = bsr.random_spatial_graph(NODES, 8, seed=2, split=None if case == "bsr" else case)[0]
-        cfg = _config()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6.1"):
-        build_sparse_atgcn(graph, cfg, device="cpu")
 
 
 def test_unknown_compute_dtype_is_refused(graphs):

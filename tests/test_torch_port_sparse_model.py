@@ -121,7 +121,6 @@ def test_graph_is_not_part_of_the_state_dict():
 
 @pytest.mark.parametrize("option,match", [
     ({"node_parallel": True}, "ROADMAP.md A.7"),
-    ({"compute_dtype": "bfloat16"}, "ROADMAP.md A.6"),
 ])
 def test_unported_options_raise(option, match):
     with pytest.raises(NotImplementedError, match=match):
