@@ -29,11 +29,17 @@ Then the sparse path, SparseATGCN at its defaults' full width on the
 synthetic large graph of 49,152 nodes (4,946 tiles of 128x128):
   * the SpMM (B4/B6) and SDDMM (B5) kernels against their plain versions
     at every width the path gives them, timed, beside their bounds and a
-    PyTorch library call each;
+    PyTorch library call each; B4/B6 on the model's segment schedules (the
+    transposed graph's hub rows split over blocks: a line gives each
+    transposed schedule's segments and longest segment), two calls
+    bit-identical, and faults planted inside its f32 kernel (a k16 slice
+    dropped, a tile skipped, a row block zeroed; on the transposed graph
+    also a split row's last segment dropped) must fail the holds;
   * training through ``get_executor`` (2 warm-up and 10 timed steps at
-    batch 2) with exact launch counts derived from the model, one
-    validation and one evaluation pass, and serving the saved experiment
-    through ``from_experiment`` at buckets 1 and 2;
+    batch 2) with exact launch counts derived from the model and the
+    step's device time by kernel name, one validation and one evaluation
+    pass, and serving the saved experiment through ``from_experiment`` at
+    buckets 1 and 2;
   * at 4,096 nodes, the model output and one step's loss and gradients on
     the card against the CPU, failed by faults planted in each kernel.
 Then the band form of the same graph (graph_split 'band': diagonals -2..2,
@@ -56,7 +62,8 @@ planes:
     (B4/B6 forward and on the transposed graph, f32 sums; B5 bf16 tiles
     within one bf16 step), timed beside their bounds and a library call
     each; three faults planted inside each kernel (a k16 slice dropped, a
-    tile skipped, a row block zeroed) must fail the holds;
+    tile skipped, a row block zeroed; B4/B6 on its transposed graph also a
+    split row's last segment dropped) must fail the holds;
   * for each form, training through ``get_executor`` (2 warm-up and 5
     timed steps) with exact launch counts of the bf16 kernels, one
     validation pass, and the saved experiment served through
@@ -496,9 +503,10 @@ def _bucket_ms(service, x, reps=20):
     return statistics.median(times)
 
 
-def _device_time(torch, fn, wall_ms):
+def _device_time(torch, fn, wall_ms, by_kernel=False):
     """Device time of one call of `fn` by kernel (torch.profiler), against
-    its unprofiled wall time."""
+    its unprofiled wall time; with by_kernel, every kernel's count and time
+    by name (PERF.md's breakdowns), not only the top 8."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -531,6 +539,7 @@ def _device_time(torch, fn, wall_ms):
         # B2 and B2t (csrc/node_apply_q8.cuh), wherever they rank
         "q8_kernels": {"count": sum(c for _, c, k in rows if "q8_kernel" in k),
                        "ms": sum(ms for ms, _, k in rows if "q8_kernel" in k)},
+        **({"by_kernel": [{"name": k[:90], "count": c, "ms": ms} for ms, c, k in rows]} if by_kernel else {}),
     }
 
 
@@ -901,6 +910,8 @@ SP_NODES, SP_CHECK_NODES = 49152, 4096
 SP_T, SP_B, SP_H = 12, 2, 64
 SP_WARMUP, SP_STEPS = 2, 10
 SP_SPMM_WIDTHS = (16, 24, 64, 128, 1536)   # sddmm dE, layer-0 hoist, serving step, step, layer-1 hoist
+SP_DX_WIDTHS = (128, 1536)                 # transposed (dX) of the per-step aggregations and of layer 1's hoist
+SP_FAULT_WIDTH = 128                       # faults planted inside B4/B6 (f32) must fail the holds at this width
 SP_B5_WIDTHS = (16, 24, 128, 1536)         # forward scores, then adaptive dV at each SpMM width
 PEAK_F32_FLOPS = 67e12
 PEAK_F32_NOTE = "H100 SXM data sheet: 3.35 TB/s HBM, 67 TFLOP/s f32 (CUDA cores; TF32 is off)"
@@ -990,17 +1001,27 @@ def sparse_kernel_phase(torch):
     row_ptr = sp.row_ptr_of(row, nb)
     tile_bytes = nnz * 128 * 128 * 4
     index_bytes = (2 * nnz + nb + 1) * 4
-    lines = []
+    lines, faults = [], {}
 
-    def spmm_rows(values, row, row_ptr, col, widths, what):
+    def spmm_rows(values, row, row_ptr, col, schedule, widths, what, fault_kinds=()):
         bsr = torch.sparse_bsr_tensor(row_ptr, col, values, size=(n_pad, n_pad))
         for feat in widths:
             x = torch.randn(n_pad, feat, generator=g, device=dev)
-            got = sp.bsr_spmm(values, row, row_ptr, col, x, nb)
+            got = sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)
             want = sp.spmm_plain(values, row, col, x, out_blocks=nb)
             torch.cuda.synchronize()
             # the same f32 products, summed in another order
             _hold(_over_bound(got, want), "bsr_spmm vs its plain version at F={}{}".format(feat, what))
+            max_abs_err = (got - want).abs().max().item()
+            if feat == SP_FAULT_WIDTH:
+                if not torch.equal(got, sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)):
+                    raise AssertionError("bsr_spmm at F={}{}: two calls differ".format(feat, what))
+                for kind in fault_kinds:
+                    with sp.planted_fault(kind, "bsr_spmm"):
+                        bad = sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)
+                    faults["bsr_spmm F={}{}: {}".format(feat, what, kind)] = _over_bound(bad, want)
+                    del bad
+            del got, want
             num_bytes = tile_bytes + index_bytes + 2 * n_pad * feat * 4
             flops = 2 * nnz * 128 * 128 * feat
             bound, by = _bound_ms(num_bytes, flops, PEAK_F32_FLOPS)
@@ -1011,19 +1032,24 @@ def sparse_kernel_phase(torch):
                 "name": "bsr_spmm", "shape": "N={} nnz={} F={}{}".format(n_pad, nnz, feat, what),
                 "replaces": ("multistgraph_tpu/ops/spmm_stream.py:303 spmm_stream" if stream
                              else "multistgraph_tpu/ops/spmm.py:87 _spmm_blockgrid"),
-                "max_abs_err": (got - want).abs().max().item(), "tolerance": "rtol 1e-5, atol 1e-5*max|plain|",
-                "kernel_ms": _time_ms(torch, lambda: sp.bsr_spmm(values, row, row_ptr, col, x, nb)),
+                "max_abs_err": max_abs_err, "tolerance": "rtol 1e-5, atol 1e-5*max|plain|",
+                "kernel_ms": _time_ms(torch, lambda: sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)),
                 "plain_ms": _time_ms(torch, lambda: sp.spmm_plain(values, row, col, x, out_blocks=nb), reps=10),
                 "library_ms": library_ms, "library": library,
                 "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops,
                 "peak": PEAK_F32_NOTE, "main_path": True,
             })
 
-    spmm_rows(values, row, row_ptr, col, SP_SPMM_WIDTHS, "")
+    # the model's schedule of the pattern (built once, as models/sparse_atgcn.py does)
+    spmm_rows(values, row, row_ptr, col, sp.bsr_schedule(row_ptr, nnz, exact=True), SP_SPMM_WIDTHS, "",
+              sorted(sp.FAULTS))
     # the backward's dX walks the block-transposed graph, whose hub-column
-    # row blocks hold a tile from every row block
+    # row blocks hold a tile from every row block: split into segments, on
+    # the schedule the model builds once for the transposed pattern
     v_t, r_t, c_t = sp.bsr_transpose(values, row, col, nb)
-    spmm_rows(v_t, r_t, sp.row_ptr_of(r_t, nb), c_t, (128, 1536), " transposed (backward dX)")
+    ptr_t, sched_t = sp.bsr_transpose_schedule(row, col, nb, exact=True)
+    say(json.dumps({"bsr_schedule f32 transposed": _schedule_summary(torch, sched_t)}))
+    spmm_rows(v_t, r_t, ptr_t, c_t, sched_t, SP_DX_WIDTHS, " transposed (backward dX)", sorted(sp.SPMM_FAULTS))
     del v_t
     crow, ccol = _bsr_csr_pattern(torch, row_ptr, col, nb)
     for d in SP_B5_WIDTHS:
@@ -1060,7 +1086,25 @@ def sparse_kernel_phase(torch):
     torch.cuda.empty_cache()
     for line in lines:
         say(json.dumps(line))
+    say(json.dumps({"sparse_f32_planted_faults_over_bound": faults}))
+    for fault, ratio in faults.items():
+        if not ratio > 1.0:
+            raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
     return lines
+
+
+def _schedule_summary(torch, schedule):
+    """Segments, split rows, and the longest segment and row (in tiles) of a
+    bsr_spmm schedule, read on the host outside any timed window."""
+    from multistgraph_tpu_torch.ops.spmm import SEGMENT_TILES
+
+    seg = schedule.segments.cpu().long()
+    live = seg[seg[:, 0] >= 0]
+    tiles = live[:, 2] - live[:, 1]
+    rows = torch.zeros(int(live[:, 0].max()) + 1, dtype=torch.long).index_add_(0, live[:, 0], tiles)
+    return {"segment_tiles": SEGMENT_TILES, "segments": int(live.shape[0]), "padded_to": int(seg.shape[0]),
+            "split_rows": int(((live[:, 3] == 0) & (live[:, 4] > 1)).sum()), "longest_segment": int(tiles.max()),
+            "longest_row": int(rows.max()), "workspace_slots": schedule.ws_slots}
 
 
 def _library_ms(torch, fn, label):
@@ -1132,7 +1176,8 @@ def sparse_phase(torch):
               "epochs_per_hour": 3600.0 / (ms / 1e3 * len(train)), "losses": losses,
               "launches_per_step": _sparse_launches(model, train=True),
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "device_time_per_step": _device_time(torch, lambda: executor.train_step(batches[-1]), ms)}
+              "device_time_per_step": _device_time(torch, lambda: executor.train_step(batches[-1]), ms,
+                                                   by_kernel=True)}
 
     per_forward = _sparse_launches(model)
     _reset_counts()
@@ -1446,7 +1491,8 @@ def band_phase(torch):
               "epochs_per_hour": 3600.0 / (ms / 1e3 * len(train)), "losses": losses,
               "launches_per_step": {k: v for k, v in _sparse_launches(model, train=True).items() if v},
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "device_time_per_step": _device_time(torch, lambda: executor.train_step(batches[-1]), ms)}
+              "device_time_per_step": _device_time(torch, lambda: executor.train_step(batches[-1]), ms,
+                                                   by_kernel=True)}
 
     per_forward = _sparse_launches(model)
     _reset_counts()
@@ -1652,22 +1698,25 @@ def sparse_bf16_kernel_phase(torch):
     def spmm_hold(got, want):
         return _over_bound(got, want, rel=SPB_SPMM_REL)
 
-    def spmm_rows(values, row, row_ptr, col, widths, what):
+    def spmm_rows(values, row, row_ptr, col, schedule, widths, what, fault_kinds, fault_widths):
         try:
             bsr = torch.sparse_bsr_tensor(row_ptr, col, values, size=(n_pad, n_pad))
         except (RuntimeError, TypeError) as exc:
             bsr = exc
         for feat in widths:
             x = randn(feat)
-            got = sp.bsr_spmm(values, row, row_ptr, col, x, nb)
+            got = sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)
             want = sp.spmm_plain(values, row, col, x, out_blocks=nb)
             torch.cuda.synchronize()
             _hold(spmm_hold(got, want), "bsr_spmm bf16 vs its plain version at F={}{}".format(feat, what))
-            if feat in SPB_FAULT_WIDTHS and not what:
-                for kind in sp.FAULTS:
+            if feat in fault_widths:
+                if not torch.equal(got, sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)):
+                    raise AssertionError("bsr_spmm bf16 at F={}{}: two calls differ".format(feat, what))
+                for kind in fault_kinds:
                     with sp.planted_fault(kind, "bsr_spmm"):
-                        bad = sp.bsr_spmm(values, row, row_ptr, col, x, nb)
-                    faults["bsr_spmm F={} ({}): {}".format(feat, sp.bf16_load_path(feat), kind)] = spmm_hold(bad, want)
+                        bad = sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)
+                    faults["bsr_spmm F={}{} ({}): {}".format(feat, what, sp.bf16_load_path(feat), kind)] = spmm_hold(
+                        bad, want)
                     del bad
             max_abs_err = (got - want).abs().max().item()
             del got, want
@@ -1693,7 +1742,7 @@ def sparse_bf16_kernel_phase(torch):
                 "design": _bf16_spmm_design(feat), "loads": sp.bf16_load_path(feat),
                 "max_abs_err": max_abs_err,
                 "tolerance": "rtol {0:g}, atol {0:g}*max|plain| (f32 sums)".format(SPB_SPMM_REL),
-                "kernel_ms": _time_ms(torch, lambda: sp.bsr_spmm(values, row, row_ptr, col, x, nb)),
+                "kernel_ms": _time_ms(torch, lambda: sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)),
                 "plain_ms": _time_ms(torch, lambda: sp.spmm_plain(values, row, col, x, out_blocks=nb), reps=10),
                 "library_ms": library_ms, "library": library,
                 "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops, "peak": PEAK_NOTE,
@@ -1701,10 +1750,15 @@ def sparse_bf16_kernel_phase(torch):
             })
             del x
 
-    spmm_rows(values, row, row_ptr, col, SPB_SPMM_WIDTHS, "")
-    # the backward's dX on the block-transposed graph (hub rows of up to 384 tiles)
+    spmm_rows(values, row, row_ptr, col, sp.bsr_schedule(row_ptr, nnz, exact=True), SPB_SPMM_WIDTHS, "",
+              sorted(sp.FAULTS), SPB_FAULT_WIDTHS)
+    # the backward's dX on the block-transposed graph (hub rows of up to 384
+    # tiles, split into segments); its split rows must catch the segment fault
     v_t, r_t, c_t = sp.bsr_transpose(values, row, col, nb)
-    spmm_rows(v_t, r_t, sp.row_ptr_of(r_t, nb), c_t, SPB_DX_WIDTHS, " transposed (backward dX)")
+    ptr_t, sched_t = sp.bsr_transpose_schedule(row, col, nb, exact=True)
+    say(json.dumps({"bsr_schedule bf16 transposed": _schedule_summary(torch, sched_t)}))
+    spmm_rows(v_t, r_t, ptr_t, c_t, sched_t, SPB_DX_WIDTHS, " transposed (backward dX)", sorted(sp.SPMM_FAULTS),
+              (128,))
     del v_t
     for d in SPB_B5_WIDTHS:
         a, bt = randn(d), randn(d)
@@ -1799,7 +1853,8 @@ def sparse_bf16_phase(torch, split):
               "epochs_per_hour": 3600.0 / (ms / 1e3 * len(train)), "losses": losses,
               "launches_per_step": {k: v for k, v in per_step.items() if v},
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "device_time_per_step": _device_time(torch, lambda: executor.train_step(batches[-1]), ms)}
+              "device_time_per_step": _device_time(torch, lambda: executor.train_step(batches[-1]), ms,
+                                                   by_kernel=True)}
 
     per_forward = _sparse_launches(model)
     _reset_counts()
@@ -2562,15 +2617,16 @@ def main():
     say("kernels built in {:.1f}s".format(time.time() - t0))
     for name in _cuda.SOURCES:
         say("  {}: {}".format(name, _ptxas_summary(reports[name]) if name in reports else "built before this run"))
-    # the tensor-core kernels of the band and B1t sources, one by one, and
+    # the tensor-core and SIMT f32 kernels of the sources, one by one, and
     # any wgmma the assembler had to serialize
     for name, marker in (("band_spmm", "_tc_kernel"), ("band_probe", "_tc_kernel"), ("bsr_spmm", "_tc_kernel"),
-                         ("sampled_matmul", "_tc_kernel"),
+                         ("sampled_matmul", "_tc_kernel"), ("band_spmm", "band_f32_kernel"),
+                         ("bsr_spmm", "bsr_spmm_f32_kernel"),
                          ("node_factored_t", "_wgmma_kernel"), ("node_apply_q8", "q8_kernel"),
                          ("node_apply_q8_t", "q8_kernel")):
         if name in reports:
-            say(json.dumps({"{} tensor-core kernels [name, registers, spill bytes]".format(name): _ptxas_kernels(
-                reports[name], marker)}))
+            say(json.dumps({"{} {} kernels [name, registers, spill bytes]".format(name, marker.strip("_")):
+                            _ptxas_kernels(reports[name], marker)}))
     for name, report in reports.items():
         for line in report.splitlines():
             if "Performance Loss" in line:

@@ -74,20 +74,25 @@
 // (a k16 slice dropped, a slot skipped, the graph's edge a block short)
 // for checks that must catch one.
 //
-// f32 operands: bsr_spmm.cu's design, plain f32 FMAs: one thread block per
-// (output row block, feature tile of 16*TN columns); the block walks the
-// row's diagonals, staging each tile in 128x32 chunks (transposed on the
-// way in for dX: neighbouring threads read neighbouring columns of one tile
-// row and store them down a padded shared-memory column, without bank
-// conflicts) with the matching 32 rows of x; each of the 256 threads keeps
-// 8 rows x TN columns in registers and writes them once, so dX needs no
-// atomics and no zero fill: a row with no tile writes zeros. dV is
-// sampled_matmul.cu's kernel on one tile per block.
+// f32 operands: full f32 FMAs on the CUDA cores (TF32 would keep three
+// decimal digits), on the mainloop of simt_f32.cuh that bsr_spmm.cu's f32
+// form shares. One block per (output row block, feature tile of FT = 16,
+// 32, 64 or 128 columns) walks the row's present slots; a producer warp
+// streams each tile in 32-k chunks, with x's matching 32 rows, through a
+// 4-stage mbarrier ring, by TMA where x's rows are whole 16-byte units,
+// else by cp.async; 256 consumer threads each keep 8 rows x FT/16 columns in
+// registers and write them once, so dX needs no atomics and no zero fill: a
+// row with no tile writes zeros. The forward reads the tile K-major (under
+// the 128-byte swizzle), dX reads it as it lies (MN-major): both as float4,
+// with no element-wise transpose. At F=128 each thread does 64 FMAs for
+// four 16-byte shared loads. dV is sampled_matmul.cu's kernel on one tile
+// per block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "simt_f32.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace {
@@ -118,84 +123,72 @@ __device__ __forceinline__ size_t tile_offset(int s, int trow, int R, int ld) {
   return PACKED ? (size_t)trow * kBlock * ld + (size_t)s * kBlock : ((size_t)s * R + trow) * kBlock * kBlock;
 }
 
-template <int TN, bool TRANS, bool PACKED, typename T>
-__global__ void __launch_bounds__(kThreads)
-band_spmm_kernel(const T* __restrict__ values, const T* __restrict__ x,
-                 T* __restrict__ out, int R, int F, int n_slots, int radius, Offsets offs) {
-  constexpr int FT = 16 * TN;                 // feature columns per block
-  constexpr int W = TN < 4 ? TN : 4;          // contiguous columns per thread group
-  constexpr int VEC = 16 / sizeof(T);         // elements per 16-byte load
-  __shared__ float vs[kBlock][kChunk + 1];    // tile chunk: 128 rows x 32 k (padded)
-  __shared__ __align__(16) float xs[kChunk][FT];
-
-  const int r = blockIdx.y;
-  const int f0 = blockIdx.x * FT;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+// f32 operands: out[r][:, f0 .. f0 + FT] for r = blockIdx.y, f0 = FT
+// blockIdx.x, on simt_f32.cuh's mainloop. The pairs are the row's present
+// slots: the forward's tile (r, s) against x's block r + o_s, K-major; dX's
+// tile (r - o_s, s) read as it lies, MN-major, against dy's block r - o_s.
+// v_map views the tiles (planes (O R 128, 128) or packed rows (R 128, W)),
+// its box the forward's 32 k by 128 rows under the 128-byte swizzle or dX's
+// 128 columns by 32 k rows; x_map views x (R 128, F), its box FT columns by
+// 32 rows. Both maps are unused under kCpAsync.
+template <int TN, bool TRANS, bool PACKED, int COPY>
+__global__ void __launch_bounds__(simt_f32::kThreads, simt_f32::Ring<TN>::kMinBlocks)
+band_f32_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap x_map,
+                const float* __restrict__ values, const float* __restrict__ x, float* __restrict__ out, int R, int F,
+                int n_slots, int radius, Offsets offs, int x16) {
+  namespace sf = simt_f32;
+  constexpr int FT = sf::Ring<TN>::kFt;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const sf::Stages<TN> st(wgmma_sm90::aligned_smem(smem_raw));
+  const int r = blockIdx.y, f0 = blockIdx.x * FT, tid = threadIdx.x;
   const int ld = PACKED ? n_slots * kBlock : kBlock;
+  sf::ring_init<TN, COPY>(st, tid);
 
-  float acc[kRowsPerThread][TN];
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j)
-#pragma unroll
-    for (int l = 0; l < TN; ++l) acc[j][l] = 0.f;
+  if (tid >= sf::kConsumers) {
+    // producer warp: chunk g is the (g % 4)-th 32-k chunk of the (g / 4)-th present slot
+    const int lane = tid - sf::kConsumers;
+    int g = 0;
+    for (int s = 0; s < n_slots; ++s) {
+      const int o = PACKED ? s - radius : offs.v[s];
+      const int src = TRANS ? r - o : r + o;   // the operand's row block (for dX also the tile's)
+      if (src < 0 || src >= R) continue;
+      const int trow = TRANS ? src : r;
+      // the tile's first row in the tiles' 2-d view, and its first column there
+      const int vrow = (PACKED ? trow : s * R + trow) * kBlock, vcol = PACKED ? s * kBlock : 0;
+      for (int kc = 0; kc < sf::kChunks; ++kc, ++g) {
+        const int stage = g % sf::Ring<TN>::kStages, k0 = kc * sf::kKc;
+        sf::producer_acquire(st, g);
+        if constexpr (COPY == sf::kTma) {
+          sf::fill_tma(st, stage, &v_map, TRANS ? vcol : vcol + k0, TRANS ? vrow + k0 : vrow, &x_map, f0,
+                       src * kBlock + k0, lane);
+        } else {
+          const float* tile = values + (size_t)vrow * ld + vcol;
+          sf::fill_cp<TN, !TRANS>(st, stage, TRANS ? tile + (size_t)k0 * ld : tile + k0, ld,
+                                  x + (size_t)(src * kBlock + k0) * F, F, f0, x16, lane);
+        }
+      }
+    }
+    if constexpr (COPY == sf::kCpAsync) wgmma_sm90::cp_async_wait<0>();   // no copy outlives its thread
+    return;
+  }
 
+  // consumers
+  int present = 0;
   for (int s = 0; s < n_slots; ++s) {
     const int o = PACKED ? s - radius : offs.v[s];
-    const int src = TRANS ? r - o : r + o;  // the operand's row block (for dX also the tile's)
-    if (src < 0 || src >= R) continue;      // the same for every thread of the block
-    const T* v = values + tile_offset<PACKED>(s, TRANS ? src : r, R, ld);
-    const T* xb = x + (size_t)src * kBlock * F;
-    for (int k0 = 0; k0 < kBlock; k0 += kChunk) {
-      __syncthreads();  // the previous chunk is no longer read
-      if (TRANS) {
-        // element (i, k) of the transposed tile is v[k][i]: a warp reads 32
-        // neighbouring i of row k and stores them down column k
-        for (int q = tid; q < kBlock * kChunk; q += kThreads) {
-          const int k = q / kBlock, i = q % kBlock;
-          vs[i][k] = widen(v[(size_t)(k0 + k) * ld + i]);
-        }
-      } else {
-        // the tile's columns k0..k0+31: 16-byte loads, VEC elements each
-        for (int q = tid; q < kBlock * kChunk / VEC; q += kThreads) {
-          const int row = q / (kChunk / VEC), c = VEC * (q % (kChunk / VEC));
-          const uint4 w = *reinterpret_cast<const uint4*>(v + (size_t)row * ld + k0 + c);
-          const T* e = reinterpret_cast<const T*>(&w);
-#pragma unroll
-          for (int u = 0; u < VEC; ++u) vs[row][c + u] = widen(e[u]);
-        }
-      }
-      // operand rows k0..k0+31 of block src, columns f0..f0+FT-1 (zero past F)
-      for (int q = tid; q < kChunk * FT; q += kThreads) {
-        const int k = q / FT, c = q % FT;
-        const int f = f0 + c;
-        xs[k][c] = f < F ? widen(xb[(size_t)(k0 + k) * F + f]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < kChunk; ++k) {
-        float a[kRowsPerThread], b[TN];
-#pragma unroll
-        for (int j = 0; j < kRowsPerThread; ++j) a[j] = vs[ty + 16 * j][k];
-#pragma unroll
-        for (int l = 0; l < TN; ++l) b[l] = xs[k][(l / W) * 16 * W + tx * W + l % W];
-#pragma unroll
-        for (int j = 0; j < kRowsPerThread; ++j)
-#pragma unroll
-          for (int l = 0; l < TN; ++l) acc[j][l] = fmaf(a[j], b[l], acc[j][l]);
-      }
-    }
+    const int src = TRANS ? r - o : r + o;
+    present += src >= 0 && src < R;
   }
-
+  const sf::Place p(tid);
+  float acc[8 * TN];
 #pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    T* o = out + ((size_t)r * kBlock + ty + 16 * j) * F;
-#pragma unroll
-    for (int l = 0; l < TN; ++l) {
-      const int f = f0 + (l / W) * 16 * W + tx * W + l % W;
-      if (f < F) o[f] = narrow<T>(acc[j][l]);
-    }
+  for (int i = 0; i < 8 * TN; ++i) acc[i] = 0.f;
+  for (int g = 0; g < present * sf::kChunks; ++g) {
+    const int stage = sf::consumer_acquire(st, g);
+    sf::mma_chunk<TN, !TRANS>(acc, st.a_at(stage), st.b_at(stage), p);
+    sf::consumer_release(st, stage, tid);
   }
+  sf::store_rows<TN, !TRANS>(out, r * kBlock, F, f0, acc, p);
 }
 
 template <bool PACKED, typename T, typename OutT>
@@ -254,22 +247,51 @@ band_dv_kernel(const T* __restrict__ dy, const T* __restrict__ x, OutT* __restri
 }
 
 
-template <bool TRANS, bool PACKED>
-cudaError_t launch_spmm_f32(const void* values, const void* x, void* out, int R, int F, int n_slots, int radius,
-                            const Offsets& offs, cudaStream_t stream) {
+template <int TN, bool TRANS, bool PACKED, int COPY>
+cudaError_t launch_f32_tile(const CUtensorMap& v_map, const CUtensorMap& x_map, const float* v, const float* x,
+                            float* out, int R, int F, int n_slots, int radius, const Offsets& offs, int x16,
+                            cudaStream_t stream) {
+  auto kernel = band_f32_kernel<TN, TRANS, PACKED, COPY>;
+  const size_t smem = simt_f32::Ring<TN>::kSmem;
+  cudaError_t err = wgmma_sm90::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((F + 16 * TN - 1) / (16 * TN)), (unsigned)R);
+  kernel<<<grid, simt_f32::kThreads, smem, stream>>>(v_map, x_map, v, x, out, R, F, n_slots, radius, offs, x16);
+  return cudaGetLastError();
+}
+
+template <int TN, bool TRANS, bool PACKED>
+cudaError_t launch_f32_width(const void* values, const void* x, void* out, int R, int F, int n_slots, int radius,
+                             const Offsets& offs, cudaStream_t stream) {
   const float* v = static_cast<const float*>(values);
   const float* xx = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
-#define BAND_LAUNCH(TN)                                                                       \
-  band_spmm_kernel<TN, TRANS, PACKED, float>                                                   \
-      <<<dim3((unsigned)((F + 16 * TN - 1) / (16 * TN)), (unsigned)R), kThreads, 0, stream>>>( \
-          v, xx, o, R, F, n_slots, radius, offs)
-  if (F <= 16) BAND_LAUNCH(1);
-  else if (F <= 32) BAND_LAUNCH(2);
-  else if (F <= 64) BAND_LAUNCH(4);
-  else BAND_LAUNCH(8);
-#undef BAND_LAUNCH
-  return cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(v) % 16) return cudaErrorMisalignedAddress;   // 16-byte copies of the tiles
+  const int x16 = F % 4 == 0 && reinterpret_cast<uintptr_t>(xx) % 16 == 0;
+  CUtensorMap v_map = {}, x_map = {};
+  if (x16) {   // TMA: x's rows are whole 16-byte units
+    const int ld = PACKED ? n_slots * kBlock : kBlock;
+    const long long rows = (long long)(PACKED ? 1 : n_slots) * R * kBlock;
+    cudaError_t err = TRANS ? simt_f32::f32_view(&v_map, v, rows, ld, kBlock, simt_f32::kKc, false)
+                            : simt_f32::f32_view(&v_map, v, rows, ld, simt_f32::kKc, kBlock, true);
+    if (err == cudaSuccess) err = simt_f32::f32_view(&x_map, xx, (long long)R * kBlock, F, 16 * TN, simt_f32::kKc, false);
+    if (err != cudaSuccess) return err;
+    return launch_f32_tile<TN, TRANS, PACKED, simt_f32::kTma>(v_map, x_map, v, xx, o, R, F, n_slots, radius, offs,
+                                                               x16, stream);
+  }
+  return launch_f32_tile<TN, TRANS, PACKED, simt_f32::kCpAsync>(v_map, x_map, v, xx, o, R, F, n_slots, radius, offs,
+                                                                 x16, stream);
+}
+
+template <bool TRANS, bool PACKED>
+cudaError_t launch_spmm_f32(const void* values, const void* x, void* out, int R, int F, int n_slots, int radius,
+                            const Offsets& offs, cudaStream_t stream) {
+  switch (simt_f32::feature_tile(F)) {
+    case 16: return launch_f32_width<1, TRANS, PACKED>(values, x, out, R, F, n_slots, radius, offs, stream);
+    case 32: return launch_f32_width<2, TRANS, PACKED>(values, x, out, R, F, n_slots, radius, offs, stream);
+    case 64: return launch_f32_width<4, TRANS, PACKED>(values, x, out, R, F, n_slots, radius, offs, stream);
+    default: return launch_f32_width<8, TRANS, PACKED>(values, x, out, R, F, n_slots, radius, offs, stream);
+  }
 }
 
 template <bool PACKED, typename OutT>

@@ -55,7 +55,10 @@ from multistgraph_tpu_torch.ops.bsr import BSRGraph, row_ptr_from_rows
 from multistgraph_tpu_torch.ops.hybrid import HybridGraph, TailGraph, spmm_hub, spmm_tail, split_hub_columns
 from multistgraph_tpu_torch.ops.precision import round_cotangent
 from multistgraph_tpu_torch.ops.spmm import (
+    BsrSchedule,
+    bsr_schedule,
     bsr_transpose,
+    bsr_transpose_schedule,
     sddmm_relu,
     sparse_row_softmax,
     sparse_row_softmax_dense_corrected,
@@ -110,6 +113,19 @@ class SparseATGCN(nn.Module):
                 t = t.to(compute_dtype)  # stored narrow, as JAX's attach_graph casts (sparse_atgcn.py:216-222)
             self.register_buffer(name, t, persistent=False)
 
+        # bsr_spmm's segment schedules of each static BSR pattern and of its
+        # block transpose (the backward's dX), built once with their
+        # workspace slots counted exactly (none where no row is split)
+        self._ws_slots = {}
+
+        def schedules(prefix, row_ptr, row, col):
+            ptr_t, sched_t = bsr_transpose_schedule(row, col, nb, exact=True)
+            self.register_buffer(prefix + "row_ptr_t", ptr_t, persistent=False)
+            for name, sched in (("schedule", bsr_schedule(row_ptr, row.shape[0], exact=True)),
+                                ("schedule_t", sched_t)):
+                self.register_buffer(prefix + name, sched.segments, persistent=False)
+                self._ws_slots[prefix + name] = sched.ws_slots
+
         self._support_parts, self._support_static = [], []
         for i, support in enumerate(supports):
             parts = {k: v for k, v in support.items() if not k.endswith("_static")}
@@ -119,11 +135,15 @@ class SparseATGCN(nn.Module):
                 buffer("support{}_{}".format(i, part), arr)
             self._support_parts.append(tuple(parts))
             self._support_static.append({k: v for k, v in support.items() if k.endswith("_static")})
+            if "values" in parts:
+                schedules("support{}_".format(i), *(getattr(self, "support{}_{}".format(i, part))
+                                                   for part in ("row_ptr", "row", "col")))
         if self.has_adaptive:
             row, col = adaptive_pattern
             buffer("adaptive_row", np.asarray(row, np.int32))
             buffer("adaptive_col", np.asarray(col, np.int32))
             buffer("adaptive_row_ptr", row_ptr_from_rows(row, nb))
+            schedules("adaptive_", self.adaptive_row_ptr, self.adaptive_row, self.adaptive_col)
 
         def param(name, shape):
             self.register_parameter(name, nn.Parameter(torch.empty(shape, device=device)))
@@ -176,6 +196,10 @@ class SparseATGCN(nn.Module):
     def _has_bsr(sv):
         return "values" in sv and sv["values"].shape[0] > 0
 
+    def _schedule(self, name):
+        """The segment schedule `name` of a static BSR pattern."""
+        return BsrSchedule(getattr(self, name), self._ws_slots[name])
+
     def _adaptive_values(self):
         """The adaptive view's normalised tiles and the dense-corrected
         softmax's background (None for 'sampled')."""
@@ -183,7 +207,8 @@ class SparseATGCN(nn.Module):
         # embeddings in the compute dtype; the scores and both softmaxes' values
         # and background come back in it (JAX sparse_atgcn.py:247,277,279)
         scores = sddmm_relu(self._cast(self.node_vec1), self._cast(self.node_vec2), row, col, block=self.block,
-                            row_ptr=row_ptr)
+                            row_ptr=row_ptr, schedule=self._schedule("adaptive_schedule"),
+                            transpose=(self.adaptive_row_ptr_t, self._schedule("adaptive_schedule_t")))
         nb = self.num_nodes // self.block
         if self.adaptive_softmax == "dense_corrected":
             vals, background = sparse_row_softmax_dense_corrected(scores, row, nb, self.num_nodes)
@@ -191,20 +216,28 @@ class SparseATGCN(nn.Module):
         return self._cast(sparse_row_softmax(scores, row, nb)), None
 
     def _precompute_transposes(self, adaptive):
-        """Block transposes of every loop-invariant operand, once per
-        forward (detached: the outputs do not depend on them), so that no
-        step's backward transposes a support again. Without autograd there
-        is no backward and nothing to transpose."""
+        """Block transposes of every loop-invariant operand, once per forward
+        (detached: the outputs do not depend on them), with the transposed
+        patterns' row offsets and segment schedules built at construction,
+        so that no step's backward transposes a support again or builds
+        anything. Without autograd there is no backward and nothing to
+        transpose."""
         if not torch.is_grad_enabled():
             return [None] * self.num_static, None
         nb = self.num_nodes // self.block
+
+        def plan(values, row, col, prefix):
+            return (*bsr_transpose(values, row, col, nb), getattr(self, prefix + "row_ptr_t"),
+                    self._schedule(prefix + "schedule_t"))
+
         support_prets = []
         for i in range(self.num_static):
             sv = self._support(i)
-            support_prets.append(bsr_transpose(sv["values"], sv["row"], sv["col"], nb) if self._has_bsr(sv) else None)
+            support_prets.append(plan(sv["values"], sv["row"], sv["col"], "support{}_".format(i))
+                                 if self._has_bsr(sv) else None)
         adaptive_pret = None
         if adaptive is not None:
-            adaptive_pret = bsr_transpose(adaptive[0].detach(), self.adaptive_row, self.adaptive_col, nb)
+            adaptive_pret = plan(adaptive[0].detach(), self.adaptive_row, self.adaptive_col, "adaptive_")
         return support_prets, adaptive_pret
 
     def _aggregate(self, x_flat, adaptive, support_prets, adaptive_pret):
@@ -224,7 +257,7 @@ class SparseATGCN(nn.Module):
                 y = spmm_band(sv["band_values"], static["band_offsets_static"], x_flat)
             if self._has_bsr(sv):
                 yb = spmm_pret(sv["values"], pre_t, sv["row"], sv["col"], x_flat, block=self.block,
-                               row_ptr=sv["row_ptr"])
+                               row_ptr=sv["row_ptr"], schedule=self._schedule("support{}_schedule".format(i)))
                 y = yb if y is None else y + yb
             if y is None:  # the split left nothing dense
                 y = torch.zeros_like(x_flat)
@@ -236,7 +269,8 @@ class SparseATGCN(nn.Module):
         if adaptive is not None:
             vals, background = adaptive
             y = spmm_pret(vals, adaptive_pret, self.adaptive_row, self.adaptive_col, x_flat,
-                          block=self.block, row_ptr=self.adaptive_row_ptr)
+                          block=self.block, row_ptr=self.adaptive_row_ptr,
+                          schedule=self._schedule("adaptive_schedule"))
             if background is not None:
                 # rank-1 exp(0) background of the dense reference softmax
                 y = y + background.reshape(-1, 1) * x_flat.sum(dim=0, keepdim=True)

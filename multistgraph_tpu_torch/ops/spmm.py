@@ -14,14 +14,23 @@ path, forward and backward:
     multistgraph_tpu/ops/spmm.py:_sampled_matmul_impl (B5). Its second
     operand comes as rows (n_pad, d), so no caller passes a strided view.
 
+``bsr_spmm`` runs every row block's tiles in segments of at most
+SEGMENT_TILES tiles, one thread block each, from a schedule that
+``bsr_schedule`` builds on the tensors' device (no host sync); a split
+row's partial sums meet in a workspace and are added in segment order, so
+two calls give bit-identical results. The model builds the schedules of
+its static patterns and of their block transposes once, at construction
+(``bsr_schedule``, ``bsr_transpose_schedule``), and passes them on; a call
+without one builds its own.
+
 Each wrapper launches its kernel for CUDA tensors, counts the launch in
 ``.launches`` (float32 operands) or ``.bf16_launches`` (bfloat16 operands,
 the tensor-core kernels), and raises on what the kernel does not take; for
 CPU tensors it takes its plain PyTorch version (``spmm_plain``,
 ``sampled_matmul_plain``). There is no fall back from one to the other: a
 bf16 operand on the card launches the bf16 kernel or raises, never the f32
-one. ``planted_fault`` plants a fault in the bf16 kernels for the checks
-that must catch one.
+one. ``planted_fault`` plants a fault in the kernels for the checks that
+must catch one.
 
 Types, as the JAX package's (spmm.py:90,122-128, spmm_stream.py:306):
 float32 or bfloat16 operands of one dtype. ``bsr_spmm`` returns float32
@@ -45,6 +54,7 @@ whose values the model stops gradients at.
 import contextlib
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -52,6 +62,12 @@ from multistgraph_tpu_torch.ops import _cuda
 
 BLOCK = 128  # the kernels' tile edge; the plain versions take any block
 DTYPES = (torch.float32, torch.bfloat16)  # operand dtypes of the kernels
+# Most tiles one segment of bsr_spmm multiplies: longer row blocks are split
+# (the transposed graph's hub rows hold 384 tiles at 49,152 nodes). Chosen
+# on an H100 with tools/ab_bsr.py among 8-64 (PERF.md): the only length at
+# which both forms' transposed products meet their targets at F = 128 and
+# 1536; 24 is within 4% and 16 within 12% of it on every row.
+SEGMENT_TILES = 32
 
 
 def row_ptr_of(row_of: torch.Tensor, num_row_blocks: int) -> torch.Tensor:
@@ -59,6 +75,63 @@ def row_ptr_of(row_of: torch.Tensor, num_row_blocks: int) -> torch.Tensor:
     row index array, on its device (ops/bsr.py:row_ptr_from_rows on the host)."""
     bounds = torch.arange(num_row_blocks + 1, dtype=row_of.dtype, device=row_of.device)
     return torch.searchsorted(row_of, bounds, side="left", out_int32=True)
+
+
+class BsrSchedule(NamedTuple):
+    """bsr_spmm's segment schedule of one pattern: ``segments`` (M, 8) int32
+    on the pattern's device, one row per segment (row block, first tile, end
+    tile, index in its row, the row's segment count, the row's first
+    workspace slot; row -1 pads M to a bound of the shapes), and
+    ``ws_slots``, a bound on the workspace slots its split rows use."""
+
+    segments: torch.Tensor
+    ws_slots: int
+
+
+def bsr_schedule(row_ptr: torch.Tensor, nnz: int, seg_tiles: int = SEGMENT_TILES, exact: bool = False) -> BsrSchedule:
+    """Cut each row block's tiles [row_ptr[r], row_ptr[r+1]) into segments of
+    at most `seg_tiles` tiles (a row with none gets one empty segment, which
+    writes its zeros), on row_ptr's device with no host sync. The segments
+    are listed longest first, so the card starts the long ones first and no
+    hub row's segment is left to run alone at the end; among equals by
+    their index in the row, then by row.
+
+    Sizes from the shapes alone: a row of n tiles takes max(1, ceil(n/S))
+    <= 1 + floor(n/S) segments, so M = out_blocks + nnz // S rows hold them
+    all; a split row (n > S) takes ceil(n/S) <= 2n/(S+1) workspace slots,
+    so 2 nnz // (S+1) slots hold every split row's partials. `exact` counts
+    the slots instead, with one host sync: for a pattern built once (0 where
+    no row is split, which spares each call its workspace and counters)."""
+    if seg_tiles < 1:
+        raise ValueError("bsr_schedule takes segments of at least one tile, got {}".format(seg_tiles))
+    nb = row_ptr.shape[0] - 1
+    ws_slots = 2 * nnz // (seg_tiles + 1)
+    m = nb + nnz // seg_tiles
+    dev = row_ptr.device
+    if nb <= 0:
+        return BsrSchedule(torch.full((m, 8), -1, dtype=torch.int32, device=dev), 0 if exact else ws_slots)
+    ptr = row_ptr.long()
+    nseg = ((ptr[1:] - ptr[:-1] + seg_tiles - 1) // seg_tiles).clamp_min(1)
+    ends = torch.cumsum(nseg, 0)
+    j = torch.arange(m, device=dev)
+    row = torch.searchsorted(ends, j, right=True)            # nb past the last segment
+    r = row.clamp(max=nb - 1)
+    k = j - (ends[r] - nseg[r])
+    first = ptr[r] + k * seg_tiles
+    end = torch.minimum(first + seg_tiles, ptr[r + 1])
+    split = torch.where(nseg > 1, nseg, 0)
+    split_start = torch.cumsum(split, 0) - split
+    ws_base = torch.where(nseg[r] > 1, split_start[r], -1)
+    seg = torch.stack([row, first, end, k, nseg[r], ws_base, torch.zeros_like(k), torch.zeros_like(k)], 1)
+    valid = row < nb
+    seg = torch.where(valid[:, None], seg, -1)
+    # longest first; among equals by index in the row, so the hub rows'
+    # k-th segments, which read the same x blocks, run together; padding last
+    key = torch.where(valid, (seg_tiles - (end - first)) * m + k, (seg_tiles + 1) * m)
+    seg = seg[torch.argsort(key, stable=True)]
+    if exact:
+        ws_slots = int(split.sum())
+    return BsrSchedule(seg.to(torch.int32).contiguous(), ws_slots)
 
 
 # ----------------------------------------------------------- plain versions
@@ -97,26 +170,48 @@ def bsr_transpose(values, row_of, col_of, n_blocks: int):
     return v_t, col_of[perm], row_of[perm]
 
 
+def bsr_transpose_schedule(row_of, col_of, n_blocks: int, exact: bool = False):
+    """The row offsets (n_blocks + 1,) and segment schedule of the pattern
+    bsr_transpose gives (row_of, col_of), from the pattern alone: its row
+    block c holds the tiles of column block c. For a pattern built once,
+    `exact` counts the schedule's workspace (one host sync)."""
+    ptr_t = row_ptr_of(torch.sort(col_of).values, n_blocks)
+    return ptr_t, bsr_schedule(ptr_t, col_of.shape[0], exact=exact)
+
+
+def bsr_transpose_plan(values, row_of, col_of, n_blocks: int):
+    """bsr_transpose with what the backward's dX SpMM needs besides:
+    (v_t, r_t, c_t, row_ptr_t, schedule_t), the transposed graph's row
+    offsets over n_blocks row blocks and its segment schedule, all on the
+    values' device, with no host sync."""
+    return (*bsr_transpose(values, row_of, col_of, n_blocks), *bsr_transpose_schedule(row_of, col_of, n_blocks))
+
+
 # ------------------------------------------------------------ CUDA wrappers
-# Faults the bf16 (tensor-core) kernels plant on request, for checks that
-# must fail them (chip_smoke.py): the k16 slice holding the contraction's
-# last element dropped; a tile skipped (bsr_spmm: each row block's last;
-# sampled_matmul: tile 0); row block 0 zeroed (bsr_spmm: its output rows;
-# sampled_matmul: its tiles).
+# Faults the kernels plant on request, for checks that must fail them
+# (chip_smoke.py): the k16 slice holding the contraction's last element
+# dropped; a tile skipped (bsr_spmm: each row block's last; sampled_matmul:
+# tile 0); row block 0 zeroed (bsr_spmm: its output rows; sampled_matmul:
+# its tiles). bsr_spmm plants them in both forms, sampled_matmul in bf16;
+# bsr_spmm also takes SPMM_FAULTS' "segment": a split row's last segment
+# left out of its sum.
 FAULTS = {"k16": 1, "tile": 2, "row": 3}
+SPMM_FAULTS = dict(FAULTS, segment=4)
 _KERNELS = ("bsr_spmm", "sampled_matmul")
 _planted = {}
 
 
 @contextlib.contextmanager
 def planted_fault(kind: str, kernel: str = None):
-    """Launch the bf16 kernels (or only `kernel`, 'bsr_spmm' or
-    'sampled_matmul') with the fault FAULTS[kind] planted in them while the
-    block runs."""
+    """Launch the kernels (or only `kernel`, 'bsr_spmm' or 'sampled_matmul')
+    with the fault FAULTS[kind] (for bsr_spmm alone also SPMM_FAULTS[kind])
+    planted in them while the block runs."""
     global _planted
     if kernel not in (None,) + _KERNELS:
         raise ValueError("planted_fault takes a kernel of {}, got {!r}".format(_KERNELS, kernel))
-    _planted = dict.fromkeys(_KERNELS if kernel is None else (kernel,), FAULTS[kind])
+    if kind not in FAULTS and not (kind in SPMM_FAULTS and kernel == "bsr_spmm"):
+        raise ValueError("planted_fault has no fault {!r} for {}".format(kind, kernel or "both kernels"))
+    _planted = dict.fromkeys(_KERNELS if kernel is None else (kernel,), SPMM_FAULTS[kind])
     try:
         yield
     finally:
@@ -131,19 +226,31 @@ def bf16_load_path(feat: int) -> str:
 
 
 @functools.cache
-def _kernel(name: str, entry: str, n_ints: int):
+def _kernel(name: str, entry: str, n_ptrs: int, n_ints: int):
     fn = getattr(_cuda.library(name), entry)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _run(name, entry, tensors, ints, device):
+    """Launch `entry` of csrc/<name>.cu on the current stream; a None tensor
+    passes a null pointer."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel(name, entry, len(ints))(*[t.data_ptr() for t in tensors], *ints, stream)
+        ptrs = [None if t is None else t.data_ptr() for t in tensors]
+        rc = _kernel(name, entry, len(ptrs), len(ints))(*ptrs, *ints, stream)
     if rc != 0:
         raise RuntimeError("{} kernel launch failed: CUDA error {}".format(name, rc))
+
+
+@functools.cache
+def feature_tile(feat: int, bf16: bool) -> int:
+    """The feature columns one bsr_spmm block computes at width `feat`
+    (csrc/bsr_spmm.cu's rule), which sizes a workspace slot."""
+    fn = _cuda.library("bsr_spmm").bsr_spmm_feature_tile
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn(feat, int(bf16))
 
 
 def _check_common(name, floats, ints, dtypes=DTYPES):
@@ -166,15 +273,18 @@ def _check_common(name, floats, ints, dtypes=DTYPES):
         raise ValueError("{} takes contiguous tensors".format(name))
 
 
-def bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks: int):
+def bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks: int, schedule: BsrSchedule = None):
     """Y = A X: (out_blocks*block, F) float32, for float32 or bfloat16
     operands.
 
     values (nnz, block, block), row_of/col_of (nnz,) and row_ptr
     (out_blocks+1,) int32 of a row-major-sorted pattern, x (n_in, F) with
-    n_in a multiple of block, values and x of one dtype. CPU tensors take
-    the plain version; CUDA tensors launch csrc/bsr_spmm.cu (block 128; its
-    tensor-core kernel for bf16) or raise.
+    n_in a multiple of block, values and x of one dtype; `schedule`, the
+    pattern's bsr_schedule(row_ptr, nnz) (built here if None). CPU tensors
+    take the plain version; CUDA tensors launch csrc/bsr_spmm.cu (block 128;
+    its tensor-core kernel for bf16) or raise. The kernel's split rows meet
+    in a workspace and a zeroed counter per (row block, feature tile), both
+    allocated here on the current stream.
     """
     _check_common("bsr_spmm", (values, x), (row_of, row_ptr, col_of))
     if values.dim() != 3 or values.shape[1] != values.shape[2] or x.dim() != 2:
@@ -195,12 +305,23 @@ def bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks: int):
     out = torch.empty((out_blocks * block, feat), dtype=torch.float32, device=x.device)
     if not out.numel():
         return out
-    if x.dtype == torch.bfloat16:
-        _run("bsr_spmm", "bsr_spmm_bf16", (values, row_ptr, col_of, x, out),
-             (out_blocks, feat, nnz, x.shape[0], _planted.get("bsr_spmm", 0)), x.device)
+    if schedule is None:
+        schedule = bsr_schedule(row_ptr, nnz)
+    seg = schedule.segments
+    if seg.dtype != torch.int32 or seg.dim() != 2 or seg.shape[1] != 8 or seg.device != x.device:
+        raise ValueError("bsr_spmm takes a schedule of (M, 8) int32 segments on the operands' device")
+    bf16 = x.dtype == torch.bfloat16
+    tile = feature_tile(feat, bf16)
+    tiles = -(-feat // tile)
+    ws = counters = None
+    if schedule.ws_slots:
+        ws = torch.empty(schedule.ws_slots * tiles * block * tile, dtype=torch.float32, device=x.device)
+        counters = torch.zeros(out_blocks * tiles, dtype=torch.int32, device=x.device)
+    _run("bsr_spmm", "bsr_spmm_bf16" if bf16 else "bsr_spmm_fwd", (values, col_of, x, out, seg, ws, counters),
+         (out_blocks, feat, nnz, x.shape[0], seg.shape[0], _planted.get("bsr_spmm", 0)), x.device)
+    if bf16:
         bsr_spmm.bf16_launches += 1
     else:
-        _run("bsr_spmm", "bsr_spmm_fwd", (values, row_ptr, col_of, x, out), (out_blocks, feat), x.device)
         bsr_spmm.launches += 1
     return out
 
@@ -243,72 +364,77 @@ sampled_matmul.launches = sampled_matmul.bf16_launches = 0
 # ---------------------------------------------------------------- autograd
 class _SpMM(torch.autograd.Function):
     """Y = A X; A's tiles and X differentiable. ``graph`` = (row_of, row_ptr,
-    col_of); ``pre_t`` = a precomputed bsr_transpose of A (detached), or
-    None to transpose in the backward."""
+    col_of, schedule); ``pre_t`` = a precomputed bsr_transpose_plan of A,
+    detached, or None to transpose in the backward."""
 
     @staticmethod
     def forward(ctx, values, x, graph, pre_t, out_blocks):
-        row_of, row_ptr, col_of = graph
+        row_of, row_ptr, col_of, schedule = graph
         ctx.graph, ctx.pre_t = graph, pre_t
         ctx.x_blocks = x.shape[0] // values.shape[1]
         ctx.dtypes = (values.dtype, x.dtype)
         need_v, need_x = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
         ctx.save_for_backward(values if need_x and pre_t is None else None, x if need_v else None)
-        return bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks)
+        return bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks, schedule)
 
     @staticmethod
     def backward(ctx, dy):
         values, x = ctx.saved_tensors
-        row_of, _, col_of = ctx.graph
+        row_of, _, col_of, _ = ctx.graph
         v_dtype, x_dtype = ctx.dtypes
         # with bf16 x, dy is rounded once before both kernels (JAX spmm.py:193-194)
         dy = dy.to(torch.bfloat16 if x_dtype == torch.bfloat16 else dy.dtype).contiguous()
         dvalues = dx = None
         if ctx.needs_input_grad[1]:
             nb = ctx.x_blocks
-            if ctx.pre_t is not None:
-                v_t, r_t, c_t = ctx.pre_t
-            else:
+            pre_t = ctx.pre_t
+            if pre_t is None:
                 # sort-key multiplier must exceed every row id (rectangular A)
-                v_t, r_t, c_t = bsr_transpose(values, row_of, col_of, max(nb, dy.shape[0] // values.shape[1]))
-            dx = bsr_spmm(v_t, r_t, row_ptr_of(r_t, nb), c_t, dy, nb).to(x_dtype)
+                pre_t = (*bsr_transpose(values, row_of, col_of, max(nb, dy.shape[0] // values.shape[1])),
+                         *bsr_transpose_schedule(row_of, col_of, nb))
+            v_t, r_t, c_t, ptr_t, sched_t = pre_t
+            dx = bsr_spmm(v_t, r_t, ptr_t, c_t, dy, nb, sched_t).to(x_dtype)
         if ctx.needs_input_grad[0]:
             dvalues = sampled_matmul(dy, x, row_of, col_of).to(v_dtype)
         return dvalues, dx, None, None, None
 
 
-def _graph(row_of, col_of, row_ptr, out_blocks):
-    return (row_of, row_ptr if row_ptr is not None else row_ptr_of(row_of, out_blocks), col_of)
+def _graph(row_of, col_of, row_ptr, out_blocks, schedule=None):
+    return (row_of, row_ptr if row_ptr is not None else row_ptr_of(row_of, out_blocks), col_of, schedule)
 
 
-def spmm(values, row_of, col_of, x, block: int = BLOCK, out_blocks=None, row_ptr=None):
+def spmm(values, row_of, col_of, x, block: int = BLOCK, out_blocks=None, row_ptr=None, schedule=None):
     """Y = A X (float32); values (nnz, b, b) and x (padded_nodes, F) of one
     dtype, float32 or bfloat16, row_of/col_of (nnz,) int32 sorted by row.
     Differentiable in values and x. out_blocks
     sets the output's row-block count when it differs from x's; row_ptr, if
-    given, is row_ptr_of(row_of, out_blocks)."""
+    given, is row_ptr_of(row_of, out_blocks), and schedule its
+    bsr_schedule (built at each launch on the card if None)."""
     nb = out_blocks if out_blocks is not None else x.shape[0] // block
-    return _SpMM.apply(values, x, _graph(row_of, col_of, row_ptr, nb), None, nb)
+    return _SpMM.apply(values, x, _graph(row_of, col_of, row_ptr, nb, schedule), None, nb)
 
 
-def spmm_pret(values, pre_t, row_of, col_of, x, block: int = BLOCK, out_blocks=None, row_ptr=None):
-    """``spmm`` with a precomputed block transpose ``pre_t = (v_t, r_t, c_t)``
-    (from bsr_transpose, detached) steering the backward dX pass, so a
-    loop-invariant operand is transposed once per forward, not per step.
+def spmm_pret(values, pre_t, row_of, col_of, x, block: int = BLOCK, out_blocks=None, row_ptr=None, schedule=None):
+    """``spmm`` with a precomputed block transpose ``pre_t`` steering the
+    backward dX pass, so a loop-invariant operand is transposed once per
+    forward, not per step: bsr_transpose_plan's (v_t, r_t, c_t, row_ptr_t,
+    schedule_t), detached, which leaves the backward nothing to build.
     ``pre_t=None`` (no backward to come) is ``spmm``."""
     nb = out_blocks if out_blocks is not None else x.shape[0] // block
-    return _SpMM.apply(values, x, _graph(row_of, col_of, row_ptr, nb), pre_t, nb)
+    return _SpMM.apply(values, x, _graph(row_of, col_of, row_ptr, nb, schedule), pre_t, nb)
 
 
 class _SDDMMReLU(torch.autograd.Function):
     """relu(E1 E2) at the pattern; e1 (n_pad, d), e2 (d, n_pad). The scores
     come in sampled_matmul's dtype (bf16 for bf16 embeddings); dE1 and dE2
-    are cast to the embeddings' dtypes (JAX spmm.py:287-298)."""
+    are cast to the embeddings' dtypes (JAX spmm.py:287-298). ``transpose``
+    = (row_ptr_t, schedule_t) of the pattern's block transpose, or None to
+    build them in the backward."""
 
     @staticmethod
-    def forward(ctx, e1, e2, graph, block):
-        row_of, _, col_of = graph
-        ctx.graph, ctx.block = graph, block
+    def forward(ctx, e1, e2, graph, transpose, block):
+        row_of, _, col_of, _ = graph
+        ctx.graph, ctx.transpose, ctx.block = graph, transpose, block
         out = sampled_matmul(e1, e2.t().contiguous(), row_of, col_of).clamp_min_(0.0)
         ctx.save_for_backward(e1, e2, out)
         return out
@@ -316,23 +442,28 @@ class _SDDMMReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ds):
         e1, e2, out = ctx.saved_tensors
-        row_of, row_ptr, col_of = ctx.graph
+        row_of, row_ptr, col_of, schedule = ctx.graph
         dm = torch.where(out > 0, ds, 0.0)
         n_blocks = e1.shape[0] // ctx.block
         de1 = de2 = None
         if ctx.needs_input_grad[0]:
-            de1 = bsr_spmm(dm, row_of, row_ptr, col_of, e2.t().contiguous(), n_blocks).to(e1.dtype)
+            de1 = bsr_spmm(dm, row_of, row_ptr, col_of, e2.t().contiguous(), n_blocks, schedule).to(e1.dtype)
         if ctx.needs_input_grad[1]:
             m_t, r_t, c_t = bsr_transpose(dm, row_of, col_of, n_blocks)
-            de2 = bsr_spmm(m_t, r_t, row_ptr_of(r_t, n_blocks), c_t, e1.contiguous(), n_blocks).t().to(e2.dtype)
-        return de1, de2, None, None
+            ptr_t, sched_t = ctx.transpose or bsr_transpose_schedule(row_of, col_of, n_blocks)
+            de2 = bsr_spmm(m_t, r_t, ptr_t, c_t, e1.contiguous(), n_blocks, sched_t).t().to(e2.dtype)
+        return de1, de2, None, None, None
 
 
-def sddmm_relu(e1, e2, row_of, col_of, block: int = BLOCK, row_ptr=None):
+def sddmm_relu(e1, e2, row_of, col_of, block: int = BLOCK, row_ptr=None, schedule=None, transpose=None):
     """relu(E1 @ E2) at the graph's nonzero blocks -> (nnz, block, block):
     the adaptive-adjacency scores before row normalisation. Differentiable
-    in e1 (n_pad, d) and e2 (d, n_pad)."""
-    return _SDDMMReLU.apply(e1, e2, _graph(row_of, col_of, row_ptr, e1.shape[0] // block), block)
+    in e1 (n_pad, d) and e2 (d, n_pad); `schedule`, the pattern's
+    bsr_schedule, steers the backward's dE1, and `transpose`, the
+    bsr_transpose_schedule of the pattern (row_ptr_t, schedule_t), its dE2
+    (each built in the backward if None)."""
+    nb = e1.shape[0] // block
+    return _SDDMMReLU.apply(e1, e2, _graph(row_of, col_of, row_ptr, nb, schedule), transpose, block)
 
 
 # ---------------------------------------------------------------- softmaxes

@@ -12,11 +12,14 @@ falls outside the graph):
     128, 1536; B8 (packed rows) at F = 12, 64, 768 (bucket 1) and 24, 128,
     1536 (bucket 2); B9 dX (planes) and B9 dV (planes, bf16 values) at F =
     128 and 1536;
-  * f32 at F = 128 and 1536 for each of the four;
+  * f32 at the widths the 49,152-node f32 path gives each kernel: B7 at F =
+    24, 128, 1536; B8 at F = 12, 64, 768, 24, 128, 1536; B9 dX and dV at F
+    = 128, 1536;
   * P2 ``band_slab`` (bf16 packed rows against the padded x, f32 out),
     per-row and batched, at the probe's point (R = 8,192 random row
     blocks, radius 2, F = 128) with chunk_rows 8 (P2) and 16 (P4's second
     slab).
+``--dtype`` keeps the rows of one operand type.
 The unchanged layout-copy kernel (B3) is timed in each round as a control
 for drift of the card. Before timing, each new output is held against the
 base's: one bf16 step for bf16, rtol 1e-5 with atol 1e-5 max|base| for
@@ -49,7 +52,8 @@ BLOCK, ROW_BLOCKS, OFFSETS, RADIUS = 128, 7813, (-2, -1, 0, 1, 2), 2
 SLAB_ROWS, SLAB_FEAT, SLAB_CHUNKS = 8192, 128, (8, 16)   # P2's point (tools/probe_band_stream.py)
 BF16_WIDTHS = {"B7": (24, 128, 1536), "B8": (12, 64, 768, 24, 128, 1536), "B9 dX": (128, 1536),
                "B9 dV": (128, 1536)}
-F32_WIDTHS = (128, 1536)
+F32_WIDTHS = {"B7": (24, 128, 1536), "B8": (12, 64, 768, 24, 128, 1536), "B9 dX": (128, 1536),
+              "B9 dV": (128, 1536)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source: {entry: argument types} of the interface both versions share
 ENTRIES = {"band_spmm": {"band_spmm_launch": [_P] * 3 + [_I] * (7 + MAX_OFFSETS) + [_P],
@@ -96,7 +100,7 @@ def _cases(g):
     cases = []
     n = ROW_BLOCKS * BLOCK
     offs = list(OFFSETS) + [0] * (MAX_OFFSETS - len(OFFSETS))
-    for dtype, widths in ((torch.bfloat16, BF16_WIDTHS), (torch.float32, dict.fromkeys(BF16_WIDTHS, F32_WIDTHS))):
+    for dtype, widths in ((torch.bfloat16, BF16_WIDTHS), (torch.float32, F32_WIDTHS)):
         planes = _planes(g, dtype)
         packed = pack_band_rows(planes, OFFSETS, RADIUS)
         dv_out = torch.empty_like(planes)
@@ -153,12 +157,14 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=10, help="timed calls per sample")
     ap.add_argument("--only", default="", help="time only the kernels whose name starts with this (e.g. P2)")
+    ap.add_argument("--dtype", choices=("all", "bf16", "f32"), default="all", help="time only rows of this type")
     cli = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = [case for case in _cases(g) if case[0].startswith(cli.only)]
+    dtype = {"all": "", "f32": "float32", "bf16": "bf"}[cli.dtype]   # P2's shapes end in "bf16"
+    cases = [case for case in _cases(g) if case[0].startswith(cli.only) and dtype in case[1].split()[-1]]
     view = torch.randn(24, 16, 237, 192, generator=g, device="cuda")[..., :128]
     stream = torch.cuda.current_stream().cuda_stream
     samples = {}

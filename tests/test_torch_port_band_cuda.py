@@ -1,7 +1,7 @@
 """The port's band kernels on the card (csrc/band_spmm.cu): B7 ``band_spmm``,
 B8 ``band_spmm_packed``, B9 ``band_dx`` and ``band_dv`` and the packed
-layout's dX and dV, against their plain versions at odd shapes (F = 1, 17,
-24, 1536; negative, missing and single offsets; a lone row block), the
+layout's dX and dV, against their plain versions at odd shapes (F = 1, 12,
+17, 24, 1536; negative, missing and single offsets; a lone row block), the
 autograd terms on the card against the CPU, and one band-form SparseATGCN
 training step with its exact launch counts.
 
@@ -55,7 +55,7 @@ OFFSETS = [(-2, -1, 0, 1, 2), (-3, 0, 2), (0,), (1, -1)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("feat", [1, 17, 24, 128, 1536])
+@pytest.mark.parametrize("feat", [1, 12, 17, 24, 128, 1536])
 @pytest.mark.parametrize("offsets", OFFSETS, ids=lambda o: "offsets" + "_".join(map(str, o)))
 def test_cuda_band_kernels_match_plain(cuda, offsets, feat):
     nb = 6
@@ -74,7 +74,7 @@ def test_cuda_band_kernels_match_plain(cuda, offsets, feat):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("feat", [3, 64, 640])
+@pytest.mark.parametrize("feat", [3, 12, 24, 64, 640])
 @pytest.mark.parametrize("radius", [0, 1, 2])
 def test_cuda_packed_kernels_match_plain(cuda, radius, feat):
     nb = 5

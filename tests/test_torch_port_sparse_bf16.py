@@ -123,7 +123,7 @@ def test_bf16_spmm_forward_and_gradients_match_jax(feat, pret):
     values, xt = v_t.requires_grad_(), x_t.requires_grad_()
     row, col = _t(g.row_of), _t(g.col_of)
     if pret:
-        y = spmm.spmm_pret(values, spmm.bsr_transpose(values.detach(), row, col, nb), row, col, xt)
+        y = spmm.spmm_pret(values, spmm.bsr_transpose_plan(values.detach(), row, col, nb), row, col, xt)
     else:
         y = spmm.spmm(values, row, col, xt)
     y.backward(_t(dy))

@@ -200,7 +200,7 @@ def test_cuda_bf16_autograd_terms_match_the_cpu(cuda):
             xx = x.to(dev).detach().requires_grad_()
             r, c = row.to(dev), col.to(dev)
             if pre:
-                y = spmm.spmm_pret(v, spmm.bsr_transpose(v.detach(), r, c, 4), r, c, xx)
+                y = spmm.spmm_pret(v, spmm.bsr_transpose_plan(v.detach(), r, c, 4), r, c, xx)
             else:
                 y = spmm.spmm(v, r, c, xx)
             y.backward(dy.to(dev))

@@ -1,14 +1,20 @@
 """The port's sparse kernels on the card: B4/B6 (``bsr_spmm``,
 csrc/bsr_spmm.cu) and B5 (``sampled_matmul``, csrc/sampled_matmul.cu)
 against their plain versions at odd shapes (F = 1, 17, 1536; empty row
-blocks; one tile; a rectangular A), the autograd terms on the card against
-the CPU, and one SparseATGCN training step with its exact launch counts.
+blocks; one tile; a rectangular A), B4/B6 in f32 and bf16 on rows split
+into segments (a transposed hub column of more than 3 segments; rows of
+exactly one segment; bit-identical repeats; planted faults), the autograd
+terms on the card against the CPU, and one SparseATGCN training step with
+its exact launch counts.
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_port_sparse_cuda.py
 Tolerance of kernel against plain version: rtol 1e-5 with atol 1e-5 times
-max |plain| (the same f32 products, summed in another order).
+max |plain| (the same f32 products, summed in another order); for bf16
+operands on the split rows rtol 4e-5 with atol 4e-5 max |plain|, the bound
+chip_smoke.py holds the bf16 kernel's f32 sums to on the transposed graph
+(the tensor cores' own f32 accumulation).
 """
 
 import numpy as np
@@ -127,6 +133,91 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="128x128"):
         small = torch.zeros(2, 64, 64, device=cuda)
         spmm.bsr_spmm(small, row, ptr, col, torch.zeros(128, 8, device=cuda), 2)
+
+
+def _hub_transpose(cuda, dtype, seed, extra=2):
+    """The block transpose (bsr_transpose_plan) of a graph of 3 S + 5 row
+    blocks whose column block 0 is a hub, with a tile in every row block but
+    row block 1, and `extra` random tiles a row: the transpose's row 0
+    holds 3 S + 4 tiles, 4 segments of S = SEGMENT_TILES."""
+    n = 3 * spmm.SEGMENT_TILES + 5
+    rng = np.random.default_rng(seed)
+    row, col = [], []
+    for r in range(n):
+        if r != 1:
+            cols = np.concatenate([[0], 1 + rng.choice(n - 1, size=extra, replace=False)])
+            row += [r] * len(cols)
+            col += sorted(cols.tolist())
+    values = torch.from_numpy(rng.normal(size=(len(row), BLOCK, BLOCK)).astype(np.float32)).to(cuda).to(dtype)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(cuda)  # noqa: E731
+    plan = spmm.bsr_transpose_plan(values, to(row), to(col), n)
+    assert int((plan[1] == 0).sum()) == n - 1 > 3 * spmm.SEGMENT_TILES
+    return n, plan
+
+
+def _ratio(got, want, rel):
+    """Largest |got - want| over rtol rel |want| + rel max|want|."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    diff = (got - want).abs()
+    return (diff / (rel * (want.abs() + want.abs().max()))).masked_fill(diff == 0, 0.0).max().item()
+
+
+SPLIT_REL = {torch.float32: 1e-5, torch.bfloat16: 4e-5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [1, 12, 17, 128, 1536])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_bsr_spmm_splits_long_rows(cuda, dtype, feat):
+    """A hub row of 4 segments and rows of one, in both forms: against the
+    plain version, and two calls bit-identical."""
+    n, (v_t, r_t, c_t, ptr_t, sched) = _hub_transpose(cuda, dtype, seed=feat)
+    assert (sched.segments[:, 4] > 1).any()
+    x = torch.randn(n * BLOCK, feat, device=cuda).to(dtype)
+    got = spmm.bsr_spmm(v_t, r_t, ptr_t, c_t, x, n, sched)
+    assert _ratio(got, spmm.spmm_plain(v_t, r_t, c_t, x, out_blocks=n), SPLIT_REL[dtype]) <= 1.0
+    assert torch.equal(got, spmm.bsr_spmm(v_t, r_t, ptr_t, c_t, x, n, sched))
+    # without a schedule the wrapper builds the same one
+    assert torch.equal(got, spmm.bsr_spmm(v_t, r_t, ptr_t, c_t, x, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_bsr_spmm_schedule_edges(cuda, dtype):
+    """An empty row block, a row of exactly S tiles, a row of S + 1 and a
+    single tile, at S = SEGMENT_TILES and at S = 1 (every tile a segment)."""
+    s = spmm.SEGMENT_TILES
+    counts = [0, s, s + 1, 1]
+    rng = np.random.default_rng(5)
+    n_in = s + 2
+    row = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    col = np.concatenate([np.sort(rng.choice(n_in, size=c, replace=False)) for c in counts]).astype(np.int32)
+    values = torch.from_numpy(rng.normal(size=(len(row), BLOCK, BLOCK)).astype(np.float32)).to(cuda).to(dtype)
+    row_t, col_t = torch.from_numpy(row).to(cuda), torch.from_numpy(col).to(cuda)
+    ptr = spmm.row_ptr_of(row_t, len(counts))
+    x = torch.randn(n_in * BLOCK, 24, device=cuda).to(dtype)
+    want = spmm.spmm_plain(values, row_t, col_t, x, out_blocks=len(counts))
+    for seg_tiles in (s, 1):
+        sched = spmm.bsr_schedule(ptr, len(row), seg_tiles)
+        got = spmm.bsr_spmm(values, row_t, ptr, col_t, x, len(counts), sched)
+        assert _ratio(got, want, SPLIT_REL[dtype]) <= 1.0
+        assert not got[:BLOCK].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_bsr_spmm_planted_faults_fail_the_check(cuda, dtype):
+    """Each fault planted in bsr_spmm, the split row's last segment left out
+    among them, takes it past its check on the hub transpose, in both forms."""
+    n, (v_t, r_t, c_t, ptr_t, sched) = _hub_transpose(cuda, dtype, seed=3)
+    x = torch.randn(n * BLOCK, 128, device=cuda).to(dtype)
+    want = spmm.spmm_plain(v_t, r_t, c_t, x, out_blocks=n)
+    for kind in sorted(spmm.SPMM_FAULTS):
+        with spmm.planted_fault(kind, "bsr_spmm"):
+            bad = spmm.bsr_spmm(v_t, r_t, ptr_t, c_t, x, n, sched)
+        assert _ratio(bad, want, SPLIT_REL[dtype]) > 1.0, kind
+    assert _ratio(spmm.bsr_spmm(v_t, r_t, ptr_t, c_t, x, n, sched), want, SPLIT_REL[dtype]) <= 1.0
 
 
 @pytest.mark.cuda

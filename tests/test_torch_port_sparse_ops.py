@@ -123,15 +123,37 @@ def test_unported_graph_forms_raise():
 # ------------------------------------------------------------- products
 def _vjp_inputs(g, feat, seed=1):
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(N_PAD, feat)).astype(np.float32)
-    dy = rng.normal(size=(N_PAD, feat)).astype(np.float32)
+    x = rng.normal(size=(g.padded_nodes, feat)).astype(np.float32)
+    dy = rng.normal(size=(g.padded_nodes, feat)).astype(np.float32)
     return x, dy
 
 
-@pytest.mark.parametrize("feat", [3, 24, 128])
+def _hub_graph(n_blocks=spmm.SEGMENT_TILES + 4, seed=4):
+    """A graph whose column block 0 is a hub, with edges into it from every
+    row block but row block 1 (which has no edge), beside random edges in
+    the diagonal tiles: its block transpose holds a row of n_blocks - 1
+    tiles, more than one bsr_spmm segment."""
+    rng = np.random.default_rng(seed)
+    n = n_blocks * BLOCK
+    rows = np.setdiff1d(np.arange(n), np.arange(BLOCK, 2 * BLOCK))   # no edge out of row block 1
+    src = rng.choice(rows, size=80 * n_blocks)
+    diagonal = src[40 * n_blocks:] // BLOCK * BLOCK + rng.integers(0, BLOCK, size=40 * n_blocks)
+    dst = np.concatenate([rng.integers(0, BLOCK, size=40 * n_blocks), diagonal])
+    g = bsr.bsr_from_coo(src, dst, rng.normal(size=len(src)).astype(np.float32), n, block=BLOCK)
+    assert int((g.col_of == 0).sum()) == n_blocks - 1 > spmm.SEGMENT_TILES
+    return g
+
+
+@pytest.mark.parametrize("feat,hub", [(3, False), (24, False), (128, False), (24, True)],
+                         ids=["3", "24", "128", "hub-24"])
 @pytest.mark.parametrize("pret", [False, True], ids=["spmm", "spmm_pret"])
-def test_spmm_forward_and_gradients_match_jax(feat, pret):
-    g = _graph()
+def test_spmm_forward_and_gradients_match_jax(feat, hub, pret):
+    """Forward, dX and dA against JAX. The hub case's transposed graph has
+    a row longer than one segment: on the CPU it checks that the plan and
+    the pattern reach the backward's dX as they should (bsr_spmm takes its
+    plain version here); the segment split itself is held against the plain
+    version on the card (tests/test_torch_port_sparse_cuda.py)."""
+    g = _hub_graph() if hub else _graph()
     x, dy = _vjp_inputs(g, feat)
     nb = g.num_row_blocks
 
@@ -148,7 +170,7 @@ def test_spmm_forward_and_gradients_match_jax(feat, pret):
     xt = _t(x).requires_grad_()
     row, col = _t(g.row_of), _t(g.col_of)
     if pret:
-        y = spmm.spmm_pret(values, spmm.bsr_transpose(values.detach(), row, col, nb), row, col, xt)
+        y = spmm.spmm_pret(values, spmm.bsr_transpose_plan(values.detach(), row, col, nb), row, col, xt)
     else:
         y = spmm.spmm(values, row, col, xt)
     y.backward(_t(dy))
