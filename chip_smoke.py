@@ -32,9 +32,10 @@ synthetic large graph of 49,152 nodes (4,946 tiles of 128x128):
     PyTorch library call each; B4/B6 on the model's segment schedules (the
     transposed graph's hub rows split over blocks: a line gives each
     transposed schedule's segments and longest segment), two calls
-    bit-identical, and faults planted inside its f32 kernel (a k16 slice
-    dropped, a tile skipped, a row block zeroed; on the transposed graph
-    also a split row's last segment dropped) must fail the holds;
+    bit-identical, and faults planted inside the f32 kernels of B4/B6 and
+    B5 (a k16 slice dropped, a tile skipped, a row block zeroed; on B4/B6's
+    transposed graph also a split row's last segment dropped) must fail
+    the holds;
   * training through ``get_executor`` (2 warm-up and 10 timed steps at
     batch 2) with exact launch counts derived from the model and the
     step's device time by kernel name, one validation and one evaluation
@@ -46,7 +47,10 @@ Then the band form of the same graph (graph_split 'band': diagonals -2..2,
 1,914 tiles, hub columns):
   * the band kernels B7 (planes), B8 (packed rows), B9 dX and B9 dV against
     their plain versions at every width the path gives them, timed, beside
-    their bounds and a torch.bmm library call each;
+    their bounds and a torch.bmm library call each; three faults planted
+    inside B9 dV's f32 kernel (a k16 slice dropped, the main diagonal
+    skipped, the graph's last row block read as outside it) must fail the
+    holds;
   * training on the planes through ``get_executor`` (2 warm-up and 10 timed
     steps) with exact launch counts, one validation and one evaluation
     pass, and the saved experiment served from packed rows
@@ -913,6 +917,7 @@ SP_SPMM_WIDTHS = (16, 24, 64, 128, 1536)   # sddmm dE, layer-0 hoist, serving st
 SP_DX_WIDTHS = (128, 1536)                 # transposed (dX) of the per-step aggregations and of layer 1's hoist
 SP_FAULT_WIDTH = 128                       # faults planted inside B4/B6 (f32) must fail the holds at this width
 SP_B5_WIDTHS = (16, 24, 128, 1536)         # forward scores, then adaptive dV at each SpMM width
+SP_B5_FAULT_WIDTHS = (16, 128)             # faults planted inside B5 (f32): one chunk of d, then four
 PEAK_F32_FLOPS = 67e12
 PEAK_F32_NOTE = "H100 SXM data sheet: 3.35 TB/s HBM, 67 TFLOP/s f32 (CUDA cores; TF32 is off)"
 # Card vs CPU at 4,096 nodes (373 tiles), same configuration and weights:
@@ -984,7 +989,12 @@ def _bsr_csr_pattern(torch, row_ptr, col_of, nb):
 def sparse_kernel_phase(torch):
     """bsr_spmm and sampled_matmul vs their plain versions on the 49,152-node
     graph at the widths the main path gives them, timed, with their bounds
-    and one PyTorch library call each."""
+    and one PyTorch library call each (for sampled_matmul also
+    torch.sparse.sampled_addmm), and faults planted inside both f32
+    kernels."""
+    import ctypes
+
+    from multistgraph_tpu_torch.ops import _cuda
     from multistgraph_tpu_torch.ops import spmm as sp
     from multistgraph_tpu_torch.ops.bsr import random_spatial_graph
 
@@ -1052,6 +1062,8 @@ def sparse_kernel_phase(torch):
     spmm_rows(v_t, r_t, ptr_t, c_t, sched_t, SP_DX_WIDTHS, " transposed (backward dX)", sorted(sp.SPMM_FAULTS))
     del v_t
     crow, ccol = _bsr_csr_pattern(torch, row_ptr, col, nb)
+    blocks = _cuda.library("sampled_matmul").sampled_matmul_f32_blocks   # the f32 kernel's grid for nnz tiles
+    blocks.argtypes, blocks.restype = [ctypes.c_int], ctypes.c_int
     for d in SP_B5_WIDTHS:
         a = torch.randn(n_pad, d, generator=g, device=dev)
         bt = torch.randn(n_pad, d, generator=g, device=dev)
@@ -1059,25 +1071,34 @@ def sparse_kernel_phase(torch):
         want = sp.sampled_matmul_plain(a, bt, row, col)
         torch.cuda.synchronize()
         _hold(_over_bound(got, want), "sampled_matmul vs its plain version at D={}".format(d))
+        if d in SP_B5_FAULT_WIDTHS:
+            for kind in sorted(sp.FAULTS):
+                with sp.planted_fault(kind, "sampled_matmul"):
+                    bad = sp.sampled_matmul(a, bt, row, col)
+                faults["sampled_matmul d={}: {}".format(d, kind)] = _over_bound(bad, want)
+                del bad
         num_bytes = 2 * n_pad * d * 4 + 2 * nnz * 4 + tile_bytes
         flops = 2 * nnz * 128 * 128 * d
         bound, by = _bound_ms(num_bytes, flops, PEAK_F32_FLOPS)
+        # the library call: one f32 torch.bmm of the tiles' row blocks, gathered outside the timed window
+        a_t = a.reshape(-1, 128, d).index_select(0, row)
+        b_t = bt.reshape(-1, 128, d).index_select(0, col)
+        library_ms = _time_ms(torch, lambda: torch.bmm(a_t, b_t.transpose(1, 2)), reps=10)
+        del a_t, b_t
         csr = torch.sparse_csr_tensor(crow, ccol, torch.ones(ccol.numel(), device=dev), size=(n_pad, n_pad))
-        library_ms, library = _library_ms(
+        addmm_ms, addmm = _library_ms(
             torch, lambda: torch.sparse.sampled_addmm(csr, a, bt.t(), beta=0.0),
             "torch.sparse.sampled_addmm on the CSR expansion of the pattern")
-        if library_ms is None:
-            a_t = a.reshape(-1, 128, d).index_select(0, row)
-            b_t = bt.reshape(-1, 128, d).index_select(0, col)
-            library_ms = _time_ms(torch, lambda: torch.bmm(a_t, b_t.transpose(1, 2)), reps=10)
-            library = "torch.bmm of the pre-gathered tiles (sampled_addmm refused: {})".format(library)
+        n_blocks = blocks(nnz)
         lines.append({
             "name": "sampled_matmul", "shape": "N={} nnz={} d={}".format(n_pad, nnz, d),
             "replaces": "multistgraph_tpu/ops/spmm.py:129 _sampled_matmul_impl",
             "max_abs_err": (got - want).abs().max().item(), "tolerance": "rtol 1e-5, atol 1e-5*max|plain|",
             "kernel_ms": _time_ms(torch, lambda: sp.sampled_matmul(a, bt, row, col)),
             "plain_ms": _time_ms(torch, lambda: sp.sampled_matmul_plain(a, bt, row, col), reps=10),
-            "library_ms": library_ms, "library": library,
+            "library_ms": library_ms, "library": "torch.bmm of the pre-gathered row blocks (the gathers not timed)",
+            "sampled_addmm_ms": addmm_ms, "sampled_addmm": addmm,
+            "design": "simt_f32.cuh sampled kernel, {} persistent blocks".format(n_blocks),
             "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops, "peak": PEAK_F32_NOTE,
             "main_path": True,
         })
@@ -1343,7 +1364,8 @@ def band_kernel_phase(torch):
     """B7, B8, B9 dX and B9 dV vs their plain versions on the 49,152-node
     band at every width the main path gives them, timed, with their bounds
     and one PyTorch library call each (torch.bmm of packed rows against
-    overlapping windows of the zero-padded operand)."""
+    overlapping windows of the zero-padded operand), and faults planted
+    inside B9 dV's f32 kernel."""
     import numpy as np
 
     from multistgraph_tpu_torch.ops import band
@@ -1413,6 +1435,7 @@ def band_kernel_phase(torch):
         row("band_dx", "multistgraph_tpu/ops/band.py:462 band_dx_pallas", feat,
             lambda: band.band_dx(planes, offsets, dy), lambda: band.band_dx_plain(planes, offsets, dy),
             lambda: torch.bmm(packed_t, dyw), "torch.bmm(transposed packed rows, windows of the padded dy)")
+    faults = {}
     for feat in BAND_DV_WIDTHS:
         x = torch.randn(n_pad, feat, generator=g, device=dev)
         dy = torch.randn(n_pad, feat, generator=g, device=dev)
@@ -1421,10 +1444,26 @@ def band_kernel_phase(torch):
             lambda: band.band_dv(dy, x, offsets), lambda: band.band_dv_plain(dy, x, offsets),
             lambda: torch.bmm(dyb, xw.transpose(1, 2)), "torch.bmm(dy blocks, windows of the padded x transposed)",
             main_path=False, library_check=False)
+        # faults planted inside dV's f32 kernel, on the planes and on packed rows
+        for what, run, plain in (
+                ("planes", lambda: band.band_dv(dy, x, offsets), lambda: band.band_dv_plain(dy, x, offsets)),
+                ("packed", lambda: band.band_dv_packed(dy, x, radius),
+                 lambda: band.band_dv_packed_plain(dy, x, radius))):
+            want = plain()
+            for kind in sorted(band.FAULTS):
+                with band.planted_fault(kind):
+                    bad = run()
+                faults["band_dv F={} {}: {}".format(feat, what, kind)] = _over_bound(bad, want)
+                del bad
+            del want
     del planes, packed, packed_t
     torch.cuda.empty_cache()
     for line in lines:
         say(json.dumps(line))
+    say(json.dumps({"band_f32_planted_faults_over_bound": faults}))
+    for fault, ratio in faults.items():
+        if not ratio > 1.0:
+            raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
     return lines
 
 
@@ -2621,7 +2660,8 @@ def main():
     # any wgmma the assembler had to serialize
     for name, marker in (("band_spmm", "_tc_kernel"), ("band_probe", "_tc_kernel"), ("bsr_spmm", "_tc_kernel"),
                          ("sampled_matmul", "_tc_kernel"), ("band_spmm", "band_f32_kernel"),
-                         ("bsr_spmm", "bsr_spmm_f32_kernel"),
+                         ("bsr_spmm", "bsr_spmm_f32_kernel"), ("sampled_matmul", "sampled_f32_kernel"),
+                         ("band_spmm", "sampled_f32_kernel"),
                          ("node_factored_t", "_wgmma_kernel"), ("node_apply_q8", "q8_kernel"),
                          ("node_apply_q8_t", "q8_kernel")):
         if name in reports:

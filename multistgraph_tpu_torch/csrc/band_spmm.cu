@@ -27,7 +27,9 @@
 // packed form's dX, which JAX computes with XLA einsums (band.py:609-642).
 // band_dv_launch (the backward's dV, B9 dV, :band_dv_pallas):
 //   out tile (s, r) = dy[r] @ x[r + o_s]^T, zero where r + o_s is outside
-//   [0, R); written in the planes or the packed layout.
+//   [0, R); written in the planes or the packed layout. The same function
+//   as sampled_matmul.cu's (B5) at the band's tiles: its f32 form shares
+//   B5's kernel.
 //
 // What bounds them on an H100: the forward and dX are one (128x128)(128xF)
 // product per present tile, dV the same FLOPs contracting over F and
@@ -85,8 +87,15 @@
 // row with no tile writes zeros. The forward reads the tile K-major (under
 // the 128-byte swizzle), dX reads it as it lies (MN-major): both as float4,
 // with no element-wise transpose. At F=128 each thread does 64 FMAs for
-// four 16-byte shared loads. dV is sampled_matmul.cu's kernel on one tile
-// per block.
+// four 16-byte shared loads. dV runs simt_f32.cuh's sampled kernel, as
+// sampled_matmul.cu's f32 form does (BandDvTiles): dy[r] and x[r + o_s]
+// both K-major in 32-k chunks through the same ring, persistent blocks
+// walking the tiles (s, r), the slots of a row block together, each tile
+// staged in shared memory and stored by TMA; its faults are the bf16
+// kernels'. At the 49,152-node band (1,920 tiles (s, r), 1,914 in the
+// graph) on an H100 80GB HBM3 at 700 W: F=128 0.209 ms, F=1536 2.33,
+// against 0.366 and 3.82 for the design it replaces (B5's first kernel on
+// one tile a block; PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,31 +106,12 @@
 
 namespace {
 
-__device__ __forceinline__ float widen(float v) { return v; }
-
-template <typename T>
-__device__ __forceinline__ T narrow(float v);
-template <>
-__device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
-
 constexpr int kBlock = 128;                 // tile edge
-constexpr int kChunk = 32;                  // k rows staged per pass
-constexpr int kThreads = 256;               // 16 x 16 threads
-constexpr int kRowsPerThread = kBlock / 16; // 8
 constexpr int kMaxOffsets = 8;
 
 struct Offsets {
   int v[kMaxOffsets];
 };
-
-// Offset of the tile of slot s whose rows are row block `trow`; its row
-// stride is ld (128 for planes, (2 radius + 1) 128 for packed rows).
-template <bool PACKED>
-__device__ __forceinline__ size_t tile_offset(int s, int trow, int R, int ld) {
-  return PACKED ? (size_t)trow * kBlock * ld + (size_t)s * kBlock : ((size_t)s * R + trow) * kBlock * kBlock;
-}
 
 // f32 operands: out[r][:, f0 .. f0 + FT] for r = blockIdx.y, f0 = FT
 // blockIdx.x, on simt_f32.cuh's mainloop. The pairs are the row's present
@@ -191,62 +181,6 @@ band_f32_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_constant
   sf::store_rows<TN, !TRANS>(out, r * kBlock, F, f0, acc, p);
 }
 
-template <bool PACKED, typename T, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-band_dv_kernel(const T* __restrict__ dy, const T* __restrict__ x, OutT* __restrict__ out,
-               int R, int d, int n_slots, int radius, Offsets offs) {
-  __shared__ float as[kBlock][kChunk + 1];
-  __shared__ float bs[kBlock][kChunk + 1];
-
-  const int r = blockIdx.x, s = blockIdx.y;
-  const int c = r + (PACKED ? s - radius : offs.v[s]);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int ld = PACKED ? n_slots * kBlock : kBlock;
-
-  float acc[kRowsPerThread][kRowsPerThread];
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j)
-#pragma unroll
-    for (int l = 0; l < kRowsPerThread; ++l) acc[j][l] = 0.f;
-
-  if (c >= 0 && c < R) {  // else the tile stays zero; the same for the whole block
-    const T* ab = dy + (size_t)r * kBlock * d;
-    const T* bb = x + (size_t)c * kBlock * d;
-    for (int k0 = 0; k0 < d; k0 += kChunk) {
-      __syncthreads();  // the previous chunk is no longer read
-      // a warp reads 32 neighbouring k of one row (zero past d)
-      for (int q = tid; q < kBlock * kChunk; q += kThreads) {
-        const int row = q / kChunk, k = q % kChunk;
-        const bool in = k0 + k < d;
-        as[row][k] = in ? widen(ab[(size_t)row * d + k0 + k]) : 0.f;
-        bs[row][k] = in ? widen(bb[(size_t)row * d + k0 + k]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < kChunk; ++k) {
-        float pa[kRowsPerThread], pb[kRowsPerThread];
-#pragma unroll
-        for (int j = 0; j < kRowsPerThread; ++j) pa[j] = as[ty + 16 * j][k];
-#pragma unroll
-        for (int l = 0; l < kRowsPerThread; ++l) pb[l] = bs[tx + 16 * l][k];
-#pragma unroll
-        for (int j = 0; j < kRowsPerThread; ++j)
-#pragma unroll
-          for (int l = 0; l < kRowsPerThread; ++l) acc[j][l] = fmaf(pa[j], pb[l], acc[j][l]);
-      }
-    }
-  }
-
-  OutT* ot = out + tile_offset<PACKED>(s, r, R, ld);
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j)
-#pragma unroll
-    for (int l = 0; l < kRowsPerThread; ++l)
-      ot[(size_t)(ty + 16 * j) * ld + tx + 16 * l] = narrow<OutT>(acc[j][l]);
-}
-
-
 template <int TN, bool TRANS, bool PACKED, int COPY>
 cudaError_t launch_f32_tile(const CUtensorMap& v_map, const CUtensorMap& x_map, const float* v, const float* x,
                             float* out, int R, int F, int n_slots, int radius, const Offsets& offs, int x16,
@@ -294,16 +228,6 @@ cudaError_t launch_spmm_f32(const void* values, const void* x, void* out, int R,
   }
 }
 
-template <bool PACKED, typename OutT>
-cudaError_t launch_dv_f32(const void* dy, const void* x, void* out, int R, int d, int n_slots, int radius,
-                          const Offsets& offs, cudaStream_t stream) {
-  const dim3 grid((unsigned)R, (unsigned)n_slots);
-  band_dv_kernel<PACKED, float, OutT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(dy), static_cast<const float*>(x), static_cast<OutT*>(out), R, d, n_slots, radius,
-      offs);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------- bf16 operands: tensor cores
 
 using namespace wgmma_sm90;
@@ -333,6 +257,42 @@ __device__ __forceinline__ int slot_source(const Band& a, int s, int r, bool tra
   const int o = a.packed ? s - a.radius : a.offs.v[s];
   const int src = trans ? r - o : r + o;
   return src >= 0 && src < (a.fault == kFaultEdge ? a.R - 1 : a.R) ? src : -1;
+}
+
+// f32 dV on simt_f32.cuh's sampled kernel: tile t is (s, r) = (t % n_slots,
+// t / n_slots), the slots of one row block together (they read the same dy
+// block, and neighbouring rows the same x blocks), dy[r] @ x[r + o_s]^T,
+// zero where slot_source finds no row block; written into the planes or the
+// packed rows in the values' type.
+template <typename OutT>
+struct BandDvTiles {
+  using Out = OutT;
+  Band a;
+  OutT* out;               // planes (O, R, 128, 128), viewed as (O R 128, 128), or packed rows (R 128, O 128)
+  int n;
+  long long view_rows;
+  int view_cols;
+  __device__ __forceinline__ bool source(int t, int& ar, int& br) const {
+    const int r = t / a.n_slots, c = slot_source(a, t % a.n_slots, r, false);
+    ar = r * kBlock;
+    br = c * kBlock;
+    return c >= 0;
+  }
+  __device__ __forceinline__ void store_at(int t, int& c0, int& c1) const {
+    const int r = t / a.n_slots, s = t % a.n_slots;
+    c0 = a.packed ? s * kBlock : 0;
+    c1 = (a.packed ? r : s * a.R + r) * kBlock;
+  }
+};
+
+template <typename OutT>
+cudaError_t launch_dv_f32(const void* dy, const void* x, void* out, const Band& a, cudaStream_t stream) {
+  const BandDvTiles<OutT> tiles = {a, static_cast<OutT*>(out), a.R * a.n_slots,
+                                   (long long)(a.packed ? 1 : a.n_slots) * a.R * kBlock,
+                                   a.packed ? a.n_slots * kBlock : kBlock};
+  const long long rows = (long long)a.R * kBlock;
+  return simt_f32::launch_sampled(static_cast<const float*>(dy), rows, static_cast<const float*>(x), rows, tiles, a.F,
+                                  a.fault, stream);
 }
 
 template <int BN>
@@ -652,7 +612,7 @@ Offsets make_offsets(int o0, int o1, int o2, int o3, int o4, int o5, int o6, int
 // As band_spmm_launch, with a fault planted in the bf16 kernel (0: none, 1:
 // the k16 slice holding each product's last contraction element dropped, 2:
 // the middle slot skipped, 3: the last row block read as outside the
-// graph); float32 operands take no fault.
+// graph); the f32 forward and dX take no fault (the f32 dV does).
 extern "C" int band_spmm_launch_fault(const void* values, const void* x, void* out, int n_blocks, int feat,
                                       int n_slots, int radius, int packed, int transposed, int dtype, int o0,
                                       int o1, int o2, int o3, int o4, int o5, int o6, int o7, int fault,
@@ -687,9 +647,9 @@ extern "C" int band_spmm_launch(const void* values, const void* x, void* out, in
                                 o2, o3, o4, o5, o6, o7, 0, stream);
 }
 
-// As band_dv_launch, with a fault planted in the bf16 kernel (as
+// As band_dv_launch, with a fault planted in the kernel, bf16 or f32 (as
 // band_spmm_launch_fault's; 1 drops the k16 slice holding the last
-// feature); float32 operands take no fault.
+// feature).
 extern "C" int band_dv_launch_fault(const void* dy, const void* x, void* out, int n_blocks, int feat,
                                     int n_slots, int radius, int packed, int in_dtype, int out_dtype, int o0,
                                     int o1, int o2, int o3, int o4, int o5, int o6, int o7, int fault,
@@ -697,16 +657,10 @@ extern "C" int band_dv_launch_fault(const void* dy, const void* x, void* out, in
   if (n_blocks == 0 || n_slots == 0) return (int)cudaSuccess;
   const Offsets offs = make_offsets(o0, o1, o2, o3, o4, o5, o6, o7);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype) {
-    const Band a = {n_blocks, feat, n_slots, radius, packed, fault, offs};
+  const Band a = {n_blocks, feat, n_slots, radius, packed, fault, offs};
+  if (in_dtype)
     return out_dtype ? (int)launch_dv_bf16<__nv_bfloat16>(dy, x, out, a, s) : (int)launch_dv_bf16<float>(dy, x, out, a, s);
-  }
-  if (fault) return (int)cudaErrorInvalidValue;
-  if (packed)
-    return out_dtype ? (int)launch_dv_f32<true, __nv_bfloat16>(dy, x, out, n_blocks, feat, n_slots, radius, offs, s)
-                     : (int)launch_dv_f32<true, float>(dy, x, out, n_blocks, feat, n_slots, radius, offs, s);
-  return out_dtype ? (int)launch_dv_f32<false, __nv_bfloat16>(dy, x, out, n_blocks, feat, n_slots, radius, offs, s)
-                   : (int)launch_dv_f32<false, float>(dy, x, out, n_blocks, feat, n_slots, radius, offs, s);
+  return out_dtype ? (int)launch_dv_f32<__nv_bfloat16>(dy, x, out, a, s) : (int)launch_dv_f32<float>(dy, x, out, a, s);
 }
 
 extern "C" int band_dv_launch(const void* dy, const void* x, void* out, int n_blocks, int feat,

@@ -14,16 +14,18 @@
 // Replaces the Pallas kernel multistgraph_tpu/ops/spmm.py:_sampled_matmul_impl
 // (_sampled_kernel), which takes b as (d, n) and computes A B.
 //
-// f32 operands. Bound on an H100: bytes at small d, operations at large d.
-// At the 49,152-node graph (4,946 tiles) the forward (d=16) writes 324 MB,
-// 0.10 ms at 3.35 TB/s against 2.6 GFLOP; the backward at d=1536 is 249
-// GFLOP, 3.7 ms at the 67 TFLOP/s f32 peak. This first design is plain f32
-// FMAs: one thread block per nonzero tile; it loops over d in chunks of 32,
-// staging the 128x32 slices of both operands in shared memory (rows padded
-// to 33 floats, so neither the staging nor the reads conflict on banks),
-// and each of the 256 threads keeps an 8x8 grid of the tile (rows ty+16j,
-// columns tx+16l) in registers and writes it once. Tensor cores and
-// pipelined loads come later.
+// f32 operands (sampled_matmul_fwd): the sampled kernel of simt_f32.cuh,
+// whose design its comment gives, with this file's tiles (SampledTiles).
+// Bound on an H100: bytes at small d, operations at large d. At the
+// 49,152-node graph (4,946 tiles) the forward scores (d=16) write 324 MB,
+// 0.10 ms at 3.35 TB/s against 2.6 GFLOP; the adaptive dV at d=128 is 20.7
+// GFLOP (0.31 ms at the 67 TFLOP/s f32 peak) and at d=1536 249 GFLOP (3.7
+// ms), full f32 FMAs on the CUDA cores (TF32 would keep three decimal
+// digits). On an H100 80GB HBM3 at 700 W (PERF.md §6): d=16 0.135 ms,
+// d=24 0.138, d=128 0.511, d=1536 5.74, against 0.257, 0.260, 0.79 and
+// 8.8-8.9 for the design it replaces (one block a tile, 33-float padded
+// rows loaded element by element between two barriers a chunk, no
+// pipeline, 64 scattered 4-byte stores a thread).
 //
 // bf16 operands: tensor cores, the design of band_spmm.cu's dV
 // (band_dv_tc_kernel) on one tile a block. Bound on an H100: the 162 MB of
@@ -46,73 +48,44 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "simt_f32.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace {
 
 constexpr int kBlock = 128;
-constexpr int kChunk = 32;
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPer = kBlock / 16;  // 8 rows and 8 columns per thread
 
-__global__ void __launch_bounds__(kThreads)
-sampled_matmul_kernel(const float* __restrict__ a, const float* __restrict__ bt,
-                      const int* __restrict__ row_of, const int* __restrict__ col_of,
-                      float* __restrict__ out, int d) {
-  __shared__ float as[kBlock][kChunk + 1];
-  __shared__ float bs[kBlock][kChunk + 1];
+// Faults the kernels plant on request, for checks that must fail them:
+constexpr int kFaultK16 = 1;    // the k16 slice holding the last feature dropped
+constexpr int kFaultTile = 2;   // tile 0 skipped (written as zeros)
+constexpr int kFaultRow = 3;    // the tiles of row block 0 written as zeros
 
-  const int p = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const float* ab = a + (size_t)row_of[p] * kBlock * d;
-  const float* bb = bt + (size_t)col_of[p] * kBlock * d;
-
-  float acc[kPer][kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j)
-#pragma unroll
-    for (int l = 0; l < kPer; ++l) acc[j][l] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += kChunk) {
-    __syncthreads();  // the previous chunk is no longer read
-    // a warp reads 32 neighbouring k of one row (zero past d)
-    for (int q = tid; q < kBlock * kChunk; q += kThreads) {
-      const int row = q / kChunk, k = q % kChunk;
-      const bool in = k0 + k < d;
-      as[row][k] = in ? ab[(size_t)row * d + k0 + k] : 0.f;
-      bs[row][k] = in ? bb[(size_t)row * d + k0 + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kChunk; ++k) {
-      float x[kPer], y[kPer];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) x[j] = as[ty + 16 * j][k];
-#pragma unroll
-      for (int l = 0; l < kPer; ++l) y[l] = bs[tx + 16 * l][k];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-#pragma unroll
-        for (int l = 0; l < kPer; ++l) acc[j][l] = fmaf(x[j], y[l], acc[j][l]);
-    }
+// f32 operands: tile p = a[row_of[p]] @ bt[col_of[p]]^T, on simt_f32.cuh's
+// sampled kernel; a tile that a fault skips is written as zeros.
+struct SampledTiles {
+  using Out = float;
+  const int* row_of;
+  const int* col_of;
+  float* out;              // (n, 128, 128), viewed as (n 128, 128)
+  int n, fault;
+  long long view_rows;
+  int view_cols;
+  __device__ __forceinline__ bool source(int t, int& ar, int& br) const {
+    const int r = row_of[t];
+    if ((fault == kFaultTile && t == 0) || (fault == kFaultRow && r == 0)) return false;
+    ar = r * kBlock;
+    br = col_of[t] * kBlock;
+    return true;
   }
-
-  float* o = out + (size_t)p * kBlock * kBlock;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j)
-#pragma unroll
-    for (int l = 0; l < kPer; ++l) o[(ty + 16 * j) * kBlock + tx + 16 * l] = acc[j][l];
-}
+  __device__ __forceinline__ void store_at(int t, int& c0, int& c1) const {
+    c0 = 0;
+    c1 = t * kBlock;
+  }
+};
 
 // ---------------------------------------------------------------- bf16 operands: tensor cores
 
 using namespace wgmma_sm90;
-
-// Faults the bf16 kernel plants on request, for checks that must fail it:
-constexpr int kFaultK16 = 1;    // the k16 slice holding the last feature dropped
-constexpr int kFaultTile = 2;   // tile 0 skipped (written as zeros)
-constexpr int kFaultRow = 3;    // the tiles of row block 0 written as zeros
 
 constexpr int kKc = 64;                       // features of one ring stage
 constexpr int kStages = 2;
@@ -244,15 +217,20 @@ sampled_matmul_tc_kernel(const __grid_constant__ CUtensorMap a_map, const __grid
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() after the launch.
-extern "C" int sampled_matmul_fwd(const void* a, const void* bt, const void* row_of,
-                                  const void* col_of, void* out, int nnz, int d, void* stream) {
-  if (nnz == 0) return (int)cudaSuccess;
-  sampled_matmul_kernel<<<(unsigned)nnz, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(bt), static_cast<const int*>(row_of),
-      static_cast<const int*>(col_of), static_cast<float*>(out), d);
-  return (int)cudaGetLastError();
+// The f32 form: a (n_a, d) and bt (n_b, d) float32, out (nnz, 128, 128)
+// float32; fault as sampled_matmul_bf16's. Launches on `stream`; returns
+// cudaGetLastError() after the launch, or the error of a TMA view that
+// cannot be encoded where d % 4 == 0 and both operands are 16-byte aligned.
+extern "C" int sampled_matmul_fwd(const void* a, const void* bt, const void* row_of, const void* col_of, void* out,
+                                  int nnz, int d, int n_a, int n_b, int fault, void* stream) {
+  const SampledTiles tiles = {static_cast<const int*>(row_of), static_cast<const int*>(col_of),
+                              static_cast<float*>(out), nnz, fault, (long long)nnz * kBlock, kBlock};
+  return (int)simt_f32::launch_sampled(static_cast<const float*>(a), n_a, static_cast<const float*>(bt), n_b, tiles,
+                                       d, fault, static_cast<cudaStream_t>(stream));
 }
+
+// The thread blocks sampled_matmul_fwd launches for nnz tiles.
+extern "C" int sampled_matmul_f32_blocks(int nnz) { return simt_f32::sampled_blocks(nnz); }
 
 // The bf16 form: a (n_a, d) and bt (n_b, d) bfloat16, out (nnz, 128, 128)
 // bfloat16. fault: 0 none, 1 the k16 slice holding the last feature

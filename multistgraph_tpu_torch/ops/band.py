@@ -32,8 +32,9 @@ straight into (N_pad, F). bf16 operands run on the tensor cores (wgmma, the
 tiles by TMA, x by TMA where F % 8 == 0, else by element loads:
 ``bf16_load_path``); a TMA view that the shape allows and
 cuTensorMapEncodeTiled refuses (an operand that is not 16-byte aligned)
-raises. ``planted_fault`` plants a fault in them for the checks that must
-catch one.
+raises. f32 operands run full f32 FMAs on csrc/simt_f32.cuh's mainloop,
+dV on its sampled kernel (B5's). ``planted_fault`` plants a fault in the
+bf16 kernels and the f32 dV for the checks that must catch one.
 
 Types, as the JAX package's (band.py:587-588,623,678,691-692,727-736):
 float32 or bfloat16 operands. The kernel wrappers take the tiles and x of
@@ -253,18 +254,20 @@ def band_dv_packed_plain(dy, x, radius: int, block: int = BLOCK, out_dtype=None)
 
 
 # ------------------------------------------------------------ CUDA wrappers
-# Faults the bf16 (tensor-core) kernels plant on request, for checks that
-# must fail them (chip_smoke.py): the k16 slice holding each product's last
-# contraction element dropped, the middle slot skipped (the main diagonal of
-# offsets -r..r), the last row block read as outside the graph.
+# Faults the bf16 (tensor-core) kernels and the f32 dV plant on request, for
+# checks that must fail them (chip_smoke.py): the k16 slice holding each
+# product's last contraction element dropped, the middle slot skipped (the
+# main diagonal of offsets -r..r), the last row block read as outside the
+# graph.
 FAULTS = {"k16": 1, "slot": 2, "edge": 3}
 _planted = 0
 
 
 @contextlib.contextmanager
 def planted_fault(kind: str):
-    """Launch the bf16 kernels with the fault FAULTS[kind] planted in them
-    while the block runs (f32 operands then raise)."""
+    """Launch the bf16 kernels and the f32 dV with the fault FAULTS[kind]
+    planted in them while the block runs (the f32 forward and dX then
+    raise)."""
     global _planted
     code = FAULTS[kind]
     _planted = code

@@ -192,7 +192,7 @@ def bsr_transpose_plan(values, row_of, col_of, n_blocks: int):
 # (chip_smoke.py): the k16 slice holding the contraction's last element
 # dropped; a tile skipped (bsr_spmm: each row block's last; sampled_matmul:
 # tile 0); row block 0 zeroed (bsr_spmm: its output rows; sampled_matmul:
-# its tiles). bsr_spmm plants them in both forms, sampled_matmul in bf16;
+# its tiles). Both kernels plant them in both forms (f32 and bf16);
 # bsr_spmm also takes SPMM_FAULTS' "segment": a split row's last segment
 # left out of its sum.
 FAULTS = {"k16": 1, "tile": 2, "row": 3}
@@ -333,7 +333,8 @@ def sampled_matmul(a, bt, row_of, col_of):
     a (n_a, d) and bt (n_b, d) of one dtype with n_a, n_b multiples of 128;
     row_of and col_of (nnz,) int32 index a's and bt's 128-row blocks. CPU
     tensors take the plain version; CUDA tensors launch
-    csrc/sampled_matmul.cu (its tensor-core kernel for bf16) or raise.
+    csrc/sampled_matmul.cu (its tensor-core kernel for bf16; for f32 the
+    sampled kernel of csrc/simt_f32.cuh, which B9 dV shares) or raise.
     """
     _check_common("sampled_matmul", (a, bt), (row_of, col_of))
     if a.dim() != 2 or bt.dim() != 2 or a.shape[1] != bt.shape[1] or a.shape[0] % BLOCK \
@@ -351,8 +352,8 @@ def sampled_matmul(a, bt, row_of, col_of):
              (nnz, a.shape[1], a.shape[0], bt.shape[0], _planted.get("sampled_matmul", 0)), a.device)
         sampled_matmul.bf16_launches += 1
     else:
-        _run("sampled_matmul", "sampled_matmul_fwd", (a, bt, row_of, col_of, out), (nnz, a.shape[1]),
-             a.device)
+        _run("sampled_matmul", "sampled_matmul_fwd", (a, bt, row_of, col_of, out),
+             (nnz, a.shape[1], a.shape[0], bt.shape[0], _planted.get("sampled_matmul", 0)), a.device)
         sampled_matmul.launches += 1
     return out
 

@@ -1,16 +1,21 @@
-"""A/B timing of two versions of the block-sparse SpMM kernel (B4/B6) on one GPU.
+"""A/B timing of two versions of the block-sparse kernels (B4/B6, B5) on one GPU.
 
-Builds ``csrc/bsr_spmm.cu`` of this checkout and of another one (e.g. the
-parent commit unpacked with ``git archive``) with the port's nvcc flags,
-loads both with ctypes and times them in turns, base, new, new, base, for
-several rounds, on the 49,152-node graph of the sparse path (4,946 tiles
-of 128x128, ``random_spatial_graph(49152, 16, seed=0)``):
-  * f32 forward at every width the path gives it (F = 16, 24, 64, 128,
-    1536) and on the block-transposed graph of the backward's dX (F = 128,
-    1536: hub rows of 384 tiles);
-  * bf16 (f32 sums) forward at F = 12, 16, 24, 64, 128, 768, 1536 and
-    transposed at F = 128, 1536.
-A version is called through the C interface its source has: one thread
+Builds ``csrc/bsr_spmm.cu`` and ``csrc/sampled_matmul.cu`` of this
+checkout and of another one (e.g. the parent commit unpacked with ``git
+archive``) with the port's nvcc flags, one nvcc each, all started
+together, loads them with ctypes and times them in turns, base, new, new,
+base, for several rounds, on the 49,152-node graph of the sparse path
+(4,946 tiles of 128x128, ``random_spatial_graph(49152, 16, seed=0)``):
+  * B4/B6 f32 forward at every width the path gives it (F = 16, 24, 64,
+    128, 1536) and on the block-transposed graph of the backward's dX (F =
+    128, 1536: hub rows of 384 tiles);
+  * B4/B6 bf16 (f32 sums) forward at F = 12, 16, 24, 64, 128, 768, 1536
+    and transposed at F = 128, 1536;
+  * B5 (``sampled_matmul``) at every width the path gives it (d = 16, 24,
+    128, 1536), f32 and bf16 operands.
+B5 is called through the C interface its source has: the f32 entry takes
+(nnz, d) where the source has no ``sampled_matmul_f32_blocks``, else
+(nnz, d, n_a, n_b, fault) as the bf16 entry does. B4/B6 likewise: one thread
 block per row block (``bsr_spmm_fwd(values, row_ptr, col_of, x, out,
 ...)``), or the segment schedule of ``ops/spmm.bsr_schedule`` with its
 workspace and a counter array zeroed before each call where the schedule
@@ -22,13 +27,15 @@ the new version on schedules of other segment lengths beside the module's
 (``ops/spmm.SEGMENT_TILES``). The unchanged layout-copy kernel (B3) is
 timed in each round as a control for drift of the card. Before timing,
 each output is held against the base's: rtol 1e-5 with atol 1e-5
-max|base| for f32 operands, 4e-5 for bf16 ones (chip_smoke.py's bounds: the
-same products summed in another order). Times are CUDA-event medians with
+max|base| for f32 operands, 4e-5 for bf16 ones (chip_smoke.py's bounds for
+B4/B6: the same products summed in another order; B5's bf16 tiles are
+rounded from such sums). Times are CUDA-event medians with
 the L2 flushed before each call (``tools.timing.event_ms``, as
 chip_smoke.py takes them).
 
 Run from the repository root:
     python -m multistgraph_tpu_torch.tools.ab_bsr --base <dir of the other checkout>
+``--only B5`` keeps B5's rows (``--only`` matches kernel and shape).
 Prints one JSON line per (version, kernel, shape) with the median over
 rounds, and the card's name and power limit.
 """
@@ -51,26 +58,42 @@ from multistgraph_tpu_torch.tools.timing import card, event_ms
 NODES, DEGREE = 49152, 16
 WIDTHS = {torch.float32: ((16, 24, 64, 128, 1536), (128, 1536)),
           torch.bfloat16: ((12, 16, 24, 64, 128, 768, 1536), (128, 1536))}
+B5_WIDTHS = (16, 24, 128, 1536)   # forward scores, then the adaptive dV at the SpMM widths
 HOLD_REL = {torch.float32: 1e-5, torch.bfloat16: 4e-5}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+SOURCES = ("bsr_spmm", "sampled_matmul")
 
 
 class Version:
-    """bsr_spmm.cu of one checkout, called through the interface its
-    source has."""
+    """bsr_spmm.cu and sampled_matmul.cu of one checkout, called through the
+    interfaces their sources have."""
 
     def __init__(self, root, out_dir, tag):
-        lib_path = os.path.join(out_dir, "libbsr_spmm-{}.so".format(tag))
-        source = os.path.join(root, "multistgraph_tpu_torch", "csrc", "bsr_spmm.cu")
-        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib_path, source]
-        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        self.lib_path, self.root = lib_path, root
+        self.root, self.builds = root, {}
+        for name in SOURCES:
+            lib_path = os.path.join(out_dir, "lib{}-{}.so".format(name, tag))
+            source = os.path.join(root, "multistgraph_tpu_torch", "csrc", name + ".cu")
+            cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib_path, source]
+            self.builds[name] = (lib_path, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                            text=True))
 
     def load(self):
-        out, _ = self.proc.communicate()
-        if self.proc.returncode != 0:
-            raise RuntimeError("nvcc failed for bsr_spmm.cu of {}:\n{}".format(self.root, out))
-        lib = ctypes.CDLL(self.lib_path)
+        libs = {}
+        for name, (lib_path, proc) in self.builds.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed for {}.cu of {}:\n{}".format(name, self.root, out))
+            libs[name] = ctypes.CDLL(lib_path)
+        sampled = libs["sampled_matmul"]
+        # the f32 entry of a source with sampled_matmul_f32_blocks takes the bf16 entry's ints
+        self.b5_ints = 5 if hasattr(sampled, "sampled_matmul_f32_blocks") else 2
+        self.b5 = {}
+        for entry, bf16 in (("sampled_matmul_fwd", False), ("sampled_matmul_bf16", True)):
+            fn = getattr(sampled, entry)
+            fn.argtypes = [_P] * 5 + [_I] * (5 if bf16 else self.b5_ints) + [_P]
+            fn.restype = ctypes.c_int
+            self.b5[bf16] = fn
+        lib = libs["bsr_spmm"]
         self.segmented = hasattr(lib, "bsr_spmm_feature_tile")
         self.fns = {}
         for entry, bf16 in (("bsr_spmm_fwd", False), ("bsr_spmm_bf16", True)):
@@ -86,8 +109,18 @@ class Version:
             self.tile.argtypes, self.tile.restype = [_I, _I], _I
         return self
 
+    def prepare_b5(self, case):
+        """The call of this version's B5 on `case` (a, bt, row_of, col_of, out)."""
+        a, bt, row, col, out = case
+        bf16 = a.dtype == torch.bfloat16
+        fn, nnz, d = self.b5[bf16], row.shape[0], a.shape[1]
+        ints = (nnz, d, a.shape[0], bt.shape[0], 0)[:5 if bf16 else self.b5_ints]
+        ptrs = [t.data_ptr() for t in case]
+        stream = torch.cuda.current_stream().cuda_stream
+        return lambda: _check(fn(*ptrs, *ints, stream))
+
     def prepare(self, case, schedule):
-        """The call of this version on `case`, with its workspace allocated once."""
+        """The call of this version's B4/B6 on `case`, with its workspace allocated once."""
         values, row_ptr, col, x, out, nb = case
         bf16 = x.dtype == torch.bfloat16
         fn, feat, nnz = self.fns[bf16], x.shape[1], values.shape[0]
@@ -116,12 +149,13 @@ class Version:
 
 def _check(rc):
     if rc != 0:
-        raise RuntimeError("bsr_spmm launch failed: CUDA error {}".format(rc))
+        raise RuntimeError("kernel launch failed: CUDA error {}".format(rc))
 
 
 def _cases(g):
-    """[(kernel, shape, (values, row_ptr, col, x, out, out_blocks), row_ptr)]
-    at the widths of WIDTHS, forward and transposed, f32 then bf16."""
+    """[(kernel, shape, (values, row_ptr, col, x, out, out_blocks))] at the
+    widths of WIDTHS, forward and transposed, f32 then bf16; then [("B5",
+    shape, (a, bt, row_of, col_of, out))] at B5_WIDTHS, f32 then bf16."""
     graph, _ = random_spatial_graph(NODES, DEGREE, seed=0)
     nb, n_pad = graph.num_row_blocks, graph.padded_nodes
     values = torch.from_numpy(graph.values).cuda()
@@ -137,6 +171,11 @@ def _cases(g):
                 x = torch.randn(n_pad, feat, generator=g, device="cuda").to(dtype)
                 out = torch.empty(n_pad, feat, device="cuda")
                 cases.append(("B4/B6" + what, "F={} {}".format(feat, str(dtype)[6:]), (vv, ptr, cc, x, out, nb)))
+    for dtype in WIDTHS:
+        for d in B5_WIDTHS:
+            a, bt = (torch.randn(n_pad, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+            out = torch.empty(row.shape[0], 128, 128, device="cuda", dtype=dtype)
+            cases.append(("B5", "d={} {}".format(d, str(dtype)[6:]), (a, bt, row, col, out)))
     return cases
 
 
@@ -168,6 +207,19 @@ def main(argv=None):
         schedules = {}   # (segment tiles, row_ptr) per case, built once
         calls = {}
         for kernel, shape, case in cases:
+            if kernel == "B5":
+                out = case[4]
+                for name, version in versions.items():
+                    fn = version.prepare_b5(case)
+                    fn()
+                    torch.cuda.synchronize()
+                    if name == "base":
+                        ref = out.float().clone()
+                    else:
+                        _hold(out.float(), ref, HOLD_REL[out.dtype], "{} {} {}".format(name, kernel, shape))
+                    calls[(name, kernel, shape)] = fn
+                del ref
+                continue
             values, ptr = case[0], case[1]
             for seg_tiles in [spmm.SEGMENT_TILES] + cli.segment_tiles:
                 # as the model builds them once, the workspace counted

@@ -1,7 +1,8 @@
 """The port's band kernels on the card (csrc/band_spmm.cu): B7 ``band_spmm``,
 B8 ``band_spmm_packed``, B9 ``band_dx`` and ``band_dv`` and the packed
 layout's dX and dV, against their plain versions at odd shapes (F = 1, 12,
-17, 24, 1536; negative, missing and single offsets; a lone row block), the
+17, 24, 1536; negative, missing and single offsets; a lone row block; dV
+of f32 operands in bf16; faults planted inside dV's f32 kernel), the
 autograd terms on the card against the CPU, and one band-form SparseATGCN
 training step with its exact launch counts.
 
@@ -96,6 +97,63 @@ def test_cuda_band_one_row_block(cuda):
     x = torch.randn(BLOCK, 7, device=cuda)
     _close_to_plain(band.band_spmm(v, (-1, 0, 1), x), band.band_plain(v, (-1, 0, 1), x))
     _close_to_plain(band.band_dx(v, (-1, 0, 1), x), band.band_dx_plain(v, (-1, 0, 1), x))
+
+
+def _ratio(got, want, rel=1e-5, bf16_step=False):
+    """Largest |got - want| over its bound: rtol rel with atol rel max|want|,
+    or one bf16 step (2^-7 |want| + 2^-7 1e-3 max|want|)."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    rel, floor = (2.0 ** -7, 1e-3) if bf16_step else (rel, 1.0)
+    diff = (got - want).abs()
+    return (diff / (rel * (want.abs() + floor * want.abs().max()))).masked_fill(diff == 0, 0.0).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [3, 24, 128])
+@pytest.mark.parametrize("packed", [False, True], ids=["planes", "packed"])
+def test_cuda_band_dv_f32_writes_bf16_values(cuda, packed, feat):
+    """B9 dV of f32 operands in the values' bf16, planes and packed rows
+    (with tiles past the graph's edge): the f32 sums rounded once, so within
+    one bf16 step of the plain version."""
+    offsets, nb, radius = (-2, -1, 0, 1, 2), 5, 2
+    x = torch.randn(nb * BLOCK, feat, device=cuda)
+    dy = torch.randn(nb * BLOCK, feat, device=cuda)
+    if packed:
+        got = band.band_dv_packed(dy, x, radius, torch.bfloat16)
+        want = band.band_dv_packed_plain(dy, x, radius, out_dtype=torch.bfloat16)
+    else:
+        got = band.band_dv(dy, x, offsets, torch.bfloat16)
+        want = band.band_dv_plain(dy, x, offsets, out_dtype=torch.bfloat16)
+    assert _ratio(got, want, bf16_step=True) <= 1.0
+    if not packed:
+        assert not got[0, :2].float().any() and not got[4, 3:].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [24, 128])
+@pytest.mark.parametrize("packed", [False, True], ids=["planes", "packed"])
+def test_cuda_band_dv_planted_faults_fail_the_check(cuda, packed, feat):
+    """Each fault planted inside B9 dV's f32 kernel (the k16 slice holding
+    the last feature, the middle slot, the graph's last row block) takes it
+    past the rtol 1e-5 hold, which it passes without one; the f32 forward
+    and dX take no fault and raise."""
+    offsets, nb, radius = (-2, -1, 0, 1, 2), 6, 2
+    x = torch.randn(nb * BLOCK, feat, device=cuda)
+    dy = torch.randn(nb * BLOCK, feat, device=cuda)
+    if packed:
+        run, want = (lambda: band.band_dv_packed(dy, x, radius)), band.band_dv_packed_plain(dy, x, radius)
+    else:
+        run, want = (lambda: band.band_dv(dy, x, offsets)), band.band_dv_plain(dy, x, offsets)
+    for kind in sorted(band.FAULTS):
+        with band.planted_fault(kind):
+            bad = run()
+        assert _ratio(bad, want) > 1.0, kind
+    assert _ratio(run(), want) <= 1.0
+    v = _planes(cuda, offsets, nb, seed=1)
+    with band.planted_fault("k16"), pytest.raises(RuntimeError, match="CUDA error"):
+        band.band_spmm(v, offsets, x)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 """The port's sparse kernels on the card: B4/B6 (``bsr_spmm``,
 csrc/bsr_spmm.cu) and B5 (``sampled_matmul``, csrc/sampled_matmul.cu)
-against their plain versions at odd shapes (F = 1, 17, 1536; empty row
-blocks; one tile; a rectangular A), B4/B6 in f32 and bf16 on rows split
+against their plain versions at odd shapes (F = 1, 17, 1536; d = 1-1536;
+empty row blocks; one tile; a rectangular A; n_a != n_b; operands off a
+16-byte boundary; faults planted inside B5's f32 kernel), B4/B6 in f32
+and bf16 on rows split
 into segments (a transposed hub column of more than 3 segments; rows of
 exactly one segment; bit-identical repeats; planted faults), the autograd
 terms on the card against the CPU, and one SparseATGCN training step with
@@ -83,8 +85,14 @@ def test_cuda_bsr_spmm_one_tile_and_rectangular(cuda):
     _close_to_plain(spmm.bsr_spmm(values, row, ptr3, col, x, 3), spmm.spmm_plain(values, row, col, x, out_blocks=3))
 
 
+# B5 f32 widths: cp.async where d % 4 != 0 (1, 3, 17, 33), one chunk of 32
+# features (12-24: persistent blocks), several (33 on), the path's 16, 24,
+# 128 and 1536
+B5_WIDTHS = [1, 3, 12, 16, 17, 24, 33, 128, 1536]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 16, 17, 128, 1536])
+@pytest.mark.parametrize("d", B5_WIDTHS)
 def test_cuda_sampled_matmul_matches_plain(cuda, d):
     values, row, _, col = _card_graph(cuda, 5, 9, seed=d, empty_rows=(1,))
     a = torch.randn(5 * BLOCK, d, device=cuda)
@@ -95,6 +103,42 @@ def test_cuda_sampled_matmul_matches_plain(cuda, d):
     _close_to_plain(got, spmm.sampled_matmul_plain(a, bt, row, col))
     _, row1, _, col1 = _card_graph(cuda, 1, 1, seed=0)
     _close_to_plain(spmm.sampled_matmul(a, bt, row1, col1), spmm.sampled_matmul_plain(a, bt, row1, col1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 16, 128])
+def test_cuda_sampled_matmul_rectangular_and_unaligned(cuda, d):
+    """n_a != n_b (3 row blocks of a, 7 of bt), then operands whose storage
+    starts 4 bytes past a 16-byte boundary (cp.async, no TMA view)."""
+    rng = np.random.default_rng(d)
+    keys = np.sort(rng.choice(3 * 7, size=8, replace=False))
+    row = torch.from_numpy((keys // 7).astype(np.int32)).to(cuda)
+    col = torch.from_numpy((keys % 7).astype(np.int32)).to(cuda)
+    a = torch.randn(3 * BLOCK, d, device=cuda)
+    bt = torch.randn(7 * BLOCK, d, device=cuda)
+    _close_to_plain(spmm.sampled_matmul(a, bt, row, col), spmm.sampled_matmul_plain(a, bt, row, col))
+    a1 = torch.empty(a.numel() + 1, device=cuda)[1:].view_as(a).copy_(a)
+    b1 = torch.empty(bt.numel() + 1, device=cuda)[1:].view_as(bt).copy_(bt)
+    assert a1.data_ptr() % 16 and a1.is_contiguous()
+    _close_to_plain(spmm.sampled_matmul(a1, b1, row, col), spmm.sampled_matmul_plain(a, bt, row, col))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 24, 128])
+def test_cuda_sampled_matmul_planted_faults_fail_the_check(cuda, d):
+    """Each fault planted inside B5's f32 kernel (the k16 slice holding the
+    last feature, tile 0, the tiles of row block 0) takes it past the rtol
+    1e-5 hold, which the kernel passes without one."""
+    _, row, _, col = _card_graph(cuda, 5, 9, seed=d, empty_rows=(1,))
+    assert int(row[0]) == 0
+    a = torch.randn(5 * BLOCK, d, device=cuda)
+    bt = torch.randn(5 * BLOCK, d, device=cuda)
+    want = spmm.sampled_matmul_plain(a, bt, row, col)
+    for kind in sorted(spmm.FAULTS):
+        with spmm.planted_fault(kind, "sampled_matmul"):
+            bad = spmm.sampled_matmul(a, bt, row, col)
+        assert _ratio(bad, want, 1e-5) > 1.0, kind
+    assert _ratio(spmm.sampled_matmul(a, bt, row, col), want, 1e-5) <= 1.0
 
 
 @pytest.mark.cuda
