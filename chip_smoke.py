@@ -84,9 +84,11 @@ Then the node-apply design harness and the card's stream calibration:
     B10 (the column-sum read) over 256 MB at three block shapes and one
     point of B12's stream-rate sweep, each against its plain version,
     timed beside its bound and a library call (B1's and B1t's einsums with
-    the order torch contracts them in and that order's FLOPs); faults
+    the order torch contracts them in and that order's FLOPs; the f32 rows
+    bounded by the expanded order's operations, the bf16 ones by the
+    factored order's, both given); faults
     planted in B1 (the d = 0 term dropped), B1t (a node block zeroed, and
-    inside its bf16 kernel d = 0 dropped and the contraction's last k16
+    inside both its kernels d = 0 dropped and the contraction's last k16
     slice dropped), B11 A (the last 16-wide
     slice of the contraction dropped) and B11 B (the same, and e's last
     column zeroed) must fail the checks; B11 A and B's 24 steps must outlast
@@ -102,12 +104,14 @@ package's 1M configuration, at T=12 and batch 2, no adaptive view):
     step, each row naming how x came in (TMA or element loads), and the
     probe kernels window_dot (P1, P3) and band_slab (P2, per-row and
     batched) at the probe tool's shapes, each timed beside its bound and a
-    library call; three faults planted inside the bf16 band kernels (a
-    k16 slice dropped, the main diagonal skipped, the graph's last row
-    block read as outside it) at F = 12, 24 and 128, a wrong window start
-    and a stale row block planted in the probes' outputs, and two faults
-    planted inside band_slab's kernel (a k16 slice dropped, the window read
-    one row block late) must fail the checks;
+    library call (window_dot also beside an empty kernel's launch, and two
+    of its calls bit-identical); three faults planted inside the bf16 band
+    kernels (a k16 slice dropped, the main diagonal skipped, the graph's
+    last row block read as outside it) at F = 12, 24 and 128, a wrong
+    window start and a stale row block planted in the probes' outputs, one
+    fault planted inside window_dot's kernel (the last slice's partial
+    dropped) and two inside band_slab's (a k16 slice dropped, the window
+    read one row block late) must fail the checks;
   * the port's probe_band_stream on the card, every probe launched and OK;
   * bench_large_graph's training (2 warm-up and 5 timed steps) with exact
     launch counts and finite losses, and its packed serving at buckets 1
@@ -2167,8 +2171,11 @@ def _band_design(band, name, feat):
 def _probe_kernel_rows(torch):
     """window_dot (P1, P3) and band_slab per-row and batched (P2) against
     their plain versions at the probe tool's shapes, timed beside their
-    bounds and a library call; a wrong window start planted in window_dot
-    and a stale row block planted in band_slab's output must fail the
+    bounds and a library call (window_dot also beside an empty kernel's
+    launch, the floor under its time, and held bit-identical across two
+    calls); a wrong window start planted in window_dot's input and its last
+    slice dropped inside its kernel, and a stale row block planted in
+    band_slab's output and two faults inside its kernel must fail the
     checks. Returns (rows, {fault: its error over the bound})."""
     import numpy as np
 
@@ -2190,6 +2197,21 @@ def _probe_kernel_rows(torch):
             "peak": note, "main_path": True,
         })
 
+    floor_ms = _time_ms(torch, bp.empty_launch)
+
+    def window_extras(v, x, starts, want, label):
+        rows, slices = bp.window_plan(v.shape[0], v.shape[1], v.shape[2], x.shape[1])
+        lines[-1].update(design=_window_design(rows, slices), launch_floor_ms=floor_ms,
+                         launch_floor="an empty kernel of one warp (ops/band_probe.empty_launch), timed alike")
+        first, second = bp.window_dot(v, x, starts), bp.window_dot(v, x, starts)
+        if not torch.equal(first, second):
+            raise AssertionError("window_dot {}: two calls differ".format(label))
+        lines[-1]["bit_identical"] = True
+        for kind in sorted(bp.WINDOW_FAULTS):
+            with bp.planted_fault(kind):
+                faults["window_dot {}, planted in the kernel: {}".format(label, kind)] = _over_bound(
+                    bp.window_dot(v, x, starts), want)
+
     # P1: the JAX tool's inputs (numpy seed 0), windows of the stacked operand
     c, w, f = 4, 384, 128
     rng = np.random.default_rng(0)
@@ -2202,6 +2224,7 @@ def _probe_kernel_rows(torch):
         lambda: bp.window_dot_plain(v, x, starts), lambda: torch.bmm(v, x.view(c, w, f)),
         "torch.bmm(v, x as (C, W, F))", (v.numel() + x.numel() + c * 128 * f) * 4, 2 * c * 128 * w * f,
         PEAK_F32_FLOPS, PEAK_F32_NOTE)
+    window_extras(v, x, starts, want, "P1")
     faults["window_dot, window start one row late"] = _over_bound(bp.window_dot(v, x, [s + 1 for s in starts[:-1]]
                                                                                 + starts[-1:]), want)
     # P3: the JAX tool's inputs (numpy seed 1), one window at row 128
@@ -2214,6 +2237,7 @@ def _probe_kernel_rows(torch):
         lambda: bp.window_dot_plain(v3, xs, [128]), lambda: v3[0] @ xs[128:768],
         "v @ x[1:6].reshape(640, 128) (torch.mm)", (v3.numel() + 640 * 128 + 128 * 128) * 4,
         2 * 128 * 640 * 128, PEAK_F32_FLOPS, PEAK_F32_NOTE)
+    window_extras(v3, xs, [128], want, "P3")
     faults["window_dot P3, window start at 0"] = _over_bound(bp.window_dot(v3, xs, [0]), want)
     # P2 at the 1M point: the tool's generator seed 2
     r, radius, f = PROBE_ROWS, PROBE_RADIUS, PROBE_FEAT
@@ -2249,6 +2273,14 @@ def _probe_kernel_rows(torch):
         if not ratio > 1.0:
             raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
     return lines, faults
+
+
+def _window_design(rows, slices):
+    """What window_dot's kernel runs (csrc/band_probe.cu) at this plan."""
+    return ("f32 FMAs: the window split into {} slices, one block each, the blocks of a {}x64 output tile one thread "
+            "block cluster; each block's loads issued at once by cp.async (two 64-row stages), its partial kept in "
+            "shared memory and summed in slice order over the cluster's distributed shared memory (no atomics, no "
+            "workspace)").format(slices, rows)
 
 
 def _slab_design(tile, batched):
@@ -2388,6 +2420,12 @@ DESIGN_B11_B = ("tensor cores: wgmma m64nNk16 bf16->f32, N = several d x the col
                 "of the pool; a producer warp and an mbarrier ring; each step's rows staged once by cp.async; "
                 "e folded in f32 per d")
 DESIGN_B1_BF16 = DESIGN_B11_B
+DESIGN_B1T_F32 = ("f32 FMAs in the expanded order: per 16-o chunk, pool_t's rows of the block's 32 (k, i) columns "
+                  "and e's columns streamed by cp.async through a 4-stage ring, the per-node weights W[n,o,c] = "
+                  "sum_d e[n,d] pool_t[k,dO+o,i] formed in registers (8 nodes x 4 columns a thread), then "
+                  "dpre[b,n,o] W folded into 4 b x 8 columns a thread; W never in device memory; tile {} (nodes x "
+                  "columns a block, 16 b; the 16-o chunks split over the blocks of a cluster, their partials "
+                  "summed in rank order over distributed shared memory)")
 DESIGN_B1T_BF16 = ("tensor cores: wgmma m64nNk16 bf16->f32 with A from registers: each thread's dpre fragments "
                    "loaded once, multiplied by its rows' e[n,d] in bf16 (q, the Pallas rounding) per d; pool_t's "
                    "chunks (64 o of one d x several k x 64 i) by a 4-d TMA view under the 128-byte swizzle, each "
@@ -2444,7 +2482,17 @@ def node_harness_phase(torch):
         pool = randn(FACTORED_D, K, H, o, dtype=dtype)
         mat, mat_t = node_apply.pool_to_kernel_layout(pool)
         shape = "{} {} B={} K={} N={} I={} D={} O={}".format(cell, str(dtype)[6:], B, K, N, H, FACTORED_D, o)
-        flops = 2 * B * N * ki * FACTORED_D * o
+        # the factored order's operations (in bf16 the function's own: the
+        # Pallas kernels round q, or sum r, in it) and the expanded order's
+        # (W = sum_d e pool first, then the per-node product), which f32 is
+        # free to take: each row's bound is its dtype's
+        flops_factored = 2 * B * N * ki * FACTORED_D * o
+        flops_expanded = 2 * N * FACTORED_D * ki * o + 2 * B * N * ki * o
+        flops = flops_factored if bf else flops_expanded
+        orders = {"bound_order": "factored (bf16: the Pallas kernel's rounding points)" if bf else
+                  "expanded (f32: the order is free)",
+                  "bound_factored_us": _bound_ms(0, flops_factored, peak)[0] * 1e3,
+                  "bound_expanded_us": _bound_ms(0, flops_expanded, peak)[0] * 1e3}
         got = node_apply.node_factored_apply(hh, e, mat)
         want = node_apply.node_factored_apply_plain(hh, e, mat)
         pool4, e_lib = mat.reshape(K, H, FACTORED_D, o), e.to(dtype)
@@ -2457,6 +2505,7 @@ def node_harness_phase(torch):
             hh.numel() * size + e.numel() * 4 + mat.numel() * size + B * N * o * 4, flops, peak, note,
             main_path=bf, design=DESIGN_B1_BF16 if bf else None)
         lines[-1]["library_order"] = timing.einsum_order("bkni,nd,kido->bno", hh, e_lib, pool4)
+        lines[-1].update(orders)
         # planted fault: B1 without its d = 0 term
         e0 = e.clone()
         e0[:, 0] = 0
@@ -2474,19 +2523,20 @@ def node_harness_phase(torch):
             lambda: torch.einsum("bno,nd,kdoi->bkni", dpre, e_lib, pool4t),
             "torch.einsum('bno,nd,kdoi->bkni') in the operands' dtype",
             dpre.numel() * size + e.numel() * 4 + mat_t.numel() * size + B * ki * N * size, flops, peak, note,
-            main_path=bf, design=DESIGN_B1T_BF16.format(node_apply.factored_t_tile(B, K, N, H)) if bf else None)
+            main_path=bf, design=(DESIGN_B1T_BF16 if bf else DESIGN_B1T_F32).format(
+                node_apply.factored_t_tile(B, K, N, H, dtype, o)))
         lines[-1]["library_order"] = timing.einsum_order("bno,nd,kdoi->bkni", dpre, e_lib, pool4t)
+        lines[-1].update(orders)
         if bf:  # how the bf16 kernel took pool_t
             lines[-1]["loads"] = node_apply.factored_t_load_path(H)
         # planted fault: B1t with its first node block (64 rows) zeroed
         bad = got.clone()
         bad[:, :, :64] = 0
         faults["B1t node block 0 zeroed, " + shape] = check(bad, want)
-        if bf:  # the faults the bf16 kernel plants inside itself
-            for kind in sorted(node_apply.FAULTS):
-                with node_apply.planted_fault(kind):
-                    bad = node_apply.node_factored_apply_t(dpre, e, mat_t)
-                faults["B1t planted in the kernel: {}, {}".format(kind, shape)] = check(bad, want)
+        for kind in sorted(node_apply.FAULTS):  # the faults each form plants inside itself
+            with node_apply.planted_fault(kind):
+                bad = node_apply.node_factored_apply_t(dpre, e, mat_t)
+            faults["B1t planted in the kernel: {}, {}".format(kind, shape)] = check(bad, want)
         del bad
 
     # B11 A, B and D at the harness shapes
@@ -2662,7 +2712,8 @@ def main():
                          ("sampled_matmul", "_tc_kernel"), ("band_spmm", "band_f32_kernel"),
                          ("bsr_spmm", "bsr_spmm_f32_kernel"), ("sampled_matmul", "sampled_f32_kernel"),
                          ("band_spmm", "sampled_f32_kernel"),
-                         ("node_factored_t", "_wgmma_kernel"), ("node_apply_q8", "q8_kernel"),
+                         ("node_factored_t", "_wgmma_kernel"), ("node_factored_t", "_f32_kernel"),
+                         ("band_probe", "window_dot_kernel"), ("node_apply_q8", "q8_kernel"),
                          ("node_apply_q8_t", "q8_kernel")):
         if name in reports:
             say(json.dumps({"{} {} kernels [name, registers, spill bytes]".format(name, marker.strip("_")):

@@ -9,9 +9,31 @@
 // and :probe_slice_reshape (P3, v @ x[1:6].reshape(640, 128): one window
 // starting at row 128 of x viewed as (1024, 128)). What the TPU kernels
 // probe is whether Mosaic lowers a batched dot and a reshape of a ref
-// slice; the product they compute is this one. Tiny shapes (under 0.1
-// GFLOP): launch-bound. One block per (64 x 64 output tile, c), 4 x 4
-// outputs a thread, k staged 16 at a time; plain f32 FMAs.
+// slice; the product they compute is this one, in plain f32 FMAs.
+//
+// Bound on an H100: none that a launch reaches. P1 (C = 4, b = 128, W =
+// 384, F = 128) is 50 MFLOP and 1.8 MB, P3 (C = 1, W = 640) 21 MFLOP and
+// 0.8 MB: under a microsecond at the f32 FMA peak or the memory rate, below
+// an empty kernel's launch. What costs is latency: with the L2 flushed,
+// each wave of loads waits a device-memory round trip. The first design,
+// one block per (64 x 64 output tile, c) walking the whole window 16 rows
+// at a time, ran 16 blocks for P1 and 4 for P3 on the 132 SMs, each paying
+// a round trip per 16 rows (24 and 40 in a row). Here the window is split
+// into slices (at most 8, at least 16 rows each, a multiple of 4: P1 6 of
+// 64, P3 6 of 108), one block each, and the blocks of one output tile form a
+// thread block cluster: each block issues all its loads at once (cp.async,
+// 16-byte copies where W % 4 == 0, F % 4 == 0 and the operands are 16-byte
+// aligned, else 4-byte ones; two stages of 64 rows in flight, so a slice
+// of up to 128 rows pays one round trip), multiplies its slice into a
+// partial in registers (256 threads, float4 shared reads, R x 4 outputs a
+// thread), leaves the partial in its shared memory, and after a cluster
+// barrier each block sums its share of the tile's 16-byte units over the
+// cluster's partials (distributed shared memory) in slice order: no
+// atomics and no device-memory workspace, and the same sums at every call.
+// The tile's rows (64, 32 or 16 by 64 columns) and the slices bring the
+// grid near three quarters of the SMs (P1: 64 rows, P3: 16; 96 blocks
+// each). window_dot_launch_plan pins the shape and plants a fault (the
+// last slice's partial dropped) for checks that must catch one.
 //
 // band_slab_launch (P2, tools/probe_band_stream.py:probe_streams):
 //   out[r] = V_pack[r] @ xp[r : r + 2 radius + 1].reshape((2 radius + 1) 128, F)
@@ -62,73 +84,261 @@
 // cuTensorMapEncodeTiled refuses (an operand that is not 16-byte aligned)
 // is a launch error.
 
+#include <algorithm>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "wgmma_sm90.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-// ------------------------------------------------------------ window_dot
-constexpr int kWdThreads = 256;
-constexpr int kWdTile = 64;
-constexpr int kWdK = 16;
+using namespace wgmma_sm90;
 
+// ------------------------------------------------------------ window_dot
+constexpr int kWdThreads = 256;              // 16 x 16 threads
+constexpr int kWdCols = 64;                  // output columns of a block
+constexpr int kWdKc = 64;                    // window rows of one stage
+constexpr int kWdLd = kWdKc + 4;             // row stride of a stage's V rows: float4 reads of two rows never collide
+constexpr int kWdMinSlice = 16;              // window rows a slice takes at least
+constexpr int kWdMaxSlices = 8;              // blocks of a cluster at most (the portable size)
+constexpr int kWdFaultSlice = 1;             // the last slice's partial dropped
+
+template <int TM>
+struct WdTile {
+  static constexpr int kRows = TM / 16;                  // output rows of a thread
+  static constexpr int kA = TM * kWdLd;                  // floats of a stage's V rows
+  static constexpr int kB = kWdKc * kWdCols;             // floats of a stage's X rows
+  static constexpr size_t kSmem = 2 * (size_t)(kA + kB) * sizeof(float);
+  static_assert(TM * kWdCols <= kA + kB, "a block's partial fits its first stage");
+};
+
+__device__ __forceinline__ float wd_lane(const float4& v, int i) { return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w; }
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// Stage `st` takes window rows k0 .. k0 + 64 (zero from k_end on) of V's
+// rows i0 .. i0 + TM (zero from b on) and of X's columns f0 .. f0 + 64
+// (zero from f on); 16-byte copies where a row's 16-byte units are whole
+// (v16: W % 4 == 0; x16: F % 4 == 0; both operands 16-byte aligned), else
+// 4-byte ones. One commit group.
+template <int TM>
+__device__ __forceinline__ void wd_fill(float* st, const float* vc, const float* xw, int i0, int f0, int k0,
+                                        int k_end, int b, int w, int f, int v16, int x16, int tid) {
+  float* as = st;
+  float* bs = st + WdTile<TM>::kA;
+  if (v16) {
+    for (int q = tid; q < TM * (kWdKc / 4); q += kWdThreads) {
+      const int r = q / (kWdKc / 4), k = k0 + 4 * (q % (kWdKc / 4));
+      const bool ok = i0 + r < b && k < k_end;
+      cp_async16(as + r * kWdLd + (k - k0), ok ? vc + (size_t)(i0 + r) * w + k : vc, ok);
+    }
+  } else {
+    for (int q = tid; q < TM * kWdKc; q += kWdThreads) {
+      const int r = q / kWdKc, k = k0 + q % kWdKc;
+      const bool ok = i0 + r < b && k < k_end;
+      cp_async4(as + r * kWdLd + (k - k0), ok ? vc + (size_t)(i0 + r) * w + k : vc, ok);
+    }
+  }
+  if (x16) {
+    for (int q = tid; q < kWdKc * (kWdCols / 4); q += kWdThreads) {
+      const int kk = q / (kWdCols / 4), c = 4 * (q % (kWdCols / 4));
+      const bool ok = k0 + kk < k_end && f0 + c < f;
+      cp_async16(bs + kk * kWdCols + c, ok ? xw + (size_t)(k0 + kk) * f + f0 + c : xw, ok);
+    }
+  } else {
+    for (int q = tid; q < kWdKc * kWdCols; q += kWdThreads) {
+      const int kk = q / kWdCols, c = q % kWdCols;
+      const bool ok = k0 + kk < k_end && f0 + c < f;
+      cp_async4(bs + kk * kWdCols + c, ok ? xw + (size_t)(k0 + kk) * f + f0 + c : xw, ok);
+    }
+  }
+  cp_async_commit();
+}
+
+// Block (slice s, tile t) of cluster t: s = the block's rank in its cluster
+// of S = slices blocks along x. Output rows i0 .. i0 + TM and columns f0 ..
+// f0 + 64 of tile t (mtiles row tiles a column tile), window rows s len ..
+// (s + 1) len of every c = blockIdx.y, blockIdx.y + gridDim.y, ...
+template <int TM>
 __global__ void __launch_bounds__(kWdThreads)
 window_dot_kernel(const float* __restrict__ v, const float* __restrict__ x, const int* __restrict__ starts,
-                  float* __restrict__ out, int b, int w, int f) {
-  __shared__ float vs[kWdTile][kWdK + 1];
-  __shared__ float xs[kWdK][kWdTile];
-  const int c = blockIdx.z;
-  const int i0 = blockIdx.y * kWdTile, f0 = blockIdx.x * kWdTile;
+                  float* __restrict__ out, int C, int b, int w, int f, int len, int mtiles, int v16, int x16,
+                  int fault) {
+  using Tile = WdTile<TM>;
+  constexpr int R = Tile::kRows;
+  extern __shared__ __align__(16) float wd_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), s = (int)cluster.block_rank();
+  const int t = blockIdx.x / S;
+  const int i0 = (t % mtiles) * TM, f0 = (t / mtiles) * kWdCols;
+  const int k_begin = s * len, k_end = min(w, k_begin + len);
+  const int chunks = (k_end - k_begin + kWdKc - 1) / kWdKc;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const float* vc = v + (size_t)c * b * w;
-  const float* xw = x + (size_t)starts[c] * f;  // the window's first row
+  float* red = wd_smem;   // the block's partial, TM x 64, over the first stage once the products are done
 
-  float acc[4][4];
+  for (int c = blockIdx.y; c < C; c += gridDim.y) {
+    const float* vc = v + (size_t)c * b * w;
+    const float* xw = x + (size_t)starts[c] * f;   // the window's first row
+    float acc[R][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < R; ++j)
 #pragma unroll
-    for (int l = 0; l < 4; ++l) acc[j][l] = 0.f;
-
-  for (int k0 = 0; k0 < w; k0 += kWdK) {
-    for (int q = tid; q < kWdTile * kWdK; q += kWdThreads) {
-      const int i = q / kWdK, k = q % kWdK;  // a warp reads 16 neighbouring k of two rows
-      vs[i][k] = (i0 + i < b && k0 + k < w) ? vc[(size_t)(i0 + i) * w + k0 + k] : 0.f;
-      const int kk = q / kWdTile, col = q % kWdTile;
-      xs[kk][col] = (k0 + kk < w && f0 + col < f) ? xw[(size_t)(k0 + kk) * f + f0 + col] : 0.f;
+      for (int l = 0; l < 4; ++l) acc[j][l] = 0.f;
+    // every stage's loads go out at once: two stages hold 128 of the slice's rows
+    wd_fill<TM>(wd_smem, vc, xw, i0, f0, k_begin, k_end, b, w, f, v16, x16, tid);
+    if (chunks > 1)
+      wd_fill<TM>(wd_smem + Tile::kA + Tile::kB, vc, xw, i0, f0, k_begin + kWdKc, k_end, b, w, f, v16, x16, tid);
+    for (int ch = 0; ch < chunks; ++ch) {
+      if (ch + 1 < chunks) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      __syncthreads();
+      const float* as = wd_smem + (size_t)(ch % 2) * (Tile::kA + Tile::kB);
+      const float* bs = as + Tile::kA;
+      const int k4n = (min(kWdKc, k_end - k_begin - ch * kWdKc) + 3) / 4;   // rows past k_end are zeros
+#pragma unroll 4
+      for (int k4 = 0; k4 < k4n; ++k4) {
+        float4 a[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) a[j] = *reinterpret_cast<const float4*>(as + (ty + 16 * j) * kWdLd + 4 * k4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 xv = *reinterpret_cast<const float4*>(bs + (4 * k4 + kk) * kWdCols + 4 * tx);
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const float av = wd_lane(a[j], kk);
+            acc[j][0] = fmaf(av, xv.x, acc[j][0]);
+            acc[j][1] = fmaf(av, xv.y, acc[j][1]);
+            acc[j][2] = fmaf(av, xv.z, acc[j][2]);
+            acc[j][3] = fmaf(av, xv.w, acc[j][3]);
+          }
+        }
+      }
+      __syncthreads();   // the stage is read: the next chunk but one, or the partial, may take it
+      if (ch + 2 < chunks)
+        wd_fill<TM>(wd_smem + (size_t)(ch % 2) * (Tile::kA + Tile::kB), vc, xw, i0, f0, k_begin + (ch + 2) * kWdKc,
+                    k_end, b, w, f, v16, x16, tid);
     }
-    __syncthreads();
 #pragma unroll
-    for (int k = 0; k < kWdK; ++k) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[j] = vs[ty + 16 * j][k];
-#pragma unroll
-      for (int l = 0; l < 4; ++l) bb[l] = xs[k][tx + 16 * l];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int l = 0; l < 4; ++l) acc[j][l] = fmaf(a[j], bb[l], acc[j][l]);
+    for (int j = 0; j < R; ++j)
+      *reinterpret_cast<float4*>(red + (ty + 16 * j) * kWdCols + 4 * tx) =
+          make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+    cluster.sync();   // every partial of the tile is in its block's shared memory
+    // this block sums the tile's 16-byte units s, s + S, ... over the
+    // cluster's partials in slice order (the same order at every call)
+    const int last = fault == kWdFaultSlice ? S - 1 : S;
+    for (int u = s + S * tid; u < TM * (kWdCols / 4); u += S * kWdThreads) {
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r = 0; r < last; ++r) {
+        const float4 p = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, r) + 4 * u);
+        sum.x += p.x, sum.y += p.y, sum.z += p.z, sum.w += p.w;
+      }
+      const int i = i0 + u / (kWdCols / 4), col = f0 + 4 * (u % (kWdCols / 4));
+      if (i >= b || col >= f) continue;
+      float* o = out + ((size_t)c * b + i) * f + col;
+      if (f % 4 == 0) {
+        *reinterpret_cast<float4*>(o) = sum;
+      } else {
+        for (int l = 0; l < 4 && col + l < f; ++l) o[l] = wd_lane(sum, l);
+      }
     }
-    __syncthreads();  // the chunk is no longer read
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int i = i0 + ty + 16 * j;
-    if (i >= b) continue;
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int col = f0 + tx + 16 * l;
-      if (col < f) out[((size_t)c * b + i) * f + col] = acc[j][l];
-    }
+    cluster.sync();   // the partials are read before any block writes its shared memory again or leaves
   }
 }
 
+template <int TM>
+cudaError_t launch_window_dot(const float* v, const float* x, const int* starts, float* out, int c, int b, int w,
+                              int f, int slices, int len, int fault, cudaStream_t stream) {
+  auto kernel = window_dot_kernel<TM>;
+  static unsigned long long ready = 0;   // the devices whose attributes are set (the first 64)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !(ready >> dev & 1)) {
+    err = allow_smem(kernel, WdTile<TM>::kSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) ready |= 1ull << dev;
+  }
+  const int mtiles = (b + TM - 1) / TM, tiles = mtiles * ((f + kWdCols - 1) / kWdCols);
+  const int v16 = w % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const int x16 = f % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(slices * tiles), (unsigned)std::min(c, 65535));
+  cfg.blockDim = dim3(kWdThreads);
+  cfg.dynamicSmemBytes = WdTile<TM>::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)slices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, v, x, starts, out, c, b, w, f, len, mtiles, v16, x16, fault);
+  return err == cudaSuccess ? cudaGetLastError() : err;
+}
+
+int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+                                                 cudaSuccess)
+    sms = 132;
+  return sms;
+}
+
+// window_dot's launch shape for (C, b, W, F): the tile's rows and the
+// slices (blocks of a cluster), each a multiple of 4 window rows, at least
+// 16, at most 8 slices. The rows are the most of 64, 32 and 16 at which the
+// slices that bring the grid nearest three quarters of the SMs (from
+// below) cover at least half of them; else 16. On an H100 (PERF.md) P1 and
+// P3 ran fastest at 96 blocks: 128 (clusters of 8) ran 27% slower at P1.
+// slices_in / tm_in > 0 pin them.
+void wd_plan(int c, int b, int w, int f, int slices_in, int tm_in, int* slices, int* len, int* tm) {
+  const int most = std::min(std::min(8, std::max(1, (w + kWdMinSlice - 1) / kWdMinSlice)), std::max(1, (w + 3) / 4));
+  const long cols = (f + kWdCols - 1) / kWdCols, sms = sm_count(), target = 3 * sms / 4;
+  const int rows_of[3] = {64, 32, 16};
+  int n = 1;
+  for (int rows : rows_of) {
+    const long tiles = (long)((b + rows - 1) / rows) * cols * c;
+    *tm = rows;
+    n = (int)std::max(1L, std::min((long)most, target / tiles));
+    if (2 * n * tiles >= sms) break;
+  }
+  if (tm_in > 0) *tm = tm_in;
+  if (slices_in > 0) n = std::min(slices_in, std::max(1, (w + 3) / 4));
+  *len = ((w + n - 1) / n + 3) / 4 * 4;
+  *slices = (w + *len - 1) / *len;
+}
+
+cudaError_t window_dot_run(const void* v, const void* x, const void* starts, void* out, int c, int b, int w, int f,
+                           int slices_in, int tm_in, int fault, cudaStream_t stream) {
+  if (c == 0 || b == 0 || f == 0) return cudaSuccess;
+  if (w == 0) return cudaMemsetAsync(out, 0, (size_t)c * b * f * sizeof(float), stream);
+  int slices, len, tm;
+  wd_plan(c, b, w, f, slices_in, tm_in, &slices, &len, &tm);
+  if (slices > kWdMaxSlices) return cudaErrorInvalidValue;
+  const float* vf = static_cast<const float*>(v);
+  const float* xf = static_cast<const float*>(x);
+  const int* st = static_cast<const int*>(starts);
+  float* of = static_cast<float*>(out);
+  switch (tm) {
+    case 64: return launch_window_dot<64>(vf, xf, st, of, c, b, w, f, slices, len, fault, stream);
+    case 32: return launch_window_dot<32>(vf, xf, st, of, c, b, w, f, slices, len, fault, stream);
+    case 16: return launch_window_dot<16>(vf, xf, st, of, c, b, w, f, slices, len, fault, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+__global__ void empty_kernel() {}
+
 // ------------------------------------------------------------ band_slab
 using bf16 = __nv_bfloat16;
-using namespace wgmma_sm90;
 
 constexpr int kB = 128;                      // tile edge
 constexpr int kKc = 64;                      // contraction rows of one ring stage
@@ -319,11 +529,29 @@ cudaError_t launch_slab_tile(int bn, const void* v, const void* xp, float* out, 
 // starts: (C,) int32 on the device, each window inside X.
 extern "C" int window_dot_launch(const void* v, const void* x, const void* starts, void* out, int c, int b,
                                  int w, int f, void* stream) {
-  if (c == 0 || b == 0 || f == 0) return (int)cudaSuccess;
-  const dim3 grid((unsigned)((f + kWdTile - 1) / kWdTile), (unsigned)((b + kWdTile - 1) / kWdTile), (unsigned)c);
-  window_dot_kernel<<<grid, kWdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(v), static_cast<const float*>(x), static_cast<const int*>(starts),
-      static_cast<float*>(out), b, w, f);
+  return (int)window_dot_run(v, x, starts, out, c, b, w, f, 0, 0, 0, static_cast<cudaStream_t>(stream));
+}
+
+// As window_dot_launch, with the slices (1 .. 8) and the tile's rows (16,
+// 32 or 64) pinned where positive, and a fault planted (0: none, 1: the
+// last slice's partial dropped).
+extern "C" int window_dot_launch_plan(const void* v, const void* x, const void* starts, void* out, int c, int b,
+                                      int w, int f, int slices, int rows, int fault, void* stream) {
+  if (rows > 0 && rows != 16 && rows != 32 && rows != 64) return (int)cudaErrorInvalidValue;
+  return (int)window_dot_run(v, x, starts, out, c, b, w, f, slices, rows, fault, static_cast<cudaStream_t>(stream));
+}
+
+// window_dot's launch shape for (C, b, W, F) on this card: 256 times the
+// tile's rows plus the slices.
+extern "C" int window_dot_plan(int c, int b, int w, int f) {
+  int slices, len, tm;
+  wd_plan(c, b, w, f, 0, 0, &slices, &len, &tm);
+  return 256 * tm + slices;
+}
+
+// An empty kernel of one warp, the least a launch costs.
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

@@ -18,17 +18,21 @@ finished form of it is B8, ops/band.py:band_fwd_slab_pallas):
     its two variants, per-row products and one batched product per slab.
 
 Both are hand-written CUDA in csrc/band_probe.cu, whose header gives the
-design (``band_slab`` on the tensor cores: wgmma fed by TMA under the
-128-byte swizzle). Each wrapper launches its kernel for CUDA tensors and
-counts the launch (``window_dot.launches``; ``band_slab.launches`` for the
+design (``window_dot``: the window split into slices, one block each, the
+blocks of an output tile a cluster that sums its partials in slice order
+through distributed shared memory; ``band_slab`` on the tensor cores:
+wgmma fed by TMA under the 128-byte swizzle). Each wrapper launches its
+kernel for CUDA tensors and counts the launch (``window_dot.launches``; ``band_slab.launches`` for the
 per-row variant, ``band_slab.batched_launches`` for the batched one), and
 raises on what the kernel does not take, a TMA view that
 cuTensorMapEncodeTiled refuses included; for CPU tensors it takes its
 plain version (``window_dot_plain``: the einsum "cbw,cwf->cbf" over the
 windows; ``band_slab_plain``: the stacked einsum of the probe's reference
 form on the packed rows, in f32).
-``planted_fault`` plants a fault in ``band_slab``'s kernel for the checks
-that must fail it; ``slab_tile`` reads the feature tile a launch takes.
+``planted_fault`` plants a fault in either kernel for the checks that must
+fail it; ``slab_tile`` reads the feature tile a launch of ``band_slab``
+takes, ``window_plan`` the tile rows and slices of one of ``window_dot``;
+``empty_launch`` launches an empty kernel, the floor under a launch's time.
 """
 
 import contextlib
@@ -45,7 +49,10 @@ BLOCK = 128
 # (chip_smoke.py): the k16 slice holding each row block's last contraction
 # element dropped; each window read one row block late.
 FAULTS = {"k16": 1, "late": 2}
+# ... and window_dot's: the last slice's partial left out of the sums.
+WINDOW_FAULTS = {"slice": 1}
 _planted = 0
+_window_planted = 0
 
 
 # ----------------------------------------------------------- plain versions
@@ -68,31 +75,52 @@ def band_slab_plain(v_pack, xp, radius: int):
 @functools.cache
 def _lib():
     lib = _cuda.library("band_probe")
-    lib.window_dot_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.window_dot_launch_plan.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.window_dot_plan.argtypes = [ctypes.c_int] * 4
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
     lib.band_slab_launch_fault.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.band_slab_tile.argtypes = [ctypes.c_int] * 4
-    for fn in (lib.window_dot_launch, lib.band_slab_launch_fault, lib.band_slab_tile):
+    for fn in (lib.window_dot_launch_plan, lib.window_dot_plan, lib.empty_launch, lib.band_slab_launch_fault,
+               lib.band_slab_tile):
         fn.restype = ctypes.c_int
     return lib
 
 
 @contextlib.contextmanager
 def planted_fault(kind: str):
-    """Launch band_slab's kernel with the fault FAULTS[kind] planted in it
-    while the block runs."""
-    global _planted
-    code = FAULTS[kind]
-    _planted = code
+    """Launch band_slab's kernel with the fault FAULTS[kind], or
+    window_dot's with WINDOW_FAULTS[kind], planted in it while the block
+    runs (CPU tensors take their plain versions, which carry none)."""
+    global _planted, _window_planted
+    if kind in WINDOW_FAULTS:
+        _window_planted = WINDOW_FAULTS[kind]
+    else:
+        _planted = FAULTS[kind]
     try:
         yield
     finally:
-        _planted = 0
+        _planted = _window_planted = 0
 
 
 def slab_tile(feat: int, radius: int, chunk_rows: int, batched: bool) -> int:
     """The feature tile (wgmma N) band_slab's kernel takes at these
     dimensions, 0 where it takes none; read from csrc/band_probe.cu."""
     return _lib().band_slab_tile(int(feat), 2 * int(radius) + 1, int(chunk_rows), int(batched))
+
+
+def window_plan(c: int, b: int, w: int, f: int):
+    """(tile rows, slices) a launch of window_dot takes at these dimensions
+    on this card, read from csrc/band_probe.cu."""
+    code = _lib().window_dot_plan(int(c), int(b), int(w), int(f))
+    return code // 256, code % 256
+
+
+def empty_launch(device="cuda"):
+    """Launch an empty kernel of one warp on the device's current stream:
+    the least time a launch takes, beside which window_dot's is read."""
+    rc = _lib().empty_launch(_stream(torch.device(device)))
+    if rc != 0:
+        raise RuntimeError("empty kernel launch failed: CUDA error {}".format(rc))
 
 
 def _stream(device):
@@ -131,8 +159,9 @@ def window_dot(v, x, starts: Sequence[int]):
     if x.device.type == "cpu":
         return window_dot_plain(v, x, starts)
     out = torch.empty((c, b, x.shape[1]), dtype=torch.float32, device=x.device)
-    rc = _lib().window_dot_launch(v.data_ptr(), x.data_ptr(), _device_starts(starts, x.device).data_ptr(),
-                                  out.data_ptr(), c, b, w, x.shape[1], _stream(x.device))
+    rc = _lib().window_dot_launch_plan(v.data_ptr(), x.data_ptr(), _device_starts(starts, x.device).data_ptr(),
+                                       out.data_ptr(), c, b, w, x.shape[1], 0, 0, _window_planted,
+                                       _stream(x.device))
     if rc != 0:
         raise RuntimeError("window_dot kernel launch failed: CUDA error {}".format(rc))
     window_dot.launches += 1

@@ -14,9 +14,10 @@ folded in. ``node_factored_apply`` and ``node_factored_apply_t`` launch
 csrc/node_factored.cu and csrc/node_factored_t.cu for CUDA tensors (they
 replace the Pallas kernels _apply_kernel / node_factored_apply and
 _apply_t_kernel / node_factored_apply_t; both run bf16 operands on the
-tensor cores, ``planted_fault`` plants a fault in B1t's) and take the plain
-versions for CPU tensors. No model path of the JAX package launches them:
-their caller is the node-apply design harness (tools/bench_node_dots.py),
+tensor cores, B1t f32 operands in the expanded order, the per-node weights
+formed on chip; ``planted_fault`` plants a fault in B1t's) and take the
+plain versions for CPU tensors. No model path of the JAX package launches
+them: their caller is the node-apply design harness (tools/bench_node_dots.py),
 whose factored variant ``node_factored_rows`` runs on B1's kernel too. They have no VJP, as
 in JAX: B1t is the transpose a hand-written BPTT would call.
 
@@ -222,8 +223,8 @@ node_apply_q8_t.launches = 0
 _FLOATS = (torch.float32, torch.bfloat16)
 # Shared memory of the factored kernels (csrc/node_factored*.cu): B1 in f32
 # keeps its 64 rows' K*I activations transposed with a row stride of 68
-# floats, a 32x64 pool chunk and the rows' D embeddings; B1t its q tile
-# (O x 68 floats) and a 32x64 chunk of pool_t. B1 in bf16 keeps its tile's
+# floats, a 32x64 pool chunk and the rows' D embeddings (B1t's shared
+# memory does not grow with its dimensions). B1 in bf16 keeps its tile's
 # rows x K*I activations (K*I padded to a multiple of 64), a ring of 4 pool
 # chunks of 64 x (d x columns) bf16, the f32 sums over d of its rows x columns
 # and 8 mbarriers; of its tiles (rows, columns, d a chunk), the kernel takes
@@ -252,24 +253,21 @@ def _factored_max_ki(d, dtype):
     return (_MAX_SMEM - _factored_smem(0, d, dtype)) // (_ROW_STRIDE * 4)
 
 
-def _factored_t_smem(o):
-    return (o * _ROW_STRIDE + _CHUNK_FLOATS) * 4
-
-
 # B1t in bf16 (csrc/node_factored_t.cu, tensor cores) holds its rows' dpre
 # as register fragments, 16 k16 slices at most.
 _FACTORED_T_MAX_O_BF16 = 256
-# Faults B1t's bf16 kernel plants on request, for checks that must fail it
+# Faults B1t's kernels plant on request, for checks that must fail them
 # (chip_smoke.py): the d = 0 term dropped; the contraction's last k16 slice
-# dropped.
+# dropped (in f32, the 16 o holding the last).
 FAULTS = {"d": 1, "k16": 2}
 _planted = 0
 
 
 @contextlib.contextmanager
 def planted_fault(kind: str):
-    """Launch B1t's bf16 kernel with the fault FAULTS[kind] planted in it
-    while the block runs (f32 operands then raise)."""
+    """Launch B1t's kernel (either form) with the fault FAULTS[kind] planted
+    in it while the block runs (CPU tensors take the plain version, which
+    carries none)."""
     global _planted
     code = FAULTS[kind]
     _planted = code
@@ -281,11 +279,9 @@ def planted_fault(kind: str):
 
 def factored_t_max_o(dtype: torch.dtype) -> int:
     """The largest O that node_factored_apply_t takes in `dtype`: 256 in
-    bf16 (dpre in registers), else what the f32 q tile leaves of a block's
-    shared memory."""
-    if dtype == torch.bfloat16:
-        return _FACTORED_T_MAX_O_BF16
-    return (_MAX_SMEM - _factored_t_smem(0)) // (_ROW_STRIDE * 4)
+    bf16 (dpre in registers); in f32 any O the kernel's int arguments hold
+    (it walks O in chunks of 16)."""
+    return _FACTORED_T_MAX_O_BF16 if dtype == torch.bfloat16 else _MAX_DIM
 
 
 def factored_t_load_path(i: int) -> str:
@@ -294,11 +290,22 @@ def factored_t_load_path(i: int) -> str:
     return "TMA" if i % 8 == 0 else "element loads"
 
 
-def factored_t_tile(b: int, k: int, n: int, i: int) -> str:
-    """The tile (rows x k a block) B1t's bf16 kernel takes at these
-    dimensions on this card, read from csrc/node_factored_t.cu."""
-    fn = _entry("node_factored_t", "node_factored_t_tile", 0, 4, stream=False)
-    return ("128x2", "128x1", "64x2", "64x1")[fn(b, k, n, i)]
+def factored_t_tile(b: int, k: int, n: int, i: int, dtype: torch.dtype = torch.bfloat16, o: int = 0) -> str:
+    """The tile B1t's kernel takes at these dimensions on this card, read
+    from csrc/node_factored_t.cu: in bf16 rows x k a block; in f32 nodes x
+    columns of (k, i) a block and the blocks of a cluster that split O
+    between them (which reads O)."""
+    if dtype == torch.bfloat16:
+        fn = _entry("node_factored_t", "node_factored_t_tile", 0, 4, stream=False)
+        return ("128x2", "128x1", "64x2", "64x1")[fn(b, k, n, i)]
+    return factored_t_f32_tile_name(_entry("node_factored_t", "node_factored_t_f32_tile", 0, 5, stream=False)(
+        b, k, n, i, o))
+
+
+def factored_t_f32_tile_name(code: int) -> str:
+    """The name of B1t's f32 tile `code` (node_factored_t_bwd_tile's tile
+    argument for f32 operands, 0 .. 3: O split over 2^code blocks)."""
+    return "16x32, O over {}".format(1 << code)
 
 
 def pool_to_kernel_layout(pool: torch.Tensor, gate: torch.Tensor = None):

@@ -18,8 +18,14 @@ falls outside the graph):
   * P2 ``band_slab`` (bf16 packed rows against the padded x, f32 out),
     per-row and batched, at the probe's point (R = 8,192 random row
     blocks, radius 2, F = 128) with chunk_rows 8 (P2) and 16 (P4's second
-    slab).
-``--dtype`` keeps the rows of one operand type.
+    slab);
+  * P1 and P3 ``window_dot`` (f32) at the probe tool's shapes (P1: 4
+    windows of 384 rows of a (1536, 128) stack, b = 128; P3: one window of
+    640 rows at row 128 of a (1024, 128) x), each beside its library call
+    (``torch.bmm`` of the stacked windows; ``v @ x[128:768]``) and an empty
+    kernel of this checkout (``empty_launch``), the floor under a launch.
+``--dtype`` keeps the rows of one operand type, ``--only`` the kernels whose
+name starts with one of its prefixes.
 The unchanged layout-copy kernel (B3) is timed in each round as a control
 for drift of the card. Before timing, each new output is held against the
 base's: one bf16 step for bf16, rtol 1e-5 with atol 1e-5 max|base| for
@@ -58,7 +64,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # source: {entry: argument types} of the interface both versions share
 ENTRIES = {"band_spmm": {"band_spmm_launch": [_P] * 3 + [_I] * (7 + MAX_OFFSETS) + [_P],
                          "band_dv_launch": [_P] * 3 + [_I] * (7 + MAX_OFFSETS) + [_P]},
-           "band_probe": {"band_slab_launch": [_P] * 3 + [_I] * 5 + [_P]}}
+           "band_probe": {"band_slab_launch": [_P] * 3 + [_I] * 5 + [_P],
+                          "window_dot_launch": [_P] * 4 + [_I] * 4 + [_P]}}
+WINDOWS = {"P1": (4, 128, 384, 128, (0, 384, 768, 1152), 4 * 384),   # (C, b, W, F, starts, rows of x)
+           "P3": (1, 128, 640, 128, (128,), 1024)}
 
 
 def _build(root: str, out_dir: str, tag: str):
@@ -96,8 +105,8 @@ def _planes(g, dtype):
 
 def _cases(g):
     """[(kernel, shape, entry, pointer args, int args, output)] at the shapes
-    the module docstring names."""
-    cases = []
+    the module docstring names, and {(kernel, shape): library call}."""
+    cases, library = [], {}
     n = ROW_BLOCKS * BLOCK
     offs = list(OFFSETS) + [0] * (MAX_OFFSETS - len(OFFSETS))
     for dtype, widths in ((torch.bfloat16, BF16_WIDTHS), (torch.float32, F32_WIDTHS)):
@@ -131,7 +140,16 @@ def _cases(g):
             cases.append(("P2 batched" if batched else "P2 per-row",
                           "R={} F={} chunk_rows={} bf16".format(SLAB_ROWS, SLAB_FEAT, chunk_rows), "band_slab_launch",
                           (v_pack, xp, out), [SLAB_ROWS, SLAB_FEAT, 2 * RADIUS + 1, chunk_rows, batched], out))
-    return cases
+    for kernel, (c, b, w, f, starts, rows) in WINDOWS.items():
+        v = torch.randn(c, b, w, generator=g, device="cuda")
+        x = torch.randn(rows, f, generator=g, device="cuda")
+        out = torch.empty(c, b, f, device="cuda")
+        shape = "C={} b={} W={} F={} float32".format(c, b, w, f)
+        cases.append((kernel, shape, "window_dot_launch",
+                      (v, x, torch.tensor(starts, dtype=torch.int32, device="cuda"), out), [c, b, w, f], out))
+        library[(kernel, shape)] = (lambda v=v, x=x, c=c, w=w, f=f: torch.bmm(v, x.view(c, w, f))) if (
+            kernel == "P1") else (lambda v=v, x=x: v[0] @ x[128:768])
+    return cases, library
 
 
 def _call(fns, entry, ptrs, ints, stream):
@@ -156,7 +174,8 @@ def main(argv=None):
     ap.add_argument("--base", required=True, help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=10, help="timed calls per sample")
-    ap.add_argument("--only", default="", help="time only the kernels whose name starts with this (e.g. P2)")
+    ap.add_argument("--only", nargs="*", default=[""],
+                    help="time only the kernels whose name starts with one of these (e.g. P1 P3)")
     ap.add_argument("--dtype", choices=("all", "bf16", "f32"), default="all", help="time only rows of this type")
     cli = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -164,12 +183,16 @@ def main(argv=None):
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     g = torch.Generator(device="cuda").manual_seed(0)
     dtype = {"all": "", "f32": "float32", "bf16": "bf"}[cli.dtype]   # P2's shapes end in "bf16"
-    cases = [case for case in _cases(g) if case[0].startswith(cli.only) and dtype in case[1].split()[-1]]
+    cases, library = _cases(g)
+    cases = [case for case in cases if case[0].startswith(tuple(cli.only)) and dtype in case[1].split()[-1]]
+    library = {key: call for key, call in library.items() if key[0] in {case[0] for case in cases}}
     view = torch.randn(24, 16, 237, 192, generator=g, device="cuda")[..., :128]
     stream = torch.cuda.current_stream().cuda_stream
     samples = {}
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"base": _build(cli.base, tmp, "base"), "new": _build(here, tmp, "new")}
+        empty = ctypes.CDLL(os.path.join(tmp, "libband_probe-new.so")).empty_launch
+        empty.argtypes, empty.restype = [_P], ctypes.c_int
         for kernel, shape, entry, ptrs, ints, out in cases:
             _call(libs["base"], entry, ptrs, ints, stream)
             ref = out.clone()
@@ -186,6 +209,11 @@ def main(argv=None):
                         reps=cli.reps))
                 samples.setdefault(("control", "B3", "gate_x (24,16,237,128) f32"), []).append(
                     event_ms(lambda: force_default_layout(view)))
+            for (kernel, shape), call in library.items():
+                samples.setdefault(("library", kernel, shape), []).append(event_ms(call, reps=cli.reps))
+            if library:
+                samples.setdefault(("floor", "empty kernel", "1 block of 32 threads"), []).append(
+                    event_ms(lambda: empty(stream), reps=cli.reps))
     name = card()
     for (version, kernel, shape), ms in samples.items():
         print(json.dumps({"version": version, "kernel": kernel, "shape": shape,

@@ -16,8 +16,7 @@ base, new, new, base, for several rounds:
   * B11 A and B11 B at the node-apply harness's shapes (T=24, B=16, NP=256,
     KI=320, O=192; B on 4,096 rows with D=20);
   * B1 and B1t at the flagship gate (O=128) and update (O=64) cells (B=16,
-    K=5, N=237, I=64, D=20), bf16 and f32 operands (B1t's f32 form, SIMT in
-    both, is a control).
+    K=5, N=237, I=64, D=20), bf16 and f32 operands.
 Before timing, each new output is held against the base's (one bf16 step
 for a bf16 result, rtol 1e-5 with atol 1e-5 max|base| for an f32 one). The
 unchanged layout-copy kernel (B3) is timed in each round as a control for
@@ -27,8 +26,9 @@ the operands' dtype, beside them; the order in which torch contracts each
 round, each of B1's and B1t's bf16 tiles through ``node_factored_fwd_tile``
 (192x32, 128x48, 128x32 and 128x16) and ``node_factored_t_bwd_tile``
 (128x2, 128x1, 64x2 and 64x1, rows x k; each kernel takes one by the
-grid), and each of B2's and B2t's batch tiles (wgmma's N = 8 to 128)
-through ``node_apply_q8_fwd_tile`` and ``node_apply_q8_t_bwd_tile``, each
+grid), B1t's f32 tiles (16 nodes x 32 columns, O split over 1, 2, 4 or 8
+blocks of a cluster) through ``node_factored_t_bwd_tile``, and each of
+B2's and B2t's batch tiles (wgmma's N = 8 to 128) through ``node_apply_q8_fwd_tile`` and ``node_apply_q8_t_bwd_tile``, each
 first held against the chosen tile's output. Times are
 CUDA-event medians with the L2 flushed before each call
 (``tools.timing.event_ms``, as chip_smoke.py takes them).
@@ -51,7 +51,8 @@ import torch
 
 from multistgraph_tpu_torch.ops import _cuda
 from multistgraph_tpu_torch.ops.layout import force_default_layout
-from multistgraph_tpu_torch.ops.node_apply import _pad_nodes, pool_to_kernel_layout, quantize_node_weights
+from multistgraph_tpu_torch.ops.node_apply import (_pad_nodes, factored_t_f32_tile_name, pool_to_kernel_layout,
+                                                   quantize_node_weights)
 from multistgraph_tpu_torch.tools.timing import card, einsum_order, event_ms
 
 N, KI = 237, 320
@@ -69,16 +70,17 @@ ENTRIES = {"node_apply_q8": ("node_apply_q8_fwd", [_P] * 4 + [_I] * 4 + [_P]),
            "node_factored_t": ("node_factored_t_bwd", [_P] * 4 + [_I] * 8 + [_P])}
 # this checkout's entries with the tile (and, for B1t, B2 and B2t, no
 # fault) after the shared interface's int arguments: (entry, argument
-# types, tiles, trailing ints)
+# types, trailing ints)
 Q8_TILES = (8, 16, 24, 32, 64, 128)
-TILED = {"node_factored": ("node_factored_fwd_tile", [_P] * 5 + [_I] * 10 + [_P], (0, 1, 2, 3), ()),
-         "node_factored_t": ("node_factored_t_bwd_tile", [_P] * 4 + [_I] * 10 + [_P], (0, 1, 2, 3), (0,)),
-         "node_apply_q8": ("node_apply_q8_fwd_tile", [_P] * 4 + [_I] * 6 + [_P], Q8_TILES, (0,)),
-         "node_apply_q8_t": ("node_apply_q8_t_bwd_tile", [_P] * 4 + [_I] * 6 + [_P], Q8_TILES, (0,))}
-TILE_NAMES = {"node_factored": {0: "192x32", 1: "128x48", 2: "128x32", 3: "128x16"},
-              "node_factored_t": {0: "128x2", 1: "128x1", 2: "64x2", 3: "64x1"},
-              "node_apply_q8": {t: "N={}".format(t) for t in Q8_TILES},
-              "node_apply_q8_t": {t: "N={}".format(t) for t in Q8_TILES}}
+TILED = {"node_factored": ("node_factored_fwd_tile", [_P] * 5 + [_I] * 10 + [_P], ()),
+         "node_factored_t": ("node_factored_t_bwd_tile", [_P] * 4 + [_I] * 10 + [_P], (0,)),
+         "node_apply_q8": ("node_apply_q8_fwd_tile", [_P] * 4 + [_I] * 6 + [_P], (0,)),
+         "node_apply_q8_t": ("node_apply_q8_t_bwd_tile", [_P] * 4 + [_I] * 6 + [_P], (0,))}
+# each case's tiles: {tile: name}
+B1_TILES = {0: "192x32", 1: "128x48", 2: "128x32", 3: "128x16"}
+B1T_TILES = {0: "128x2", 1: "128x1", 2: "64x2", 3: "64x1"}
+B1T_F32_TILES = {t: factored_t_f32_tile_name(t) for t in range(4)}
+Q8_TILE_NAMES = {t: "N={}".format(t) for t in Q8_TILES}
 
 
 def _build(root: str, out_dir: str, tag: str):
@@ -106,8 +108,9 @@ def _fn(lib, entry, argtypes):
 
 
 def _cases(g):
-    """[(kernel source, kernel, shape, pointer args, int args, output, whether
-    its tiles are timed)] at the shapes the module docstring names, and
+    """[(kernel source, kernel, shape, pointer args, int args, output,
+    {tile: name} of its tiles to time)] at the shapes the module docstring
+    names, and
     {(kernel, shape): library call} for B1, B1t (the equation and operands
     of a torch.einsum), B2 and B2t (a callable)."""
     randn = lambda *s, dtype=torch.bfloat16: (torch.randn(*s, generator=g, device="cuda") * 0.1).to(dtype)
@@ -129,7 +132,7 @@ def _cases(g):
                 d_lib = (act.float() * s[:N]).to(torch.bfloat16)
                 library[(kernel, shape)] = lambda d=d_lib, w=w_t: torch.bmm(d, w)
             cases.append(("node_apply_q8" if kernel == "B2" else "node_apply_q8_t", kernel, shape,
-                          (act, wq, s, out), (N, b, KI, o), out, True))
+                          (act, wq, s, out), (N, b, KI, o), out, Q8_TILE_NAMES))
     h = HARNESS
     scalar = torch.full((1, 1), 0.0123, device="cuda")
     hh = randn(h["T"], h["B"], h["NP"] * h["KI"])
@@ -137,14 +140,14 @@ def _cases(g):
     out = torch.empty(h["B"], h["NP"] * h["O"], dtype=torch.bfloat16, device="cuda")
     shape = "T={T} B={B} NP={NP} KI={KI} O={O}".format(**h)
     cases.append(("node_dots", "B11 A", shape, (hh, w, scalar, out),
-                  (h["T"], h["B"], h["NP"], h["KI"], h["O"]), out, False))
+                  (h["T"], h["B"], h["NP"], h["KI"], h["O"]), out, {}))
     rows = h["B"] * h["NP"]
     e_rows = randn(h["NP"], h["D"]).repeat(h["B"], 1).float()
     pool = randn(h["KI"], h["D"] * h["O"])
     out = torch.empty(rows, h["O"], dtype=torch.bfloat16, device="cuda")
     cases.append(("node_factored", "B11 B", shape + " D={D} rows".format(**h),
                   (hh.view(h["T"], rows, h["KI"]), e_rows, pool, scalar, out),
-                  (h["T"], 1, 1, rows, h["KI"], h["D"], h["O"], 1, 1), out, False))
+                  (h["T"], 1, 1, rows, h["KI"], h["D"], h["O"], 1, 1), out, {}))
     c = CELL
     for dtype in (torch.bfloat16, torch.float32):
         bf = int(dtype == torch.bfloat16)
@@ -155,13 +158,14 @@ def _cases(g):
             mat, mat_t = pool_to_kernel_layout(randn(c["D"], c["K"], c["I"], o, dtype=dtype))
             out = torch.empty(c["B"], c["N"], o, device="cuda")
             cases.append(("node_factored", "B1", shape, (hh, e, mat, None, out),
-                          (1, c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, 0), out, bool(bf)))
+                          (1, c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, 0), out, B1_TILES if bf else {}))
             library[("B1", shape)] = ("bkni,nd,kido->bno", hh, e.to(dtype), mat.view(c["K"], c["I"], c["D"], o))
             dpre = randn(c["B"], c["N"], o, dtype=dtype)
             e_t = e.to(dtype)
             dhh = torch.empty(c["B"], c["K"], c["N"], c["I"], dtype=dtype, device="cuda")
             cases.append(("node_factored_t", "B1t", shape, (dpre, e_t, mat_t, dhh),
-                          (c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, bf), dhh, bool(bf)))
+                          (c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, bf), dhh,
+                          B1T_TILES if bf else B1T_F32_TILES))
             library[("B1t", shape)] = ("bno,nd,kdoi->bkni", dpre, e_t, mat_t.view(c["K"], c["D"], o, c["I"]))
     return cases, library
 
@@ -199,8 +203,8 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"base": _build(cli.base, tmp, "base"), "new": _build(here, tmp, "new")}
         fns = {(v, name): _fn(libs[v][name], *ENTRIES[name]) for v in libs for name in ENTRIES}
-        tiled = {name: _fn(libs["new"][name], entry, types) for name, (entry, types, _, _) in TILED.items()}
-        for source, kernel, shape, ptrs, ints, out, tiled_case in cases:
+        tiled = {name: _fn(libs["new"][name], entry, types) for name, (entry, types, _) in TILED.items()}
+        for source, kernel, shape, ptrs, ints, out, tiles in cases:
             # the new version against the base's output, then each of its
             # tiles against the chosen tile's
             _call(fns[("base", source)], ptrs, ints, stream)
@@ -208,14 +212,12 @@ def main(argv=None):
             _call(fns[("new", source)], ptrs, ints, stream)
             torch.cuda.synchronize()
             _hold(out, ref, "{} {}: the new version".format(kernel, shape))
-            if not tiled_case:
-                continue
-            _, _, tiles, trailing = TILED[source]
-            for tile in tiles:
+            trailing = TILED[source][2] if tiles else ()
+            for tile, tile_name in tiles.items():
                 out.zero_()
                 _call(tiled[source], ptrs, ints, stream, tile, *trailing)
                 torch.cuda.synchronize()
-                _hold(out, ref, "{} {}: tile {}".format(kernel, shape, TILE_NAMES[source][tile]))
+                _hold(out, ref, "{} {}: tile {}".format(kernel, shape, tile_name))
         for _ in range(cli.rounds):
             for version in ("base", "new", "new", "base"):
                 for source, kernel, shape, ptrs, ints, _, _ in cases:
@@ -229,13 +231,11 @@ def main(argv=None):
                     equation, *operands = call
                     call = lambda equation=equation, operands=operands: torch.einsum(equation, *operands)
                 samples.setdefault(("library", kernel, shape), []).append(event_ms(call))
-            for source, kernel, shape, ptrs, ints, _, tiled_case in cases:
-                if not tiled_case:
-                    continue
-                _, _, tiles, trailing = TILED[source]
-                for tile in tiles:
+            for source, kernel, shape, ptrs, ints, _, tiles in cases:
+                trailing = TILED[source][2] if tiles else ()
+                for tile, tile_name in tiles.items():
                     fn = tiled[source]
-                    samples.setdefault(("new tile " + TILE_NAMES[source][tile], kernel, shape), []).append(
+                    samples.setdefault(("new tile " + tile_name, kernel, shape), []).append(
                         event_ms(lambda fn=fn, ptrs=ptrs, ints=ints, tile=tile, trailing=trailing:
                                  _call(fn, ptrs, ints, stream, tile, *trailing)))
     name = card()

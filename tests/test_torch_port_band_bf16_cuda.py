@@ -2,7 +2,8 @@
 
 csrc/band_spmm.cu with bfloat16 operands (B7 ``band_spmm``, B8
 ``band_spmm_packed``, B9 ``band_dx`` and ``band_dv`` and the packed
-layout's dX and dV), and csrc/band_probe.cu (``window_dot``, P1 and P3;
+layout's dX and dV), and csrc/band_probe.cu (``window_dot``, P1 and P3: every launch shape, pinned
+plans, two calls bit-identical and a planted slice drop;
 ``band_slab`` per-row and batched, P2, on the tensor cores: every feature
 tile, radius 0-3, chunk_rows 1-16, a planted fault and a misaligned
 operand), each against its plain version at odd shapes; the bf16 autograd terms on the card against the CPU; and one
@@ -239,6 +240,90 @@ def test_cuda_window_dot_matches_plain(cuda, shape):
     before = band_probe.window_dot.launches
     _close_f32(band_probe.window_dot(v, x, starts), band_probe.window_dot_plain(v, x, starts))
     assert band_probe.window_dot.launches == before + 1
+
+
+def _window_inputs(cuda, c, b, w, f, starts, seed):
+    v = _randn(cuda, c, b, w, dtype=torch.float32, seed=seed)
+    x = _randn(cuda, max(s + w for s in starts), f, dtype=torch.float32, seed=seed + 1)
+    return v, x
+
+
+# (C, b, W, F, starts): P1 and P3; the odd shape; C up to 6; W no multiple
+# of a slice (one row, 4-row slices, a ragged last slice and a slice over
+# two stages); b and F no multiples of the tile (F % 4 != 0: 4-byte copies
+# and stores); starts that put no window on a 16-byte boundary
+_WINDOW_SHAPES = [(4, 128, 384, 128, (0, 384, 768, 1152)), (1, 128, 640, 128, (128,)),
+                  (3, 100, 50, 70, (0, 17, 500)), (6, 33, 257, 130, (5, 0, 300, 77, 1, 999)),
+                  (5, 65, 1, 3, (0, 4, 9, 2, 7)), (2, 17, 30, 64, (3, 1)), (1, 200, 1000, 33, (11,)),
+                  (2, 64, 264, 192, (0, 264))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _WINDOW_SHAPES, ids=lambda s: "C{}_b{}_W{}_F{}".format(*s[:4]))
+def test_cuda_window_dot_split_windows_match_plain(cuda, shape):
+    """window_dot's slices (one block each, a cluster per output tile) at
+    every launch shape its rule takes: held to the plain version, f32 rule."""
+    c, b, w, f, starts = shape
+    v, x = _window_inputs(cuda, c, b, w, f, starts, seed=20)
+    before = band_probe.window_dot.launches
+    _close_f32(band_probe.window_dot(v, x, starts), band_probe.window_dot_plain(v, x, starts))
+    assert band_probe.window_dot.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 32, 64])
+@pytest.mark.parametrize("slices", [1, 3, 6, 8])
+def test_cuda_window_dot_every_pinned_plan_matches_plain(cuda, slices, rows):
+    """Tile heights and cluster sizes pinned through window_dot_launch_plan,
+    at P1's shape and at an odd one; a 9-block cluster is refused."""
+    import ctypes
+
+    lib = band_probe._lib()
+    for c, b, w, f, starts in (_WINDOW_SHAPES[0], _WINDOW_SHAPES[3]):
+        v, x = _window_inputs(cuda, c, b, w, f, starts, seed=21)
+        out = torch.full((c, b, f), float("nan"), device=cuda)
+        dev_starts = torch.tensor(starts, dtype=torch.int32, device=cuda)
+        rc = lib.window_dot_launch_plan(v.data_ptr(), x.data_ptr(), dev_starts.data_ptr(), out.data_ptr(), c, b, w,
+                                        f, slices, rows, 0, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        assert rc == 0
+        _close_f32(out, band_probe.window_dot_plain(v, x, starts))
+    assert lib.window_dot_launch_plan(v.data_ptr(), x.data_ptr(), dev_starts.data_ptr(), out.data_ptr(), c, b, w, f, 9,
+                                      rows, 0, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _WINDOW_SHAPES[:4], ids=lambda s: "C{}_b{}_W{}_F{}".format(*s[:4]))
+def test_cuda_window_dot_is_bit_identical_across_calls(cuda, shape):
+    """The slices' partials are summed in slice order by one block: two
+    calls give the same bits."""
+    c, b, w, f, starts = shape
+    v, x = _window_inputs(cuda, c, b, w, f, starts, seed=22)
+    first = band_probe.window_dot(v, x, starts)
+    assert torch.equal(band_probe.window_dot(v, x, starts), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _WINDOW_SHAPES[:5], ids=lambda s: "C{}_b{}_W{}_F{}".format(*s[:4]))
+def test_cuda_window_dot_planted_slice_drop_fails_the_check(cuda, shape):
+    """The fault planted in window_dot's kernel (the last slice's partial
+    left out of the sums) takes it past the f32 check; outside the block
+    the kernel passes."""
+    c, b, w, f, starts = shape
+    v, x = _window_inputs(cuda, c, b, w, f, starts, seed=23)
+    want = band_probe.window_dot_plain(v, x, starts)
+    with band_probe.planted_fault("slice"):
+        assert _f32_ratio(band_probe.window_dot(v, x, starts), want) > 1.0
+    assert _f32_ratio(band_probe.window_dot(v, x, starts), want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_window_plan_fills_the_card_at_the_probe_shapes(cuda):
+    """P1 takes 6 slices of 64 rows under 64-row tiles, P3 6 slices of 108
+    under 16-row tiles: 96 blocks each on the H100's 132 SMs."""
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != 132:
+        pytest.skip("the plan at the probe shapes is pinned for a card of 132 SMs")
+    assert band_probe.window_plan(4, 128, 384, 128) == (64, 6)
+    assert band_probe.window_plan(1, 128, 640, 128) == (16, 6)
 
 
 @pytest.mark.cuda

@@ -152,3 +152,17 @@ def test_band_slab_planted_faults_are_scoped_and_leave_the_cpu_path_alone():
             assert band_probe._planted == band_probe.FAULTS[kind]
             assert torch.equal(band_probe.band_slab(v_pack, xp, 1, batched=True), want)
         assert band_probe._planted == 0
+
+
+def test_window_dot_planted_faults_are_scoped_and_leave_the_cpu_path_alone():
+    gen = torch.Generator().manual_seed(5)
+    v = torch.randn(3, 10, 20, generator=gen)
+    x = torch.randn(60, 7, generator=gen)
+    starts = [0, 13, 40]
+    want = band_probe.window_dot(v, x, starts)
+    assert set(band_probe.WINDOW_FAULTS).isdisjoint(band_probe.FAULTS)
+    for kind in sorted(band_probe.WINDOW_FAULTS):
+        with band_probe.planted_fault(kind):
+            assert band_probe._window_planted == band_probe.WINDOW_FAULTS[kind] and band_probe._planted == 0
+            assert torch.equal(band_probe.window_dot(v, x, starts), want)
+        assert band_probe._window_planted == 0

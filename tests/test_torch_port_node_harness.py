@@ -375,12 +375,13 @@ def test_factored_shared_memory_limits(dtype, ki, fits):
 
 
 @pytest.mark.parametrize("dtype,o,fits", [(torch.bfloat16, 256, True), (torch.bfloat16, 257, False),
-                                          (torch.float32, 824, True), (torch.float32, 825, False)])
+                                          (torch.float32, 824, True), (torch.float32, 2000, True)])
 def test_factored_t_o_limits(dtype, o, fits):
     """B1t in bf16 holds its rows' dpre as register fragments of up to 16
-    k16 slices (O up to 256); in f32 its q tile (O x 68 floats) and a 32x64
-    chunk of pool_t fit a block's shared memory up to O = 824."""
-    assert node_apply.factored_t_max_o(dtype) == (256 if dtype == torch.bfloat16 else 824)
+    k16 slices (O up to 256); in f32 it walks O in chunks of 16, so any O
+    that the kernel's int arguments hold (past the 824 of the q tile that
+    its first f32 form kept in shared memory)."""
+    assert node_apply.factored_t_max_o(dtype) == (256 if dtype == torch.bfloat16 else 2 ** 31 - 1)
     dpre = torch.ones(1, 2, o, dtype=dtype)
     e = torch.ones(2, 1)
     mat_t = torch.ones(1, o, 3, dtype=dtype)
@@ -390,6 +391,37 @@ def test_factored_t_o_limits(dtype, o, fits):
         return
     with pytest.raises(ValueError, match="node_factored_apply_t takes O of at most {} in".format(o - 1)):
         node_apply.node_factored_apply_t(dpre, e, mat_t)
+
+
+@pytest.mark.parametrize("cell,o", [("gate", 128), ("update", 64)])
+def test_expanded_order_holds_the_f32_plain_version_within_a_tenth_of_the_rule(cell, o):
+    """B1t's f32 kernel sums in the expanded order, W[n,k,o,i] = sum_d
+    e[n,d] pool_t[k, d O + o, i] first, then sum_o dpre[b,n,o] W; the plain
+    version in the Pallas kernel's order, q = e dpre first. At the flagship
+    cells (B=16, N=237, K=5, I=64, D=20) the two differ by rounding alone,
+    under a tenth of the f32 rule the card holds the kernel to (rtol 1e-5,
+    atol 1e-5 max|plain|): the order change sits far inside that check."""
+    rng = np.random.default_rng(14)
+    b, k, n, i, d = 16, 5, 237, 64, 20
+    dpre = torch.from_numpy(rng.normal(size=(b, n, o)).astype(np.float32) * 0.1)
+    e = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32) * 0.1)
+    _, mat_t = node_apply.pool_to_kernel_layout(torch.from_numpy(rng.normal(size=(d, k, i, o)).astype(np.float32) * 0.1))
+    plain = node_apply.node_factored_apply_t_plain(dpre, e, mat_t)
+    w = torch.einsum("nd,kdoi->nkoi", e, mat_t.view(k, d, o, i))
+    expanded = torch.einsum("bno,nkoi->bkni", dpre, w)
+    bound = 1e-5 * (plain.abs() + plain.abs().max())
+    assert ((expanded - plain).abs() / bound).max().item() < 0.1
+
+
+def test_factored_t_f32_planted_faults_leave_the_cpu_path_alone():
+    g = torch.Generator().manual_seed(6)
+    dpre = torch.randn(2, 5, 6, generator=g)
+    e = torch.randn(5, 2, generator=g)
+    mat_t = torch.randn(3, 12, 4, generator=g)
+    want = node_apply.node_factored_apply_t(dpre, e, mat_t)
+    for kind in sorted(node_apply.FAULTS):
+        with node_apply.planted_fault(kind):
+            assert torch.equal(node_apply.node_factored_apply_t(dpre, e, mat_t), want)
 
 
 @pytest.mark.parametrize("i,path", [(64, "TMA"), (8, "TMA"), (72, "TMA"), (7, "element loads"),
@@ -558,22 +590,69 @@ def test_cuda_factored_t_tensor_core_tiles_and_edges(cuda, b, k, n, i, d, o, til
 @pytest.mark.parametrize("i", [64, 7])
 @pytest.mark.parametrize("fault", sorted(node_apply.FAULTS))
 def test_cuda_factored_t_planted_faults_fail_the_check(cuda, fault, i):
-    """Each fault planted in B1t's bf16 kernel (d = 0 dropped, the last k16
-    slice of the contraction dropped) takes it past one bf16 step, on both
-    load paths; f32 operands take no fault."""
+    """Each fault planted in B1t's kernels (d = 0 dropped, the last k16
+    slice of the contraction dropped; in f32 the 16 o holding the last)
+    takes the bf16 form past one bf16 step and the f32 form past the f32
+    rule, on both load paths; outside the block both pass."""
     g = torch.Generator().manual_seed(31 + i)
     b, k, n, d, o = 4, 3, 70, 5, 40
     dpre = _randn(g, b, n, o, dtype=torch.bfloat16)
     e = _randn(g, n, d)
     _, mat_t = node_apply.pool_to_kernel_layout(_randn(g, d, k, i, o, dtype=torch.bfloat16))
     want = node_apply.node_factored_apply_t_plain(dpre, e, mat_t).float().cpu().numpy()
+    want_f32 = node_apply.node_factored_apply_t_plain(dpre.float(), e, mat_t.float())
     with node_apply.planted_fault(fault):
         bad = node_apply.node_factored_apply_t(dpre, e, mat_t).float().cpu().numpy()
-        with pytest.raises(RuntimeError, match="launch failed"):
-            node_apply.node_factored_apply_t(dpre.float(), e, mat_t.float())
+        bad_f32 = node_apply.node_factored_apply_t(dpre.float(), e, mat_t.float())
     with pytest.raises(AssertionError):
         _assert_within_one_bf16_step(bad, want)
+    with pytest.raises(AssertionError):
+        _assert_close_to_plain(bad_f32, want_f32)
     _assert_within_one_bf16_step(node_apply.node_factored_apply_t(dpre, e, mat_t).float().cpu().numpy(), want)
+    _assert_close_to_plain(node_apply.node_factored_apply_t(dpre.float(), e, mat_t.float()), want_f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [0, 1, 2, 3])
+@pytest.mark.parametrize("b,k,n,i,d,o", [(16, 5, 237, 64, 20, 128), (16, 5, 237, 64, 20, 64), (3, 5, 21, 36, 20, 20),
+                                          (17, 1, 9, 17, 1, 128), (2, 5, 33, 17, 20, 64), (5, 1, 40, 36, 1, 20),
+                                          (1, 5, 7, 64, 9, 30), (2, 2, 70, 8, 50, 18)])
+def test_cuda_factored_t_f32_groups_and_edges(cuda, b, k, n, i, d, o, tile, out_dtype):
+    """B1t with f32 operands, the expanded order, through its tiles (O split
+    over 1 to 8 blocks of a cluster, more blocks than 16-o chunks at O =
+    20, 30 and 18): the flagship gate and update; B*N and B no multiple
+    of the 16 nodes of a block or of 16 b (a second b tile at B = 17); I =
+    64, 36, 17 and 8 (4-byte copies and stores at 17), O = 128, 64, 20, 30
+    and 18 (4-byte dpre copies, a ragged 16-o chunk), D = 1, 9, 20 and 50
+    (ragged 8-d pieces), K = 1, 2 and 5.
+    The f32 result within the f32 rule of the plain version (the same
+    function in the other order: about 1e-6 of max|plain| on the CPU), the
+    bf16 one within one bf16 step of the plain version rounded to bf16."""
+    g = torch.Generator().manual_seed(b * 1000 + i * 10 + o + tile)
+    dpre = _randn(g, b, n, o)
+    e = _randn(g, n, d)
+    _, mat_t = node_apply.pool_to_kernel_layout(_randn(g, d, k, i, o))
+    want = node_apply.node_factored_apply_t_plain(dpre, e, mat_t, torch.float32)
+    out = torch.full((b, k, n, i), float("nan"), dtype=out_dtype, device="cuda")
+    rc = _factored_t_tile_fn()(dpre.data_ptr(), e.data_ptr(), mat_t.data_ptr(), out.data_ptr(), b, k, n, i, d, o, 0,
+                               int(out_dtype == torch.bfloat16), tile, 0, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    if out_dtype == torch.float32:
+        _assert_close_to_plain(out, want)
+    else:
+        _assert_within_one_bf16_step(out.float().cpu().numpy(), want.to(torch.bfloat16).float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_factored_t_f32_tile_fills_the_card(cuda):
+    """The f32 kernel's 16 nodes x 32 columns split O over the most blocks
+    of a cluster that leave each two 16-o chunks: 4 at the flagship gate
+    (600 blocks), 2 at the update."""
+    assert node_apply.factored_t_tile(16, 5, 237, 64, torch.float32, o=128) == "16x32, O over 4"
+    assert node_apply.factored_t_tile(16, 5, 237, 64, torch.float32, o=64) == "16x32, O over 2"
+    assert node_apply.factored_t_tile(2, 1, 40, 32, torch.float32, o=20) == "16x32, O over 1"
 
 
 @pytest.mark.cuda
