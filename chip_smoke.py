@@ -5,24 +5,30 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds each kernel against its plain PyTorch version at the shapes
-the serving and training paths give it (and B2 and B2t at batch 256) and
-times both, with faults planted inside B2's and B2t's kernels (the last k16
-slice of the contraction dropped, B2's batch columns past the first 8
-zeroed) that must fail the hold, then drives MultiATGCN's two paths at the
-DC-237 flagship width
+the serving and training paths give it (and B2 and B2t at batch 256; both
+on bf16 and on f32 activations, and on f16 at batch 16) and times both,
+with faults planted inside B2's and B2t's kernels (the last k16 slice of
+the contraction dropped, B2's batch columns past the first 8 zeroed) that
+must fail the hold, then drives MultiATGCN's two paths at the DC-237
+flagship width
 (bench.py's arguments, the port's synthetic DC-237 dataset, random weights
 from a seeded generator):
   * serving: MultiATGCN in the int8 weight-stream configuration, served by
     ``PredictService.from_experiment`` over HTTP at buckets 1, 4 and 16,
-    plus one f32 request at bucket 16. The encoder states and model-space
-    outputs of the int8, bf16 and f32 runs are held against the same
-    weights on the CPU, and faults planted in B2 (two in its wrapper, two
-    inside its kernel) must fail those checks;
+    plus one f32 request at bucket 16, and the int8 stream at f32
+    activations (compute_dtype float32: B2's f32 form only) through
+    ``PredictService`` at each bucket. The encoder states and model-space
+    outputs of the int8, int8 f32, bf16 and f32 runs, and the int8 f32
+    replies, are held against the same weights on the CPU, and faults
+    planted in B2 (two in its wrapper, two inside its kernel) must fail
+    those checks; the int8 f32 model's per-forward int8 weights are
+    compared with the CPU's, level by level;
   * training: the int8 configuration trained through ``get_executor`` (3
-    warm-up and 20 timed steps at batch 16, one validation pass), then a
-    few f32 and bf16 steps, each with exact launch counts per step. One
-    step's loss and every parameter gradient on the card are held against
-    the CPU at the same weights and batch in int8, bf16 and f32, and faults
+    warm-up and 20 timed steps at batch 16, one validation pass), the same
+    at f32 activations (B2's and B2t's f32 forms only), then a few f32 and
+    bf16 steps, each with exact launch counts per step. One step's loss and
+    every parameter gradient on the card are held against the CPU at the
+    same weights and batch in int8, int8 f32, bf16 and f32, and faults
     planted in B2t (in its wrapper and inside its kernel), inside B2's
     kernel and in B3's backward must fail those checks.
 Then the sparse path, SparseATGCN at its defaults' full width on the
@@ -188,6 +194,16 @@ GRAD_BATCH = 4                      # the gradient check's batch
 # rounding does (see PERF.md).
 BOUND_GRAD_F32 = 3e-6
 BOUND_GRAD_BF16 = 3e-2
+# The int8 stream at f32 activations (compute_dtype float32) on the card
+# against the CPU: its only rounding points are the int8 weights and B2t's
+# bf16 cotangent, which a last f32 bit can move by a step. Read on an H100:
+# model space 8.97e-5 at every bucket, gradients 2.2e-5; each bound is
+# 3.3x and 4.5x that, far below the int8 bounds and what planted faults
+# give (1.4e-2 and 4.7e-2 at least). The model-space gap is int8 levels
+# flipped by one step (50 of 29.1M per forward, _quant_agreement): run
+# with the CPU's (wq, scale), the card reads 9.4e-7 of the CPU.
+BOUND_INT8_F32 = 3e-4
+BOUND_GRAD_INT8_F32 = 1e-4
 
 
 def say(msg):
@@ -229,17 +245,19 @@ def _ptxas_kernels(report, marker):
     return rows
 
 
-def _over_bound(got, want, rel=1e-5, bf16_step=False):
+def _over_bound(got, want, rel=1e-5, bf16_step=False, step=None):
     """The largest |got - want| over its elementwise bound (inf where the
     shapes or dtypes differ). By default rtol rel with atol rel*max|want|:
     the same products summed in another order. bf16_step: one bf16 step,
     2^-7 |want| + 2^-7 * 1e-3 max|want| (8 significant bits, with a floor
-    for sums that cancel)."""
+    for sums that cancel); step: the same with another step (2^-10 for
+    f16's 11 bits)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         return float("inf")
     got, want = got.float(), want.float()
-    if bf16_step:
-        bound = 2.0 ** -7 * (want.abs() + 1e-3 * want.abs().max())
+    step = 2.0 ** -7 if bf16_step else step
+    if step is not None:
+        bound = step * (want.abs() + 1e-3 * want.abs().max())
     else:
         bound = rel * (want.abs() + want.abs().max())
     diff = (got - want).abs()
@@ -252,7 +270,7 @@ def _hold(ratio, what):
         raise AssertionError("{}: {:.3g} of its bound".format(what, ratio))
 
 
-def _q8_faults(node_apply, fn, name, args, want, batch, bf16_step=False):
+def _q8_faults(node_apply, fn, name, args, want, batch, step=None):
     """Each fault planted inside B2's or B2t's kernel that reaches `batch`,
     over the bound of the check the unfaulted kernel passes."""
     faults = {}
@@ -261,8 +279,122 @@ def _q8_faults(node_apply, fn, name, args, want, batch, bf16_step=False):
             continue
         with node_apply.planted_q8_fault(kind):
             bad = fn(*args)
-        faults[kind] = _over_bound(bad, want, bf16_step=bf16_step)
+        faults[kind] = _over_bound(bad, want, step=step)
     return faults
+
+
+# B2's and B2t's activation dtypes: (suffix of the rows' and counters' names,
+# bf16 pieces B2 splits the activation into, the batches its rows run at);
+# f32 runs on the main path (the int8 stream at compute_dtype float32),
+# f16 at the training batch only, off the path
+Q8_FORMS = {"bfloat16": ("", 1, BUCKETS + (LARGE_BATCH,)), "float32": ("_f32", 3, BUCKETS + (LARGE_BATCH,)),
+            "float16": ("_f16", 2, (B,))}
+# one step of each result dtype B2t writes, for its hold (None: the f32 rule)
+Q8_STEPS = {"bfloat16": 2.0 ** -7, "float32": None, "float16": 2.0 ** -10}
+
+
+def _q8_rows(torch, node_apply, g, dtype_name):
+    """B2's and B2t's rows for activations of one dtype, each held against
+    its plain version (B2's f32 sums and B2t's f32 results at rtol 1e-5
+    with atol 1e-5 max|plain|, B2t's bf16 and f16 results within one step)
+    and timed beside its bound and library call; and the faults planted
+    inside the kernels, each over the bound of that hold."""
+    from multistgraph_tpu_torch.ops.node_apply import (
+        _pad_nodes, node_apply_q8, node_apply_q8_plain, node_apply_q8_t, node_apply_q8_t_plain,
+        quantize_node_weights)
+
+    dtype = getattr(torch, dtype_name)
+    suffix, pieces, batches = Q8_FORMS[dtype_name]
+    size = dtype.itemsize
+    dev = torch.device("cuda")
+    lines, faults = [], {}
+    ki = K * H
+    n_pad = -(-N // 32) * 32
+    split = {1: "", 3: ", hh split on chip into three bf16 pieces (hi, mid, lo: exact), one product each",
+             2: ", hh split on chip into two bf16 pieces (exact), one product each"}[pieces]
+    # the int8 requests of the main path launch B2 at buckets 1, 4 and 16,
+    # int8 training at 16; batch 256 shows that any batch runs
+    for b, (cell, o) in itertools.product(batches, (("gate", 2 * H), ("update", H))):
+        hh = torch.randn(N, b, ki, generator=g, device=dev).to(dtype)
+        w = torch.randn(N, ki, o, generator=g, device=dev) * 0.1
+        wq, s = quantize_node_weights(w.to(torch.bfloat16))
+        wq, s = _pad_nodes(wq, 0, n_pad), _pad_nodes(s, 0, n_pad)
+        got = node_apply_q8(hh, wq, s)
+        want = node_apply_q8_plain(hh, wq, s)
+        torch.cuda.synchronize()
+        # the same exact products in f32; only the summation order differs
+        _hold(_over_bound(got, want), "node_apply_q8{} vs its plain version on {}".format(suffix, cell))
+        if dtype == torch.bfloat16:
+            w_deq = (wq[:N].float() * s[:N]).to(torch.bfloat16)
+            library, call = "torch.bmm on pre-dequantized bf16 weights", lambda: torch.bmm(hh, w_deq)
+        else:
+            # f32 (TF32 off) on the weights widened ahead of time, times the scale
+            w32, hh32 = wq[:N].float(), hh.float()
+            library = "torch.bmm of the {} activations against the int8 weights pre-widened to f32, times the " \
+                      "scale (TF32 off)".format("f32" if dtype == torch.float32 else "f16 (pre-widened)")
+            call = lambda: torch.bmm(hh32, w32).mul_(s[:N])  # noqa: E731
+        num_bytes = N * b * ki * size + N * ki * o + N * o * 4 + N * b * o * 4
+        bound, by = _bound_ms(num_bytes, pieces * 2 * N * b * ki * o)
+        lines.append({
+            "name": "node_apply_q8" + suffix, "shape": "{} N={} B={} KI={} O={}".format(cell, N, b, ki, o),
+            "replaces": "multistgraph_tpu/ops/node_apply.py:238 node_apply_q8",
+            "max_abs_err": (got - want).abs().max().item(), "tolerance": "rtol 1e-5, atol 1e-5*max|plain|",
+            "kernel_ms": _time_ms(torch, lambda: node_apply_q8(hh, wq, s)),
+            "plain_ms": _time_ms(torch, lambda: node_apply_q8_plain(hh, wq, s)),
+            "library_ms": _time_ms(torch, call), "library": library,
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
+            "bound_ops": "{} x 2NBKO at the bf16 tensor-core peak".format(pieces) if pieces > 1 else "2NBKO",
+            "main_path": b in BUCKETS and dtype != torch.float16,
+            "design": DESIGN_Q8.format(node_apply.q8_batch_tile(b, dtype), "O", split),
+            "loads": node_apply.q8_load_path(ki, o, dtype=dtype),
+        })
+        for kind, ratio in _q8_faults(node_apply, node_apply_q8, "node_apply_q8", (hh, wq, s), want, b).items():
+            faults["{} planted in the kernel, {} {} B={}".format(kind, dtype_name, cell, b)] = ratio
+    # the int8 reverse scan launches B2t at the training batch, gate and
+    # update; batch 256 shows that any batch runs
+    for bt, (cell, o) in itertools.product([b for b in batches if b >= B], (("gate", 2 * H), ("update", H))):
+        dpre = torch.randn(N, bt, o, generator=g, device=dev).to(dtype)
+        w = torch.randn(N, ki, o, generator=g, device=dev) * 0.1
+        wq, s = quantize_node_weights(w.to(torch.bfloat16))
+        wq, s = _pad_nodes(wq, 0, n_pad), _pad_nodes(s, 0, n_pad)
+        got = node_apply_q8_t(dpre, wq, s)
+        want = node_apply_q8_t_plain(dpre, wq, s)
+        torch.cuda.synchronize()
+        # the same rounded products in f32; only the summation order
+        # differs, which can move a final bf16 or f16 rounding by one step
+        step = Q8_STEPS[dtype_name]
+        _hold(_over_bound(got, want, step=step), "node_apply_q8_t{} vs its plain version on {}".format(suffix, cell))
+        d_lib = (dpre.float() * s[:N]).to(torch.bfloat16)
+        # the scale lies on the cotangent, so the library call takes the int8
+        # weights widened (exact), transposed ahead of time
+        if dtype == torch.bfloat16:
+            w_t = wq[:N].to(torch.bfloat16).transpose(1, 2).contiguous()
+            library = "torch.bmm of the scaled bf16 cotangent with the int8 weights pre-widened to bf16, transposed"
+        else:
+            w_t, d_lib = wq[:N].float().transpose(1, 2).contiguous(), d_lib.float()
+            library = "torch.bmm of the scaled cotangent rounded to bf16 and widened, with the int8 weights " \
+                      "pre-widened to f32, transposed (TF32 off)"
+        num_bytes = N * bt * o * size + N * ki * o + N * o * 4 + N * bt * ki * size
+        bound, by = _bound_ms(num_bytes, 2 * N * bt * ki * o)
+        lines.append({
+            "name": "node_apply_q8_t" + suffix, "shape": "{} N={} B={} KI={} O={}".format(cell, N, bt, ki, o),
+            "replaces": "multistgraph_tpu/ops/node_apply.py:267 node_apply_q8_t",
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "tolerance": "rtol 1e-5, atol 1e-5*max|plain|" if step is None else
+                         "one {} step: {} |plain| + {} * 1e-3 max|plain|".format(dtype_name, step, step),
+            "kernel_ms": _time_ms(torch, lambda: node_apply_q8_t(dpre, wq, s)),
+            "plain_ms": _time_ms(torch, lambda: node_apply_q8_t_plain(dpre, wq, s)),
+            "library_ms": _time_ms(torch, lambda: torch.bmm(d_lib, w_t)), "library": library,
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
+            "main_path": bt == B and dtype != torch.float16,
+            "design": DESIGN_Q8.format(node_apply.q8_batch_tile(bt, dtype), "KI",
+                                       ", the cotangent scaled and rounded to bf16 there"),
+            "loads": node_apply.q8_load_path(ki, o, transposed=True, dtype=dtype),
+        })
+        for kind, ratio in _q8_faults(node_apply, node_apply_q8_t, "node_apply_q8_t", (dpre, wq, s), want,
+                                      bt, step=step).items():
+            faults["{} planted in the kernel, {} {} B={}".format(kind, dtype_name, cell, bt)] = ratio
+    return lines, faults
 
 
 def kernel_phase(torch):
@@ -271,84 +403,20 @@ def kernel_phase(torch):
     from multistgraph_tpu_torch.ops import node_apply
     from multistgraph_tpu_torch.ops.layout import (
         _ForceDefaultLayout, force_default_layout, force_default_layout_plain)
-    from multistgraph_tpu_torch.ops.node_apply import (
-        _pad_nodes, node_apply_q8, node_apply_q8_plain, node_apply_q8_t, node_apply_q8_t_plain,
-        quantize_node_weights)
 
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     lines = []
     faults = {}
-    ki = K * H
-    n_pad = -(-N // 32) * 32
-    # the int8 requests of the main path launch B2 at buckets 1, 4 and 16,
-    # int8 training at 16; batch 256 shows that any batch runs
-    for b, (cell, o) in itertools.product(BUCKETS + (LARGE_BATCH,), (("gate", 2 * H), ("update", H))):
-        hh = torch.randn(N, b, ki, generator=g, device=dev).to(torch.bfloat16)
-        w = torch.randn(N, ki, o, generator=g, device=dev) * 0.1
-        wq, s = quantize_node_weights(w.to(torch.bfloat16))
-        wq, s = _pad_nodes(wq, 0, n_pad), _pad_nodes(s, 0, n_pad)
-        got = node_apply_q8(hh, wq, s)
-        want = node_apply_q8_plain(hh, wq, s)
-        torch.cuda.synchronize()
-        # the same products in f32; only the summation order differs
-        _hold(_over_bound(got, want), "node_apply_q8 vs its plain version on " + cell)
-        w_deq = (wq[:N].float() * s[:N]).to(torch.bfloat16)
-        num_bytes = N * b * ki * 2 + N * ki * o + N * o * 4 + N * b * o * 4
-        bound, by = _bound_ms(num_bytes, 2 * N * b * ki * o)
-        lines.append({
-            "name": "node_apply_q8", "shape": "{} N={} B={} KI={} O={}".format(cell, N, b, ki, o),
-            "replaces": "multistgraph_tpu/ops/node_apply.py:238 node_apply_q8",
-            "max_abs_err": (got - want).abs().max().item(), "tolerance": "rtol 1e-5, atol 1e-5*max|plain|",
-            "kernel_ms": _time_ms(torch, lambda: node_apply_q8(hh, wq, s)),
-            "plain_ms": _time_ms(torch, lambda: node_apply_q8_plain(hh, wq, s)),
-            "library_ms": _time_ms(torch, lambda: torch.bmm(hh, w_deq)),
-            "library": "torch.bmm on pre-dequantized bf16 weights",
-            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
-            "main_path": b in BUCKETS,
-            "design": DESIGN_Q8.format(node_apply.q8_batch_tile(b), "O", ""),
-            "loads": node_apply.q8_load_path(ki, o),
-        })
-        for kind, ratio in _q8_faults(node_apply, node_apply_q8, "node_apply_q8", (hh, wq, s), want,
-                                      b).items():
-            faults["{} planted in the kernel, {} B={}".format(kind, cell, b)] = ratio
-    # the int8 reverse scan launches B2t at the training batch, gate and
-    # update; batch 256 shows that any batch runs
-    for bt, (cell, o) in itertools.product((B, LARGE_BATCH), (("gate", 2 * H), ("update", H))):
-        dpre = torch.randn(N, bt, o, generator=g, device=dev).to(torch.bfloat16)
-        w = torch.randn(N, ki, o, generator=g, device=dev) * 0.1
-        wq, s = quantize_node_weights(w.to(torch.bfloat16))
-        wq, s = _pad_nodes(wq, 0, n_pad), _pad_nodes(s, 0, n_pad)
-        got = node_apply_q8_t(dpre, wq, s)
-        want = node_apply_q8_t_plain(dpre, wq, s)
-        torch.cuda.synchronize()
-        # the same bf16-rounded products in f32; only the summation order
-        # differs, which can move the final bf16 rounding by one step
-        _hold(_over_bound(got, want, bf16_step=True), "node_apply_q8_t vs its plain version on " + cell)
-        d_lib = (dpre.float() * s[:N]).to(torch.bfloat16)
-        # the scale lies on the cotangent, so the library call takes the int8
-        # weights widened to bf16 (exact), transposed ahead of time
-        w_t = wq[:N].to(torch.bfloat16).transpose(1, 2).contiguous()
-        num_bytes = N * bt * o * 2 + N * ki * o + N * o * 4 + N * bt * ki * 2
-        bound, by = _bound_ms(num_bytes, 2 * N * bt * ki * o)
-        lines.append({
-            "name": "node_apply_q8_t", "shape": "{} N={} B={} KI={} O={}".format(cell, N, bt, ki, o),
-            "replaces": "multistgraph_tpu/ops/node_apply.py:267 node_apply_q8_t",
-            "max_abs_err": (got.float() - want.float()).abs().max().item(),
-            "tolerance": "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|",
-            "kernel_ms": _time_ms(torch, lambda: node_apply_q8_t(dpre, wq, s)),
-            "plain_ms": _time_ms(torch, lambda: node_apply_q8_t_plain(dpre, wq, s)),
-            "library_ms": _time_ms(torch, lambda: torch.bmm(d_lib, w_t)),
-            "library": "torch.bmm of the scaled bf16 cotangent with the int8 weights pre-widened to bf16, transposed",
-            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
-            "main_path": bt == B,
-            "design": DESIGN_Q8.format(node_apply.q8_batch_tile(bt), "KI",
-                                       ", the cotangent scaled and rounded there"),
-            "loads": node_apply.q8_load_path(ki, o, transposed=True),
-        })
-        for kind, ratio in _q8_faults(node_apply, node_apply_q8_t, "node_apply_q8_t", (dpre, wq, s), want,
-                                      bt, bf16_step=True).items():
-            faults["{} planted in the kernel, {} B={}".format(kind, cell, bt)] = ratio
+    for dtype_name in Q8_FORMS:
+        rows, form_faults = _q8_rows(torch, node_apply, g, dtype_name)
+        lines += rows
+        faults.update(form_faults)
+    # each f32 and f16 form's time over its bf16 form's at the same shape
+    bf16_ms = {(r["name"], r["shape"]): r["kernel_ms"] for r in lines}
+    say(json.dumps({"B2/B2t over their bf16 forms (kernel ms ratio)": {
+        "{} {}".format(r["name"], r["shape"]): r["kernel_ms"] / bf16_ms[(r["name"][:-4], r["shape"])]
+        for r in lines if r["name"].endswith(("_f32", "_f16"))}}))
     for fault, ratio in faults.items():
         if not ratio > 1.0:
             raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
@@ -472,12 +540,13 @@ def _errs(a, b):
     return dict(e, max=max(e.values()))
 
 
-def _fault_controls(torch, service, x_all, cpu_ref, bf16_ref):
+def _fault_controls(torch, service, x_all, refs):
     """Show that the end-to-end checks fail a wrong B2: plant a fault in the
     model's B2 calls (in the wrapper, or inside the kernel), rerun the int8
-    model on the card at every bucket the fault reaches (the batch columns
-    past the first 8: bucket 16), and return each check's smallest error
-    over those buckets for each fault."""
+    model of `service` on the card at every bucket the fault reaches (the
+    batch columns past the first 8: bucket 16), and return, for each fault,
+    the smallest error over those buckets against each of `refs` ({check:
+    outputs by bucket})."""
     from unittest import mock
 
     from multistgraph_tpu_torch.models import multi_atgcn
@@ -496,8 +565,7 @@ def _fault_controls(torch, service, x_all, cpu_ref, bf16_ref):
     for name, (patch, buckets) in faults.items():
         with patch:
             ys = {b: _model_out(torch, service, x_all[:b]) for b in buckets}
-        errs[name] = {"int8 card vs CPU": min(_errs(ys[b], cpu_ref[b])["max"] for b in buckets),
-                      "int8 vs bf16": min(_errs(ys[b], bf16_ref[b])["max"] for b in buckets)}
+        errs[name] = {check: min(_errs(ys[b], ref[b])["max"] for b in buckets) for check, ref in refs.items()}
     return errs
 
 
@@ -568,6 +636,50 @@ def make_dataset():
     say("dataset written in {:.1f}s".format(time.time() - t0))
 
 
+def _quant_agreement(torch, card, cpu, x, cpu_out):
+    """The per-forward int8 weights (wq, scale) of `card`'s model against
+    `cpu`'s on batch x: for each layer, the int8 levels that differ and the
+    largest difference, the scales' and the unquantised weights' largest
+    relative difference; and the card's model space run again with the
+    CPU's (wq, scale), against `cpu_out` (the CPU's model space on x). Where
+    the levels differ by one step at most and the second run agrees with
+    the CPU at the f32 bound, the int8 model's card-vs-CPU gap is the
+    quantisation's rounding of a last f32 bit, not the kernels'."""
+    from unittest import mock
+
+    from multistgraph_tpu_torch.models import multi_atgcn
+
+    real = multi_atgcn._quantize_h_weights
+    seen = {"card": [], "cpu": []}
+
+    def recording(store):
+        def fn(wg_h, wu_h, *args, **kwargs):
+            q = real(wg_h, wu_h, *args, **kwargs)
+            store.append(((wg_h, wu_h), q))
+            return q
+        return fn
+
+    for name, svc in (("card", card), ("cpu", cpu)):
+        with mock.patch.object(multi_atgcn, "_quantize_h_weights", recording(seen[name])):
+            _model_out(torch, svc, x)
+    layers = []
+    for (w_card, q_card), (w_cpu, q_cpu) in zip(seen["card"], seen["cpu"]):
+        for half, (wi, qi) in enumerate(((0, 0), (1, 2))):   # gate: wg_h, (wgq, wgs); update: wu_h, (wuq, wus)
+            w_a, w_b = w_card[wi].float().cpu(), w_cpu[wi].float()
+            n = w_b.shape[0]   # the nodes; the rows past them pad to a block
+            wq_card, wq_cpu = q_card[qi][:n].cpu().int(), q_cpu[qi][:n].int()
+            s_card, s_cpu = q_card[qi + 1][:n].cpu(), q_cpu[qi + 1][:n]
+            layers.append({"layer": len(layers) // 2, "half": ("gate", "update")[half],
+                           "levels": wq_cpu.numel(), "levels_differ": int((wq_card != wq_cpu).sum()),
+                           "max_level_diff": int((wq_card - wq_cpu).abs().max()),
+                           "scale_max_rel_diff": float(((s_card - s_cpu).abs() / s_cpu.abs().clamp_min(1e-30)).max()),
+                           "weights_max_rel_diff": float((w_a - w_b).abs().max() / w_b.abs().max())})
+    feed = iter([tuple(t.to(card.device) for t in q) for _, q in seen["cpu"]])
+    with mock.patch.object(multi_atgcn, "_quantize_h_weights", lambda *args, **kwargs: next(feed)):
+        swapped = _model_out(torch, card, x)
+    return {"layers": layers, "card with the CPU's (wq, scale) vs CPU": _errs(swapped, cpu_out)}
+
+
 def serving_phase(torch):
     import numpy as np
 
@@ -613,6 +725,10 @@ def serving_phase(torch):
 
     f32_service = variant(compute_dtype=None, weight_stream_quant=None)
     bf16_service = variant(weight_stream_quant=None)
+    # the int8 stream at f32 activations (B2's f32 form)
+    int8_f32_service = variant(compute_dtype="float32")
+    if not int8_f32_service.model.uses_int8_stream:
+        raise AssertionError("the int8 f32 model does not take the int8 weight-stream path")
 
     server = make_server(service, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -654,31 +770,62 @@ def serving_phase(torch):
         server.server_close()
         thread.join(timeout=60)
 
+    # ---- the int8 stream at f32 activations: counts from 0, one request at
+    # each bucket, B2's f32 form only
+    _reset_counts()
+    f32_replies = {batch: int8_f32_service.predict(x_all[:batch]) for batch in (1, 3, B)}
+    f32_window = _read_counts()
+    want = dict(dict.fromkeys(f32_window, 0), node_apply_q8_f32=3 * per_forward)
+    if f32_window != want:
+        raise AssertionError("int8 f32 requests launched {}, want {}".format(
+            {k: v for k, v in f32_window.items() if v}, {k: v for k, v in want.items() if v}))
+    for batch, y in f32_replies.items():
+        if y.shape != (batch, T, N, 1) or not np.isfinite(y).all() or (y < 0).any():
+            raise AssertionError("bad int8 f32 reply for batch {}: shape {}".format(batch, y.shape))
+    say("launches of the int8 f32 requests: {}".format({k: v for k, v in f32_window.items() if v}))
+
     # ---- request latency per bucket, before any work on the host's CPU
     # threads (the CPU runs below) can compete with the launching thread
     latency = {}
-    for name, svc in (("int8", service), ("bf16", bf16_service), ("f32", f32_service)):
+    for name, svc in (("int8", service), ("bf16", bf16_service), ("f32", f32_service),
+                      ("int8 f32", int8_f32_service)):
         latency[name] = {str(svc._bucket(batch)): _bucket_ms(svc, x_all[:batch]) for batch in (1, 3, B)}
     say(json.dumps({"ms_per_request_by_bucket": latency}))
-    for name, svc in (("int8", service), ("f32", f32_service)):
+    for name, svc in (("int8", service), ("f32", f32_service), ("int8 f32", int8_f32_service)):
         share = _device_share(torch, svc, x_all[:B], latency[name][str(B)])
         say(json.dumps({"device_time_per_request": name, **share}))
 
     # ---- correctness in model space at every bucket, against the same
     # weights on the CPU (plain versions of the kernels) and in bf16
+    int8_f32_cpu = variant("cpu", compute_dtype="float32")
     out = {name: {b: _model_out(torch, svc, x_all[:b]) for b in BUCKETS}
            for name, svc in (("int8", service), ("bf16", bf16_service), ("f32", f32_service),
+                             ("int8 f32", int8_f32_service),
                              ("int8 CPU", variant("cpu")),
                              ("bf16 CPU", variant("cpu", weight_stream_quant=None)),
-                             ("f32 CPU", variant("cpu", compute_dtype=None, weight_stream_quant=None)))}
+                             ("f32 CPU", variant("cpu", compute_dtype=None, weight_stream_quant=None)),
+                             ("int8 f32 CPU", int8_f32_cpu))}
     pairs = {"int8 card vs CPU": ("int8", "int8 CPU", BOUND_BF16),
              "bf16 card vs CPU": ("bf16", "bf16 CPU", BOUND_BF16),
              "f32 card vs CPU": ("f32", "f32 CPU", BOUND_F32),
+             "int8 f32 card vs CPU": ("int8 f32", "int8 f32 CPU", BOUND_INT8_F32),
              "int8 vs bf16": ("int8", "bf16", BOUND_BF16),
-             "int8 vs f32": ("int8", "f32", None)}
+             "int8 vs f32": ("int8", "f32", None),
+             "int8 f32 vs f32": ("int8 f32", "f32", None)}
     errs = {check: {str(b): _errs(out[a][b], out[ref][b]) for b in BUCKETS}
             for check, (a, ref, _) in pairs.items()}
-    controls = _fault_controls(torch, service, x_all, out["int8 CPU"], out["bf16"])
+    # the int8 f32 replies against the CPU's replies to the same batches
+    # (both de-scaled and clipped), at the model-space bound
+    reply_errs = {str(batch): _rel_err(y, int8_f32_cpu.predict(x_all[:batch])) for batch, y in f32_replies.items()}
+    say(json.dumps({"int8 f32 replies card vs CPU rel err": reply_errs, "bound": BOUND_INT8_F32}))
+    if not max(reply_errs.values()) < BOUND_INT8_F32:
+        raise AssertionError("int8 f32 replies: rel max err {} over the bound {}".format(reply_errs, BOUND_INT8_F32))
+    say(json.dumps({"int8 f32 quantised weights card vs CPU": _quant_agreement(
+        torch, int8_f32_service, int8_f32_cpu, x_all[:B], out["int8 f32 CPU"][B])}))
+    controls = _fault_controls(torch, service, x_all, {"int8 card vs CPU": out["int8 CPU"],
+                                                       "int8 vs bf16": out["bf16"]})
+    controls.update({"int8 f32: " + name: e for name, e in _fault_controls(
+        torch, int8_f32_service, x_all, {"int8 f32 card vs CPU": out["int8 f32 CPU"]}).items()})
     say(json.dumps({"model_space_rel_err": errs, "bounds": {c: p[2] for c, p in pairs.items()},
                     "planted_faults_min_rel_err": controls}))
     for check, (_, _, bound) in pairs.items():
@@ -688,13 +835,14 @@ def serving_phase(torch):
         for check, err in fault_errs.items():
             if not err > pairs[check][2]:
                 raise AssertionError("{} passes the check {} ({:.3e})".format(fault, check, err))
-    return launches
+    return launches, f32_window
 
 
 # ------------------------------------------------------------------ training
 
 _MODES = {  # config overrides of the int8 serving/training arguments
     "int8": {},
+    "int8 f32": {"compute_dtype": "float32"},   # the int8 stream at f32 activations
     "bf16": {"weight_stream_quant": None},
     "f32": {"compute_dtype": None, "weight_stream_quant": None},
 }
@@ -713,7 +861,12 @@ def _counters():
     from multistgraph_tpu_torch.ops.node_apply import node_apply_q8, node_apply_q8_t
     from multistgraph_tpu_torch.ops.spmm import bsr_spmm, sampled_matmul
 
+    # B2 and B2t count each activation dtype's launches apart (bf16 in .launches)
     counters = {"node_apply_q8": (node_apply_q8, "launches"), "node_apply_q8_t": (node_apply_q8_t, "launches"),
+                "node_apply_q8_f32": (node_apply_q8, "launches_f32"),
+                "node_apply_q8_t_f32": (node_apply_q8_t, "launches_f32"),
+                "node_apply_q8_f16": (node_apply_q8, "launches_f16"),
+                "node_apply_q8_t_f16": (node_apply_q8_t, "launches_f16"),
                 "force_default_layout": (force_default_layout, "launches"),
                 "force_default_layout_bwd": (force_default_layout, "backward_launches"),
                 "bsr_spmm": (bsr_spmm, "launches"), "sampled_matmul": (sampled_matmul, "launches"),
@@ -820,6 +973,28 @@ def training_phase(torch):
     if not math.isfinite(val_loss):
         raise AssertionError("non-finite validation loss")
 
+    # the int8 stream at f32 activations: as many steps, B2's and B2t's f32
+    # forms only, and one validation pass
+    ex = _executor(torch, "int8 f32", feature, state_dict)
+    if not ex.model.uses_int8_stream:
+        raise AssertionError("the int8 f32 model does not take the int8 weight-stream path")
+    ms, f32_losses, windows["int8 f32 training"], f32_step_ms = _timed_steps(
+        torch, ex, batches, TRAIN_WARMUP, {"node_apply_q8_f32": per_step, "node_apply_q8_t_f32": per_step})
+    record["int8 f32"] = {"steps": TRAIN_STEPS, "ms_per_step": ms, "step_ms": f32_step_ms,
+                          "epochs_per_hour": 3600.0 / (ms / 1e3 * len(train)),
+                          "first_loss": f32_losses[0], "last_loss": f32_losses[-1],
+                          "device_time_per_step": _device_time(torch, lambda: ex.train_step(batches[-1]), ms)}
+    _reset_counts()
+    t0 = time.perf_counter()
+    val_loss = ex._valid_epoch(val)
+    record["int8 f32"]["validation"] = {"batches": len(val), "loss": val_loss, "seconds": time.perf_counter() - t0}
+    windows["int8 f32 validation"] = _read_counts()
+    if windows["int8 f32 validation"] != dict(dict.fromkeys(windows["int8 f32 validation"], 0),
+                                              node_apply_q8_f32=per_step * len(val)):
+        raise AssertionError("int8 f32 validation launched {}".format(windows["int8 f32 validation"]))
+    if not math.isfinite(val_loss):
+        raise AssertionError("non-finite int8 f32 validation loss")
+
     for mode, want in (("f32", {"force_default_layout": 2 * NUM_LAYERS,
                                 "force_default_layout_bwd": 2 * NUM_LAYERS}), ("bf16", {})):
         ex = _executor(torch, mode, feature, state_dict)
@@ -872,7 +1047,8 @@ def gradient_phase(torch, feature, state_dict, batch):
     from multistgraph_tpu_torch.ops.node_apply import node_apply_q8_t
 
     gained = {k: v * POOL_GAIN if k.endswith("weights_pool") else v for k, v in state_dict.items()}
-    bounds = {"int8": BOUND_GRAD_BF16, "bf16": BOUND_GRAD_BF16, "f32": BOUND_GRAD_F32}
+    bounds = {"int8": BOUND_GRAD_BF16, "int8 f32": BOUND_GRAD_INT8_F32, "bf16": BOUND_GRAD_BF16,
+              "f32": BOUND_GRAD_F32}
     cpu = {m: _grads(torch, m, feature, gained, batch, device="cpu") for m in _MODES}
     errs = {m: _grad_err(_grads(torch, m, feature, gained, batch), cpu[m]) for m in _MODES}
 
@@ -890,6 +1066,11 @@ def gradient_phase(torch, feature, state_dict, batch):
         # columns past the first 8, where B2's third fault lies
         "B2t k16 planted in the kernel": ("int8", node_apply.planted_q8_fault("B2t k16")),
         "B2 k16 planted in the kernel": ("int8", node_apply.planted_q8_fault("B2 k16")),
+        # the same in the f32 forms
+        "int8 f32: B2t scale dropped": ("int8 f32", mock.patch.object(
+            multi_atgcn, "node_apply_q8_t", lambda d, wq, s: node_apply_q8_t(d, wq, torch.ones_like(s)))),
+        "int8 f32: B2t k16 planted in the kernel": ("int8 f32", node_apply.planted_q8_fault("B2t k16")),
+        "int8 f32: B2 k16 planted in the kernel": ("int8 f32", node_apply.planted_q8_fault("B2 k16")),
     }
     controls = {}
     for name, (mode, patch) in faults.items():
@@ -2740,7 +2921,7 @@ def main():
     bf16_lines, bf16_windows = band_bf16_phase(torch)
     lines += bf16_lines
     windows.update(bf16_windows)
-    serving_launches = serving_phase(torch)
+    serving_launches, windows["int8 f32 serving"] = serving_phase(torch)
     gradient_phase(torch, feature, state_dict, grad_batch)
     windows["serving"] = dict(serving_launches, node_apply_q8_t=0, force_default_layout_bwd=0)
     sparse_check_phase(torch)
@@ -2761,6 +2942,8 @@ def main():
     for entry, name, source, bf16_path in (
             ("node_apply_q8", "node_apply_q8", "node_apply_q8.cu", False),
             ("node_apply_q8_t", "node_apply_q8_t", "node_apply_q8_t.cu", False),
+            ("node_apply_q8_f32", "node_apply_q8_f32", "node_apply_q8.cu", False),
+            ("node_apply_q8_t_f32", "node_apply_q8_t_f32", "node_apply_q8_t.cu", False),
             ("force_default_layout", "force_default_layout", "layout_copy.cu", False),
             ("force_default_layout_bwd", "force_default_layout_bwd", "layout_copy.cu", False),
             ("bsr_spmm", "bsr_spmm", "bsr_spmm.cu", False),

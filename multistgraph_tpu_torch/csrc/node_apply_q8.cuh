@@ -3,10 +3,13 @@
 // node_apply_q8.cu (TRANS = false) and node_apply_q8_t.cu (TRANS = true).
 //
 //   B2:  out[n,b,o]  = (sum_ki x[n,b,ki] wq[n,ki,o]) * scale[n,0,o]            f32
-//   B2t: out[n,b,ki] = bf16(sum_o bf16(x[n,b,o] * scale[n,0,o]) wq[n,ki,o])   bf16
+//   B2t: out[n,b,ki] = T(sum_o bf16(x[n,b,o] * scale[n,0,o]) wq[n,ki,o])      T: x's type
 //
-// x (N,B,KI) or (N,B,O) bf16, wq (Nw,KI,O) int8 with Nw >= N (rows past N
-// are never read), scale (Nw,1,O) f32; all contiguous.
+// x (N,B,KI) or (N,B,O) bf16, f32 or f16, wq (Nw,KI,O) int8 with Nw >= N
+// (rows past N are never read), scale (Nw,1,O) f32; all contiguous. The
+// sums are f32 and every product is exact: x f32 or f16 against the int8
+// weights in full (not TF32), as the Pallas kernels contract any float
+// activation against the weights widened to bf16 with f32 results.
 //
 // Both are bound by bytes at the batches the model runs (B <= 16): each node's
 // int8 weights are read once and do the product's only weight-sized traffic.
@@ -24,34 +27,53 @@
 // share its x in L2), and each item's contraction (KI for B2, O for B2t) in
 // chunks of 64. The producer keeps a ring of stages in flight, each one
 // chunk of the node's int8 weights (64 ki rows of 64 o bytes: the same box
-// of one (O, KI, N) view for both kernels) and of x (BN rows of 64 bf16
-// under the 128-byte swizzle, the wgmma's K-major B), by TMA where the rows
-// are whole 16-byte units (O % 16 == 0 for the weights, the contraction %
-// 8 == 0 for x) and else by element loads into the same layout; it runs on
-// into the next item while the warpgroup stores this one's outputs. The
-// ring holds every chunk of the flagship's contraction, so at B <= 32 a
-// block asks for all its bytes at once and several blocks (about 60 KB of
-// shared memory each) put several nodes' weights in flight on each SM;
-// where blocks walk several items, it holds the next item's chunks too
-// (B2t at B = 16: 14.1 -> 13.1 us at the update on an H100). The
-// warpgroup widens each int8 chunk into bf16 rows of 128 bytes under the
-// 128-byte swizzle (8-byte shared loads, an exact widening by byte permutes
-// and one f32 add, 16-byte stores; double-buffered), which is MN-major A for
-// B2 and K-major A for B2t byte for byte; B2t also scales and rounds its x
-// chunk in place (the Pallas rounding point). Then four k16 products go
-// out while the next chunk is widened. The epilogue multiplies B2's sums by
-// the scale; tiles of up to 32 columns store straight from the
-// accumulators (each warp store fills whole 32-byte sectors of f32, or half
-// of bf16 twice over), wider ones through shared memory as 16-byte stores.
+// of one (O, KI, N) view for both kernels) and of x, by TMA where the rows
+// are whole 16-byte units (O % 16 == 0 for the weights; for x the
+// contraction % 8 == 0 in bf16 and f16, % 4 == 0 in f32) and else by
+// element loads into the same layout; it runs on into the next item while
+// the warpgroup stores this one's outputs. A bf16 x chunk lands as BN rows
+// of 64 bf16 under the 128-byte swizzle, the wgmma's K-major B; an f32 or
+// f16 one lands raw (BN rows of 64 elements) and the warpgroup writes it as
+// bf16 B tiles beside the ring (double-buffered), then frees the stage
+// before its products run:
+//   B2:  x = hi + mid (+ lo), each piece the bf16 rounding of what the ones
+//        before it leave: three pieces hold an f32 exactly (24 significant
+//        bits in three of 8), two an f16 (11 bits). Every k16 slice issues
+//        one product per piece against the same widened weights, each exact
+//        in f32, so only the f32 sums round;
+//   B2t: q = bf16(x * scale) in f32, the Pallas kernel's rounding point,
+//        one piece.
+// The pieces' buffers also stage the wide tiles' outputs, and the f32 and
+// f16 forms take tiles of at most 64 columns and fewer ring stages where
+// that puts another block on an SM (choose_bn, launch).
+// The ring holds every chunk of the flagship's contraction, so at B <= 32 a
+// block asks for all its bytes at once and several blocks put several
+// nodes' weights in flight on each SM; where blocks walk several items, it
+// holds the next item's chunks too (B2t at B = 16: 14.1 -> 13.1 us at the
+// update on an H100). The warpgroup widens each int8 chunk into bf16 rows of
+// 128 bytes under the 128-byte swizzle (8-byte shared loads, an exact
+// widening by byte permutes and one f32 add, 16-byte stores;
+// double-buffered), which is MN-major A for B2 and K-major A for B2t byte
+// for byte; B2t in bf16 also scales and rounds its x chunk in place. Then
+// four k16 slices of products go out while the next chunk is widened. The
+// epilogue multiplies B2's sums by the scale and stores B2's in f32, B2t's
+// in x's type (a type fixed by the instantiation: no branch); tiles of up
+// to 32 columns store straight from the accumulators (each warp store fills
+// whole 32-byte sectors of f32, or half of bf16 or f16 twice over), wider
+// ones through shared memory as 16-byte stores.
 // Faults planted on request (checks that must catch them): the
-// contraction's last k16 slice dropped (its widened weights zeroed), and
-// the batch columns past the first 8 of a tile written as zeros.
+// contraction's last k16 slice dropped (its widened weights zeroed, so in
+// B2 every piece of it), and the batch columns past the first 8 of a tile
+// written as zeros.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "wgmma_sm90.cuh"
 
@@ -63,6 +85,10 @@ namespace {
 
 using namespace wgmma_sm90;
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+// element types of the activation, which B2t also writes (the C entries' codes)
+constexpr int kTypeBf16 = 0, kTypeF32 = 1, kTypeF16 = 2;
 
 constexpr int kChunk = 64;                     // contraction per ring stage
 constexpr int kConsumers = 128;                // one warpgroup: 64 rows of M
@@ -72,13 +98,48 @@ constexpr int kABytes = kChunk * 64 * 2;       // widened: 64 rows of 128 bytes
 constexpr int kFaultK16 = 1;                   // the contraction's last k16 slice dropped
 constexpr int kFaultColumns = 2;               // batch columns past the first 8 of a tile zeroed
 constexpr int kBatchTiles[] = {8, 16, 24, 32, 64, 128};
+constexpr size_t kSmemLimit = 227 * 1024;      // shared memory one block may use on an H100
+constexpr size_t kSmemPerSm = 228 * 1024;      // shared memory of an H100 SM
+constexpr size_t kSmemPerBlock = 1024;         // of it reserved for each resident block
 
-template <int BN>
+constexpr int kStageLd = 68;     // staged output row stride (floats): conflict-free writes
+constexpr int kStageCols = 32;   // batch columns staged at a time
+
+// The block's shared memory: the widened weights, the pieces' buffers, the
+// ring, the staged outputs of tiles wider than 32 columns (in the pieces'
+// buffers where there are pieces: the item's products are done with them)
+// and the mbarriers.
+__host__ __device__ constexpr size_t smem_bytes(int stage_bytes, int stages, int split_bytes = 0) {
+  return 1024 + 2 * (size_t)kABytes + (size_t)split_bytes + (size_t)stages * stage_bytes +
+         (split_bytes > 0 ? 0 : kStageCols * kStageLd * sizeof(float)) + 2 * (size_t)stages * sizeof(uint64_t);
+}
+
+template <int BN, bool TRANS, typename XT>
 struct Tile {
-  static constexpr int kMaxStages = BN <= 32 ? 6 : 4;
-  static constexpr int kMinBlocks = BN <= 32 ? 4 : BN == 64 ? 3 : 2;
-  static constexpr int kXBytes = BN * 128;                     // BN rows of 64 bf16
-  static constexpr int kStageBytes = kXBytes + kWeightBytes;   // 1024-byte multiples
+  // bf16 B tiles of BN rows the warpgroup writes an f32 or f16 x chunk
+  // into: B2's pieces of x (three for f32, two for f16), B2t's q; none for
+  // bf16, whose chunk is the B tile itself
+  static constexpr int kPieces = std::is_same<XT, bf16>::value ? 0 : TRANS ? 1 : sizeof(XT) == 4 ? 3 : 2;
+  static constexpr int kPieceBytes = BN * 128;
+  static constexpr int kSplitBytes = 2 * kPieces * kPieceBytes;                  // double-buffered
+  static constexpr int kXBytes = BN * kChunk * (int)sizeof(XT);                  // BN rows of 64 elements
+  static constexpr int kStageBytes = kXBytes + kWeightBytes;                     // 1024-byte multiples
+  // as many stages as the contraction asks (the launch decides) up to 6 at
+  // B <= 32 and 4 beyond, and as shared memory holds beside the pieces
+  static constexpr int kCap = BN <= 32 ? 6 : 4;
+  static constexpr int kFit = (int)((kSmemLimit - smem_bytes(0, 0, kSplitBytes)) /
+                                    (kStageBytes + 2 * sizeof(uint64_t)));
+  static constexpr int kMaxStages = kCap < kFit ? kCap : kFit;
+  // blocks an SM is to hold (__launch_bounds__, which caps the registers to
+  // match): bf16 x 4 at BN <= 32, 3 at 64, 2 at 128; f32 and f16 x as many
+  // as shared memory holds at their fewest stages (two, launch), at least 1
+  static constexpr int kBf16Blocks = BN <= 32 ? 4 : BN == 64 ? 3 : 2;
+  static constexpr int kSplitFit =
+      (int)(kSmemPerSm / (smem_bytes(kStageBytes, kMaxStages < 2 ? kMaxStages : 2, kSplitBytes) + kSmemPerBlock));
+  static constexpr int kMinBlocks =
+      kPieces == 0 ? kBf16Blocks : kSplitFit < 1 ? 1 : kSplitFit < kBf16Blocks ? kSplitFit : kBf16Blocks;
+  static_assert(BN <= 32 || kPieces == 0 || kSplitBytes >= kStageCols * kStageLd * (int)sizeof(float),
+                "the staged outputs fit the pieces' buffers");
 };
 
 struct Args {
@@ -86,14 +147,6 @@ struct Args {
   int stages, chunks, m_tiles, b_tiles, tma_w, tma_x, fault;
   long long items;   // (64-row tile, batch tile, node) work items, tiles fastest
 };
-
-constexpr int kStageLd = 68;     // staged output row stride (floats): conflict-free writes
-constexpr int kStageCols = 32;   // batch columns staged at a time
-
-__host__ __device__ inline size_t smem_bytes(int stage_bytes, int stages) {
-  return 1024 + 2 * (size_t)kABytes + (size_t)stages * stage_bytes + kStageCols * kStageLd * sizeof(float) +
-         2 * (size_t)stages * sizeof(uint64_t);
-}
 
 __device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory"); }
 
@@ -127,9 +180,9 @@ __device__ __forceinline__ void widen_chunk(const unsigned char* ws, unsigned ch
   }
 }
 
-// B2t's x chunk scaled and rounded in place: q = bf16(x * scale), o = k0 ..
-// k0 + 63 (units past O hold zeros; their scale is not read). Thread tid
-// takes the 16-byte units p = tid + 128 i: row b = p / 8 and, under the
+// B2t's bf16 x chunk scaled and rounded in place: q = bf16(x * scale), o =
+// k0 .. k0 + 63 (units past O hold zeros; their scale is not read). Thread
+// tid takes the 16-byte units p = tid + 128 i: row b = p / 8 and, under the
 // swizzle, the same 8 columns o in each, so it reads its 8 scales once.
 template <int BN>
 __device__ __forceinline__ void scale_chunk(unsigned char* xs, const float* sn, int k0, int O, int tid) {
@@ -152,13 +205,104 @@ __device__ __forceinline__ void scale_chunk(unsigned char* xs, const float* sn, 
   }
 }
 
+// 8 consecutive elements of a raw f32 or f16 chunk (16-byte aligned) as f32
+__device__ __forceinline__ void load8(const float* src, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(src), b = *reinterpret_cast<const float4*>(src + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const f16* src, float (&v)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(src);
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(&a);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&words[e]));
+    v[2 * e] = f.x, v[2 * e + 1] = f.y;
+  }
+}
+
+// 8 f32 rounded to bf16 as one 16-byte unit; with REST, each value left
+// less its rounding (exact in f32: the bits below the bf16's)
+template <bool REST>
+__device__ __forceinline__ uint4 round8(float (&v)[8]) {
+  uint4 w;
+  uint32_t* words = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    words[e] = *reinterpret_cast<const uint32_t*>(&h);
+    if (REST) {
+      const float2 f = __bfloat1622float2(h);
+      v[2 * e] -= f.x, v[2 * e + 1] -= f.y;
+    }
+  }
+  return w;
+}
+
+// An f32 or f16 x chunk that landed raw (BN rows of 64 elements) written as
+// the wgmma's K-major B under the 128-byte swizzle, PIECES tiles of BN rows
+// of 64 bf16 at dst: B2's pieces of x (hi, mid, lo), B2t's q = bf16(x *
+// scale) for o = k0 .. k0 + 63 (columns past O hold zeros; their scale is
+// not read). Thread tid takes the 16-byte units p = tid + 128 i of each
+// tile: row b = p / 8, the 8 columns 8 (p % 8) .. of the chunk, so it reads
+// its 8 scales once.
+template <int BN, bool TRANS, int PIECES, typename XT>
+__device__ __forceinline__ void split_chunk(const XT* raw, unsigned char* dst, const float* sn, int k0, int O,
+                                            int tid) {
+  if (tid >= BN * 8) return;
+  const int u = tid % 8;
+  float s[8];
+  if constexpr (TRANS) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[e] = k0 + 8 * u + e < O ? sn[k0 + 8 * u + e] : 0.f;
+  }
+  for (int p = tid; p < BN * 8; p += kConsumers) {
+    const int b = p / 8, at = b * 128 + ((u ^ (b % 8)) * 16);
+    float v[8];
+    load8(raw + b * kChunk + 8 * u, v);
+    if constexpr (TRANS) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] *= s[e];
+    }
+#pragma unroll
+    for (int piece = 0; piece < PIECES; ++piece)
+      *reinterpret_cast<uint4*>(dst + piece * BN * 128 + at) =
+          piece + 1 < PIECES ? round8<true>(v) : round8<false>(v);
+  }
+}
+
+template <typename OT>
+__device__ __forceinline__ OT to_out(float v);
+template <>
+__device__ __forceinline__ float to_out<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 to_out<bf16>(float v) { return __float2bfloat16(v); }
+template <>
+__device__ __forceinline__ f16 to_out<f16>(float v) { return __float2half_rn(v); }
+
+// 16 bytes of outputs (4 f32, or 8 bf16 or f16) from the staged f32 at src
+__device__ __forceinline__ void store16(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ void store16(bf16* dst, const float* src) {
+  const float4 v0 = *reinterpret_cast<const float4*>(src), v1 = *reinterpret_cast<const float4*>(src + 4);
+  __nv_bfloat162 p[4] = {__floats2bfloat162_rn(v0.x, v0.y), __floats2bfloat162_rn(v0.z, v0.w),
+                         __floats2bfloat162_rn(v1.x, v1.y), __floats2bfloat162_rn(v1.z, v1.w)};
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void store16(f16* dst, const float* src) {
+  const float4 v0 = *reinterpret_cast<const float4*>(src), v1 = *reinterpret_cast<const float4*>(src + 4);
+  __half2 p[4] = {__floats2half2_rn(v0.x, v0.y), __floats2half2_rn(v0.z, v0.w), __floats2half2_rn(v1.x, v1.y),
+                  __floats2half2_rn(v1.z, v1.w)};
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(p);
+}
+
 // The item's (64 rows M at m0) x (BN columns at b0) outputs from the
 // accumulators, B2's scaled by s: BN <= 32 straight from the registers
-// (each warp store fills whole 32-byte sectors of f32, or half of bf16
-// twice over); wider tiles through shared memory 32 columns at a time, so
-// that they leave as 16-byte stores along M.
-template <int BN, bool TRANS>
-__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], const float (&s)[2], float* stg, void* out,
+// (each warp store fills whole 32-byte sectors of f32, or half of bf16 or
+// f16 twice over); wider tiles through shared memory 32 columns at a time,
+// so that they leave as 16-byte stores along M.
+template <int BN, typename OT>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], const float (&s)[2], float* stg, OT* out,
                                            int n, int m0, int b0, int M, int B, int fault, int tid) {
   const int warp = tid / 32, lane = tid % 32;
   if constexpr (BN <= 32) {
@@ -169,14 +313,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], const flo
         const int m = m0 + 16 * warp + lane / 4 + 8 * (v / 2), b = b0 + 8 * j + 2 * (lane % 4) + v % 2;
         if (m >= M || b >= B) continue;
         const float val = fault == kFaultColumns && j > 0 ? 0.f : acc[4 * j + v] * s[v / 2];
-        const size_t at = ((size_t)n * B + b) * M + m;
-        if (TRANS)
-          static_cast<bf16*>(out)[at] = __float2bfloat16(val);
-        else
-          static_cast<float*>(out)[at] = val;
+        out[((size_t)n * B + b) * M + m] = to_out<OT>(val);
       }
   } else {
-    constexpr int kVec = TRANS ? 8 : 4;   // outputs of one 16-byte store
+    constexpr int kVec = 16 / sizeof(OT);   // outputs of one 16-byte store
 #pragma unroll
     for (int j0 = 0; j0 < BN / 8; j0 += kStageCols / 8) {
 #pragma unroll
@@ -193,22 +333,9 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], const flo
         const float* src = stg + col * kStageLd + r;
         const size_t at = ((size_t)n * B + b) * M + m;
         if (M % kVec == 0) {
-          const float4 v0 = *reinterpret_cast<const float4*>(src);
-          if (TRANS) {
-            const float4 v1 = *reinterpret_cast<const float4*>(src + 4);
-            __nv_bfloat162 p[4] = {__floats2bfloat162_rn(v0.x, v0.y), __floats2bfloat162_rn(v0.z, v0.w),
-                                   __floats2bfloat162_rn(v1.x, v1.y), __floats2bfloat162_rn(v1.z, v1.w)};
-            *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + at) = *reinterpret_cast<const uint4*>(p);
-          } else {
-            *reinterpret_cast<float4*>(static_cast<float*>(out) + at) = v0;
-          }
+          store16(out + at, src);
         } else {
-          for (int e = 0; e < kVec && m + e < M; ++e) {
-            if (TRANS)
-              static_cast<bf16*>(out)[at + e] = __float2bfloat16(src[e]);
-            else
-              static_cast<float*>(out)[at + e] = src[e];
-          }
+          for (int e = 0; e < kVec && m + e < M; ++e) out[at + e] = to_out<OT>(src[e]);
         }
       }
       consumer_sync();   // the staging is read before the next columns overwrite it
@@ -226,21 +353,34 @@ __device__ __forceinline__ void decode(long long w, const Args& a, int& n, int& 
   n = (int)(rest / a.b_tiles);
 }
 
+template <typename XT>
+__device__ __forceinline__ XT zero_of() {
+  if constexpr (std::is_same<XT, float>::value)
+    return 0.f;
+  else if constexpr (std::is_same<XT, f16>::value)
+    return __float2half(0.f);
+  else
+    return __float2bfloat16(0.f);
+}
+
 // w_map: the (O, KI, N) int8 view, box (64 o, 64 ki, 1 n); x_map: the (K, B,
-// N) bf16 view of x under the 128-byte swizzle, box (64, BN, 1), K the
-// contraction (KI for B2, O for B2t).
-template <int BN, bool TRANS>
-__global__ void __launch_bounds__(kThreads, Tile<BN>::kMinBlocks)
+// N) view of x, box (64, BN, 1), K the contraction (KI for B2, O for B2t),
+// in bf16 under the 128-byte swizzle, in f32 or f16 raw rows.
+template <int BN, bool TRANS, typename XT>
+__global__ void __launch_bounds__(kThreads, Tile<BN, TRANS, XT>::kMinBlocks)
 q8_kernel(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ CUtensorMap x_map,
-          const int8_t* __restrict__ wq, const bf16* __restrict__ x, const float* __restrict__ scale,
+          const int8_t* __restrict__ wq, const XT* __restrict__ x, const float* __restrict__ scale,
           void* __restrict__ out, Args a) {
-  using T = Tile<BN>;
+  using T = Tile<BN, TRANS, XT>;
+  constexpr bool kSplit = T::kPieces > 0;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* abuf = smem;                          // 2 widened weight chunks
-  unsigned char* ring = abuf + 2 * kABytes;            // stages: x chunk, then the int8 chunk
-  float* stg = reinterpret_cast<float*>(ring + (size_t)a.stages * T::kStageBytes);   // staged outputs
-  uint64_t* full = reinterpret_cast<uint64_t*>(stg + kStageCols * kStageLd);
+  unsigned char* pbuf = abuf + 2 * kABytes;            // 2 sets of the x chunk's pieces (f32 and f16 x)
+  unsigned char* ring = pbuf + T::kSplitBytes;         // stages: x chunk, then the int8 chunk
+  unsigned char* past = ring + (size_t)a.stages * T::kStageBytes;
+  float* stg = reinterpret_cast<float*>(kSplit ? pbuf : past);   // staged outputs
+  uint64_t* full = reinterpret_cast<uint64_t*>(kSplit ? past : past + kStageCols * kStageLd * sizeof(float));
   uint64_t* empty = full + a.stages;
 
   const int K = TRANS ? a.O : a.KI, M = TRANS ? a.KI : a.O;
@@ -260,7 +400,7 @@ q8_kernel(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ CUt
     // m0; zero past K, B and M. It runs on into the next item's chunks
     // while the consumers store this one's outputs.
     const int lane = tid - kConsumers;
-    const bf16 zero = __float2bfloat16(0.f);
+    const XT zero = zero_of<XT>();
     int g = 0;
     for (long long item = blockIdx.x; item < a.items; item += gridDim.x) {
       int n, m0, b0;
@@ -274,8 +414,11 @@ q8_kernel(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ CUt
 #pragma unroll 4
           for (int q = lane; q < BN * kChunk; q += 32) {
             const int b = q / kChunk, k = q % kChunk;
-            *reinterpret_cast<bf16*>(xs + sw128(b * 128 + k * 2)) =
-                b0 + b < a.B && k0 + k < K ? x[((size_t)n * a.B + b0 + b) * K + k0 + k] : zero;
+            const XT v = b0 + b < a.B && k0 + k < K ? x[((size_t)n * a.B + b0 + b) * K + k0 + k] : zero;
+            if constexpr (kSplit)
+              reinterpret_cast<XT*>(xs)[q] = v;
+            else
+              *reinterpret_cast<XT*>(xs + sw128(b * 128 + k * 2)) = v;
           }
         }
         if (!a.tma_w) {
@@ -320,25 +463,38 @@ q8_kernel(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ CUt
       mbar_wait(full + st, (g / a.stages) & 1);
       unsigned char* xs = ring + (size_t)st * T::kStageBytes;
       unsigned char* ad = abuf + (g % 2) * kABytes;   // its products of two chunks ago are done
+      unsigned char* pd = pbuf + (g % 2) * (T::kSplitBytes / 2);   // likewise
       const int drop = a.fault == kFaultK16 && c == a.chunks - 1 ? (K - 1) % kChunk / 16 : -1;
       widen_chunk<TRANS>(xs + T::kXBytes, ad, tid, drop);
-      if (TRANS) scale_chunk<BN>(xs, sn, c * kChunk, a.O, tid);
+      if constexpr (kSplit)
+        split_chunk<BN, TRANS, T::kPieces>(reinterpret_cast<const XT*>(xs), pd, sn, c * kChunk, a.O, tid);
+      else if (TRANS)
+        scale_chunk<BN>(xs, sn, c * kChunk, a.O, tid);
       fence_proxy_async();
       consumer_sync();
+      // an f32 or f16 stage is read in full: free it before the products run
+      if (kSplit && tid == 0) mbar_arrive(empty + st);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kChunk / 16; ++ks)
-        Wgmma<BN>::template mma_t<TRANS ? 0 : 1, 0>(
-            acc, TRANS ? desc_sw128(ad + 32 * ks, 16u) : desc_sw128(ad + 2048 * ks, 8192u),
-            desc_sw128(xs + 32 * ks, 16u), 1);
+      for (int ks = 0; ks < kChunk / 16; ++ks) {
+        const uint64_t da = TRANS ? desc_sw128(ad + 32 * ks, 16u) : desc_sw128(ad + 2048 * ks, 8192u);
+        if constexpr (kSplit) {
+#pragma unroll
+          for (int piece = 0; piece < T::kPieces; ++piece)
+            Wgmma<BN>::template mma_t<TRANS ? 0 : 1, 0>(
+                acc, da, desc_sw128(pd + piece * T::kPieceBytes + 32 * ks, 16u), 1);
+        } else {
+          Wgmma<BN>::template mma_t<TRANS ? 0 : 1, 0>(acc, da, desc_sw128(xs + 32 * ks, 16u), 1);
+        }
+      }
       wgmma_commit();
       if (c > 0) {
         wgmma_wait<1>();   // the previous chunk's products are done: free its stage
-        if (tid == 0) mbar_arrive(empty + (g - 1) % a.stages);
+        if (!kSplit && tid == 0) mbar_arrive(empty + (g - 1) % a.stages);
       }
     }
     wgmma_wait<0>();
-    if (a.chunks > 0 && tid == 0) mbar_arrive(empty + (g - 1) % a.stages);
+    if (!kSplit && a.chunks > 0 && tid == 0) mbar_arrive(empty + (g - 1) % a.stages);
 
     // acc[4 j + v]: row m0 + 16 warp + lane / 4 + 8 (v / 2), column b0 + 8 j
     // + 2 (lane % 4) + v % 2
@@ -348,40 +504,46 @@ q8_kernel(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ CUt
       const int m = m0 + 16 * warp + lane / 4 + 8 * h;
       s[h] = !TRANS && m < M ? sn[m] : 1.f;
     }
-    store_tile<BN, TRANS>(acc, s, stg, out, n, m0, b0, M, a.B, a.fault, tid);
+    if constexpr (kSplit && BN > 32) consumer_sync();   // the staging overwrites the pieces
+    using OT = typename std::conditional<TRANS, XT, float>::type;   // B2 writes f32, B2t x's type
+    store_tile<BN>(acc, s, stg, static_cast<OT*>(out), n, m0, b0, M, a.B, a.fault, tid);
   }
 }
 
-// The batch tile: the narrowest of kBatchTiles that holds B, else 128 in
-// as many tiles as B needs (on an H100 at B = 256, 128-column tiles ran
-// 7-16% ahead of one 256-column tile: two blocks an SM, where 256 columns
-// leave room for one).
-inline int choose_bn(int b) {
+// The batch tile: the narrowest of kBatchTiles that holds B, else the
+// widest in as many tiles as B needs: 128 for bf16 x (on an H100 at B =
+// 256, 128-column tiles ran 7-16% ahead of one 256-column tile: two blocks
+// an SM, where 256 columns leave room for one), 64 for f32 and f16 x
+// (whose pieces leave one 128-column block an SM: at B = 256, 64 columns
+// ran 8-15% ahead in B2, 28-30% in B2t, tools/ab_node_apply.py's tiles).
+inline int choose_bn(int b, bool split) {
+  const int widest = split ? 64 : 128;
   for (int bn : kBatchTiles)
-    if (b <= bn) return bn;
-  return 128;
+    if (b <= bn && bn <= widest) return bn;
+  return widest;
 }
 
 // Blocks of the kernel one SM holds at `stages` ring stages, and the SMs;
 // read once per (instantiation, stages) with the shared-memory limit set
 // for the most stages (a process runs the port on one card type).
-template <int BN, bool TRANS>
+template <int BN, bool TRANS, typename XT>
 cudaError_t residency(int stages, int& blocks) {
-  using T = Tile<BN>;
+  using T = Tile<BN, TRANS, XT>;
   static int per_sm[T::kMaxStages + 1] = {}, sms = 0;
   if (sms == 0) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) err = allow_smem(q8_kernel<BN, TRANS>, smem_bytes(T::kStageBytes, T::kMaxStages));
+    if (err == cudaSuccess)
+      err = allow_smem(q8_kernel<BN, TRANS, XT>, smem_bytes(T::kStageBytes, T::kMaxStages, T::kSplitBytes));
     if (err != cudaSuccess) {
       sms = 0;
       return err;
     }
   }
   if (per_sm[stages] == 0) {
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[stages], q8_kernel<BN, TRANS>, kThreads,
-                                                                    smem_bytes(T::kStageBytes, stages));
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm[stages], q8_kernel<BN, TRANS, XT>, kThreads, smem_bytes(T::kStageBytes, stages, T::kSplitBytes));
     if (err != cudaSuccess) return err;
     if (per_sm[stages] < 1) return cudaErrorInvalidConfiguration;
   }
@@ -389,10 +551,17 @@ cudaError_t residency(int stages, int& blocks) {
   return cudaSuccess;
 }
 
-template <int BN, bool TRANS>
+template <typename XT>
+constexpr CUtensorMapDataType tma_type() {
+  return std::is_same<XT, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<XT, f16>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+template <int BN, bool TRANS, typename XT>
 cudaError_t launch(const void* x, const void* wq, const void* scale, void* out, int n, int b, int ki, int o,
                    int fault, cudaStream_t stream) {
-  using T = Tile<BN>;
+  using T = Tile<BN, TRANS, XT>;
   const int K = TRANS ? o : ki, M = TRANS ? ki : o;
   Args a;
   a.B = b, a.KI = ki, a.O = o;
@@ -401,20 +570,30 @@ cudaError_t launch(const void* x, const void* wq, const void* scale, void* out, 
   a.m_tiles = (M + 63) / 64;
   a.b_tiles = (b + BN - 1) / BN;
   a.tma_w = o % 16 == 0;
-  a.tma_x = K % 8 == 0;
+  a.tma_x = (size_t)K * sizeof(XT) % 16 == 0;
   a.fault = fault;
   a.items = (long long)a.m_tiles * a.b_tiles * n;
   int resident = 0;
-  cudaError_t err = residency<BN, TRANS>(a.stages, resident);
+  cudaError_t err = residency<BN, TRANS, XT>(a.stages, resident);
   if (err != cudaSuccess) return err;
   if (a.items > resident && a.stages < T::kMaxStages) {
     // blocks walk several items: room for the next item's chunks as well
     a.stages = 2 * a.chunks < T::kMaxStages ? 2 * a.chunks : T::kMaxStages;
-    err = residency<BN, TRANS>(a.stages, resident);
+    err = residency<BN, TRANS, XT>(a.stages, resident);
     if (err != cudaSuccess) return err;
   }
-  auto kernel = q8_kernel<BN, TRANS>;
-  const size_t smem = smem_bytes(T::kStageBytes, a.stages);
+  // f32 and f16 x: fewer stages where that puts more blocks on each SM
+  // (another warpgroup converts while one waits), down to two
+  if (T::kPieces > 0 && a.items > resident) {
+    for (int stages = a.stages - 1; stages >= 2; --stages) {
+      int blocks = 0;
+      err = residency<BN, TRANS, XT>(stages, blocks);
+      if (err != cudaSuccess) return err;
+      if (blocks > resident) a.stages = stages, resident = blocks;
+    }
+  }
+  auto kernel = q8_kernel<BN, TRANS, XT>;
+  const size_t smem = smem_bytes(T::kStageBytes, a.stages, T::kSplitBytes);
   // a view that the shape allows and cuTensorMapEncodeTiled refuses (a base
   // that is not 16-byte aligned) is an error, not a switch to element loads
   CUtensorMap w_map = {}, x_map = {};
@@ -427,38 +606,51 @@ cudaError_t launch(const void* x, const void* wq, const void* scale, void* out, 
   }
   if (a.tma_x) {
     const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)b, (cuuint64_t)n};
-    const cuuint64_t strides[2] = {(cuuint64_t)K * 2, (cuuint64_t)b * K * 2};
+    const cuuint64_t strides[2] = {(cuuint64_t)K * sizeof(XT), (cuuint64_t)b * K * sizeof(XT)};
     const cuuint32_t box[3] = {kChunk, BN, 1};
-    err = encode_tiled<3>(&x_map, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    err = encode_tiled<3>(&x_map, x, dims, strides, box,
+                          T::kPieces > 0 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B, tma_type<XT>());
     if (err != cudaSuccess) return err;
   }
   // persistent blocks: as many as the card holds at once, each walking
   // items, its ring running on from one item into the next
   const unsigned grid = (unsigned)(a.items < resident ? a.items : resident);
-  kernel<<<grid, kThreads, smem, stream>>>(w_map, x_map, static_cast<const int8_t*>(wq), static_cast<const bf16*>(x),
+  kernel<<<grid, kThreads, smem, stream>>>(w_map, x_map, static_cast<const int8_t*>(wq), static_cast<const XT*>(x),
                                           static_cast<const float*>(scale), out, a);
   return cudaGetLastError();
 }
 
+template <bool TRANS, typename XT>
+cudaError_t launch_bn(const void* x, const void* wq, const void* scale, void* out, int n, int b, int ki, int o,
+                      int bn, int fault, cudaStream_t s) {
+  switch (bn) {
+    case 8: return launch<8, TRANS, XT>(x, wq, scale, out, n, b, ki, o, fault, s);
+    case 16: return launch<16, TRANS, XT>(x, wq, scale, out, n, b, ki, o, fault, s);
+    case 24: return launch<24, TRANS, XT>(x, wq, scale, out, n, b, ki, o, fault, s);
+    case 32: return launch<32, TRANS, XT>(x, wq, scale, out, n, b, ki, o, fault, s);
+    case 64: return launch<64, TRANS, XT>(x, wq, scale, out, n, b, ki, o, fault, s);
+    case 128: return launch<128, TRANS, XT>(x, wq, scale, out, n, b, ki, o, fault, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Launches B2 (TRANS = false) or B2t on `stream` at the batch tile bn (0:
-// choose_bn(b); else one of kBatchTiles) with `fault` planted (0: none);
-// returns cudaGetLastError() after the launch, or the error of a TMA view
-// that cannot be encoded. An empty contraction writes zeros.
+// choose_bn(b); else one of kBatchTiles) with `fault` planted (0: none) and
+// x of element type x_type (kTypeBf16, kTypeF32 or kTypeF16; B2 writes f32,
+// B2t x_type); returns cudaGetLastError() after the launch, or the error of
+// a TMA view that cannot be encoded. An empty contraction writes zeros.
 template <bool TRANS>
 cudaError_t launch_q8(const void* x, const void* wq, const void* scale, void* out, int n, int b, int ki, int o,
-                      int bn, int fault, cudaStream_t s) {
+                      int bn, int fault, int x_type, cudaStream_t s) {
+  if (x_type < kTypeBf16 || x_type > kTypeF16) return cudaErrorInvalidValue;
   if (n == 0 || b == 0 || (TRANS ? ki : o) == 0) return cudaSuccess;
   if ((TRANS ? o : ki) == 0)
-    return cudaMemsetAsync(out, 0, (size_t)n * b * (TRANS ? (size_t)ki * 2 : (size_t)o * 4), s);
-  if (bn == 0) bn = choose_bn(b);
-  switch (bn) {
-    case 8: return launch<8, TRANS>(x, wq, scale, out, n, b, ki, o, fault, s);
-    case 16: return launch<16, TRANS>(x, wq, scale, out, n, b, ki, o, fault, s);
-    case 24: return launch<24, TRANS>(x, wq, scale, out, n, b, ki, o, fault, s);
-    case 32: return launch<32, TRANS>(x, wq, scale, out, n, b, ki, o, fault, s);
-    case 64: return launch<64, TRANS>(x, wq, scale, out, n, b, ki, o, fault, s);
-    case 128: return launch<128, TRANS>(x, wq, scale, out, n, b, ki, o, fault, s);
-    default: return cudaErrorInvalidValue;
+    return cudaMemsetAsync(out, 0, (size_t)n * b * (TRANS ? ki : o) * (!TRANS || x_type == kTypeF32 ? 4 : 2), s);
+  if (bn == 0) bn = choose_bn(b, x_type != kTypeBf16);
+  switch (x_type) {
+    case kTypeBf16: return launch_bn<TRANS, bf16>(x, wq, scale, out, n, b, ki, o, bn, fault, s);
+    case kTypeF32: return launch_bn<TRANS, float>(x, wq, scale, out, n, b, ki, o, bn, fault, s);
+    default: return launch_bn<TRANS, f16>(x, wq, scale, out, n, b, ki, o, bn, fault, s);
   }
 }
 

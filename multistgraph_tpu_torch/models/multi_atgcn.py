@@ -15,10 +15,11 @@ Three numeric modes, as in JAX:
     through the layout-copy kernel (ops/layout.py), once per layer;
   * ``compute_dtype='bfloat16'``: graph and weight contractions on
     bf16-rounded operands with f32 accumulation;
-  * ``weight_stream_quant='int8'`` with bf16 (and fused_bptt, and the graph
-    conv on): the N-major encoder whose h-side weights are quantized per
-    forward and applied by the int8 kernel (ops/node_apply.py), two
-    launches per step per layer.
+  * ``weight_stream_quant='int8'`` with any compute dtype (bfloat16,
+    float32 or float16; and fused_bptt, and the graph conv on): the
+    N-major encoder whose h-side weights are quantized per forward and
+    applied by the int8 kernel (ops/node_apply.py) to activations in the
+    compute dtype, two launches per step per layer.
 
 bf16 rounding points follow JAX exactly: an operand is rounded to bf16 and
 then contracted in f32 (bf16 -> f32 is exact), and a result JAX leaves in
@@ -187,16 +188,18 @@ def _quantize_h_weights(wg_h, wu_h, block=32):
 
 
 def _bf16_matmul(a, b_rounded, dtype):
-    """``cast(a) @ cast(b)`` with a bf16 result, as JAX computes it."""
+    """``cast(a) @ cast(b)`` with its result in the compute dtype (bf16 on
+    the bf16 path), as JAX computes it."""
     return (_round(a, dtype) @ b_rounded).to(dtype)
 
 
 def _atgru_step_q8(h_prev, xs, supports_r, wq8, bg, bu, rg_h_r, ru_h_r, rg_b, ru_b, dtype):
     """One N-major step streaming int8 weights; h_prev (N, B, H) f32.
 
-    supports_r, rg_h_r, ru_h_r are pre-rounded to bf16 (the per-step cast of
-    a loop invariant). hh/hzh are rounded to bf16 after the aggregation and
-    the int8 apply returns f32, so the carry is promoted to f32 as in JAX.
+    supports_r, rg_h_r, ru_h_r are pre-rounded to the compute dtype (the
+    per-step cast of a loop invariant). hh/hzh are cast to it after the
+    aggregation and the int8 apply returns f32, so the carry is promoted to
+    f32 as in JAX.
     Returns the new state and the intermediates the backward reads.
     """
     wgq, wgs, wuq, wus = wq8
@@ -339,7 +342,7 @@ class _FusedATGRULayer(torch.autograd.Function):
 
 class _FusedATGRULayerQ8(torch.autograd.Function):
     """N-major, int8-weight-streamed twin (multi_atgcn.py:341-459):
-    gate_x/upd_x/rg_x/ru_x (T,N,B,*) bf16, state0 (N,B,H) -> states
+    gate_x/upd_x/rg_x/ru_x (T,N,B,*) in the compute dtype, state0 (N,B,H) -> states
     (T,N,B,H). The h-side weights are quantized once per call; the forward
     applies them with B2 (two launches per step) and the reverse loop with
     B2t (two per step). The weight gradients are straight-through: the
@@ -557,7 +560,7 @@ class MultiATGCN(nn.Module):
         W[n,k,i,o] = node_emb[n,:] . pool[:,k,i,o], scaled by
         softmax(weights_g) over k when adjtype='multi'. With `dtype` the gate
         is folded into the small pool and the two halves are expanded from
-        bf16 operands and rounded to bf16 (multi_atgcn.py:652-684).
+        operands rounded to `dtype` and rounded to it (multi_atgcn.py:652-684).
         """
         h = self.hidden_dim
         emb = self.node_emb

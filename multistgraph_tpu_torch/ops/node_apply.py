@@ -27,9 +27,14 @@ with per-(node, out-channel) absmax scales, and
     out[n,b,o] = (sum_ki hh[n,b,ki] * wq[n,ki,o]) * scale[n,0,o]
 
 is exact dequantized math, since the scale commutes with the (k,i) sum. The
-reverse scan applies the transpose to the bf16 cotangent,
+reverse scan applies the transpose to the cotangent,
 
-    dhh[n,b,ki] = bf16(sum_o bf16(dpre[n,b,o] * scale[n,0,o]) * wq[n,ki,o]).
+    dhh[n,b,ki] = T(sum_o bf16(dpre[n,b,o] * scale[n,0,o]) * wq[n,ki,o]),
+
+T the cotangent's dtype (the default of JAX's ``out_dtype``, the only one
+its model asks for). As in JAX, the activation may be any float the model
+computes in: bf16, f32 or f16, each contracted in full against the int8
+weights with f32 sums.
 
 ``node_apply_q8`` and ``node_apply_q8_t`` launch the hand-written CUDA
 kernels of csrc/node_apply_q8.cu and csrc/node_apply_q8_t.cu for CUDA
@@ -37,9 +42,13 @@ tensors (which replace the Pallas kernels _apply_q8_kernel / node_apply_q8
 and _apply_q8_t_kernel / node_apply_q8_t) and take the plain PyTorch
 versions ``node_apply_q8_plain`` / ``node_apply_q8_t_plain`` only for CPU
 tensors. Both run on the tensor cores (csrc/node_apply_q8.cuh: the int8
-weights widened to bf16 on chip, the batch on wgmma's N) and walk the
-contraction through a ring and the batch in tiles, so any contraction and
-any batch run; ``planted_q8_fault`` plants a fault in either.
+weights widened to bf16 on chip, the batch on wgmma's N; an f32 or f16
+activation split on chip into the bf16 pieces that hold it exactly, B2t's
+rounded to bf16 after its scale as in JAX) and walk the contraction through
+a ring and the batch in tiles, so any contraction and any batch run; each
+activation dtype counts its launches apart (``launches`` for bf16,
+``launches_f32``, ``launches_f16``); ``planted_q8_fault`` plants a fault in
+either.
 
 There is no fall back from a kernel to its plain version; the source notes
 give each kernel's bound on an H100 and its design.
@@ -83,26 +92,36 @@ def _pad_nodes(a: torch.Tensor, axis: int, n_pad: int) -> torch.Tensor:
 
 
 def node_apply_q8_plain(hh: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version: (hh @ wq) * scale in f32."""
+    """The plain PyTorch version: (hh @ wq) * scale in f32, hh of any
+    float dtype widened to f32 (exact), as the Pallas kernel computes it."""
     n = hh.shape[0]
     return (hh.float() @ wq[:n].float()) * scale[:n]
 
 
 def node_apply_q8_t_plain(dpre: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of the transposed apply, at the Pallas
-    kernel's rounding points: bf16(dpre * s) against the widened weights,
-    summed in f32, rounded to dpre's dtype."""
+    kernel's rounding points for dpre of any float dtype: bf16(dpre * s)
+    formed in f32, against the widened weights, summed in f32, cast to
+    dpre's dtype."""
     n = dpre.shape[0]
     d = (dpre.float() * scale[:n]).to(torch.bfloat16).float()
     return (d @ wq[:n].float().transpose(1, 2)).to(dpre.dtype)
 
 
+# the activation dtypes B2 and B2t take (B2t writes its own), by their code in
+# the kernels' C entries (csrc/node_apply_q8.cuh), and the launch counter
+# of each activation dtype's form
+_Q8_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+_Q8_COUNTERS = {torch.bfloat16: "launches", torch.float32: "launches_f32", torch.float16: "launches_f16"}
+
+
 def _check(name, act, wq, scale, act_axis):
-    """act (N,B,X) bfloat16 against wq (Nw,KI,O) int8 and scale (Nw,1,O)
-    float32, contiguous, on one device; X is wq's dim `act_axis`."""
-    if act.dtype != torch.bfloat16 or wq.dtype != torch.int8 or scale.dtype != torch.float32:
-        raise TypeError("{} takes a bfloat16 activation, wq int8, scale float32; got {}, {}, {}".format(
-            name, act.dtype, wq.dtype, scale.dtype))
+    """act (N,B,X) bfloat16, float32 or float16 against wq (Nw,KI,O) int8
+    and scale (Nw,1,O) float32, contiguous, on one device; X is wq's dim
+    `act_axis`."""
+    if act.dtype not in _Q8_TYPES or wq.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError("{} takes a bfloat16, float32 or float16 activation, wq int8, scale float32; got {}, {}, "
+                        "{}".format(name, act.dtype, wq.dtype, scale.dtype))
     if act.dim() != 3 or wq.dim() != 3 or scale.dim() != 3:
         raise ValueError("{} takes a rank-3 activation, wq (Nw,KI,O), scale (Nw,1,O)".format(name))
     n = act.shape[0]
@@ -150,33 +169,38 @@ def _q8_fault(name, device):
     return fault
 
 
-def q8_load_path(ki: int, o: int, transposed: bool = False) -> str:
+def q8_load_path(ki: int, o: int, transposed: bool = False, dtype: torch.dtype = torch.bfloat16) -> str:
     """How B2's (transposed: B2t's) kernel brings its operands in: the int8
     weights by TMA where their rows of O are whole 16-byte units, the
-    activation (hh, or B2t's dpre) where its rows of KI (O) are; else by
-    element loads."""
-    act = o if transposed else ki
+    activation (hh, or B2t's dpre) of `dtype` where its rows of KI (O) are
+    (8 elements of bf16 or f16, 4 of f32); else by element loads."""
+    act = (o if transposed else ki) * dtype.itemsize
     return "weights {}, activations {}".format("TMA" if o % 16 == 0 else "element loads",
-                                               "TMA" if act % 8 == 0 else "element loads")
+                                               "TMA" if act % 16 == 0 else "element loads")
 
 
-def q8_batch_tile(b: int) -> int:
+def q8_batch_tile(b: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """The batch tile (wgmma's N) B2's and B2t's kernels take for a batch
-    of b, read from csrc/node_apply_q8.cuh."""
-    return _entry("node_apply_q8", "node_apply_q8_bn", 0, 1, stream=False)(b)
+    of b at activations of `dtype`, read from csrc/node_apply_q8.cuh."""
+    return _entry("node_apply_q8", "node_apply_q8_bn", 0, 2, stream=False)(b, _Q8_TYPES[dtype])
 
 
-def _launch(name, entry, act, wq, scale, out, fault):
+def _launch(fn, entry, act, wq, scale, out, fault):
+    """Launches B2's or B2t's kernel (`fn` its wrapper) at the activation's
+    dtype and counts the launch in that dtype's counter."""
     n, b, _ = act.shape
     _, ki, o = wq.shape
-    _launch_entry(name, entry, (act.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr()),
-                  (n, b, ki, o, 0, fault), act.device)
+    _launch_entry(fn.__name__, entry, (act.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr()),
+                  (n, b, ki, o, 0, fault, _Q8_TYPES[act.dtype]), act.device)
+    counter = _Q8_COUNTERS[act.dtype]
+    setattr(fn, counter, getattr(fn, counter) + 1)
 
 
 def node_apply_q8(hh: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """out[n,b,o] = (sum_ki hh[n,b,ki] wq[n,ki,o]) * scale[n,0,o]; (N, B, O) f32.
 
-    hh: (N, B, KI) bf16; wq: (Nw, KI, O) int8 and scale: (Nw, 1, O) f32 with
+    hh: (N, B, KI) bf16, f32 or f16, contracted in full (f32 and f16 are not
+    rounded to bf16); wq: (Nw, KI, O) int8 and scale: (Nw, 1, O) f32 with
     Nw >= N (rows past N, such as block padding, are ignored). Any KI, O
     and B (each, and N, below 2^31). CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise, also where a tensor
@@ -189,33 +213,31 @@ def node_apply_q8(hh: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> to
         return node_apply_q8_plain(hh, wq, scale)
     n, b, _ = hh.shape
     out = torch.empty((n, b, wq.shape[2]), dtype=torch.float32, device=hh.device)
-    _launch("node_apply_q8", "node_apply_q8_fwd_tile", hh, wq, scale, out, fault)
-    node_apply_q8.launches += 1
+    _launch(node_apply_q8, "node_apply_q8_fwd_typed", hh, wq, scale, out, fault)
     return out
 
 
 def node_apply_q8_t(dpre: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """dhh[n,b,ki] = bf16(sum_o bf16(dpre[n,b,o] scale[n,0,o]) wq[n,ki,o]); (N, B, KI) bf16.
+    """dhh[n,b,ki] = T(sum_o bf16(dpre[n,b,o] scale[n,0,o]) wq[n,ki,o]); (N, B, KI) of T.
 
-    dpre: (N, B, O) bf16; wq, scale as ``node_apply_q8`` (Nw >= N). Any KI,
-    O and B (each, and N, below 2^31). CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise, also where a tensor
-    whose rows take TMA (``q8_load_path``) does not start on a 16-byte
-    boundary.
+    dpre: (N, B, O) of T, bf16, f32 or f16; wq, scale as ``node_apply_q8``
+    (Nw >= N). Any KI, O and B (each, and N, below 2^31). CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise, also where a
+    tensor whose rows take TMA (``q8_load_path``) does not start on a
+    16-byte boundary.
     """
     _check("node_apply_q8_t", dpre, wq, scale, act_axis=2)
     fault = _q8_fault("node_apply_q8_t", dpre.device)
     if dpre.device.type == "cpu":
         return node_apply_q8_t_plain(dpre, wq, scale)
     n, b, _ = dpre.shape
-    out = torch.empty((n, b, wq.shape[1]), dtype=torch.bfloat16, device=dpre.device)
-    _launch("node_apply_q8_t", "node_apply_q8_t_bwd_tile", dpre, wq, scale, out, fault)
-    node_apply_q8_t.launches += 1
+    out = torch.empty((n, b, wq.shape[1]), dtype=dpre.dtype, device=dpre.device)
+    _launch(node_apply_q8_t, "node_apply_q8_t_bwd_typed", dpre, wq, scale, out, fault)
     return out
 
 
-node_apply_q8.launches = 0
-node_apply_q8_t.launches = 0
+node_apply_q8.launches = node_apply_q8.launches_f32 = node_apply_q8.launches_f16 = 0
+node_apply_q8_t.launches = node_apply_q8_t.launches_f32 = node_apply_q8_t.launches_f16 = 0
 
 
 # ---------------------------------------------------------------- factored form (B1, B1t)

@@ -17,6 +17,14 @@ base, new, new, base, for several rounds:
     KI=320, O=192; B on 4,096 rows with D=20);
   * B1 and B1t at the flagship gate (O=128) and update (O=64) cells (B=16,
     K=5, N=237, I=64, D=20), bf16 and f32 operands.
+B2 and B2t on f32 activations (the int8 stream at compute_dtype float32),
+at B2's and B2t's shapes above, run only in this checkout, through its
+``node_apply_q8_fwd_typed`` and ``node_apply_q8_t_bwd_typed``: each is held
+against its plain version (rtol 1e-5, atol 1e-5 max|plain|) and timed in
+the new turns of every round, beside its bf16 form (the ratio of the
+medians is printed) and its library call (torch.bmm in f32, TF32 off, on
+the weights widened to f32 ahead of time, B2's times the scale; B2t's on
+the cotangent scaled and rounded to bf16 and widened ahead of time).
 Before timing, each new output is held against the base's (one bf16 step
 for a bf16 result, rtol 1e-5 with atol 1e-5 max|base| for an f32 one). The
 unchanged layout-copy kernel (B3) is timed in each round as a control for
@@ -28,7 +36,9 @@ round, each of B1's and B1t's bf16 tiles through ``node_factored_fwd_tile``
 (128x2, 128x1, 64x2 and 64x1, rows x k; each kernel takes one by the
 grid), B1t's f32 tiles (16 nodes x 32 columns, O split over 1, 2, 4 or 8
 blocks of a cluster) through ``node_factored_t_bwd_tile``, and each of
-B2's and B2t's batch tiles (wgmma's N = 8 to 128) through ``node_apply_q8_fwd_tile`` and ``node_apply_q8_t_bwd_tile``, each
+B2's and B2t's batch tiles (wgmma's N = 8 to 128; on bf16 and on f32
+activations) through ``node_apply_q8_fwd_typed`` and
+``node_apply_q8_t_bwd_typed``, each
 first held against the chosen tile's output. Times are
 CUDA-event medians with the L2 flushed before each call
 (``tools.timing.event_ms``, as chip_smoke.py takes them).
@@ -51,7 +61,8 @@ import torch
 
 from multistgraph_tpu_torch.ops import _cuda
 from multistgraph_tpu_torch.ops.layout import force_default_layout
-from multistgraph_tpu_torch.ops.node_apply import (_pad_nodes, factored_t_f32_tile_name, pool_to_kernel_layout,
+from multistgraph_tpu_torch.ops.node_apply import (_pad_nodes, factored_t_f32_tile_name, node_apply_q8_plain,
+                                                   node_apply_q8_t_plain, pool_to_kernel_layout,
                                                    quantize_node_weights)
 from multistgraph_tpu_torch.tools.timing import card, einsum_order, event_ms
 
@@ -69,13 +80,15 @@ ENTRIES = {"node_apply_q8": ("node_apply_q8_fwd", [_P] * 4 + [_I] * 4 + [_P]),
            "node_factored": ("node_factored_fwd", [_P] * 5 + [_I] * 9 + [_P]),
            "node_factored_t": ("node_factored_t_bwd", [_P] * 4 + [_I] * 8 + [_P])}
 # this checkout's entries with the tile (and, for B1t, B2 and B2t, no
-# fault) after the shared interface's int arguments: (entry, argument
-# types, trailing ints)
+# fault; for B2 and B2t bf16 operands) after the shared interface's int
+# arguments: (entry, argument types, trailing ints)
 Q8_TILES = (8, 16, 24, 32, 64, 128)
 TILED = {"node_factored": ("node_factored_fwd_tile", [_P] * 5 + [_I] * 10 + [_P], ()),
          "node_factored_t": ("node_factored_t_bwd_tile", [_P] * 4 + [_I] * 10 + [_P], (0,)),
-         "node_apply_q8": ("node_apply_q8_fwd_tile", [_P] * 4 + [_I] * 6 + [_P], (0,)),
-         "node_apply_q8_t": ("node_apply_q8_t_bwd_tile", [_P] * 4 + [_I] * 6 + [_P], (0,))}
+         "node_apply_q8": ("node_apply_q8_fwd_typed", [_P] * 4 + [_I] * 7 + [_P], (0, 0)),
+         "node_apply_q8_t": ("node_apply_q8_t_bwd_typed", [_P] * 4 + [_I] * 7 + [_P], (0, 0))}
+# the same entries' trailing ints for f32 operands
+F32_TRAILING = {"node_apply_q8": (0, 1), "node_apply_q8_t": (0, 1)}
 # each case's tiles: {tile: name}
 B1_TILES = {0: "192x32", 1: "128x48", 2: "128x32", 3: "128x16"}
 B1T_TILES = {0: "128x2", 1: "128x1", 2: "64x2", 3: "64x1"}
@@ -105,6 +118,33 @@ def _fn(lib, entry, argtypes):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def _f32_cases(g, library):
+    """[(kernel source, kernel, shape, pointer args, int args, output, plain
+    output)] of B2 and B2t on f32 activations, with their library calls
+    added to `library`."""
+    cases = []
+    for kernel, shapes in (("B2", B2_SHAPES), ("B2t", B2T_SHAPES)):
+        for b, cell, o in shapes:
+            act = torch.randn(N, b, o if kernel == "B2t" else KI, generator=g, device="cuda") * 0.1
+            wq, s = quantize_node_weights(torch.randn(N, KI, o, generator=g, device="cuda") * 0.1)
+            wq, s = _pad_nodes(wq, 0, 256), _pad_nodes(s, 0, 256)
+            shape = "B={} {}".format(b, cell)
+            if kernel == "B2":
+                out = torch.empty(N, b, o, device="cuda")
+                w32 = wq[:N].float()
+                library[(kernel + " f32", shape)] = lambda act=act, w=w32, s=s: torch.bmm(act, w).mul_(s[:N])
+                plain = node_apply_q8_plain(act, wq, s)
+            else:
+                out = torch.empty(N, b, KI, device="cuda")
+                w_t = wq[:N].float().transpose(1, 2).contiguous()
+                d_lib = (act * s[:N]).to(torch.bfloat16).float()
+                library[(kernel + " f32", shape)] = lambda d=d_lib, w=w_t: torch.bmm(d, w)
+                plain = node_apply_q8_t_plain(act, wq, s)
+            cases.append(("node_apply_q8" if kernel == "B2" else "node_apply_q8_t", kernel + " f32", shape,
+                          (act, wq, s, out), (N, b, KI, o), out, plain))
+    return cases
 
 
 def _cases(g):
@@ -196,7 +236,9 @@ def main(argv=None):
         raise SystemExit("needs a CUDA device")
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     g = torch.Generator(device="cuda").manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
     cases, library = _cases(g)
+    f32_cases = _f32_cases(g, library)
     view = torch.randn(24, 16, N, 192, generator=g, device="cuda")[..., :128]
     stream = torch.cuda.current_stream().cuda_stream
     samples = {}
@@ -204,6 +246,12 @@ def main(argv=None):
         libs = {"base": _build(cli.base, tmp, "base"), "new": _build(here, tmp, "new")}
         fns = {(v, name): _fn(libs[v][name], *ENTRIES[name]) for v in libs for name in ENTRIES}
         tiled = {name: _fn(libs["new"][name], entry, types) for name, (entry, types, _) in TILED.items()}
+        for source, kernel, shape, ptrs, ints, out, plain in f32_cases:
+            for tile in (0,) + Q8_TILES:
+                out.zero_()
+                _call(tiled[source], ptrs, ints, stream, tile, *F32_TRAILING[source])
+                torch.cuda.synchronize()
+                _hold(out, plain, "{} {}: tile {} against its plain version".format(kernel, shape, tile or "chosen"))
         for source, kernel, shape, ptrs, ints, out, tiles in cases:
             # the new version against the base's output, then each of its
             # tiles against the chosen tile's
@@ -224,6 +272,11 @@ def main(argv=None):
                     fn = fns[(version, source)]
                     samples.setdefault((version, kernel, shape), []).append(
                         event_ms(lambda fn=fn, ptrs=ptrs, ints=ints: _call(fn, ptrs, ints, stream)))
+                if version == "new":
+                    for source, kernel, shape, ptrs, ints, _, _ in f32_cases:
+                        samples.setdefault((version, kernel, shape), []).append(event_ms(
+                            lambda fn=tiled[source], ptrs=ptrs, ints=ints, trailing=F32_TRAILING[source]:
+                            _call(fn, ptrs, ints, stream, 0, *trailing)))
                 samples.setdefault(("control", "B3", "gate_x (24,16,237,128) f32"), []).append(
                     event_ms(lambda: force_default_layout(view)))
             for (kernel, shape), call in library.items():
@@ -238,11 +291,22 @@ def main(argv=None):
                     samples.setdefault(("new tile " + tile_name, kernel, shape), []).append(
                         event_ms(lambda fn=fn, ptrs=ptrs, ints=ints, tile=tile, trailing=trailing:
                                  _call(fn, ptrs, ints, stream, tile, *trailing)))
+            for source, kernel, shape, ptrs, ints, _, _ in f32_cases:
+                for tile in Q8_TILES:
+                    samples.setdefault(("new tile " + Q8_TILE_NAMES[tile], kernel, shape), []).append(
+                        event_ms(lambda fn=tiled[source], ptrs=ptrs, ints=ints, tile=tile,
+                                 trailing=F32_TRAILING[source]: _call(fn, ptrs, ints, stream, tile, *trailing)))
     name = card()
     for (version, kernel, shape), ms in samples.items():
         line = {"version": version, "kernel": kernel, "shape": shape, "median_us": statistics.median(ms) * 1e3,
                 "samples_us": [m * 1e3 for m in ms], "card": name}
-        if version == "library" and kernel in ("B2", "B2t"):
+        if version == "new" and kernel.endswith(" f32"):
+            line["over_bf16_form"] = statistics.median(ms) / statistics.median(samples[("new", kernel[:-4], shape)])
+        if version == "library" and kernel.endswith(" f32"):
+            line.update(library="torch.bmm in f32 (TF32 off) on the int8 weights widened to f32 ahead of time "
+                                "(B2: times the scale; B2t: transposed, on the cotangent scaled and rounded to "
+                                "bf16 and widened ahead of time)")
+        elif version == "library" and kernel in ("B2", "B2t"):
             line.update(library="torch.bmm on bf16 weights dequantized (B2) or widened and transposed (B2t, "
                                 "beside the cotangent scaled and rounded) ahead of time")
         elif version == "library":

@@ -73,12 +73,12 @@ def test_plain_apply_matches_jax_interpret():
     np.testing.assert_array_equal(padded.numpy(), got.numpy())
 
 
-def _assert_within_one_bf16_step(got, want):
+def _assert_within_one_bf16_step(got, want, step=2.0 ** -7):
     """|got - want| <= 2^-7 |want| elementwise (one bf16 step: 8 significant
     bits, so a step is 2^-8 to 2^-7 of the value), plus a floor for sums that
-    cancel to ~0."""
+    cancel to ~0; `step` 2^-10 for one f16 step (11 bits)."""
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
-    bound = 2.0 ** -7 * np.abs(want) + 2.0 ** -7 * 1e-3 * np.abs(want).max()
+    bound = step * np.abs(want) + step * 1e-3 * np.abs(want).max()
     assert (np.abs(got - want) <= bound).all(), float(np.abs(got - want).max())
 
 
@@ -136,6 +136,58 @@ def test_plain_transposed_apply_matches_jax_interpret_at_edge_shapes(b, ki, o):
     got = node_apply_q8_t(dpre_t, _pad_nodes(wq, 0, 64), _pad_nodes(s, 0, 64))
     assert got.dtype == torch.bfloat16 and got.shape == (N, b, ki)
     _assert_within_one_bf16_step(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+# f32 and f16 activations, JAX's "any float": the file's shape and the edge
+# shapes above, each (batch, KI, O)
+WIDE_SHAPES = [(B, KI, O)] + EDGE_SHAPES
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+@pytest.mark.parametrize("b,ki,o", WIDE_SHAPES)
+def test_plain_apply_of_f32_and_f16_activations_matches_jax_interpret(b, ki, o, dtype):
+    """B2 contracts an f32 or f16 hh in full against the int8 weights, with
+    f32 sums (rtol 1e-5, atol 1e-5 max): no rounding to bf16 on either side."""
+    jnp = _jnp()
+    from multistgraph_tpu.ops.node_apply import node_apply_q8 as jax_apply
+
+    rng = np.random.default_rng(300 + b + ki)
+    hh_j = jnp.asarray(rng.normal(size=(N, b, ki)).astype(np.float32)).astype(dtype)
+    wq, s = quantize_node_weights(torch.from_numpy(_weights(seed=b + 2, shape=(N, ki, o))))
+    want = np.asarray(jax_apply(hh_j, jnp.asarray(wq.numpy()), jnp.asarray(s.numpy()), interpret=True))
+    assert want.dtype == np.float32
+    hh_t = torch.from_numpy(np.array(hh_j.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = node_apply_q8(hh_t, _pad_nodes(wq, 0, 64), _pad_nodes(s, 0, 64))
+    assert got.dtype == torch.float32 and got.shape == (N, b, o)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    if dtype == "float32":  # f32 is not rounded to bf16 first: that would differ
+        rounded = node_apply_q8(hh_t.to(torch.bfloat16), wq, s)
+        assert not np.allclose(rounded.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dpre_dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("b,ki,o", WIDE_SHAPES)
+def test_plain_transposed_apply_of_any_float_matches_jax_interpret(b, ki, o, dpre_dtype):
+    """B2t rounds bf16(dpre * scale) in f32 for any dpre, sums in f32 and
+    writes dpre's dtype (JAX's default out_dtype): f32 held at rtol 1e-5,
+    bf16 and f16 within one step of their dtype."""
+    jnp = _jnp()
+    from multistgraph_tpu.ops.node_apply import node_apply_q8_t as jax_apply_t
+
+    rng = np.random.default_rng(400 + b + o)
+    dpre_j = jnp.asarray(rng.normal(size=(N, b, o)).astype(np.float32)).astype(dpre_dtype)
+    wq, s = quantize_node_weights(torch.from_numpy(_weights(seed=b + 3, shape=(N, ki, o))))
+    want = jax_apply_t(dpre_j, jnp.asarray(wq.numpy()), jnp.asarray(s.numpy()), interpret=True)
+    want_dtype = dpre_dtype
+    assert want.dtype == jnp.dtype(want_dtype)
+    dpre_t = torch.from_numpy(np.array(dpre_j.astype(jnp.float32))).to(getattr(torch, dpre_dtype))
+    got = node_apply_q8_t(dpre_t, _pad_nodes(wq, 0, 64), _pad_nodes(s, 0, 64))
+    assert got.dtype == getattr(torch, want_dtype) and got.shape == (N, b, ki)
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    if want_dtype == "float32":  # the same exact products summed in another order
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    else:
+        _assert_within_one_bf16_step(got, want, 2.0 ** -7 if want_dtype == "bfloat16" else 2.0 ** -10)
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -196,6 +248,20 @@ def test_q8_load_path_follows_the_rows(ki, o, transposed, want):
     assert node_apply.q8_load_path(ki, o, transposed) == want
 
 
+@pytest.mark.parametrize("ki,o,transposed,dtype,want", [
+    (320, 128, False, torch.float32, "weights TMA, activations TMA"),
+    (318, 128, False, torch.float32, "weights TMA, activations element loads"),
+    (60, 40, True, torch.float32, "weights element loads, activations TMA"),
+    (60, 20, True, torch.float32, "weights element loads, activations TMA"),
+    (60, 20, True, torch.float16, "weights element loads, activations element loads"),
+    (60, 64, False, torch.float16, "weights TMA, activations element loads"),
+])
+def test_q8_load_path_follows_the_rows_of_the_activation_dtype(ki, o, transposed, dtype, want):
+    """The activation's rows take TMA where they are whole 16-byte units:
+    KI or O % 4 == 0 in f32, % 8 == 0 in f16 (as in bf16)."""
+    assert node_apply.q8_load_path(ki, o, transposed, dtype) == want
+
+
 def test_layout_gradient_matches_the_jax_vjp_bit_for_bit():
     """The cotangent through force_default_layout of a strided view is the
     same copy as JAX's VJP (layout.py:56-64, interpret mode)."""
@@ -225,8 +291,9 @@ def test_layout_plain_is_a_bit_identical_contiguous_copy():
 def test_wrappers_reject_wrong_dtypes_and_layouts():
     hh = torch.zeros(N, B, KI, dtype=torch.bfloat16)
     wq, s = quantize_node_weights(torch.from_numpy(_weights()))
+    # f32 and f16 activations run (JAX's "any float"); f64 is refused
     with pytest.raises(TypeError):
-        node_apply_q8(hh.float(), wq, s)
+        node_apply_q8(hh.double(), wq, s)
     with pytest.raises(TypeError):
         node_apply_q8(hh, wq.float(), s)
     with pytest.raises(TypeError):
@@ -242,7 +309,7 @@ def test_wrappers_reject_wrong_dtypes_and_layouts():
             force_default_layout(torch.zeros(2, 3, dtype=dtype))
     dpre = torch.zeros(N, B, O, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
-        node_apply_q8_t(dpre.float(), wq, s)
+        node_apply_q8_t(dpre.double(), wq, s)
     with pytest.raises(ValueError, match="shape"):
         node_apply_q8_t(dpre[:, :, :-1].contiguous(), wq, s)
     with pytest.raises(ValueError, match="contiguous"):
@@ -350,25 +417,31 @@ def test_cuda_layout_copy_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_wrong_dtypes(cuda):
-    hh = torch.zeros(N, B, KI, dtype=torch.float16, device=cuda)
+    # the kernels take bf16, f32 and f16 activations; f64 raises, with no
+    # fall back to the plain version
+    hh = torch.zeros(N, B, KI, dtype=torch.float64, device=cuda)
     wq, s = quantize_node_weights(torch.from_numpy(_weights()).to(cuda))
     with pytest.raises(TypeError):
         node_apply_q8(hh, wq, s)
+    with pytest.raises(TypeError):
+        node_apply_q8_t(torch.zeros(N, B, O, dtype=torch.float64, device=cuda), wq, s)
     with pytest.raises(TypeError, match="4-byte"):
-        force_default_layout(hh)
+        force_default_layout(hh.half())
 
 
 # ---------------------------------------------------------------- B2 and B2t on the tensor cores
 
 BATCHES = [1, 3, 4, 8, 15, 16, 17, 33, 64, 256]
 TILES = [8, 16, 24, 32, 64, 128]
+WIDE = [torch.float32, torch.float16]   # the activation dtypes besides bf16
+WIDE_IDS = ["f32", "f16"]
 
 
-def _q8_operands(cuda, seed, b, ki, o, transposed, n=237, nw=256):
-    """The activation (hh, or B2t's dpre) and int8 weights and scales of n
-    nodes, padded to nw weight rows, drawn on the card."""
+def _q8_operands(cuda, seed, b, ki, o, transposed, n=237, nw=256, dtype=torch.bfloat16):
+    """The activation (hh, or B2t's dpre) of `dtype` and int8 weights and
+    scales of n nodes, padded to nw weight rows, drawn on the card."""
     g = torch.Generator(device=cuda).manual_seed(seed)
-    act = torch.randn(n, b, o if transposed else ki, generator=g, device=cuda).to(torch.bfloat16)
+    act = torch.randn(n, b, o if transposed else ki, generator=g, device=cuda).to(dtype)
     wq, s = quantize_node_weights(torch.randn(n, ki, o, generator=g, device=cuda))
     return act, _pad_nodes(wq, 0, nw), _pad_nodes(s, 0, nw)
 
@@ -377,14 +450,19 @@ def _q8_fns(transposed):
     return (node_apply_q8_t, node_apply_q8_t_plain) if transposed else (node_apply_q8, node_apply_q8_plain)
 
 
-def _q8_holds(got, want, transposed):
-    """B2: rtol 1e-5, atol 1e-5 max|plain| (the same products summed in
-    another order); B2t: one bf16 step."""
+def _q8_holds(got, want):
+    """By the result's dtype: f32 (B2, and B2t where it writes f32) rtol
+    1e-5, atol 1e-5 max|plain| (the same exact products summed in another
+    order); bf16 and f16 (B2t) one step of the dtype, which a sum in
+    another order can move its rounding by."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    step = {torch.float32: None, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}[want.dtype]
     got, want = got.float(), want.float()
-    if transposed:
-        bound = 2.0 ** -7 * (want.abs() + 1e-3 * want.abs().max())
-    else:
+    if step is None:
         bound = 1e-5 * (want.abs() + want.abs().max())
+    else:
+        bound = step * (want.abs() + 1e-3 * want.abs().max())
     return bool(((got - want).abs() <= bound).all())
 
 
@@ -399,7 +477,7 @@ def test_cuda_q8_kernels_match_plain_at_every_batch(cuda, b, o, ki, transposed):
     got = fn(act, wq, s)
     torch.cuda.synchronize()
     assert got.shape == (237, b, ki if transposed else o)
-    assert _q8_holds(got, plain(act, wq, s), transposed)
+    assert _q8_holds(got, plain(act, wq, s))
 
 
 @pytest.mark.cuda
@@ -413,7 +491,7 @@ def test_cuda_q8_element_loads_match_plain(cuda, ki, o, transposed):
         act, wq, s = _q8_operands(cuda, b + ki + o, b, ki, o, transposed)
         got = fn(act, wq, s)
         torch.cuda.synchronize()
-        assert _q8_holds(got, plain(act, wq, s), transposed), (b, node_apply.q8_load_path(ki, o, transposed))
+        assert _q8_holds(got, plain(act, wq, s)), (b, node_apply.q8_load_path(ki, o, transposed))
 
 
 @pytest.mark.cuda
@@ -428,7 +506,7 @@ def test_cuda_q8_offset_views_run_right_or_raise(cuda, transposed):
         act, wq, s = _q8_operands(cuda, ki + o, b, ki, o, transposed, n=n + 1, nw=n + 1)
         got = fn(act[1:], wq[1:], s[1:])
         torch.cuda.synchronize()
-        assert _q8_holds(got, plain(act[1:], wq[1:], s[1:]), transposed)
+        assert _q8_holds(got, plain(act[1:], wq[1:], s[1:]))
         flat = torch.empty(act[1:].numel() + 1, dtype=act.dtype, device=cuda)
         act_off = flat[1:].view(act[1:].shape)
         act_off.copy_(act[1:])
@@ -442,7 +520,7 @@ def test_cuda_q8_offset_views_run_right_or_raise(cuda, transposed):
             else:
                 got = fn(a, w, s[1:])
                 torch.cuda.synchronize()
-                assert _q8_holds(got, plain(act[1:], wq[1:], s[1:]), transposed)
+                assert _q8_holds(got, plain(act[1:], wq[1:], s[1:]))
 
 
 @pytest.mark.cuda
@@ -461,8 +539,8 @@ def test_cuda_q8_planted_faults_fail_the_check(cuda, kind, b):
         bad = fn(act, wq, s)
     good = fn(act, wq, s)
     torch.cuda.synchronize()
-    assert _q8_holds(good, want, transposed)
-    assert not _q8_holds(bad, want, transposed)
+    assert _q8_holds(good, want)
+    assert not _q8_holds(bad, want)
 
 
 @pytest.mark.cuda
@@ -471,15 +549,26 @@ def test_cuda_q8_batch_tile_is_the_narrowest_that_holds_the_batch_up_to_128(cuda
     assert [node_apply.q8_batch_tile(b) for b in batches] == [8, 8, 8, 16, 16, 24, 64, 64, 128, 128, 128, 128]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", WIDE, ids=WIDE_IDS)
+def test_cuda_q8_batch_tile_of_f32_and_f16_activations_stops_at_64(cuda, dtype):
+    """Their pieces leave room for one 128-column block an SM, so wide
+    batches take tiles of 64."""
+    batches = (1, 4, 8, 9, 16, 17, 33, 64, 65, 129, 256, 300)
+    assert [node_apply.q8_batch_tile(b, dtype) for b in batches] == [8, 8, 8, 16, 16, 24, 64, 64, 64, 64, 64, 64]
+
+
 def _launch_tile(cuda, transposed, act, wq, s, tile):
+    """B2 or B2t at batch tile `tile`."""
     n, b, _ = act.shape
     _, ki, o = wq.shape
-    out = torch.empty(n, b, ki if transposed else o, dtype=torch.bfloat16 if transposed else torch.float32,
+    out = torch.empty(n, b, ki if transposed else o, dtype=act.dtype if transposed else torch.float32,
                       device=cuda)
-    name, entry = (("node_apply_q8_t", "node_apply_q8_t_bwd_tile") if transposed
-                   else ("node_apply_q8", "node_apply_q8_fwd_tile"))
+    name, entry = (("node_apply_q8_t", "node_apply_q8_t_bwd_typed") if transposed
+                   else ("node_apply_q8", "node_apply_q8_fwd_typed"))
+    code = node_apply._Q8_TYPES[act.dtype]
     node_apply._launch_entry(name, entry, (act.data_ptr(), wq.data_ptr(), s.data_ptr(), out.data_ptr()),
-                             (n, b, ki, o, tile, 0), cuda)
+                             (n, b, ki, o, tile, 0, code), cuda)
     return out
 
 
@@ -491,7 +580,7 @@ def test_cuda_q8_every_batch_tile_matches_plain(cuda, tile):
         act, wq, s = _q8_operands(cuda, tile, 33, 320, 128, transposed)
         got = _launch_tile(cuda, transposed, act, wq, s, tile)
         torch.cuda.synchronize()
-        assert _q8_holds(got, _q8_fns(transposed)[1](act, wq, s), transposed)
+        assert _q8_holds(got, _q8_fns(transposed)[1](act, wq, s))
 
 
 @pytest.mark.cuda
@@ -503,7 +592,7 @@ def test_cuda_q8_blocks_walk_batch_tiles_past_the_grid(cuda):
         act, wq, s = _q8_operands(cuda, 5, b, 16, 16, transposed, n=1, nw=1)
         got = _launch_tile(cuda, transposed, act, wq, s, 8)
         torch.cuda.synchronize()
-        assert _q8_holds(got, _q8_fns(transposed)[1](act, wq, s), transposed)
+        assert _q8_holds(got, _q8_fns(transposed)[1](act, wq, s))
 
 
 @pytest.mark.cuda
@@ -515,3 +604,125 @@ def test_cuda_q8_empty_contraction_writes_zeros(cuda):
     torch.cuda.synchronize()
     assert got.shape == (5, 3, 16) and not got.any()
     assert got_t.shape == (5, 3, 24) and not got_t.any()
+
+
+# ---------------------------------------------------------------- B2 and B2t on f32 and f16 activations
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True], ids=["B2", "B2t"])
+@pytest.mark.parametrize("dtype", WIDE, ids=WIDE_IDS)
+@pytest.mark.parametrize("o", [64, 128])
+@pytest.mark.parametrize("b", BATCHES)
+def test_cuda_q8_f32_and_f16_forms_match_plain_at_every_batch(cuda, b, o, dtype, transposed):
+    """Each launch counts in its dtype's counter only."""
+    act, wq, s = _q8_operands(cuda, b * 1000 + o + 7, b, 320, o, transposed, dtype=dtype)
+    fn, plain = _q8_fns(transposed)
+    counter = node_apply._Q8_COUNTERS[dtype]
+    before = {c: getattr(fn, c) for c in node_apply._Q8_COUNTERS.values()}
+    got = fn(act, wq, s)
+    torch.cuda.synchronize()
+    after = {c: getattr(fn, c) for c in node_apply._Q8_COUNTERS.values()}
+    assert after == dict(before, **{counter: before[counter] + 1})
+    assert got.dtype == (dtype if transposed else torch.float32)
+    assert _q8_holds(got, plain(act, wq, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", WIDE, ids=WIDE_IDS)
+@pytest.mark.parametrize("tile", TILES)
+def test_cuda_q8_f32_and_f16_forms_at_every_batch_tile_match_plain(cuda, tile, dtype):
+    """Each batch tile, at a batch of 33 (five tiles of 8, one of 64)."""
+    for transposed in (False, True):
+        act, wq, s = _q8_operands(cuda, tile + 11, 33, 320, 128, transposed, dtype=dtype)
+        got = _launch_tile(cuda, transposed, act, wq, s, tile)
+        torch.cuda.synchronize()
+        assert _q8_holds(got, _q8_fns(transposed)[1](act, wq, s)), (tile, transposed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True], ids=["B2", "B2t"])
+@pytest.mark.parametrize("dtype", WIDE, ids=WIDE_IDS)
+@pytest.mark.parametrize("ki,o", [(62, 64), (30, 20), (60, 18), (80, 6), (21, 11), (318, 128)])
+def test_cuda_q8_f32_and_f16_element_loads_match_plain(cuda, ki, o, dtype, transposed):
+    """Rows TMA cannot take (the activation's rows of KI or O no whole
+    16-byte units: % 4 in f32, % 8 in f16; the weights' O % 16) load
+    element by element, into the same layout."""
+    fn, plain = _q8_fns(transposed)
+    for b in (4, 16, 40):
+        act, wq, s = _q8_operands(cuda, b + ki + o, b, ki, o, transposed, dtype=dtype)
+        got = fn(act, wq, s)
+        torch.cuda.synchronize()
+        assert _q8_holds(got, plain(act, wq, s)), (b, node_apply.q8_load_path(ki, o, transposed, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True], ids=["B2", "B2t"])
+@pytest.mark.parametrize("dtype", WIDE, ids=WIDE_IDS)
+def test_cuda_q8_f32_and_f16_offset_views_run_right_or_raise(cuda, dtype, transposed):
+    """An offset slice of whole nodes runs; an activation that starts one
+    element off a 16-byte boundary runs where its rows take element loads
+    and raises where they take TMA."""
+    fn, plain = _q8_fns(transposed)
+    n, b = 37, 16
+    for ki, o in ((320, 64), (62, 18)):
+        act, wq, s = _q8_operands(cuda, ki + o, b, ki, o, transposed, n=n + 1, nw=n + 1, dtype=dtype)
+        want = plain(act[1:], wq[1:], s[1:])
+        got = fn(act[1:], wq[1:], s[1:])
+        torch.cuda.synchronize()
+        assert _q8_holds(got, want)
+        flat = torch.empty(act[1:].numel() + 1, dtype=dtype, device=cuda)
+        act_off = flat[1:].view(act[1:].shape)
+        act_off.copy_(act[1:])
+        if "activations TMA" in node_apply.q8_load_path(ki, o, transposed, dtype):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fn(act_off, wq[1:], s[1:])
+        else:
+            got = fn(act_off, wq[1:], s[1:])
+            torch.cuda.synchronize()
+            assert _q8_holds(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", WIDE, ids=WIDE_IDS)
+@pytest.mark.parametrize("kind", sorted(node_apply.Q8_FAULTS))
+@pytest.mark.parametrize("b", [16, 256])
+def test_cuda_q8_f32_and_f16_planted_faults_fail_the_check(cuda, kind, b, dtype):
+    """The faults planted in the f32 and f16 forms (in B2 the last k16
+    slice dropped from every piece of x) fail the check the unfaulted
+    kernel passes."""
+    target, _ = node_apply.Q8_FAULTS[kind]
+    transposed = target == "node_apply_q8_t"
+    fn, plain = _q8_fns(transposed)
+    act, wq, s = _q8_operands(cuda, b + 9, b, 320, 128, transposed, dtype=dtype)
+    want = plain(act, wq, s)
+    with node_apply.planted_q8_fault(kind):
+        bad = fn(act, wq, s)
+    good = fn(act, wq, s)
+    torch.cuda.synchronize()
+    assert _q8_holds(good, want)
+    assert not _q8_holds(bad, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16] + WIDE, ids=["bf16"] + WIDE_IDS)
+@pytest.mark.parametrize("b", [3, 16, 100])
+def test_cuda_q8_t_writes_the_cotangent_dtype(cuda, b, dtype):
+    """B2t writes the cotangent's dtype, at batches whose tiles store from
+    the registers (3, 16) and through shared memory (100), and at a KI
+    whose rows take element-wise stores (KI = 60)."""
+    for ki, o in ((320, 128), (60, 64)):
+        act, wq, s = _q8_operands(cuda, b + ki, b, ki, o, True, dtype=dtype)
+        got = node_apply_q8_t(act, wq, s)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (237, b, ki)
+        assert _q8_holds(got, node_apply_q8_t_plain(act, wq, s))
+
+
+@pytest.mark.cuda
+def test_cuda_q8_f32_is_not_rounded_to_bf16(cuda):
+    """The f32 form contracts hh in full: rounding hh to bf16 first gives
+    another result, outside the f32 hold."""
+    act, wq, s = _q8_operands(cuda, 5, 16, 320, 128, False, dtype=torch.float32)
+    want = node_apply_q8_plain(act, wq, s)
+    assert _q8_holds(node_apply_q8(act, wq, s), want)
+    assert not _q8_holds(node_apply_q8(act.to(torch.bfloat16), wq, s), want)
