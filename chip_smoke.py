@@ -83,6 +83,25 @@ planes:
     the CPU on the BSR, hub and tail forms (faults planted inside B4/B6 and
     B5 must fail the checks) and on the band's planes and packed rows with
     the adaptive view (faults in B7, B8 and B9 dX).
+Then the same in f16 (compute_dtype 'float16'), on the same two forms:
+  * B4/B6 and B5 in f16 (f32 sums; B5 writes f32 tiles for f16 operands)
+    and B7, B8, B9 dX and B9 dV in f16 on the 49,152-node band, against
+    their plain versions at every width of the f16 paths (the f32 sums
+    held as the bf16 forms' are; f16 outputs within one f16 step, each row
+    with its +-inf outputs and the nonzero sums it rounded to 0), timed
+    beside their bounds and a library call each; the faults planted inside
+    each kernel must fail the holds;
+  * for each form, training (2 warm-up and 5 timed steps) with exact launch
+    counts on the f16 counters (the SDDMM's dE1 and dE2 on the f32 B4/B6:
+    their dS is f32), one step with the range of every f16 product watched
+    and its loss and gradients held finite, one validation pass, and the
+    saved experiment served at buckets 1 and 2 (the band form from packed
+    rows: B8 in f16, no B7), with device busy time, idle share and peak
+    memory;
+  * at 4,096 nodes, f16 output, loss and gradients on the card against the
+    CPU on the BSR, hub and tail forms (the tail run twice on the card: its
+    f16 index_add_ adds in an order that changes) and on the band's planes
+    and packed rows, failed by the same planted faults.
 Then the node-apply design harness and the card's stream calibration:
   * B1 and B1t (the factored node apply and its transpose) at the
     flagship gate and update cells in f32 and bf16, B11 A (per-node dots),
@@ -132,6 +151,8 @@ Without a CUDA device, or without the repository around it, it exits with
 an error and prints no result.
 """
 
+import concurrent.futures
+import functools
 import importlib
 import itertools
 import json
@@ -245,19 +266,20 @@ def _ptxas_kernels(report, marker):
     return rows
 
 
-def _over_bound(got, want, rel=1e-5, bf16_step=False, step=None):
+def _over_bound(got, want, rel=1e-5, bf16_step=False, step=None, sums_rel=0.0):
     """The largest |got - want| over its elementwise bound (inf where the
     shapes or dtypes differ). By default rtol rel with atol rel*max|want|:
     the same products summed in another order. bf16_step: one bf16 step,
     2^-7 |want| + 2^-7 * 1e-3 max|want| (8 significant bits, with a floor
     for sums that cancel); step: the same with another step (2^-10 for
-    f16's 11 bits)."""
+    f16's 11 bits), plus sums_rel (|want| + max|want|) for the f32 sums
+    before the rounding where their own rule shows at that step."""
     if got.shape != want.shape or got.dtype != want.dtype:
         return float("inf")
     got, want = got.float(), want.float()
     step = 2.0 ** -7 if bf16_step else step
     if step is not None:
-        bound = step * (want.abs() + 1e-3 * want.abs().max())
+        bound = step * (want.abs() + 1e-3 * want.abs().max()) + sums_rel * (want.abs() + want.abs().max())
     else:
         bound = rel * (want.abs() + want.abs().max())
     diff = (got - want).abs()
@@ -850,8 +872,11 @@ _MODES = {  # config overrides of the int8 serving/training arguments
 
 # the band kernels' wrappers (ops/band.py), each with its own launch count
 BAND_WRAPPERS = ("band_spmm", "band_spmm_packed", "band_dx", "band_dx_packed", "band_dv", "band_dv_packed")
-# bsr_spmm and sampled_matmul count their bf16 (tensor-core) kernels' launches apart
-SPARSE_KERNELS = ("bsr_spmm", "sampled_matmul", "bsr_spmm_bf16", "sampled_matmul_bf16") + BAND_WRAPPERS
+# bsr_spmm and sampled_matmul count their bf16 and f16 (tensor-core) kernels'
+# launches apart; the band wrappers their f16 ones (bf16 beside f32: the
+# bf16 band paths' windows are keyed 'band bf16')
+SPARSE_KERNELS = (("bsr_spmm", "sampled_matmul", "bsr_spmm_bf16", "sampled_matmul_bf16", "bsr_spmm_f16",
+                   "sampled_matmul_f16") + BAND_WRAPPERS + tuple(name + "_f16" for name in BAND_WRAPPERS))
 
 
 def _counters():
@@ -870,8 +895,10 @@ def _counters():
                 "force_default_layout": (force_default_layout, "launches"),
                 "force_default_layout_bwd": (force_default_layout, "backward_launches"),
                 "bsr_spmm": (bsr_spmm, "launches"), "sampled_matmul": (sampled_matmul, "launches"),
-                "bsr_spmm_bf16": (bsr_spmm, "bf16_launches"), "sampled_matmul_bf16": (sampled_matmul, "bf16_launches")}
+                "bsr_spmm_bf16": (bsr_spmm, "bf16_launches"), "sampled_matmul_bf16": (sampled_matmul, "bf16_launches"),
+                "bsr_spmm_f16": (bsr_spmm, "f16_launches"), "sampled_matmul_f16": (sampled_matmul, "f16_launches")}
     counters.update({name: (getattr(band, name), "launches") for name in BAND_WRAPPERS})
+    counters.update({name + "_f16": (getattr(band, name), "f16_launches") for name in BAND_WRAPPERS})
     counters.update({"window_dot": (band_probe.window_dot, "launches"),
                      "band_slab": (band_probe.band_slab, "launches"),
                      "band_slab_batched": (band_probe.band_slab, "batched_launches")})
@@ -1138,7 +1165,10 @@ def _sparse_launches(model, steps=1, train=False, t=SP_T):
         SDDMM's backward, dE1 and dE2, two SpMMs.
     A bf16 model's BSR products launch the bf16 kernels, counted under
     bsr_spmm_bf16 and sampled_matmul_bf16; its band products count under
-    the band wrappers' names, as f32 ones do."""
+    the band wrappers' names, as f32 ones do. An f16 model's BSR and band
+    products count under the names with _f16, but for the SDDMM's dE1 and
+    dE2: their dS is f32 (the f16 scores are f32), so they run the f32
+    bsr_spmm on the embeddings widened to f32."""
     layers = model.num_layers
     aggs = layers * (1 + 2 * t)
     recompute = layers * 2 * t if train and model.remat else 0
@@ -1147,14 +1177,19 @@ def _sparse_launches(model, steps=1, train=False, t=SP_T):
     bsr = sum(model._has_bsr(sv) for sv in supports) + int(model.has_adaptive)
     planes = sum("band_values" in sv for sv in supports)
     packed = sum("band_packed" in sv for sv in supports)
-    bf16 = "_bf16" if model.compute_dtype is not None else ""
+    f16 = str(model.compute_dtype) == "torch.float16"
+    bf16 = "_f16" if f16 else "_bf16" if model.compute_dtype is not None else ""
+    band16 = "_f16" if f16 else ""
+    sddmm_de = 2 if train and model.has_adaptive else 0
     counts = dict.fromkeys(SPARSE_KERNELS, 0)
     counts.update({
-        "bsr_spmm" + bf16: bsr * (aggs + recompute + dx) + (2 if train and model.has_adaptive else 0),
+        "bsr_spmm" + bf16: bsr * (aggs + recompute + dx) + (0 if f16 else sddmm_de),
         "sampled_matmul" + bf16: int(model.has_adaptive) * (1 + (aggs if train else 0)),
-        "band_spmm": planes * (aggs + recompute), "band_dx": planes * dx,
-        "band_spmm_packed": packed * (aggs + recompute), "band_dx_packed": packed * dx,
+        "band_spmm" + band16: planes * (aggs + recompute), "band_dx" + band16: planes * dx,
+        "band_spmm_packed" + band16: packed * (aggs + recompute), "band_dx_packed" + band16: packed * dx,
     })
+    if f16:
+        counts["bsr_spmm"] += sddmm_de
     return {k: v * steps for k, v in counts.items()}
 
 
@@ -1453,6 +1488,27 @@ def _sparse_run(torch, model, scaler, batch):
     grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
              for n, p in model.named_parameters()}
     return out, (loss.detach().float().cpu(), grads)
+
+
+def _cpu_runs(torch, jobs):
+    """_sparse_run of each CPU model of `jobs` ({name: (model, scaler,
+    batch)}), each in a thread of its own: the CPU's f16 matrix products
+    take a single-threaded path (about a minute a run at 4,096 nodes on
+    the card's host), and its ops release the interpreter lock, so the
+    runs overlap. Returns {name: ((output, (loss, gradients)), seconds)}
+    once every thread has ended."""
+    def timed(model, scaler, batch):
+        t0 = time.perf_counter()
+        return _sparse_run(torch, model, scaler, batch), time.perf_counter() - t0
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // len(jobs)))   # the cores shared out among the runs
+    try:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            futures = {name: pool.submit(timed, *job) for name, job in jobs.items()}
+            return {name: future.result() for name, future in futures.items()}
+    finally:
+        torch.set_num_threads(threads)
 
 
 def sparse_check_phase(torch):
@@ -1794,7 +1850,7 @@ def band_check_phase(torch, label="band", bound_out=BOUND_BAND_OUT, bound_grad=B
     feature = dataset.get_data_feature()
     batch = {"X": train.x[:SP_B], "y": train.y[:SP_B]}
     scaler = feature["scaler"]
-    models, cpu_runs, errs = {}, {}, {}
+    models, cpu_models, errs = {}, {}, {}
     for form, packed in (("planes", False), ("packed", True)):
         cfg = load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=dict(args, graph_band_packed=packed))
         cpu_model = get_model(cfg, feature, device="cpu")
@@ -1802,13 +1858,14 @@ def band_check_phase(torch, label="band", bound_out=BOUND_BAND_OUT, bound_grad=B
             cpu_model.load_state_dict(models["planes"].state_dict())
         card_model = get_model(cfg, feature)
         card_model.load_state_dict(cpu_model.state_dict())
-        models[form] = card_model
-        t0 = time.perf_counter()
-        cpu_runs[form] = _sparse_run(torch, cpu_model, scaler, batch)
-        cpu_s = time.perf_counter() - t0
+        models[form], cpu_models[form] = card_model, (cpu_model, scaler, batch)
+    timed_runs = _cpu_runs(torch, cpu_models)
+    cpu_runs = {form: run for form, (run, _) in timed_runs.items()}
+    del cpu_models
+    for form, card_model in models.items():
         out, grads = _sparse_run(torch, card_model, scaler, batch)
         errs[form] = {"output": _rel_err(out.numpy(), cpu_runs[form][0].numpy()),
-                      "gradients": _grad_err(grads, cpu_runs[form][1]), "cpu_seconds": cpu_s}
+                      "gradients": _grad_err(grads, cpu_runs[form][1]), "cpu_seconds": timed_runs[form][1]}
 
     real_forward, real_backward = band._BandSpMM.forward, band._BandSpMM.backward
 
@@ -1887,28 +1944,32 @@ BOUND_SPARSE_BF16_OUT = 3e-2
 BOUND_SPARSE_BF16_GRAD = 1.5e-2
 
 
-def _bf16_spmm_design(feat):
+def _bf16_spmm_design(feat, ty="bf16"):
     from multistgraph_tpu_torch.ops.spmm import bf16_load_path
 
     n = next((n for n in (16, 24, 32, 64, 128) if feat <= n), 256)
-    return ("tensor cores: wgmma m64n{}k16 bf16->f32, f32 sums stored once; the row's tiles in K=64 chunks by TMA as "
+    return ("tensor cores: wgmma m64n{}k16 {}->f32, f32 sums stored once; the row's tiles in K=64 chunks by TMA as "
             "K-major A; x's block col_of[p] by {} as MN-major B, under the 128-byte swizzle; a producer warp and an "
-            "mbarrier ring; two consumer warpgroups of 64 rows").format(n, bf16_load_path(feat))
+            "mbarrier ring; two consumer warpgroups of 64 rows").format(n, ty, bf16_load_path(feat))
 
 
-def sparse_bf16_kernel_phase(torch):
-    """bsr_spmm (B4/B6) and sampled_matmul (B5) in bf16 against their plain
-    versions on the 49,152-node graph at every width the bf16 paths give
-    them, timed beside their bounds and a PyTorch library call each; the
-    faults planted in both kernels must fail the holds."""
+def sparse_bf16_kernel_phase(torch, ty="bf16"):
+    """bsr_spmm (B4/B6) and sampled_matmul (B5) in bf16 (or, with ty 'f16',
+    in f16) against their plain versions on the 49,152-node graph at every
+    width the bf16 (f16) paths give them, timed beside their bounds and a
+    PyTorch library call each; the faults planted in both kernels must fail
+    the holds. B5's f16 form writes f32 tiles, held as B4/B6's f32 sums."""
     from multistgraph_tpu_torch.ops import spmm as sp
     from multistgraph_tpu_torch.ops.bsr import random_spatial_graph
 
+    half = ty == "f16"
+    dtype = torch.float16 if half else torch.bfloat16
+    spmm_widths, b5_widths = (SPH_SPMM_WIDTHS, SPH_B5_WIDTHS) if half else (SPB_SPMM_WIDTHS, SPB_B5_WIDTHS)
     graph, _ = random_spatial_graph(SP_NODES, 16, seed=0)
     dev = torch.device("cuda")
     g = torch.Generator(device="cuda").manual_seed(11)
     nb, nnz, n_pad = graph.num_row_blocks, graph.nnz_blocks, graph.padded_nodes
-    values = torch.from_numpy(graph.values).to(dev).bfloat16()
+    values = torch.from_numpy(graph.values).to(dev).to(dtype)
     row = torch.from_numpy(graph.row_of).to(dev)
     col = torch.from_numpy(graph.col_of).to(dev)
     row_ptr = sp.row_ptr_of(row, nb)
@@ -1917,10 +1978,13 @@ def sparse_bf16_kernel_phase(torch):
     lines, faults = [], {}
 
     def randn(feat):
-        return torch.randn(n_pad, feat, generator=g, device=dev).bfloat16()
+        return torch.randn(n_pad, feat, generator=g, device=dev).to(dtype)
 
     def spmm_hold(got, want):
         return _over_bound(got, want, rel=SPB_SPMM_REL)
+
+    def b5_hold(got, want):  # bf16 tiles within one bf16 step; f16's f32 tiles as f32 sums
+        return spmm_hold(got, want) if half else _over_bound(got, want, bf16_step=True)
 
     def spmm_rows(values, row, row_ptr, col, schedule, widths, what, fault_kinds, fault_widths):
         try:
@@ -1932,10 +1996,10 @@ def sparse_bf16_kernel_phase(torch):
             got = sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)
             want = sp.spmm_plain(values, row, col, x, out_blocks=nb)
             torch.cuda.synchronize()
-            _hold(spmm_hold(got, want), "bsr_spmm bf16 vs its plain version at F={}{}".format(feat, what))
+            _hold(spmm_hold(got, want), "bsr_spmm {} vs its plain version at F={}{}".format(ty, feat, what))
             if feat in fault_widths:
                 if not torch.equal(got, sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)):
-                    raise AssertionError("bsr_spmm bf16 at F={}{}: two calls differ".format(feat, what))
+                    raise AssertionError("bsr_spmm {} at F={}{}: two calls differ".format(ty, feat, what))
                 for kind in fault_kinds:
                     with sp.planted_fault(kind, "bsr_spmm"):
                         bad = sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)
@@ -1947,7 +2011,7 @@ def sparse_bf16_kernel_phase(torch):
             num_bytes = tile_bytes + index_bytes + n_pad * feat * (2 + 4)
             flops = 2 * nnz * 128 * 128 * feat
             bound, by = _bound_ms(num_bytes, flops, PEAK_BF16_FLOPS)
-            label = "torch.sparse_bsr_tensor(row_ptr, col_of, values) @ x in bf16"
+            label = "torch.sparse_bsr_tensor(row_ptr, col_of, values) @ x in {}".format(ty)
             if isinstance(bsr, Exception):
                 library_ms, library = None, "{} refused: {}".format(label, str(bsr).splitlines()[0][:160])
             else:
@@ -1955,15 +2019,15 @@ def sparse_bf16_kernel_phase(torch):
             if library_ms is None:
                 xg = x.reshape(-1, 128, feat).index_select(0, col)
                 library_ms = _time_ms(torch, lambda: torch.bmm(values, xg), reps=10)
-                library = ("torch.bmm of the tiles and the pre-gathered x blocks in bf16 (the gather and the row sums "
-                           "not timed; {})".format(library))
+                library = ("torch.bmm of the tiles and the pre-gathered x blocks in {} (the gather and the row sums "
+                           "not timed; {})".format(ty, library))
                 del xg
             stream = feat % 128 == 0  # the width JAX sends to spmm_stream (B6), else the block-grid kernel (B4)
             lines.append({
-                "name": "bsr_spmm_bf16", "shape": "N={} nnz={} F={} bf16{}".format(n_pad, nnz, feat, what),
+                "name": "bsr_spmm_" + ty, "shape": "N={} nnz={} F={} {}{}".format(n_pad, nnz, feat, ty, what),
                 "replaces": ("multistgraph_tpu/ops/spmm_stream.py:303 spmm_stream" if stream
                              else "multistgraph_tpu/ops/spmm.py:87 _spmm_blockgrid"),
-                "design": _bf16_spmm_design(feat), "loads": sp.bf16_load_path(feat),
+                "design": _bf16_spmm_design(feat, ty), "loads": sp.bf16_load_path(feat),
                 "max_abs_err": max_abs_err,
                 "tolerance": "rtol {0:g}, atol {0:g}*max|plain| (f32 sums)".format(SPB_SPMM_REL),
                 "kernel_ms": _time_ms(torch, lambda: sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)),
@@ -1974,48 +2038,52 @@ def sparse_bf16_kernel_phase(torch):
             })
             del x
 
-    spmm_rows(values, row, row_ptr, col, sp.bsr_schedule(row_ptr, nnz, exact=True), SPB_SPMM_WIDTHS, "",
+    spmm_rows(values, row, row_ptr, col, sp.bsr_schedule(row_ptr, nnz, exact=True), spmm_widths, "",
               sorted(sp.FAULTS), SPB_FAULT_WIDTHS)
     # the backward's dX on the block-transposed graph (hub rows of up to 384
     # tiles, split into segments); its split rows must catch the segment fault
     v_t, r_t, c_t = sp.bsr_transpose(values, row, col, nb)
     ptr_t, sched_t = sp.bsr_transpose_schedule(row, col, nb, exact=True)
-    say(json.dumps({"bsr_schedule bf16 transposed": _schedule_summary(torch, sched_t)}))
+    say(json.dumps({"bsr_schedule {} transposed".format(ty): _schedule_summary(torch, sched_t)}))
     spmm_rows(v_t, r_t, ptr_t, c_t, sched_t, SPB_DX_WIDTHS, " transposed (backward dX)", sorted(sp.SPMM_FAULTS),
               (128,))
     del v_t
-    for d in SPB_B5_WIDTHS:
+    for d in b5_widths:
         a, bt = randn(d), randn(d)
         got = sp.sampled_matmul(a, bt, row, col)
         want = sp.sampled_matmul_plain(a, bt, row, col)
         torch.cuda.synchronize()
-        _hold(_over_bound(got, want, bf16_step=True), "sampled_matmul bf16 vs its plain version at d={}".format(d))
+        _hold(b5_hold(got, want), "sampled_matmul {} vs its plain version at d={}".format(ty, d))
         if d in SPB_B5_FAULT_WIDTHS:
             for kind in sp.FAULTS:
                 with sp.planted_fault(kind, "sampled_matmul"):
                     bad = sp.sampled_matmul(a, bt, row, col)
-                faults["sampled_matmul d={} ({}): {}".format(d, sp.bf16_load_path(d), kind)] = _over_bound(
-                    bad, want, bf16_step=True)
+                faults["sampled_matmul {} d={} ({}): {}".format(ty, d, sp.bf16_load_path(d), kind)] = b5_hold(
+                    bad, want)
                 del bad
         max_abs_err = (got.float() - want.float()).abs().max().item()
         del got, want
-        num_bytes = 2 * n_pad * d * 2 + 2 * nnz * 4 + tile_bytes
+        # 16-bit operands; bf16 tiles, or f32 tiles for f16
+        num_bytes = 2 * n_pad * d * 2 + 2 * nnz * 4 + tile_bytes * (2 if half else 1)
         flops = 2 * nnz * 128 * 128 * d
         bound, by = _bound_ms(num_bytes, flops, PEAK_BF16_FLOPS)
         a_t = a.reshape(-1, 128, d).index_select(0, row)
         b_t = bt.reshape(-1, 128, d).index_select(0, col)
         lines.append({
-            "name": "sampled_matmul_bf16", "shape": "N={} nnz={} d={} bf16".format(n_pad, nnz, d),
+            "name": "sampled_matmul_" + ty, "shape": "N={} nnz={} d={} {}".format(n_pad, nnz, d, ty),
             "replaces": "multistgraph_tpu/ops/spmm.py:129 _sampled_matmul_impl",
-            "design": ("tensor cores: wgmma m64n128k16 bf16->f32 per tile over d in K=64 chunks, a[row_of] and "
+            "design": ("tensor cores: wgmma m64n128k16 {}->f32 per tile over d in K=64 chunks, a[row_of] and "
                        "bt[col_of] K-major under the 128-byte swizzle by {}; one block per tile; a producer warp and "
-                       "an mbarrier ring; bf16 tiles staged per warp for 16-byte stores").format(sp.bf16_load_path(d)),
+                       "an mbarrier ring; {}").format(
+                           ty, sp.bf16_load_path(d), "f32 tiles stored from the registers, 32 bytes a lane quad"
+                           if half else "bf16 tiles staged per warp for 16-byte stores"),
             "loads": sp.bf16_load_path(d), "max_abs_err": max_abs_err,
-            "tolerance": "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|",
+            "tolerance": ("rtol {0:g}, atol {0:g}*max|plain| (f32 tiles)".format(SPB_SPMM_REL) if half
+                          else "one bf16 step: 2^-7 |plain| + 2^-7 * 1e-3 max|plain|"),
             "kernel_ms": _time_ms(torch, lambda: sp.sampled_matmul(a, bt, row, col)),
             "plain_ms": _time_ms(torch, lambda: sp.sampled_matmul_plain(a, bt, row, col), reps=10),
             "library_ms": _time_ms(torch, lambda: torch.bmm(a_t, b_t.transpose(1, 2)), reps=10),
-            "library": "torch.bmm of the pre-gathered row blocks in bf16 (the gathers not timed)",
+            "library": "torch.bmm of the pre-gathered row blocks in {} (the gathers not timed)".format(ty),
             "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops, "peak": PEAK_NOTE,
             "main_path": True,
         })
@@ -2024,21 +2092,24 @@ def sparse_bf16_kernel_phase(torch):
     torch.cuda.empty_cache()
     for line in lines:
         say(json.dumps(line))
-    say(json.dumps({"sparse_bf16_planted_faults_over_bound": faults}))
+    say(json.dumps({"sparse_{}_planted_faults_over_bound".format(ty): faults}))
     for fault, ratio in faults.items():
         if not ratio > 1.0:
             raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
     return lines
 
 
-def sparse_bf16_phase(torch, split):
-    """SparseATGCN in bf16 at 49,152 nodes with the adaptive view, on the BSR
-    form (split 'none') or the band's planes ('band'): 2 warm-up and 5 timed
-    training steps through get_executor with exact launch counts, one
-    validation pass, and the saved experiment served through
-    from_experiment at buckets 1 and 2; device busy time, idle share and
-    peak memory. The band run's windows are keyed 'band bf16 ...', with
-    the 1M path's, so its band launches count as bf16 ones."""
+def sparse_bf16_phase(torch, split, ty="bf16"):
+    """SparseATGCN in bf16 (or, with ty 'f16', in f16) at 49,152 nodes with
+    the adaptive view, on the BSR form (split 'none') or the band's planes
+    ('band'): 2 warm-up and 5 timed training steps through get_executor
+    with exact launch counts, one validation pass, and the saved experiment
+    served through from_experiment at buckets 1 and 2 (in f16 the band form
+    from packed rows: B8, no B7); device busy time, idle share and peak
+    memory; in f16 also one more step with the range of every f16 product
+    watched (_f16_range) and its gradients held finite. The bf16 band run's
+    windows are keyed 'band bf16 ...', with the 1M path's, so its band
+    launches count as bf16 ones; the f16 ones have counters of their own."""
     import numpy as np
 
     from multistgraph_tpu_torch.config import load_config
@@ -2047,9 +2118,12 @@ def sparse_bf16_phase(torch, split):
     from multistgraph_tpu_torch.models import get_model
     from multistgraph_tpu_torch.serving import PredictService
 
-    label = "sparse bf16" if split == "none" else "band bf16 adaptive 49k"
+    half = ty == "f16"
+    dtype, name = (torch.float16, "float16") if half else (torch.bfloat16, "bfloat16")
+    bound_out = BOUND_SPARSE_F16_OUT if half else BOUND_SPARSE_BF16_OUT
+    label = "sparse " + ty if split == "none" else "band {} adaptive 49k".format(ty)
     args = dict(_sparse_args(SP_NODES, "chip_smoke_" + label.replace(" ", "_")), graph_split=split,
-                compute_dtype="bfloat16")
+                compute_dtype=name)
     cfg = load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=args)
     t0 = time.time()
     dataset = get_dataset(cfg)
@@ -2062,8 +2136,8 @@ def sparse_bf16_phase(torch, split):
     executor = get_executor(cfg, model, feature)
     if (model.compute_dtype, model.hidden_dim, model.num_layers, model.embed_dim_adj, model.remat,
             model.has_adaptive, model.adaptive_softmax, cfg["batch_size"], cfg["input_window"]) != (
-            torch.bfloat16, SP_H, 2, 16, True, True, "sampled", SP_B, SP_T):
-        raise AssertionError("the {} configuration is not the defaults' full width in bf16".format(label))
+            dtype, SP_H, 2, 16, True, True, "sampled", SP_B, SP_T):
+        raise AssertionError("the {} configuration is not the defaults' full width in {}".format(label, ty))
     setup["support"] = {n: [list(b.shape), str(b.dtype)] for n, b in model.named_buffers()}
     setup["model_s"] = time.time() - t0 - setup["dataset_s"]
     say(json.dumps({label + " setup": setup}))
@@ -2079,6 +2153,8 @@ def sparse_bf16_phase(torch, split):
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "device_time_per_step": _device_time(torch, lambda: executor.train_step(batches[-1]), ms,
                                                    by_kernel=True)}
+    if half:
+        record["f16_range"] = _f16_range(torch, model, feature["scaler"], batches[-1])
 
     per_forward = _sparse_launches(model)
     _reset_counts()
@@ -2095,17 +2171,21 @@ def sparse_bf16_phase(torch, split):
     cache = os.path.join(args["output_dir"], args["exp_id"], "model_cache", "{}_{}.pt".format(SP_MODEL, SP_DATASET))
     executor.save_model(cache)
     t0 = time.perf_counter()
-    service = PredictService.from_experiment(SP_TASK, SP_MODEL, SP_DATASET, other_args=args, max_batch=SP_B)
+    packed = half and split == "band"   # the f16 band form serves from packed rows
+    service = PredictService.from_experiment(SP_TASK, SP_MODEL, SP_DATASET, max_batch=SP_B,
+                                             other_args=dict(args, graph_band_packed=packed))
     record["from_experiment_s"] = time.perf_counter() - t0
-    if service.model.compute_dtype != torch.bfloat16:
-        raise AssertionError("the served {} model does not compute in bf16".format(label))
+    if service.model.compute_dtype != dtype:
+        raise AssertionError("the served {} model does not compute in {}".format(label, ty))
     x = test.x[:SP_B].cpu().numpy()
+    per_request = _sparse_launches(service.model)
     _reset_counts()
     replies = {b: service.predict(x[:b]) for b in (1, SP_B)}
     windows[label + " serving"] = _read_counts()
-    if _sparse_counts_of(windows[label + " serving"]) != {k: 2 * v for k, v in per_forward.items()}:
+    if _sparse_counts_of(windows[label + " serving"]) != {k: 2 * v for k, v in per_request.items()} \
+            or (packed and not windows[label + " serving"]["band_spmm_packed_f16"]):
         raise AssertionError("{} serving launched {}, want {} per request".format(
-            label, windows[label + " serving"], per_forward))
+            label, windows[label + " serving"], per_request))
     with torch.no_grad():
         direct = executor.model(test.x[:SP_B])
     want_y = np.maximum(feature["scaler"].inverse_transform(direct).cpu().numpy(), 0.0)
@@ -2113,9 +2193,10 @@ def sparse_bf16_phase(torch, split):
     for b, y in replies.items():
         if y.shape != (b, 3, graph.padded_nodes, 1) or not np.isfinite(y).all():
             raise AssertionError("bad {} reply for batch {}: {}".format(label, b, y.shape))
-        # bucket 2 is the same call; bucket 1 rounds its narrower products otherwise
+        # bucket 2 is the same call (in f16 on packed rows, B8 in place of
+        # B7); bucket 1 rounds its narrower products otherwise
         errs[b] = _rel_err(y, want_y[:b])
-        if not errs[b] < BOUND_SPARSE_BF16_OUT:
+        if not errs[b] < bound_out:
             raise AssertionError("{} reply at bucket {} differs from the executor's model by {}".format(
                 label, b, errs[b]))
     record["replies_vs_executor_rel"] = errs
@@ -2130,25 +2211,33 @@ def sparse_bf16_phase(torch, split):
     return windows
 
 
-def sparse_bf16_check_phase(torch):
-    """Card vs CPU at 4,096 nodes in bf16 with the adaptive view: the model
-    output, one step's loss and every gradient on the BSR, hub and tail
-    forms, faults planted inside B4/B6 and B5 (on the BSR form) failing the
-    checks; then the band's planes and packed rows (band_check_phase, faults
-    in B7, B8 and B9 dX)."""
+def sparse_bf16_check_phase(torch, ty="bf16"):
+    """Card vs CPU at 4,096 nodes in bf16 (or, with ty 'f16', in f16) with
+    the adaptive view: the model output, one step's loss (finite) and every
+    gradient on the BSR, hub and tail forms, faults planted inside B4/B6 and
+    B5 (on the BSR form) failing the checks; then the band's planes and
+    packed rows (band_check_phase, faults in B7, B8 and B9 dX). In f16 the
+    tail form runs twice on the card: its index_add_ adds atomically in an
+    order that changes between runs, and the two runs' difference is the
+    tail's share of its error."""
     from multistgraph_tpu_torch.config import load_config
     from multistgraph_tpu_torch.data import get_dataset
     from multistgraph_tpu_torch.models import get_model
     from multistgraph_tpu_torch.ops import spmm as sp
 
+    half = ty == "f16"
+    name = "float16" if half else "bfloat16"
+    bound_out, bound_grad = ((BOUND_SPARSE_F16_OUT, BOUND_SPARSE_F16_GRAD) if half
+                             else (BOUND_SPARSE_BF16_OUT, BOUND_SPARSE_BF16_GRAD))
     errs, controls, cpu_s = {}, {}, {}
     faults = {"B4/B6 row block 0 zeroed": ("row", "bsr_spmm"), "B4/B6 k16 slice dropped": ("k16", "bsr_spmm"),
               "B4/B6 last tile of each row skipped": ("tile", "bsr_spmm"),
               "B5 k16 slice dropped": ("k16", "sampled_matmul"),
               "B5 row block 0's tiles zeroed": ("row", "sampled_matmul")}
+    forms = {}
     for split in ("none", "hub", "tail"):
-        args = dict(_sparse_args(SP_CHECK_NODES, "chip_smoke_sparse_bf16_check"), graph_split=split,
-                    compute_dtype="bfloat16")
+        args = dict(_sparse_args(SP_CHECK_NODES, "chip_smoke_sparse_{}_check".format(ty)), graph_split=split,
+                    compute_dtype=name)
         cfg = load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=args)
         dataset = get_dataset(cfg, device="cpu")
         train, _, _ = dataset.get_data()
@@ -2156,37 +2245,253 @@ def sparse_bf16_check_phase(torch):
         cpu_model = get_model(cfg, feature, device="cpu")
         card_model = get_model(cfg, feature)
         card_model.load_state_dict(cpu_model.state_dict())
-        batch = {"X": train.x[:SP_B], "y": train.y[:SP_B]}
+        forms[split] = (cpu_model, card_model, feature, {"X": train.x[:SP_B], "y": train.y[:SP_B]})
+    cpu_runs = _cpu_runs(torch, {split: (f[0], f[2]["scaler"], f[3]) for split, f in forms.items()})
+    for split, (cpu_model, card_model, feature, batch) in forms.items():
         scaler = feature["scaler"]
-        t0 = time.perf_counter()
-        cpu_out, cpu_grads = _sparse_run(torch, cpu_model, scaler, batch)
-        cpu_s[split] = time.perf_counter() - t0
+        (cpu_out, cpu_grads), cpu_s[split] = cpu_runs[split]
         out, grads = _sparse_run(torch, card_model, scaler, batch)
+        if not (math.isfinite(float(grads[0])) and math.isfinite(float(cpu_grads[0]))):
+            raise AssertionError("{} {} loss is not finite: card {}, CPU {}".format(ty, split, grads[0], cpu_grads[0]))
         errs[split] = {"graph": type(feature["bsr_graph"]).__name__, "output": _rel_err(out.numpy(), cpu_out.numpy()),
                        "gradients": _grad_err(grads, cpu_grads)}
+        if half and split == "tail":
+            again, again_grads = _sparse_run(torch, card_model, scaler, batch)
+            errs[split]["card_run_to_run"] = {"output": _rel_err(again.numpy(), out.numpy()),
+                                              "gradients": _grad_err(again_grads, grads)}
         if split == "none":
-            for name, (kind, kernel) in faults.items():
+            for fault, (kind, kernel) in faults.items():
                 with sp.planted_fault(kind, kernel):
                     out, grads = _sparse_run(torch, card_model, scaler, batch)
-                controls[name] = {"output": _rel_err(out.numpy(), cpu_out.numpy()),
-                                  "gradients": _grad_err(grads, cpu_grads)}
-        del cpu_model, card_model, dataset
-    say(json.dumps({"sparse bf16 card vs CPU": {"nodes": SP_CHECK_NODES, "errors": errs, "cpu_seconds": cpu_s},
-                    "bounds": {"output": BOUND_SPARSE_BF16_OUT, "gradients": BOUND_SPARSE_BF16_GRAD},
+                controls[fault] = {"output": _rel_err(out.numpy(), cpu_out.numpy()),
+                                   "gradients": _grad_err(grads, cpu_grads)}
+    del forms, cpu_runs
+    say(json.dumps({"sparse {} card vs CPU".format(ty): {"nodes": SP_CHECK_NODES, "errors": errs,
+                                                         "cpu_seconds": cpu_s},
+                    "bounds": {"output": bound_out, "gradients": bound_grad},
                     "planted_faults": controls}))
     for split, e in errs.items():
-        if not e["output"] < BOUND_SPARSE_BF16_OUT:
-            raise AssertionError("bf16 {} output, card vs CPU: {} over {}".format(split, e["output"],
-                                                                                  BOUND_SPARSE_BF16_OUT))
-        if not e["gradients"]["max"] < BOUND_SPARSE_BF16_GRAD:
-            raise AssertionError("bf16 {} gradients, card vs CPU: {} over {}".format(split, e["gradients"],
-                                                                                     BOUND_SPARSE_BF16_GRAD))
-    for name, c in controls.items():
-        if not (c["output"] > BOUND_SPARSE_BF16_OUT or c["gradients"]["max"] > BOUND_SPARSE_BF16_GRAD):
-            raise AssertionError("{} passes both bf16 checks ({})".format(name, c))
-    band = band_check_phase(torch, label="band bf16 adaptive", bound_out=BOUND_SPARSE_BF16_OUT,
-                            bound_grad=BOUND_SPARSE_BF16_GRAD, compute_dtype="bfloat16", adpadj="unidirection")
+        if not e["output"] < bound_out:
+            raise AssertionError("{} {} output, card vs CPU: {} over {}".format(ty, split, e["output"], bound_out))
+        if not e["gradients"]["max"] < bound_grad:
+            raise AssertionError("{} {} gradients, card vs CPU: {} over {}".format(ty, split, e["gradients"],
+                                                                                   bound_grad))
+    for fault, c in controls.items():
+        if not (c["output"] > bound_out or c["gradients"]["max"] > bound_grad):
+            raise AssertionError("{} passes both {} checks ({})".format(fault, ty, c))
+    band = band_check_phase(torch, label="band {} adaptive".format(ty), bound_out=bound_out, bound_grad=bound_grad,
+                            compute_dtype=name, adpadj="unidirection")
     return errs, controls, band
+
+
+# ----------------------------------------------------------- sparse, f16
+# SparseATGCN with compute_dtype 'float16' at 49,152 nodes: the bf16
+# phases' configuration (the defaults' full width, the adaptive view) in
+# f16, which JAX passes through to the same kernels, on the BSR form and on
+# the band's planes, the band served from packed rows. Widths the f16
+# kernels take on those paths (the SDDMM's dE at F = 16 runs the f32
+# bsr_spmm, its dS being f32; the band's are BAND_*_WIDTHS):
+SPH_SPMM_WIDTHS = (12, 24, 64, 128, 768, 1536)   # SPB_SPMM_WIDTHS but F = 16
+SPH_B5_WIDTHS = SPB_B5_WIDTHS
+SPH_BAND_FAULT_WIDTHS = (12, 24, 128)            # x by element loads (12) and by TMA
+F16_STEP = 2.0 ** -10                            # one f16 step: 11 significant bits
+# B9 dV f16 sums F = 1536 products a tile entry (B7, B8, dX at most 640):
+# there the tensor cores' f32 accumulation, off the plain version's f32
+# sums by about 1e-6 of the largest entry, shows at one f16 step's floor
+# (2^-10 * 1e-3 = 9.8e-7 of it): an H100 read 1.14 of the step alone at
+# F = 1536. Its f16 hold adds the f32 rule of its sums (rtol 1e-5, atol
+# 1e-5 max|plain|, the f32 kernels' hold) to the step.
+F16_DV_SUMS_REL = 1e-5
+# Card vs CPU at 4,096 nodes in f16, relative max errors as BOUND_BF16_*.
+# An H100 read 1.04e-3 for the output on the BSR, hub and tail forms (one
+# f16 step of the largest output, 2^-10) and 1.12e-2 / 1.43e-2 / 1.43e-2
+# for the gradients, node_vec2's each time: the adaptive embeddings'
+# gradients sum softmax terms that cancel (ROADMAP.md §C), and the tail
+# form's two card runs differ from each other by as much (1.04e-3 and
+# 1.43e-2: its f16 index_add_ adds in an order that changes). The bounds
+# are 2.9x and 2.8x the largest readings; the planted faults read at least
+# 0.125 (output) and 0.459 (gradients).
+BOUND_SPARSE_F16_OUT = 3e-3
+BOUND_SPARSE_F16_GRAD = 4e-2
+
+
+def _f16_range(torch, model, scaler, batch):
+    """One forward and backward of the f16 model on `batch` with the range of
+    every sparse product watched: bsr_spmm and sampled_matmul return f32,
+    which their callers cast to f16 (but for the SDDMM's scores, which the
+    softmax takes in f32), so for each, by caller, the outputs that the cast
+    takes to +-inf and the nonzero sums it takes to 0; the band kernels
+    return f16, so their +-inf outputs and the nonzero sums of the same
+    kernel's f32 form on the widened operands that came out 0. Raises unless
+    the loss and every gradient are finite. Returns the tallies by kernel
+    and operand dtype."""
+    from unittest import mock
+
+    from multistgraph_tpu_torch.ops import band
+    from multistgraph_tpu_torch.ops import spmm as sp
+
+    stats = {}
+
+    def tally(key, out, f32):
+        """out as the path keeps it (f16), f32 the sums before the rounding."""
+        st = stats.setdefault(key, {"calls": 0, "outputs": 0, "nonzero": 0, "inf": 0, "nonzero_to_zero": 0})
+        st["calls"] += 1
+        st["outputs"] += out.numel()
+        st["nonzero"] += int((f32 != 0).sum())
+        st["inf"] += int(torch.isinf(out).sum())
+        st["nonzero_to_zero"] += int(((f32 != 0) & (out == 0)).sum())
+
+    def f32_out(module, name):
+        real = getattr(module, name)
+
+        @functools.wraps(real)   # the wrapper's launch counters too: the wrapped function counts on them
+        def watched(*args, **kwargs):
+            out = real(*args, **kwargs)
+            ty = "f16" if any(isinstance(a, torch.Tensor) and a.dtype == torch.float16 for a in args) else "f32"
+            # by caller: the SpMM's forward and backward and the SDDMM's
+            # backward cast the result to f16; the SDDMM's scores stay f32
+            tally("{} {} in {}".format(name, ty, sys._getframe(1).f_code.co_qualname), out.half(), out)
+            return out
+        return mock.patch.object(module, name, watched)
+
+    def f16_out(name):
+        real = getattr(band, name)
+
+        @functools.wraps(real)
+        def watched(*args, **kwargs):
+            out = real(*args, **kwargs)
+            wide = [a.float() if isinstance(a, torch.Tensor) and a.dtype == torch.float16 else a for a in args]
+            tally(name + " f16", out, real(*wide, **kwargs))
+            return out
+        return mock.patch.object(band, name, watched)
+
+    patches = [f32_out(sp, "bsr_spmm"), f32_out(sp, "sampled_matmul")]
+    patches += [f16_out(name) for name in ("band_spmm", "band_spmm_packed", "band_dx", "band_dx_packed")]
+    for p in patches:
+        p.start()
+    try:
+        _, (loss, grads) = _sparse_run(torch, model, scaler, batch)
+    finally:
+        for p in patches:
+            p.stop()
+    bad = [n for n, g in grads.items() if not torch.isfinite(g).all()]
+    if not math.isfinite(float(loss)) or bad:
+        raise AssertionError("f16 step: loss {}, non-finite gradients {}".format(float(loss), bad))
+    return {"loss": float(loss), "gradients_finite": True, "products": stats}
+
+
+def sparse_f16_kernel_phase(torch):
+    """The f16 kernels against their plain versions at every width of the
+    f16 paths: bsr_spmm (B4/B6) and sampled_matmul (B5) on the 49,152-node
+    graph (sparse_bf16_kernel_phase in f16), then B7, B8, B9 dX and B9 dV on
+    its band (_f16_band_rows); faults planted in each must fail its hold."""
+    return sparse_bf16_kernel_phase(torch, "f16") + _f16_band_rows(torch)
+
+
+def _f16_band_rows(torch):
+    """B7, B8, B9 dX and B9 dV in f16 on the 49,152-node band at every width
+    the f16 path gives them (BAND_*_WIDTHS), within one f16 step of their
+    plain versions, timed beside their bounds and an f16 torch.bmm library
+    call each; each fault the kernels plant must fail the hold, and each
+    row reports its +-inf outputs and the nonzero f32 sums it rounded to 0."""
+    import numpy as np
+
+    from multistgraph_tpu_torch.ops import band
+    from multistgraph_tpu_torch.ops.bsr import random_spatial_graph
+
+    graph, _ = random_spatial_graph(SP_NODES, 16, seed=0, split="band")
+    offsets = tuple(int(o) for o in graph.offsets)
+    radius = band.band_radius(offsets)
+    nb, n_pad, block = graph.num_row_blocks, graph.padded_nodes, graph.block
+    tiles = int(np.any(graph.band_values != 0, axis=(2, 3)).sum())
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    planes = torch.from_numpy(graph.band_values).to(dev).half()
+    packed = band.pack_band_rows(planes, offsets, radius)
+    packed_t = band.pack_band_rows_transposed(planes, offsets, radius)
+    width = (2 * radius + 1) * block
+    lines, faults = [], {}
+
+    def windows(x):
+        feat = x.shape[1]
+        xp = torch.nn.functional.pad(x.reshape(nb, block, feat), (0, 0, 0, 0, radius, radius))
+        return xp.as_strided((nb, width, feat), (block * feat, feat, 1))
+
+    def row(name, replaces, feat, kernel, plain, wide, library, label, main_path=True):
+        def f16_step(got, want):
+            return _over_bound(got, want, step=F16_STEP, sums_rel=F16_DV_SUMS_REL if name == "band_dv" else 0.0)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        # the same exact products summed in f32 in another order, then rounded once
+        _hold(f16_step(got, want), "{} f16 vs its plain version at F={}".format(name, feat))
+        sums = wide()  # the f32 sums before the rounding
+        rng = {"inf": int(torch.isinf(got).sum()), "nonzero_to_zero": int(((sums != 0) & (got == 0)).sum()),
+               "outputs": got.numel()}
+        max_abs_err = (got.float() - want.float()).abs().max().item()
+        if feat in SPH_BAND_FAULT_WIDTHS:  # each fault the kernel can plant must fail the same check
+            for kind in band.FAULTS:
+                with band.planted_fault(kind):
+                    bad = kernel()
+                faults["{} f16 F={} ({}): {}".format(name, feat, band.bf16_load_path(feat), kind)] = f16_step(bad, want)
+                del bad
+        del got, want, sums
+        num_bytes = tiles * block * block * 2 + 2 * n_pad * feat * 2
+        flops = 2 * tiles * block * block * feat
+        bound, by = _bound_ms(num_bytes, flops, PEAK_BF16_FLOPS)
+        library_ms, label = _library_ms(torch, library, label)
+        lines.append({
+            "name": name + "_f16", "shape": "R={} offsets={} tiles={} F={} f16".format(nb, offsets, tiles, feat),
+            "design": _band_design(band, name, feat, "f16"), "loads": band.bf16_load_path(feat),
+            "replaces": replaces, "max_abs_err": max_abs_err, "f16_range": rng,
+            "tolerance": "one f16 step: 2^-10 |plain| + 2^-10 * 1e-3 max|plain|" + (
+                ", + 1e-5 (|plain| + max|plain|) for the f32 sums" if name == "band_dv" else ""),
+            "kernel_ms": _time_ms(torch, kernel), "plain_ms": _time_ms(torch, plain, reps=10),
+            "library_ms": library_ms, "library": label,
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "flops": flops, "peak": PEAK_NOTE,
+            "main_path": main_path,
+        })
+
+    def randn(feat):
+        return torch.randn(n_pad, feat, generator=g, device=dev).half()
+
+    lib_label = "torch.bmm(packed rows, windows of the padded x) in f16"
+    for feat in BAND_B7_WIDTHS:
+        x = randn(feat)
+        xw = windows(x)
+        row("band_spmm", "multistgraph_tpu/ops/band.py:222 band_fwd_pallas", feat,
+            lambda: band.band_spmm(planes, offsets, x), lambda: band.band_plain(planes, offsets, x),
+            lambda: band.band_spmm(planes.float(), offsets, x.float()), lambda: torch.bmm(packed, xw), lib_label)
+    for feat in BAND_B8_WIDTHS:
+        x = randn(feat)
+        xw = windows(x)
+        row("band_spmm_packed", "multistgraph_tpu/ops/band.py:352 band_fwd_slab_pallas", feat,
+            lambda: band.band_spmm_packed(packed, radius, x), lambda: band.band_packed_plain(packed, radius, x),
+            lambda: band.band_spmm_packed(packed.float(), radius, x.float()), lambda: torch.bmm(packed, xw),
+            lib_label)
+    for feat in BAND_DX_WIDTHS:
+        dy = randn(feat)
+        dyw = windows(dy)
+        row("band_dx", "multistgraph_tpu/ops/band.py:462 band_dx_pallas", feat,
+            lambda: band.band_dx(planes, offsets, dy), lambda: band.band_dx_plain(planes, offsets, dy),
+            lambda: band.band_dx(planes.float(), offsets, dy.float()), lambda: torch.bmm(packed_t, dyw),
+            "torch.bmm(transposed packed rows, windows of the padded dy) in f16")
+    for feat in BAND_DV_WIDTHS:
+        x, dy = randn(feat), randn(feat)
+        xw, dyb = windows(x), dy.reshape(nb, block, feat)
+        row("band_dv", "multistgraph_tpu/ops/band.py:405 band_dv_pallas", feat,
+            lambda: band.band_dv(dy, x, offsets), lambda: band.band_dv_plain(dy, x, offsets),
+            lambda: band.band_dv(dy.float(), x.float(), offsets), lambda: torch.bmm(dyb, xw.transpose(1, 2)),
+            "torch.bmm(dy blocks, windows of the padded x transposed) in f16", main_path=False)
+    del planes, packed, packed_t
+    torch.cuda.empty_cache()
+    for line in lines:
+        say(json.dumps(line))
+    say(json.dumps({"band_f16_planted_faults_over_bound": faults}))
+    for fault, ratio in faults.items():
+        if not ratio > 1.0:
+            raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
+    return lines
 
 
 # ------------------------------------------------------------- band, bf16
@@ -2336,17 +2641,17 @@ def _bf16_kernel_rows(torch, graph):
     return lines, tiles, faults
 
 
-def _band_design(band, name, feat):
-    """What the bf16 band kernel runs at width feat (csrc/band_spmm.cu)."""
+def _band_design(band, name, feat, ty="bf16"):
+    """What the 16-bit band kernel runs at width feat (csrc/band_spmm.cu)."""
     loads = band.bf16_load_path(feat)
     if name == "band_dv":
-        return ("tensor cores: wgmma m64n128k16 bf16->f32 per (slot, row block) tile over F in K=64 chunks, dy[r] "
+        return ("tensor cores: wgmma m64n128k16 {}->f32 per (slot, row block) tile over F in K=64 chunks, dy[r] "
                 "and x[r+o] K-major under the 128-byte swizzle by {}; one block per row block; a producer warp and "
-                "an mbarrier ring; tiles staged per warp for 16-byte stores").format(loads)
+                "an mbarrier ring; tiles staged per warp for 16-byte stores").format(ty, loads)
     n = next((n for n in (16, 24, 32, 64, 128) if feat <= n), 256)
-    return ("tensor cores: wgmma m64n{}k16 bf16->f32; tile chunks (K=64) by TMA as {} A; x's rows by {} as MN-major "
+    return ("tensor cores: wgmma m64n{}k16 {}->f32; tile chunks (K=64) by TMA as {} A; x's rows by {} as MN-major "
             "B, all under the 128-byte swizzle; a producer warp and an mbarrier ring; two consumer warpgroups of 64 "
-            "rows").format(n, "MN-major (transposed)" if name == "band_dx" else "K-major", loads)
+            "rows").format(n, ty, "MN-major (transposed)" if name == "band_dx" else "K-major", loads)
 
 
 def _probe_kernel_rows(torch):
@@ -2906,30 +3211,43 @@ def main():
                 if name in ("bsr_spmm", "sampled_matmul"):  # their bf16 kernels run every wgmma unconditionally
                     raise AssertionError("ptxas serialized wgmma in {}: {}".format(name, line.strip()))
 
-    lines = kernel_phase(torch)
-    lines += sparse_kernel_phase(torch)
-    lines += sparse_bf16_kernel_phase(torch)
-    lines += band_kernel_phase(torch)
+    phase_s = {}   # seconds each phase took, to keep the run inside its time limit
+
+    def run(name, phase, *args):
+        t0 = time.time()
+        result = phase(torch, *args)
+        phase_s[name] = round(time.time() - t0, 1)
+        return result
+
+    lines = run("kernel", kernel_phase)
+    lines += run("sparse kernel", sparse_kernel_phase)
+    lines += run("sparse bf16 kernel", sparse_bf16_kernel_phase)
+    lines += run("sparse f16 kernel", sparse_f16_kernel_phase)
+    lines += run("band kernel", band_kernel_phase)
     make_dataset()
     # the training paths are timed before any phase runs a model on the
     # host's CPU, which slows the launching thread afterwards
-    windows, feature, state_dict, grad_batch = training_phase(torch)
-    windows.update(sparse_phase(torch))
-    windows.update(band_phase(torch))
-    windows.update(sparse_bf16_phase(torch, "none"))
-    windows.update(sparse_bf16_phase(torch, "band"))
-    bf16_lines, bf16_windows = band_bf16_phase(torch)
+    windows, feature, state_dict, grad_batch = run("training", training_phase)
+    windows.update(run("sparse", sparse_phase))
+    windows.update(run("band", band_phase))
+    windows.update(run("sparse bf16", sparse_bf16_phase, "none"))
+    windows.update(run("band bf16 adaptive 49k", sparse_bf16_phase, "band"))
+    windows.update(run("sparse f16", sparse_bf16_phase, "none", "f16"))
+    windows.update(run("band f16 adaptive 49k", sparse_bf16_phase, "band", "f16"))
+    bf16_lines, bf16_windows = run("band bf16 1M", band_bf16_phase)
     lines += bf16_lines
     windows.update(bf16_windows)
-    serving_launches, windows["int8 f32 serving"] = serving_phase(torch)
-    gradient_phase(torch, feature, state_dict, grad_batch)
+    serving_launches, windows["int8 f32 serving"] = run("serving", serving_phase)
+    run("gradient", gradient_phase, feature, state_dict, grad_batch)
     windows["serving"] = dict(serving_launches, node_apply_q8_t=0, force_default_layout_bwd=0)
-    sparse_check_phase(torch)
-    band_check_phase(torch)
-    band_bf16_check_phase(torch)
-    sparse_bf16_check_phase(torch)
-    harness_lines, windows["node harness"] = node_harness_phase(torch)
+    run("sparse check", sparse_check_phase)
+    run("band check", band_check_phase)
+    run("band bf16 check", band_bf16_check_phase)
+    run("sparse bf16 check", sparse_bf16_check_phase)
+    run("sparse f16 check", sparse_bf16_check_phase, "f16")
+    harness_lines, windows["node harness"] = run("node harness", node_harness_phase)
     lines += harness_lines
+    say(json.dumps({"phase_seconds": phase_s}))
 
     kernels = []
     csrc = "multistgraph_tpu_torch/csrc/"
@@ -2937,8 +3255,8 @@ def main():
     # bf16 band path's): the bf16 band forms count the launches and rows of the
     # 'band bf16' windows (1M, and 49k with the adaptive view) and the rest
     # those of the other paths; the probe kernels launch only in the 1M bf16
-    # phase; the bf16 BSR kernels have counters of their own (None: every
-    # window)
+    # phase; the bf16 BSR kernels and every f16 kernel have counters of their
+    # own (None: every window)
     for entry, name, source, bf16_path in (
             ("node_apply_q8", "node_apply_q8", "node_apply_q8.cu", False),
             ("node_apply_q8_t", "node_apply_q8_t", "node_apply_q8_t.cu", False),
@@ -2950,12 +3268,17 @@ def main():
             ("sampled_matmul", "sampled_matmul", "sampled_matmul.cu", False),
             ("bsr_spmm_bf16", "bsr_spmm_bf16", "bsr_spmm.cu", None),
             ("sampled_matmul_bf16", "sampled_matmul_bf16", "sampled_matmul.cu", None),
+            ("bsr_spmm_f16", "bsr_spmm_f16", "bsr_spmm.cu", None),
+            ("sampled_matmul_f16", "sampled_matmul_f16", "sampled_matmul.cu", None),
             ("band_spmm", "band_spmm", "band_spmm.cu", False),
             ("band_spmm_packed", "band_spmm_packed", "band_spmm.cu", False),
             ("band_dx", "band_dx", "band_spmm.cu", False),
             ("band_spmm_bf16", "band_spmm", "band_spmm.cu", True),
             ("band_spmm_packed_bf16", "band_spmm_packed", "band_spmm.cu", True),
             ("band_dx_bf16", "band_dx", "band_spmm.cu", True),
+            ("band_spmm_f16", "band_spmm_f16", "band_spmm.cu", None),
+            ("band_spmm_packed_f16", "band_spmm_packed_f16", "band_spmm.cu", None),
+            ("band_dx_f16", "band_dx_f16", "band_spmm.cu", None),
             ("window_dot", "window_dot", "band_probe.cu", True),
             ("band_slab", "band_slab", "band_probe.cu", True),
             ("band_slab_batched", "band_slab_batched", "band_probe.cu", True),

@@ -9,9 +9,9 @@
 //           tile at offset s - radius (zero for an offset the graph lacks).
 // x, dy, out are (R*128, F) row-major; any F >= 1. Rows r + o outside
 // [0, R) contribute nothing: their slot is skipped, no padded copy is made.
-// Operands are float32 or bfloat16, the tiles and x of one type (the
-// wrapper casts as JAX does). A product of two bf16 values is exact in f32
-// and every sum is f32, the Pallas kernels' rounding
+// Operands are float32, bfloat16 or float16, the tiles and x of one type
+// (the wrapper casts as JAX does). A product of two bf16 values, or of two
+// f16 values, is exact in f32 and every sum is f32, the Pallas kernels' rounding
 // (preferred_element_type=f32); the forward and dX round their f32 sums once
 // to the operands' type, as JAX casts the result to x's dtype
 // (multistgraph_tpu/ops/band.py:235,477,701), and dV rounds once to the
@@ -42,8 +42,10 @@
 // GFLOP take 0.12 ms at the 67 TFLOP/s f32 peak against 0.05 ms of bytes:
 // tensor cores would take f32 in TF32, three decimal digits.
 //
-// bf16 operands: tensor cores (wgmma m64nNk16, bf16 from shared memory, f32
-// sums in registers). One block per (output row block, N = 16-256 feature
+// bf16 and f16 operands: tensor cores (wgmma m64nNk16, 16-bit operands from
+// shared memory, f32 sums in registers; one kernel template on the operand
+// type T, f16 taking its own TMA data type and wgmma type suffix, the
+// layouts and the schedule alike). One block per (output row block, N = 16-256 feature
 // columns: the narrowest of 16, 24, 32, 64, 128 and 256 that holds F, else
 // 256) has two consumer warpgroups of 64 output rows and one producer warp.
 // The producer walks the row's present slots and streams each product in
@@ -98,6 +100,7 @@
 // one tile a block; PERF.md §6).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -228,11 +231,11 @@ cudaError_t launch_spmm_f32(const void* values, const void* x, void* out, int R,
   }
 }
 
-// ---------------------------------------------------------------- bf16 operands: tensor cores
+// ---------------------------------------------------------------- bf16 and f16 operands: tensor cores
 
 using namespace wgmma_sm90;
 
-// Faults the bf16 kernels plant on request, for checks that must fail them:
+// Faults the 16-bit kernels plant on request, for checks that must fail them:
 constexpr int kFaultK16 = 1;    // the k16 slice holding a product's last contraction element dropped
 constexpr int kFaultSlot = 2;   // the middle slot skipped (the main diagonal of offsets -r..r)
 constexpr int kFaultEdge = 3;   // the last row block read as outside the graph
@@ -301,7 +304,7 @@ struct SpmmTile {
   static constexpr int kMinBlocks = BN == 256 ? 1 : 2;   // blocks an SM: shared memory and registers allow
   static constexpr int kWidthB = BN < 64 ? 64 : BN;      // columns of an operand chunk: whole 128-byte rows
   static constexpr int kChunkB = kKc * kWidthB;
-  static constexpr size_t kSmem = 1024 + (size_t)kStages * (kChunkA + kChunkB) * sizeof(__nv_bfloat16) +
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * (kChunkA + kChunkB) * 2 +   // 16-bit elements
                                   2 * kStages * sizeof(uint64_t);
 };
 
@@ -312,18 +315,19 @@ struct SpmmTile {
 // of 64 of its rows by 64 columns (MN-major A, two 64-row blocks of M).
 // x_map views x likewise: a box is 64 rows by 64 columns (MN-major B), one
 // for each 64 of the chunk's columns, where tma_x (F % 8 == 0); else the
-// producer loads elements into the same layout.
-template <int BN, bool TRANS>
+// producer loads elements into the same layout. T is the operands' and the
+// output's 16-bit type.
+template <int BN, bool TRANS, typename T>
 __global__ void __launch_bounds__(kTcThreads, SpmmTile<BN>::kMinBlocks)
 band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap x_map,
-                    int tma_x, const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out, Band a) {
+                    int tma_x, const T* __restrict__ x, T* __restrict__ out, Band a) {
   using Tile = SpmmTile<BN>;
   constexpr int S = Tile::kStages;
   constexpr int kBlocksB = Tile::kWidthB / 64;   // 64-column blocks of an operand chunk
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);          // S tile chunks: 128 x 64
-  __nv_bfloat16* bs = as + (size_t)S * kChunkA;                         // S operand chunks: 64 x kWidthB
+  T* as = reinterpret_cast<T*>(smem);                                   // S tile chunks: 128 x 64
+  T* bs = as + (size_t)S * kChunkA;                                     // S operand chunks: 64 x kWidthB
   uint64_t* full = reinterpret_cast<uint64_t*>(bs + (size_t)S * Tile::kChunkB);
   uint64_t* empty = full + S;
 
@@ -341,7 +345,7 @@ band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_cons
   if (tid >= kConsumers) {
     // producer warp: chunk g is the kc-th half of the g/2-th present slot
     const int lane = tid - kConsumers;
-    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    const T zero = T(0.f);
     int g = 0;
     for (int s = 0; s < a.n_slots; ++s) {
       const int src = slot_source(a, s, r, TRANS);
@@ -353,8 +357,8 @@ band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_cons
       for (int kc = 0; kc < kBlock / kKc; ++kc, ++g) {
         const int st = g % S;
         if (g >= S) mbar_wait(empty + st, ((g / S) & 1) ^ 1);
-        __nv_bfloat16* ad = as + (size_t)st * kChunkA;
-        __nv_bfloat16* bd = bs + (size_t)st * Tile::kChunkB;
+        T* ad = as + (size_t)st * kChunkA;
+        T* bd = bs + (size_t)st * Tile::kChunkB;
         const int k0 = src * kBlock + kc * kKc;   // the operand's first row of the chunk
         if (!tma_x) {
           // element (k, c) of the chunk, zero past F, at its swizzled place
@@ -362,14 +366,14 @@ band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_cons
 #pragma unroll 4
           for (int q = lane; q < kKc * BN; q += 32) {
             const int k = q / BN, c = q - k * BN, f = f0 + c;
-            *reinterpret_cast<__nv_bfloat16*>(bb + (c / 64) * 8192 + sw128(k * 128 + (c % 64) * 2)) =
+            *reinterpret_cast<T*>(bb + (c / 64) * 8192 + sw128(k * 128 + (c % 64) * 2)) =
                 f < a.F ? x[(size_t)(k0 + k) * a.F + f] : zero;
           }
           fence_proxy_async();
           __syncwarp();
         }
         if (lane == 0) {
-          mbar_arrive_tx(full + st, (kChunkA + (tma_x ? Tile::kChunkB : 0)) * (unsigned)sizeof(__nv_bfloat16));
+          mbar_arrive_tx(full + st, (kChunkA + (tma_x ? Tile::kChunkB : 0)) * (unsigned)sizeof(T));
           if (TRANS) {
             tma_load_2d(ad, &v_map, col0, row0 + kc * kKc, full + st);
             tma_load_2d(ad + 64 * kKc, &v_map, col0 + 64, row0 + kc * kKc, full + st);
@@ -402,7 +406,7 @@ band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_cons
 #pragma unroll
         for (int ks = 0; ks < kKc / 16; ++ks)
           if (ks != skip)
-            Wgmma<BN>::template mma_t<TRANS ? 1 : 0, 1>(
+            Wgmma<BN, T>::template mma_t<TRANS ? 1 : 0, 1>(
                 acc, TRANS ? desc_sw128(ad + 2048 * ks, 8192u) : desc_sw128(ad + 32 * ks, 16u),
                 desc_sw128(bd + 2048 * ks, 8192u), 1);
         wgmma_commit();
@@ -415,7 +419,7 @@ band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_cons
     wgmma_wait<0>();
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      __nv_bfloat16* row = out + ((size_t)r * kBlock + 64 * wg + 16 * warp + lane / 4 + 8 * h) * a.F + f0;
+      T* row = out + ((size_t)r * kBlock + 64 * wg + 16 * warp + lane / 4 + 8 * h) * a.F + f0;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
         store_pair(row, 8 * j + 2 * (lane % 4), a.F - f0, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
@@ -424,20 +428,19 @@ band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_cons
 }
 
 // Tile (s, r) = dy[r] @ x[r + o_s]^T for r = blockIdx.x and every slot s, in
-// the values' type. dy_map and x_map are 2-d views of dy and x under the
-// 128-byte swizzle whose box, 128 rows of 64 features, lands as K-major
-// cores, where tma (F % 8 == 0); else the producer loads elements into the
-// same layout. Features past F read as zero.
-template <typename OutT>
+// the values' type OutT, dy and x of the 16-bit type T. dy_map and x_map are
+// 2-d views of dy and x under the 128-byte swizzle whose box, 128 rows of 64
+// features, lands as K-major cores, where tma (F % 8 == 0); else the
+// producer loads elements into the same layout. Features past F read as zero.
+template <typename T, typename OutT>
 __global__ void __launch_bounds__(kTcThreads, sizeof(OutT) == 2 ? 2 : 1)   // f32 staging leaves room for one
 band_dv_tc_kernel(const __grid_constant__ CUtensorMap dy_map, const __grid_constant__ CUtensorMap x_map, int tma,
-                  const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ x, OutT* __restrict__ out,
-                  Band a) {
+                  const T* __restrict__ dy, const T* __restrict__ x, OutT* __restrict__ out, Band a) {
   constexpr int S = kDvStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);   // S chunks of dy[r]: 128 x 64
-  __nv_bfloat16* bs = as + (size_t)S * kChunkA;                  // S chunks of x[r + o_s]: 128 x 64
+  T* as = reinterpret_cast<T*>(smem);                            // S chunks of dy[r]: 128 x 64
+  T* bs = as + (size_t)S * kChunkA;                              // S chunks of x[r + o_s]: 128 x 64
   OutT* staged = reinterpret_cast<OutT*>(bs + (size_t)S * kChunkA);  // 16 x kStageLd outputs a consumer warp
   uint64_t* full = reinterpret_cast<uint64_t*>(staged + (size_t)kConsumers / 32 * 16 * kStageLd);
   uint64_t* empty = full + S;
@@ -456,7 +459,7 @@ band_dv_tc_kernel(const __grid_constant__ CUtensorMap dy_map, const __grid_const
 
   if (tid >= kConsumers) {
     const int lane = tid - kConsumers;
-    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    const T zero = T(0.f);
     int g = 0;
     for (int s = 0; s < a.n_slots; ++s) {
       const int c = slot_source(a, s, r, false);
@@ -464,25 +467,25 @@ band_dv_tc_kernel(const __grid_constant__ CUtensorMap dy_map, const __grid_const
       for (int kc = 0; kc < n_chunks; ++kc, ++g) {
         const int st = g % S;
         if (g >= S) mbar_wait(empty + st, ((g / S) & 1) ^ 1);
-        __nv_bfloat16* ad = as + (size_t)st * kChunkA;
-        __nv_bfloat16* bd = bs + (size_t)st * kChunkA;
+        T* ad = as + (size_t)st * kChunkA;
+        T* bd = bs + (size_t)st * kChunkA;
         if (tma) {
           if (lane == 0) {
-            mbar_arrive_tx(full + st, 2 * kChunkA * (unsigned)sizeof(__nv_bfloat16));
+            mbar_arrive_tx(full + st, 2 * kChunkA * (unsigned)sizeof(T));
             tma_load_2d(ad, &dy_map, kc * kKc, r * kBlock, full + st);
             tma_load_2d(bd, &x_map, kc * kKc, c * kBlock, full + st);
           }
         } else {
-          const __nv_bfloat16* dyr = dy + (size_t)r * kBlock * a.F;
-          const __nv_bfloat16* xc = x + (size_t)c * kBlock * a.F;
+          const T* dyr = dy + (size_t)r * kBlock * a.F;
+          const T* xc = x + (size_t)c * kBlock * a.F;
           unsigned char* ab = reinterpret_cast<unsigned char*>(ad);
           unsigned char* bb = reinterpret_cast<unsigned char*>(bd);
 #pragma unroll 4
           for (int q = lane; q < kChunkA; q += 32) {
             const int i = q / kKc, k = q % kKc, f = kc * kKc + k;
             const int o = sw128(i * 128 + k * 2);
-            *reinterpret_cast<__nv_bfloat16*>(ab + o) = f < a.F ? dyr[(size_t)i * a.F + f] : zero;
-            *reinterpret_cast<__nv_bfloat16*>(bb + o) = f < a.F ? xc[(size_t)i * a.F + f] : zero;
+            *reinterpret_cast<T*>(ab + o) = f < a.F ? dyr[(size_t)i * a.F + f] : zero;
+            *reinterpret_cast<T*>(bb + o) = f < a.F ? xc[(size_t)i * a.F + f] : zero;
           }
           fence_proxy_async();
           __syncwarp();
@@ -512,8 +515,8 @@ band_dv_tc_kernel(const __grid_constant__ CUtensorMap dy_map, const __grid_const
 #pragma unroll
           for (int ks = 0; ks < kKc / 16; ++ks)
             if ((!last || ks <= last_ks) && ks != skip)
-              Wgmma<kBlock>::template mma_t<0, 0>(acc, desc_sw128(ad + 32 * ks, 16u), desc_sw128(bd + 32 * ks, 16u),
-                                                  1);
+              Wgmma<kBlock, T>::template mma_t<0, 0>(acc, desc_sw128(ad + 32 * ks, 16u),
+                                                     desc_sw128(bd + 32 * ks, 16u), 1);
           wgmma_commit();
           if (kc > 0) {
             wgmma_wait<1>();
@@ -547,9 +550,9 @@ band_dv_tc_kernel(const __grid_constant__ CUtensorMap dy_map, const __grid_const
   }
 }
 
-template <int BN, bool TRANS>
+template <int BN, bool TRANS, typename T>
 cudaError_t launch_spmm_tc(const void* values, const void* x, void* out, const Band& a, cudaStream_t stream) {
-  auto kernel = band_spmm_tc_kernel<BN, TRANS>;
+  auto kernel = band_spmm_tc_kernel<BN, TRANS, T>;
   const size_t smem = SpmmTile<BN>::kSmem;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -558,48 +561,74 @@ cudaError_t launch_spmm_tc(const void* values, const void* x, void* out, const B
   const int rows = a.packed ? a.R * kBlock : a.n_slots * a.R * kBlock;
   const int cols = a.packed ? a.n_slots * kBlock : kBlock;
   CUtensorMap v_map = {}, x_map = {};
-  err = rows_view(&v_map, values, rows, cols, TRANS ? kKc : kBlock);
+  err = rows_view<T>(&v_map, values, rows, cols, TRANS ? kKc : kBlock);
   if (err != cudaSuccess) return err;
   const int tma_x = a.F % 8 == 0;
   if (tma_x) {
-    err = rows_view(&x_map, x, a.R * kBlock, a.F, kKc);
+    err = rows_view<T>(&x_map, x, a.R * kBlock, a.F, kKc);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)((a.F + BN - 1) / BN), (unsigned)a.R);
-  kernel<<<grid, kTcThreads, smem, stream>>>(v_map, x_map, tma_x, static_cast<const __nv_bfloat16*>(x),
-                                             static_cast<__nv_bfloat16*>(out), a);
+  kernel<<<grid, kTcThreads, smem, stream>>>(v_map, x_map, tma_x, static_cast<const T*>(x), static_cast<T*>(out), a);
   return cudaGetLastError();
 }
 
 // the narrowest wgmma N of 16, 24, 32, 64, 128 that holds F, else 256
-template <bool TRANS>
-cudaError_t launch_spmm_bf16(const void* values, const void* x, void* out, const Band& a, cudaStream_t stream) {
-  if (a.F <= 16) return launch_spmm_tc<16, TRANS>(values, x, out, a, stream);
-  if (a.F <= 24) return launch_spmm_tc<24, TRANS>(values, x, out, a, stream);
-  if (a.F <= 32) return launch_spmm_tc<32, TRANS>(values, x, out, a, stream);
-  if (a.F <= 64) return launch_spmm_tc<64, TRANS>(values, x, out, a, stream);
-  if (a.F <= 128) return launch_spmm_tc<128, TRANS>(values, x, out, a, stream);
-  return launch_spmm_tc<256, TRANS>(values, x, out, a, stream);
+template <bool TRANS, typename T>
+cudaError_t launch_spmm_16(const void* values, const void* x, void* out, const Band& a, cudaStream_t stream) {
+  if (a.F <= 16) return launch_spmm_tc<16, TRANS, T>(values, x, out, a, stream);
+  if (a.F <= 24) return launch_spmm_tc<24, TRANS, T>(values, x, out, a, stream);
+  if (a.F <= 32) return launch_spmm_tc<32, TRANS, T>(values, x, out, a, stream);
+  if (a.F <= 64) return launch_spmm_tc<64, TRANS, T>(values, x, out, a, stream);
+  if (a.F <= 128) return launch_spmm_tc<128, TRANS, T>(values, x, out, a, stream);
+  return launch_spmm_tc<256, TRANS, T>(values, x, out, a, stream);
 }
 
-template <typename OutT>
-cudaError_t launch_dv_bf16(const void* dy, const void* x, void* out, const Band& a, cudaStream_t stream) {
-  auto kernel = band_dv_tc_kernel<OutT>;
-  const size_t smem = 1024 + (size_t)kDvStages * 2 * kChunkA * sizeof(__nv_bfloat16) +
+template <typename T>
+cudaError_t launch_spmm_type(const void* values, const void* x, void* out, const Band& a, int transposed,
+                             cudaStream_t stream) {
+  return transposed ? launch_spmm_16<true, T>(values, x, out, a, stream)
+                    : launch_spmm_16<false, T>(values, x, out, a, stream);
+}
+
+template <typename T, typename OutT>
+cudaError_t launch_dv_tc(const void* dy, const void* x, void* out, const Band& a, cudaStream_t stream) {
+  auto kernel = band_dv_tc_kernel<T, OutT>;
+  const size_t smem = 1024 + (size_t)kDvStages * 2 * kChunkA * sizeof(T) +
                       (size_t)kConsumers / 32 * 16 * kStageLd * sizeof(OutT) + 2 * kDvStages * sizeof(uint64_t);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   CUtensorMap dy_map = {}, x_map = {};
   const int tma = a.F % 8 == 0;
   if (tma) {
-    err = rows_view(&dy_map, dy, a.R * kBlock, a.F, kBlock);
-    if (err == cudaSuccess) err = rows_view(&x_map, x, a.R * kBlock, a.F, kBlock);
+    err = rows_view<T>(&dy_map, dy, a.R * kBlock, a.F, kBlock);
+    if (err == cudaSuccess) err = rows_view<T>(&x_map, x, a.R * kBlock, a.F, kBlock);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<(unsigned)a.R, kTcThreads, smem, stream>>>(dy_map, x_map, tma, static_cast<const __nv_bfloat16*>(dy),
-                                                      static_cast<const __nv_bfloat16*>(x), static_cast<OutT*>(out),
-                                                      a);
+  kernel<<<(unsigned)a.R, kTcThreads, smem, stream>>>(dy_map, x_map, tma, static_cast<const T*>(dy),
+                                                      static_cast<const T*>(x), static_cast<OutT*>(out), a);
   return cudaGetLastError();
+}
+
+// dV on operands of type T (float: simt_f32.cuh's sampled kernel; bf16 or
+// f16: the tensor-core kernel), written in the type of code out_dtype
+template <typename T>
+cudaError_t launch_dv_type(const void* dy, const void* x, void* out, const Band& a, int out_dtype,
+                           cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    switch (out_dtype) {
+      case 0: return launch_dv_f32<float>(dy, x, out, a, stream);
+      case 1: return launch_dv_f32<__nv_bfloat16>(dy, x, out, a, stream);
+      case 2: return launch_dv_f32<__half>(dy, x, out, a, stream);
+    }
+  } else {
+    switch (out_dtype) {
+      case 0: return launch_dv_tc<T, float>(dy, x, out, a, stream);
+      case 1: return launch_dv_tc<T, __nv_bfloat16>(dy, x, out, a, stream);
+      case 2: return launch_dv_tc<T, __half>(dy, x, out, a, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 Offsets make_offsets(int o0, int o1, int o2, int o3, int o4, int o5, int o6, int o7) {
@@ -609,7 +638,7 @@ Offsets make_offsets(int o0, int o1, int o2, int o3, int o4, int o5, int o6, int
 
 }  // namespace
 
-// As band_spmm_launch, with a fault planted in the bf16 kernel (0: none, 1:
+// As band_spmm_launch, with a fault planted in the 16-bit kernels (0: none, 1:
 // the k16 slice holding each product's last contraction element dropped, 2:
 // the middle slot skipped, 3: the last row block read as outside the
 // graph); the f32 forward and dX take no fault (the f32 dV does).
@@ -622,8 +651,9 @@ extern "C" int band_spmm_launch_fault(const void* values, const void* x, void* o
   const Offsets offs = make_offsets(o0, o1, o2, o3, o4, o5, o6, o7);
   if (dtype) {
     const Band a = {n_blocks, feat, n_slots, radius, packed, fault, offs};
-    return transposed ? (int)launch_spmm_bf16<true>(values, x, out, a, s)
-                      : (int)launch_spmm_bf16<false>(values, x, out, a, s);
+    if (dtype == 1) return (int)launch_spmm_type<__nv_bfloat16>(values, x, out, a, transposed, s);
+    if (dtype == 2) return (int)launch_spmm_type<__half>(values, x, out, a, transposed, s);
+    return (int)cudaErrorInvalidValue;
   }
   if (fault) return (int)cudaErrorInvalidValue;
   if (transposed) {
@@ -635,11 +665,11 @@ extern "C" int band_spmm_launch_fault(const void* values, const void* x, void* o
 }
 
 // Launches on `stream`; returns cudaGetLastError() after the launch, or the
-// error of a TMA view where the bf16 kernel takes one (the tiles always, x
+// error of a TMA view where the 16-bit kernels take one (the tiles always, x
 // where F % 8 == 0) and it cannot be encoded. For the planes, n_slots = O <=
 // 8 and o0..o7 the offsets; for packed rows, n_slots = 2 radius + 1 and the
 // offsets are implied. dtype (and in_dtype, out_dtype): 0 float32, 1
-// bfloat16.
+// bfloat16, 2 float16.
 extern "C" int band_spmm_launch(const void* values, const void* x, void* out, int n_blocks, int feat,
                                 int n_slots, int radius, int packed, int transposed, int dtype, int o0,
                                 int o1, int o2, int o3, int o4, int o5, int o6, int o7, void* stream) {
@@ -647,7 +677,7 @@ extern "C" int band_spmm_launch(const void* values, const void* x, void* out, in
                                 o2, o3, o4, o5, o6, o7, 0, stream);
 }
 
-// As band_dv_launch, with a fault planted in the kernel, bf16 or f32 (as
+// As band_dv_launch, with a fault planted in the kernel, 16-bit or f32 (as
 // band_spmm_launch_fault's; 1 drops the k16 slice holding the last
 // feature).
 extern "C" int band_dv_launch_fault(const void* dy, const void* x, void* out, int n_blocks, int feat,
@@ -658,9 +688,12 @@ extern "C" int band_dv_launch_fault(const void* dy, const void* x, void* out, in
   const Offsets offs = make_offsets(o0, o1, o2, o3, o4, o5, o6, o7);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Band a = {n_blocks, feat, n_slots, radius, packed, fault, offs};
-  if (in_dtype)
-    return out_dtype ? (int)launch_dv_bf16<__nv_bfloat16>(dy, x, out, a, s) : (int)launch_dv_bf16<float>(dy, x, out, a, s);
-  return out_dtype ? (int)launch_dv_f32<__nv_bfloat16>(dy, x, out, a, s) : (int)launch_dv_f32<float>(dy, x, out, a, s);
+  switch (in_dtype) {
+    case 0: return (int)launch_dv_type<float>(dy, x, out, a, out_dtype, s);
+    case 1: return (int)launch_dv_type<__nv_bfloat16>(dy, x, out, a, out_dtype, s);
+    case 2: return (int)launch_dv_type<__half>(dy, x, out, a, out_dtype, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int band_dv_launch(const void* dy, const void* x, void* out, int n_blocks, int feat,

@@ -5,10 +5,11 @@
 //
 // values (nnz,128,128) in row-major block order, col_of (nnz) int32, x
 // (n_in,F) with n_in a multiple of 128, out (out_blocks*128,F) f32; all
-// contiguous. values and x are both float32 (bsr_spmm_fwd) or both
-// bfloat16 (bsr_spmm_bf16); the sums are f32 either way, as the Pallas
-// kernels accumulate with preferred_element_type=f32 and return f32 for
-// bf16 operands. Any F >= 1. A row block with no nonzero tile gets zeros.
+// contiguous. values and x are both float32 (bsr_spmm_fwd), both bfloat16
+// (bsr_spmm_bf16) or both float16 (bsr_spmm_f16); the sums are f32 in
+// every case, as the Pallas kernels accumulate with
+// preferred_element_type=f32 and return f32 for 16-bit operands. Any F >=
+// 1. A row block with no nonzero tile gets zeros.
 //
 // Replaces two Pallas kernels that compute the same function:
 // multistgraph_tpu/ops/spmm.py:_spmm_blockgrid (_spmm_kernel, one grid step
@@ -46,7 +47,7 @@
 // TFLOP/s f32 peak, against 0.10 ms for its ~350 MB at 3.35 TB/s; at F=16 or
 // 24 the 324 MB of tiles bound it.
 //
-// bf16 operands: tensor cores, the design of band_spmm.cu's forward
+// bf16 and f16 operands: tensor cores, the design of band_spmm.cu's forward
 // (band_spmm_tc_kernel) with the x block taken from col_of[p] and the
 // segment's tiles from the schedule. Bound on an H100: at 49,152 nodes the
 // 162 MB of bf16 tiles (plus x and the f32 output) bound it up to F of about
@@ -60,9 +61,12 @@
 // col_of[p] as MN-major B, by TMA where F % 8 == 0 (zero past F), else by
 // element loads (a row of F = 12 is 24 bytes: no 16-byte copy fits it),
 // every operand under the 128-byte swizzle. wgmma m64nNk16 keeps the f32
-// sums in registers for the whole segment. A product of two bf16 values is
-// exact in f32, so the kernel and the plain version differ only in the
-// order of f32 sums. Each chunk's four k16 products go out while the
+// sums in registers for the whole segment. A product of two bf16 values, or
+// of two f16 values (11-bit significands), is exact in f32, so the kernel
+// and the plain version differ only in the order of f32 sums. One kernel
+// template serves both types (T = __nv_bfloat16 or __half): the same
+// layouts, TMA views of the type's own TMA data type, and the wgmma of its
+// type suffix (wgmma_sm90.cuh). Each chunk's four k16 products go out while the
 // previous chunk's finish, whose stage is then released. The backward's dX
 // reaches the same kernel through the block-transposed tiles
 // (bsr_transpose).
@@ -72,6 +76,7 @@
 // block 0 zeroed, a split row's last segment left out of its sum.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -232,7 +237,7 @@ cudaError_t launch_f32(const float* v, const int* col_of, const float* x, float*
                                                  fault, x16, stream);
 }
 
-// ---------------------------------------------------------------- bf16 operands: tensor cores
+// ---------------------------------------------------------------- bf16 and f16 operands: tensor cores
 
 using namespace wgmma_sm90;
 
@@ -241,6 +246,12 @@ constexpr int kConsumers = 256;               // two warpgroups of 64 output row
 constexpr int kTcThreads = kConsumers + 32;   // and one producer warp
 constexpr int kChunkA = kBlock * kKc;         // elements of a stage's tile chunk
 constexpr int kZeroA = 64 * kKc;              // a zero A operand of one warpgroup (the k16 fault reads it)
+
+// the wgmma N a block takes for F columns: the narrowest of 16, 24, 32, 64
+// and 128 that holds F, else 256
+constexpr int bsr_spmm_tile(int feat) {
+  return feat <= 16 ? 16 : feat <= 24 ? 24 : feat <= 32 ? 32 : feat <= 64 ? 64 : feat <= 128 ? 128 : 256;
+}
 
 template <int BN>
 struct TcTile {
@@ -257,11 +268,11 @@ struct TcTile {
 // is a 64-wide chunk of a tile's 128 rows (K-major A, rows of 64 k); x_map
 // views x (n_in, F) likewise, a box 64 rows by 64 columns (MN-major B), one
 // for each 64 of the chunk's columns, where tma_x (F % 8 == 0); else the
-// producer loads elements into the same layout.
-template <int BN>
+// producer loads elements into the same layout. T is the operands' 16-bit type.
+template <int BN, typename T>
 __global__ void __launch_bounds__(kTcThreads, TcTile<BN>::kMinBlocks)
 bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap x_map, int tma_x,
-                   const int* __restrict__ col_of, const __nv_bfloat16* __restrict__ x, float* __restrict__ out, int F,
+                   const int* __restrict__ col_of, const T* __restrict__ x, float* __restrict__ out, int F,
                    const int* __restrict__ sched, float* __restrict__ ws, int* __restrict__ counters, int fault) {
   using Tile = TcTile<BN>;
   constexpr int S = Tile::kStages;
@@ -271,9 +282,9 @@ bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_const
   const Segment sg = load_segment(sched, blockIdx.y);
   if (sg.row < 0) return;   // padding past the schedule's segments
   unsigned char* smem = aligned_smem(smem_raw);
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);          // S tile chunks: 128 x 64
-  __nv_bfloat16* bs = as + (size_t)S * kChunkA;                         // S x chunks: 64 x kWidthB
-  __nv_bfloat16* zeros = bs + (size_t)S * Tile::kChunkB;                // kZeroA zeros
+  T* as = reinterpret_cast<T*>(smem);                                   // S tile chunks: 128 x 64
+  T* bs = as + (size_t)S * kChunkA;                                     // S x chunks: 64 x kWidthB
+  T* zeros = bs + (size_t)S * Tile::kChunkB;                            // kZeroA zeros
   uint64_t* full = reinterpret_cast<uint64_t*>(zeros + kZeroA);
   uint64_t* empty = full + S;
 
@@ -296,15 +307,15 @@ bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_const
   if (tid >= kConsumers) {
     // producer warp: chunk g is the kc-th half of the row's (g/2)-th tile
     const int lane = tid - kConsumers;
-    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    const T zero = T(0.f);
     int g = 0;
     for (int p = tiles.x; p < tiles.y; ++p) {
       const int src = col_of[p];
       for (int kc = 0; kc < kBlock / kKc; ++kc, ++g) {
         const int st = g % S;
         if (g >= S) mbar_wait(empty + st, ((g / S) & 1) ^ 1);
-        __nv_bfloat16* ad = as + (size_t)st * kChunkA;
-        __nv_bfloat16* bd = bs + (size_t)st * Tile::kChunkB;
+        T* ad = as + (size_t)st * kChunkA;
+        T* bd = bs + (size_t)st * Tile::kChunkB;
         const int k0 = src * kBlock + kc * kKc;   // x's first row of the chunk
         if (!tma_x) {
           // element (k, c) of the chunk, zero past F, at its swizzled place
@@ -312,14 +323,14 @@ bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_const
 #pragma unroll 4
           for (int q = lane; q < kKc * BN; q += 32) {
             const int k = q / BN, c = q - k * BN, f = f0 + c;
-            *reinterpret_cast<__nv_bfloat16*>(bb + (c / 64) * 8192 + sw128(k * 128 + (c % 64) * 2)) =
+            *reinterpret_cast<T*>(bb + (c / 64) * 8192 + sw128(k * 128 + (c % 64) * 2)) =
                 f < F ? x[(size_t)(k0 + k) * F + f] : zero;
           }
           fence_proxy_async();
           __syncwarp();
         }
         if (lane == 0) {
-          mbar_arrive_tx(full + st, (kChunkA + (tma_x ? Tile::kChunkB : 0)) * (unsigned)sizeof(__nv_bfloat16));
+          mbar_arrive_tx(full + st, (kChunkA + (tma_x ? Tile::kChunkB : 0)) * (unsigned)sizeof(T));
           tma_load_2d(ad, &v_map, kc * kKc, p * kBlock, full + st);
           if (tma_x)
             for (int j = 0; j < kBlocksB; ++j) tma_load_2d(bd + j * 64 * kKc, &x_map, f0 + 64 * j, k0, full + st);
@@ -346,8 +357,8 @@ bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_const
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < kKc / 16; ++ks)
-          Wgmma<BN>::template mma_t<0, 1>(acc, desc_sw128((ks == kKc / 16 - 1 ? a_last : ad) + 32 * ks, 16u),
-                                          desc_sw128(bd + 2048 * ks, 8192u), 1);
+          Wgmma<BN, T>::template mma_t<0, 1>(acc, desc_sw128((ks == kKc / 16 - 1 ? a_last : ad) + 32 * ks, 16u),
+                                             desc_sw128(bd + 2048 * ks, 8192u), 1);
         wgmma_commit();
         if (g > 0) {
           wgmma_wait<1>();   // the previous chunk's products are done: free its stage
@@ -367,39 +378,62 @@ bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_const
   }
 }
 
-template <int BN>
+template <int BN, typename T>
 cudaError_t launch_tc(const void* values, const int* col_of, const void* x, float* out, int F, int nnz, int n_in,
                       const int* sched, int n_seg, float* ws, int* counters, int fault, cudaStream_t stream) {
-  auto kernel = bsr_spmm_tc_kernel<BN>;
+  auto kernel = bsr_spmm_tc_kernel<BN, T>;
   const size_t smem = TcTile<BN>::kSmem;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   CUtensorMap v_map = {}, x_map = {};
-  err = rows_view(&v_map, values, nnz * kBlock, kBlock, kBlock);
+  err = rows_view<T>(&v_map, values, nnz * kBlock, kBlock, kBlock);
   if (err != cudaSuccess) return err;
   const int tma_x = F % 8 == 0;
   if (tma_x) {
-    err = rows_view(&x_map, x, n_in, F, kKc);
+    err = rows_view<T>(&x_map, x, n_in, F, kKc);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)((F + BN - 1) / BN), (unsigned)n_seg);
-  kernel<<<grid, kTcThreads, smem, stream>>>(v_map, x_map, tma_x, col_of, static_cast<const __nv_bfloat16*>(x), out,
-                                             F, sched, ws, counters, fault);
+  kernel<<<grid, kTcThreads, smem, stream>>>(v_map, x_map, tma_x, col_of, static_cast<const T*>(x), out, F, sched, ws,
+                                             counters, fault);
   return cudaGetLastError();
+}
+
+// The tensor-core form on operands of type T.
+template <typename T>
+int launch_tc_type(const void* values, const void* col_of, const void* x, void* out, const void* sched, void* ws,
+                   void* counters, int out_blocks, int feat, int nnz, int n_in, int n_seg, int fault, void* stream) {
+  if (out_blocks == 0 || feat == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (nnz == 0)   // every row block is empty: no tile to view
+    return (int)cudaMemsetAsync(o, 0, (size_t)out_blocks * kBlock * feat * sizeof(float), s);
+  if (n_seg > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int* co = static_cast<const int*>(col_of);
+  const int* sc = static_cast<const int*>(sched);
+  float* w = static_cast<float*>(ws);
+  int* cn = static_cast<int*>(counters);
+  switch (bsr_spmm_tile(feat)) {
+    case 16: return (int)launch_tc<16, T>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
+    case 24: return (int)launch_tc<24, T>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
+    case 32: return (int)launch_tc<32, T>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
+    case 64: return (int)launch_tc<64, T>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
+    case 128: return (int)launch_tc<128, T>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
+    default: return (int)launch_tc<256, T>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
+  }
 }
 
 }  // namespace
 
-// The feature columns one block computes for F columns, in the bf16 form
-// (bf16 != 0) or the f32 one: a split row's workspace slot holds 128 rows of
-// ceil(F / tile) tiles of that many columns.
+// The feature columns one block computes for F columns, in the tensor-core
+// form (bf16 != 0: bf16 and f16 operands) or the f32 one: a split row's
+// workspace slot holds 128 rows of ceil(F / tile) tiles of that many columns.
 extern "C" int bsr_spmm_feature_tile(int feat, int bf16) {
-  if (!bf16) return simt_f32::feature_tile(feat);
-  return feat <= 16 ? 16 : feat <= 24 ? 24 : feat <= 32 ? 32 : feat <= 64 ? 64 : feat <= 128 ? 128 : 256;
+  return bf16 ? bsr_spmm_tile(feat) : simt_f32::feature_tile(feat);
 }
 
-// Both forms: values and x float32 (bsr_spmm_fwd) or bfloat16
-// (bsr_spmm_bf16), out float32; nnz tiles, x of n_in rows. sched (n_seg, 8)
+// Every form: values and x float32 (bsr_spmm_fwd), bfloat16 (bsr_spmm_bf16)
+// or float16 (bsr_spmm_f16), out float32; nnz tiles, x of n_in rows. sched (n_seg, 8)
 // int32 is the segment schedule (ops/spmm.py:bsr_schedule); ws holds the
 // split rows' partials (its slots times 128 rows times ceil(F / tile) tiles
 // of bsr_spmm_feature_tile(F) columns, f32) and counters (out_blocks
@@ -435,22 +469,13 @@ extern "C" int bsr_spmm_fwd(const void* values, const void* col_of, const void* 
 extern "C" int bsr_spmm_bf16(const void* values, const void* col_of, const void* x, void* out, const void* sched,
                              void* ws, void* counters, int out_blocks, int feat, int nnz, int n_in, int n_seg,
                              int fault, void* stream) {
-  if (out_blocks == 0 || feat == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  if (nnz == 0)   // every row block is empty: no tile to view
-    return (int)cudaMemsetAsync(o, 0, (size_t)out_blocks * kBlock * feat * sizeof(float), s);
-  if (n_seg > 65535) return (int)cudaErrorInvalidConfiguration;
-  const int* co = static_cast<const int*>(col_of);
-  const int* sc = static_cast<const int*>(sched);
-  float* w = static_cast<float*>(ws);
-  int* cn = static_cast<int*>(counters);
-  switch (bsr_spmm_feature_tile(feat, 1)) {
-    case 16: return (int)launch_tc<16>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
-    case 24: return (int)launch_tc<24>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
-    case 32: return (int)launch_tc<32>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
-    case 64: return (int)launch_tc<64>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
-    case 128: return (int)launch_tc<128>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
-    default: return (int)launch_tc<256>(values, co, x, o, feat, nnz, n_in, sc, n_seg, w, cn, fault, s);
-  }
+  return launch_tc_type<__nv_bfloat16>(values, col_of, x, out, sched, ws, counters, out_blocks, feat, nnz, n_in,
+                                       n_seg, fault, stream);
+}
+
+extern "C" int bsr_spmm_f16(const void* values, const void* col_of, const void* x, void* out, const void* sched,
+                            void* ws, void* counters, int out_blocks, int feat, int nnz, int n_in, int n_seg,
+                            int fault, void* stream) {
+  return launch_tc_type<__half>(values, col_of, x, out, sched, ws, counters, out_blocks, feat, nnz, n_in, n_seg,
+                                fault, stream);
 }

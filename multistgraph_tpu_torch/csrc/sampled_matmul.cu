@@ -9,7 +9,9 @@
 // backward's x and the forward's transposed node embeddings come that way.
 // f32 operands give f32 tiles (sampled_matmul_fwd); bf16 operands give bf16
 // tiles (sampled_matmul_bf16), f32 sums rounded once, as the Pallas kernel
-// emits the operands' dtype for bf16 (each tile is written once).
+// emits the operands' dtype for bf16 (each tile is written once); f16
+// operands give f32 tiles (sampled_matmul_f16), as the Pallas kernel emits
+// f32 for every dtype but bf16.
 //
 // Replaces the Pallas kernel multistgraph_tpu/ops/spmm.py:_sampled_matmul_impl
 // (_sampled_kernel), which takes b as (d, n) and computes A B.
@@ -40,12 +42,20 @@
 // over all four k16 slices of a chunk (past d they add zeros: a product
 // skipped under a branch made ptxas serialize the wgmma); each warp's 16
 // rows are rounded to bf16 and staged in shared memory, then leave in
-// 16-byte stores along whole rows. The fault argument plants a fault (a k16
-// slice dropped, a tile skipped, the tiles of row block 0 zeroed) for checks
-// that must catch one.
+// 16-byte stores along whole rows. f16 operands run the same kernel (T =
+// __half: f16 TMA views and the f16 wgmma; a product of two f16 values is
+// exact in f32) and write f32 tiles straight from the registers: the four
+// lanes that hold 8 neighbouring columns of a row store 32 bytes, one whole
+// sector, so no staging is needed, and the kernel's shared memory (75 KB
+// against bf16's 110 KB) still lets two blocks share an SM. The fault
+// argument plants a fault (a k16 slice dropped, a tile skipped, the tiles
+// of row block 0 zeroed) for checks that must catch one.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 #include <stdint.h>
 
 #include "simt_f32.cuh"
@@ -83,7 +93,7 @@ struct SampledTiles {
   }
 };
 
-// ---------------------------------------------------------------- bf16 operands: tensor cores
+// ---------------------------------------------------------------- bf16 and f16 operands: tensor cores
 
 using namespace wgmma_sm90;
 
@@ -94,27 +104,40 @@ constexpr int kTcThreads = kConsumers + 32;   // and one producer warp
 constexpr int kChunk64 = kBlock * kKc;        // elements of one operand's chunk: 128 rows x 64
 constexpr int kStageLd = kBlock + 8;          // row stride of the per-warp output staging (conflict-free)
 constexpr int kZeroA = 64 * kKc;              // a zero A operand of one warpgroup (the k16 fault reads it)
-constexpr size_t kTcSmem = 1024 + ((size_t)kStages * 2 * kChunk64 + kZeroA) * sizeof(__nv_bfloat16) +
-                           (size_t)kConsumers / 32 * 16 * kStageLd * sizeof(__nv_bfloat16) +
-                           2 * kStages * sizeof(uint64_t);
 
-// Tile p = a[row_of[p]] @ bt[col_of[p]]^T in bf16, p = blockIdx.x. a_map and
-// b_map are 2-d views of a and bt under the 128-byte swizzle whose box, 128
-// rows of 64 features, lands as K-major cores, where tma (d % 8 == 0); else
-// the producer loads elements into the same layout.
+// The tiles' type for operands of type T: bf16 for bf16, f32 for f16.
+template <typename T>
+using TileOut = typename std::conditional<is_f16<T>, float, __nv_bfloat16>::type;
+
+// Shared memory of the kernel on T: the ring, the zero operand, the bf16
+// tiles' per-warp staging (f32 tiles need none) and the barriers.
+template <typename T>
+constexpr size_t tc_smem() {
+  return 1024 + ((size_t)kStages * 2 * kChunk64 + kZeroA) * sizeof(T) +
+         (is_f16<T> ? 0 : (size_t)kConsumers / 32 * 16 * kStageLd * sizeof(__nv_bfloat16)) +
+         2 * kStages * sizeof(uint64_t);
+}
+
+// Tile p = a[row_of[p]] @ bt[col_of[p]]^T in TileOut<T>, p = blockIdx.x, T
+// the operands' 16-bit type. a_map and b_map are 2-d views of a and bt under
+// the 128-byte swizzle whose box, 128 rows of 64 features, lands as K-major
+// cores, where tma (d % 8 == 0); else the producer loads elements into the
+// same layout.
+template <typename T>
 __global__ void __launch_bounds__(kTcThreads, 2)
 sampled_matmul_tc_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
-                         int tma, const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ bt,
+                         int tma, const T* __restrict__ a, const T* __restrict__ bt,
                          const int* __restrict__ row_of, const int* __restrict__ col_of,
-                         __nv_bfloat16* __restrict__ out, int d, int fault) {
+                         TileOut<T>* __restrict__ out, int d, int fault) {
   constexpr int S = kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);   // S chunks of a's rows: 128 x 64
-  __nv_bfloat16* bs = as + (size_t)S * kChunk64;                 // S chunks of bt's rows: 128 x 64
-  __nv_bfloat16* zeros = bs + (size_t)S * kChunk64;              // kZeroA zeros
-  __nv_bfloat16* staged = zeros + kZeroA;                         // 16 x kStageLd outputs a consumer warp
-  uint64_t* full = reinterpret_cast<uint64_t*>(staged + (size_t)kConsumers / 32 * 16 * kStageLd);
+  T* as = reinterpret_cast<T*>(smem);                             // S chunks of a's rows: 128 x 64
+  T* bs = as + (size_t)S * kChunk64;                              // S chunks of bt's rows: 128 x 64
+  T* zeros = bs + (size_t)S * kChunk64;                           // kZeroA zeros
+  // 16 x kStageLd bf16 outputs a consumer warp (bf16 tiles only)
+  __nv_bfloat16* staged = reinterpret_cast<__nv_bfloat16*>(zeros + kZeroA);
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + (is_f16<T> ? 0 : (size_t)kConsumers / 32 * 16 * kStageLd));
   uint64_t* empty = full + S;
 
   const int p = blockIdx.x;
@@ -137,29 +160,29 @@ sampled_matmul_tc_kernel(const __grid_constant__ CUtensorMap a_map, const __grid
 
   if (tid >= kConsumers) {
     const int lane = tid - kConsumers;
-    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    const T zero = T(0.f);
     for (int kc = 0; kc < n_chunks; ++kc) {
       const int st = kc % S;
       if (kc >= S) mbar_wait(empty + st, ((kc / S) & 1) ^ 1);
-      __nv_bfloat16* ad = as + (size_t)st * kChunk64;
-      __nv_bfloat16* bd = bs + (size_t)st * kChunk64;
+      T* ad = as + (size_t)st * kChunk64;
+      T* bd = bs + (size_t)st * kChunk64;
       if (tma) {
         if (lane == 0) {
-          mbar_arrive_tx(full + st, 2 * kChunk64 * (unsigned)sizeof(__nv_bfloat16));
+          mbar_arrive_tx(full + st, 2 * kChunk64 * (unsigned)sizeof(T));
           tma_load_2d(ad, &a_map, kc * kKc, ra * kBlock, full + st);
           tma_load_2d(bd, &b_map, kc * kKc, cb * kBlock, full + st);
         }
       } else {
-        const __nv_bfloat16* ar = a + (size_t)ra * kBlock * d;
-        const __nv_bfloat16* br = bt + (size_t)cb * kBlock * d;
+        const T* ar = a + (size_t)ra * kBlock * d;
+        const T* br = bt + (size_t)cb * kBlock * d;
         unsigned char* ab = reinterpret_cast<unsigned char*>(ad);
         unsigned char* bb = reinterpret_cast<unsigned char*>(bd);
 #pragma unroll 4
         for (int q = lane; q < kChunk64; q += 32) {
           const int i = q / kKc, k = q % kKc, f = kc * kKc + k;
           const int o = sw128(i * 128 + k * 2);
-          *reinterpret_cast<__nv_bfloat16*>(ab + o) = f < d ? ar[(size_t)i * d + f] : zero;
-          *reinterpret_cast<__nv_bfloat16*>(bb + o) = f < d ? br[(size_t)i * d + f] : zero;
+          *reinterpret_cast<T*>(ab + o) = f < d ? ar[(size_t)i * d + f] : zero;
+          *reinterpret_cast<T*>(bb + o) = f < d ? br[(size_t)i * d + f] : zero;
         }
         fence_proxy_async();
         __syncwarp();
@@ -185,8 +208,8 @@ sampled_matmul_tc_kernel(const __grid_constant__ CUtensorMap a_map, const __grid
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < kKc / 16; ++ks)
-        Wgmma<kBlock>::mma_t<0, 0>(acc, desc_sw128((ks == skip ? zero_a : ad) + 32 * ks, 16u),
-                                   desc_sw128(bd + 32 * ks, 16u), 1);
+        Wgmma<kBlock, T>::template mma_t<0, 0>(acc, desc_sw128((ks == skip ? zero_a : ad) + 32 * ks, 16u),
+                                               desc_sw128(bd + 32 * ks, 16u), 1);
       wgmma_commit();
       if (kc > 0) {
         wgmma_wait<1>();   // the previous chunk's products are done: free its stage
@@ -194,6 +217,17 @@ sampled_matmul_tc_kernel(const __grid_constant__ CUtensorMap a_map, const __grid
       }
     }
     wgmma_wait<0>();
+    if constexpr (is_f16<T>) {
+      // f32 tiles from the registers: 32 bytes of a row (a sector) a quad of lanes
+      float* rows = out + (size_t)p * kBlock * kBlock + (size_t)(64 * wg + 16 * warp + lane / 4) * kBlock;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+          store_pair(rows + 8 * h * kBlock, 8 * j + 2 * (lane % 4), kBlock, acc[4 * j + 2 * h],
+                     acc[4 * j + 2 * h + 1]);
+      return;
+    }
     // the warp's 16 rows of the tile through shared memory, so that they
     // leave in 16-byte stores along whole rows
     __nv_bfloat16* stage = staged + (size_t)(tid / 32) * 16 * kStageLd;
@@ -204,7 +238,8 @@ sampled_matmul_tc_kernel(const __grid_constant__ CUtensorMap a_map, const __grid
         store_pair(stage + (lane / 4 + 8 * h) * kStageLd, 8 * j + 2 * (lane % 4), kBlock, acc[4 * j + 2 * h],
                    acc[4 * j + 2 * h + 1]);
     __syncwarp();
-    __nv_bfloat16* tile = out + (size_t)p * kBlock * kBlock + (size_t)(64 * wg + 16 * warp) * kBlock;
+    __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(out) + (size_t)p * kBlock * kBlock +
+                          (size_t)(64 * wg + 16 * warp) * kBlock;
     constexpr int kVec = 8, kPerRow = kBlock / kVec;
 #pragma unroll 2
     for (int q = lane; q < 16 * kPerRow; q += 32) {
@@ -232,6 +267,31 @@ extern "C" int sampled_matmul_fwd(const void* a, const void* bt, const void* row
 // The thread blocks sampled_matmul_fwd launches for nnz tiles.
 extern "C" int sampled_matmul_f32_blocks(int nnz) { return simt_f32::sampled_blocks(nnz); }
 
+namespace {
+
+template <typename T>
+int launch_tc(const void* a, const void* bt, const void* row_of, const void* col_of, void* out, int nnz, int d,
+              int n_a, int n_b, int fault, void* stream) {
+  if (nnz == 0) return (int)cudaSuccess;
+  auto kernel = sampled_matmul_tc_kernel<T>;
+  constexpr size_t smem = tc_smem<T>();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap a_map = {}, b_map = {};
+  const int tma = d % 8 == 0;
+  if (tma) {
+    err = rows_view<T>(&a_map, a, n_a, d, kBlock);
+    if (err == cudaSuccess) err = rows_view<T>(&b_map, bt, n_b, d, kBlock);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)nnz, kTcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a_map, b_map, tma, static_cast<const T*>(a), static_cast<const T*>(bt), static_cast<const int*>(row_of),
+      static_cast<const int*>(col_of), static_cast<TileOut<T>*>(out), d, fault);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // The bf16 form: a (n_a, d) and bt (n_b, d) bfloat16, out (nnz, 128, 128)
 // bfloat16. fault: 0 none, 1 the k16 slice holding the last feature
 // dropped, 2 tile 0 skipped, 3 the tiles of row block 0 zeroed. Launches on
@@ -240,18 +300,12 @@ extern "C" int sampled_matmul_f32_blocks(int nnz) { return simt_f32::sampled_blo
 // not 16-byte aligned).
 extern "C" int sampled_matmul_bf16(const void* a, const void* bt, const void* row_of, const void* col_of, void* out,
                                    int nnz, int d, int n_a, int n_b, int fault, void* stream) {
-  if (nnz == 0) return (int)cudaSuccess;
-  cudaError_t err = allow_smem(sampled_matmul_tc_kernel, kTcSmem);
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap a_map = {}, b_map = {};
-  const int tma = d % 8 == 0;
-  if (tma) {
-    err = rows_view(&a_map, a, n_a, d, kBlock);
-    if (err == cudaSuccess) err = rows_view(&b_map, bt, n_b, d, kBlock);
-    if (err != cudaSuccess) return (int)err;
-  }
-  sampled_matmul_tc_kernel<<<(unsigned)nnz, kTcThreads, kTcSmem, static_cast<cudaStream_t>(stream)>>>(
-      a_map, b_map, tma, static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(bt),
-      static_cast<const int*>(row_of), static_cast<const int*>(col_of), static_cast<__nv_bfloat16*>(out), d, fault);
-  return (int)cudaGetLastError();
+  return launch_tc<__nv_bfloat16>(a, bt, row_of, col_of, out, nnz, d, n_a, n_b, fault, stream);
+}
+
+// The f16 form: a and bt float16, out (nnz, 128, 128) float32; as the bf16
+// form otherwise.
+extern "C" int sampled_matmul_f16(const void* a, const void* bt, const void* row_of, const void* col_of, void* out,
+                                  int nnz, int d, int n_a, int n_b, int fault, void* stream) {
+  return launch_tc<__half>(a, bt, row_of, col_of, out, nnz, d, n_a, n_b, fault, stream);
 }

@@ -381,6 +381,8 @@ template <>
 __device__ __forceinline__ float to_out<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
+template <>
+__device__ __forceinline__ __half to_out<__half>(float v) { return __float2half_rn(v); }
 
 // kCpAsync for the sampled products: stage st takes 128 rows of `a` and of
 // `b` (row stride ld, each pointing at the chunk's first feature), the kn
@@ -544,7 +546,9 @@ cudaError_t launch_sampled(const float* a, long long a_rows, const float* b, lon
     const cuuint64_t strides[1] = {(cuuint64_t)tiles.view_cols * sizeof(OutT)};
     const cuuint32_t box[2] = {(cuuint32_t)SampledSmem<OutT>::kBox, (cuuint32_t)kBlock};
     err = encode_tiled<2>(&o_map, tiles.out, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
-                          sizeof(OutT) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+                          sizeof(OutT) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : is_f16<OutT>    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
   }
   if (err != cudaSuccess) return err;
   auto kernel = tma ? sampled_f32_kernel<Tiles, kTma> : sampled_f32_kernel<Tiles, kCpAsync>;

@@ -39,7 +39,14 @@ single-device form (BSR, hub, tail, band on planes or packed rows) with or
 without the adaptive view: the BSR kernels take bf16 operands on the
 tensor cores and return f32 sums (B4/B6) or bf16 scores (B5), and each
 aggregation's f32 parts are summed before one cast to the compute dtype,
-where JAX casts them. The multi-chip backend raises naming ROADMAP.md A.7.
+where JAX casts them. ``compute_dtype='float16'`` is the same with f16 in
+place of bf16 (JAX passes any compute dtype through): the BSR kernels take
+f16 operands on the tensor cores and return f32 sums (B4/B6) and f32 scores
+(B5, as JAX's kernel emits f32 for f16), so the adaptive softmax runs in
+f32 and its values are cast to f16; the band kernels take f16 planes or
+packed rows and x and return f16. f16 overflows past 65504 where JAX's
+does; no loss is scaled, as JAX scales none. The multi-chip backend raises
+naming ROADMAP.md A.7.
 """
 
 from typing import Optional
@@ -77,8 +84,8 @@ class SparseATGCN(nn.Module):
     ``band_offsets_static`` or ``band_packed`` with ``band_radius_static``.
     Keys ending in ``_static`` hold host metadata, not arrays.
     ``adaptive_pattern``: (row_of, col_of) numpy block pattern of the
-    adaptive view, or None. ``compute_dtype``: None (f32) or
-    torch.bfloat16; the floating graph arrays are stored in it.
+    adaptive view, or None. ``compute_dtype``: None (f32), torch.bfloat16
+    or torch.float16; the floating graph arrays are stored in it.
     """
 
     def __init__(self, num_nodes: int, output_window: int, output_dim: int, hidden_dim: int,
@@ -204,8 +211,9 @@ class SparseATGCN(nn.Module):
         """The adaptive view's normalised tiles and the dense-corrected
         softmax's background (None for 'sampled')."""
         row, col, row_ptr = self.adaptive_row, self.adaptive_col, self.adaptive_row_ptr
-        # embeddings in the compute dtype; the scores and both softmaxes' values
-        # and background come back in it (JAX sparse_atgcn.py:247,277,279)
+        # embeddings in the compute dtype; the scores come in sampled_matmul's
+        # dtype (bf16 for bf16, else f32), and both softmaxes' values and
+        # background are cast to the compute dtype (JAX sparse_atgcn.py:247,277,279)
         scores = sddmm_relu(self._cast(self.node_vec1), self._cast(self.node_vec2), row, col, block=self.block,
                             row_ptr=row_ptr, schedule=self._schedule("adaptive_schedule"),
                             transpose=(self.adaptive_row_ptr_t, self._schedule("adaptive_schedule_t")))
@@ -358,7 +366,7 @@ class SparseATGCN(nn.Module):
         return out.permute(1, 2, 0, 3).float()  # predictions in f32, as JAX returns them
 
 
-_COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+_COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def _compute_dtype(config):

@@ -22,30 +22,33 @@ same two B9 kernels reading the packed layout (``band_dx_packed``,
 ``band_dv_packed``): no transposed copy of the values is packed, which
 keeps a second 126 MB array per graph out of memory at 49,152 nodes. Each
 wrapper launches its kernel for CUDA tensors, counts the launch in
-``.launches`` and raises on what the kernel does not take; for CPU tensors
+``.launches`` (float32 and bfloat16 operands) or ``.f16_launches``
+(float16 operands) and raises on what the kernel does not take; for CPU tensors
 it takes its plain PyTorch version, which keeps JAX's band algebra
 (band.py:672-759, 609-642): the forward "orij,orjf->rif" over slices of a
 zero-padded x, dV "rif,orjf->orij", dX by shifted adds into a padded
 buffer whose core is returned. The kernels form no padded copy: they skip
 a slot whose operand row block lies outside the graph and write dX
-straight into (N_pad, F). bf16 operands run on the tensor cores (wgmma, the
-tiles by TMA, x by TMA where F % 8 == 0, else by element loads:
+straight into (N_pad, F). bf16 and f16 operands run on the tensor cores
+(wgmma, the tiles by TMA, x by TMA where F % 8 == 0, else by element loads:
 ``bf16_load_path``); a TMA view that the shape allows and
 cuTensorMapEncodeTiled refuses (an operand that is not 16-byte aligned)
 raises. f32 operands run full f32 FMAs on csrc/simt_f32.cuh's mainloop,
 dV on its sampled kernel (B5's). ``planted_fault`` plants a fault in the
-bf16 kernels and the f32 dV for the checks that must catch one.
+16-bit kernels and the f32 dV for the checks that must catch one.
 
 Types, as the JAX package's (band.py:587-588,623,678,691-692,727-736):
-float32 or bfloat16 operands. The kernel wrappers take the tiles and x of
-one dtype; ``spmm_band`` casts the planes to x's dtype inside its autograd
-Function and ``spmm_band_packed`` casts the packed rows before it, where
-JAX casts them. Products of bf16 values are exact in f32 and every sum is
-f32, in the kernels and in the plain versions alike (which widen to f32,
-sum in f32 and round once), so the two differ only in summation order. The
-forward and dX round once to x's dtype; dV to the values' dtype, so bf16 x
-with f32 planes gives an f32 dV and a bf16 dX. The backward rounds dy to
-x's dtype before its kernels.
+float32, bfloat16 or float16 operands. The kernel wrappers take the tiles
+and x of one dtype; ``spmm_band`` casts the planes to x's dtype inside its
+autograd Function and ``spmm_band_packed`` casts the packed rows before it,
+where JAX casts them. Products of two bf16 or two f16 values are exact in
+f32 and every sum is f32, in the kernels and in the plain versions alike
+(which widen to f32, sum in f32 and round once), so the two differ only in
+summation order. The forward and dX round once to x's dtype; dV to the
+values' dtype, so bf16 x with f32 planes gives an f32 dV and a bf16 dX.
+The backward rounds dy to x's dtype before its kernels. f16 has a range
+of 65504: a sum past it rounds to inf where the output is f16, as in JAX,
+which scales no loss.
 
 Not ported, being TPU dispatch or memory mechanisms: the Pallas/einsum
 switch (``_pallas_mode``, MSG_BAND_PALLAS, ``_tile_kernels_for_training``),
@@ -254,7 +257,7 @@ def band_dv_packed_plain(dy, x, radius: int, block: int = BLOCK, out_dtype=None)
 
 
 # ------------------------------------------------------------ CUDA wrappers
-# Faults the bf16 (tensor-core) kernels and the f32 dV plant on request, for
+# Faults the 16-bit (tensor-core) kernels and the f32 dV plant on request, for
 # checks that must fail them (chip_smoke.py): the k16 slice holding each
 # product's last contraction element dropped, the middle slot skipped (the
 # main diagonal of offsets -r..r), the last row block read as outside the
@@ -265,7 +268,7 @@ _planted = 0
 
 @contextlib.contextmanager
 def planted_fault(kind: str):
-    """Launch the bf16 kernels and the f32 dV with the fault FAULTS[kind]
+    """Launch the 16-bit kernels and the f32 dV with the fault FAULTS[kind]
     planted in them while the block runs (the f32 forward and dX then
     raise)."""
     global _planted
@@ -301,7 +304,7 @@ def _launch(entry, tensors, ints, offsets, device):
 
 def _check_band(name, values, x, n_slots, packed):
     """values (O, R, b, b) planes or (R, b, (2r+1) b) packed rows against x
-    (R b, F), of one dtype, float32 or bfloat16; on CUDA only 128-row tiles
+    (R b, F), of one dtype, float32, bfloat16 or float16; on CUDA only 128-row tiles
     and at most MAX_OFFSETS planes."""
     _check_common(name, (values, x), ())
     if x.dim() != 2:
@@ -326,7 +329,7 @@ def _check_band(name, values, x, n_slots, packed):
 
 
 def _check_dv(name, dy, x, n_slots, packed):
-    """dy and x (R 128, F) alike, float32 or bfloat16; on CUDA at most
+    """dy and x (R 128, F) alike, float32, bfloat16 or float16; on CUDA at most
     MAX_OFFSETS planes."""
     _check_common(name, (dy, x), ())
     if dy.shape != x.shape or x.dim() != 2 or x.shape[0] % BLOCK:
@@ -341,9 +344,18 @@ def _offsets(offsets):
 
 
 def _dtype_code(dtype):
+    """csrc/band_spmm.cu's code of a dtype: 0 float32, 1 bfloat16, 2 float16."""
     if dtype not in DTYPES:
-        raise TypeError("the band kernels write float32 or bfloat16, not {}".format(dtype))
-    return int(dtype == torch.bfloat16)
+        raise TypeError("the band kernels write float32, bfloat16 or float16, not {}".format(dtype))
+    return DTYPES.index(dtype)
+
+
+def _count(fn, dtype):
+    """One launch of wrapper `fn` on operands of `dtype`."""
+    if dtype == torch.float16:
+        fn.f16_launches += 1
+    else:
+        fn.launches += 1
 
 
 def _launch_spmm(values, x, nb, n_slots, radius, packed, transposed, offsets):
@@ -374,7 +386,7 @@ def band_spmm(band_values, offsets, x):
     if x.device.type == "cpu":
         return band_plain(band_values, offsets, x, block=band_values.shape[2])
     out = _launch_spmm(band_values, x, nb, len(offsets), band_radius(offsets), False, False, offsets)
-    band_spmm.launches += 1
+    _count(band_spmm, x.dtype)
     return out
 
 
@@ -385,7 +397,7 @@ def band_spmm_packed(v_pack, radius: int, x):
     if x.device.type == "cpu":
         return band_packed_plain(v_pack, radius, x, block=v_pack.shape[1])
     out = _launch_spmm(v_pack, x, nb, 2 * radius + 1, radius, True, False, ())
-    band_spmm_packed.launches += 1
+    _count(band_spmm_packed, x.dtype)
     return out
 
 
@@ -396,7 +408,7 @@ def band_dx(band_values, offsets, dy):
     if dy.device.type == "cpu":
         return band_dx_plain(band_values, offsets, dy, block=band_values.shape[2])
     out = _launch_spmm(band_values, dy, nb, len(offsets), band_radius(offsets), False, True, offsets)
-    band_dx.launches += 1
+    _count(band_dx, dy.dtype)
     return out
 
 
@@ -407,7 +419,7 @@ def band_dx_packed(v_pack, radius: int, dy):
     if dy.device.type == "cpu":
         return band_dx_packed_plain(v_pack, radius, dy, block=v_pack.shape[1])
     out = _launch_spmm(v_pack, dy, nb, 2 * radius + 1, radius, True, True, ())
-    band_dx_packed.launches += 1
+    _count(band_dx_packed, dy.dtype)
     return out
 
 
@@ -421,7 +433,7 @@ def band_dv(dy, x, offsets, out_dtype=None):
     if x.device.type == "cpu":
         return band_dv_plain(dy, x, offsets, out_dtype=out_dtype)
     out = _launch_dv(dy, x, nb, len(offsets), band_radius(offsets), False, offsets, out_dtype)
-    band_dv.launches += 1
+    _count(band_dv, x.dtype)
     return out
 
 
@@ -433,12 +445,12 @@ def band_dv_packed(dy, x, radius: int, out_dtype=None):
     if x.device.type == "cpu":
         return band_dv_packed_plain(dy, x, radius, out_dtype=out_dtype)
     out = _launch_dv(dy, x, nb, 2 * radius + 1, radius, True, (), out_dtype)
-    band_dv_packed.launches += 1
+    _count(band_dv_packed, x.dtype)
     return out
 
 
 for _fn in (band_spmm, band_spmm_packed, band_dx, band_dx_packed, band_dv, band_dv_packed):
-    _fn.launches = 0
+    _fn.launches = _fn.f16_launches = 0
 
 
 # ---------------------------------------------------------------- autograd

@@ -24,20 +24,21 @@ its static patterns and of their block transposes once, at construction
 without one builds its own.
 
 Each wrapper launches its kernel for CUDA tensors, counts the launch in
-``.launches`` (float32 operands) or ``.bf16_launches`` (bfloat16 operands,
-the tensor-core kernels), and raises on what the kernel does not take; for
-CPU tensors it takes its plain PyTorch version (``spmm_plain``,
-``sampled_matmul_plain``). There is no fall back from one to the other: a
-bf16 operand on the card launches the bf16 kernel or raises, never the f32
-one. ``planted_fault`` plants a fault in the kernels for the checks that
-must catch one.
+``.launches`` (float32 operands), ``.bf16_launches`` or ``.f16_launches``
+(bfloat16 or float16 operands, the tensor-core kernels), and raises on what
+the kernel does not take; for CPU tensors it takes its plain PyTorch
+version (``spmm_plain``, ``sampled_matmul_plain``). There is no fall back
+from one to the other: a 16-bit operand on the card launches its own
+tensor-core kernel or raises, never the f32 one. ``planted_fault`` plants a
+fault in the kernels for the checks that must catch one.
 
 Types, as the JAX package's (spmm.py:90,122-128, spmm_stream.py:306):
-float32 or bfloat16 operands of one dtype. ``bsr_spmm`` returns float32
-sums either way; ``sampled_matmul`` returns bfloat16 tiles for bf16
-operands (the f32 sums rounded once) and float32 otherwise. Products of
-bf16 values are exact in f32, so the kernels and the plain versions (which
-widen to f32 and sum in f32) differ only in summation order.
+float32, bfloat16 or float16 operands of one dtype. ``bsr_spmm`` returns
+float32 sums in every case; ``sampled_matmul`` returns bfloat16 tiles for
+bf16 operands (the f32 sums rounded once) and float32 otherwise, f16
+operands included. Products of two bf16 or two f16 values are exact in
+f32, so the kernels and the plain versions (which widen to f32 and sum in
+f32) differ only in summation order.
 
 The backward passes close under the same two kernels, term for term as the
 JAX custom VJPs (spmm.py:183-206, 234-252, 287-298):
@@ -45,7 +46,9 @@ JAX custom VJPs (spmm.py:183-206, 234-252, 287-298):
   * d/dA  SpMM  = sampled_matmul(dY, X) at the graph pattern;
   * d/dE1 SDDMM = SpMM(mask.dS, E2^T);  d/dE2 = SpMM(transpose(mask.dS), E1)^T.
 With bf16 x the SpMM's backward rounds dY to bf16 once before both kernels
-(JAX spmm.py:193-194, 239-240); every term is cast to its primal's dtype.
+(JAX spmm.py:193-194, 239-240), and with f16 x to f16 (see _SpMM.backward);
+the SDDMM's backward at f16 runs its f32 dS against the embeddings widened
+to f32 (see _SDDMMReLU.backward); every term is cast to its primal's dtype.
 A term whose input needs no gradient is skipped (``ctx.needs_input_grad``):
 XLA drops the same terms from the JAX program, e.g. dA of a static support,
 whose values the model stops gradients at.
@@ -61,7 +64,7 @@ import torch
 from multistgraph_tpu_torch.ops import _cuda
 
 BLOCK = 128  # the kernels' tile edge; the plain versions take any block
-DTYPES = (torch.float32, torch.bfloat16)  # operand dtypes of the kernels
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # operand dtypes of the kernels
 # Most tiles one segment of bsr_spmm multiplies: longer row blocks are split
 # (the transposed graph's hub rows hold 384 tiles at 49,152 nodes). Chosen
 # on an H100 with tools/ab_bsr.py among 8-64 (PERF.md): the only length at
@@ -137,7 +140,7 @@ def bsr_schedule(row_ptr: torch.Tensor, nnz: int, seg_tiles: int = SEGMENT_TILES
 # ----------------------------------------------------------- plain versions
 def spmm_plain(values, row_of, col_of, x, block: int = BLOCK, out_blocks=None):
     """Y = A X by gather, batched matmul and index_add_ (JAX spmm_jax,
-    spmm.py:142-155), float32: bf16 operands are widened, so the exact
+    spmm.py:142-155), float32: bf16 and f16 operands are widened, so the exact
     products are summed in f32 with no rounding in between; contributions
     are added in nnz order, as the Pallas kernel accumulates them."""
     n_pad, feat = x.shape
@@ -149,7 +152,8 @@ def spmm_plain(values, row_of, col_of, x, block: int = BLOCK, out_blocks=None):
 
 def sampled_matmul_plain(a, bt, row_of, col_of, block: int = BLOCK):
     """(a @ bt^T) at the nonzero blocks: (nnz, block, block), summed in f32
-    and rounded once to bf16 for bf16 operands, float32 otherwise."""
+    and rounded once to bf16 for bf16 operands, float32 otherwise (f16
+    operands too, as JAX's kernel emits them, spmm.py:128)."""
     d = a.shape[1]
     ab = a.reshape(-1, block, d).index_select(0, row_of).float()
     bb = bt.reshape(-1, block, d).index_select(0, col_of).float()
@@ -192,7 +196,7 @@ def bsr_transpose_plan(values, row_of, col_of, n_blocks: int):
 # (chip_smoke.py): the k16 slice holding the contraction's last element
 # dropped; a tile skipped (bsr_spmm: each row block's last; sampled_matmul:
 # tile 0); row block 0 zeroed (bsr_spmm: its output rows; sampled_matmul:
-# its tiles). Both kernels plant them in both forms (f32 and bf16);
+# its tiles). Both kernels plant them in every form (f32, bf16, f16);
 # bsr_spmm also takes SPMM_FAULTS' "segment": a split row's last segment
 # left out of its sum.
 FAULTS = {"k16": 1, "tile": 2, "row": 3}
@@ -219,7 +223,7 @@ def planted_fault(kind: str, kernel: str = None):
 
 
 def bf16_load_path(feat: int) -> str:
-    """How the bf16 kernels here and in ops/band.py bring in an operand of
+    """How the 16-bit (bf16 and f16) kernels here and in ops/band.py bring in an operand of
     `feat` columns (x, dy, or both of sampled_matmul's): by TMA where its
     rows are whole 16-byte units, else by element loads."""
     return "TMA" if feat % 8 == 0 else "element loads"
@@ -246,7 +250,8 @@ def _run(name, entry, tensors, ints, device):
 
 @functools.cache
 def feature_tile(feat: int, bf16: bool) -> int:
-    """The feature columns one bsr_spmm block computes at width `feat`
+    """The feature columns one bsr_spmm block computes at width `feat` in the
+    tensor-core form (`bf16`: bf16 and f16 operands) or the f32 one
     (csrc/bsr_spmm.cu's rule), which sizes a workspace slot."""
     fn = _cuda.library("bsr_spmm").bsr_spmm_feature_tile
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
@@ -258,7 +263,8 @@ def _check_common(name, floats, ints, dtypes=DTYPES):
     contiguous, on one CPU or CUDA device."""
     for t in floats:
         if t.dtype not in dtypes or t.dtype != floats[0].dtype:
-            allowed = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            names = [str(d).replace("torch.", "") for d in dtypes]
+            allowed = " or ".join([", ".join(names[:-1]), names[-1]] if len(names) > 1 else names)
             raise TypeError("{} takes {} operands of one dtype, got {}".format(
                 name, allowed, [str(f.dtype) for f in floats]))
     for t in ints:
@@ -274,15 +280,15 @@ def _check_common(name, floats, ints, dtypes=DTYPES):
 
 
 def bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks: int, schedule: BsrSchedule = None):
-    """Y = A X: (out_blocks*block, F) float32, for float32 or bfloat16
-    operands.
+    """Y = A X: (out_blocks*block, F) float32, for float32, bfloat16 or
+    float16 operands.
 
     values (nnz, block, block), row_of/col_of (nnz,) and row_ptr
     (out_blocks+1,) int32 of a row-major-sorted pattern, x (n_in, F) with
     n_in a multiple of block, values and x of one dtype; `schedule`, the
     pattern's bsr_schedule(row_ptr, nnz) (built here if None). CPU tensors
     take the plain version; CUDA tensors launch csrc/bsr_spmm.cu (block 128;
-    its tensor-core kernel for bf16) or raise. The kernel's split rows meet
+    its tensor-core kernel for bf16 and f16) or raise. The kernel's split rows meet
     in a workspace and a zeroed counter per (row block, feature tile), both
     allocated here on the current stream.
     """
@@ -310,30 +316,28 @@ def bsr_spmm(values, row_of, row_ptr, col_of, x, out_blocks: int, schedule: BsrS
     seg = schedule.segments
     if seg.dtype != torch.int32 or seg.dim() != 2 or seg.shape[1] != 8 or seg.device != x.device:
         raise ValueError("bsr_spmm takes a schedule of (M, 8) int32 segments on the operands' device")
-    bf16 = x.dtype == torch.bfloat16
-    tile = feature_tile(feat, bf16)
+    tensor_cores = x.dtype != torch.float32
+    tile = feature_tile(feat, tensor_cores)
     tiles = -(-feat // tile)
     ws = counters = None
     if schedule.ws_slots:
         ws = torch.empty(schedule.ws_slots * tiles * block * tile, dtype=torch.float32, device=x.device)
         counters = torch.zeros(out_blocks * tiles, dtype=torch.int32, device=x.device)
-    _run("bsr_spmm", "bsr_spmm_bf16" if bf16 else "bsr_spmm_fwd", (values, col_of, x, out, seg, ws, counters),
+    entry, counter = _FORMS[x.dtype]
+    _run("bsr_spmm", "bsr_spmm" + entry, (values, col_of, x, out, seg, ws, counters),
          (out_blocks, feat, nnz, x.shape[0], seg.shape[0], _planted.get("bsr_spmm", 0)), x.device)
-    if bf16:
-        bsr_spmm.bf16_launches += 1
-    else:
-        bsr_spmm.launches += 1
+    setattr(bsr_spmm, counter, getattr(bsr_spmm, counter) + 1)
     return out
 
 
 def sampled_matmul(a, bt, row_of, col_of):
     """(a @ bt^T) at the nonzero blocks: (nnz, 128, 128), bfloat16 for
-    bfloat16 operands and float32 for float32 ones.
+    bfloat16 operands and float32 for float32 or float16 ones.
 
     a (n_a, d) and bt (n_b, d) of one dtype with n_a, n_b multiples of 128;
     row_of and col_of (nnz,) int32 index a's and bt's 128-row blocks. CPU
     tensors take the plain version; CUDA tensors launch
-    csrc/sampled_matmul.cu (its tensor-core kernel for bf16; for f32 the
+    csrc/sampled_matmul.cu (its tensor-core kernel for bf16 and f16; for f32 the
     sampled kernel of csrc/simt_f32.cuh, which B9 dV shares) or raise.
     """
     _check_common("sampled_matmul", (a, bt), (row_of, col_of))
@@ -347,19 +351,19 @@ def sampled_matmul(a, bt, row_of, col_of):
     out = torch.empty((nnz, BLOCK, BLOCK), dtype=_tile_dtype(a.dtype), device=a.device)
     if not nnz:
         return out
-    if a.dtype == torch.bfloat16:
-        _run("sampled_matmul", "sampled_matmul_bf16", (a, bt, row_of, col_of, out),
-             (nnz, a.shape[1], a.shape[0], bt.shape[0], _planted.get("sampled_matmul", 0)), a.device)
-        sampled_matmul.bf16_launches += 1
-    else:
-        _run("sampled_matmul", "sampled_matmul_fwd", (a, bt, row_of, col_of, out),
-             (nnz, a.shape[1], a.shape[0], bt.shape[0], _planted.get("sampled_matmul", 0)), a.device)
-        sampled_matmul.launches += 1
+    entry, counter = _FORMS[a.dtype]
+    _run("sampled_matmul", "sampled_matmul" + entry, (a, bt, row_of, col_of, out),
+         (nnz, a.shape[1], a.shape[0], bt.shape[0], _planted.get("sampled_matmul", 0)), a.device)
+    setattr(sampled_matmul, counter, getattr(sampled_matmul, counter) + 1)
     return out
 
 
-bsr_spmm.launches = bsr_spmm.bf16_launches = 0
-sampled_matmul.launches = sampled_matmul.bf16_launches = 0
+# each operand dtype's C entry suffix and launch counter
+_FORMS = {torch.float32: ("_fwd", "launches"), torch.bfloat16: ("_bf16", "bf16_launches"),
+          torch.float16: ("_f16", "f16_launches")}
+for _fn in (bsr_spmm, sampled_matmul):
+    for _, _counter in _FORMS.values():
+        setattr(_fn, _counter, 0)
 
 
 # ---------------------------------------------------------------- autograd
@@ -383,8 +387,13 @@ class _SpMM(torch.autograd.Function):
         values, x = ctx.saved_tensors
         row_of, _, col_of, _ = ctx.graph
         v_dtype, x_dtype = ctx.dtypes
-        # with bf16 x, dy is rounded once before both kernels (JAX spmm.py:193-194)
-        dy = dy.to(torch.bfloat16 if x_dtype == torch.bfloat16 else dy.dtype).contiguous()
+        # With bf16 x, dy is rounded once before both kernels (JAX
+        # spmm.py:193-194). With f16 x JAX keeps dy f32, but there dy is the
+        # cotangent of the model's cast of this f32 output to f16
+        # (sparse_atgcn.py:376), so f16-exact: rounding it loses nothing, and
+        # the f16 kernels' exact products with f32 sums are JAX's
+        # f32-promoted products.
+        dy = dy.to(x_dtype if x_dtype != torch.float32 else dy.dtype).contiguous()
         dvalues = dx = None
         if ctx.needs_input_grad[1]:
             nb = ctx.x_blocks
@@ -406,7 +415,7 @@ def _graph(row_of, col_of, row_ptr, out_blocks, schedule=None):
 
 def spmm(values, row_of, col_of, x, block: int = BLOCK, out_blocks=None, row_ptr=None, schedule=None):
     """Y = A X (float32); values (nnz, b, b) and x (padded_nodes, F) of one
-    dtype, float32 or bfloat16, row_of/col_of (nnz,) int32 sorted by row.
+    dtype, float32, bfloat16 or float16, row_of/col_of (nnz,) int32 sorted by row.
     Differentiable in values and x. out_blocks
     sets the output's row-block count when it differs from x's; row_ptr, if
     given, is row_ptr_of(row_of, out_blocks), and schedule its
@@ -427,8 +436,9 @@ def spmm_pret(values, pre_t, row_of, col_of, x, block: int = BLOCK, out_blocks=N
 
 class _SDDMMReLU(torch.autograd.Function):
     """relu(E1 E2) at the pattern; e1 (n_pad, d), e2 (d, n_pad). The scores
-    come in sampled_matmul's dtype (bf16 for bf16 embeddings); dE1 and dE2
-    are cast to the embeddings' dtypes (JAX spmm.py:287-298). ``transpose``
+    come in sampled_matmul's dtype (bf16 for bf16 embeddings, f32 for f32
+    or f16 ones); dE1 and dE2 are cast to the embeddings' dtypes (JAX
+    spmm.py:287-298). ``transpose``
     = (row_ptr_t, schedule_t) of the pattern's block transpose, or None to
     build them in the backward."""
 
@@ -446,13 +456,18 @@ class _SDDMMReLU(torch.autograd.Function):
         row_of, row_ptr, col_of, schedule = ctx.graph
         dm = torch.where(out > 0, ds, 0.0)
         n_blocks = e1.shape[0] // ctx.block
+        # dM comes in the scores' dtype. For f16 embeddings that is f32 and
+        # not f16-exact: JAX's dot promotes the pair to f32, so the
+        # embeddings are widened (exactly) and dM is never rounded to f16.
         de1 = de2 = None
         if ctx.needs_input_grad[0]:
-            de1 = bsr_spmm(dm, row_of, row_ptr, col_of, e2.t().contiguous(), n_blocks, schedule).to(e1.dtype)
+            e2t = e2.t().to(dm.dtype).contiguous()
+            de1 = bsr_spmm(dm, row_of, row_ptr, col_of, e2t, n_blocks, schedule).to(e1.dtype)
         if ctx.needs_input_grad[1]:
             m_t, r_t, c_t = bsr_transpose(dm, row_of, col_of, n_blocks)
             ptr_t, sched_t = ctx.transpose or bsr_transpose_schedule(row_of, col_of, n_blocks)
-            de2 = bsr_spmm(m_t, r_t, ptr_t, c_t, e1.contiguous(), n_blocks, sched_t).t().to(e2.dtype)
+            e1w = e1.to(dm.dtype).contiguous()
+            de2 = bsr_spmm(m_t, r_t, ptr_t, c_t, e1w, n_blocks, sched_t).t().to(e2.dtype)
         return de1, de2, None, None, None
 
 

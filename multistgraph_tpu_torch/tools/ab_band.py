@@ -15,6 +15,10 @@ falls outside the graph):
   * f32 at the widths the 49,152-node f32 path gives each kernel: B7 at F =
     24, 128, 1536; B8 at F = 12, 64, 768, 24, 128, 1536; B9 dX and dV at F
     = 128, 1536;
+  * with ``--dtype f16``: the new version's f16 forms at the bf16 widths,
+    beside the bf16 rows in turns (the base's source takes no f16 operands,
+    so its turns skip them), each held within one f16 step of the new
+    version's f32 form on the same operands widened to f32;
   * P2 ``band_slab`` (bf16 packed rows against the padded x, f32 out),
     per-row and batched, at the probe's point (R = 8,192 random row
     blocks, radius 2, F = 128) with chunk_rows 8 (P2) and 16 (P4's second
@@ -24,8 +28,8 @@ falls outside the graph):
     640 rows at row 128 of a (1024, 128) x), each beside its library call
     (``torch.bmm`` of the stacked windows; ``v @ x[128:768]``) and an empty
     kernel of this checkout (``empty_launch``), the floor under a launch.
-``--dtype`` keeps the rows of one operand type, ``--only`` the kernels whose
-name starts with one of its prefixes.
+``--dtype`` keeps the rows of one operand type (f16 with bf16), ``--only``
+the kernels whose name starts with one of its prefixes.
 The unchanged layout-copy kernel (B3) is timed in each round as a control
 for drift of the card. Before timing, each new output is held against the
 base's: one bf16 step for bf16, rtol 1e-5 with atol 1e-5 max|base| for
@@ -103,17 +107,23 @@ def _planes(g, dtype):
     return v
 
 
-def _cases(g):
+CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}   # band_spmm.cu's dtype codes
+
+
+def _cases(g, f16=False):
     """[(kernel, shape, entry, pointer args, int args, output)] at the shapes
-    the module docstring names, and {(kernel, shape): library call}."""
+    the module docstring names (and, with f16, the f16 rows), and
+    {(kernel, shape): library call}."""
     cases, library = [], {}
     n = ROW_BLOCKS * BLOCK
     offs = list(OFFSETS) + [0] * (MAX_OFFSETS - len(OFFSETS))
-    for dtype, widths in ((torch.bfloat16, BF16_WIDTHS), (torch.float32, F32_WIDTHS)):
+    forms = ((torch.bfloat16, BF16_WIDTHS), (torch.float32, F32_WIDTHS)) + (
+        ((torch.float16, BF16_WIDTHS),) if f16 else ())
+    for dtype, widths in forms:
         planes = _planes(g, dtype)
         packed = pack_band_rows(planes, OFFSETS, RADIUS)
         dv_out = torch.empty_like(planes)
-        code = int(dtype == torch.bfloat16)
+        code = CODES[dtype]
         operands = {}   # one x, dy and output per width, shared by the kernels
         for kernel, feats in widths.items():
             for feat in feats:
@@ -159,14 +169,31 @@ def _call(fns, entry, ptrs, ints, stream):
 
 
 def _hold(got, ref, what):
-    """One bf16 step for bf16, rtol 1e-5 with atol 1e-5 max|ref| for f32."""
+    """One bf16 step for bf16; rtol 1e-5 with atol 1e-5 max|ref| for f32; for
+    f16 one f16 step plus that f32 rule (the reference is the f32 form, whose
+    sums the tensor cores' f32 accumulation leaves by up to ~1e-6 of the
+    largest entry at F = 1536: chip_smoke.py's F16_DV_SUMS_REL)."""
     got, want = got.float(), ref.float()
     if ref.dtype == torch.bfloat16:
         bound = 2.0 ** -7 * (want.abs() + 1e-3 * want.abs().max())
+    elif ref.dtype == torch.float16:
+        bound = 2.0 ** -10 * (want.abs() + 1e-3 * want.abs().max()) + 1e-5 * (want.abs() + want.abs().max())
     else:
         bound = 1e-5 * (want.abs() + want.abs().max())
     if not bool(((got - want).abs() <= bound).all()):
-        raise AssertionError("{}: the new version's output differs from the base's".format(what))
+        raise AssertionError("{}: the new version's output differs from its reference".format(what))
+
+
+def _f32_reference(fns, entry, ptrs, ints, out, stream):
+    """An f16 case run by the f32 form on its operands widened to f32, the
+    result rounded to f16 once."""
+    wide = [p.float() for p in ptrs[:2]] + [torch.empty(out.shape, device="cuda")]
+    ints = list(ints)
+    ints[5 if entry == "band_dv_launch" else 6] = 0
+    if entry == "band_dv_launch":
+        ints[6] = 0
+    _call(fns, entry, wide, ints, stream)
+    return wide[2].half()
 
 
 def main(argv=None):
@@ -176,15 +203,17 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=10, help="timed calls per sample")
     ap.add_argument("--only", nargs="*", default=[""],
                     help="time only the kernels whose name starts with one of these (e.g. P1 P3)")
-    ap.add_argument("--dtype", choices=("all", "bf16", "f32"), default="all", help="time only rows of this type")
+    ap.add_argument("--dtype", choices=("all", "bf16", "f32", "f16"), default="all",
+                    help="time only rows of this type (f16: the new version's f16 rows beside the bf16 ones)")
     cli = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     g = torch.Generator(device="cuda").manual_seed(0)
-    dtype = {"all": "", "f32": "float32", "bf16": "bf"}[cli.dtype]   # P2's shapes end in "bf16"
-    cases, library = _cases(g)
-    cases = [case for case in cases if case[0].startswith(tuple(cli.only)) and dtype in case[1].split()[-1]]
+    dtype = {"all": ("",), "f32": ("float32",), "bf16": ("bf",), "f16": ("bf", "float16")}[cli.dtype]
+    cases, library = _cases(g, f16=cli.dtype == "f16")   # P2's shapes end in "bf16"
+    cases = [case for case in cases if case[0].startswith(tuple(cli.only))
+             and any(d in case[1].split()[-1] for d in dtype)]
     library = {key: call for key, call in library.items() if key[0] in {case[0] for case in cases}}
     view = torch.randn(24, 16, 237, 192, generator=g, device="cuda")[..., :128]
     stream = torch.cuda.current_stream().cuda_stream
@@ -194,8 +223,11 @@ def main(argv=None):
         empty = ctypes.CDLL(os.path.join(tmp, "libband_probe-new.so")).empty_launch
         empty.argtypes, empty.restype = [_P], ctypes.c_int
         for kernel, shape, entry, ptrs, ints, out in cases:
-            _call(libs["base"], entry, ptrs, ints, stream)
-            ref = out.clone()
+            if out.dtype == torch.float16:
+                ref = _f32_reference(libs["new"], entry, ptrs, ints, out, stream)
+            else:
+                _call(libs["base"], entry, ptrs, ints, stream)
+                ref = out.clone()
             _call(libs["new"], entry, ptrs, ints, stream)
             torch.cuda.synchronize()
             _hold(out, ref, "{} {}".format(kernel, shape))
@@ -203,7 +235,9 @@ def main(argv=None):
         for _ in range(cli.rounds):
             for version in ("base", "new", "new", "base"):
                 lib = libs[version]
-                for kernel, shape, entry, ptrs, ints, _ in cases:
+                for kernel, shape, entry, ptrs, ints, out in cases:
+                    if version == "base" and out.dtype == torch.float16:
+                        continue   # the base's source takes no f16 operands
                     samples.setdefault((version, kernel, shape), []).append(event_ms(
                         lambda entry=entry, ptrs=ptrs, ints=ints: _call(lib, entry, ptrs, ints, stream),
                         reps=cli.reps))

@@ -1,7 +1,7 @@
 """The port's bf16 band path against the JAX package: the band products in
 bf16 (planes and packed rows, values and gradients, and the mixed case of
-bf16 x against f32 values), ``round_cotangent``, and SparseATGCN with
-``compute_dtype='bfloat16'`` on the band form, on the same numpy inputs.
+bf16 x against f32 values) and in f16, ``round_cotangent``, and SparseATGCN
+with ``compute_dtype='bfloat16'`` on the band form, on the same numpy inputs.
 
 JAX's band path runs on its default einsum dispatch (on the CPU it widens
 bf16 to f32, sums in f32 and rounds once, as the port's plain versions and
@@ -9,7 +9,8 @@ its kernels do). Tolerances, each with its reason:
   * band products: within one bf16 step of JAX, 2^-7 |JAX| + 2^-7 * 1e-3
     max|JAX| (the same exact products summed in f32 in another order, then
     rounded once: the two sums may round to neighbouring bf16 values); an
-    f32 dV, rtol 1e-5 with atol 1e-5 times max|JAX|;
+    f32 dV, rtol 1e-5 with atol 1e-5 times max|JAX|; in f16, within one
+    f16 step, 2^-10 |JAX| + 2^-10 * 1e-3 max|JAX|, for the same reason;
   * the model: the relative max error (max |port - JAX| over max |JAX|) of
     the output and of every gradient below 3e-2. Readings on this seed:
     0.77e-2 to 2.1e-2. XLA fuses bf16 elementwise chains and rounds once
@@ -80,14 +81,20 @@ def _bf16(a):
     return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
 
 
+def _f16(a):
+    """numpy f32 -> (torch f16, jnp f16) holding the same values."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).half()
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.float16)
+
+
 def _np(a):
     return np.asarray(jnp.asarray(a).astype(jnp.float32)) if not isinstance(a, torch.Tensor) \
         else a.detach().float().numpy()
 
 
-def _within_a_bf16_step(got, want):
+def _within_a_bf16_step(got, want, step=2.0 ** -7):
     got, want = _np(got), _np(want)
-    bound = 2.0 ** -7 * (np.abs(want) + 1e-3 * np.abs(want).max())
+    bound = step * (np.abs(want) + 1e-3 * np.abs(want).max())
     assert (np.abs(got - want) <= bound).all(), float((np.abs(got - want) / bound).max())
 
 
@@ -117,6 +124,36 @@ def test_bf16_band_products_and_gradients_match_jax(graphs, packed):
     assert y_j.dtype == gv_j.dtype == gx_j.dtype == jnp.bfloat16
     for got, want in ((y_t, y_j), (v_t.grad, gv_j), (x_t.grad, gx_j)):
         _within_a_bf16_step(got, want)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["planes", "packed"])
+def test_f16_band_products_and_gradients_match_jax(graphs, packed):
+    """The band products in f16: y, dX and dV in f16 (x's and the values'
+    dtype), each within one f16 step of JAX's; the cotangent rounded to f16
+    before the backward's products, as JAX rounds it (band.py:727)."""
+    graph, _ = graphs
+    offs = tuple(int(o) for o in graph.offsets)
+    radius = band.band_radius(offs)
+    rng = np.random.default_rng(1)
+    values = band.pack_band_rows(graph.band_values, offs, radius) if packed else graph.band_values
+    v_t, v_j = _f16(values)
+    x_t, x_j = _f16(rng.normal(size=(N_PAD, 24)).astype(np.float32))
+    cot = rng.normal(size=(N_PAD, 24)).astype(np.float32)
+
+    def jfn(v, x):
+        return (jax_band.spmm_band_packed(v, radius, x, block=BLOCK) if packed
+                else jax_band.spmm_band(v, graph.offsets, x, block=BLOCK))
+
+    y_j, vjp = jax.vjp(jfn, v_j, x_j)
+    gv_j, gx_j = vjp(jnp.asarray(cot).astype(jnp.float16))
+    v_t.requires_grad_()
+    x_t.requires_grad_()
+    y_t = band.spmm_band_packed(v_t, radius, x_t) if packed else band.spmm_band(v_t, offs, x_t)
+    y_t.float().backward(torch.from_numpy(cot))
+    assert y_t.dtype == v_t.grad.dtype == x_t.grad.dtype == torch.float16
+    assert y_j.dtype == gv_j.dtype == gx_j.dtype == jnp.float16
+    for got, want in ((y_t, y_j), (v_t.grad, gv_j), (x_t.grad, gx_j)):
+        _within_a_bf16_step(got, want, step=2.0 ** -10)
 
 
 def test_mixed_dtype_gradients_match_jax(graphs):
@@ -270,8 +307,11 @@ def test_bf16_model_stores_its_graph_arrays_in_bf16(graphs):
 
 
 def test_unknown_compute_dtype_is_refused(graphs):
+    """A name no dtype has: JAX's model fails on it too (its astype raises a
+    TypeError at the first cast), where 'float64' would run silently as f32
+    without x64 and 'float16' is a compute dtype of both packages."""
     with pytest.raises(ValueError, match="compute_dtype"):
-        build_sparse_atgcn(graphs[0], _config(compute_dtype="float16"), device="cpu")
+        build_sparse_atgcn(graphs[0], _config(compute_dtype="float8"), device="cpu")
 
 
 def test_run_model_cli_reaches_the_bf16_band_model(tmp_path, monkeypatch):

@@ -128,6 +128,8 @@ def test_f32_ablations_match_jax(flag):
     # weights, which both sides quantize alike, so held as f32 is
     {"compute_dtype": "float32", "weight_stream_quant": "int8"},
     {"compute_dtype": "float16", "weight_stream_quant": "int8"},
+    # f16 without the int8 stream: JAX runs it as it runs bf16, in f16
+    {"compute_dtype": "float16"},
 ])
 def test_bf16_and_int8_forward_match_jax(mode):
     got, want, model, _ = _both(_config(adjtype="multi", adpadj="bidirection", **mode),
@@ -136,6 +138,10 @@ def test_bf16_and_int8_forward_match_jax(mode):
     assert np.isfinite(got).all()
     if mode["compute_dtype"] == "float32":
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+    elif mode == {"compute_dtype": "float16"}:
+        # the same f16 rounding points as JAX: read 4.3e-6 of a max |JAX| of 1.64
+        assert model.compute_dtype == torch.float16
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
     else:
         np.testing.assert_allclose(got, want, atol=1e-2, rtol=1e-2)
 

@@ -254,14 +254,18 @@ def test_cuda_bf16_training_step_launches_the_kernels(cuda, split):
 @pytest.mark.cuda
 def test_cuda_wrappers_take_bf16_and_reject_other_dtypes(cuda):
     """bf16 operands of one dtype are taken (f32 sums from bsr_spmm, bf16
-    tiles from sampled_matmul); half precision and mixed dtypes raise."""
+    tiles from sampled_matmul); float64 and mixed dtypes (bf16 against f32
+    or f16) raise. f16 operands have kernels of their own
+    (tests/test_torch_port_f16_cuda.py)."""
     values, row, ptr, col = _card_graph(cuda, 2, 2, seed=0)
     x = _randn(cuda, 2 * BLOCK, 8)
     assert spmm.bsr_spmm(values, row, ptr, col, x, 2).dtype == torch.float32
     assert spmm.sampled_matmul(x, x, row, col).dtype == torch.bfloat16
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        spmm.bsr_spmm(values.half(), row, ptr, col, x.half(), 2)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        spmm.bsr_spmm(values.double(), row, ptr, col, x.double(), 2)
     with pytest.raises(TypeError, match="of one dtype"):
         spmm.bsr_spmm(values, row, ptr, col, x.float(), 2)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        spmm.sampled_matmul(x.half(), x.half(), row, col)
+    with pytest.raises(TypeError, match="of one dtype"):
+        spmm.bsr_spmm(values, row, ptr, col, x.half(), 2)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        spmm.sampled_matmul(x.double(), x.double(), row, col)
