@@ -52,9 +52,21 @@
 // K = 64 chunks through an mbarrier ring (3-4 stages, 72-192 KB): the
 // tile's chunk by TMA, K-major for the forward, MN-major for dX (the
 // transposed tile is read as it lies, wgmma's transpose-A bit), and x's
-// matching 64 rows as MN-major B, by TMA where F % 8 == 0 (zero past F),
-// else by element loads (a row of F=12 is 24 bytes: no 16-byte copy fits
-// it). Every operand lies under the 128-byte swizzle, so TMA moves 128-byte
+// matching 64 rows as MN-major B, by TMA where F % 8 == 0 (zero past F).
+// A row of F=12 is 24 bytes, no whole 16-byte unit, but a chunk's 64 rows
+// are one span of 128 F bytes, 16-byte aligned where x is: below F = 32
+// one bulk copy brings it into a raw staging of its stage, issued two
+// chunks ahead on a barrier of its own, and four producer warps move its
+// elements (in pairs where F is even) into the B layout, then arrive on
+// the stage's full barrier; else (F % 8 != 0 from 33 up, or x not 16-byte
+// aligned) the producer warp loads elements. On an H100 80GB HBM3 at 700 W
+// at the 1M band, in turns with element loads at every such F (PERF.md
+// §6): B8 bf16 F=12 0.498 ms against 0.949 (torch.bmm 0.576), F=20 0.512
+// against 1.407, B7 and B9 dX alike; B8 f16 at 49,152 nodes F=12 0.0403
+// against 0.0702. The same moves by the 256 consumers made ptxas serialize
+// every wgmma of the kernel; 16-byte loads into one producer warp's
+// registers, scattered from there, ran 1.3-1.5x slower than the element
+// loads. Every operand lies under the 128-byte swizzle, so TMA moves 128-byte
 // rows: with 8x8 core matrices (16-byte rows) the same kernel streamed at
 // ~1.9 TB/s, 1.36 ms at F=128 against 0.66 ms now. Each chunk's four k16
 // products go out while the previous chunk's finish, whose stage is then
@@ -246,6 +258,37 @@ constexpr int kTcThreads = kConsumers + 32;   // and one producer warp
 constexpr int kChunkA = kBlock * kKc;         // elements of a stage's tile (or dy) chunk
 constexpr int kDvStages = 2;
 constexpr int kStageLd = kBlock + 8;          // row stride of dV's per-warp output staging (conflict-free)
+constexpr int kSpanMaxF = 32;                 // x narrower than this comes by one bulk copy a chunk (F % 8 != 0)
+constexpr int kSpanLag = 2;                   // chunks a span's bulk copy is issued before its elements are moved
+constexpr int kSpanWarps = 4;                 // producer warps that move a span's elements (SPAN kernels)
+
+// one bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
+// The 64 rows of F 16-bit values at src (a chunk of x, row-major) into a B
+// operand chunk at bb (MN-major under the 128-byte swizzle, F < 64) by the
+// kSpanWarps producer warps, U (2 or 4 bytes) a copy: producer thread t
+// moves the units t, t + 32 kSpanWarps, ...
+template <typename U>
+__device__ __forceinline__ void span_rows_to_b(unsigned char* bb, const unsigned char* src, int F, int t) {
+  constexpr int E = sizeof(U) / 2;                          // elements a unit
+  constexpr int kStep = 32 * kSpanWarps;
+  const int dk = kStep * E / F, dc = kStep * E % F;         // a thread's step of kStep units, in rows and columns
+  int k = E * t / F, c = E * t % F;
+  const U* units = reinterpret_cast<const U*>(src);
+#pragma unroll 4
+  for (int q = t; q < kKc * F / E; q += kStep) {
+    *reinterpret_cast<U*>(bb + sw128(k * 128 + c * 2)) = units[q];
+    k += dk, c += dc;
+    if (c >= F) c -= F, ++k;
+  }
+}
 
 struct Band {
   int R, F, n_slots, radius, packed, fault;
@@ -314,29 +357,47 @@ struct SpmmTile {
 // a tile's 128 rows (K-major A, rows of 64 k); for the transpose, two boxes
 // of 64 of its rows by 64 columns (MN-major A, two 64-row blocks of M).
 // x_map views x likewise: a box is 64 rows by 64 columns (MN-major B), one
-// for each 64 of the chunk's columns, where tma_x (F % 8 == 0); else the
-// producer loads elements into the same layout. T is the operands' and the
-// output's 16-bit type.
-template <int BN, bool TRANS, typename T>
-__global__ void __launch_bounds__(kTcThreads, SpmmTile<BN>::kMinBlocks)
+// for each 64 of the chunk's columns, where tma_x (F % 8 == 0). Else, in
+// the SPAN kernels (F < kSpanMaxF, x 16-byte aligned), the chunk's 64 rows
+// of x, one contiguous span of 128 F bytes, come by one bulk copy into a
+// raw staging of the stage, on a barrier of its own, issued kSpanLag chunks
+// before kSpanWarps producer warps move each element to its place in the B
+// layout and arrive on the stage's full barrier (the consumers' code is the
+// TMA path's: moving the elements there made ptxas serialize every wgmma);
+// else the producer warp loads elements into that layout. T is the
+// operands' and the output's 16-bit type.
+template <bool SPAN>
+constexpr int band_threads() { return kConsumers + 32 * (SPAN ? kSpanWarps : 1); }
+
+template <int BN, bool TRANS, typename T, bool SPAN>
+__global__ void __launch_bounds__(band_threads<SPAN>(), SpmmTile<BN>::kMinBlocks)
 band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap x_map,
                     int tma_x, const T* __restrict__ x, T* __restrict__ out, Band a) {
   using Tile = SpmmTile<BN>;
   constexpr int S = Tile::kStages;
   constexpr int kBlocksB = Tile::kWidthB / 64;   // 64-column blocks of an operand chunk
+  // a stage is freed once the consumers are past the chunk after its own,
+  // whose x goes in kSpanLag chunks after its copy was issued
+  static_assert(!SPAN || kSpanLag <= S - 2, "the producer would wait on a stage only it can free");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   T* as = reinterpret_cast<T*>(smem);                                   // S tile chunks: 128 x 64
   T* bs = as + (size_t)S * kChunkA;                                     // S operand chunks: 64 x kWidthB
   uint64_t* full = reinterpret_cast<uint64_t*>(bs + (size_t)S * Tile::kChunkB);
   uint64_t* empty = full + S;
+  // SPAN: stage st's bulk copy lands on raw[st], its raw chunk of x (128 F
+  // bytes, 16-byte aligned) at spans + st 128 F
+  uint64_t* raw = empty + S;
+  unsigned char* spans = reinterpret_cast<unsigned char*>(raw + S);
+  const unsigned span_bytes = 128u * (unsigned)a.F;
 
   const int r = blockIdx.y, f0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int i = 0; i < S; ++i) {
-      mbar_init(full + i, 1);
-      mbar_init(empty + i, 2);   // one arrival per consumer warpgroup
+      mbar_init(full + i, SPAN ? 1 + kSpanWarps : 1);   // SPAN: the tile's expect_tx, each mover warp's arrival
+      mbar_init(empty + i, 2);             // one arrival per consumer warpgroup
+      if (SPAN) mbar_init(raw + i, 1);
     }
     fence_mbar_init();
   }
@@ -344,8 +405,40 @@ band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_cons
 
   if (tid >= kConsumers) {
     // producer warp: chunk g is the kc-th half of the g/2-th present slot
-    const int lane = tid - kConsumers;
+    const int lane = tid - kConsumers;   // SPAN: 0 .. 32 kSpanWarps, warp 0 the one that issues
     const T zero = T(0.f);
+    // SPAN: this warp's part of chunk h's raw rows of x into the B layout of
+    // its stage (element pairs at once where F is even: no pair straddles
+    // two rows), then its arrival on the full barrier
+    auto span_to_b = [&](int h) {
+      const int st = h % S;
+      mbar_wait(raw + st, (h / S) & 1);
+      const unsigned char* src = spans + (size_t)st * span_bytes;
+      unsigned char* bb = reinterpret_cast<unsigned char*>(bs + (size_t)st * Tile::kChunkB);
+      if (a.F % 2 == 0)
+        span_rows_to_b<uint32_t>(bb, src, a.F, lane);
+      else
+        span_rows_to_b<uint16_t>(bb, src, a.F, lane);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane % 32 == 0) mbar_arrive(full + st);
+    };
+    if (SPAN && lane >= 32) {
+      // the other mover warps: every present chunk in turn (its raw barrier
+      // completes once warp 0 found the chunk's stage free and issued it)
+      int chunks = 0;
+      for (int s = 0; s < a.n_slots; ++s) chunks += slot_source(a, s, r, TRANS) >= 0 ? kBlock / kKc : 0;
+      for (int h = 0; h < chunks; ++h) span_to_b(h);
+      return;
+    }
+    if constexpr (SPAN) {
+      // x's columns F .. BN of every stage stay zero: span_to_b writes only columns below F
+      for (int q = lane; q < S * kKc * (BN - a.F); q += 32) {
+        const int st = q / (kKc * (BN - a.F)), k = q / (BN - a.F) % kKc, c = a.F + q % (BN - a.F);
+        *reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(bs + (size_t)st * Tile::kChunkB) +
+                              sw128(k * 128 + c * 2)) = zero;
+      }
+    }
     int g = 0;
     for (int s = 0; s < a.n_slots; ++s) {
       const int src = slot_source(a, s, r, TRANS);
@@ -360,7 +453,7 @@ band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_cons
         T* ad = as + (size_t)st * kChunkA;
         T* bd = bs + (size_t)st * Tile::kChunkB;
         const int k0 = src * kBlock + kc * kKc;   // the operand's first row of the chunk
-        if (!tma_x) {
+        if (!tma_x && !SPAN) {
           // element (k, c) of the chunk, zero past F, at its swizzled place
           unsigned char* bb = reinterpret_cast<unsigned char*>(bd);
 #pragma unroll 4
@@ -382,9 +475,16 @@ band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_cons
           }
           if (tma_x)
             for (int j = 0; j < kBlocksB; ++j) tma_load_2d(bd + j * 64 * kKc, &x_map, f0 + 64 * j, k0, full + st);
+          if (SPAN) {
+            mbar_arrive_tx(raw + st, span_bytes);
+            bulk_load(spans + (size_t)st * span_bytes, x + (size_t)k0 * a.F, span_bytes, raw + st);
+          }
         }
+        if (SPAN && g >= kSpanLag) span_to_b(g - kSpanLag);
       }
     }
+    if constexpr (SPAN)
+      for (int h = g > kSpanLag ? g - kSpanLag : 0; h < g; ++h) span_to_b(h);
   } else {
     // consumers: warpgroup wg owns output rows 64 wg .. 64 wg + 63
     const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
@@ -552,8 +652,17 @@ band_dv_tc_kernel(const __grid_constant__ CUtensorMap dy_map, const __grid_const
 
 template <int BN, bool TRANS, typename T>
 cudaError_t launch_spmm_tc(const void* values, const void* x, void* out, const Band& a, cudaStream_t stream) {
-  auto kernel = band_spmm_tc_kernel<BN, TRANS, T>;
-  const size_t smem = SpmmTile<BN>::kSmem;
+  const int tma_x = a.F % 8 == 0;
+  // the spans' staging, S x 128 F bytes, keeps two blocks an SM up to BN = 32
+  const bool span = !tma_x && a.F < kSpanMaxF && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kernel = band_spmm_tc_kernel<BN, TRANS, T, false>;
+  size_t smem = SpmmTile<BN>::kSmem;
+  if constexpr (BN <= kSpanMaxF) {
+    if (span) {
+      kernel = band_spmm_tc_kernel<BN, TRANS, T, true>;
+      smem += (size_t)SpmmTile<BN>::kStages * (sizeof(uint64_t) + 128 * a.F);   // the raw barriers and spans
+    }
+  }
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   // the tiles: planes (O R 128, 128) or packed rows (R 128, W); a box is 128
@@ -563,13 +672,13 @@ cudaError_t launch_spmm_tc(const void* values, const void* x, void* out, const B
   CUtensorMap v_map = {}, x_map = {};
   err = rows_view<T>(&v_map, values, rows, cols, TRANS ? kKc : kBlock);
   if (err != cudaSuccess) return err;
-  const int tma_x = a.F % 8 == 0;
   if (tma_x) {
     err = rows_view<T>(&x_map, x, a.R * kBlock, a.F, kKc);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)((a.F + BN - 1) / BN), (unsigned)a.R);
-  kernel<<<grid, kTcThreads, smem, stream>>>(v_map, x_map, tma_x, static_cast<const T*>(x), static_cast<T*>(out), a);
+  kernel<<<grid, span ? band_threads<true>() : band_threads<false>(), smem, stream>>>(
+      v_map, x_map, tma_x, static_cast<const T*>(x), static_cast<T*>(out), a);
   return cudaGetLastError();
 }
 

@@ -30,7 +30,9 @@ zero-padded x, dV "rif,orjf->orij", dX by shifted adds into a padded
 buffer whose core is returned. The kernels form no padded copy: they skip
 a slot whose operand row block lies outside the graph and write dX
 straight into (N_pad, F). bf16 and f16 operands run on the tensor cores
-(wgmma, the tiles by TMA, x by TMA where F % 8 == 0, else by element loads:
+(wgmma, the tiles by TMA, x by TMA where F % 8 == 0, else the forward and
+dX below 32 columns by one bulk copy of each chunk's rows where x is
+16-byte aligned, else and in dV by element loads: ``x_load_path``,
 ``bf16_load_path``); a TMA view that the shape allows and
 cuTensorMapEncodeTiled refuses (an operand that is not 16-byte aligned)
 raises. f32 operands run full f32 FMAs on csrc/simt_f32.cuh's mainloop,
@@ -67,9 +69,24 @@ import torch
 
 from multistgraph_tpu_torch.ops import _cuda
 from multistgraph_tpu_torch.ops.spmm import BLOCK, DTYPES, _check_common
-from multistgraph_tpu_torch.ops.spmm import bf16_load_path  # noqa: F401  (the band kernels' rule too)
+from multistgraph_tpu_torch.ops.spmm import bf16_load_path  # noqa: F401  (dV's rule too)
 
 MAX_OFFSETS = 8  # offsets the kernels take by value (split_band keeps at most 8 by default)
+
+
+SPAN_MAX_F = 32  # csrc/band_spmm.cu's kSpanMaxF: the spans' staging keeps two blocks an SM below it
+
+
+def x_load_path(feat: int, aligned: bool = True) -> str:
+    """How the 16-bit forward and dX kernels (B7, B8, B9 dX) bring in x's
+    rows of `feat` columns: by TMA where they are whole 16-byte units (F % 8
+    == 0); else, below SPAN_MAX_F columns where x is 16-byte aligned
+    (`aligned`), each chunk's 64 rows (one contiguous span) by one bulk copy
+    that producer warps move into place on chip; else element by element.
+    dV keeps ``bf16_load_path``'s rule."""
+    if feat % 8 == 0:
+        return "TMA"
+    return "one bulk copy a chunk" if aligned and feat < SPAN_MAX_F else "element loads"
 
 
 @dataclass(frozen=True)

@@ -11,14 +11,17 @@ falls outside the graph):
   * bf16 at every width the path gives each kernel: B7 (planes) at F = 24,
     128, 1536; B8 (packed rows) at F = 12, 64, 768 (bucket 1) and 24, 128,
     1536 (bucket 2); B9 dX (planes) and B9 dV (planes, bf16 values) at F =
-    128 and 1536;
+    128 and 1536; and at widths that are no multiple of 8 beyond the path's
+    F = 12, where the forward and dX take x by one bulk copy a chunk (B7
+    and B9 dX at F = 12, 20; B8 at F = 3, 20, 36, the last by element
+    loads);
   * f32 at the widths the 49,152-node f32 path gives each kernel: B7 at F =
     24, 128, 1536; B8 at F = 12, 64, 768, 24, 128, 1536; B9 dX and dV at F
     = 128, 1536;
-  * with ``--dtype f16``: the new version's f16 forms at the bf16 widths,
-    beside the bf16 rows in turns (the base's source takes no f16 operands,
-    so its turns skip them), each held within one f16 step of the new
-    version's f32 form on the same operands widened to f32;
+  * with ``--dtype f16``: the f16 forms at the bf16 widths, beside the
+    bf16 rows in turns (a base whose source takes no f16 operands skips
+    them), each held within one f16 step of the new version's f32 form on
+    the same operands widened to f32;
   * P2 ``band_slab`` (bf16 packed rows against the padded x, f32 out),
     per-row and batched, at the probe's point (R = 8,192 random row
     blocks, radius 2, F = 128) with chunk_rows 8 (P2) and 16 (P4's second
@@ -33,14 +36,16 @@ the kernels whose name starts with one of its prefixes.
 The unchanged layout-copy kernel (B3) is timed in each round as a control
 for drift of the card. Before timing, each new output is held against the
 base's: one bf16 step for bf16, rtol 1e-5 with atol 1e-5 max|base| for
-f32 (the same products summed in another order). Times are CUDA-event
-medians with the L2 flushed before each call (``tools.timing.event_ms``,
-as chip_smoke.py takes them).
+f32 (the same products summed in another order), and each new row says
+whether its output is the base's bit for bit on the same inputs
+(``identical``; null where the base takes no such operands). Times are
+CUDA-event medians with the L2 flushed before each call
+(``tools.timing.event_ms``, as chip_smoke.py takes them).
 
 Run from the repository root:
     python -m multistgraph_tpu_torch.tools.ab_band --base <dir of the other checkout>
 Prints one JSON line per (version, kernel, shape) with the median over
-rounds, and the card's name and power limit.
+rounds, the new rows' ``identical``, and the card's name and power limit.
 """
 
 import argparse
@@ -60,8 +65,8 @@ from multistgraph_tpu_torch.tools.timing import card, event_ms
 
 BLOCK, ROW_BLOCKS, OFFSETS, RADIUS = 128, 7813, (-2, -1, 0, 1, 2), 2
 SLAB_ROWS, SLAB_FEAT, SLAB_CHUNKS = 8192, 128, (8, 16)   # P2's point (tools/probe_band_stream.py)
-BF16_WIDTHS = {"B7": (24, 128, 1536), "B8": (12, 64, 768, 24, 128, 1536), "B9 dX": (128, 1536),
-               "B9 dV": (128, 1536)}
+BF16_WIDTHS = {"B7": (24, 128, 1536, 12, 20), "B8": (12, 64, 768, 24, 128, 1536, 3, 20, 36),
+               "B9 dX": (128, 1536, 12, 20), "B9 dV": (128, 1536)}
 F32_WIDTHS = {"B7": (24, 128, 1536), "B8": (12, 64, 768, 24, 128, 1536), "B9 dX": (128, 1536),
               "B9 dV": (128, 1536)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -162,10 +167,12 @@ def _cases(g, f16=False):
     return cases, library
 
 
-def _call(fns, entry, ptrs, ints, stream):
+def _call(fns, entry, ptrs, ints, stream, check=True):
+    """One launch; raises on a failed launch, or with check=False returns its code."""
     rc = fns[entry](*[p.data_ptr() for p in ptrs], *ints, stream)
-    if rc != 0:
+    if rc != 0 and check:
         raise RuntimeError("{} failed: CUDA error {}".format(entry, rc))
+    return rc
 
 
 def _hold(got, ref, what):
@@ -204,7 +211,7 @@ def main(argv=None):
     ap.add_argument("--only", nargs="*", default=[""],
                     help="time only the kernels whose name starts with one of these (e.g. P1 P3)")
     ap.add_argument("--dtype", choices=("all", "bf16", "f32", "f16"), default="all",
-                    help="time only rows of this type (f16: the new version's f16 rows beside the bf16 ones)")
+                    help="time only rows of this type (f16: the f16 rows beside the bf16 ones)")
     cli = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -222,22 +229,26 @@ def main(argv=None):
         libs = {"base": _build(cli.base, tmp, "base"), "new": _build(here, tmp, "new")}
         empty = ctypes.CDLL(os.path.join(tmp, "libband_probe-new.so")).empty_launch
         empty.argtypes, empty.restype = [_P], ctypes.c_int
+        identical, base_skips = {}, set()
         for kernel, shape, entry, ptrs, ints, out in cases:
-            if out.dtype == torch.float16:
-                ref = _f32_reference(libs["new"], entry, ptrs, ints, out, stream)
+            if _call(libs["base"], entry, ptrs, ints, stream, check=out.dtype != torch.float16):
+                base_skips.add((kernel, shape))   # the base's source takes no f16 operands
+                base_bits = None
             else:
-                _call(libs["base"], entry, ptrs, ints, stream)
-                ref = out.clone()
+                base_bits = out.clone()
+            ref = _f32_reference(libs["new"], entry, ptrs, ints, out, stream) if (
+                out.dtype == torch.float16) else base_bits
             _call(libs["new"], entry, ptrs, ints, stream)
             torch.cuda.synchronize()
             _hold(out, ref, "{} {}".format(kernel, shape))
-            del ref
+            identical[("new", kernel, shape)] = None if base_bits is None else torch.equal(out, base_bits)
+            del ref, base_bits
         for _ in range(cli.rounds):
             for version in ("base", "new", "new", "base"):
                 lib = libs[version]
                 for kernel, shape, entry, ptrs, ints, out in cases:
-                    if version == "base" and out.dtype == torch.float16:
-                        continue   # the base's source takes no f16 operands
+                    if version == "base" and (kernel, shape) in base_skips:
+                        continue
                     samples.setdefault((version, kernel, shape), []).append(event_ms(
                         lambda entry=entry, ptrs=ptrs, ints=ints: _call(lib, entry, ptrs, ints, stream),
                         reps=cli.reps))
@@ -252,7 +263,7 @@ def main(argv=None):
     for (version, kernel, shape), ms in samples.items():
         print(json.dumps({"version": version, "kernel": kernel, "shape": shape,
                           "median_us": statistics.median(ms) * 1e3, "samples_us": [m * 1e3 for m in ms],
-                          "card": name}), flush=True)
+                          "identical": identical.get((version, kernel, shape)), "card": name}), flush=True)
 
 
 if __name__ == "__main__":

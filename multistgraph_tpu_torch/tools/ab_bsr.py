@@ -35,16 +35,23 @@ timed in each round as a control for drift of the card. Before timing,
 each output is held against the base's: rtol 1e-5 with atol 1e-5
 max|base| for f32 operands, 4e-5 for bf16 and f16 ones (chip_smoke.py's
 bounds for B4/B6: the same products summed in another order; B5's bf16
-tiles are rounded from such sums). Times are CUDA-event medians with
-the L2 flushed before each call (``tools.timing.event_ms``, as
-chip_smoke.py takes them).
+tiles are rounded from such sums), and each new row says whether its
+output is bit-identical to the base's on the same inputs (``identical``;
+null where the base has no entry for the row). B5's 16-bit rows are timed
+beside the library calls on the same pre-gathered row blocks (the gathers
+not timed): ``torch.bmm(a_t, b_t^T)`` with the operands' dtype out, and
+for f16 the f32-out ``torch.bmm(..., out_dtype=torch.float32)``, which
+computes B5 f16's function (f32 tiles); a torch that refuses it gives a
+line saying so. Times are CUDA-event medians with the L2 flushed before
+each call (``tools.timing.event_ms``, as chip_smoke.py takes them).
 
 Run from the repository root:
     python -m multistgraph_tpu_torch.tools.ab_bsr --base <dir of the other checkout>
 ``--only B5`` keeps B5's rows (``--only`` matches kernel and shape);
 ``--dtype`` picks the operand types (default f32 bf16).
 Prints one JSON line per (version, kernel, shape) with the median over
-rounds, and the card's name and power limit.
+rounds, whether the new version's output is the base's bit for bit, and
+the card's name and power limit.
 """
 
 import argparse
@@ -213,6 +220,27 @@ def _plain(kernel, case):
     return spmm.spmm_plain(values, row, col, x, out_blocks=nb)
 
 
+def _b5_library(kernel, shape, case):
+    """{(label, kernel, shape): call} of the library calls beside a 16-bit B5
+    case, on row blocks gathered once; a call the card's torch refuses maps
+    to the reason instead."""
+    a, bt, row, col, _ = case
+    if a.dtype == torch.float32:
+        return {}
+    d = a.shape[1]
+    a_t = a.reshape(-1, 128, d).index_select(0, row)
+    b_t = bt.reshape(-1, 128, d).index_select(0, col).transpose(1, 2)
+    calls = {("library {}-out bmm".format(str(a.dtype)[6:]), kernel, shape): lambda: torch.bmm(a_t, b_t)}
+    if a.dtype == torch.float16:
+        key = ("library f32-out bmm", kernel, shape)
+        try:
+            torch.bmm(a_t, b_t, out_dtype=torch.float32)
+            calls[key] = lambda: torch.bmm(a_t, b_t, out_dtype=torch.float32)
+        except (RuntimeError, NotImplementedError, TypeError) as exc:
+            calls[key] = "torch.bmm(..., out_dtype=torch.float32) refused: {}".format(str(exc).splitlines()[0][:160])
+    return calls
+
+
 def _hold(got, ref, rel, what):
     bound = rel * (ref.abs() + ref.abs().max())
     if not bool(((got - ref).abs() <= bound).all()):
@@ -241,11 +269,12 @@ def main(argv=None):
         versions = {"base": Version(cli.base, tmp, "base"), "new": Version(here, tmp, "new")}
         versions = {k: v.load() for k, v in versions.items()}
         schedules = {}   # (segment tiles, row_ptr) per case, built once
-        calls = {}
+        calls, identical, library = {}, {}, {}
         for kernel, shape, case in cases:
             if kernel == "B5":
                 out = case[4]
                 ref = None if versions["base"].prepare_b5(case) else _plain(kernel, case)
+                base_bits = None
                 for name, version in versions.items():
                     fn = version.prepare_b5(case)
                     if fn is None:
@@ -253,11 +282,13 @@ def main(argv=None):
                     fn()
                     torch.cuda.synchronize()
                     if ref is None:
-                        ref = out.float().clone()
+                        ref, base_bits = out.float().clone(), out.clone()
                     else:
                         _hold(out.float(), ref, HOLD_REL[case[0].dtype], "{} {} {}".format(name, kernel, shape))
+                        identical[(name, kernel, shape)] = None if base_bits is None else torch.equal(out, base_bits)
                     calls[(name, kernel, shape)] = fn
-                del ref
+                del ref, base_bits
+                library.update(_b5_library(kernel, shape, case))
                 continue
             values, ptr = case[0], case[1]
             for seg_tiles in [spmm.SEGMENT_TILES] + cli.segment_tiles:
@@ -265,6 +296,7 @@ def main(argv=None):
                 schedules[(kernel, shape, seg_tiles)] = spmm.bsr_schedule(ptr, values.shape[0], seg_tiles, exact=True)
             ref = None if versions["base"].prepare(case, schedules[(kernel, shape, spmm.SEGMENT_TILES)]) \
                 else _plain(kernel, case)
+            base_bits = None
             for name, version in versions.items():
                 variants = [spmm.SEGMENT_TILES] + (cli.segment_tiles if name == "new" else [])
                 for seg_tiles in variants:
@@ -275,11 +307,13 @@ def main(argv=None):
                     fn()
                     torch.cuda.synchronize()
                     if ref is None:
-                        ref = case[4].clone()
+                        ref = base_bits = case[4].clone()
                     else:
                         _hold(case[4], ref, HOLD_REL[case[3].dtype], "{} {} {}".format(label, kernel, shape))
+                        identical[(label, kernel, shape)] = None if base_bits is None else torch.equal(
+                            case[4], base_bits)
                     calls[(label, kernel, shape)] = fn
-            del ref
+            del ref, base_bits
         labels = sorted({k[0] for k in calls}, key=lambda k: (k != "base", k))
         order = labels + labels[::-1]   # base, new, ..., ..., new, base
         for _ in range(cli.rounds):
@@ -289,11 +323,19 @@ def main(argv=None):
                         samples.setdefault((label, kernel, shape), []).append(event_ms(fn, reps=cli.reps))
                 samples.setdefault(("control", "B3", "gate_x (24,16,237,128) f32"), []).append(
                     event_ms(lambda: force_default_layout(view)))
+            for (lab, kernel, shape), call in library.items():
+                if isinstance(call, str):
+                    continue
+                samples.setdefault((lab, kernel, shape), []).append(event_ms(call, reps=cli.reps))
     name = card()
+    for key, why in library.items():
+        if isinstance(why, str):
+            print(json.dumps({"version": key[0], "kernel": key[1], "shape": key[2], "refused": why, "card": name}),
+                  flush=True)
     for (version, kernel, shape), ms in samples.items():
         print(json.dumps({"version": version, "kernel": kernel, "shape": shape,
                           "median_us": statistics.median(ms) * 1e3, "samples_us": [m * 1e3 for m in ms],
-                          "card": name}), flush=True)
+                          "identical": identical.get((version, kernel, shape)), "card": name}), flush=True)
 
 
 if __name__ == "__main__":

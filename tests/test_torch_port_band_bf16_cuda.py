@@ -131,12 +131,15 @@ TC_OFFSETS = [(0,), (-1, 0, 1), (-3, 0, 2), (-3, -2, -1, 0, 1, 2, 3)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("feat", [8, 12, 24, 128, 136, 1536])
+@pytest.mark.parametrize("feat", [1, 3, 8, 12, 17, 20, 24, 31, 36, 128, 136, 300, 1536])
 @pytest.mark.parametrize("offsets", TC_OFFSETS, ids=lambda o: "offsets" + "_".join(map(str, o)))
 @pytest.mark.parametrize("nb", [1, 6], ids=["one_row_block", "six_row_blocks"])
 def test_cuda_tensor_core_band_kernels_match_plain(cuda, nb, offsets, feat):
     """Planes and packed rows: B7 / B8, B9 dX on both, dV on both in bf16 and
-    in f32 (bf16 operands into f32 values)."""
+    in f32 (bf16 operands into f32 values). Widths that are no multiple of 8
+    take x in the forward and dX by one bulk copy a chunk below 32 columns,
+    else (at 36, and at 300 over two feature blocks of 256 columns) and in
+    dV by element loads."""
     v = _planes(cuda, offsets, nb, seed=feat + nb)
     radius = band.band_radius(offsets)
     v_pack = band.pack_band_rows(v, offsets, radius)
@@ -176,6 +179,30 @@ def test_cuda_tensor_core_band_kernels_raise_on_a_misaligned_operand(cuda):
     # at F = 12 the element loads take it
     x12 = _misaligned(cuda, nb * BLOCK, 12, 3)
     _within_a_bf16_step(band.band_spmm(v, offsets, x12), band.band_plain(v, offsets, x12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [1, 3, 12, 17, 20, 31, 36, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_cuda_band_span_and_element_loads_agree_bit_for_bit(cuda, dtype, feat):
+    """The forward and dX on a 16-byte aligned x (below 32 columns one bulk
+    copy a chunk, rearranged by the consumers) and on the same values 8
+    bytes past a 16-byte boundary (element loads): the same products summed
+    in the same order, so the outputs are bit-identical, on planes and packed
+    rows; two calls of each are too."""
+    offsets, nb, radius = (-2, -1, 0, 1, 2), 6, 2
+    v = _planes(cuda, offsets, nb, seed=feat, dtype=dtype)
+    v_pack = band.pack_band_rows(v, offsets, radius)
+    x = _randn(cuda, nb * BLOCK, feat, dtype=dtype, seed=15)
+    buf = torch.empty(nb * BLOCK * feat + 8, dtype=dtype, device=cuda)
+    x_off = buf[4:4 + x.numel()].view(nb * BLOCK, feat)
+    x_off.copy_(x)
+    assert x.data_ptr() % 16 == 0 and x_off.data_ptr() % 16 == 8
+    assert band.x_load_path(feat, False) == "element loads"
+    for call in (lambda t: band.band_spmm(v, offsets, t), lambda t: band.band_spmm_packed(v_pack, radius, t),
+                 lambda t: band.band_dx(v, offsets, t), lambda t: band.band_dx_packed(v_pack, radius, t)):
+        got = call(x)
+        assert torch.equal(got, call(x_off)) and torch.equal(got, call(x))
 
 
 @pytest.mark.cuda

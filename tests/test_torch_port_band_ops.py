@@ -286,6 +286,19 @@ def test_bf16_kernels_take_x_by_tma_only_in_whole_16_byte_rows(feat, path):
     assert band.bf16_load_path(feat) == path
 
 
+@pytest.mark.parametrize("feat, aligned, path", [
+    (1, True, "one bulk copy a chunk"), (3, True, "one bulk copy a chunk"), (12, True, "one bulk copy a chunk"),
+    (31, True, "one bulk copy a chunk"), (12, False, "element loads"), (17, False, "element loads"),
+    (33, True, "element loads"), (300, True, "element loads"), (8, False, "TMA"), (24, True, "TMA"),
+    (1536, True, "TMA")])
+def test_forward_and_dx_take_narrow_x_by_one_bulk_copy_where_aligned(feat, aligned, path):
+    """B7, B8 and B9 dX: x by TMA in whole 16-byte rows (an unaligned x then
+    fails to encode and raises); below 32 columns each chunk's 64 contiguous
+    rows by one bulk copy where x is 16-byte aligned; else element by element."""
+    assert band.x_load_path(feat, aligned) == path
+    assert band.SPAN_MAX_F == 32
+
+
 def test_planted_faults_are_scoped_and_leave_the_cpu_path_alone(graph):
     """A planted fault reaches only the kernels' fault entries for the calls
     inside its block; CPU tensors take the plain version all the same."""

@@ -130,6 +130,19 @@ def test_cuda_f16_sampled_matmul_matches_plain(cuda, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 24, 128])
+def test_cuda_f16_sampled_matmul_is_bit_identical_across_calls(cuda, d):
+    """The f32 tiles, staged in shared memory and stored by TMA, come out the
+    same bits in two calls (each tile's sums in one fixed order), skipped
+    tiles and all, on a pattern of more tiles than the card has SMs."""
+    _, row, _, col = _card_graph(cuda, 16, 150, seed=d)
+    a, bt = _randn(cuda, 16 * BLOCK, d, seed=3), _randn(cuda, 16 * BLOCK, d, seed=4)
+    got = spmm.sampled_matmul(a, bt, row, col)
+    assert _f32_ratio(got, spmm.sampled_matmul_plain(a, bt, row, col)) <= 1.0
+    assert torch.equal(got, spmm.sampled_matmul(a, bt, row, col))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fault", sorted(spmm.FAULTS))
 def test_cuda_f16_planted_faults_fail_the_check(cuda, fault):
     """Each fault planted in the f16 kernels takes them past their check, on
@@ -183,11 +196,13 @@ BAND_OFFSETS = [(0,), (-1, 0, 1), (-3, 0, 2), (-2, -1, 0, 1, 2)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("feat", [1, 12, 24, 128, 136, 1536])
+@pytest.mark.parametrize("feat", [1, 3, 12, 17, 20, 24, 31, 36, 128, 136, 300, 1536])
 @pytest.mark.parametrize("offsets", BAND_OFFSETS, ids=lambda o: "offsets" + "_".join(map(str, o)))
 def test_cuda_f16_band_kernels_match_plain(cuda, offsets, feat):
     """Planes and packed rows: B7, B8, B9 dX on both, dV on both in f16 and
-    into f32 values; each launch on the f16 counter."""
+    into f32 values; each launch on the f16 counter. Widths that are no
+    multiple of 8 take x in the forward and dX by one bulk copy a chunk
+    below 32 columns, else by element loads."""
     nb = 5
     v = _planes(cuda, offsets, nb, seed=feat)
     radius = band.band_radius(offsets)
@@ -233,6 +248,29 @@ def test_cuda_f16_band_planted_faults_fail_the_check(cuda, fault):
             assert _f16_step_ratio(run(), want) <= 1.0
             with band.planted_fault(fault):
                 assert _f16_step_ratio(run(), want) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [3, 12, 20, 128])
+def test_cuda_f16_band_kernels_take_an_x_8_bytes_off(cuda, feat):
+    """x 8 bytes past a 16-byte boundary: where F % 8 != 0 the forward and dX
+    load it element by element and match their plain versions (a bulk copy
+    needs a 16-byte aligned span); at F = 128 its TMA view cannot be
+    encoded and the wrapper raises."""
+    offsets, nb, radius = (-1, 0, 1), 3, 1
+    v = _planes(cuda, offsets, nb, seed=feat)
+    v_pack = band.pack_band_rows(v, offsets, radius)
+    x = _randn(cuda, nb * BLOCK * feat + 4, seed=feat)[4:].view(nb * BLOCK, feat)
+    assert x.data_ptr() % 16 == 8
+    calls = ((lambda: band.band_spmm(v, offsets, x), lambda: band.band_plain(v, offsets, x)),
+             (lambda: band.band_spmm_packed(v_pack, radius, x), lambda: band.band_packed_plain(v_pack, radius, x)),
+             (lambda: band.band_dx(v, offsets, x), lambda: band.band_dx_plain(v, offsets, x)))
+    for run, plain in calls:
+        if feat % 8:
+            assert _f16_step_ratio(run(), plain()) <= 1.0
+        else:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                run()
 
 
 # ------------------------------------------------------------- autograd, model
