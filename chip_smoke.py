@@ -71,14 +71,16 @@ planes:
     against their plain versions at every width those paths give them
     (B4/B6 forward and on the transposed graph, f32 sums; B5 bf16 tiles
     within one bf16 step), timed beside their bounds and a library call
-    each; three faults planted inside each kernel (a k16 slice dropped, a
-    tile skipped, a row block zeroed; B4/B6 on its transposed graph also a
-    split row's last segment dropped) must fail the holds;
+    each, each B4/B6 row naming how x came in (TMA, or at F = 12 one bulk
+    copy a chunk); three faults planted inside each kernel (a k16 slice
+    dropped, a tile skipped, a row block zeroed; B4/B6 on its transposed
+    graph also a split row's last segment dropped) must fail the holds;
   * for each form, training through ``get_executor`` (2 warm-up and 5
     timed steps) with exact launch counts of the bf16 kernels, one
     validation pass, and the saved experiment served through
     ``from_experiment`` at buckets 1 and 2, with device busy time, idle
-    share and peak memory;
+    share and peak memory; on the BSR form one bucket-1 request's
+    bsr_spmm launches counted by width;
   * at 4,096 nodes, bf16 output, loss and gradients on the card against
     the CPU on the BSR, hub and tail forms (faults planted inside B4/B6 and
     B5 must fail the checks) and on the band's planes and packed rows with
@@ -112,8 +114,10 @@ Then the node-apply design harness and the card's stream calibration:
     timed beside its bound and a library call (B1's and B1t's einsums with
     the order torch contracts them in and that order's FLOPs; the f32 rows
     bounded by the expanded order's operations, the bf16 ones by the
-    factored order's, both given); faults
-    planted in B1 (the d = 0 term dropped), B1t (a node block zeroed, and
+    factored order's, both given; B1 f32's two calls bit-identical); faults
+    planted in B1 (the d = 0 term dropped; inside its f32 kernel d = 0
+    dropped, the contraction's last 16-row chunk dropped and cluster rank
+    0's partial dropped), B1t (a node block zeroed, and
     inside both its kernels d = 0 dropped and the contraction's last k16
     slice dropped), B11 A (the last 16-wide
     slice of the contraction dropped) and B11 B (the same, and e's last
@@ -157,6 +161,7 @@ Without a CUDA device, or without the repository around it, it exits with
 an error and prints no result.
 """
 
+import collections
 import concurrent.futures
 import functools
 import importlib
@@ -1957,12 +1962,15 @@ BOUND_SPARSE_BF16_GRAD = 1.5e-2
 
 
 def _bf16_spmm_design(feat, ty="bf16"):
-    from multistgraph_tpu_torch.ops.spmm import bf16_load_path
+    from multistgraph_tpu_torch.ops.spmm import x_load_path
 
     n = next((n for n in (16, 24, 32, 64, 128) if feat <= n), 256)
+    loads = x_load_path(feat)
+    if loads == "one bulk copy a chunk":
+        loads += " (64 contiguous rows, issued two chunks ahead) moved into place by four producer warps"
     return ("tensor cores: wgmma m64n{}k16 {}->f32, f32 sums stored once; the row's tiles in K=64 chunks by TMA as "
             "K-major A; x's block col_of[p] by {} as MN-major B, under the 128-byte swizzle; a producer warp and an "
-            "mbarrier ring; two consumer warpgroups of 64 rows").format(n, ty, bf16_load_path(feat))
+            "mbarrier ring; two consumer warpgroups of 64 rows").format(n, ty, loads)
 
 
 def _b5_design(d, ty="bf16"):
@@ -2030,7 +2038,7 @@ def sparse_bf16_kernel_phase(torch, ty="bf16"):
                 for kind in fault_kinds:
                     with sp.planted_fault(kind, "bsr_spmm"):
                         bad = sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)
-                    faults["bsr_spmm F={}{} ({}): {}".format(feat, what, sp.bf16_load_path(feat), kind)] = spmm_hold(
+                    faults["bsr_spmm F={}{} ({}): {}".format(feat, what, sp.x_load_path(feat), kind)] = spmm_hold(
                         bad, want)
                     del bad
             max_abs_err = (got - want).abs().max().item()
@@ -2054,7 +2062,7 @@ def sparse_bf16_kernel_phase(torch, ty="bf16"):
                 "name": "bsr_spmm_" + ty, "shape": "N={} nnz={} F={} {}{}".format(n_pad, nnz, feat, ty, what),
                 "replaces": ("multistgraph_tpu/ops/spmm_stream.py:303 spmm_stream" if stream
                              else "multistgraph_tpu/ops/spmm.py:87 _spmm_blockgrid"),
-                "design": _bf16_spmm_design(feat, ty), "loads": sp.bf16_load_path(feat),
+                "design": _bf16_spmm_design(feat, ty), "loads": sp.x_load_path(feat),
                 "max_abs_err": max_abs_err,
                 "tolerance": "rtol {0:g}, atol {0:g}*max|plain| (f32 sums)".format(SPB_SPMM_REL),
                 "kernel_ms": _time_ms(torch, lambda: sp.bsr_spmm(values, row, row_ptr, col, x, nb, schedule)),
@@ -2134,6 +2142,25 @@ def sparse_bf16_kernel_phase(torch, ty="bf16"):
         if not ratio > 1.0:
             raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
     return lines
+
+
+def _bsr_widths(fn):
+    """{'<entry> F=<width>': launches} of the bsr_spmm launches that fn makes."""
+    from multistgraph_tpu_torch.ops import spmm
+
+    run, seen = spmm._run, collections.Counter()
+
+    def recording(name, entry, tensors, ints, device):
+        if name == "bsr_spmm":
+            seen["{} F={}".format(entry, ints[1])] += 1
+        return run(name, entry, tensors, ints, device)
+
+    spmm._run = recording
+    try:
+        fn()
+    finally:
+        spmm._run = run
+    return dict(sorted(seen.items()))
 
 
 def sparse_bf16_phase(torch, split, ty="bf16"):
@@ -2219,6 +2246,8 @@ def sparse_bf16_phase(torch, split, ty="bf16"):
     _reset_counts()
     replies = {b: service.predict(x[:b]) for b in (1, SP_B)}
     windows[label + " serving"] = _read_counts()
+    if split == "none":  # the widths of one bucket-1 request's bsr_spmm launches (F=12: the x by one bulk copy)
+        record["bsr_spmm_launches_by_width_bucket_1"] = _bsr_widths(lambda: service.predict(x[:1]))
     if _sparse_counts_of(windows[label + " serving"]) != {k: 2 * v for k, v in per_request.items()} \
             or (packed and not windows[label + " serving"]["band_spmm_packed_f16"]):
         raise AssertionError("{} serving launched {}, want {} per request".format(
@@ -2954,6 +2983,13 @@ DESIGN_B11_B = ("tensor cores: wgmma m64nNk16 bf16->f32, N = several d x the col
                 "of the pool; a producer warp and an mbarrier ring; each step's rows staged once by cp.async; "
                 "e folded in f32 per d")
 DESIGN_B1_BF16 = DESIGN_B11_B
+DESIGN_B1_F32 = ("f32 FMAs in the expanded order: per 16-row chunk of (k, i), a producer warp streams the pool's rows "
+                 "at the block's 32 columns 8 d at a time (TMA, a 4-d view) with e's columns, then the chunk's hh "
+                 "(TMA, a 5-d view landing [n][i/4][b][4 i]) through a 4-stage mbarrier ring; 256 consumers form "
+                 "W[n,(k,i),o] = sum_d e[n,d] pool[k,i,dO+o] in registers (8 nodes x 4 o a thread), stage it, and "
+                 "fold hh[b,k,n,i] W into 4 b x 8 o a thread; W never in device memory; tile {} (nodes x columns a "
+                 "block, 16 b; the chunks split over the blocks of a cluster, their partials summed in rank order "
+                 "over distributed shared memory); loads {}")
 DESIGN_B1T_F32 = ("f32 FMAs in the expanded order: per 16-o chunk, pool_t's rows of the block's 32 (k, i) columns "
                   "and e's columns streamed by cp.async through a 4-stage ring, the per-node weights W[n,o,c] = "
                   "sum_d e[n,d] pool_t[k,dO+o,i] formed in registers (8 nodes x 4 columns a thread), then "
@@ -3030,20 +3066,29 @@ def node_harness_phase(torch):
         got = node_apply.node_factored_apply(hh, e, mat)
         want = node_apply.node_factored_apply_plain(hh, e, mat)
         pool4, e_lib = mat.reshape(K, H, FACTORED_D, o), e.to(dtype)
+        if not bf and not torch.equal(got, node_apply.node_factored_apply(hh, e, mat)):
+            raise AssertionError("B1 f32 at {}: two calls differ".format(shape))
         row("node_factored_apply", "multistgraph_tpu/ops/node_apply.py:107 node_factored_apply", shape,
-            got, want, _over_bound, "rtol 1e-5, atol 1e-5*max|plain|",
+            got, want, _over_bound, "rtol 1e-5, atol 1e-5*max|plain|" + ("" if bf else "; two calls bit-identical"),
             lambda: node_apply.node_factored_apply(hh, e, mat),
             lambda: node_apply.node_factored_apply_plain(hh, e, mat),
             lambda: torch.einsum("bkni,nd,kido->bno", hh, e_lib, pool4),
             "torch.einsum('bkni,nd,kido->bno') in the operands' dtype",
             hh.numel() * size + e.numel() * 4 + mat.numel() * size + B * N * o * 4, flops, peak, note,
-            main_path=bf, design=DESIGN_B1_BF16 if bf else None)
+            main_path=bf, design=DESIGN_B1_BF16 if bf else DESIGN_B1_F32.format(
+                node_apply.factored_tile(B, K, N, H, o), node_apply.factored_load_path(H, o)))
         lines[-1]["library_order"] = timing.einsum_order("bkni,nd,kido->bno", hh, e_lib, pool4)
         lines[-1].update(orders)
-        # planted fault: B1 without its d = 0 term
+        # planted faults: B1 without its d = 0 term (from its inputs), and in
+        # f32 the faults the kernel plants inside itself
         e0 = e.clone()
         e0[:, 0] = 0
         faults["B1 d=0 term dropped, " + shape] = _over_bound(node_apply.node_factored_apply(hh, e0, mat), want)
+        if not bf:
+            for kind in sorted(node_apply.B1_FAULTS):
+                with node_apply.planted_fault(kind):
+                    bad = node_apply.node_factored_apply(hh, e, mat)
+                faults["B1 planted in the kernel: {}, {}".format(kind, shape)] = _over_bound(bad, want)
         dpre = randn(B, N, o, dtype=dtype)
         got = node_apply.node_factored_apply_t(dpre, e, mat_t)
         want = node_apply.node_factored_apply_t_plain(dpre, e, mat_t)
@@ -3247,6 +3292,7 @@ def main():
                          ("bsr_spmm", "bsr_spmm_f32_kernel"), ("sampled_matmul", "sampled_f32_kernel"),
                          ("band_spmm", "sampled_f32_kernel"),
                          ("node_factored_t", "_wgmma_kernel"), ("node_factored_t", "_f32_kernel"),
+                         ("node_factored", "_f32_kernel"),
                          ("band_probe", "window_dot_kernel"), ("node_apply_q8", "q8_kernel"),
                          ("node_apply_q8_t", "q8_kernel")):
         if name in reports:

@@ -258,37 +258,6 @@ constexpr int kTcThreads = kConsumers + 32;   // and one producer warp
 constexpr int kChunkA = kBlock * kKc;         // elements of a stage's tile (or dy) chunk
 constexpr int kDvStages = 2;
 constexpr int kStageLd = kBlock + 8;          // row stride of dV's per-warp output staging (conflict-free)
-constexpr int kSpanMaxF = 32;                 // x narrower than this comes by one bulk copy a chunk (F % 8 != 0)
-constexpr int kSpanLag = 2;                   // chunks a span's bulk copy is issued before its elements are moved
-constexpr int kSpanWarps = 4;                 // producer warps that move a span's elements (SPAN kernels)
-
-// one bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
-// aligned) from device memory into shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes), "r"(smem_addr(bar))
-               : "memory");
-}
-
-// The 64 rows of F 16-bit values at src (a chunk of x, row-major) into a B
-// operand chunk at bb (MN-major under the 128-byte swizzle, F < 64) by the
-// kSpanWarps producer warps, U (2 or 4 bytes) a copy: producer thread t
-// moves the units t, t + 32 kSpanWarps, ...
-template <typename U>
-__device__ __forceinline__ void span_rows_to_b(unsigned char* bb, const unsigned char* src, int F, int t) {
-  constexpr int E = sizeof(U) / 2;                          // elements a unit
-  constexpr int kStep = 32 * kSpanWarps;
-  const int dk = kStep * E / F, dc = kStep * E % F;         // a thread's step of kStep units, in rows and columns
-  int k = E * t / F, c = E * t % F;
-  const U* units = reinterpret_cast<const U*>(src);
-#pragma unroll 4
-  for (int q = t; q < kKc * F / E; q += kStep) {
-    *reinterpret_cast<U*>(bb + sw128(k * 128 + c * 2)) = units[q];
-    k += dk, c += dc;
-    if (c >= F) c -= F, ++k;
-  }
-}
 
 struct Band {
   int R, F, n_slots, radius, packed, fault;
@@ -407,21 +376,10 @@ band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_cons
     // producer warp: chunk g is the kc-th half of the g/2-th present slot
     const int lane = tid - kConsumers;   // SPAN: 0 .. 32 kSpanWarps, warp 0 the one that issues
     const T zero = T(0.f);
-    // SPAN: this warp's part of chunk h's raw rows of x into the B layout of
-    // its stage (element pairs at once where F is even: no pair straddles
-    // two rows), then its arrival on the full barrier
+    // SPAN: this warp's part of chunk h's move into the B layout, then its arrival
     auto span_to_b = [&](int h) {
-      const int st = h % S;
-      mbar_wait(raw + st, (h / S) & 1);
-      const unsigned char* src = spans + (size_t)st * span_bytes;
-      unsigned char* bb = reinterpret_cast<unsigned char*>(bs + (size_t)st * Tile::kChunkB);
-      if (a.F % 2 == 0)
-        span_rows_to_b<uint32_t>(bb, src, a.F, lane);
-      else
-        span_rows_to_b<uint16_t>(bb, src, a.F, lane);
-      fence_proxy_async();
-      __syncwarp();
-      if (lane % 32 == 0) mbar_arrive(full + st);
+      wgmma_sm90::span_to_b<S>(h, spans, reinterpret_cast<unsigned char*>(bs), Tile::kChunkB * sizeof(T), raw, full,
+                               a.F, lane);
     };
     if (SPAN && lane >= 32) {
       // the other mover warps: every present chunk in turn (its raw barrier
@@ -431,14 +389,8 @@ band_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_cons
       for (int h = 0; h < chunks; ++h) span_to_b(h);
       return;
     }
-    if constexpr (SPAN) {
-      // x's columns F .. BN of every stage stay zero: span_to_b writes only columns below F
-      for (int q = lane; q < S * kKc * (BN - a.F); q += 32) {
-        const int st = q / (kKc * (BN - a.F)), k = q / (BN - a.F) % kKc, c = a.F + q % (BN - a.F);
-        *reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(bs + (size_t)st * Tile::kChunkB) +
-                              sw128(k * 128 + c * 2)) = zero;
-      }
-    }
+    if constexpr (SPAN)   // x's columns F .. BN of every stage stay zero
+      span_zero_tail<T, S, BN>(reinterpret_cast<unsigned char*>(bs), Tile::kChunkB * sizeof(T), a.F, lane);
     int g = 0;
     for (int s = 0; s < a.n_slots; ++s) {
       const int src = slot_source(a, s, r, TRANS);

@@ -58,10 +58,22 @@
 // producer warp. The producer walks the segment's tiles and streams each
 // tile's product in K = 64 chunks through an mbarrier ring (3-4 stages):
 // the tile's 128 x 64 chunk by TMA as K-major A, and x's 64 rows of block
-// col_of[p] as MN-major B, by TMA where F % 8 == 0 (zero past F), else by
-// element loads (a row of F = 12 is 24 bytes: no 16-byte copy fits it),
-// every operand under the 128-byte swizzle. wgmma m64nNk16 keeps the f32
-// sums in registers for the whole segment. A product of two bf16 values, or
+// col_of[p] as MN-major B, by TMA where F % 8 == 0 (zero past F), every
+// operand under the 128-byte swizzle. A row of F = 12 is 24 bytes, no whole
+// 16-byte unit, but a chunk's 64 rows of one x block are one span of 128 F
+// bytes, 16-byte aligned where x is: below F = 32 one bulk copy brings it
+// into a raw staging of its stage, issued two chunks ahead on a barrier of
+// its own, and four producer warps move its elements into the B layout
+// (band_spmm.cu's narrow-x design, wgmma_sm90.cuh); else (F % 8 != 0 from 33
+// up, or x not 16-byte aligned) the producer warp loads elements, each
+// chunk's 64 x BN of them before it can arrive on the stage. The k16
+// fault's zero operand is in shared memory only under that fault, so the
+// spans' staging keeps two blocks an SM up to F = 31. On an H100 80GB HBM3
+// at 700 W at the 49,152-node graph, in turns with the element loads
+// (PERF.md §6): F=12 0.080 ms against 0.156 in bf16 and f16 (F=16 0.072),
+// F=3 0.084 against 0.130, F=20 0.081 against 0.237, every output bit for
+// bit the same. wgmma m64nNk16 keeps the f32 sums in registers for the
+// whole segment. A product of two bf16 values, or
 // of two f16 values (11-bit significands), is exact in f32, so the kernel
 // and the plain version differ only in the order of f32 sums. One kernel
 // template serves both types (T = __nv_bfloat16 or __half): the same
@@ -243,9 +255,11 @@ using namespace wgmma_sm90;
 
 constexpr int kKc = 64;                       // contraction rows of one ring stage
 constexpr int kConsumers = 256;               // two warpgroups of 64 output rows
-constexpr int kTcThreads = kConsumers + 32;   // and one producer warp
 constexpr int kChunkA = kBlock * kKc;         // elements of a stage's tile chunk
 constexpr int kZeroA = 64 * kKc;              // a zero A operand of one warpgroup (the k16 fault reads it)
+
+template <bool SPAN>
+constexpr int tc_threads() { return kConsumers + 32 * (SPAN ? kSpanWarps : 1); }
 
 // the wgmma N a block takes for F columns: the narrowest of 16, 24, 32, 64
 // and 128 that holds F, else 256
@@ -259,24 +273,37 @@ struct TcTile {
   static constexpr int kMinBlocks = BN == 256 ? 1 : 2;   // blocks an SM: shared memory and registers allow
   static constexpr int kWidthB = BN < 64 ? 64 : BN;      // columns of an x chunk: whole 128-byte rows
   static constexpr int kChunkB = kKc * kWidthB;
-  static constexpr size_t kSmem = 1024 + (size_t)(kStages * (kChunkA + kChunkB) + kZeroA) * sizeof(__nv_bfloat16) +
+  // the ring and its barriers; a launch adds the spans' staging (SPAN) and,
+  // under the k16 fault alone, a 1024-byte aligned zero operand
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * (kChunkA + kChunkB) * sizeof(__nv_bfloat16) +
                                   2 * kStages * sizeof(uint64_t);
+  static constexpr size_t kZeroSmem = 1024 + (size_t)kZeroA * sizeof(__nv_bfloat16);
 };
 
 // out[row][:, f0 .. f0 + BN] of segment blockIdx.y, f0 = BN blockIdx.x. v_map is a
 // 2-d view (nnz 128, 128) of the tiles under the 128-byte swizzle whose box
 // is a 64-wide chunk of a tile's 128 rows (K-major A, rows of 64 k); x_map
 // views x (n_in, F) likewise, a box 64 rows by 64 columns (MN-major B), one
-// for each 64 of the chunk's columns, where tma_x (F % 8 == 0); else the
-// producer loads elements into the same layout. T is the operands' 16-bit type.
-template <int BN, typename T>
-__global__ void __launch_bounds__(kTcThreads, TcTile<BN>::kMinBlocks)
+// for each 64 of the chunk's columns, where tma_x (F % 8 == 0). Else, in
+// the SPAN kernels (F < kSpanMaxF, x 16-byte aligned), the chunk's 64 rows
+// of x, rows src 128 + 64 kc on of block col_of[p], one contiguous span of
+// 128 F bytes, come by one bulk copy into a raw staging of the stage, on a
+// barrier of its own, issued kSpanLag chunks before kSpanWarps producer
+// warps move each element to its place in the B layout and arrive on the
+// stage's full barrier (band_spmm.cu's design: the consumers' code is the
+// TMA path's); else the producer warp loads elements into that layout. T is
+// the operands' 16-bit type.
+template <int BN, typename T, bool SPAN>
+__global__ void __launch_bounds__(tc_threads<SPAN>(), TcTile<BN>::kMinBlocks)
 bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap x_map, int tma_x,
                    const int* __restrict__ col_of, const T* __restrict__ x, float* __restrict__ out, int F,
                    const int* __restrict__ sched, float* __restrict__ ws, int* __restrict__ counters, int fault) {
   using Tile = TcTile<BN>;
   constexpr int S = Tile::kStages;
   constexpr int kBlocksB = Tile::kWidthB / 64;   // 64-column blocks of an x chunk
+  // a stage is freed once the consumers are past the chunk after its own,
+  // whose x goes in kSpanLag chunks after its copy was issued
+  static_assert(!SPAN || kSpanLag <= S - 2, "the producer would wait on a stage only it can free");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ int last;
   const Segment sg = load_segment(sched, blockIdx.y);
@@ -284,21 +311,28 @@ bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_const
   unsigned char* smem = aligned_smem(smem_raw);
   T* as = reinterpret_cast<T*>(smem);                                   // S tile chunks: 128 x 64
   T* bs = as + (size_t)S * kChunkA;                                     // S x chunks: 64 x kWidthB
-  T* zeros = bs + (size_t)S * Tile::kChunkB;                            // kZeroA zeros
-  uint64_t* full = reinterpret_cast<uint64_t*>(zeros + kZeroA);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + (size_t)S * Tile::kChunkB);
   uint64_t* empty = full + S;
+  // SPAN: stage st's bulk copy lands on raw[st], its raw chunk of x (128 F
+  // bytes, 16-byte aligned) at spans + st 128 F
+  uint64_t* raw = empty + S;
+  unsigned char* spans = reinterpret_cast<unsigned char*>(raw + S);
+  const unsigned span_bytes = 128u * (unsigned)F;
+  // the k16 fault's kZeroA zeros, past everything else, 1024-byte aligned
+  T* zeros = reinterpret_cast<T*>(aligned_smem(spans + (SPAN ? S * span_bytes : 0u)));
 
   const int r = sg.row, f0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
   const int2 tiles = segment_tiles(sg, fault);
   if (fault == kFaultK16) {
-    for (int q = tid; q < kZeroA / 8; q += kTcThreads) reinterpret_cast<uint4*>(zeros)[q] = make_uint4(0, 0, 0, 0);
+    for (int q = tid; q < kZeroA / 8; q += blockDim.x) reinterpret_cast<uint4*>(zeros)[q] = make_uint4(0, 0, 0, 0);
     fence_proxy_async();
   }
   if (tid == 0) {
     for (int i = 0; i < S; ++i) {
-      mbar_init(full + i, 1);
+      mbar_init(full + i, SPAN ? 1 + kSpanWarps : 1);   // SPAN: the tile's expect_tx, each mover warp's arrival
       mbar_init(empty + i, 2);   // one arrival per consumer warpgroup
+      if (SPAN) mbar_init(raw + i, 1);
     }
     fence_mbar_init();
   }
@@ -306,8 +340,21 @@ bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_const
 
   if (tid >= kConsumers) {
     // producer warp: chunk g is the kc-th half of the row's (g/2)-th tile
-    const int lane = tid - kConsumers;
+    const int lane = tid - kConsumers;   // SPAN: 0 .. 32 kSpanWarps, warp 0 the one that issues
     const T zero = T(0.f);
+    // SPAN: this warp's part of chunk h's move into the B layout, then its arrival
+    auto span_to_b = [&](int h) {
+      wgmma_sm90::span_to_b<S>(h, spans, reinterpret_cast<unsigned char*>(bs), Tile::kChunkB * sizeof(T), raw, full,
+                               F, lane);
+    };
+    if (SPAN && lane >= 32) {
+      // the other mover warps: every chunk of the segment in turn (its raw
+      // barrier completes once warp 0 found the chunk's stage free and issued it)
+      for (int h = 0; h < (tiles.y - tiles.x) * (kBlock / kKc); ++h) span_to_b(h);
+      return;
+    }
+    if constexpr (SPAN)   // x's columns F .. BN of every stage stay zero
+      span_zero_tail<T, S, BN>(reinterpret_cast<unsigned char*>(bs), Tile::kChunkB * sizeof(T), F, lane);
     int g = 0;
     for (int p = tiles.x; p < tiles.y; ++p) {
       const int src = col_of[p];
@@ -317,7 +364,7 @@ bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_const
         T* ad = as + (size_t)st * kChunkA;
         T* bd = bs + (size_t)st * Tile::kChunkB;
         const int k0 = src * kBlock + kc * kKc;   // x's first row of the chunk
-        if (!tma_x) {
+        if (!tma_x && !SPAN) {
           // element (k, c) of the chunk, zero past F, at its swizzled place
           unsigned char* bb = reinterpret_cast<unsigned char*>(bd);
 #pragma unroll 4
@@ -334,9 +381,16 @@ bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_const
           tma_load_2d(ad, &v_map, kc * kKc, p * kBlock, full + st);
           if (tma_x)
             for (int j = 0; j < kBlocksB; ++j) tma_load_2d(bd + j * 64 * kKc, &x_map, f0 + 64 * j, k0, full + st);
+          if (SPAN) {
+            mbar_arrive_tx(raw + st, span_bytes);
+            bulk_load(spans + (size_t)st * span_bytes, x + (size_t)k0 * F, span_bytes, raw + st);
+          }
         }
+        if (SPAN && g >= kSpanLag) span_to_b(g - kSpanLag);
       }
     }
+    if constexpr (SPAN)
+      for (int h = g > kSpanLag ? g - kSpanLag : 0; h < g; ++h) span_to_b(h);
   } else {
     // consumers: warpgroup wg owns output rows 64 wg .. 64 wg + 63
     const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
@@ -381,21 +435,30 @@ bsr_spmm_tc_kernel(const __grid_constant__ CUtensorMap v_map, const __grid_const
 template <int BN, typename T>
 cudaError_t launch_tc(const void* values, const int* col_of, const void* x, float* out, int F, int nnz, int n_in,
                       const int* sched, int n_seg, float* ws, int* counters, int fault, cudaStream_t stream) {
-  auto kernel = bsr_spmm_tc_kernel<BN, T>;
-  const size_t smem = TcTile<BN>::kSmem;
+  const int tma_x = F % 8 == 0;
+  // the spans' staging, S x 128 F bytes, keeps two blocks an SM below kSpanMaxF
+  const bool span = !tma_x && F < kSpanMaxF && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kernel = bsr_spmm_tc_kernel<BN, T, false>;
+  size_t smem = TcTile<BN>::kSmem;
+  if constexpr (BN <= kSpanMaxF) {
+    if (span) {
+      kernel = bsr_spmm_tc_kernel<BN, T, true>;
+      smem += (size_t)TcTile<BN>::kStages * (sizeof(uint64_t) + 128 * F);   // the raw barriers and spans
+    }
+  }
+  if (fault == kFaultK16) smem += TcTile<BN>::kZeroSmem;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   CUtensorMap v_map = {}, x_map = {};
   err = rows_view<T>(&v_map, values, nnz * kBlock, kBlock, kBlock);
   if (err != cudaSuccess) return err;
-  const int tma_x = F % 8 == 0;
   if (tma_x) {
     err = rows_view<T>(&x_map, x, n_in, F, kKc);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)((F + BN - 1) / BN), (unsigned)n_seg);
-  kernel<<<grid, kTcThreads, smem, stream>>>(v_map, x_map, tma_x, col_of, static_cast<const T*>(x), out, F, sched, ws,
-                                             counters, fault);
+  kernel<<<grid, span ? tc_threads<true>() : tc_threads<false>(), smem, stream>>>(
+      v_map, x_map, tma_x, col_of, static_cast<const T*>(x), out, F, sched, ws, counters, fault);
   return cudaGetLastError();
 }
 

@@ -12,7 +12,7 @@
 // multistgraph_tpu/ops/node_apply.py: _apply_kernel / node_factored_apply
 // (steps=1, no scalar, f32 out) and tools/bench_node_dots.py: _b_kernel /
 // make_b (B=1, K=1, N = B*NP rows with a per-row embedding, steps=T, the
-// chained scalar and a bf16 store). It is one GEMM with M = B*N rows,
+// chained scalar and a bf16 store). In bf16 it is one GEMM with M = B*N rows,
 // O columns and a D*K*I contraction whose A operand e (x) hh is never
 // formed: for each d, r_d = hh @ pool[:, d*O:(d+1)*O] is summed over the
 // whole (k,i) contraction in f32 before e[n,d] * r_d is added, the order
@@ -20,10 +20,10 @@
 // e (x) hh in bf16 would round products that the Pallas kernel keeps exact.
 //
 // Bound on an H100: operations. At the flagship gate (B=16, N=237, K=5,
-// I=64, D=20, O=128) one call is 6.21 GFLOP: 92.7 us on the f32 CUDA cores
-// (67 TFLOP/s) or 6.3 us on bf16 tensor cores (989 TFLOP/s), against ~10
-// MB of operands; the harness's rows form (4096 rows, KI=320, D=20, O=192,
-// 24 steps) is 241.6 GFLOP, 244 us on bf16 tensor cores.
+// I=64, D=20, O=128) one call in that order is 6.21 GFLOP: 6.3 us on bf16
+// tensor cores (989 TFLOP/s), against ~10 MB of operands (f32: below);
+// the harness's rows form (4096 rows, KI=320, D=20, O=192, 24 steps) is
+// 241.6 GFLOP, 244 us on bf16 tensor cores.
 //
 // bf16 operands: tensor cores (wgmma). A block of 64 WG rows and OT output
 // columns has WG consumer warpgroups (64 rows each) and one producer warp.
@@ -51,148 +51,394 @@
 // producer loads elements.
 //
 // f32 operands: plain f32 FMAs (tensor cores would take them in TF32, three
-// decimal digits): one block per 64 rows x 64 columns, 256 threads with 4x4
-// outputs each; the pool streams through shared memory in 32-row chunks of
-// one d's columns (from L2: the pool is 3.3 MB in f32), 4 columns a load
-// where O is a multiple of 4. Each inner step reads two 16-byte words from
-// shared memory for 16 FMAs.
+// decimal digits), in the expanded order, which f32 is free to take (the
+// orders differ by rounding alone): the per-node weight W[n,(k,i),o] =
+// sum_d e[n,d] pool[k,i,d O + o], then out[b,n,o] = sum_{k,i} hh[b,k,n,i]
+// W[n,(k,i),o]: 0.388 + 0.311 = 0.699 GFLOP at the flagship gate (0.349 at
+// the update, O = 64), 10.4 / 5.2 us at 67 TFLOP/s, against 6.21 GFLOP in
+// the factored order. B1t's f32 design (node_factored_t.cu) with the
+// contraction and the columns swapped, fed by a producer warp. A block of
+// 256 consumer threads and one producer warp takes 16 nodes, 32 columns o
+// and 16 b, and walks the contraction in chunks of 16 rows (k, i0 .. i0 +
+// 16, padded past I). The producer streams each chunk's pieces through a
+// 4-stage mbarrier ring: the chunk's pool rows at the block's columns for 8
+// d at a time (TMA, a 4-d view (O, D, I, K) that fills past O, D and I
+// with zeros) with e's columns of those d (loaded before it waits for the
+// stage), then the chunk's hh for the 16 b and nodes (TMA, a 5-d view (4 i,
+// B, I / 4, N, K) landing [n][i / 4][b][4 i]); by 4-byte cp.async where a
+// row is no whole 16-byte units. The consumers form W for the 16 nodes in
+// registers (8 nodes x 4 o of one row a thread: three 16-byte shared reads
+// per 32 FMAs, e's a broadcast), put it in shared memory, and fold the
+// chunk's hh into 4 b x 8 o of one node a thread (12 16-byte reads per 128
+// FMAs). W never reaches device memory (38.8 MB at the gate); each node
+// group reads the pool from L2 once (49 MB at the gate, 777 MB in the
+// factored order). The blocks of a thread block cluster (2^s of them,
+// chosen from the grid: 60 items at the gate, 30 at the update for 132
+// SMs) split an item's chunks, and each adds its share of the item's sums
+// over the cluster's partials in rank order through distributed shared
+// memory (the same sums at every call). On an H100 80GB HBM3 at 700 W
+// (PERF.md §6): 37.5 / 27.9 us at the gate / update against 471.8 / 472.0
+// for the factored SIMT design this replaces and 0.15-0.26 ms for the f32
+// torch.einsum; 3.6x / 5.3x the FMA bound. Two blocks an SM leave 96
+// registers a thread (nine warps a block): forming W one d at a time keeps
+// the 64 sums there without spills (unrolled, 6-7% slower); one block an
+// SM with 128 registers ran 1.3x slower at the gate. The planted faults:
+// the d = 0 term left out of W; the last chunk left out of the sums; rank
+// 0's partial left out (where the chunks are split).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "simt_f32.cuh"
 #include "wgmma_sm90.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace wgmma_sm90;
 
-// ---------------------------------------------------------------- f32 operands: CUDA cores
+// ---------------------------------------------------------------- f32 operands: the expanded order
 
-constexpr int kTileM = 64;               // rows per block
-constexpr int kTileN = 64;               // output columns per block
-constexpr int kChunkF32 = 32;            // contraction rows of the pool staged at a time
-constexpr int kThreads = 256;            // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kLd = kTileM + 4;          // row stride of the transposed activations
+constexpr int kFaultD = 1;                 // the d = 0 term left out of W
+constexpr int kFaultChunk = 2;             // the contraction's last 16-row chunk left out of the sums
+constexpr int kFaultRank = 3;              // cluster rank 0's partial left out of the sums (split > 1)
+constexpr int kF32Nodes = 16;              // nodes of a block
+constexpr int kF32Ot = 32;                 // output columns o of a block
+constexpr int kF32Rows = 16;               // b of a block
+constexpr int kF32Kc = 16;                 // contraction rows (k, i0 .. i0 + 16) of a chunk
+constexpr int kF32Dc = 8;                  // d of a pool piece
+constexpr int kF32Consumers = 256;         // 8 nodes x 4 o of one row a thread forming W; 4 b x 8 o folding
+constexpr int kF32Threads = kF32Consumers + 32;   // and one producer warp
+constexpr int kF32Stages = 4;
+constexpr int kF32P = kF32Kc * kF32Dc * kF32Ot;   // floats of a piece's pool rows: [i][d][o]
+constexpr int kF32H = kF32Nodes * kF32Kc * kF32Rows;   // floats of a chunk's hh: [n][i / 4][b][4 i]
+constexpr int kF32Stage = kF32P + kF32Dc * kF32Nodes;  // a stage: a pool piece and its e columns [d][n], or hh
+constexpr int kF32W = kF32Nodes * kF32Kc * kF32Ot;     // floats of a chunk's W: [n][row][o]
+constexpr size_t kF32Smem =
+    1024 + ((size_t)kF32Stages * kF32Stage + kF32W) * sizeof(float) + 2 * kF32Stages * sizeof(uint64_t);
+static_assert(kF32H <= kF32Stage, "a chunk's hh fits a stage");
+static_assert(kF32Consumers * 32 <= kF32Stages * kF32Stage, "the cluster's partial sums fit the ring");
+static_assert(kF32Stage * sizeof(float) % 128 == 0, "every stage starts where TMA may write");
 
-__global__ void __launch_bounds__(kThreads)
-node_factored_f32_kernel(const float* __restrict__ hh, const float* __restrict__ e, const float* __restrict__ pool,
-                         const float* __restrict__ s, float* __restrict__ out,
-                         int steps, int B, int K, int N, int I, int D, int O) {
-  extern __shared__ __align__(16) float smem[];
-  const int KI = K * I;
-  const int M = B * N;
-  float* hs = smem;                                  // KI x kLd: hs[kk][r] = hh of row r
-  float* ps = hs + (size_t)KI * kLd;                 // kChunkF32 x kTileN pool chunk
-  float* es = ps + kChunkF32 * kTileN;               // kTileM x D embeddings
-
-  const int m0 = blockIdx.x * kTileM;
-  const int o0 = blockIdx.y * kTileN;
+// out for nodes n0 .. n0 + 16, columns o0 .. o0 + 32 and b0 .. b0 + 16 of
+// item blockIdx.x / split = (b tile * column tiles + column tile) * node
+// groups + node group; the item's chunks (k, 16 i from i0) split over the
+// cluster's blocks. Pieces in order, for each of the block's chunks: its
+// pool rows pool[k, i0 + i, d O + o] at the block's columns for kF32Dc d at
+// a time, with e's columns of those d, then its hh. The producer warp
+// streams them through a ring of kF32Stages stages handed over by
+// mbarriers: pool by TMA where ptma (O % 4 == 0, pool 16-byte aligned; a
+// 4-d view (O, D, I, K), box 32 o x 8 d x 16 i), hh where htma (I % 4 == 0,
+// hh 16-byte aligned; a 5-d view (4 i, B, I / 4, N, K), box 4 x 16 b x 4 x
+// 16 n, landing [n][i / 4][b][4 i]), else by 4-byte cp.async; e's columns
+// by its own loads, issued before it waits for the stage. Past the edges
+// (i >= I, d >= D, o >= O, n >= N, b >= B) everything reads as zero.
+__global__ void __launch_bounds__(kF32Threads, 2)
+node_factored_f32_kernel(const __grid_constant__ CUtensorMap pool_map, const __grid_constant__ CUtensorMap hh_map,
+                         const float* __restrict__ hh, const float* __restrict__ e, const float* __restrict__ pool,
+                         float* __restrict__ out, int B, int K, int N, int I, int D, int O, int ptma, int htma,
+                         int fault) {
+  constexpr int G = kF32Nodes, S = kF32Stages, DC = kF32Dc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(aligned_smem(smem_raw));
+  float* ws = ring + (size_t)S * kF32Stage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + kF32W);
+  uint64_t* empty = full + S;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const unsigned item = blockIdx.x / split;
+  const int groups = (N + G - 1) / G, otiles = (O + kF32Ot - 1) / kF32Ot;
+  const int n0 = (int)(item % groups) * G, o0 = (int)(item / groups % otiles) * kF32Ot;
+  const int b0 = (int)(item / groups / otiles) * kF32Rows;
+  // this block's chunks c0 .. c0 + ncb of the item's nch, each in ppc pieces
+  const int icn = (I + kF32Kc - 1) / kF32Kc, nch = K * icn;
+  const int per = (nch + split - 1) / split, c0 = min(nch, rank * per), ncb = min(nch, c0 + per) - c0;
+  const int ndc = (D + DC - 1) / DC, ppc = ndc + 1, total = ncb * ppc;
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  for (int q = tid; q < kTileM * D; q += kThreads) {
-    const int r = q / D, d = q - r * D;
-    const int m = m0 + r;
-    es[q] = m < M ? e[(size_t)(m % N) * D + d] : 0.f;
-  }
-  const float sv = s != nullptr ? *s : 0.f;
-  const size_t step_elems = (size_t)M * KI;
-
-  for (int t = 0; t < steps; ++t) {
-    const float* ht = hh + (size_t)t * step_elems;
-    __syncthreads();  // the previous step no longer reads hs
-    for (int q = tid; q < kTileM * KI; q += kThreads) {
-      const int r = q / KI, kk = q - r * KI;
-      const int m = m0 + r;
-      float v = 0.f;
-      if (m < M) {
-        const int b = m / N, n = m - b * N;
-        const int k = kk / I, i = kk - k * I;
-        v = ht[(((size_t)b * K + k) * N + n) * I + i];
-      }
-      hs[(size_t)kk * kLd + r] = v;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 33);             // each producer lane's copies, then lane 0's arrival
+      mbar_init(empty + s, kF32Consumers / 32);   // one arrival per consumer warp
     }
+    fence_mbar_init();
+  }
+  __syncthreads();
 
-    float acc[4][4];
+  float acc[4][8];   // the fold: b fb + 4 j of node fn, columns fc .. fc + 3 and fc + 16 .. fc + 19
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int l = 0; l < 4; ++l) acc[j][l] = 0.f;
+    for (int l = 0; l < 8; ++l) acc[j][l] = 0.f;
+  const int fn = tid / 16, fb = tid / 4 % 4, fc = 4 * (tid % 4);
 
-    for (int d = 0; d < D; ++d) {
-      float r[4][4];
+  if (tid >= kF32Consumers) {
+    const int lane = tid - kF32Consumers;
+    for (int g = 0; g < total; ++g) {
+      const int c = c0 + g / ppc, r = g % ppc, k = c / icn, i0 = (c - k * icn) * kF32Kc, slot = g % S;
+      float* st = ring + (size_t)slot * kF32Stage;
+      // e's columns 8 r .. 8 r + 8 of the nodes, [d][n] (d = 0 left out under the planted fault)
+      float ev[DC * G / 32];
+      if (r < ndc) {
+#pragma unroll
+        for (int t = 0; t < DC * G / 32; ++t) {
+          const int q = lane + 32 * t, d = r * DC + q / G, n = n0 + q % G;
+          ev[t] = d < D && n < N && !(fault == kFaultD && d == 0) ? __ldg(e + (size_t)n * D + d) : 0.f;
+        }
+      }
+      if (g >= S) mbar_wait(empty + slot, ((g / S) & 1) ^ 1);
+      if (r < ndc) {
+#pragma unroll
+        for (int t = 0; t < DC * G / 32; ++t) st[kF32P + lane + 32 * t] = ev[t];
+        if (!ptma) {
+          for (int q = lane; q < kF32P; q += 32) {
+            const int i = i0 + q / (DC * kF32Ot), d = r * DC + q / kF32Ot % DC, o = o0 + q % kF32Ot;
+            const bool ok = i < I && d < D && o < O;
+            simt_f32::cp_async4(st + q, ok ? pool + ((size_t)(k * I + i) * D + d) * O + o : pool, ok);
+          }
+        }
+      } else if (!htma) {
+        for (int q = lane; q < kF32H; q += 32) {
+          const int n = n0 + q / 256, i = i0 + 4 * (q / 64 % 4) + q % 4, b = b0 + q / 4 % 16;
+          const bool ok = n < N && i < I && b < B;
+          simt_f32::cp_async4(st + q, ok ? hh + (((size_t)b * K + k) * N + n) * I + i : hh, ok);
+        }
+      }
+      simt_f32::cp_async_mbar_arrive(full + slot);   // this lane's copies land (at once where it has none)
+      __syncwarp();                                   // every lane's e columns are written
+      if (lane == 0) {
+        if (r < ndc ? ptma : htma) {
+          mbar_arrive_tx(full + slot, (r < ndc ? kF32P : kF32H) * sizeof(float));
+          if (r < ndc)
+            tma_load_4d(st, &pool_map, o0, r * DC, i0, k, full + slot);
+          else
+            tma_load_5d(st, &hh_map, 0, b0, i0 / 4, n0, k, full + slot);
+        } else {
+          mbar_arrive(full + slot);
+        }
+      }
+    }
+  } else {
+    // forming W[n, row, o] += e[n, d] pool[row, d, o]: nodes 8 wn .. 8 wn + 7,
+    // chunk row wk, columns wo .. wo + 3
+    const int wn = tid / 128, wk = tid % 128 / 8, wo = 4 * (tid % 8);
+    float wacc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int l = 0; l < 4; ++l) wacc[j][l] = 0.f;
+    auto release = [&](int slot) {
+      __syncwarp();
+      if (tid % 32 == 0) mbar_arrive(empty + slot);
+    };
+    auto consumers_sync = [] { asm volatile("bar.sync 1, %0;\n" ::"n"(kF32Consumers) : "memory"); };
+    int g = 0;
+    for (int lc = 0; lc < ncb; ++lc) {
+      for (int r = 0; r < ndc; ++r, ++g) {
+        const int slot = g % S;
+        mbar_wait(full + slot, (g / S) & 1);
+        const float* st = ring + (size_t)slot * kF32Stage;
+        auto step = [&](int dd) {
+          const float4 p = *reinterpret_cast<const float4*>(st + (wk * DC + dd) * kF32Ot + wo);
+          const float4 e0 = *reinterpret_cast<const float4*>(st + kF32P + dd * G + 8 * wn);
+          const float4 e1 = *reinterpret_cast<const float4*>(st + kF32P + dd * G + 8 * wn + 4);
+          const float ev[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            wacc[j][0] = fmaf(ev[j], p.x, wacc[j][0]);
+            wacc[j][1] = fmaf(ev[j], p.y, wacc[j][1]);
+            wacc[j][2] = fmaf(ev[j], p.z, wacc[j][2]);
+            wacc[j][3] = fmaf(ev[j], p.w, wacc[j][3]);
+          }
+        };
+        // one d at a time: the 64 sums of forming and folding stay in the 96
+        // registers that two blocks an SM leave (unrolled, ptxas spilled them)
+        const int dn = min(DC, D - r * DC);
+#pragma unroll 1
+        for (int dd = 0; dd < dn; ++dd) step(dd);
+        release(slot);
+      }
+      // the chunk's W into shared memory, then out[b, n, o] += hh[b, k, n, i] W[n, (k, i), o]
+      consumers_sync();   // the previous chunk's fold no longer reads ws
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<float4*>(ws + ((8 * wn + j) * kF32Kc + wk) * kF32Ot + wo) =
+            make_float4(wacc[j][0], wacc[j][1], wacc[j][2], wacc[j][3]);
+        wacc[j][0] = wacc[j][1] = wacc[j][2] = wacc[j][3] = 0.f;
+      }
+      consumers_sync();
+      const int slot = g % S;
+      mbar_wait(full + slot, (g / S) & 1);
+      if (!(fault == kFaultChunk && c0 + lc == nch - 1)) {
+        const float* hs = ring + (size_t)slot * kF32Stage + fn * (kF32Kc * kF32Rows);
+        const float* wt = ws + fn * (kF32Kc * kF32Ot);
+#pragma unroll 1
+        for (int ig = 0; ig < kF32Kc / 4; ++ig) {
+          float4 hv[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) hv[j] = *reinterpret_cast<const float4*>(hs + (ig * kF32Rows + fb + 4 * j) * 4);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float4 w0 = *reinterpret_cast<const float4*>(wt + (4 * ig + u) * kF32Ot + fc);
+            const float4 w1 = *reinterpret_cast<const float4*>(wt + (4 * ig + u) * kF32Ot + 16 + fc);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float a = u == 0 ? hv[j].x : u == 1 ? hv[j].y : u == 2 ? hv[j].z : hv[j].w;
+              acc[j][0] = fmaf(a, w0.x, acc[j][0]);
+              acc[j][1] = fmaf(a, w0.y, acc[j][1]);
+              acc[j][2] = fmaf(a, w0.z, acc[j][2]);
+              acc[j][3] = fmaf(a, w0.w, acc[j][3]);
+              acc[j][4] = fmaf(a, w1.x, acc[j][4]);
+              acc[j][5] = fmaf(a, w1.y, acc[j][5]);
+              acc[j][6] = fmaf(a, w1.z, acc[j][6]);
+              acc[j][7] = fmaf(a, w1.w, acc[j][7]);
+            }
+          }
+        }
+      }
+      release(slot);
+      ++g;
+    }
+  }
+
+  const bool consumer = tid < kF32Consumers;
+  if (split > 1) {
+    // each block leaves its sums in its ring (every piece was waited for: no
+    // copy is in flight); block r adds the 16-byte groups q = 2 j + h of
+    // every consumer with q % split == r over the cluster's blocks in rank
+    // order (the same sums at every call)
+    float* red = ring;
+    __syncthreads();   // the ring is read
+    if (consumer) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int l = 0; l < 4; ++l) r[j][l] = 0.f;
-      for (int k0 = 0; k0 < KI; k0 += kChunkF32) {
-        __syncthreads();  // the previous chunk is no longer read (hs, es staged)
-        if (O % 4 == 0) {  // 4 columns a load: rows and column groups start aligned
-          for (int q = tid; q < kChunkF32 * kTileN / 4; q += kThreads) {
-            const int kk = q / (kTileN / 4), c = 4 * (q - kk * (kTileN / 4));
-            float* dst = ps + kk * kTileN + c;
-            if (k0 + kk < KI && o0 + c < O) {
-              *reinterpret_cast<float4*>(dst) =
-                  *reinterpret_cast<const float4*>(pool + (size_t)(k0 + kk) * D * O + (size_t)d * O + o0 + c);
-            } else {
-              dst[0] = dst[1] = dst[2] = dst[3] = 0.f;
-            }
-          }
-        } else {
-          for (int q = tid; q < kChunkF32 * kTileN; q += kThreads) {
-            const int kk = q / kTileN, c = q - kk * kTileN;
-            const int o = o0 + c;
-            ps[q] = (k0 + kk < KI && o < O) ? pool[(size_t)(k0 + kk) * D * O + (size_t)d * O + o] : 0.f;
-          }
-        }
-        __syncthreads();
-        const int kn = min(kChunkF32, KI - k0);
-        for (int kk = 0; kk < kn; ++kk) {
-          const float4 a = *reinterpret_cast<const float4*>(hs + (size_t)(k0 + kk) * kLd + ty * 4);
-          const float4 w = *reinterpret_cast<const float4*>(ps + kk * kTileN + tx * 4);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int l = 0; l < 4; ++l) r[j][l] = fmaf(av[j], wv[l], r[j][l]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float ev = es[(ty * 4 + j) * D + d];
-#pragma unroll
-        for (int l = 0; l < 4; ++l) acc[j][l] = fmaf(ev, r[j][l], acc[j][l]);
-      }
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float4*>(red + ((2 * j + h) * kF32Consumers + tid) * 4) =
+              make_float4(acc[j][4 * h], acc[j][4 * h + 1], acc[j][4 * h + 2], acc[j][4 * h + 3]);
     }
+    cluster.sync();
+    if (consumer) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if ((2 * j + h) % split != rank) continue;
+          float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+          for (int q = fault == kFaultRank ? 1 : 0; q < split; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, q) +
+                                                              ((2 * j + h) * kF32Consumers + tid) * 4);
+            sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
+          }
+          acc[j][4 * h] = sum.x, acc[j][4 * h + 1] = sum.y, acc[j][4 * h + 2] = sum.z, acc[j][4 * h + 3] = sum.w;
+        }
+    }
+  }
 
+  const int n = n0 + fn;
+  if (consumer && n < N) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty * 4 + j;
-      if (m >= M) continue;
+      const int b = b0 + fb + 4 * j;
+      if (b >= B) continue;
+      float* row = out + ((size_t)b * N + n) * O;
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        const int o = o0 + tx * 4 + l;
-        if (o >= O) continue;
-        out[(size_t)m * O + o] = acc[j][l] + sv;
+      for (int h = 0; h < 2; ++h) {
+        const int o = o0 + fc + 16 * h;
+        if (o >= O || (2 * j + h) % split != rank) continue;
+        if (O % 4 == 0) {   // four columns at once: rows and column groups start 16-byte aligned
+          *reinterpret_cast<float4*>(row + o) =
+              make_float4(acc[j][4 * h], acc[j][4 * h + 1], acc[j][4 * h + 2], acc[j][4 * h + 3]);
+        } else {
+          for (int l = 0; l < 4 && o + l < O; ++l) row[o + l] = acc[j][4 * h + l];
+        }
       }
     }
   }
+  if (split > 1) cluster.sync();   // the partials are read before any block of the cluster leaves
 }
 
-cudaError_t launch_f32(const void* hh, const void* e, const void* pool, const void* s, void* out, int steps,
-                       int b, int k, int n, int i, int d, int o, cudaStream_t stream) {
-  const size_t smem = ((size_t)k * i * kLd + kChunkF32 * kTileN + (size_t)kTileM * d) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(node_factored_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+// f32 tiles: the item's chunks split over 2^s blocks of a cluster, s = 0 .. 3
+constexpr int kF32Tiles = 4;
+
+// The f32 tile for these dimensions: the split whose busiest SM has the
+// least work, (blocks per SM, rounded up) x chunks a block; of equals, the
+// larger split (more blocks an SM hide more latency).
+int choose_f32_tile(int b, int k, int n, int i, int o) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+                                                 cudaSuccess)
+    sms = 132;
+  const long items = (long)((n + kF32Nodes - 1) / kF32Nodes) * ((o + kF32Ot - 1) / kF32Ot) *
+                     ((b + kF32Rows - 1) / kF32Rows);
+  const int nch = k * ((i + kF32Kc - 1) / kF32Kc);
+  int best = 0;
+  long best_work = -1;
+  for (int s = 0; s < kF32Tiles && (1 << s) <= (nch > 1 ? nch : 1); ++s) {
+    const long per = (nch + (1 << s) - 1) >> s, blocks = items << s;
+    const long work = (blocks + sms - 1) / sms * per;
+    if (best_work < 0 || work <= best_work) best = s, best_work = work;
+  }
+  return best;
+}
+
+cudaError_t launch_f32(const void* hh, const void* e, const void* pool, void* out, int b, int k, int n, int i, int d,
+                       int o, int tile, int fault, cudaStream_t stream) {
+  if (tile >= kF32Tiles) return cudaErrorInvalidValue;
+  if (k * i == 0) return cudaMemsetAsync(out, 0, (size_t)b * n * o * sizeof(float), stream);
+  if (tile < 0) tile = choose_f32_tile(b, k, n, i, o);
+  const int split = 1 << tile;
+  auto kernel = node_factored_f32_kernel;
+  static unsigned long long ready = 0;   // the devices whose attributes are set (the first 64)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !(ready >> dev & 1)) {
+    err = allow_smem(kernel, kF32Smem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) ready |= 1ull << dev;
+  }
+  const long blocks = (long)split * ((n + kF32Nodes - 1) / kF32Nodes) * ((o + kF32Ot - 1) / kF32Ot) *
+                      ((b + kF32Rows - 1) / kF32Rows);
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  // the views, where the rows are whole 16-byte units; a view that the shape
+  // allows and cuTensorMapEncodeTiled refuses is an error
+  CUtensorMap pool_map = {}, hh_map = {};
+  const int ptma = o % 4 == 0 && reinterpret_cast<uintptr_t>(pool) % 16 == 0;
+  const int htma = i % 4 == 0 && reinterpret_cast<uintptr_t>(hh) % 16 == 0;
+  if (ptma) {
+    const cuuint64_t dims[4] = {(cuuint64_t)o, (cuuint64_t)d, (cuuint64_t)i, (cuuint64_t)k};
+    const cuuint64_t strides[3] = {(cuuint64_t)o * 4, (cuuint64_t)d * o * 4, (cuuint64_t)i * d * o * 4};
+    const cuuint32_t box[4] = {kF32Ot, kF32Dc, kF32Kc, 1};
+    err = encode_tiled<4>(&pool_map, pool, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE,
+                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((unsigned)((b * n + kTileM - 1) / kTileM), (unsigned)((o + kTileN - 1) / kTileN));
-  node_factored_f32_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(hh), static_cast<const float*>(e), static_cast<const float*>(pool),
-      static_cast<const float*>(s), static_cast<float*>(out), steps, b, k, n, i, d, o);
-  return cudaGetLastError();
+  if (htma) {
+    const cuuint64_t dims[5] = {4, (cuuint64_t)b, (cuuint64_t)i / 4, (cuuint64_t)n, (cuuint64_t)k};
+    const cuuint64_t strides[4] = {(cuuint64_t)k * n * i * 4, 16, (cuuint64_t)i * 4, (cuuint64_t)n * i * 4};
+    const cuuint32_t box[5] = {4, kF32Rows, kF32Kc / 4, kF32Nodes, 1};
+    err = encode_tiled<5>(&hh_map, hh, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE,
+                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = kF32Smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, pool_map, hh_map, static_cast<const float*>(hh),
+                           static_cast<const float*>(e), static_cast<const float*>(pool), static_cast<float*>(out), b,
+                           k, n, i, d, o, ptma, htma, fault);
+  return err == cudaSuccess ? cudaGetLastError() : err;
 }
 
 // ---------------------------------------------------------------- bf16 operands: tensor cores
@@ -458,17 +704,18 @@ int choose_tile(int m, int o, int ki) {
 
 }  // namespace
 
-// As node_factored_fwd, with the bf16 kernel's tile given (0: 192x32, 1:
-// 128x48, 2: 128x32, 3: 128x16; -1: chosen from the grid), for
-// measuring the tile; the f32 kernel has one tile and takes no other.
+// As node_factored_fwd, with the kernel's tile given, for measuring it: bf16
+// operands 0: 192x32, 1: 128x48, 2: 128x32, 3: 128x16; f32 operands the
+// chunks split over 2^tile blocks of a cluster (node_factored_f32_tile's
+// code); -1: chosen from the grid.
 extern "C" int node_factored_fwd_tile(const void* hh, const void* e, const void* pool, const void* s, void* out,
                                       int steps, int b, int k, int n, int i, int d, int o,
                                       int bf16_in, int bf16_out, int tile, void* stream) {
   if (steps == 0 || b == 0 || n == 0 || o == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!bf16_in) {
-    if (bf16_out || tile > 0) return (int)cudaErrorInvalidValue;
-    return (int)launch_f32(hh, e, pool, s, out, steps, b, k, n, i, d, o, st);
+    if (bf16_out || steps != 1 || s != nullptr) return (int)cudaErrorInvalidValue;
+    return (int)launch_f32(hh, e, pool, out, b, k, n, i, d, o, tile, 0, st);
   }
   if (tile < 0) tile = choose_tile(b * n, o, k * i);
   return (int)(bf16_out ? launch_tile<__nv_bfloat16>(tile, hh, e, pool, s, out, steps, b, k, n, i, d, o, st)
@@ -476,12 +723,29 @@ extern "C" int node_factored_fwd_tile(const void* hh, const void* e, const void*
 }
 
 // Launches on `stream`; returns cudaGetLastError() after the launch, or the
-// error of the pool's TMA view where the shape takes TMA (bf16 operands, O
-// and K*I multiples of 8) and the view cannot be encoded. `s` may
+// error of a TMA view where the shape takes TMA (bf16 operands: the pool's,
+// O and K*I multiples of 8; f32: the pool's where O % 4 == 0, hh's where I %
+// 4 == 0, each 16-byte aligned) and the view cannot be encoded. `s` may
 // be null (no scalar). bf16_in: hh and pool are bf16 (else f32); bf16_out:
 // out is bf16 (else f32), taken only with bf16_in (the harness's rows mode).
+// f32 operands take one step and no scalar (cudaErrorInvalidValue else).
 extern "C" int node_factored_fwd(const void* hh, const void* e, const void* pool, const void* s, void* out,
                                  int steps, int b, int k, int n, int i, int d, int o,
                                  int bf16_in, int bf16_out, void* stream) {
   return node_factored_fwd_tile(hh, e, pool, s, out, steps, b, k, n, i, d, o, bf16_in, bf16_out, -1, stream);
+}
+
+// The f32 kernel's tile for these dimensions: the chunks split over 2^tile
+// blocks of a cluster.
+extern "C" int node_factored_f32_tile(int b, int k, int n, int i, int o) { return choose_f32_tile(b, k, n, i, o); }
+
+// f32 operands (hh (B,K,N,I), e (N,D), pool (K,I,D*O), out (B,N,O)), the
+// tile as node_factored_fwd_tile's (-1: chosen) and a fault planted in the
+// kernel (0: none, 1: the d = 0 term left out of W, 2: the contraction's
+// last 16-row chunk left out of the sums, 3: cluster rank 0's partial left
+// out of the sums, where the tile splits the chunks).
+extern "C" int node_factored_fwd_f32(const void* hh, const void* e, const void* pool, void* out, int b, int k,
+                                     int n, int i, int d, int o, int tile, int fault, void* stream) {
+  if (b == 0 || n == 0 || o == 0) return (int)cudaSuccess;
+  return (int)launch_f32(hh, e, pool, out, b, k, n, i, d, o, tile, fault, static_cast<cudaStream_t>(stream));
 }

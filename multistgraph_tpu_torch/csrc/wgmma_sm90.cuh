@@ -143,6 +143,77 @@ __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// The narrow-x path of the 16-bit SpMM kernels (band_spmm.cu's forward and
+// dX, bsr_spmm.cu): x's rows of F < kSpanMaxF 16-bit values (F % 8 != 0)
+// are no whole 16-byte units, but a chunk's 64 consecutive rows are one
+// span of 128 F bytes, 16-byte aligned where x is. One bulk copy brings it
+// into a raw staging of its ring stage, issued kSpanLag chunks before
+// kSpanWarps producer warps move its elements into the B layout and arrive
+// on the stage's full barrier. The staging keeps two blocks an SM below
+// kSpanMaxF (four stages of 128 F bytes beside a 16-bit ring of 97 KB).
+constexpr int kSpanMaxF = 32;                 // x narrower than this comes by one bulk copy a chunk (F % 8 != 0)
+constexpr int kSpanLag = 2;                   // chunks a span's bulk copy is issued before its elements are moved
+constexpr int kSpanWarps = 4;                 // producer warps that move a span's elements (SPAN kernels)
+
+// one bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
+// The 64 rows of F 16-bit values at src (a chunk of x, row-major) into a B
+// operand chunk at bb (MN-major under the 128-byte swizzle, F < 64) by the
+// kSpanWarps producer warps, U (2 or 4 bytes) a copy: producer thread t
+// moves the units t, t + 32 kSpanWarps, ...
+template <typename U>
+__device__ __forceinline__ void span_rows_to_b(unsigned char* bb, const unsigned char* src, int F, int t) {
+  constexpr int E = sizeof(U) / 2;                          // elements a unit
+  constexpr int kStep = 32 * kSpanWarps;
+  const int dk = kStep * E / F, dc = kStep * E % F;         // a thread's step of kStep units, in rows and columns
+  int k = E * t / F, c = E * t % F;
+  const U* units = reinterpret_cast<const U*>(src);
+#pragma unroll 4
+  for (int q = t; q < 64 * F / E; q += kStep) {
+    *reinterpret_cast<U*>(bb + sw128(k * 128 + c * 2)) = units[q];
+    k += dk, c += dc;
+    if (c >= F) c -= F, ++k;
+  }
+}
+
+// The SPAN kernels' move of chunk h: once its bulk copy landed on raw[h % S],
+// the chunk's raw rows (stage h % S of `spans`, 128 F bytes each) go into
+// the B operand chunk of the same stage (`b`, stages `b_bytes` apart) by
+// producer thread t of the kSpanWarps movers (element pairs at once where F
+// is even: no pair straddles two rows), then each warp arrives on full[h % S].
+template <int S>
+__device__ __forceinline__ void span_to_b(int h, const unsigned char* spans, unsigned char* b, size_t b_bytes,
+                                          uint64_t* raw, uint64_t* full, int F, int t) {
+  const int st = h % S;
+  mbar_wait(raw + st, (h / S) & 1);
+  const unsigned char* src = spans + (size_t)st * 128 * F;
+  if (F % 2 == 0)
+    span_rows_to_b<uint32_t>(b + st * b_bytes, src, F, t);
+  else
+    span_rows_to_b<uint16_t>(b + st * b_bytes, src, F, t);
+  fence_proxy_async();
+  __syncwarp();
+  if (t % 32 == 0) mbar_arrive(full + st);
+}
+
+// The SPAN kernels' columns F .. BN of the 64 rows of every stage's B chunk
+// (`b`, S stages `b_bytes` apart) written as zero by one warp's lanes:
+// span_to_b writes only the columns below F.
+template <typename T, int S, int BN>
+__device__ __forceinline__ void span_zero_tail(unsigned char* b, size_t b_bytes, int F, int lane) {
+  for (int q = lane; q < S * 64 * (BN - F); q += 32) {
+    const int st = q / (64 * (BN - F)), k = q / (BN - F) % 64, c = F + q % (BN - F);
+    *reinterpret_cast<T*>(b + st * b_bytes + sw128(k * 128 + c * 2)) = T(0.f);
+  }
+}
+
 // one bulk tensor copy of a 2-dimensional box, completing on `bar`
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
   asm volatile(

@@ -69,24 +69,10 @@ import torch
 
 from multistgraph_tpu_torch.ops import _cuda
 from multistgraph_tpu_torch.ops.spmm import BLOCK, DTYPES, _check_common
-from multistgraph_tpu_torch.ops.spmm import bf16_load_path  # noqa: F401  (dV's rule too)
+# the 16-bit forward's and dX's x come by x_load_path's rule, dV's operands by bf16_load_path's
+from multistgraph_tpu_torch.ops.spmm import SPAN_MAX_F, bf16_load_path, x_load_path  # noqa: F401
 
 MAX_OFFSETS = 8  # offsets the kernels take by value (split_band keeps at most 8 by default)
-
-
-SPAN_MAX_F = 32  # csrc/band_spmm.cu's kSpanMaxF: the spans' staging keeps two blocks an SM below it
-
-
-def x_load_path(feat: int, aligned: bool = True) -> str:
-    """How the 16-bit forward and dX kernels (B7, B8, B9 dX) bring in x's
-    rows of `feat` columns: by TMA where they are whole 16-byte units (F % 8
-    == 0); else, below SPAN_MAX_F columns where x is 16-byte aligned
-    (`aligned`), each chunk's 64 rows (one contiguous span) by one bulk copy
-    that producer warps move into place on chip; else element by element.
-    dV keeps ``bf16_load_path``'s rule."""
-    if feat % 8 == 0:
-        return "TMA"
-    return "one bulk copy a chunk" if aligned and feat < SPAN_MAX_F else "element loads"
 
 
 @dataclass(frozen=True)

@@ -14,10 +14,10 @@ folded in. ``node_factored_apply`` and ``node_factored_apply_t`` launch
 csrc/node_factored.cu and csrc/node_factored_t.cu for CUDA tensors (they
 replace the Pallas kernels _apply_kernel / node_factored_apply and
 _apply_t_kernel / node_factored_apply_t; both run bf16 operands on the
-tensor cores, B1t f32 operands in the expanded order, the per-node weights
-formed on chip; ``planted_fault`` plants a fault in B1t's) and take the
-plain versions for CPU tensors. No model path of the JAX package launches
-them: their caller is the node-apply design harness (tools/bench_node_dots.py),
+tensor cores and f32 operands in the expanded order, the per-node weights
+formed on chip; ``planted_fault`` plants a fault in B1t's and in B1's f32
+one) and take the plain versions for CPU tensors. No model path of the JAX
+package launches them: their caller is the node-apply design harness (tools/bench_node_dots.py),
 whose factored variant ``node_factored_rows`` runs on B1's kernel too. They have no VJP, as
 in JAX: B1t is the transpose a hand-written BPTT would call.
 
@@ -243,15 +243,13 @@ node_apply_q8_t.launches = node_apply_q8_t.launches_f32 = node_apply_q8_t.launch
 # ---------------------------------------------------------------- factored form (B1, B1t)
 
 _FLOATS = (torch.float32, torch.bfloat16)
-# Shared memory of the factored kernels (csrc/node_factored*.cu): B1 in f32
-# keeps its 64 rows' K*I activations transposed with a row stride of 68
-# floats, a 32x64 pool chunk and the rows' D embeddings (B1t's shared
-# memory does not grow with its dimensions). B1 in bf16 keeps its tile's
-# rows x K*I activations (K*I padded to a multiple of 64), a ring of 4 pool
-# chunks of 64 x (d x columns) bf16, the f32 sums over d of its rows x columns
-# and 8 mbarriers; of its tiles (rows, columns, d a chunk), the kernel takes
-# one that fits.
-_ROW_STRIDE, _CHUNK_FLOATS, _TILE_ROWS = 68, 32 * 64, 64
+# Shared memory of B1's bf16 kernel (csrc/node_factored.cu): its tile's rows
+# x K*I activations (K*I padded to a multiple of 64), a ring of 4 pool chunks
+# of 64 x (d x columns) bf16, the f32 sums over d of its rows x columns and
+# 8 mbarriers; of its tiles (rows, columns, d a chunk), the kernel takes one
+# that fits. B1's f32 kernel (a 4-stage ring of 16-row chunks of the
+# contraction, 8 d a piece, and one chunk's W) and B1t's keep shared memory
+# that does not grow with their dimensions: any K*I.
 _WG_CHUNK, _WG_STAGES = 64, 4
 _WG_TILES = ((192, 32, 5), (128, 48, 4), (128, 32, 4), (128, 16, 8))
 
@@ -261,37 +259,43 @@ def _wg_smem(ki, rows, cols, dg):
     return (rows * kic + _WG_STAGES * _WG_CHUNK * dg * cols) * 2 + rows * cols * 4 + 2 * _WG_STAGES * 8
 
 
-def _factored_smem(ki, d, dtype):
-    if dtype == torch.bfloat16:
-        return min(_wg_smem(ki, *tile) for tile in _WG_TILES)
-    return (ki * _ROW_STRIDE + _CHUNK_FLOATS + _TILE_ROWS * d) * 4
+def _factored_smem(ki):
+    """Shared memory of B1's bf16 kernel at K*I = ki, its smallest tile."""
+    return min(_wg_smem(ki, *tile) for tile in _WG_TILES)
 
 
-def _factored_max_ki(d, dtype):
-    """The largest K*I whose tiles fit a block's shared memory."""
+@functools.cache
+def factored_max_ki(dtype: torch.dtype) -> int:
+    """The largest K*I that node_factored_apply takes in `dtype`: in bf16
+    the most whose activations fit a block's shared memory beside the ring
+    (576); in f32 any that the kernel's int arguments hold."""
     if dtype == torch.bfloat16:
-        return max(ki for ki in range(_WG_CHUNK, 4096, _WG_CHUNK)
-                   if _factored_smem(ki, d, dtype) <= _MAX_SMEM)
-    return (_MAX_SMEM - _factored_smem(0, d, dtype)) // (_ROW_STRIDE * 4)
+        return max(ki for ki in range(_WG_CHUNK, 4096, _WG_CHUNK) if _factored_smem(ki) <= _MAX_SMEM)
+    return _MAX_DIM
 
 
 # B1t in bf16 (csrc/node_factored_t.cu, tensor cores) holds its rows' dpre
 # as register fragments, 16 k16 slices at most.
 _FACTORED_T_MAX_O_BF16 = 256
-# Faults B1t's kernels plant on request, for checks that must fail them
-# (chip_smoke.py): the d = 0 term dropped; the contraction's last k16 slice
-# dropped (in f32, the 16 o holding the last).
+# Faults the factored kernels plant on request, for checks that must fail
+# them (chip_smoke.py): the d = 0 term dropped; the contraction's last k16
+# slice dropped (in B1t's f32 form the 16 o holding the last, in B1's f32
+# form the last 16-row chunk of (k, i)). B1's f32 form also takes
+# B1_FAULTS' "rank": cluster rank 0's partial left out of the sums (where
+# its tile splits the chunks over a cluster; B1t's kernels plant nothing
+# for it). B1's bf16 kernel plants none.
 FAULTS = {"d": 1, "k16": 2}
+B1_FAULTS = dict(FAULTS, rank=3)
 _planted = 0
 
 
 @contextlib.contextmanager
 def planted_fault(kind: str):
-    """Launch B1t's kernel (either form) with the fault FAULTS[kind] planted
-    in it while the block runs (CPU tensors take the plain version, which
-    carries none)."""
+    """Launch B1t's kernel (either form) and B1's f32 kernel with the fault
+    B1_FAULTS[kind] planted in them while the block runs (CPU tensors take
+    the plain versions, which carry none)."""
     global _planted
-    code = FAULTS[kind]
+    code = B1_FAULTS[kind]
     _planted = code
     try:
         yield
@@ -322,6 +326,27 @@ def factored_t_tile(b: int, k: int, n: int, i: int, dtype: torch.dtype = torch.b
         return ("128x2", "128x1", "64x2", "64x1")[fn(b, k, n, i)]
     return factored_t_f32_tile_name(_entry("node_factored_t", "node_factored_t_f32_tile", 0, 5, stream=False)(
         b, k, n, i, o))
+
+
+def factored_tile(b: int, k: int, n: int, i: int, o: int) -> str:
+    """The tile B1's f32 kernel takes at these dimensions on this card, read
+    from csrc/node_factored.cu: 16 nodes x 32 o x 16 b a block, the chunks
+    of (k, i) split over the blocks of a cluster."""
+    return factored_f32_tile_name(_entry("node_factored", "node_factored_f32_tile", 0, 5, stream=False)(
+        b, k, n, i, o))
+
+
+def factored_f32_tile_name(code: int) -> str:
+    """The name of B1's f32 tile `code` (node_factored_fwd_tile's tile
+    argument for f32 operands, 0 .. 3: the chunks split over 2^code blocks)."""
+    return "16x32, chunks over {}".format(1 << code)
+
+
+def factored_load_path(i: int, o: int) -> str:
+    """How B1's f32 kernel brings its operands in: the pool's rows of O and
+    hh's of I each by TMA where they are whole 16-byte units, else by 4-byte
+    cp.async (16-byte aligned tensors assumed, as the wrapper's are)."""
+    return "pool {}, hh {}".format("TMA" if o % 4 == 0 else "cp.async", "TMA" if i % 4 == 0 else "cp.async")
 
 
 def factored_t_f32_tile_name(code: int) -> str:
@@ -435,8 +460,10 @@ def node_factored_apply(hh: torch.Tensor, e: torch.Tensor, poolmat: torch.Tensor
 
     hh: (B, K, N, I) and poolmat: (K, I, D*O) in one dtype, f32 or bf16;
     e: (N, D) f32 or bf16, widened to f32. Any N: the kernel masks the
-    ragged node edge. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise.
+    ragged node edge; K*I up to ``factored_max_ki`` (in f32 any). CPU
+    tensors take the plain version; CUDA tensors launch the kernel (f32
+    operands: in the expanded order, with a fault of ``planted_fault``) or
+    raise.
     """
     name = "node_factored_apply"
     _check_factored(name, hh, e, poolmat, 4)
@@ -446,13 +473,17 @@ def node_factored_apply(hh: torch.Tensor, e: torch.Tensor, poolmat: torch.Tensor
                           poolmat.shape[0] * poolmat.shape[1])
     if poolmat.shape[:2] != (kk, ii):
         raise ValueError("{} shape mismatch: hh {}, poolmat {}".format(name, tuple(hh.shape), tuple(poolmat.shape)))
-    if _factored_smem(kk * ii, dd, hh.dtype) > _MAX_SMEM:
-        raise ValueError("{} takes K*I of at most {}, got {}".format(
-            name, _factored_max_ki(dd, hh.dtype), kk * ii))
+    if kk * ii > factored_max_ki(hh.dtype):
+        raise ValueError("{} takes K*I of at most {}, got {}".format(name, factored_max_ki(hh.dtype), kk * ii))
     if hh.device.type == "cpu":
         return node_factored_apply_plain(hh, e, poolmat)
     out = torch.empty((b, n, oo), dtype=torch.float32, device=hh.device)
-    _fwd(hh, e.float().contiguous(), poolmat, None, out, 1, b, kk, n, ii, dd, oo)
+    if hh.dtype == torch.float32:
+        _launch_entry("node_factored", "node_factored_fwd_f32",
+                      (hh.data_ptr(), e.float().contiguous().data_ptr(), poolmat.data_ptr(), out.data_ptr()),
+                      (b, kk, n, ii, dd, oo, -1, _planted), hh.device)
+    else:
+        _fwd(hh, e.float().contiguous(), poolmat, None, out, 1, b, kk, n, ii, dd, oo)
     node_factored_apply.launches += 1
     return out
 
@@ -511,8 +542,8 @@ def node_factored_rows(hh_rows: torch.Tensor, e_rows: torch.Tensor, pool: torch.
     dd = e_rows.shape[1]
     oo = _factored_shapes(name, rows, e_rows.shape[0], dd, pool.shape[1], ki, pool.shape[0])
     _check_same_place(name, hh_rows, s)
-    if _factored_smem(ki, dd, hh_rows.dtype) > _MAX_SMEM:
-        raise ValueError("{} takes KI of at most {}, got {}".format(name, _factored_max_ki(dd, hh_rows.dtype), ki))
+    if ki > factored_max_ki(hh_rows.dtype):
+        raise ValueError("{} takes KI of at most {}, got {}".format(name, factored_max_ki(hh_rows.dtype), ki))
     if hh_rows.device.type == "cpu":
         return node_factored_rows_plain(hh_rows, e_rows, pool, s)
     out = torch.empty((rows, oo), dtype=torch.bfloat16, device=hh_rows.device)

@@ -225,8 +225,28 @@ def planted_fault(kind: str, kernel: str = None):
 def bf16_load_path(feat: int) -> str:
     """How the 16-bit (bf16 and f16) kernels here and in ops/band.py bring in an operand of
     `feat` columns (x, dy, or both of sampled_matmul's): by TMA where its
-    rows are whole 16-byte units, else by element loads."""
+    rows are whole 16-byte units, else by element loads. ``x_load_path``
+    refines it for the x of the SpMM forwards (bsr_spmm, and B7, B8, B9 dX)."""
     return "TMA" if feat % 8 == 0 else "element loads"
+
+
+# csrc/wgmma_sm90.cuh's kSpanMaxF: below it the spans' staging keeps two
+# blocks an SM in bsr_spmm's 16-bit kernel (its k16 fault's zero operand is
+# in shared memory only under that fault) and in ops/band.py's
+SPAN_MAX_F = 32
+
+
+def x_load_path(feat: int, aligned: bool = True) -> str:
+    """How the 16-bit SpMM kernels (bsr_spmm in bf16 and f16; ops/band.py's
+    forward and dX) bring in x's rows of `feat` columns: by TMA where they
+    are whole 16-byte units (F % 8 == 0); else, below SPAN_MAX_F columns
+    where x is 16-byte aligned (`aligned`), each chunk's 64 rows (one
+    contiguous span) by one bulk copy that producer warps move into place on
+    chip; else element by element. B5 and B9 dV keep ``bf16_load_path``'s
+    rule."""
+    if feat % 8 == 0:
+        return "TMA"
+    return "one bulk copy a chunk" if aligned and feat < SPAN_MAX_F else "element loads"
 
 
 @functools.cache

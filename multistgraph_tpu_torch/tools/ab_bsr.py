@@ -10,13 +10,14 @@ base, for several rounds, on the 49,152-node graph of the sparse path
     128, 1536) and on the block-transposed graph of the backward's dX (F =
     128, 1536: hub rows of 384 tiles);
   * B4/B6 bf16 (f32 sums) forward at F = 12, 16, 24, 64, 128, 768, 1536
-    and transposed at F = 128, 1536;
+    and, off the path, F = 3 and 20 (x by one bulk copy a chunk, as at F =
+    12), and transposed at F = 128, 1536;
   * B5 (``sampled_matmul``) at every width the path gives it (d = 16, 24,
     128, 1536), f32 and bf16 operands;
   * with ``--dtype f16 bf16``: B4/B6 f16 at the f16 path's widths (F = 12,
-    24, 64, 128, 768, 1536; transposed 128, 1536) and B5 f16 (f32 tiles)
-    beside the bf16 forms, in turns. A version whose source has no f16
-    entry (``bsr_spmm_f16``, ``sampled_matmul_f16``) skips those rows, and
+    24, 64, 128, 768, 1536; off it 3 and 20; transposed 128, 1536) and B5
+    f16 (f32 tiles) beside the bf16 forms, in turns. A version whose source
+    has no f16 entry (``bsr_spmm_f16``, ``sampled_matmul_f16``) skips those rows, and
     the other version's f16 outputs are held against the plain versions
     (``spmm_plain``, ``sampled_matmul_plain``) instead.
 B5 is called through the C interface its source has: the f32 entry takes
@@ -37,7 +38,9 @@ max|base| for f32 operands, 4e-5 for bf16 and f16 ones (chip_smoke.py's
 bounds for B4/B6: the same products summed in another order; B5's bf16
 tiles are rounded from such sums), and each new row says whether its
 output is bit-identical to the base's on the same inputs (``identical``;
-null where the base has no entry for the row). B5's 16-bit rows are timed
+null where the base has no entry for the row). A 16-bit B4/B6 row of the
+new version that is not the base's bit for bit fails the run: the x load
+path moves no sum. B5's 16-bit rows are timed
 beside the library calls on the same pre-gathered row blocks (the gathers
 not timed): ``torch.bmm(a_t, b_t^T)`` with the operands' dtype out, and
 for f16 the f32-out ``torch.bmm(..., out_dtype=torch.float32)``, which
@@ -71,9 +74,10 @@ from multistgraph_tpu_torch.tools.timing import card, event_ms
 
 NODES, DEGREE = 49152, 16
 WIDTHS = {torch.float32: ((16, 24, 64, 128, 1536), (128, 1536)),
-          torch.bfloat16: ((12, 16, 24, 64, 128, 768, 1536), (128, 1536)),
-          # the f16 path's: its SDDMM dE (F = 16) runs the f32 form
-          torch.float16: ((12, 24, 64, 128, 768, 1536), (128, 1536))}
+          # the path's and, off it, F = 3 and 20 (x by one bulk copy a chunk)
+          torch.bfloat16: ((3, 12, 16, 20, 24, 64, 128, 768, 1536), (128, 1536)),
+          # the f16 path's (its SDDMM dE, F = 16, runs the f32 form) and 3, 20
+          torch.float16: ((3, 12, 20, 24, 64, 128, 768, 1536), (128, 1536))}
 B5_WIDTHS = (16, 24, 128, 1536)   # forward scores, then the adaptive dV at the SpMM widths
 HOLD_REL = {torch.float32: 1e-5, torch.bfloat16: 4e-5, torch.float16: 4e-5}
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
@@ -312,6 +316,10 @@ def main(argv=None):
                         _hold(case[4], ref, HOLD_REL[case[3].dtype], "{} {} {}".format(label, kernel, shape))
                         identical[(label, kernel, shape)] = None if base_bits is None else torch.equal(
                             case[4], base_bits)
+                        if label == "new" and case[3].dtype != torch.float32 and identical[(label, kernel, shape)] \
+                                is False:
+                            raise AssertionError("{} {}: the new version is not the base's bit for bit".format(
+                                kernel, shape))
                     calls[(label, kernel, shape)] = fn
             del ref, base_bits
         labels = sorted({k[0] for k in calls}, key=lambda k: (k != "base", k))

@@ -26,7 +26,10 @@ medians is printed) and its library call (torch.bmm in f32, TF32 off, on
 the weights widened to f32 ahead of time, B2's times the scale; B2t's on
 the cotangent scaled and rounded to bf16 and widened ahead of time).
 Before timing, each new output is held against the base's (one bf16 step
-for a bf16 result, rtol 1e-5 with atol 1e-5 max|base| for an f32 one). The
+for a bf16 result, rtol 1e-5 with atol 1e-5 max|base| for an f32 one), and
+B1's bf16 form and B11 B, whose kernel the f32 form's redesign left as it
+was, must be the base's bit for bit (each new line says whether its output
+is: ``identical``). The
 unchanged layout-copy kernel (B3) is timed in each round as a control for
 drift of the card, and the library call of B1 and B1t, one torch.einsum in
 the operands' dtype, beside them; the order in which torch contracts each
@@ -34,8 +37,10 @@ the operands' dtype, beside them; the order in which torch contracts each
 round, each of B1's and B1t's bf16 tiles through ``node_factored_fwd_tile``
 (192x32, 128x48, 128x32 and 128x16) and ``node_factored_t_bwd_tile``
 (128x2, 128x1, 64x2 and 64x1, rows x k; each kernel takes one by the
-grid), B1t's f32 tiles (16 nodes x 32 columns, O split over 1, 2, 4 or 8
-blocks of a cluster) through ``node_factored_t_bwd_tile``, and each of
+grid), B1's f32 tiles (16 nodes x 32 o, the chunks of (k, i) split over 1,
+2, 4 or 8 blocks of a cluster) through ``node_factored_fwd_tile``, B1t's
+f32 tiles (16 nodes x 32 columns, O split over 1, 2, 4 or 8 blocks of a
+cluster) through ``node_factored_t_bwd_tile``, and each of
 B2's and B2t's batch tiles (wgmma's N = 8 to 128; on bf16 and on f32
 activations) through ``node_apply_q8_fwd_typed`` and
 ``node_apply_q8_t_bwd_typed``, each
@@ -61,9 +66,9 @@ import torch
 
 from multistgraph_tpu_torch.ops import _cuda
 from multistgraph_tpu_torch.ops.layout import force_default_layout
-from multistgraph_tpu_torch.ops.node_apply import (_pad_nodes, factored_t_f32_tile_name, node_apply_q8_plain,
-                                                   node_apply_q8_t_plain, pool_to_kernel_layout,
-                                                   quantize_node_weights)
+from multistgraph_tpu_torch.ops.node_apply import (_pad_nodes, factored_f32_tile_name, factored_t_f32_tile_name,
+                                                   node_apply_q8_plain, node_apply_q8_t_plain,
+                                                   pool_to_kernel_layout, quantize_node_weights)
 from multistgraph_tpu_torch.tools.timing import card, einsum_order, event_ms
 
 N, KI = 237, 320
@@ -92,6 +97,7 @@ F32_TRAILING = {"node_apply_q8": (0, 1), "node_apply_q8_t": (0, 1)}
 # each case's tiles: {tile: name}
 B1_TILES = {0: "192x32", 1: "128x48", 2: "128x32", 3: "128x16"}
 B1T_TILES = {0: "128x2", 1: "128x1", 2: "64x2", 3: "64x1"}
+B1_F32_TILES = {t: factored_f32_tile_name(t) for t in range(4)}
 B1T_F32_TILES = {t: factored_t_f32_tile_name(t) for t in range(4)}
 Q8_TILE_NAMES = {t: "N={}".format(t) for t in Q8_TILES}
 
@@ -198,7 +204,7 @@ def _cases(g):
             mat, mat_t = pool_to_kernel_layout(randn(c["D"], c["K"], c["I"], o, dtype=dtype))
             out = torch.empty(c["B"], c["N"], o, device="cuda")
             cases.append(("node_factored", "B1", shape, (hh, e, mat, None, out),
-                          (1, c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, 0), out, B1_TILES if bf else {}))
+                          (1, c["B"], c["K"], c["N"], c["I"], c["D"], o, bf, 0), out, B1_TILES if bf else B1_F32_TILES))
             library[("B1", shape)] = ("bkni,nd,kido->bno", hh, e.to(dtype), mat.view(c["K"], c["I"], c["D"], o))
             dpre = randn(c["B"], c["N"], o, dtype=dtype)
             e_t = e.to(dtype)
@@ -241,7 +247,7 @@ def main(argv=None):
     f32_cases = _f32_cases(g, library)
     view = torch.randn(24, 16, N, 192, generator=g, device="cuda")[..., :128]
     stream = torch.cuda.current_stream().cuda_stream
-    samples = {}
+    samples, identical = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"base": _build(cli.base, tmp, "base"), "new": _build(here, tmp, "new")}
         fns = {(v, name): _fn(libs[v][name], *ENTRIES[name]) for v in libs for name in ENTRIES}
@@ -260,6 +266,10 @@ def main(argv=None):
             _call(fns[("new", source)], ptrs, ints, stream)
             torch.cuda.synchronize()
             _hold(out, ref, "{} {}: the new version".format(kernel, shape))
+            identical[(kernel, shape)] = torch.equal(out, ref)
+            unchanged = kernel == "B11 B" or (kernel == "B1" and "bfloat16" in shape)   # the bf16 B1 kernel's rows
+            if unchanged and not identical[(kernel, shape)]:
+                raise AssertionError("{} {}: the new version is not the base's bit for bit".format(kernel, shape))
             trailing = TILED[source][2] if tiles else ()
             for tile, tile_name in tiles.items():
                 out.zero_()
@@ -300,6 +310,8 @@ def main(argv=None):
     for (version, kernel, shape), ms in samples.items():
         line = {"version": version, "kernel": kernel, "shape": shape, "median_us": statistics.median(ms) * 1e3,
                 "samples_us": [m * 1e3 for m in ms], "card": name}
+        if version == "new" and (kernel, shape) in identical:
+            line["identical"] = identical[(kernel, shape)]
         if version == "new" and kernel.endswith(" f32"):
             line["over_bf16_form"] = statistics.median(ms) / statistics.median(samples[("new", kernel[:-4], shape)])
         if version == "library" and kernel.endswith(" f32"):

@@ -227,3 +227,22 @@ def test_sddmm_backward_takes_the_transpose_it_is_given():
             assert built == ([] if given is not None else ["row_ptr", "schedule"])
     for got, want in zip(grads[0], grads[1]):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("feat, aligned, path", [
+    (16, True, "TMA"), (24, False, "TMA"), (1536, True, "TMA"), (1, True, "one bulk copy a chunk"),
+    (3, True, "one bulk copy a chunk"), (12, True, "one bulk copy a chunk"), (20, True, "one bulk copy a chunk"),
+    (31, True, "one bulk copy a chunk"), (12, False, "element loads"), (33, True, "element loads"),
+    (36, True, "element loads")])
+def test_bsr_spmm_takes_narrow_x_by_one_bulk_copy_below_the_cap_where_aligned(feat, aligned, path):
+    """bsr_spmm's 16-bit kernel: x by TMA in whole 16-byte rows (an unaligned
+    x then fails to encode and raises); below SPAN_MAX_F columns each
+    chunk's 64 contiguous rows of one x block by one bulk copy where x is
+    16-byte aligned (the spans' staging keeps two blocks an SM: the k16
+    fault's zero operand is in shared memory only under that fault); else
+    element by element. The band kernels' forward and dX take the same rule."""
+    from multistgraph_tpu_torch.ops import band
+
+    assert spmm.x_load_path(feat, aligned) == path
+    assert spmm.SPAN_MAX_F == 32
+    assert band.x_load_path is spmm.x_load_path and band.SPAN_MAX_F == spmm.SPAN_MAX_F

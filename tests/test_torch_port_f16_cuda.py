@@ -2,11 +2,12 @@
 csrc/bsr_spmm.cu), B5 (``sampled_matmul``, csrc/sampled_matmul.cu) and the
 band kernels B7, B8, B9 dX and B9 dV (csrc/band_spmm.cu) with float16
 operands on the tensor cores, each against its plain version at odd shapes
-and on both load paths (an operand by TMA where its width % 8 == 0, else by
-element loads); the faults planted in them; the f16 autograd terms on the
-card against the CPU (the SDDMM's backward on the f32 SpMM); and one f16
-SparseATGCN training step on the BSR and band forms with exact launch
-counts on each dtype's counter.
+and on every load path (an operand by TMA where its width % 8 == 0, else
+the SpMMs' x below 32 columns by one bulk copy a chunk where it is 16-byte
+aligned, else by element loads; B4/B6 in bf16 too); the faults planted in
+them; the f16 autograd terms on the card against the CPU (the SDDMM's
+backward on the f32 SpMM); and one f16 SparseATGCN training step on the
+BSR and band forms with exact launch counts on each dtype's counter.
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX, so it runs on a machine without it:
@@ -370,3 +371,29 @@ def test_cuda_wrappers_take_f16_and_reject_other_dtypes(cuda):
         spmm.bsr_spmm(values, row, ptr, col, x.float(), 2)
     with pytest.raises(TypeError, match="of one dtype"):
         spmm.sampled_matmul(x, x.bfloat16(), row, col)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, F16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("feat", [1, 3, 12, 20, 31])
+def test_cuda_16bit_bsr_spmm_takes_narrow_x_by_one_bulk_copy(cuda, feat, dtype):
+    """B4/B6 in bf16 and f16 at F % 8 != 0 below 32: each chunk's 64 rows of
+    x by one bulk copy that producer warps move into place. Against the plain
+    version on a pattern with an empty row block and a row of more tiles than
+    a segment holds (split over blocks): the f32 hold, two calls bit-identical,
+    and the k16 and segment faults fail it."""
+    assert spmm.x_load_path(feat) == "one bulk copy a chunk"
+    n_blocks = spmm.SEGMENT_TILES + 9
+    values, row, ptr, col = _card_graph(cuda, n_blocks, 30, seed=feat, empty_rows=(2,), full_row=3)
+    values = values.to(dtype)
+    schedule = spmm.bsr_schedule(ptr, values.shape[0], exact=True)
+    assert schedule.ws_slots >= 2
+    x = _randn(cuda, n_blocks * BLOCK, feat, seed=feat).to(dtype)
+    got = spmm.bsr_spmm(values, row, ptr, col, x, n_blocks, schedule)
+    want = spmm.spmm_plain(values, row, col, x, out_blocks=n_blocks)
+    assert _f32_ratio(got, want) <= 1.0
+    assert not got[2 * BLOCK:3 * BLOCK].any()
+    assert torch.equal(got, spmm.bsr_spmm(values, row, ptr, col, x, n_blocks, schedule))
+    for kind in ("k16", "segment"):
+        with spmm.planted_fault(kind, "bsr_spmm"):
+            assert _f32_ratio(spmm.bsr_spmm(values, row, ptr, col, x, n_blocks, schedule), want) > 1.0

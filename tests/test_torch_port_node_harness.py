@@ -297,8 +297,13 @@ def test_wrappers_reject_wrong_dtypes_ranks_and_devices():
         node_apply.node_factored_apply(hh, e[:-1].contiguous(), mat)
     with pytest.raises(ValueError, match="contiguous"):
         node_apply.node_factored_apply(hh.transpose(0, 1).contiguous().transpose(0, 1), e, mat)
+    # K*I = 4096: more than B1's bf16 kernel holds beside its ring; its f32
+    # kernel's shared memory does not grow with K*I, so f32 takes it
     with pytest.raises(ValueError, match="at most"):
-        node_apply.node_factored_apply(torch.zeros(1, 1, 2, 4096), torch.zeros(2, 1), torch.zeros(1, 4096, 8))
+        node_apply.node_factored_apply(torch.zeros(1, 1, 2, 4096, dtype=torch.bfloat16), torch.zeros(2, 1),
+                                       torch.zeros(1, 4096, 8, dtype=torch.bfloat16))
+    assert torch.equal(node_apply.node_factored_apply(torch.zeros(1, 1, 2, 4096), torch.zeros(2, 1),
+                                                      torch.zeros(1, 4096, 8)), torch.zeros(1, 2, 8))
     dpre = torch.zeros(B, N, O)
     with pytest.raises(TypeError):
         node_apply.node_factored_apply_t(dpre.double(), e, mat_t.double())
@@ -349,12 +354,17 @@ def test_node_dots_shared_memory_limit(ki, fits):
 
 
 @pytest.mark.parametrize("dtype,ki,fits", [(torch.bfloat16, 576, True), (torch.bfloat16, 577, False),
-                                           (torch.float32, 820, True), (torch.float32, 821, False)])
+                                           (torch.float32, 820, True), (torch.float32, 821, True),
+                                           (torch.float32, 4096, True)])
 def test_factored_shared_memory_limits(dtype, ki, fits):
     """B1 in bf16 keeps its tile's rows of K*I activations (padded to 64), a
     ring of four pool chunks and its f32 sums; its smallest tile (128 rows,
-    16 columns) holds K*I up to 576, whatever D; in f32 the earlier
-    layout (D = 4 here) takes up to 820."""
+    16 columns) holds K*I up to 576, whatever D. In f32 the kernel streams
+    the contraction in 16-row chunks through a ring whose size does not grow
+    with K*I, so 821 and more fit, past the 820 that a layout holding 64
+    rows' activations transposed took at D = 4."""
+    if dtype == torch.float32:
+        assert node_apply.factored_max_ki(dtype) == 2 ** 31 - 1
     e = torch.ones(3, 4)
     hh = torch.ones(2, 1, 3, ki, dtype=dtype)
     mat = torch.ones(1, ki, 4 * 5, dtype=dtype)
@@ -411,6 +421,48 @@ def test_expanded_order_holds_the_f32_plain_version_within_a_tenth_of_the_rule(c
     expanded = torch.einsum("bno,nkoi->bkni", dpre, w)
     bound = 1e-5 * (plain.abs() + plain.abs().max())
     assert ((expanded - plain).abs() / bound).max().item() < 0.1
+
+
+@pytest.mark.parametrize("cell,o", [("gate", 128), ("update", 64)])
+def test_b1_expanded_order_holds_the_f32_plain_version_within_a_tenth_of_the_rule(cell, o):
+    """B1's f32 kernel sums in the expanded order, W[n,(k,i),o] = sum_d
+    e[n,d] pool[k,i,d O + o] first, then sum_{k,i} hh[b,k,n,i] W; the plain
+    version in the Pallas kernel's order, r_d = hh @ pool_d first. At the
+    flagship cells (B=16, N=237, K=5, I=64, D=20) the two differ by rounding
+    alone, under a tenth of the f32 rule the card holds the kernel to (rtol
+    1e-5, atol 1e-5 max|plain|)."""
+    rng = np.random.default_rng(18)
+    b, k, n, i, d = 16, 5, 237, 64, 20
+    hh = torch.from_numpy(rng.normal(size=(b, k, n, i)).astype(np.float32) * 0.1)
+    e = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32) * 0.1)
+    mat, _ = node_apply.pool_to_kernel_layout(torch.from_numpy(rng.normal(size=(d, k, i, o)).astype(np.float32) * 0.1))
+    plain = node_apply.node_factored_apply_plain(hh, e, mat)
+    w = torch.einsum("nd,kido->nkio", e, mat.view(k, i, d, o))
+    expanded = torch.einsum("bkni,nkio->bno", hh, w)
+    bound = 1e-5 * (plain.abs() + plain.abs().max())
+    assert ((expanded - plain).abs() / bound).max().item() < 0.1
+
+
+def test_factored_f32_planted_faults_leave_the_cpu_path_alone():
+    """B1's planted faults (d = 0 dropped, the last 16-row chunk dropped,
+    cluster rank 0's partial dropped) live in its f32 kernel alone."""
+    g = torch.Generator().manual_seed(18)
+    hh = torch.randn(2, 3, 5, 7, generator=g)
+    e = torch.randn(5, 2, generator=g)
+    mat = torch.randn(3, 7, 2 * 6, generator=g)
+    want = node_apply.node_factored_apply(hh, e, mat)
+    assert set(node_apply.B1_FAULTS) == set(node_apply.FAULTS) | {"rank"}
+    for kind in sorted(node_apply.B1_FAULTS):
+        with node_apply.planted_fault(kind):
+            assert node_apply._planted == node_apply.B1_FAULTS[kind]
+            assert torch.equal(node_apply.node_factored_apply(hh, e, mat), want)
+        assert node_apply._planted == 0
+
+
+@pytest.mark.parametrize("i,o,path", [(64, 128, "pool TMA, hh TMA"), (64, 5, "pool cp.async, hh TMA"),
+                                      (7, 64, "pool TMA, hh cp.async"), (7, 5, "pool cp.async, hh cp.async")])
+def test_factored_f32_takes_operands_by_tma_only_in_whole_16_byte_rows(i, o, path):
+    assert node_apply.factored_load_path(i, o) == path
 
 
 def test_factored_t_f32_planted_faults_leave_the_cpu_path_alone():
@@ -545,6 +597,78 @@ def test_cuda_factored_apply_matches_plain(cuda, dtype, b, k, n, i, d, o):
         _assert_within_one_bf16_step(got_t.float().cpu().numpy(), want_t.float().cpu().numpy())
         f32 = node_apply.node_factored_apply_t(dpre, e, mat_t, out_dtype=torch.float32)
         _assert_close_to_plain(f32, node_apply.node_factored_apply_t_plain(dpre, e, mat_t, torch.float32))
+
+
+def _factored_tile_fn():
+    import ctypes
+
+    from multistgraph_tpu_torch.ops import _cuda
+
+    fn = _cuda.library("node_factored").node_factored_fwd_tile
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [-1, 0, 1, 2, 3])
+@pytest.mark.parametrize("b,k,n,i,d,o", [(16, 5, 237, 64, 20, 128), (16, 5, 237, 64, 20, 64), (3, 2, 45, 7, 1, 5),
+                                          (2, 3, 33, 64, 20, 64), (17, 1, 40, 7, 20, 128), (2, 5, 21, 64, 1, 5),
+                                          (5, 2, 70, 36, 9, 30)])
+def test_cuda_factored_f32_tiles_and_edges(cuda, b, k, n, i, d, o, tile):
+    """B1 with f32 operands, the expanded order, through each of its tiles
+    (the 16-row chunks of (k, i) split over 1 to 8 blocks of a cluster, more
+    blocks than chunks at I = 7) and the one chosen (-1): the flagship gate
+    and update; ragged N (45, 33, 21, 70: no multiple of 16 nodes) and B (17:
+    a second b tile); I = 7 and 36 (hh by 4-byte copies, ragged chunks), O =
+    5 and 30 (the pool by 4-byte copies, a ragged column tile), 64 and 128;
+    D = 1, 9 and 20 (ragged 8-d pieces). Within the f32 rule of the plain
+    version; two calls bit-identical."""
+    g = torch.Generator().manual_seed(b * 1000 + i * 10 + o + d)
+    hh = _randn(g, b, k, n, i)
+    e = _randn(g, n, d)
+    mat, _ = node_apply.pool_to_kernel_layout(_randn(g, d, k, i, o))
+    want = node_apply.node_factored_apply_plain(hh, e, mat)
+    outs = []
+    for _ in range(2):
+        out = torch.full((b, n, o), float("nan"), device="cuda")
+        rc = _factored_tile_fn()(hh.data_ptr(), e.data_ptr(), mat.data_ptr(), None, out.data_ptr(), 1, b, k, n, i, d,
+                                 o, 0, 0, tile, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        outs.append(out)
+    _assert_close_to_plain(outs[0], want)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", [64, 7])
+@pytest.mark.parametrize("fault", sorted(node_apply.B1_FAULTS))
+def test_cuda_factored_f32_planted_faults_fail_the_check(cuda, fault, i):
+    """Each fault planted in B1's f32 kernel (d = 0 dropped, the last 16-row
+    chunk of the contraction dropped, cluster rank 0's partial dropped: the
+    tile chosen here splits the chunks) takes it past the f32 rule, on both
+    load paths of hh; outside the block it passes."""
+    g = torch.Generator().manual_seed(41 + i)
+    b, k, n, d, o = 4, 3, 70, 5, 40
+    assert node_apply.factored_tile(b, k, n, i, o) != node_apply.factored_f32_tile_name(0)
+    hh = _randn(g, b, k, n, i)
+    e = _randn(g, n, d)
+    mat, _ = node_apply.pool_to_kernel_layout(_randn(g, d, k, i, o))
+    want = node_apply.node_factored_apply_plain(hh, e, mat)
+    with node_apply.planted_fault(fault):
+        bad = node_apply.node_factored_apply(hh, e, mat)
+    with pytest.raises(AssertionError):
+        _assert_close_to_plain(bad, want)
+    _assert_close_to_plain(node_apply.node_factored_apply(hh, e, mat), want)
+
+
+@pytest.mark.cuda
+def test_cuda_factored_f32_tile_fills_the_card(cuda):
+    """B1's f32 kernel splits an item's chunks over the blocks of a cluster
+    whose busiest SM has the least work: the flagship gate's 60 items and
+    the update's 30 over 4 blocks each on an H100's 132 SMs."""
+    assert node_apply.factored_tile(16, 5, 237, 64, 128) == "16x32, chunks over 4"
+    assert node_apply.factored_tile(16, 5, 237, 64, 64) == "16x32, chunks over 4"
+    assert node_apply.factored_tile(1, 1, 16, 7, 32) == "16x32, chunks over 1"
 
 
 def _factored_t_tile_fn():

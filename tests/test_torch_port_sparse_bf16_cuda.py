@@ -1,9 +1,10 @@
 """The bf16 forms of the BSR kernels on the card: B4/B6 (``bsr_spmm``,
 csrc/bsr_spmm.cu) and B5 (``sampled_matmul``, csrc/sampled_matmul.cu) on
 the tensor cores, each against its plain version at odd shapes (one tile,
-empty row blocks, no tile at all, a rectangular A; F = 1 to 1536 on both
-load paths, x by TMA where F % 8 == 0, else by element loads; d = 1 to
-1536), the faults planted in them, the bf16 autograd terms on the card
+empty row blocks, no tile at all, a rectangular A; F = 1 to 1536 on every
+load path, x by TMA where F % 8 == 0, else below 32 by one bulk copy a
+chunk where x is 16-byte aligned, else by element loads; d = 1 to 1536),
+the faults planted in them, the bf16 autograd terms on the card
 against the CPU, and one bf16 SparseATGCN training step on the BSR, hub and
 tail forms with its exact launch counts.
 
