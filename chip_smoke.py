@@ -30,7 +30,20 @@ from a seeded generator):
     every parameter gradient on the card are held against the CPU at the
     same weights and batch in int8, int8 f32, bf16 and f32, and faults
     planted in B2t (in its wrapper and inside its kernel), inside B2's
-    kernel and in B3's backward must fail those checks.
+    kernel and in B3's backward must fail those checks. The validation
+    passes replay a captured forward after one eager batch; their
+    windows count the replays' launches (``StepGraph.replayed_launches``);
+  * CUDA graphs (``graph_phase``, right after training): in int8, int8
+    f32, bf16 and f32, 3 replays of the captured train step held bit for
+    bit against 3 eager steps (mean loss, every parameter, Adam's state),
+    the median of 20 replays, one replay's device time by kernel (its
+    q8_kernel and strided_copy_kernel counts must be the eager counters'
+    per step: 96 + 96 B2/B2t, 4 + 4 B3) beside one eager step's; in int8
+    a graphed validation pass against an eager one, a graphed epoch
+    against eager steps, and ``PredictService``'s bucket graphs (also at
+    f32 activations) at buckets 1, 4 and 16 against eager replies, bit for
+    bit, with their latency; then a ``profile_dir`` run whose trace must
+    hold every replayed B2/B2t kernel of its epoch.
 Then the sparse path, SparseATGCN at its defaults' full width on the
 synthetic large graph of 49,152 nodes (4,946 tiles of 128x128):
   * the SpMM (B4/B6) and SDDMM (B5) kernels against their plain versions
@@ -933,15 +946,36 @@ def _read_counts():
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
-def _executor(torch, mode, feature, state_dict, device=None):
-    """An executor for `mode` on the smoke's training arguments, holding `state_dict`."""
+def _replayed(graphs):
+    """The launches of every replay so far of `graphs` (StepGraph objects),
+    under the names of ``_counters``: a replay launches what its capture
+    recorded, and bumps no counter."""
+    from multistgraph_tpu_torch.executor.graphs import launch_counters
+
+    names = {(id(fn), attr): name for name, (fn, attr) in _counters().items()}
+    counters = launch_counters()
+    out = dict.fromkeys(_counters(), 0)
+    for graph in graphs:
+        for key, count in graph.replayed_launches().items():
+            fn, attr = counters[key]
+            out[names[(id(fn), attr)]] += count
+    return out
+
+
+def _plus(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def _executor(torch, mode, feature, state_dict, device=None, **extra):
+    """An executor for `mode` on the smoke's training arguments (and `extra`
+    config keys), holding `state_dict`."""
     from multistgraph_tpu_torch.config import load_config
     from multistgraph_tpu_torch.executor import get_executor
     from multistgraph_tpu_torch.executor.optimizers import set_learning_rate
     from multistgraph_tpu_torch.models import get_model
 
     args = dict(_serving_args(os.path.join(WORK, "raw_data")), exp_id="chip_smoke_train",
-                saved_model=False, tensorboard=False, **_MODES[mode])
+                saved_model=False, tensorboard=False, **_MODES[mode], **extra)
     cfg = load_config("traffic_state_pred", "MultiATGCN", "SYN_DC237", other_args=args)
     model = get_model(cfg, feature, device=device)
     model.load_state_dict(state_dict)
@@ -1011,7 +1045,8 @@ def training_phase(torch):
     val_loss = executor._valid_epoch(val)
     record["validation"] = {"batches": len(val), "loss": val_loss,
                             "seconds": time.perf_counter() - t0}
-    windows["validation"] = _read_counts()
+    # its first batch eager, the rest replays of the captured forward
+    windows["validation"] = _plus(_read_counts(), _replayed(executor.graphs.values()))
     if windows["validation"] != dict(dict.fromkeys(windows["validation"], 0), node_apply_q8=per_step * len(val)):
         raise AssertionError("validation launched {}".format(windows["validation"]))
     if not math.isfinite(val_loss):
@@ -1032,7 +1067,7 @@ def training_phase(torch):
     t0 = time.perf_counter()
     val_loss = ex._valid_epoch(val)
     record["int8 f32"]["validation"] = {"batches": len(val), "loss": val_loss, "seconds": time.perf_counter() - t0}
-    windows["int8 f32 validation"] = _read_counts()
+    windows["int8 f32 validation"] = _plus(_read_counts(), _replayed(ex.graphs.values()))
     if windows["int8 f32 validation"] != dict(dict.fromkeys(windows["int8 f32 validation"], 0),
                                               node_apply_q8_f32=per_step * len(val)):
         raise AssertionError("int8 f32 validation launched {}".format(windows["int8 f32 validation"]))
@@ -1050,7 +1085,245 @@ def training_phase(torch):
     say(json.dumps({"training": record}))
     say("launches per window: " + json.dumps(windows))
     grad_batch = {k: v[:GRAD_BATCH].cpu() for k, v in batches[0].items()}
-    return windows, feature, state_dict, grad_batch
+    return windows, feature, state_dict, grad_batch, (train, val)
+
+
+# ------------------------------------------------------------------ graphs
+GRAPH_CHECK_REPLAYS = 3     # replayed steps held bit for bit against as many eager steps
+GRAPH_TIMED = 20            # replayed steps timed (after 3), and the requests per bucket
+GRAPH_EAGER_EPOCH = 24      # batches of the eager int8 epoch (the graphed one runs them all)
+PROFILE_BATCHES = 8         # the profile_dir run's epochs: the first 8 batches
+# kernels of one captured step, by profiler name: B2 and B2t are q8_kernel
+# instantiations, B3 strided_copy_kernel (csrc/layout_copy.cu)
+GRAPH_KERNELS = {"int8": {"q8_kernel": 4 * T * NUM_LAYERS, "strided_copy_kernel": 0},
+                 "int8 f32": {"q8_kernel": 4 * T * NUM_LAYERS, "strided_copy_kernel": 0},
+                 "bf16": {"q8_kernel": 0, "strided_copy_kernel": 0},
+                 "f32": {"q8_kernel": 0, "strided_copy_kernel": 4 * NUM_LAYERS}}
+# the launches one captured step records, by counter
+GRAPH_CAPTURED = {"int8": {"node_apply_q8": 2 * T * NUM_LAYERS, "node_apply_q8_t": 2 * T * NUM_LAYERS},
+                  "int8 f32": {"node_apply_q8_f32": 2 * T * NUM_LAYERS, "node_apply_q8_t_f32": 2 * T * NUM_LAYERS},
+                  "bf16": {}, "f32": {"force_default_layout": 2 * NUM_LAYERS, "force_default_layout_bwd": 2 * NUM_LAYERS}}
+
+
+class _First:
+    """The first `k` batches of a loader's permutation, on its split."""
+
+    def __init__(self, loader, k, ordered=False):
+        self.x, self.y, self.batch_size = loader.x, loader.y, loader.batch_size
+        self._perm = (loader.ordered_permutation() if ordered else loader.epoch_permutation())[:k]
+
+    def __len__(self):
+        return len(self._perm)
+
+    def epoch_permutation(self):
+        return self._perm
+
+    ordered_permutation = epoch_permutation
+
+
+def _same_state(torch, a, b):
+    """Whether two executors hold the same parameters and optimizer state, bit for bit."""
+    if not all(torch.equal(p, q) for p, q in zip(a.model.parameters(), b.model.parameters())):
+        return False
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    return sa.keys() == sb.keys() and all(
+        torch.equal(torch.as_tensor(v), torch.as_tensor(sb[k][key])) for k, st in sa.items() for key, v in st.items())
+
+
+def _ms_each(torch, fn, n):
+    """Host ms of each of n calls fn(i), each ended by a synchronize."""
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _eager_validation(torch, executor, loader):
+    with torch.no_grad():
+        return float(torch.stack([executor.loss_fn(executor.batch(loader, idx), train=False)
+                                  for idx in loader.ordered_permutation()]).mean())
+
+
+def _graph_serving(torch, model, scaler, feature, x_all, eager_latency):
+    """PredictService's bucket graphs against eager replies (bit for bit) at
+    buckets 1, 4 and 16, the median of 20 requests each (and of 20 eager
+    ones with `eager_latency`), one bucket-16 request's device time; and
+    the service's graphs."""
+    import numpy as np
+
+    from multistgraph_tpu_torch.serving import PredictService
+
+    svc = PredictService(model, scaler, max_batch=B, ct_visit_mstd=feature["ct_visit_mstd"])
+    ref = PredictService(model, scaler, max_batch=B, ct_visit_mstd=feature["ct_visit_mstd"])
+    ref.graphed = False
+    latency = {}
+    for batch in BUCKETS:
+        want = ref.predict(x_all[:batch])
+        for _ in range(2):   # the capture, then a replay
+            if not np.array_equal(svc.predict(x_all[:batch]), want):
+                raise AssertionError("graphed reply at bucket {} differs from the eager one".format(batch))
+        latency[str(batch)] = {"graphed": _bucket_ms(svc, x_all[:batch], GRAPH_TIMED)}
+        if eager_latency:
+            latency[str(batch)]["eager"] = _bucket_ms(ref, x_all[:batch], GRAPH_TIMED)
+    if svc.stats()["compiled_buckets"] != list(BUCKETS):
+        raise AssertionError("captured buckets {}".format(svc.stats()["compiled_buckets"]))
+    share = _device_share(torch, svc, x_all, latency[str(B)]["graphed"])
+    return latency, share, list(svc.graphs.values())
+
+
+def _adam_gap(torch, steps=5, lr=3e-3, b1=0.9, b2=0.999, eps=1e-8):
+    """Adam's bias correction on the card (ROADMAP.md §C item 14): `steps`
+    steps on the same parameters and gradients of the capturable Adam the
+    executor builds (a device rate, 1-beta^t in f32 on the device) and of
+    torch's host-rate Adam (1-beta^t in f64 on the host), each against
+    optax's rule written out in f32; the largest difference over max |p|."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p0 = torch.randn(1 << 16, device="cuda", generator=g)
+    grads = [torch.randn(1 << 16, device="cuda", generator=g) for _ in range(steps)]
+
+    def torch_adam(**kw):
+        p = torch.nn.Parameter(p0.clone())
+        opt = torch.optim.Adam([p], betas=(b1, b2), eps=eps, **kw)
+        for grad in grads:
+            p.grad = grad.clone()
+            opt.step()
+        return p.detach()
+
+    p, m, v = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
+    for t, grad in enumerate(grads, 1):  # optax.adam: f32 moments and corrections
+        m = b1 * m + (1 - b1) * grad
+        v = b2 * v + (1 - b2) * grad * grad
+        c1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
+        c2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
+        p = p - lr * (m / c1.cuda()) / (torch.sqrt(v / c2.cuda()) + eps)
+
+    def gap(a):
+        return float((a - p).abs().max() / p.abs().max())
+
+    return {"steps": steps, "capturable_vs_optax_f32": gap(torch_adam(lr=torch.tensor(lr, device="cuda"),
+                                                                       capturable=True, foreach=True)),
+            "host_rate_vs_optax_f32": gap(torch_adam(lr=lr))}
+
+
+def graph_phase(torch, feature, state_dict, loaders):
+    """The executor's and the service's CUDA graphs at the flagship width.
+    For each configuration: 3 replayed steps against 3 eager steps, bit for
+    bit (mean loss, parameters, optimizer state); the median of 20 replays
+    after 3; one replay's device time by kernel, whose B2/B2t/B3 kernels
+    must be the eager counts, beside one eager step's. In int8 also a
+    graphed validation pass against an eager one (bit for bit, and timed),
+    a graphed epoch against eager steps over its first 24 batches, and the
+    service at buckets 1, 4 and 16 (replies bit for bit, latency graphed
+    and eager); in int8 f32 the service, graphed. Then a profile_dir run.
+    Returns the window of launches: the eager counters plus every replay's
+    captured launches."""
+    import gc
+
+    from multistgraph_tpu_torch.executor.executor import GRAPH_WARMUP_STEPS
+
+    train, val = loaders
+    replays = {}   # the launches of every replay of the phase's graphs
+    _reset_counts()
+    record = {}
+    for mode in _MODES:
+        graphed = _executor(torch, mode, feature, state_dict)
+        eager = _executor(torch, mode, feature, state_dict)
+        if not graphed.graphs_train:
+            raise AssertionError("{}: the executor does not capture its train step".format(mode))
+        first = _First(train, GRAPH_WARMUP_STEPS + GRAPH_CHECK_REPLAYS)
+        got = graphed.train_epoch(first, LEARNING_RATE)
+        losses = []
+        eager_ms = _ms_each(torch, lambda i: losses.append(eager.train_step(
+            eager.batch(train, first.epoch_permutation()[i]))), len(first))[GRAPH_WARMUP_STEPS:]
+        want = float(torch.stack(losses).mean())
+        graph = graphed.graphs["train"]
+        if got != want or not _same_state(torch, graphed, eager):
+            raise AssertionError("{}: {} replayed steps differ from eager ones (mean loss {} vs {})".format(
+                mode, GRAPH_CHECK_REPLAYS, got, want))
+        captured = {k: v for k, v in _replayed([graph]).items() if v}
+        if captured != {k: GRAPH_CHECK_REPLAYS * v for k, v in GRAPH_CAPTURED[mode].items()}:
+            raise AssertionError("{}: the captured step recorded {}".format(mode, graph.captured))
+        if mode == "int8":
+            # validation on the same state: the capture (first batch eager), then replays
+            val_graphed = graphed._valid_epoch(val)
+            if val_graphed != _eager_validation(torch, eager, val):
+                raise AssertionError("graphed validation {} differs from eager".format(val_graphed))
+
+        perm = torch.as_tensor(train.epoch_permutation(), device=graphed.device)
+        _ms_each(torch, lambda i: graph.run(idx=perm[i]), 3)
+        replay_ms = _ms_each(torch, lambda i: graph.run(idx=perm[3 + i]), GRAPH_TIMED)
+        ms, ms_eager = statistics.median(replay_ms), statistics.median(eager_ms)
+        dev = _device_time(torch, lambda: graph.run(idx=perm[0]), ms, by_kernel=True)
+        batch0 = eager.batch(train, first.epoch_permutation()[0])
+        dev_eager = _device_time(torch, lambda: eager.train_step(batch0), ms_eager)
+        counted = {name: sum(k["count"] for k in dev["by_kernel"] if name in k["name"]) for name in GRAPH_KERNELS[mode]}
+        if counted != GRAPH_KERNELS[mode]:
+            raise AssertionError("{}: one replay's profile holds {}, the eager counts give {}".format(
+                mode, counted, GRAPH_KERNELS[mode]))
+        record[mode] = {"replayed_ms_per_step": ms, "replay_step_ms": replay_ms,
+                        "eager_ms_per_step": ms_eager, "eager_step_ms": eager_ms,
+                        "epochs_per_hour_graphed": 3600.0 / (ms / 1e3 * len(train)),
+                        "epochs_per_hour_eager": 3600.0 / (ms_eager / 1e3 * len(train)),
+                        "kernels_in_one_replay": counted}
+        if mode == "int8":
+            # the validation graph's capture came at the check; now all replays
+            t0 = time.perf_counter()
+            graphed._valid_epoch(val)
+            t1 = time.perf_counter()
+            _eager_validation(torch, eager, val)
+            record[mode]["validation_s"] = {"batches": len(val), "graphed": t1 - t0,
+                                            "eager": time.perf_counter() - t1}
+            # a whole epoch, every step a replay, against eager steps
+            t0 = time.perf_counter()
+            graphed.train_epoch(train, LEARNING_RATE)
+            epoch_s = time.perf_counter() - t0
+            part = _First(train, GRAPH_EAGER_EPOCH)
+            t0 = time.perf_counter()
+            float(torch.stack([eager.train_step(eager.batch(train, idx)) for idx in part.epoch_permutation()]).mean())
+            eager_step_s = (time.perf_counter() - t0) / len(part)
+            record["int8 epoch"] = {"batches": len(train), "graphed_s": epoch_s,
+                                    "graphed_ms_per_step": 1e3 * epoch_s / len(train),
+                                    "epochs_per_hour_graphed": 3600.0 / epoch_s,
+                                    "eager_batches": len(part), "eager_ms_per_step": 1e3 * eager_step_s,
+                                    "epochs_per_hour_eager": 3600.0 / (eager_step_s * len(train))}
+        if mode in ("int8", "int8 f32"):
+            latency, share, service_graphs = _graph_serving(torch, graphed.model, graphed._scaler, feature,
+                                                            val.x[:B].cpu().numpy(), eager_latency=mode == "int8")
+            replays = _plus(replays, _replayed(service_graphs))
+            record[mode]["ms_per_request_by_bucket"] = latency
+            record[mode]["device_time_per_request"] = share
+        say(json.dumps({"graph": mode, **record[mode]}))
+        say(json.dumps({"graph device time": mode, "replay": dev, "eager step": dev_eager}))
+        replays = _plus(replays, _replayed(graphed.graphs.values()))
+        del graphed, eager, graph
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(json.dumps({"graph epoch": record["int8 epoch"]}))
+    say(json.dumps({"adam_bias_correction_gap": _adam_gap(torch)}))
+
+    # profile_dir: a 2-epoch run on the first 8 batches, epoch 1 traced (no
+    # reload of the best epoch at the end, which would drop the graphs)
+    profile_dir = os.path.join(WORK, "profile")
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    ex = _executor(torch, "int8", feature, state_dict, profile_dir=profile_dir, max_epoch=2,
+                   load_best_epoch=False)
+    ex.train(_First(train, PROFILE_BATCHES), _First(val, PROFILE_BATCHES, ordered=True))
+    replays = _plus(replays, _replayed(ex.graphs.values()))
+    (trace,) = os.listdir(profile_dir)
+    with open(os.path.join(profile_dir, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    q8 = sum(1 for e in events if e.get("cat") == "kernel" and "q8_kernel" in e.get("name", ""))
+    # epoch 1: every train step (96 B2 + 96 B2t) and validation batch (96 B2) a replay
+    want_q8 = PROFILE_BATCHES * 3 * 2 * T * NUM_LAYERS
+    say(json.dumps({"profile_dir": {"trace": trace, "events": len(events), "q8_kernels": q8, "want": want_q8}}))
+    if trace != "epoch1.pt.trace.json" or q8 != want_q8:
+        raise AssertionError("profile_dir trace {} holds {} q8 kernels, want {}".format(trace, q8, want_q8))
+    window = _plus(_read_counts(), replays)
+    say(json.dumps({"graph phase launches": {k: v for k, v in window.items() if v}}))
+    return window
 
 
 def _grads(torch, mode, feature, state_dict, batch, device=None):
@@ -3322,7 +3595,8 @@ def main():
     make_dataset()
     # the training paths are timed before any phase runs a model on the
     # host's CPU, which slows the launching thread afterwards
-    windows, feature, state_dict, grad_batch = run("training", training_phase)
+    windows, feature, state_dict, grad_batch, train_loaders = run("training", training_phase)
+    windows["graphs"] = run("graphs", graph_phase, feature, state_dict, train_loaders)
     windows.update(run("sparse", sparse_phase))
     windows.update(run("band", band_phase))
     windows.update(run("sparse bf16", sparse_bf16_phase, "none"))

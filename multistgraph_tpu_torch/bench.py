@@ -6,12 +6,16 @@ strides, 24-step horizon, multi-view supports with the bidirectional
 adaptive view, static features, batch 16, bf16 matmuls) and the same
 arguments, trained by the port's executor: one warm-up epoch, then
 TIMED_EPOCHS timed epochs at a fixed rate of 3e-3. ``--quant-stream``
-streams the h-side weights int8 through kernels B2 and B2t.
+streams the h-side weights int8 through kernels B2 and B2t. The epochs
+are the executor's ``train_epoch``: after its first two eager steps, each
+step is a replay of the captured CUDA graph of the train step
+(executor/graphs.py), the counterpart of JAX's compiled epoch.
 
 Run:  python -m multistgraph_tpu_torch.bench [--quant-stream]
 
-Prints one JSON line: epochs/hr and ms/step on the card, the dtype and
-weight stream, and the card's name and power limit (nvidia-smi).
+Prints one JSON line: epochs/hr and ms/step on the card, how the step ran
+(``train_step``: "cuda graph" or "eager"), the dtype and weight stream, and
+the card's name and power limit (nvidia-smi).
 """
 
 import argparse
@@ -107,6 +111,7 @@ def main(argv=None):
         "unit": "epochs/hr",
         "ms_per_step": step_ms,
         "train_batches": len(train_loader),
+        "train_step": "cuda graph" if executor.graphs_train else "eager",
         "final_loss": loss,
         "dtype": config.get("compute_dtype", "float32"),
         "weight_stream": "int8" if cli.quant_stream else config.get("compute_dtype", "float32"),

@@ -8,15 +8,38 @@ stop on patience, best-epoch reload, resume from ``epoch``, and full-test
 evaluation with the raw prediction .npz, per-horizon metrics and the
 group-based re-transform.
 
-Design, against the JAX executor's one compiled program per epoch:
-  * an epoch is a Python loop over the loader's ``epoch_permutation()``
-    (the same numpy shuffle stream as JAX); a batch is an ``index_select``
-    of the device-resident split;
+Design, against the JAX executor's compiled programs (the train step, the
+epoch scan, the validation and prediction scans; executor.py:159-164):
   * one step is loss -> ``backward`` (the model's hand-written BPTT) ->
-    global-norm clip -> ``optimizer.step``; per-batch losses stay on the
-    device and are read once per epoch;
+    global-norm clip -> ``optimizer.step`` (``train_step``, eager, public);
+    a batch is an ``index_select`` of the device-resident split at the
+    loader's ``epoch_permutation()`` (the same numpy shuffle stream as JAX);
+  * on CUDA, for a model that declares itself ``graph_safe`` (MultiATGCN),
+    ``train_epoch`` runs the train step as a CUDA graph (graphs.py): the
+    first ``GRAPH_WARMUP_STEPS`` batches of the executor's life run
+    eagerly on a side stream, then the step is captured, reading the
+    batch's (B,) sample indices from a static buffer, and each further
+    batch is one device-to-device copy of its indices from the epoch's
+    permutation (uploaded once an epoch) and one replay. This is the port's
+    counterpart of ``_train_epoch_scan``. ``_valid_epoch`` and ``predict``
+    replay a captured no-grad forward the same way, after one eager batch.
+    Learners whose torch step cannot be captured run eagerly
+    (``optimizers.capture_rule``); so does every other model, and every
+    model on the CPU;
+  * the graphs hold the optimizer's state tensors and the loader's split:
+    ``load_model``, ``load_model_with_epoch`` and a change of rate under
+    a "re-capture" learner throw them away, and the next epoch captures
+    again (the model's ``load_state_dict`` copies in place, an optimizer's
+    does not);
+  * per-batch losses stay on the device and are read once per epoch;
   * dropout draws from a ``torch.Generator`` that the executor owns,
-    seeded from ``config['seed']``;
+    seeded from ``config['seed']``, registered with the train graph, so a
+    replay draws what the eager step would;
+  * ``profile_dir`` (and ``profile_epoch``, default 1) writes a
+    ``torch.profiler`` trace of that epoch's train and validation phases
+    (CPU activity, and CUDA activity on the card) to
+    ``<profile_dir>/epoch<N>.pt.trace.json``, as the JAX executor brackets
+    the same span with ``jax.profiler``;
   * checkpoints are ``torch.save`` files: ``{"model", "optimizer",
     "epoch"}`` per epoch, and the ``(model state_dict, optimizer
     state_dict)`` tuple of the final model, which ``PredictService.from_experiment``
@@ -27,6 +50,7 @@ Design, against the JAX executor's one compiled program per epoch:
 ``report_hook`` and ``hyper_tune`` stay as attributes for the tuner.
 """
 
+import contextlib
 import datetime
 import os
 import time
@@ -37,10 +61,13 @@ import numpy as np
 import torch
 
 from multistgraph_tpu_torch.evaluator.evaluator import get_evaluator, write_csv
+from multistgraph_tpu_torch.executor.graphs import StepGraph, on_side_stream
 from multistgraph_tpu_torch.executor.optimizers import (
     build_lr_scheduler,
     build_optimizer,
+    capture_rule,
     clip_by_global_norm,
+    load_optimizer_state,
     set_learning_rate,
 )
 from multistgraph_tpu_torch.ops import losses
@@ -62,6 +89,10 @@ _NAMED_LOSSES = {
     "r2": losses.r2_score,
     "evar": losses.explained_variance_score,
 }
+
+# eager train steps before the train step is captured (PyTorch's
+# whole-network recipe warms up on a side stream; these are real steps)
+GRAPH_WARMUP_STEPS = 2
 
 
 class TrafficStateExecutor:
@@ -116,9 +147,17 @@ class TrafficStateExecutor:
             num_params += p.numel()
         self._logger.info("Total parameter numbers: %d", num_params)
 
-        self.optimizer = build_optimizer(config, model.parameters())
+        self.optimizer = build_optimizer(config, model.parameters(), device=self.device)
         self.lr_scheduler = build_lr_scheduler(config)
         self.loss_fn = self._build_train_loss()
+
+        # CUDA graphs (module docstring): which steps replay, and their state
+        self.capture_rule = capture_rule(config.get("learner", "adam"))
+        self.graphs_forward = self.device.type == "cuda" and getattr(model, "graph_safe", False)
+        self.graphs_train = self.graphs_forward and self.capture_rule != "eager"
+        self.graphs: Dict[str, StepGraph] = {}  # "train", "valid", "predict"
+        self._warm_steps = 0
+        self._side_stream = torch.cuda.Stream(self.device) if self.graphs_forward else None
 
         self._epoch_num = config.get("epoch", 0)
         if self._epoch_num > 0:
@@ -159,18 +198,108 @@ class TrafficStateExecutor:
         self.optimizer.step()
         return loss.detach()
 
-    def batch(self, loader, idx: np.ndarray) -> Dict[str, torch.Tensor]:
-        """The samples `idx` of a device loader's split, as a batch dict."""
+    def batch(self, loader, idx) -> Dict[str, torch.Tensor]:
+        """The samples `idx` (numpy or a device tensor) of a device loader's
+        split, as a batch dict."""
         idx = torch.as_tensor(idx, device=loader.x.device)
         return {"X": loader.x.index_select(0, idx), "y": loader.y.index_select(0, idx)}
 
     def train_epoch(self, train_loader, lr: float) -> float:
         """One epoch over a fresh ``epoch_permutation()`` at rate `lr`; the
-        mean batch loss, read from the device once."""
+        mean batch loss, read from the device once. On CUDA a graph_safe
+        model's steps are replays of the captured train step."""
         set_learning_rate(self.optimizer, lr)
-        batch_losses = [self.train_step(self.batch(train_loader, idx))
-                        for idx in train_loader.epoch_permutation()]
-        return float(torch.stack(batch_losses).mean())
+        perm = train_loader.epoch_permutation()
+        if not self.graphs_train:
+            batch_losses = [self.train_step(self.batch(train_loader, idx)) for idx in perm]
+            return float(torch.stack(batch_losses).mean())
+        perm = torch.as_tensor(perm, device=self.device)  # the epoch's one upload
+        batch_losses = torch.empty(len(perm), device=self.device)
+        for i in range(len(perm)):
+            graph = self._train_graph(train_loader, lr)
+            if graph is None:
+                loss = on_side_stream(lambda: self.train_step(self.batch(train_loader, perm[i])),
+                                      self._side_stream)
+                self._warm_steps += 1
+            else:
+                loss = graph.run(idx=perm[i])
+            batch_losses[i].copy_(loss)
+        return float(batch_losses.mean())
+
+    def _train_graph(self, loader, lr: float):
+        """The captured train step over `loader`'s split (captured here the
+        first time it is asked for after the warm-up), or None while the
+        executor is warming up."""
+        if self._warm_steps < GRAPH_WARMUP_STEPS:
+            return None
+        key = (loader.x, loader.y, lr if self.capture_rule == "re-capture" else None)
+        graph = self.graphs.get("train")
+        if graph is None or not _same_key(graph.key, key):
+            self.graphs.pop("train", None)
+            graph = self._capture(lambda idx: self.train_step(self.batch(loader, idx)),
+                                  loader.batch_size, (self.dropout_generator,))
+            graph.key = key
+            self.graphs["train"] = graph
+        return graph
+
+    def _capture(self, step, batch_size: int, generators=()) -> StepGraph:
+        """``step(idx)`` captured with its (B,) sample indices in a static buffer."""
+        idx = torch.zeros(batch_size, dtype=torch.int64, device=self.device)
+        return StepGraph(lambda: step(idx), inputs={"idx": idx}, generators=generators)
+
+    def _forward_epoch(self, name: str, loader, step):
+        """``step(idx)`` (no autograd) over the loader's batches in order,
+        stacked: eager on CPU tensors and for models that are not
+        graph_safe; else its first batch eager on a side stream the first
+        time (the warm-up), and replays of graph `name`."""
+        perm = loader.ordered_permutation()
+        if not self.graphs_forward:
+            return torch.stack([step(torch.as_tensor(idx, device=loader.x.device)) for idx in perm])
+        perm = torch.as_tensor(perm, device=self.device)
+        key = (loader.x, loader.y)
+        graph = self.graphs.get(name)
+        out = None
+        for i in range(len(perm)):
+            if graph is None or not _same_key(graph.key, key):
+                value = on_side_stream(lambda: step(perm[i]), self._side_stream)
+                self.graphs.pop(name, None)
+                graph = self._capture(step, loader.batch_size)
+                graph.key = key
+                self.graphs[name] = graph
+            else:
+                value = graph.run(idx=perm[i])
+            if out is None:
+                out = torch.empty((len(perm),) + value.shape, dtype=value.dtype, device=self.device)
+            out[i].copy_(value)
+        return out
+
+    def drop_graphs(self) -> None:
+        """Throw the captured steps away (after anything that replaces a
+        tensor they read); the next epoch captures again."""
+        self.graphs.clear()
+
+    @contextlib.contextmanager
+    def _profiled(self, epoch_idx: int):
+        """A ``torch.profiler`` trace of the block when `epoch_idx` is
+        ``profile_epoch`` (default 1) and ``profile_dir`` is set, written to
+        ``<profile_dir>/epoch<N>.pt.trace.json`` (JAX executor.py:303-347)."""
+        profile_dir = self.config.get("profile_dir", None)
+        if profile_dir is None or epoch_idx != self.config.get("profile_epoch", 1):
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        ensure_dir(profile_dir)
+        path = os.path.join(profile_dir, "epoch{}.pt.trace.json".format(epoch_idx))
+        prof.export_chrome_trace(path)
+        self._logger.info("profiler trace for epoch %d written to %s", epoch_idx, path)
 
     # --------------------------------------------------------------- training
     def train(self, train_dataloader, eval_dataloader) -> float:
@@ -186,16 +315,17 @@ class TrafficStateExecutor:
                 f.write("epoch,train_loss,val_loss,lr,seconds\n")
 
         for epoch_idx in range(self._epoch_num, self.epochs):
-            start_time = time.time()
-            lr = (self.lr_scheduler.lr_for_epoch(epoch_idx) if self.lr_scheduler is not None
-                  else self.config.get("learning_rate", 0.01))
-            train_loss = self.train_epoch(train_dataloader, lr)
-            t1 = time.time()
-            train_time.append(t1 - start_time)
+            with self._profiled(epoch_idx):
+                start_time = time.time()
+                lr = (self.lr_scheduler.lr_for_epoch(epoch_idx) if self.lr_scheduler is not None
+                      else self.config.get("learning_rate", 0.01))
+                train_loss = self.train_epoch(train_dataloader, lr)
+                t1 = time.time()
+                train_time.append(t1 - start_time)
 
-            val_loss = self._valid_epoch(eval_dataloader)
-            end_time = time.time()
-            eval_time.append(end_time - t1)
+                val_loss = self._valid_epoch(eval_dataloader)
+                end_time = time.time()
+                eval_time.append(end_time - t1)
 
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step_plateau(val_loss)
@@ -241,16 +371,16 @@ class TrafficStateExecutor:
 
     @torch.no_grad()
     def _valid_epoch(self, eval_dataloader) -> float:
-        vals = [self.loss_fn(self.batch(eval_dataloader, idx), train=False)
-                for idx in eval_dataloader.ordered_permutation()]
-        return float(torch.stack(vals).mean())
+        vals = self._forward_epoch("valid", eval_dataloader,
+                                   lambda idx: self.loss_fn(self.batch(eval_dataloader, idx), train=False))
+        return float(vals.mean())
 
     # ------------------------------------------------------------- evaluation
     @torch.no_grad()
     def predict(self, loader) -> np.ndarray:
         """Model-space predictions (S, Tout, N, D) over the loader in order."""
-        outs = [self.model(self.batch(loader, idx)["X"]) for idx in loader.ordered_permutation()]
-        return torch.cat(outs).float().cpu().numpy()
+        outs = self._forward_epoch("predict", loader, lambda idx: self.model(self.batch(loader, idx)["X"]))
+        return outs.flatten(0, 1).float().cpu().numpy()
 
     def evaluate(self, test_dataloader):
         """Full-test evaluation and artifacts (ref :252-323); the target
@@ -334,7 +464,8 @@ class TrafficStateExecutor:
         self._logger.info("Loaded model at %s", cache_name)
         model_state, optimizer_state = torch.load(cache_name, map_location=self.device, weights_only=True)
         self.model.load_state_dict(model_state)
-        self.optimizer.load_state_dict(optimizer_state)
+        load_optimizer_state(self.optimizer, optimizer_state)
+        self.drop_graphs()
 
     def _epoch_path(self, epoch: int) -> str:
         return os.path.join(self.cache_dir, "{}_{}_epoch{}.pt".format(
@@ -353,8 +484,14 @@ class TrafficStateExecutor:
             raise FileNotFoundError("Weights at epoch {} not found".format(epoch))
         blob = torch.load(path, map_location=self.device, weights_only=True)
         self.model.load_state_dict(blob["model"])
-        self.optimizer.load_state_dict(blob["optimizer"])
+        load_optimizer_state(self.optimizer, blob["optimizer"])
+        self.drop_graphs()
         self._logger.info("Loaded model at %d", epoch)
+
+
+def _same_key(a, b) -> bool:
+    """Whether two graph keys (tensors, compared by identity, and rates) match."""
+    return len(a) == len(b) and all(x is y if isinstance(x, torch.Tensor) else x == y for x, y in zip(a, b))
 
 
 EXECUTOR_REGISTRY = {"TrafficStateExecutor": TrafficStateExecutor}

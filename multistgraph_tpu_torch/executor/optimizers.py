@@ -13,6 +13,25 @@ uses optax's ``clip_by_global_norm`` rule, g <- g * max_norm / ||g|| when
 clips at every norm. The scheduler is the JAX package's host-side
 ``LRScheduler``, copied as it is; the executor writes its per-epoch rate
 into every ``param_groups[i]["lr"]`` (``set_learning_rate``).
+
+On CUDA the executor records its train step as a CUDA graph
+(executor/graphs.py), and a captured step must read its rate and step count
+on the device. ``capture_rule`` says, by the learner's name alone, how each
+learner's step runs there:
+  * "device rate": Adam (and ``sparse_adam``, and an unknown learner, which
+    is Adam) and RMSprop are built with ``capturable=True`` and ``foreach``,
+    their rate a 0-d f32 device tensor that ``set_learning_rate`` fills;
+    the step count and Adam's bias corrections stay on the device (in f32,
+    as optax computes them);
+  * "re-capture": SGD's torch step reads a tensor rate on the host
+    (``alpha=-lr``; its capture fails), so its rate stays a float, baked
+    into the graph, and the executor captures the step again when the
+    rate changes (between epochs and on a plateau only);
+  * "eager": Adagrad's torch step keeps its step count in a CPU tensor
+    and advances it on the host: a capture advances it once and no replay
+    does (checked on an H100 with torch 2.11), so the optimizer's state
+    would drift from an eager run's. Its step stays eager.
+The CPU keeps the plain optimizers: CPU tensors refuse ``capturable=True``.
 """
 
 import math
@@ -21,9 +40,27 @@ from typing import Callable, Iterable, List, Optional
 import torch
 
 
-def build_optimizer(config, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+# how each learner's step runs under the executor on CUDA (module docstring);
+# a learner not named here is Adam
+CAPTURE_RULES = {"adam": "device rate", "sparse_adam": "device rate", "rmsprop": "device rate",
+                 "sgd": "re-capture", "adagrad": "eager"}
+
+
+def capture_rule(learner: str) -> str:
+    """"device rate", "re-capture" or "eager": how the executor runs the
+    step of `learner` on CUDA."""
+    return CAPTURE_RULES.get(str(learner).lower(), "device rate")
+
+
+def build_optimizer(config, params: Iterable[torch.nn.Parameter], device=None) -> torch.optim.Optimizer:
+    """The config's optimizer over `params`; on a CUDA `device`, in the form
+    its ``capture_rule`` asks for."""
     learner = str(config.get("learner", "adam")).lower()
     lr = config.get("learning_rate", 0.01)
+    graph = {}
+    if device is not None and torch.device(device).type == "cuda" and capture_rule(learner) == "device rate":
+        lr = torch.tensor(float(lr), dtype=torch.float32, device=device)
+        graph = {"capturable": True, "foreach": True}
     weight_decay = config.get("weight_decay", 0)
     eps = config.get("lr_epsilon", 1e-8)
     b1 = config.get("lr_beta1", 0.9)
@@ -32,16 +69,16 @@ def build_optimizer(config, params: Iterable[torch.nn.Parameter]) -> torch.optim
     momentum = config.get("lr_momentum", 0)
     params = list(params)
     if learner in ("adam", "sparse_adam"):
-        return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+        return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay, **graph)
     if learner == "sgd":
         return torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay)
     if learner == "adagrad":
         return torch.optim.Adagrad(params, lr=lr, eps=eps, weight_decay=weight_decay)
     if learner == "rmsprop":
         return torch.optim.RMSprop(params, lr=lr, alpha=alpha, eps=eps, momentum=momentum,
-                                   weight_decay=weight_decay)
+                                   weight_decay=weight_decay, **graph)
     # unrecognized -> default Adam, without weight decay (ref :161-164)
-    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps)
+    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps, **graph)
 
 
 @torch.no_grad()
@@ -59,8 +96,29 @@ def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float) -
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's rate to `lr`; a device rate is filled in place, so a
+    captured step reads it."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
+    """``optimizer.load_state_dict(state)`` that keeps the optimizer's own
+    form: its ``capturable`` and ``foreach`` flags and its rate holder (a
+    device rate stays the same tensor, filled with the loaded rate), so a
+    checkpoint written on either device loads on either."""
+    own = optimizer.param_groups
+    groups = [dict(saved, lr=float(saved["lr"]), **{k: g[k] for k in ("capturable", "foreach") if k in g})
+              for g, saved in zip(own, state["param_groups"])]
+    rates = [g["lr"] for g in own]
+    optimizer.load_state_dict(dict(state, param_groups=groups))
+    for group, rate in zip(optimizer.param_groups, rates):
+        if isinstance(rate, torch.Tensor):
+            rate.fill_(group["lr"])
+            group["lr"] = rate
 
 
 def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:

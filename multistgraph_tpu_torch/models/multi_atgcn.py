@@ -415,6 +415,12 @@ def fused_atgru_layer_q8(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
 class MultiATGCN(nn.Module):
     """Input x: (B, T_total, N, F); output: (B, Tout, N, output_dim)."""
 
+    # The executor and the service record its forward and training step as
+    # CUDA graphs (executor/graphs.py): no host read, no data-dependent
+    # shape, no CPU tensor made inside forward or the BPTT Functions, and
+    # dropout draws from the generator it is handed.
+    graph_safe = True
+
     def __init__(self, *, num_nodes, input_window, output_window, start_dim, end_dim, ext_dim,
                  hidden_dim, num_layers, cheb_k, embed_dim_node, embed_dim_adj, adjtype, adpadj,
                  add_time_in_day, add_day_in_week, load_dynamic, gcn_off, fnn_off,

@@ -4,8 +4,15 @@ Counterpart of multistgraph_tpu/serving.py with the same contract:
   * **Bucketed batching** — a request is right-padded with copies of its
     last row to the next power-of-two batch (capped at ``max_batch``);
     requests above ``max_batch`` are cut into chunks; pad rows are sliced
-    off the reply. The buckets keep the set of batch shapes small, which is
-    what a later CUDA-graph capture per bucket needs.
+    off the reply. On CUDA, for a model that declares itself
+    ``graph_safe`` (MultiATGCN), each bucket has one CUDA graph of the
+    forward and the scaler's inverse (executor/graphs.py), as JAX compiles
+    one program per bucket: the first request at a bucket runs eagerly on a
+    side stream (the warm-up, which answers it) and captures the bucket;
+    every later one is a copy of the padded request into the bucket's
+    static input and one replay. ``stats()["compiled_buckets"]`` lists the
+    captured buckets there, and the buckets served where nothing is
+    captured (the CPU, SparseATGCN).
   * **Model-space in, measurement-space out** — inputs are windowed feature
     tensors (B, T, N, F) as the data layer produces them; outputs are
     scaler-inverse-transformed predictions (B, Tout, N, D), optionally group
@@ -30,6 +37,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from multistgraph_tpu_torch.executor.graphs import StepGraph, on_side_stream
 from multistgraph_tpu_torch.utils import resolve_device
 
 
@@ -49,6 +57,9 @@ class PredictService:
             self._group_mstd = (np.asarray(ct_visit_mstd["All_m"], np.float32),
                                 np.asarray(ct_visit_mstd["All_std"], np.float32))
         self._buckets = set()
+        self.graphed = self.device.type == "cuda" and getattr(self.model, "graph_safe", False)
+        self.graphs = {}  # bucket -> StepGraph of the forward, input "x"
+        self._side_stream = torch.cuda.Stream(self.device) if self.graphed else None
         self._lock = threading.Lock()
         self.requests_served = 0
 
@@ -104,10 +115,8 @@ class PredictService:
         bucket = self._bucket(n)
         if n < bucket:
             x = np.concatenate([x, np.repeat(x[-1:], bucket - n, axis=0)], axis=0)
-        self._buckets.add(bucket)
         with torch.no_grad():
-            pred = self.model(torch.tensor(x, device=self.device))
-            pred = self.scaler.inverse_transform(pred)
+            pred = self._forward_bucket(bucket, torch.tensor(x))
         out = pred[:n].float().cpu().numpy()
         if self._group_mstd is not None:
             m, s = self._group_mstd
@@ -115,6 +124,24 @@ class PredictService:
         if self.clip_negative:
             out = np.maximum(out, 0.0)
         return out
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.scaler.inverse_transform(self.model(x))
+
+    def _forward_bucket(self, bucket: int, x: torch.Tensor) -> torch.Tensor:
+        """Inverse-transformed predictions for the padded request `x` (a CPU
+        tensor of `bucket` rows): eager where nothing is captured, else a
+        replay of the bucket's graph, captured at its first request."""
+        self._buckets.add(bucket)
+        if not self.graphed:
+            return self._forward(x.to(self.device))
+        graph = self.graphs.get(bucket)
+        if graph is not None:
+            return graph.run(x=x)
+        static_x = x.to(self.device)
+        pred = on_side_stream(lambda: self._forward(static_x), self._side_stream)
+        self.graphs[bucket] = StepGraph(lambda: self._forward(static_x), inputs={"x": static_x})
+        return pred
 
     def stats(self) -> dict:
         return {
