@@ -118,6 +118,21 @@ Then the same in f16 (compute_dtype 'float16'), on the same two forms:
     CPU on the BSR, hub and tail forms (the tail run twice on the card: its
     f16 index_add_ adds in an order that changes) and on the band's planes
     and packed rows, failed by the same planted faults.
+The sparse phases' validation and evaluation passes and their services
+replay captured forwards after one eager batch or request (CUDA graphs,
+executor/graphs.py); their windows count the replays' launches. Then
+SparseATGCN's steps as CUDA graphs at 49,152 nodes (``sparse_graph_phase``),
+on the executors of the f32 BSR, bf16 BSR, bf16 band planes, f16 BSR and
+f16 band planes phases and on a bf16 tail form built there:
+  * 3 replays of the captured train step (``train_epoch``) against 3
+    eager steps from the same state, bit for bit where 5 eager re-runs
+    from that state agree bit for bit, else within 2x their largest gap
+    (atomic sums), by loss, parameters and Adam's state; the captured
+    launches equal to the eager per-step counts;
+  * the median of 20 replays beside the eager steps, with one replay's and
+    one eager step's device busy time and idle share;
+  * a graphed validation pass on 4 batches and requests at buckets 1 and 2
+    held against eager ones by the same rule, graphed and eager latency.
 Then the node-apply design harness and the card's stream calibration:
   * B1 and B1t (the factored node apply and its transpose) at the
     flagship gate and update cells in f32 and bf16, B11 A (per-node dots),
@@ -157,9 +172,12 @@ package's 1M configuration, at T=12 and batch 2, no adaptive view):
     dropped) and two inside band_slab's (a k16 slice dropped, the window
     read one row block late) must fail the checks;
   * the port's probe_band_stream on the card, every probe launched and OK;
-  * bench_large_graph's training (2 warm-up and 5 timed steps) with exact
-    launch counts and finite losses, and its packed serving at buckets 1
-    and 2 (B8, no B7), the replies held against the planes';
+  * bench_large_graph's training (2 eager warm-up steps, then 5 timed
+    replays of its captured step) with exact launch counts and finite
+    losses, and its packed serving at buckets 1 and 2 (B8, no B7; replays
+    of a captured call), the replies held against the planes'; each timed
+    eagerly too, with the peak memory of both forms, and its replays held
+    against 5 eager re-runs from one state by the sparse graphs' rule;
   * at 4,096 nodes, bf16 output, loss and gradients on the card against
     the CPU on planes and packed rows, failed by faults planted in B7, B8
     and B9 dX.
@@ -950,15 +968,9 @@ def _replayed(graphs):
     """The launches of every replay so far of `graphs` (StepGraph objects),
     under the names of ``_counters``: a replay launches what its capture
     recorded, and bumps no counter."""
-    from multistgraph_tpu_torch.executor.graphs import launch_counters
-
-    names = {(id(fn), attr): name for name, (fn, attr) in _counters().items()}
-    counters = launch_counters()
     out = dict.fromkeys(_counters(), 0)
     for graph in graphs:
-        for key, count in graph.replayed_launches().items():
-            fn, attr = counters[key]
-            out[names[(id(fn), attr)]] += count
+        out = _plus(out, _named(graph.replayed_launches()))
     return out
 
 
@@ -1105,12 +1117,13 @@ GRAPH_CAPTURED = {"int8": {"node_apply_q8": 2 * T * NUM_LAYERS, "node_apply_q8_t
                   "bf16": {}, "f32": {"force_default_layout": 2 * NUM_LAYERS, "force_default_layout_bwd": 2 * NUM_LAYERS}}
 
 
-class _First:
-    """The first `k` batches of a loader's permutation, on its split."""
+class _Rows:
+    """The batches `rows` (a slice of a loader's permutation) of its split,
+    in that order."""
 
-    def __init__(self, loader, k, ordered=False):
+    def __init__(self, loader, rows):
         self.x, self.y, self.batch_size = loader.x, loader.y, loader.batch_size
-        self._perm = (loader.ordered_permutation() if ordered else loader.epoch_permutation())[:k]
+        self._perm = rows
 
     def __len__(self):
         return len(self._perm)
@@ -1119,6 +1132,11 @@ class _First:
         return self._perm
 
     ordered_permutation = epoch_permutation
+
+
+def _First(loader, k, ordered=False):
+    """The first `k` batches of a loader's permutation, on its split."""
+    return _Rows(loader, (loader.ordered_permutation() if ordered else loader.epoch_permutation())[:k])
 
 
 def _same_state(torch, a, b):
@@ -1715,13 +1733,14 @@ def sparse_phase(torch):
     t0 = time.perf_counter()
     val_loss = executor._valid_epoch(val)
     record["validation"] = {"batches": len(val), "loss": val_loss, "seconds": time.perf_counter() - t0}
-    windows["sparse validation"] = _read_counts()
+    # its first batch eager, the rest replays of the captured forward
+    windows["sparse validation"] = _plus(_read_counts(), _replayed([executor.graphs["valid"]]))
     _reset_counts()
     t0 = time.perf_counter()
     result = executor.evaluate(test)
     record["evaluation"] = {"batches": len(test), "seconds": time.perf_counter() - t0,
                             "masked_MAE": [float(v) for v in result["masked_MAE"]]}
-    windows["sparse evaluation"] = _read_counts()
+    windows["sparse evaluation"] = _plus(_read_counts(), _replayed([executor.graphs["predict"]]))
     for name, n in (("sparse validation", len(val)), ("sparse evaluation", len(test))):
         if _sparse_counts_of(windows[name]) != {k: v * n for k, v in per_forward.items()}:
             raise AssertionError("{} launched {}, want {} per batch".format(name, windows[name], per_forward))
@@ -1754,9 +1773,10 @@ def sparse_phase(torch):
                              torch, lambda: service.predict(x), latency[str(SP_B)])}
     say(json.dumps({"sparse": record}))
     say("sparse launches per window: " + json.dumps(windows))
-    del executor, service, model, dataset, train, val, test, batches
+    handle = {"executor": executor, "train": train, "val": val, "test": test, "scaler": feature["scaler"]}
+    del service, model, dataset, batches
     torch.cuda.empty_cache()
-    return windows
+    return windows, handle
 
 
 def _sparse_counts_of(counts):
@@ -2069,13 +2089,13 @@ def band_phase(torch):
     t0 = time.perf_counter()
     val_loss = executor._valid_epoch(val)
     record["validation"] = {"batches": len(val), "loss": val_loss, "seconds": time.perf_counter() - t0}
-    windows["band validation"] = _read_counts()
+    windows["band validation"] = _plus(_read_counts(), _replayed([executor.graphs["valid"]]))
     _reset_counts()
     t0 = time.perf_counter()
     result = executor.evaluate(test)
     record["evaluation"] = {"batches": len(test), "seconds": time.perf_counter() - t0,
                             "masked_MAE": [float(v) for v in result["masked_MAE"]]}
-    windows["band evaluation"] = _read_counts()
+    windows["band evaluation"] = _plus(_read_counts(), _replayed([executor.graphs["predict"]]))
     for name, n in (("band validation", len(val)), ("band evaluation", len(test))):
         if _sparse_counts_of(windows[name]) != {k: v * n for k, v in per_forward.items()}:
             raise AssertionError("{} launched {}, want {} per batch".format(name, windows[name], per_forward))
@@ -2498,7 +2518,7 @@ def sparse_bf16_phase(torch, split, ty="bf16"):
     t0 = time.perf_counter()
     val_loss = executor._valid_epoch(val)
     record["validation"] = {"batches": len(val), "loss": val_loss, "seconds": time.perf_counter() - t0}
-    windows[label + " validation"] = _read_counts()
+    windows[label + " validation"] = _plus(_read_counts(), _replayed([executor.graphs["valid"]]))
     if _sparse_counts_of(windows[label + " validation"]) != {k: v * len(val) for k, v in per_forward.items()}:
         raise AssertionError("{} validation launched {}, want {} per batch".format(
             label, windows[label + " validation"], per_forward))
@@ -2520,7 +2540,9 @@ def sparse_bf16_phase(torch, split, ty="bf16"):
     replies = {b: service.predict(x[:b]) for b in (1, SP_B)}
     windows[label + " serving"] = _read_counts()
     if split == "none":  # the widths of one bucket-1 request's bsr_spmm launches (F=12: the x by one bulk copy)
-        record["bsr_spmm_launches_by_width_bucket_1"] = _bsr_widths(lambda: service.predict(x[:1]))
+        eager = PredictService(service.model, service.scaler, max_batch=SP_B)
+        eager.graphed = False   # a replay calls no wrapper
+        record["bsr_spmm_launches_by_width_bucket_1"] = _bsr_widths(lambda: eager.predict(x[:1]))
     if _sparse_counts_of(windows[label + " serving"]) != {k: 2 * v for k, v in per_request.items()} \
             or (packed and not windows[label + " serving"]["band_spmm_packed_f16"]):
         raise AssertionError("{} serving launched {}, want {} per request".format(
@@ -2545,8 +2567,246 @@ def sparse_bf16_phase(torch, split, ty="bf16"):
                              torch, lambda: service.predict(x), latency[str(SP_B)])}
     say(json.dumps({label: record}))
     say("{} launches per window: {}".format(label, json.dumps(windows)))
-    del executor, service, model, dataset, train, val, test, batches
+    handle = {"executor": executor, "train": train, "val": val, "test": test, "scaler": feature["scaler"]}
+    del service, model, dataset, batches
     torch.cuda.empty_cache()
+    return windows, handle
+
+
+# ------------------------------------------------------------ sparse graphs
+SPG_REPLAYS = 3          # replayed steps held against as many eager steps from one state
+SPG_EAGER_RUNS = 5       # eager re-runs from one state: the gap that atomic sums leave between them
+SPG_TIMED = 20           # replays timed (after 3), and graphed requests per bucket
+SPG_VAL_BATCHES = 4      # validation batches held against eager ones
+SPG_EAGER_REQUESTS = 5   # eager requests timed per bucket
+# the forms the phase replays: the sparse phases' executors, and the bf16
+# tail form, which no other phase trains at 49k (built here)
+SPG_FORMS = ("sparse", "sparse bf16", "band bf16 adaptive 49k", "sparse f16", "band f16 adaptive 49k",
+             "tail bf16 49k")
+
+
+def _named(counts):
+    """Launch counts keyed as executor/graphs.launch_counters() keys them,
+    under the names of ``_counters`` (every name present)."""
+    from multistgraph_tpu_torch.executor.graphs import launch_counters
+
+    names = {(id(fn), attr): name for name, (fn, attr) in _counters().items()}
+    counters = launch_counters()
+    out = dict.fromkeys(_counters(), 0)
+    for key, count in counts.items():
+        fn, attr = counters[key]
+        out[names[(id(fn), attr)]] += count
+    return out
+
+
+def _train_state(torch, model, optimizer):
+    """The parameters of `model` and the optimizer's state tensors, in a
+    fixed order, by group."""
+    params = list(model.parameters())
+    state = [v for p in params for _, v in sorted(optimizer.state.get(p, {}).items()) if isinstance(v, torch.Tensor)]
+    return {"params": params, "adam": state}
+
+
+def _copy_state(torch, state):
+    return {group: [t.detach().clone() for t in tensors] for group, tensors in state.items()}
+
+
+def _load_state(torch, state, saved):
+    """Write `saved` into the tensors of `state` in place: the captured
+    steps keep reading the same tensors."""
+    with torch.no_grad():
+        for group, tensors in state.items():
+            for t, v in zip(tensors, saved[group]):
+                t.copy_(v)
+
+
+def _max_gap(torch, a, b):
+    """{group: the largest |a - b| over its values}; a and b map each group
+    to a list of tensors, arrays or floats."""
+    import numpy as np
+
+    def gap(x, y):
+        if isinstance(x, torch.Tensor):
+            return float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
+        return float(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64)).max())
+
+    return {group: max((gap(x, y) for x, y in zip(a[group], b[group])), default=0.0) for group in a}
+
+
+def _hold_replay(torch, what, replay, eager_runs):
+    """The replay against the first eager run, each group within 2x the
+    largest gap between any two eager runs from the same state (bit for bit
+    where the eager runs agree bit for bit); returns the gaps."""
+    eager_gap = {group: 0.0 for group in replay}
+    for a, b in itertools.combinations(eager_runs, 2):
+        eager_gap = {g: max(v, _max_gap(torch, a, b)[g]) for g, v in eager_gap.items()}
+    got = _max_gap(torch, replay, eager_runs[0])
+    out = {"eager_runs": len(eager_runs), "eager_gap": eager_gap, "replay_vs_eager": got,
+           "bit_for_bit": not any(eager_gap.values())}
+    if any(got[g] > 2.0 * eager_gap[g] for g in got):
+        raise AssertionError("{}: the replay differs from the eager run by more than 2x the gap between eager "
+                             "runs: {}".format(what, out))
+    return out
+
+
+def _sparse_graph_form(torch, label, executor, train, val, test, scaler):
+    """One form's executor and service graphs at 49,152 nodes (see
+    sparse_graph_phase). Returns (record, window)."""
+    from multistgraph_tpu_torch.executor.executor import GRAPH_WARMUP_STEPS
+    from multistgraph_tpu_torch.executor.optimizers import get_learning_rate
+    from multistgraph_tpu_torch.serving import PredictService
+
+    ex, model = executor, executor.model
+    if not (ex.graphs_train and ex.graphs_forward):
+        raise AssertionError("{}: the executor does not capture SparseATGCN's steps".format(label))
+    ex.drop_graphs()   # the phase's validation and evaluation graphs
+    per_step = {k: v for k, v in _sparse_launches(model, train=True).items() if v}
+    per_forward = {k: v for k, v in _sparse_launches(model).items() if v}
+    lr = get_learning_rate(ex.optimizer)
+    perm = train.epoch_permutation()
+    warm = _Rows(train, perm[:GRAPH_WARMUP_STEPS])
+    steps = _Rows(train, perm[GRAPH_WARMUP_STEPS:GRAPH_WARMUP_STEPS + SPG_REPLAYS])
+    record = {"launches_per_step": per_step}
+    _reset_counts()
+    graphs = []
+
+    # 3 replayed steps against 3 eager steps from the same state (after the
+    # executor's 2 eager warm-up steps), and 5 eager re-runs from it
+    ex.train_epoch(warm, lr)
+    state = _train_state(torch, model, ex.optimizer)
+    start = _copy_state(torch, state)
+    eager_counts = _read_counts()
+    got = ex.train_epoch(steps, lr)
+    graph = ex.graphs["train"]
+    graphs.append(graph)
+    replay = dict(_copy_state(torch, state), loss=[got])
+    if _read_counts() != eager_counts:
+        raise AssertionError("{}: the capture or a replay bumped a launch counter".format(label))
+    captured = {k: v for k, v in _named(graph.captured).items() if v}
+    if captured != per_step or graph.replays != SPG_REPLAYS:
+        raise AssertionError("{}: the captured step recorded {}, the eager step launches {}".format(
+            label, captured, per_step))
+    runs, eager_ms, rows = [], [], steps.epoch_permutation()
+    for k in range(SPG_EAGER_RUNS):
+        _load_state(torch, state, start)
+        before = _read_counts()
+        losses = []
+        eager_ms += _ms_each(torch, lambda i: losses.append(ex.train_step(ex.batch(train, rows[i]))), SPG_REPLAYS)
+        if k == 0 and _sparse_counts_of(_plus(_read_counts(), {n: -v for n, v in before.items()})) != {
+                n: SPG_REPLAYS * per_step.get(n, 0) for n in SPARSE_KERNELS}:
+            raise AssertionError("{}: {} eager steps launched other counts than {} each".format(
+                label, SPG_REPLAYS, per_step))
+        runs.append(dict(_copy_state(torch, state), loss=[float(torch.stack(losses).mean())]))
+    record["train_replay_vs_eager"] = _hold_replay(torch, label + " training", replay, runs)
+
+    # timing: the median of 20 replays after 3, eager steps from the runs
+    # above; one replay's and one eager step's device time
+    idx = torch.as_tensor(perm, device=ex.device)
+    _ms_each(torch, lambda i: graph.run(idx=idx[i]), 3)
+    replay_ms = _ms_each(torch, lambda i: graph.run(idx=idx[3 + i % (len(idx) - 3)]), SPG_TIMED)
+    ms, ms_eager = statistics.median(replay_ms), statistics.median(eager_ms)
+    dev = _device_time(torch, lambda: graph.run(idx=idx[0]), ms)
+    batch0 = ex.batch(train, perm[0])
+    dev_eager = _device_time(torch, lambda: ex.train_step(batch0), ms_eager)
+    record.update({"replayed_ms_per_step": ms, "replay_step_ms": replay_ms, "eager_ms_per_step": ms_eager,
+                   "eager_step_ms": eager_ms,
+                   "replay_device": {k: dev[k] for k in ("device_busy_ms", "device_idle_share", "device_ops")},
+                   "eager_device": {k: dev_eager[k] for k in ("device_busy_ms", "device_idle_share",
+                                                              "device_ops")},
+                   "replay_top": dev["top"]})
+
+    # validation on its first batches: the capture (first batch eager), then
+    # every batch a replay, against eager passes
+    rows = _Rows(val, val.ordered_permutation()[:SPG_VAL_BATCHES])
+    ex._valid_epoch(rows)
+    got = ex._valid_epoch(rows)
+    graphs.append(ex.graphs["valid"])
+    runs = [{"loss": [_eager_validation(torch, ex, rows)]} for _ in range(SPG_EAGER_RUNS)]
+    record["validation_replay_vs_eager"] = _hold_replay(torch, label + " validation", {"loss": [got]}, runs)
+    captured = {k: v for k, v in _named(ex.graphs["valid"].captured).items() if v}
+    if captured != per_forward:
+        raise AssertionError("{}: the validation graph recorded {}, want {}".format(label, captured, per_forward))
+
+    # requests at buckets 1 and 2: a capture, then replies held against eager ones
+    svc = PredictService(model, scaler, max_batch=SP_B)
+    ref = PredictService(model, scaler, max_batch=SP_B)
+    ref.graphed = False
+    x = test.x[:SP_B].cpu().numpy()
+    record["requests"] = {}
+    for b in (1, SP_B):
+        runs = [{"reply": [ref.predict(x[:b])]} for _ in range(SPG_EAGER_RUNS)]
+        svc.predict(x[:b])
+        hold = _hold_replay(torch, "{} request at bucket {}".format(label, b), {"reply": [svc.predict(x[:b])]}, runs)
+        captured = {k: v for k, v in _named(svc.graphs[b].captured).items() if v}
+        if captured != per_forward:
+            raise AssertionError("{}: bucket {} recorded {}, want {}".format(label, b, captured, per_forward))
+        record["requests"][str(b)] = {"graphed_ms": _bucket_ms(svc, x[:b], SPG_TIMED),
+                                      "eager_ms": _bucket_ms(ref, x[:b], SPG_EAGER_REQUESTS),
+                                      "replay_vs_eager": hold}
+    share = _device_time(torch, lambda: svc.predict(x), record["requests"][str(SP_B)]["graphed_ms"])
+    record["requests"]["device_bucket_{}".format(SP_B)] = {k: share[k] for k in ("device_busy_ms",
+                                                                                 "device_idle_share")}
+    graphs += list(svc.graphs.values())
+    window = _plus(_read_counts(), _replayed(graphs))
+    ex.drop_graphs()
+    return record, window
+
+
+def _tail_bf16_handle(torch):
+    """The bf16 tail form at 49,152 nodes with the adaptive view: the
+    executor and loaders the other forms' phases build for theirs."""
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.data import get_dataset
+    from multistgraph_tpu_torch.executor import get_executor
+    from multistgraph_tpu_torch.models import get_model
+    from multistgraph_tpu_torch.ops.hybrid import TailGraph
+
+    args = dict(_sparse_args(SP_NODES, "chip_smoke_tail_bf16"), graph_split="tail", compute_dtype="bfloat16")
+    cfg = load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=args)
+    dataset = get_dataset(cfg)
+    train, val, test = dataset.get_data()
+    feature = dataset.get_data_feature()
+    if not isinstance(feature["bsr_graph"], TailGraph):
+        raise AssertionError("graph_split='tail' gave a {}".format(type(feature["bsr_graph"]).__name__))
+    model = get_model(cfg, feature)
+    if (model.compute_dtype, model.hidden_dim, model.has_adaptive, model.remat, cfg["batch_size"]) != (
+            torch.bfloat16, SP_H, True, True, SP_B) or "tail_w" not in model._support(0):
+        raise AssertionError("the tail form is not the defaults' full width in bf16 with a tail")
+    return {"executor": get_executor(cfg, model, feature), "train": train, "val": val, "test": test,
+            "scaler": feature["scaler"]}
+
+
+def sparse_graph_phase(torch, handles):
+    """SparseATGCN's steps as CUDA graphs at 49,152 nodes, on the executors
+    (model, weights and optimizer state as their phases left them) and
+    loaders of the f32 BSR, bf16 BSR, bf16 band planes, f16 BSR and f16
+    band planes phases, all with the adaptive view, and of the bf16 tail
+    form, built here. For each: 3 replayed steps of ``train_epoch`` against
+    3 eager steps from the same state, bit for bit where 5 eager re-runs
+    from that state agree bit for bit, else within 2x their largest gap
+    (the atomic sums: the adaptive softmax's row sums, the tail's
+    index_add_, index_select's backward), by loss, parameters and Adam's
+    state; the captured step's launches equal to the eager per-step
+    counts; the median of 20
+    replays beside the eager steps, with one replay's and one eager step's
+    busy time and idle share; a graphed validation pass on 4 batches and
+    requests at buckets 1 and 2 held to eager ones in the same way.
+    Returns the windows: eager launches plus every replay's."""
+    import gc
+
+    handles["tail bf16 49k"] = _tail_bf16_handle(torch)
+    windows, record = {}, {}
+    for label in SPG_FORMS:
+        record[label], windows[label + " graphs"] = _sparse_graph_form(torch, label, **handles.pop(label))
+        say(json.dumps({"sparse graph": label, **record[label]}))
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(json.dumps({"sparse graph summary (ms per step: replayed, eager; idle: replay, eager)": {
+        label: [r["replayed_ms_per_step"], r["eager_ms_per_step"], r["replay_device"]["device_idle_share"],
+                r["eager_device"]["device_idle_share"], r["train_replay_vs_eager"]["bit_for_bit"]]
+        for label, r in record.items()}}))
+    say("sparse graph launches per window: " + json.dumps({k: {n: c for n, c in w.items() if c}
+                                                            for k, w in windows.items()}))
     return windows
 
 
@@ -3172,27 +3432,55 @@ def band_bf16_phase(torch):
         if not windows["band bf16 probe tool"][name]:
             raise AssertionError("{} was launched no time by the probe tool".format(name))
 
-    # training through the tool, launch counts from 0 before the timed steps
+    # training through the tool (replays of its captured step), launch
+    # counts from 0 before the timed steps
     train = bench_large_graph.run(cli, graph=graph, before_timed=_reset_counts)
-    windows["band bf16 training"] = _read_counts()
-    model, record = train["model"], train["record"]
-    want = dict(dict.fromkeys(windows["band bf16 training"], 0),
-                **_sparse_launches(model, BF_STEPS, train=True, t=BF_T))
-    if windows["band bf16 training"] != want:
-        raise AssertionError("{} bf16 band training steps launched {}, want {}".format(
-            BF_STEPS, windows["band bf16 training"], want))
+    step_graph = train["graph"]
+    windows["band bf16 training"] = _plus(_read_counts(), _replayed([step_graph]))
+    model, record, optimizer, x, y = (train[k] for k in ("model", "record", "optimizer", "x", "y"))
+    per_step = _sparse_launches(model, train=True, t=BF_T)
+    want = dict(dict.fromkeys(windows["band bf16 training"], 0), **{k: v * BF_STEPS for k, v in per_step.items()})
+    if windows["band bf16 training"] != want or record["extras"]["train_step"] != "cuda graph" \
+            or _named(step_graph.captured) != dict(dict.fromkeys(_counters(), 0), **per_step):
+        raise AssertionError("{} replayed bf16 band training steps launched {} (captured {}), want {}".format(
+            BF_STEPS, windows["band bf16 training"], step_graph.captured, want))
     losses = record["extras"]["losses"]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError("non-finite bf16 band training loss: {}".format(losses))
     step_ms = record["extras"]["step_seconds"] * 1e3
     record["extras"]["device_time_per_step"] = _device_time(torch, train["again"], step_ms)
-    record["extras"]["launches_per_step"] = {k: v for k, v in _sparse_launches(model, train=True, t=BF_T).items()
-                                             if v}
+    record["extras"]["launches_per_step"] = {k: v for k, v in per_step.items() if v}
+    # the same steps eagerly (timed, with their peak memory), and the replay
+    # held against 5 eager re-runs from one state
+    _reset_counts()
+    held_from = step_graph.replays
+    torch.cuda.reset_peak_memory_stats()
+    eager_losses, eager_s = bench_large_graph.train_steps(model, optimizer, x, y, BF_STEPS)
+    eager = {"step_seconds": sum(eager_s) / len(eager_s), "step_seconds_each": eager_s, "losses": eager_losses,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if _sparse_counts_of(_read_counts()) != {k: v * BF_STEPS for k, v in per_step.items()}:
+        raise AssertionError("{} eager bf16 band steps launched {}".format(BF_STEPS, _read_counts()))
+    eager["device_time_per_step"] = _device_time(
+        torch, lambda: bench_large_graph.train_steps(model, optimizer, x, y, 1), eager["step_seconds"] * 1e3)
+    state = _train_state(torch, model, optimizer)
+    start = _copy_state(torch, state)
+    runs = []
+    for _ in range(SPG_EAGER_RUNS):
+        _load_state(torch, state, start)
+        runs.append(dict(loss=bench_large_graph.train_steps(model, optimizer, x, y, 1)[0]))
+        runs[-1].update(_copy_state(torch, state))
+    _load_state(torch, state, start)
+    replayed = dict(loss=bench_large_graph.replays(step_graph, 1)[0], **_copy_state(torch, state))
+    record["extras"]["replay_vs_eager"] = _hold_replay(torch, "1M bf16 band training", replayed, runs)
+    record["extras"]["eager"] = eager
+    windows["band bf16 training eager"] = _plus(_read_counts(), {
+        k: v * (step_graph.replays - held_from) for k, v in _named(step_graph.captured).items()})
     say(json.dumps({"band bf16 training": record}))
-    del train
+    del train, step_graph, optimizer, state, start, runs, replayed
 
-    # packed serving through the tool at buckets 1 and 2, held against the
-    # planes at the same weights
+    # packed serving through the tool at buckets 1 and 2 (replays of its
+    # captured call), held against eager calls and against the planes at
+    # the same weights
     model.eval()
     serving = {}
     for b in (1, BF_B):
@@ -3201,28 +3489,41 @@ def band_bf16_phase(torch):
                                              "--iters", str(BF_CALLS)])
         served = bench_large_graph.run(scli, graph=graph, before_timed=_reset_counts)
         key = "band bf16 serving b{}".format(b)
-        windows[key] = _read_counts()
+        windows[key] = _plus(_read_counts(), _replayed([served["graph"]]))
         per_call = _sparse_launches(served["model"], t=BF_T)
         if _sparse_counts_of(windows[key]) != {k: v * BF_CALLS for k, v in per_call.items()} \
-                or windows[key]["band_spmm"] or not windows[key]["band_spmm_packed"]:
+                or windows[key]["band_spmm"] or not windows[key]["band_spmm_packed"] \
+                or served["record"]["extras"]["serve_call"] != "cuda graph":
             raise AssertionError("packed bf16 serving launched {}, want {} per call".format(windows[key], per_call))
-        model.load_state_dict(served["model"].state_dict())
-        with torch.no_grad():
-            planes_out = model(served["x"])
         out = served["out"]
         if out.shape != (b, 3, graph.padded_nodes, 1) or out.dtype != torch.float32 or not torch.isfinite(out).all():
             raise AssertionError("bad packed bf16 reply for batch {}: {} {}".format(b, out.shape, out.dtype))
+        rec = served["record"]
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [{"reply": [bench_large_graph.serve_calls(served["model"], served["x"], 1)[0]]}
+                for _ in range(SPG_EAGER_RUNS)]
+        rec["extras"]["replay_vs_eager"] = _hold_replay(torch, "1M packed request at bucket {}".format(b),
+                                                        {"reply": [out]}, runs)
+        _, eager_s = bench_large_graph.serve_calls(served["model"], served["x"], BF_CALLS)
+        rec["extras"]["eager"] = {"ms": 1e3 * sum(eager_s) / len(eager_s), "call_seconds": eager_s,
+                                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        windows[key + " eager"] = _read_counts()
+        model.load_state_dict(served["model"].state_dict())
+        with torch.no_grad():
+            planes_out = model(served["x"])
         diff = (out - planes_out).abs().max().item()
         scale = planes_out.abs().max().item()
         # the same products in the same order: one bf16 step of the largest reply at most
         if not diff <= 2.0 ** -7 * scale:
             raise AssertionError("packed bf16 replies differ from the planes' by {} (largest {})".format(diff, scale))
-        rec = served["record"]
         rec["extras"]["packed_vs_planes_max_abs"] = diff
         rec["extras"]["device_time_per_call"] = _device_time(torch, served["again"], rec["value"])
+        windows[key] = _plus(windows[key], {k: v * (served["graph"].replays - BF_CALLS)
+                                            for k, v in _named(served["graph"].captured).items()})
         serving[b] = rec
         say(json.dumps({key: rec}))
-        del served, planes_out, out
+        del served, planes_out, out, runs
     del model
     torch.cuda.empty_cache()
     return lines, windows
@@ -3597,12 +3898,18 @@ def main():
     # host's CPU, which slows the launching thread afterwards
     windows, feature, state_dict, grad_batch, train_loaders = run("training", training_phase)
     windows["graphs"] = run("graphs", graph_phase, feature, state_dict, train_loaders)
-    windows.update(run("sparse", sparse_phase))
-    windows.update(run("band", band_phase))
-    windows.update(run("sparse bf16", sparse_bf16_phase, "none"))
-    windows.update(run("band bf16 adaptive 49k", sparse_bf16_phase, "band"))
-    windows.update(run("sparse f16", sparse_bf16_phase, "none", "f16"))
-    windows.update(run("band f16 adaptive 49k", sparse_bf16_phase, "band", "f16"))
+    handles = {}   # the sparse phases' executors and loaders, for their graphs
+    for name, phase, args in (("sparse", sparse_phase, ()), ("band", band_phase, ()),
+                              ("sparse bf16", sparse_bf16_phase, ("none",)),
+                              ("band bf16 adaptive 49k", sparse_bf16_phase, ("band",)),
+                              ("sparse f16", sparse_bf16_phase, ("none", "f16")),
+                              ("band f16 adaptive 49k", sparse_bf16_phase, ("band", "f16"))):
+        result = run(name, phase, *args)
+        if name != "band":
+            result, handles[name] = result
+        windows.update(result)
+    windows.update(run("sparse graphs", sparse_graph_phase, handles))
+    del handles
     bf16_lines, bf16_windows = run("band bf16 1M", band_bf16_phase)
     lines += bf16_lines
     windows.update(bf16_windows)

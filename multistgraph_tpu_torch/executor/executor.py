@@ -14,7 +14,8 @@ epoch scan, the validation and prediction scans; executor.py:159-164):
     global-norm clip -> ``optimizer.step`` (``train_step``, eager, public);
     a batch is an ``index_select`` of the device-resident split at the
     loader's ``epoch_permutation()`` (the same numpy shuffle stream as JAX);
-  * on CUDA, for a model that declares itself ``graph_safe`` (MultiATGCN),
+  * on CUDA, for a model that declares itself ``graph_safe`` (MultiATGCN,
+    SparseATGCN),
     ``train_epoch`` runs the train step as a CUDA graph (graphs.py): the
     first ``GRAPH_WARMUP_STEPS`` batches of the executor's life run
     eagerly on a side stream, then the step is captured, reading the

@@ -8,14 +8,18 @@ program per batch bucket (multistgraph_tpu/serving.py:113-131). A
 launch. Train, validation, predict and every serving bucket use it.
 
 What a graph may read. A replay launches the kernels exactly as they were
-recorded, with the same pointers; B2 and B2t even carry TMA views of their
-operands as kernel parameters (csrc/node_apply_q8.cuh). So a captured step
-reads only tensors that stay where they are between replays: its static
-inputs (which the caller refills before each replay), the model's
-parameters (updated in place), the optimizer's state, the loader's
-device-resident split, and what the step itself allocates, which lives in
-the graph's private memory pool and lands at the same addresses on every
-replay.
+recorded, with the same pointers; B2/B2t, B4/B6, B5 and B7-B9 even carry
+TMA views of their operands as kernel parameters, encoded on the host at
+capture (csrc/node_apply_q8.cuh, bsr_spmm.cu, sampled_matmul.cu,
+band_spmm.cu). So a captured step reads only tensors that stay where they
+are between replays: its static inputs (which the caller refills before
+each replay), the model's parameters (updated in place) and buffers (the
+graph arrays), the optimizer's state, the loader's device-resident split,
+and what the step itself allocates (SpMM workspaces and counters too),
+which lives in the graph's private memory pool and lands at the same
+addresses on every replay. What the wrappers read on the host at capture
+is baked in: a fault planted in a kernel (``planted_fault``) stays in or
+out of a graph as it was when the graph was captured.
 
 Warm-up. A step is captured only after it ran eagerly: the caller runs the
 first real batches through ``on_side_stream`` (PyTorch's whole-network

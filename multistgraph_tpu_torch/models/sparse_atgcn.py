@@ -20,6 +20,21 @@ gates, over block-sparse supports:
     every step is aggregated once per layer (hoisted), and ``remat=True``
     checkpoints each step (torch.utils.checkpoint), as jax.checkpoint does.
 
+On CUDA the executor and the service record its training step and its
+forward as CUDA graphs (``graph_safe``; executor/graphs.py), the
+counterpart of JAX's jitted programs. Nothing in forward or in the
+autograd Functions of ops/spmm.py, ops/band.py and ops/hybrid.py reads
+the device back or makes a shape from data: the segment schedules of the
+static patterns and of their block transposes are built at construction
+(their one host sync is there), the per-forward transposes, softmaxes and
+SpMM workspaces are device ops of static shapes, and every kernel operand
+(whose TMA view the launch encodes on the host) lies in the model's
+buffers or parameters, in the step's static inputs or in the graph's
+memory pool. The checkpointed steps keep torch.utils.checkpoint's default
+``preserve_rng_state=True``: the model draws no random numbers, and the
+stash and restore of the CUDA generator's state capture (an H100 with
+torch 2.11 replays a captured checkpoint bit for bit either way).
+
 Graph arrays are buffers registered with ``persistent=False``: the JAX
 executor re-derives its zero-initialised 'graph' collection from the
 dataset at init and keeps that form on load, so the port rebuilds them
@@ -87,6 +102,10 @@ class SparseATGCN(nn.Module):
     adaptive view, or None. ``compute_dtype``: None (f32), torch.bfloat16
     or torch.float16; the floating graph arrays are stored in it.
     """
+
+    # read by the executor and the service: they record its steps as CUDA
+    # graphs on the card (module docstring)
+    graph_safe = True
 
     def __init__(self, num_nodes: int, output_window: int, output_dim: int, hidden_dim: int,
                  num_layers: int, embed_dim_adj: int, supports=(), adaptive_pattern=None,

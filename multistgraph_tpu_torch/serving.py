@@ -5,14 +5,14 @@ Counterpart of multistgraph_tpu/serving.py with the same contract:
     last row to the next power-of-two batch (capped at ``max_batch``);
     requests above ``max_batch`` are cut into chunks; pad rows are sliced
     off the reply. On CUDA, for a model that declares itself
-    ``graph_safe`` (MultiATGCN), each bucket has one CUDA graph of the
-    forward and the scaler's inverse (executor/graphs.py), as JAX compiles
+    ``graph_safe`` (MultiATGCN, SparseATGCN), each bucket has one CUDA
+    graph of the forward and the scaler's inverse (executor/graphs.py), as JAX compiles
     one program per bucket: the first request at a bucket runs eagerly on a
     side stream (the warm-up, which answers it) and captures the bucket;
     every later one is a copy of the padded request into the bucket's
     static input and one replay. ``stats()["compiled_buckets"]`` lists the
     captured buckets there, and the buckets served where nothing is
-    captured (the CPU, SparseATGCN).
+    captured (the CPU).
   * **Model-space in, measurement-space out** — inputs are windowed feature
     tensors (B, T, N, F) as the data layer produces them; outputs are
     scaler-inverse-transformed predictions (B, Tout, N, D), optionally group

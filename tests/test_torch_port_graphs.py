@@ -1,5 +1,7 @@
 """The executor's graph layer on the CPU: ``profile_dir``, the learner rule,
-optimizer state across devices, and parity with the JAX executor.
+optimizer state across devices, the launch counters of every main-path
+kernel wrapper (MultiATGCN's and SparseATGCN's), and parity with the JAX
+executor.
 
 On the CPU nothing is captured (CUDA graphs need the card; their tests are
 in test_torch_port_graphs_cuda.py): the executor runs every step eagerly,
@@ -184,6 +186,13 @@ def test_launch_counters_cover_the_main_path_wrappers():
             "node_apply.node_apply_q8_t.launches", "node_apply.node_apply_q8_t.launches_f32",
             "layout.force_default_layout.launches", "layout.force_default_layout.backward_launches",
             "spmm.bsr_spmm.bf16_launches", "band.band_dv.f16_launches"} <= keys
+    # SparseATGCN's path (its steps are graphs too): B4/B6 and B5 in f32, bf16
+    # and f16; B7, B8 and B9 dX on planes and packed rows, f32/bf16 and f16
+    sparse = {"spmm.{}.{}".format(fn, attr) for fn in ("bsr_spmm", "sampled_matmul")
+              for attr in ("launches", "bf16_launches", "f16_launches")}
+    sparse |= {"band.{}.{}".format(fn, attr) for fn in ("band_spmm", "band_spmm_packed", "band_dx", "band_dx_packed")
+               for attr in ("launches", "f16_launches")}
+    assert sparse <= keys
     assert not any(".launches" not in k and "launches" not in k.split(".")[-1] for k in keys)
     assert not any(k.split(".")[1].startswith("_") for k in keys)
     assert set(read_launches()) == keys

@@ -8,7 +8,15 @@ The small MultiATGCN of test_torch_port_training_cuda.py (12 nodes, hidden
 eager one start from the same weights, optimizer and dropout generator
 state, and must agree bit for bit: the losses, every parameter and the
 optimizer's state after the replays, the validation loss and predictions,
-and the service's replies. SparseATGCN is served eagerly.
+and the service's replies.
+
+SparseATGCN (SYN_LARGE_TINY at 300 nodes; the BSR form, the tail form and
+the band on packed rows, each with the adaptive view, in f32 and bf16) is
+held the same way where its eager steps are bit-reproducible. Its atomic
+sums (the adaptive softmax's row sums, the tail's index_add_, the backward
+of index_select) change from run to run, so each graphed result is held
+against 5 eager runs from the same state: bit for bit where they agree bit
+for bit, else within twice the largest gap between two of them.
 """
 
 import numpy as np
@@ -221,25 +229,159 @@ def test_cuda_adagrad_trains_eagerly_and_validation_is_graphed(cuda, tmp_path):
     assert "valid" in graphed.graphs
 
 
-@pytest.mark.cuda
-def test_cuda_sparse_atgcn_is_served_eagerly(cuda, tmp_path):
-    args = {"output_dir": str(tmp_path / "out"), "exp_id": "cuda", "num_nodes": 200, "avg_degree": 8,
-            "len_time": 48, "input_window": 4, "output_window": 2, "batch_size": 4, "rnn_units": 8,
-            "embed_dim_adj": 4, "num_layers": 2, "tensorboard": False}
+# ---------------------------------------------------------------- SparseATGCN
+# SYN_LARGE_TINY at 300 nodes (3 row blocks), hidden 8, 2 layers, T 4,
+# batch 4, remat on, the adaptive view on every form (the defaults)
+SPARSE_FORMS = {"bsr_adaptive": {}, "tail": {"graph_split": "tail"},
+                "band_packed": {"graph_split": "band", "graph_band_packed": True}}
+SPARSE_DTYPES = {"f32": None, "bf16": "bfloat16"}
+SPARSE_CASES = [(form, dtype) for form in sorted(SPARSE_FORMS) for dtype in sorted(SPARSE_DTYPES)]
+EAGER_RUNS = 5
+
+
+def _sparse_executors(tmp_path, form, dtype, n=2):
+    """`n` executors of the small SparseATGCN on the card, with the same
+    weights and optimizer; and the data loaders."""
+    args = {"output_dir": str(tmp_path / "out"), "exp_id": "sparse_graphs", "num_nodes": 300, "avg_degree": 8,
+            "len_time": 60, "input_window": 4, "output_window": 2, "batch_size": 4, "rnn_units": 8,
+            "embed_dim_adj": 4, "num_layers": 2, "tensorboard": False, "learning_rate": 3e-3,
+            "compute_dtype": SPARSE_DTYPES[dtype], **SPARSE_FORMS[form]}
     cfg = load_config("traffic_state_pred", "SparseATGCN", "SYN_LARGE_TINY", other_args=args)
     ds = get_dataset(cfg)
-    _, _, test = ds.get_data()
+    loaders = ds.get_data()
     feature = ds.get_data_feature()
-    model = get_model(cfg, feature)
-    service = PredictService(model, feature["scaler"], max_batch=4)
-    assert not service.graphed
-    x = test.x[:3].cpu().numpy()
-    got = service.predict(x)
+    state = get_model(cfg, feature, generator=torch.Generator().manual_seed(0)).state_dict()
+    executors = []
+    for _ in range(n):
+        model = get_model(cfg, feature)
+        model.load_state_dict(state)
+        executors.append(get_executor(cfg, model, feature))
+    model = executors[0].model
+    assert model.remat and model.has_adaptive and model.graph_safe
+    assert ("tail_w" in model._support(0)) == (form == "tail")
+    assert ("band_packed" in model._support(0)) == (form == "band_packed")
+    return executors, loaders
+
+
+def _train_state(executor):
+    """Copies of the parameters and the optimizer's state tensors, by group."""
+    params, state = list(executor.model.parameters()), executor.optimizer.state
+    return {"params": [p.detach().clone() for p in params],
+            "adam": [v.detach().clone() for p in params for _, v in sorted(state.get(p, {}).items())
+                     if isinstance(v, torch.Tensor)]}
+
+
+def _gaps(a, b):
+    """{group: the largest |a - b| over its tensors, arrays or floats}."""
+    def gap(x, y):
+        if isinstance(x, torch.Tensor):
+            return float((x.float() - y.float()).abs().max())
+        return float(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64)).max())
+    return {group: max(gap(x, y) for x, y in zip(a[group], b[group])) for group in a}
+
+
+def _assert_held(replay, runs):
+    """The replay against the first of the eager runs from the same state:
+    bit for bit in every group where the eager runs agree bit for bit, else
+    within 2x the largest gap between two of them (the atomic sums of the
+    adaptive softmax's row sums, the tail's index_add_ and index_select's
+    backward change from run to run)."""
+    eager = {group: 0.0 for group in replay}
+    for i, a in enumerate(runs):
+        for b in runs[i + 1:]:
+            eager = {g: max(v, _gaps(a, b)[g]) for g, v in eager.items()}
+    got = _gaps(replay, runs[0])
+    assert all(got[g] <= 2.0 * eager[g] for g in got), (got, eager)
+
+
+def _eager_runs(tmp_path, form, dtype, batches, lr=3e-3):
+    """EAGER_RUNS eager epochs over `batches`, each from the same weights
+    and optimizer in an executor of its own: their losses and states."""
+    executors, _ = _sparse_executors(tmp_path, form, dtype, n=EAGER_RUNS)
+    return [dict(loss=[_eager_epoch(ex, batches, lr)], **_train_state(ex)) for ex in executors]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,dtype", SPARSE_CASES)
+def test_cuda_sparse_replayed_steps_hold_to_eager_steps(cuda, tmp_path, form, dtype):
+    (graphed,), (train, _, _) = _sparse_executors(tmp_path, form, dtype, n=1)
+    assert graphed.graphs_train
+    batches = _First(train, GRAPH_WARMUP_STEPS + REPLAYS)
+    got = graphed.train_epoch(batches, 3e-3)
+    graph = graphed.graphs["train"]
+    assert graph.replays == REPLAYS
+    _assert_held(dict(loss=[got], **_train_state(graphed)), _eager_runs(tmp_path, form, dtype, batches))
+    # every sparse wrapper the step launches is recorded, B4/B6 and B5 on
+    # the BSR part and the adaptive view, B8 and B9 dX on the packed band
+    captured = graph.captured
+    prefix = "bf16_launches" if dtype == "bf16" else "launches"
+    assert captured["spmm.bsr_spmm." + prefix] > 0 and captured["spmm.sampled_matmul." + prefix] > 0
+    if form == "band_packed":
+        assert captured["band.band_spmm_packed.launches"] > 0 and captured["band.band_dx_packed.launches"] > 0
+    assert graph.replayed_launches() == {k: REPLAYS * v for k, v in captured.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,dtype", SPARSE_CASES)
+def test_cuda_sparse_graphed_validation_and_predict_hold_to_eager(cuda, tmp_path, form, dtype):
+    (graphed,), (_, val, test) = _sparse_executors(tmp_path, form, dtype, n=1)
+    model = graphed.model
     with torch.no_grad():
-        padded = torch.cat([test.x[:3], test.x[2:3]])
-        want = feature["scaler"].inverse_transform(model(padded))[:3].float().cpu().numpy()
-    assert np.array_equal(got, np.maximum(want, 0.0))
-    assert service.graphs == {} and service.stats()["compiled_buckets"] == [4]
+        eager_val = [{"loss": [float(torch.stack([graphed.loss_fn(graphed.batch(val, idx), train=False)
+                                                  for idx in val.ordered_permutation()]).mean())]}
+                     for _ in range(EAGER_RUNS)]
+        eager_pred = [{"pred": [torch.cat([model(graphed.batch(test, idx)["X"])
+                                           for idx in test.ordered_permutation()]).float().cpu().numpy()]}
+                      for _ in range(EAGER_RUNS)]
+    for _ in range(2):  # the capture, then every batch replayed
+        _assert_held({"loss": [graphed._valid_epoch(val)]}, eager_val)
+        _assert_held({"pred": [graphed.predict(test)]}, eager_pred)
+    assert graphed.graphs["valid"].replays == 2 * len(val) - 1
+    assert graphed.graphs["predict"].replays == 2 * len(test) - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,dtype", SPARSE_CASES)
+def test_cuda_sparse_replay_after_load_model_with_epoch_is_recaptured(cuda, tmp_path, form, dtype):
+    (graphed,), (train, _, _) = _sparse_executors(tmp_path, form, dtype, n=1)
+    batches = _First(train, GRAPH_WARMUP_STEPS + REPLAYS)
+    graphed.train_epoch(batches, 3e-3)
+    graphed.save_model_with_epoch(0)
+    graphed.train_epoch(batches, 3e-3)
+    first = graphed.graphs["train"]
+    graphed.load_model_with_epoch(0)
+    assert graphed.graphs == {}
+    got = graphed.train_epoch(batches, 3e-3)
+    assert graphed.graphs["train"] is not first and graphed.graphs["train"].replays == len(batches)
+    runs = []
+    for ex in _sparse_executors(tmp_path, form, dtype, n=EAGER_RUNS)[0]:
+        ex.load_model_with_epoch(0)
+        runs.append(dict(loss=[_eager_epoch(ex, batches, 3e-3)], **_train_state(ex)))
+    _assert_held(dict(loss=[got], **_train_state(graphed)), runs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,dtype", SPARSE_CASES)
+def test_cuda_sparse_service_replies_hold_to_the_eager_model(cuda, tmp_path, form, dtype):
+    """PredictService's bucket graphs for SparseATGCN: each bucket's first
+    request runs eagerly and captures, later ones replay; every reply holds
+    to the eager model's (the padded batch through the model, the scaler's
+    inverse, clipped at 0) by the rule of _assert_held."""
+    (executor,), (_, _, test) = _sparse_executors(tmp_path, form, dtype, n=1)
+    model, scaler = executor.model, executor._scaler
+    service = PredictService(model, scaler, max_batch=4)
+    assert service.graphed
+    x = test.x[:4].cpu().numpy()
+    for batch in (1, 3, 4):
+        padded = torch.cat([test.x[:batch], test.x[batch - 1:batch].expand(4 - batch, -1, -1, -1)]) \
+            if batch == 3 else test.x[:batch]
+        with torch.no_grad():
+            want = [{"reply": [np.maximum(scaler.inverse_transform(model(padded))[:batch].float().cpu().numpy(),
+                                          0.0)]} for _ in range(EAGER_RUNS)]
+        for _ in range(2):  # the capture (or a replay of bucket 4), then a replay
+            _assert_held({"reply": [service.predict(x[:batch])]}, want)
+    assert service.stats()["compiled_buckets"] == [1, 4]
+    assert service.graphs[1].replays == 1 and service.graphs[4].replays == 3
 
 
 _CAPTURE_SGD_TENSOR_RATE = """
