@@ -44,6 +44,26 @@ from a seeded generator):
     f32 activations) at buckets 1, 4 and 16 against eager replies, bit for
     bit, with their latency; then a ``profile_dir`` run whose trace must
     hold every replayed B2/B2t kernel of its epoch.
+  * multi-seed training (``multiseed_phase``, right after the graphs):
+    B2 and B2t at S*237 nodes (S = 2, 4, 8) and B3 at the f32 form's
+    widened stacks against their plain versions, with B2/B2t's planted
+    faults; the int8 form at 4 seeds (0, 10, 100, 1000) and the f32 form
+    at 2 as one widened step, whose capture must launch exactly one
+    seed's kernels (96 + 96 B2/B2t, 4 + 4 B3), each seed of 3 replays
+    held against single-seed steps on the card from its slice of the
+    state (``MS_BOUND``; a planted fault, half a seed's batch left out,
+    must fail them), one seed's rate drop read by the same graph;
+    ``train_multiseed`` for one epoch at the 4 int8 seeds on 6 batches,
+    its train step, validation and predict captured with one seed's
+    launches, each seed's saved checkpoint loaded into a single-seed
+    executor whose validation loss and predictions hold the trainer's;
+    replayed int8 steps at S = 1, 2, 4, 8 against S single-seed replays,
+    the widened validation forward at each S launching 96 B2, and one S=4
+    replay's device time; ``bench.py --multiseed 4
+    --quant-stream`` at one timed epoch; and ``PredictService`` with
+    ``quantize='int8'`` and ``'bfloat16'`` on the f32 model at buckets
+    1, 4 and 16 (graph replays, JAX's 1% relative L1 against the
+    unquantized service, the stored bytes, graphed against eager).
 Then the sparse path, SparseATGCN at its defaults' full width on the
 synthetic large graph of 49,152 nodes (4,946 tiles of 128x128):
   * the SpMM (B4/B6) and SDDMM (B5) kernels against their plain versions
@@ -363,8 +383,10 @@ Q8_FORMS = {"bfloat16": ("", 1, BUCKETS + (LARGE_BATCH,)), "float32": ("_f32", 3
 Q8_STEPS = {"bfloat16": 2.0 ** -7, "float32": None, "float16": 2.0 ** -10}
 
 
-def _q8_rows(torch, node_apply, g, dtype_name):
-    """B2's and B2t's rows for activations of one dtype, each held against
+def _q8_rows(torch, node_apply, g, dtype_name, nodes=N, batches=None, on_path=None, label=""):
+    """B2's and B2t's rows for activations of one dtype (at `nodes` nodes
+    and `batches`, by default the main path's; `on_path` overrides which
+    rows the main path runs, `label` heads their shapes), each held against
     its plain version (B2's f32 sums and B2t's f32 results at rtol 1e-5
     with atol 1e-5 max|plain|, B2t's bf16 and f16 results within one step)
     and timed beside its bound and library call; and the faults planted
@@ -374,19 +396,20 @@ def _q8_rows(torch, node_apply, g, dtype_name):
         quantize_node_weights)
 
     dtype = getattr(torch, dtype_name)
-    suffix, pieces, batches = Q8_FORMS[dtype_name]
+    suffix, pieces, form_batches = Q8_FORMS[dtype_name]
+    batches = batches or form_batches
     size = dtype.itemsize
     dev = torch.device("cuda")
     lines, faults = [], {}
     ki = K * H
-    n_pad = -(-N // 32) * 32
+    n_pad = -(-nodes // 32) * 32
     split = {1: "", 3: ", hh split on chip into three bf16 pieces (hi, mid, lo: exact), one product each",
              2: ", hh split on chip into two bf16 pieces (exact), one product each"}[pieces]
     # the int8 requests of the main path launch B2 at buckets 1, 4 and 16,
     # int8 training at 16; batch 256 shows that any batch runs
     for b, (cell, o) in itertools.product(batches, (("gate", 2 * H), ("update", H))):
-        hh = torch.randn(N, b, ki, generator=g, device=dev).to(dtype)
-        w = torch.randn(N, ki, o, generator=g, device=dev) * 0.1
+        hh = torch.randn(nodes, b, ki, generator=g, device=dev).to(dtype)
+        w = torch.randn(nodes, ki, o, generator=g, device=dev) * 0.1
         wq, s = quantize_node_weights(w.to(torch.bfloat16))
         wq, s = _pad_nodes(wq, 0, n_pad), _pad_nodes(s, 0, n_pad)
         got = node_apply_q8(hh, wq, s)
@@ -395,18 +418,18 @@ def _q8_rows(torch, node_apply, g, dtype_name):
         # the same exact products in f32; only the summation order differs
         _hold(_over_bound(got, want), "node_apply_q8{} vs its plain version on {}".format(suffix, cell))
         if dtype == torch.bfloat16:
-            w_deq = (wq[:N].float() * s[:N]).to(torch.bfloat16)
+            w_deq = (wq[:nodes].float() * s[:nodes]).to(torch.bfloat16)
             library, call = "torch.bmm on pre-dequantized bf16 weights", lambda: torch.bmm(hh, w_deq)
         else:
             # f32 (TF32 off) on the weights widened ahead of time, times the scale
-            w32, hh32 = wq[:N].float(), hh.float()
+            w32, hh32 = wq[:nodes].float(), hh.float()
             library = "torch.bmm of the {} activations against the int8 weights pre-widened to f32, times the " \
                       "scale (TF32 off)".format("f32" if dtype == torch.float32 else "f16 (pre-widened)")
-            call = lambda: torch.bmm(hh32, w32).mul_(s[:N])  # noqa: E731
-        num_bytes = N * b * ki * size + N * ki * o + N * o * 4 + N * b * o * 4
-        bound, by = _bound_ms(num_bytes, pieces * 2 * N * b * ki * o)
+            call = lambda: torch.bmm(hh32, w32).mul_(s[:nodes])  # noqa: E731
+        num_bytes = nodes * b * ki * size + nodes * ki * o + nodes * o * 4 + nodes * b * o * 4
+        bound, by = _bound_ms(num_bytes, pieces * 2 * nodes * b * ki * o)
         lines.append({
-            "name": "node_apply_q8" + suffix, "shape": "{} N={} B={} KI={} O={}".format(cell, N, b, ki, o),
+            "name": "node_apply_q8" + suffix, "shape": "{}{} N={} B={} KI={} O={}".format(label, cell, nodes, b, ki, o),
             "replaces": "multistgraph_tpu/ops/node_apply.py:238 node_apply_q8",
             "max_abs_err": (got - want).abs().max().item(), "tolerance": "rtol 1e-5, atol 1e-5*max|plain|",
             "kernel_ms": _time_ms(torch, lambda: node_apply_q8(hh, wq, s)),
@@ -414,7 +437,7 @@ def _q8_rows(torch, node_apply, g, dtype_name):
             "library_ms": _time_ms(torch, call), "library": library,
             "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
             "bound_ops": "{} x 2NBKO at the bf16 tensor-core peak".format(pieces) if pieces > 1 else "2NBKO",
-            "main_path": b in BUCKETS and dtype != torch.float16,
+            "main_path": (b in BUCKETS and dtype != torch.float16) if on_path is None else on_path,
             "design": DESIGN_Q8.format(node_apply.q8_batch_tile(b, dtype), "O", split),
             "loads": node_apply.q8_load_path(ki, o, dtype=dtype),
         })
@@ -423,8 +446,8 @@ def _q8_rows(torch, node_apply, g, dtype_name):
     # the int8 reverse scan launches B2t at the training batch, gate and
     # update; batch 256 shows that any batch runs
     for bt, (cell, o) in itertools.product([b for b in batches if b >= B], (("gate", 2 * H), ("update", H))):
-        dpre = torch.randn(N, bt, o, generator=g, device=dev).to(dtype)
-        w = torch.randn(N, ki, o, generator=g, device=dev) * 0.1
+        dpre = torch.randn(nodes, bt, o, generator=g, device=dev).to(dtype)
+        w = torch.randn(nodes, ki, o, generator=g, device=dev) * 0.1
         wq, s = quantize_node_weights(w.to(torch.bfloat16))
         wq, s = _pad_nodes(wq, 0, n_pad), _pad_nodes(s, 0, n_pad)
         got = node_apply_q8_t(dpre, wq, s)
@@ -434,20 +457,20 @@ def _q8_rows(torch, node_apply, g, dtype_name):
         # differs, which can move a final bf16 or f16 rounding by one step
         step = Q8_STEPS[dtype_name]
         _hold(_over_bound(got, want, step=step), "node_apply_q8_t{} vs its plain version on {}".format(suffix, cell))
-        d_lib = (dpre.float() * s[:N]).to(torch.bfloat16)
+        d_lib = (dpre.float() * s[:nodes]).to(torch.bfloat16)
         # the scale lies on the cotangent, so the library call takes the int8
         # weights widened (exact), transposed ahead of time
         if dtype == torch.bfloat16:
-            w_t = wq[:N].to(torch.bfloat16).transpose(1, 2).contiguous()
+            w_t = wq[:nodes].to(torch.bfloat16).transpose(1, 2).contiguous()
             library = "torch.bmm of the scaled bf16 cotangent with the int8 weights pre-widened to bf16, transposed"
         else:
-            w_t, d_lib = wq[:N].float().transpose(1, 2).contiguous(), d_lib.float()
+            w_t, d_lib = wq[:nodes].float().transpose(1, 2).contiguous(), d_lib.float()
             library = "torch.bmm of the scaled cotangent rounded to bf16 and widened, with the int8 weights " \
                       "pre-widened to f32, transposed (TF32 off)"
-        num_bytes = N * bt * o * size + N * ki * o + N * o * 4 + N * bt * ki * size
-        bound, by = _bound_ms(num_bytes, 2 * N * bt * ki * o)
+        num_bytes = nodes * bt * o * size + nodes * ki * o + nodes * o * 4 + nodes * bt * ki * size
+        bound, by = _bound_ms(num_bytes, 2 * nodes * bt * ki * o)
         lines.append({
-            "name": "node_apply_q8_t" + suffix, "shape": "{} N={} B={} KI={} O={}".format(cell, N, bt, ki, o),
+            "name": "node_apply_q8_t" + suffix, "shape": "{}{} N={} B={} KI={} O={}".format(label, cell, nodes, bt, ki, o),
             "replaces": "multistgraph_tpu/ops/node_apply.py:267 node_apply_q8_t",
             "max_abs_err": (got.float() - want.float()).abs().max().item(),
             "tolerance": "rtol 1e-5, atol 1e-5*max|plain|" if step is None else
@@ -456,7 +479,7 @@ def _q8_rows(torch, node_apply, g, dtype_name):
             "plain_ms": _time_ms(torch, lambda: node_apply_q8_t_plain(dpre, wq, s)),
             "library_ms": _time_ms(torch, lambda: torch.bmm(d_lib, w_t)), "library": library,
             "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE,
-            "main_path": bt == B and dtype != torch.float16,
+            "main_path": (bt == B and dtype != torch.float16) if on_path is None else on_path,
             "design": DESIGN_Q8.format(node_apply.q8_batch_tile(bt, dtype), "KI",
                                        ", the cotangent scaled and rounded to bf16 there"),
             "loads": node_apply.q8_load_path(ki, o, transposed=True, dtype=dtype),
@@ -736,7 +759,7 @@ def _quant_agreement(torch, card, cpu, x, cpu_out):
     for (w_card, q_card), (w_cpu, q_cpu) in zip(seen["card"], seen["cpu"]):
         for half, (wi, qi) in enumerate(((0, 0), (1, 2))):   # gate: wg_h, (wgq, wgs); update: wu_h, (wuq, wus)
             w_a, w_b = w_card[wi].float().cpu(), w_cpu[wi].float()
-            n = w_b.shape[0]   # the nodes; the rows past them pad to a block
+            n = w_b.shape[:-3].numel()   # the nodes; the rows past them pad to a block
             wq_card, wq_cpu = q_card[qi][:n].cpu().int(), q_cpu[qi][:n].int()
             s_card, s_cpu = q_card[qi + 1][:n].cpu(), q_cpu[qi + 1][:n]
             layers.append({"layer": len(layers) // 2, "half": ("gate", "update")[half],
@@ -987,8 +1010,8 @@ def _executor(torch, mode, feature, state_dict, device=None, **extra):
     from multistgraph_tpu_torch.models import get_model
 
     args = dict(_serving_args(os.path.join(WORK, "raw_data")), exp_id="chip_smoke_train",
-                saved_model=False, tensorboard=False, **_MODES[mode], **extra)
-    cfg = load_config("traffic_state_pred", "MultiATGCN", "SYN_DC237", other_args=args)
+                saved_model=False, tensorboard=False, **_MODES[mode])
+    cfg = load_config("traffic_state_pred", "MultiATGCN", "SYN_DC237", other_args=dict(args, **extra))
     model = get_model(cfg, feature, device=device)
     model.load_state_dict(state_dict)
     executor = get_executor(cfg, model, feature, device=device)
@@ -3839,6 +3862,508 @@ def node_harness_phase(torch):
     return lines, window
 
 
+# ---------------------------------------------------------------- multi-seed
+MS_FORMS = {"int8": 4, "f32": 2}    # seeds each form trains in one widened step
+MS_SCALING = (1, 2, 4, 8)           # seeds of the timed int8 steps
+MS_WIDTHS = (2, 4, 8)               # seeds of B2/B2t's rows at S*N nodes (4: the int8 form's)
+MS_CHECK_REPLAYS = 3                # replayed steps held against single-seed steps from one state
+MS_TIMED = 10                       # replays timed at each S
+MS_BENCH_EPOCHS = 1                 # bench.py --multiseed's timed epochs (after its warm-up)
+MS_EPOCH_BATCHES = 6                # train_multiseed's epoch: the first 6 batches' samples, shuffled per seed
+MS_EVAL_BATCHES = 4                 # its validation and predict passes: the first 4 batches, in order
+# Each seed of a replayed widened step against a single-seed step on the
+# card from that seed's slice of the state: the relative max error (max
+# |a - b| over max |b|, the worst leaf) of the losses, of the parameters,
+# of their update (parameters after less parameters before, over the
+# single-seed update's max), of Adam's moments in gradient units
+# (exp_avg and the root of exp_avg_sq) and of the last gradients. Bit for
+# bit where the seed's arithmetic is unchanged; it is not: the seeds'
+# batched contractions take other batch counts, which can reorder sums.
+# So each is held to a card-vs-CPU bound of the dtype: the losses to the
+# model output's (BOUND_F32, BOUND_BF16), the gradients of the rate-drop
+# step, taken from one state, to the gradients' (BOUND_GRAD_F32,
+# BOUND_GRAD_BF16), and the parameters and moments, made of gradient
+# steps taken at parameters that drift apart, to the larger of the two
+# (BOUND_F32, BOUND_GRAD_BF16). In int8 a last f32 bit flips bf16
+# roundings, and Adam takes a step of about the rate on every near-zero
+# gradient, as between card and CPU: there the parameters' bound is about
+# a whole update, so int8 also holds the parameters by their update in
+# the rate-drop step, one step from one state (MS_UPDATE_BOUND); the
+# updates of the 3 replays are reported, not held. In f32 the parameters'
+# bound is far under an update, and an update's relative gap is no f32
+# bound's: Adam divides each element's gradient gap by that element's own
+# root mean square. A planted fault, half of the first seed's batch left
+# out of its single-seed steps, must put one of the held numbers over its
+# bound. Read on an H100 80GB HBM3 at 700 W over 3 replays / the
+# rate-drop step: f32 losses <= 1.4e-7 / 2.2e-7, parameters 9.7e-7 /
+# 1.2e-7, update 7.9e-6 / 5.7e-5, moments 1.8e-6 / 1.1e-6, gradients 1.5e-6
+# / 1.6e-6; int8 losses 2.2e-7 / 1.5e-7, parameters 1.8e-2 / 4.3e-4, update
+# 5.7e-2 / 3.3e-3, moments 9.5e-3 / 1.7e-3, gradients 2.6e-2 / 3.2e-3. The
+# planted fault read losses 1.2e-2 / 1.1e-2 (int8 / f32), parameters 0.61
+# / 0.63, moments 0.51 / 0.44.
+MS_BOUND = {"int8": {"loss": BOUND_BF16, "parameters": BOUND_GRAD_BF16, "adam_state": BOUND_GRAD_BF16},
+            "f32": {"loss": BOUND_F32, "parameters": BOUND_F32, "adam_state": BOUND_F32}}
+MS_GRAD_BOUND = {"int8": BOUND_GRAD_BF16, "f32": BOUND_GRAD_F32}
+MS_UPDATE_BOUND = {"int8": BOUND_GRAD_BF16}
+MS_FORWARD_CAPTURED = {"node_apply_q8": 2 * T * NUM_LAYERS}   # one int8 forward, at any S
+# kernel names of the parts of a widened step that may loop over seeds:
+# the parameters' stacking (SeedStack, and the model's own cat), the
+# clip's scales and Adam's foreach updates, reductions (the clip's norms
+# among every other sum), dropout's draws
+MS_KERNEL_GROUPS = {"cat": "CatArrayBatchedCopy", "foreach": "multi_tensor_apply",
+                    "reduce": "reduce_kernel", "random": "distribution"}
+
+
+def _rel_gap(torch, a, b):
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _seed_gaps(torch, trainer, i, ref, got_losses, want_losses, start):
+    """Seed i of `trainer` against the single-seed executor `ref`, both
+    stepped from the parameters `start`: the largest relative gap of the
+    losses, the parameters, their update, the last step's gradients and
+    Adam's moments in gradient units (exp_avg and the root of exp_avg_sq;
+    the step counts must agree), and whether all are bit for bit."""
+    names = [name for name, _ in ref.model.named_parameters()]
+    params = [(p.detach(), q.detach()) for p, q in zip(trainer.model.members[i].parameters(),
+                                                        ref.model.parameters())]
+    updates = [(p - s, q - s) for (p, q), s in zip(params, start) if bool((q != s).any())]
+    grads = [(p.grad, q.grad) for p, q in zip(trainer.model.members[i].parameters(), ref.model.parameters())
+             if q.grad is not None]
+    grad_names = [n for n, q in zip(names, ref.model.parameters()) if q.grad is not None]
+    mine = trainer.seed_state(i)[1]["state"]
+    theirs = ref.optimizer.state_dict()["state"]
+    if any(not torch.equal(torch.as_tensor(st["step"]), torch.as_tensor(theirs[j]["step"]))
+           for j, st in mine.items()):
+        raise AssertionError("seed {}: Adam's step counts differ from its single-seed run's".format(i))
+    moments = [(st[key], theirs[j][key]) for j, st in mine.items() for key in ("exp_avg", "exp_avg_sq")]
+    gaps = {"loss": _rel_gap(torch, got_losses, want_losses),
+            "parameters": max(_rel_gap(torch, a, b) for a, b in params),
+            "update": max(_rel_gap(torch, a, b) for a, b in updates),
+            "gradients": max(_rel_gap(torch, a, b) for a, b in grads),
+            "adam_state": max(_rel_gap(torch, a.sqrt() if k % 2 else a, b.sqrt() if k % 2 else b)
+                              for k, (a, b) in enumerate(moments))}
+    # where each largest gap lies
+    gaps["largest"] = {"parameters": names[max(range(len(params)), key=lambda k: _rel_gap(torch, *params[k]))],
+                       "gradients": grad_names[max(range(len(grads)), key=lambda k: _rel_gap(torch, *grads[k]))]}
+    gaps["bit_for_bit"] = (torch.equal(torch.as_tensor(got_losses), torch.as_tensor(want_losses))
+                           and all(torch.equal(a, b) for a, b in params + grads + moments))
+    return gaps
+
+
+def _seed_perm(train, count, steps, seed=0):
+    """(steps, count, B) sample indices: each seed's own shuffle of the split."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.permutation(train.num_samples)[: steps * B].reshape(steps, B) for _ in range(count)],
+                    axis=1)
+
+
+def _ms_rows(torch, node_apply, g):
+    """B2/B2t at the seed-widened node counts (S*N, batch B) and B3 at the
+    f32 form's widened stacks, each held against its plain version (planted
+    faults included in B2/B2t) and timed beside its bound and library call."""
+    from multistgraph_tpu_torch.ops.layout import (
+        _ForceDefaultLayout, force_default_layout, force_default_layout_plain)
+
+    lines, faults = [], {}
+    for s in MS_WIDTHS:
+        rows, found = _q8_rows(torch, node_apply, g, "bfloat16", nodes=s * N, batches=(B,),
+                               on_path=s == MS_FORMS["int8"], label="{} seeds: ".format(s))
+        lines += rows
+        faults.update({"{} seeds, {}".format(s, k): v for k, v in found.items()})
+    s = MS_FORMS["f32"]
+    xw = torch.randn(T, s * B, N, 3 * H, generator=g, device="cuda")
+    for name, cell, width in (("force_default_layout", "gate_x", 2 * H), ("force_default_layout", "upd_x", H),
+                              ("force_default_layout_bwd", "d gate_x", 2 * H),
+                              ("force_default_layout_bwd", "d upd_x", H)):
+        if name == "force_default_layout":
+            x = xw[..., : 2 * H] if cell == "gate_x" else xw[..., 2 * H:]
+            fn = lambda x=x: force_default_layout(x)  # noqa: E731
+        else:
+            x = torch.randn(T, s * B, N, width, generator=g, device="cuda")
+            fn = lambda x=x: _ForceDefaultLayout.backward(None, x)  # noqa: E731
+        got, want = fn(), force_default_layout_plain(x)
+        torch.cuda.synchronize()
+        if not (got.is_contiguous() and torch.equal(got, want)):
+            raise AssertionError("{} differs from its plain version on {} seeds' {}".format(name, s, cell))
+        num_bytes = 2 * x.numel() * x.element_size()
+        bound, by = _bound_ms(num_bytes, 0)
+        lines.append({
+            "name": name, "shape": "{} seeds: {} {} f32 (seeds x batch on one axis)".format(s, cell, tuple(x.shape)),
+            "replaces": "multistgraph_tpu/ops/layout.py:40 _launder/force_default_layout",
+            "max_abs_err": (got - want).abs().max().item(), "tolerance": "bit-identical",
+            "kernel_ms": _time_ms(torch, fn), "plain_ms": _time_ms(torch, lambda: force_default_layout_plain(x)),
+            "library_ms": _time_ms(torch, lambda: x.clone()), "library": "x.clone()",
+            "bound_us": bound * 1e3, "bound_by": by, "bytes": num_bytes, "peak": PEAK_NOTE, "main_path": True,
+        })
+    for line in lines:
+        say(json.dumps(line))
+    say(json.dumps({"B2/B2t at S*N nodes: planted_faults_over_bound": faults}))
+    for fault, ratio in faults.items():
+        if not ratio > 1.0:
+            raise AssertionError("{} passes its check ({:.3g} of the bound)".format(fault, ratio))
+    return lines
+
+
+def _ms_check(torch, mode, feature, state_dict, train):
+    """`mode`'s widened step of MS_FORMS[mode] seeds: 2 eager warm-up steps,
+    then MS_CHECK_REPLAYS replays of the captured step, each seed held
+    against a single-seed executor stepped from that seed's slice of the
+    state on the same batches; then one replay with the second seed's rate
+    dropped tenfold (a plateau drop), held the same way, with no second
+    capture. The launch counts of the capture must be one seed's step's.
+    Returns the record and the phase's launches."""
+    import numpy as np
+
+    from multistgraph_tpu_torch.executor.executor import GRAPH_WARMUP_STEPS
+    from multistgraph_tpu_torch.executor.optimizers import load_optimizer_state, set_learning_rate
+    from multistgraph_tpu_torch.parallel.multiseed import MultiSeedTrainer, protocol_seeds
+
+    seeds = protocol_seeds(MS_FORMS[mode])
+    trainer = MultiSeedTrainer(_executor(torch, mode, feature, state_dict), seeds)
+    if not trainer.graphs_train:
+        raise AssertionError("{}: the multi-seed step is not captured".format(mode))
+    perm = _seed_perm(train, len(seeds), GRAPH_WARMUP_STEPS + MS_CHECK_REPLAYS + 1)
+    lrs = [LEARNING_RATE] * len(seeds)
+    set_learning_rate(trainer.optimizer, lrs)
+    _reset_counts()
+    trainer.train_steps(train, perm[:GRAPH_WARMUP_STEPS], tuple(lrs))
+    eager = _read_counts()
+    one_step = GRAPH_CAPTURED[mode]
+    if {k: v for k, v in eager.items() if v} != {k: GRAPH_WARMUP_STEPS * v for k, v in one_step.items()}:
+        raise AssertionError("{}: {} eager widened steps launched {}".format(mode, GRAPH_WARMUP_STEPS, eager))
+    def single_seed(i):
+        model_state, opt_state = trainer.seed_state(i)
+        ref = _executor(torch, mode, feature, model_state)
+        load_optimizer_state(ref.optimizer, opt_state)
+        ref.dropout_generator.set_state(trainer.generators[i].get_state())
+        return ref
+
+    refs = [single_seed(i) for i in range(len(seeds))]
+    # the planted fault: the first seed's single-seed steps with the second
+    # half of each batch replaced by its first half (half the batch left out)
+    faulty = single_seed(0)
+    start = [[p.detach().clone() for p in m.parameters()] for m in trainer.model.members]
+    rows = perm[GRAPH_WARMUP_STEPS: GRAPH_WARMUP_STEPS + MS_CHECK_REPLAYS]
+    got = trainer.train_steps(train, rows, tuple(lrs))
+    graph = trainer.graphs["train"]
+    if {k: v for k, v in _named(graph.captured).items() if v} != one_step:
+        raise AssertionError("{}: the captured widened step recorded {}, one seed's step {}".format(
+            mode, graph.captured, one_step))
+    want = torch.stack([torch.stack([ref.train_step(ref.batch(train, idx)) for idx in rows[:, i]])
+                        for i, ref in enumerate(refs)], dim=1)
+    gaps = [_seed_gaps(torch, trainer, i, ref, got[:, i], want[:, i], start[i]) for i, ref in enumerate(refs)]
+    half = B // 2
+    want_faulty = torch.stack([faulty.train_step(faulty.batch(train, np.concatenate([idx[:half], idx[:half]])))
+                               for idx in rows[:, 0]])
+    faulty_gaps = _seed_gaps(torch, trainer, 0, faulty, got[:, 0], want_faulty, start[0])
+    del faulty
+    # the second seed's plateau drop: its rate alone, read by the same
+    # graph, one step from one state (each seed's parameters and Adam's
+    # state copied in place from its single-seed run: the graph reads them)
+    with torch.no_grad():
+        for member, ref in zip(trainer.model.members, refs):
+            for p, q in zip(member.parameters(), ref.model.parameters()):
+                p.copy_(q)
+                for key, value in trainer.optimizer.state.get(p, {}).items():
+                    value.copy_(ref.optimizer.state[q][key])
+    before = [[p.detach().clone() for p in m.parameters()] for m in trainer.model.members]
+    ref_before = [[p.detach().clone() for p in ref.model.parameters()] for ref in refs]
+    dropped = list(lrs)
+    dropped[1] *= 0.1
+    set_learning_rate(trainer.optimizer, dropped)
+    got_drop = trainer.train_steps(train, perm[-1:], tuple(dropped))
+    if trainer.graphs["train"] is not graph:
+        raise AssertionError("{}: a rate drop captured the step again".format(mode))
+    want_drop = []
+    for i, ref in enumerate(refs):
+        set_learning_rate(ref.optimizer, dropped[i])
+        want_drop.append(ref.train_step(ref.batch(train, perm[-1, i])))
+    drop_gaps, update_ratio = [], []
+    for i, ref in enumerate(refs):
+        drop_gaps.append(_seed_gaps(torch, trainer, i, ref, got_drop[0, i], want_drop[i], before[i]))
+        step = max(float((p.detach() - q).abs().max()) for p, q in zip(trainer.model.members[i].parameters(),
+                                                                       before[i]))
+        ref_step = max(float((p.detach() - q).abs().max()) for p, q in zip(ref.model.parameters(), ref_before[i]))
+        update_ratio.append(step / ref_step)
+    bound = MS_BOUND[mode]
+    drop_bound = dict(bound, gradients=MS_GRAD_BOUND[mode])
+    if mode in MS_UPDATE_BOUND:
+        drop_bound["update"] = MS_UPDATE_BOUND[mode]
+    for what, rows_, held in (("replayed steps", gaps, bound), ("rate drop", drop_gaps, drop_bound)):
+        for seed, gap in zip(seeds, rows_):
+            if not all(gap[k] <= held[k] for k in held):
+                raise AssertionError("{} seed {} ({}) against its single-seed step: {} over the bound {}".format(
+                    mode, seed, what, gap, held))
+    faults_caught = sorted(k for k in bound if faulty_gaps[k] > bound[k])
+    if not faults_caught:
+        raise AssertionError("{}: the first seed held against single-seed steps on half its batches passes "
+                             "every bound: {}".format(mode, faulty_gaps))
+    if not all(0.5 < r < 2.0 for r in update_ratio):
+        raise AssertionError("{}: after one seed's rate drop, the largest update of each seed over its "
+                             "single-seed step's is {}".format(mode, update_ratio))
+    window = _plus(eager, _replayed(trainer.graphs.values()))
+    record = {"seeds": seeds, "replays": MS_CHECK_REPLAYS + 1, "captured": graph.captured,
+              "replayed_launches": graph.replayed_launches(), "bound": bound, "rate_drop_bound": drop_bound,
+              "planted_fault_half_batch": {"gaps": faulty_gaps, "over_the_bound": faults_caught},
+              "per_seed_gaps": dict(zip(map(str, seeds), gaps)),
+              "after_rate_drop": {"rates": dropped, "gaps": dict(zip(map(str, seeds), drop_gaps)),
+                                  "largest_update_over_single_seed": update_ratio}}
+    return record, window
+
+
+def _ms_scaling(torch, feature, state_dict, loaders):
+    """Replayed int8 steps at S = 1, 2, 4, 8 seeds (MS_TIMED each, after
+    the warm-up and the capture) against the single-seed executor's
+    replayed step; at each S the captured step and validation forward
+    must record one seed's launches (96 + 96 B2/B2t, 96 B2), and one
+    replay's device time (S=4: by kernel) holds 192 q8 kernels, beside the
+    kernels of MS_KERNEL_GROUPS."""
+    import gc
+    import statistics as st
+
+    from multistgraph_tpu_torch.executor.executor import GRAPH_WARMUP_STEPS
+    from multistgraph_tpu_torch.parallel.multiseed import MultiSeedTrainer, protocol_seeds
+
+    from multistgraph_tpu_torch.executor.optimizers import set_learning_rate
+
+    train, val = loaders
+    _reset_counts()
+    base = _executor(torch, "int8", feature, state_dict)
+    base.train_epoch(_First(train, GRAPH_WARMUP_STEPS + 1), LEARNING_RATE)
+    graph = base.graphs["train"]
+    perm1 = torch.as_tensor(train.epoch_permutation(), device="cuda")
+    single = st.median(_ms_each(torch, lambda i: graph.run(idx=perm1[i]), MS_TIMED))
+    window = _plus(_read_counts(), _replayed([graph]))
+    record = {"single_seed_replay_ms": single}
+    for count in MS_SCALING:
+        _reset_counts()
+        trainer = MultiSeedTrainer(base, protocol_seeds(count))
+        set_learning_rate(trainer.optimizer, [LEARNING_RATE] * count)
+        perm = _seed_perm(train, count, GRAPH_WARMUP_STEPS + 1 + MS_TIMED, seed=count)
+        trainer.train_steps(train, perm[: GRAPH_WARMUP_STEPS + 1], (LEARNING_RATE,) * count)
+        steps = torch.as_tensor(perm[GRAPH_WARMUP_STEPS + 1:], device="cuda")
+        g = trainer.graphs["train"]
+        ms = st.median(_ms_each(torch, lambda i: g.run(idx=steps[i]), MS_TIMED))
+        # the widened validation forward: its first batch eager, then one replay
+        trainer.valid_epoch(_Head(val, 2, shuffle=False))
+        captured = {name: {k: v for k, v in _named(trainer.graphs[name].captured).items() if v}
+                    for name in ("train", "valid")}
+        if captured != {"train": GRAPH_CAPTURED["int8"], "valid": MS_FORWARD_CAPTURED}:
+            raise AssertionError("{} seeds: the captured widened step and forward recorded {}, one seed's "
+                                 "{} and {}".format(count, captured, GRAPH_CAPTURED["int8"], MS_FORWARD_CAPTURED))
+        record[str(count)] = {"replay_ms": ms, "ms_per_seed_step": ms / count,
+                              "sequential_ms": count * single, "over_sequential": count * single / ms,
+                              "captured": captured}
+        dev = _device_time(torch, lambda: g.run(idx=steps[0]), ms, by_kernel=True)
+        q8 = sum(k["count"] for k in dev["by_kernel"] if "q8_kernel" in k["name"])
+        if q8 != 4 * T * NUM_LAYERS:
+            raise AssertionError("one {}-seed replay ran {} q8 kernels, one seed's step {}".format(
+                count, q8, 4 * T * NUM_LAYERS))
+        # the kernels whose count could grow with S outside B2/B2t and B3
+        groups = {label: {"count": sum(k["count"] for k in dev["by_kernel"] if marker in k["name"]),
+                          "ms": sum(k["ms"] for k in dev["by_kernel"] if marker in k["name"])}
+                  for label, marker in MS_KERNEL_GROUPS.items()}
+        record[str(count)]["device_time"] = dict(dev, by_kernel=dev["by_kernel"][:12], by_group=groups)
+        if count != MS_FORMS["int8"]:
+            record[str(count)]["device_time"] = {k: record[str(count)]["device_time"][k]
+                                                 for k in ("device_busy_ms", "device_idle_share", "device_ops",
+                                                           "by_group")}
+        window = _plus(window, _plus(_read_counts(), _replayed(trainer.graphs.values())))
+        del trainer, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    return record, window
+
+
+class _Head:
+    """A loader of the first `batches` batches' samples of a split, as
+    train_multiseed reads one (each seed shuffles them itself when
+    `shuffle`; validation and predict take them in order)."""
+
+    def __init__(self, loader, batches, shuffle):
+        self.batch_size, self.shuffle = loader.batch_size, shuffle
+        self.num_samples = batches * loader.batch_size
+        self.x, self.y = loader.x[: self.num_samples], loader.y[: self.num_samples]
+
+    def __len__(self):
+        return self.num_samples // self.batch_size
+
+    def ordered_permutation(self):
+        import numpy as np
+
+        return np.arange(self.num_samples).reshape(len(self), self.batch_size)
+
+
+def _ms_train_multiseed(torch, feature, state_dict, loaders):
+    """train_multiseed, the slice's entry point, for one epoch of the int8
+    form at MS_FORMS['int8'] seeds (each seed drawn at its own seed) on the
+    first MS_EPOCH_BATCHES training batches, validated on the first
+    MS_EVAL_BATCHES validation batches; then the trainer's predict, and its
+    validation again (all replays: the loop's losses bit for bit). The
+    captured train step, validation and predict forwards must record one
+    seed's launches. Each seed's saved best checkpoint loads into a
+    single-seed executor (its parameters the trainer's, bit for bit, and
+    Adam's step count the epoch's) whose validation loss and predictions
+    hold the trainer's at the model output's bound (MS_BOUND's loss).
+    Returns the record and the trainer's launches."""
+    import numpy as np
+
+    from multistgraph_tpu_torch.parallel.multiseed import (
+        MultiSeedTrainer, protocol_seeds, seed_cache_path, train_multiseed)
+
+    train, val = loaders
+    seeds = protocol_seeds(MS_FORMS["int8"])
+    executor = _executor(torch, "int8", feature, state_dict, exp_id="chip_smoke_ms", max_epoch=1,
+                         use_early_stop=False)
+    for seed in seeds:
+        shutil.rmtree(os.path.dirname(os.path.dirname(seed_cache_path(executor.config, seed))), ignore_errors=True)
+    small_train, small_val = _Head(train, MS_EPOCH_BATCHES, shuffle=True), _Head(val, MS_EVAL_BATCHES, shuffle=False)
+    _reset_counts()
+    t0 = time.perf_counter()
+    trainer = MultiSeedTrainer(executor, seeds)
+    results = train_multiseed(executor, small_train, small_val, seeds, trainer=trainer)
+    epoch_s = time.perf_counter() - t0
+    preds = trainer.predict(small_val)
+    again = trainer.valid_epoch(small_val)
+    window = _plus(_read_counts(), _replayed(trainer.graphs.values()))
+    captured = {name: {k: v for k, v in _named(g.captured).items() if v} for name, g in trainer.graphs.items()}
+    want = {"train": GRAPH_CAPTURED["int8"], "valid": MS_FORWARD_CAPTURED, "predict": MS_FORWARD_CAPTURED}
+    if captured != want:
+        raise AssertionError("train_multiseed's graphs recorded {}, one seed's {}".format(captured, want))
+    loop_val = [r.min_val_loss for r in results]
+    if [float(v) for v in again] != loop_val:
+        raise AssertionError("a second widened validation pass gives {}, the epoch loop's {}".format(
+            again.tolist(), loop_val))
+    bound = MS_BOUND["int8"]["loss"]
+    per_seed = {}
+    for i, (seed, result) in enumerate(zip(seeds, results)):
+        if (result.seed != seed or result.best_epoch != 0 or result.stopped_epoch is not None
+                or len(result.history) != 1 or result.history[0]["val_loss"] != result.min_val_loss
+                or result.checkpoint != seed_cache_path(executor.config, seed)
+                or not os.path.exists(result.checkpoint) or not math.isfinite(result.min_val_loss)):
+            raise AssertionError("seed {}: train_multiseed's result {}".format(seed, result))
+        ref = _executor(torch, "int8", feature, state_dict)
+        ref.load_model(result.checkpoint)
+        if not all(torch.equal(p, q) for p, q in zip(trainer.model.members[i].parameters(),
+                                                     ref.model.parameters())):
+            raise AssertionError("seed {}: the saved best parameters are not the trainer's".format(seed))
+        steps = {int(st["step"]) for st in ref.optimizer.state.values()}
+        if steps != {MS_EPOCH_BATCHES}:
+            raise AssertionError("seed {}: the saved Adam state counts {} steps".format(seed, steps))
+        want_val, want_pred = ref._valid_epoch(small_val), ref.predict(small_val)
+        gaps = {"valid_loss": _rel_gap(torch, result.min_val_loss, want_val),
+                "predictions": _rel_gap(torch, preds[i], want_pred)}
+        if not (np.isfinite(preds[i]).all() and preds[i].shape == want_pred.shape
+                and all(v <= bound for v in gaps.values())):
+            raise AssertionError("seed {}: the widened validation and predict against the single-seed "
+                                 "executor's on the saved state: {} over the bound {}".format(seed, gaps, bound))
+        per_seed[str(seed)] = dict(gaps, val_loss=result.min_val_loss, train_loss=result.history[0]["train_loss"],
+                                   single_seed_val_loss=want_val)
+        del ref
+    record = {"seeds": seeds, "train_batches": MS_EPOCH_BATCHES, "eval_batches": MS_EVAL_BATCHES,
+              "epoch_s": epoch_s, "captured": captured, "bound": bound, "per_seed": per_seed,
+              "predictions_shape": list(preds.shape)}
+    return record, window
+
+
+def _ms_quantized_serving(torch, feature, state_dict, x_all):
+    """PredictService(quantize='int8' | 'bfloat16') on the f32 model: each
+    bucket captured and replayed (replies bit for bit), held against the
+    unquantized service by JAX's bound (relative L1 < 1%,
+    tests/test_serving_quantized.py), the stored bytes, and the latency
+    graphed and eager."""
+    import numpy as np
+
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.models import get_model
+    from multistgraph_tpu_torch.ops.quantize import quantized_nbytes
+    from multistgraph_tpu_torch.serving import PredictService
+
+    args = dict(_serving_args(os.path.join(WORK, "raw_data")), **_MODES["f32"])
+    cfg = load_config("traffic_state_pred", "MultiATGCN", "SYN_DC237", other_args=args)
+
+    def service(quantize):
+        model = get_model(cfg, feature)
+        model.load_state_dict(state_dict)
+        return PredictService(model, feature["scaler"], max_batch=B, ct_visit_mstd=feature["ct_visit_mstd"],
+                              quantize=quantize)
+
+    full = service(None)
+    want = {b: full.predict(x_all[:b]) for b in BUCKETS}
+    full_bytes = full.stats()["param_bytes"]
+    large = {name for name, p in full.params.items() if p.numel() >= 256}
+    record, replays = {}, dict.fromkeys(_counters(), 0)
+    _reset_counts()
+    for quantize, ratio_range in (("int8", (3.9, 4.0)), ("bfloat16", (2.0, 2.0))):
+        svc = service(quantize)
+        rows = {}
+        for b in BUCKETS:
+            first, again = svc.predict(x_all[:b]), svc.predict(x_all[:b])   # the capture, then a replay
+            if not np.array_equal(first, again):
+                raise AssertionError("{} service: replayed reply at bucket {} differs from the eager one".format(
+                    quantize, b))
+            rel = float(np.abs(again - want[b]).mean() / max(np.abs(want[b]).mean(), 1e-9))
+            if not rel < 0.01:
+                raise AssertionError("{} weight-only replies at bucket {}: relative L1 {:.4%}".format(
+                    quantize, b, rel))
+            graphed = _bucket_ms(svc, x_all[:b], GRAPH_TIMED)
+            svc.graphed = False
+            eager = _bucket_ms(svc, x_all[:b], GRAPH_TIMED)
+            svc.graphed = True
+            rows[str(b)] = {"rel_l1_vs_unquantized": rel, "graphed_ms": graphed, "eager_ms": eager}
+        stats = svc.stats()
+        large_ratio = (sum(full.params[n].numel() * 4 for n in large)
+                       / quantized_nbytes({n: svc.params[n] for n in large}))
+        if (stats["quantize"] != quantize or stats["compiled_buckets"] != list(BUCKETS)
+                or sorted(svc.graphs) != sorted(BUCKETS) or stats["param_bytes"] >= full_bytes
+                or not ratio_range[0] <= large_ratio <= ratio_range[1]):
+            raise AssertionError("{} service: stats {}, {} bytes unquantized, {:.4f}x on tensors of >= 256 "
+                                 "elements".format(quantize, stats, full_bytes, large_ratio))
+        record[quantize] = {"buckets": rows, "param_bytes": stats["param_bytes"], "unquantized_bytes": full_bytes,
+                            "bytes_ratio_tensors_of_256_or_more": large_ratio,
+                            "device_time_bucket_16": _device_share(torch, svc, x_all, rows[str(B)]["graphed_ms"])}
+        replays = _plus(replays, _replayed(svc.graphs.values()))
+    return record, _plus(_read_counts(), replays)
+
+
+def multiseed_phase(torch, feature, state_dict, loaders):
+    """Multi-seed training at the flagship width (parallel/multiseed.py):
+    B2/B2t at S*N nodes and B3 at the widened f32 stacks against their
+    plain versions; the int8 form at 4 seeds and the f32 form at 2, each
+    seed of the replayed widened step held against single-seed steps, one
+    seed's rate drop without a second capture, and exact launch counts
+    (one seed's step's, at any S); train_multiseed for one epoch, its
+    validation and predict held against single-seed executors loaded from
+    its checkpoints; replayed steps at S = 1, 2, 4, 8 against sequential
+    single-seed replays; bench.py --multiseed 4 --quant-stream; and the
+    quantized service. Returns the kernel rows and the launches."""
+    from multistgraph_tpu_torch import bench
+    from multistgraph_tpu_torch.ops import node_apply
+
+    train, val = loaders
+    lines = _ms_rows(torch, node_apply, torch.Generator(device="cuda").manual_seed(2))
+    windows, record = {}, {}
+    for mode in MS_FORMS:
+        record[mode], windows["multiseed " + mode] = _ms_check(torch, mode, feature, state_dict, train)
+        say(json.dumps({"multiseed check": mode, **record[mode]}))
+    record["train_multiseed"], windows["multiseed train_multiseed"] = _ms_train_multiseed(
+        torch, feature, state_dict, loaders)
+    say(json.dumps({"multiseed train_multiseed": record["train_multiseed"]}))
+    record["scaling"], windows["multiseed scaling"] = _ms_scaling(torch, feature, state_dict, loaders)
+    say(json.dumps({"multiseed int8 replayed steps by seeds": record["scaling"]}))
+    record["bench"] = bench.main(["--multiseed", str(MS_FORMS["int8"]), "--quant-stream", "--work-dir", WORK,
+                                  "--timed-epochs", str(MS_BENCH_EPOCHS)])
+    record["quantized serving"], windows["quantized serving"] = _ms_quantized_serving(
+        torch, feature, state_dict, val.x[:B].cpu().numpy())
+    say(json.dumps({"quantized serving": record["quantized serving"]}))
+    say(json.dumps({"multiseed phase launches": windows}))
+    return lines, windows
+
+
 def main():
     import torch
 
@@ -3898,6 +4423,9 @@ def main():
     # host's CPU, which slows the launching thread afterwards
     windows, feature, state_dict, grad_batch, train_loaders = run("training", training_phase)
     windows["graphs"] = run("graphs", graph_phase, feature, state_dict, train_loaders)
+    ms_lines, ms_windows = run("multiseed", multiseed_phase, feature, state_dict, train_loaders)
+    lines += ms_lines
+    windows.update(ms_windows)
     handles = {}   # the sparse phases' executors and loaders, for their graphs
     for name, phase, args in (("sparse", sparse_phase, ()), ("band", band_phase, ()),
                               ("sparse bf16", sparse_bf16_phase, ("none",)),

@@ -40,7 +40,8 @@ epoch scan, the validation and prediction scans; executor.py:159-164):
     ``torch.profiler`` trace of that epoch's train and validation phases
     (CPU activity, and CUDA activity on the card) to
     ``<profile_dir>/epoch<N>.pt.trace.json``, as the JAX executor brackets
-    the same span with ``jax.profiler``;
+    the same span with ``jax.profiler``, with ``PROFILE_MARGIN_S`` of
+    sleep at either end so that the trace keeps every kernel record;
   * checkpoints are ``torch.save`` files: ``{"model", "optimizer",
     "epoch"}`` per epoch, and the ``(model state_dict, optimizer
     state_dict)`` tuple of the final model, which ``PredictService.from_experiment``
@@ -48,7 +49,9 @@ epoch scan, the validation and prediction scans; executor.py:159-164):
   * without pandas, the ``_predictions_trans.pkl`` table is an .npz with
     the same columns, and the CSVs are written with the ``csv`` module.
 
-``report_hook`` and ``hyper_tune`` stay as attributes for the tuner.
+The loops that replay the graphs are ``StepLoops``, which the multi-seed
+trainer (parallel/multiseed.py) shares. ``report_hook`` and ``hyper_tune``
+stay as attributes for the tuner.
 """
 
 import contextlib
@@ -72,7 +75,7 @@ from multistgraph_tpu_torch.executor.optimizers import (
     set_learning_rate,
 )
 from multistgraph_tpu_torch.ops import losses
-from multistgraph_tpu_torch.ops.losses import make_loss_fn
+from multistgraph_tpu_torch.ops.losses import make_pred_loss
 from multistgraph_tpu_torch.utils import ensure_dir, get_logger, resolve_device
 
 _NAMED_LOSSES = {
@@ -94,9 +97,96 @@ _NAMED_LOSSES = {
 # eager train steps before the train step is captured (PyTorch's
 # whole-network recipe warms up on a side stream; these are real steps)
 GRAPH_WARMUP_STEPS = 2
+# host sleep after the profiler starts and before it stops: the trace keeps
+# only the card's records whose times, mapped to the host's clock, fall
+# between the two, and on an H100 the epoch's last kernels mapped up to
+# ~0.4 ms past the host's last event, so that a trace lost the tail of
+# the last validation batch (tools/probe_profile_records.py)
+PROFILE_MARGIN_S = 0.02
 
 
-class TrafficStateExecutor:
+class StepLoops:
+    """The train and forward loops of an executor, eager or as replays of
+    CUDA graphs (module docstring). The executor sets ``device``,
+    ``graphs_forward``, ``graphs_train``, ``capture_rule``, ``graphs``,
+    ``_warm_steps``, ``_side_stream`` and ``generators`` (the dropout
+    generators its train step draws from), and defines ``batch(loader,
+    idx)`` and ``train_step(batch)``."""
+
+    def train_steps(self, loader, perm, rate) -> torch.Tensor:
+        """One train step per row of `perm` (the sample indices of one step
+        each), the losses stacked on the device. `rate` keys the captured
+        step where the learner bakes its rate into it."""
+        if not self.graphs_train:
+            return torch.stack([self.train_step(self.batch(loader, idx)) for idx in perm])
+        perm = torch.as_tensor(perm, device=self.device)  # the epoch's one upload
+        out = None
+        for i in range(len(perm)):
+            graph = self._train_graph(loader, rate, perm.shape[1:])
+            if graph is None:
+                loss = on_side_stream(lambda: self.train_step(self.batch(loader, perm[i])), self._side_stream)
+                self._warm_steps += 1
+            else:
+                loss = graph.run(idx=perm[i])
+            if out is None:
+                out = torch.empty((len(perm),) + loss.shape, dtype=loss.dtype, device=self.device)
+            out[i].copy_(loss)
+        return out
+
+    def _train_graph(self, loader, rate, idx_shape):
+        """The captured train step over `loader`'s split (captured here the
+        first time it is asked for after the warm-up), or None while the
+        executor is warming up."""
+        if self._warm_steps < GRAPH_WARMUP_STEPS:
+            return None
+        key = (loader.x, loader.y, rate if self.capture_rule == "re-capture" else None)
+        graph = self.graphs.get("train")
+        if graph is None or not _same_key(graph.key, key):
+            self.graphs.pop("train", None)
+            graph = self._capture(lambda idx: self.train_step(self.batch(loader, idx)),
+                                  idx_shape, self.generators)
+            graph.key = key
+            self.graphs["train"] = graph
+        return graph
+
+    def _capture(self, step, idx_shape, generators=()) -> StepGraph:
+        """``step(idx)`` captured with its sample indices in a static buffer."""
+        idx = torch.zeros(idx_shape, dtype=torch.int64, device=self.device)
+        return StepGraph(lambda: step(idx), inputs={"idx": idx}, generators=generators)
+
+    def _forward_epoch(self, name: str, loader, step):
+        """``step(idx)`` (no autograd) over the loader's batches in order,
+        stacked: eager on CPU tensors and for models that are not
+        graph_safe; else its first batch eager on a side stream the first
+        time (the warm-up), and replays of graph `name`."""
+        perm = loader.ordered_permutation()
+        if not self.graphs_forward:
+            return torch.stack([step(torch.as_tensor(idx, device=loader.x.device)) for idx in perm])
+        perm = torch.as_tensor(perm, device=self.device)
+        key = (loader.x, loader.y)
+        graph = self.graphs.get(name)
+        out = None
+        for i in range(len(perm)):
+            if graph is None or not _same_key(graph.key, key):
+                value = on_side_stream(lambda: step(perm[i]), self._side_stream)
+                self.graphs.pop(name, None)
+                graph = self._capture(step, (loader.batch_size,))
+                graph.key = key
+                self.graphs[name] = graph
+            else:
+                value = graph.run(idx=perm[i])
+            if out is None:
+                out = torch.empty((len(perm),) + value.shape, dtype=value.dtype, device=self.device)
+            out[i].copy_(value)
+        return out
+
+    def drop_graphs(self) -> None:
+        """Throw the captured steps away (after anything that replaces a
+        tensor they read); the next epoch captures again."""
+        self.graphs.clear()
+
+
+class TrafficStateExecutor(StepLoops):
     """Trains and evaluates `model` on `device` (CUDA unless "cpu" is asked
     for; the model is moved there)."""
 
@@ -142,6 +232,7 @@ class TrafficStateExecutor:
         self.max_grad_norm = config.get("max_grad_norm", 1.0)
 
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(int(config.get("seed", 0)))
+        self.generators = (self.dropout_generator,)
         num_params = 0
         for name, p in model.named_parameters():
             self._logger.info("%s\t%s", name, tuple(p.shape))
@@ -150,7 +241,7 @@ class TrafficStateExecutor:
 
         self.optimizer = build_optimizer(config, model.parameters(), device=self.device)
         self.lr_scheduler = build_lr_scheduler(config)
-        self.loss_fn = self._build_train_loss()
+        self.pred_loss = self._build_train_loss()
 
         # CUDA graphs (module docstring): which steps replay, and their state
         self.capture_rule = capture_rule(config.get("learner", "adam"))
@@ -166,12 +257,12 @@ class TrafficStateExecutor:
 
     # ------------------------------------------------------------------ loss
     def _build_train_loss(self):
-        """Config-selected train loss, else the model's own (ref :200-250).
-        ``loss_fn(batch, train, generator)``."""
-        model_loss = make_loss_fn(self.model, self._scaler)
+        """Config-selected train loss, else the model's own (ref :200-250),
+        as ``pred_loss(pred, y)``: the loss of a prediction against its
+        batch's targets."""
         if self.train_loss_name == "none":
             self._logger.warning("Received none train loss func and will use the loss func defined in the model.")
-            return model_loss
+            return make_pred_loss(self.model, self._scaler)
         if self.train_loss_name not in _NAMED_LOSSES:
             self._logger.warning("Received unrecognized train loss function, set default mae loss func.")
             lf = losses.masked_mae
@@ -179,13 +270,16 @@ class TrafficStateExecutor:
             lf = _NAMED_LOSSES[self.train_loss_name]
         out_dim = self.output_dim
 
-        def loss_fn(batch, train=True, generator=None):
-            pred = self.model(batch["X"], train=train, generator=generator)
-            y_true = self._scaler.inverse_transform(batch["y"][..., :out_dim])
+        def pred_loss(pred, y):
+            y_true = self._scaler.inverse_transform(y[..., :out_dim])
             y_pred = self._scaler.inverse_transform(pred[..., :out_dim])
             return lf(y_pred, y_true)
 
-        return loss_fn
+        return pred_loss
+
+    def loss_fn(self, batch, train: bool = True, generator=None) -> torch.Tensor:
+        """The train loss of the model on `batch` (``train`` turns dropout on)."""
+        return self.pred_loss(self.model(batch["X"], train=train, generator=generator), batch["y"])
 
     # ------------------------------------------------------------- train step
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -210,74 +304,7 @@ class TrafficStateExecutor:
         mean batch loss, read from the device once. On CUDA a graph_safe
         model's steps are replays of the captured train step."""
         set_learning_rate(self.optimizer, lr)
-        perm = train_loader.epoch_permutation()
-        if not self.graphs_train:
-            batch_losses = [self.train_step(self.batch(train_loader, idx)) for idx in perm]
-            return float(torch.stack(batch_losses).mean())
-        perm = torch.as_tensor(perm, device=self.device)  # the epoch's one upload
-        batch_losses = torch.empty(len(perm), device=self.device)
-        for i in range(len(perm)):
-            graph = self._train_graph(train_loader, lr)
-            if graph is None:
-                loss = on_side_stream(lambda: self.train_step(self.batch(train_loader, perm[i])),
-                                      self._side_stream)
-                self._warm_steps += 1
-            else:
-                loss = graph.run(idx=perm[i])
-            batch_losses[i].copy_(loss)
-        return float(batch_losses.mean())
-
-    def _train_graph(self, loader, lr: float):
-        """The captured train step over `loader`'s split (captured here the
-        first time it is asked for after the warm-up), or None while the
-        executor is warming up."""
-        if self._warm_steps < GRAPH_WARMUP_STEPS:
-            return None
-        key = (loader.x, loader.y, lr if self.capture_rule == "re-capture" else None)
-        graph = self.graphs.get("train")
-        if graph is None or not _same_key(graph.key, key):
-            self.graphs.pop("train", None)
-            graph = self._capture(lambda idx: self.train_step(self.batch(loader, idx)),
-                                  loader.batch_size, (self.dropout_generator,))
-            graph.key = key
-            self.graphs["train"] = graph
-        return graph
-
-    def _capture(self, step, batch_size: int, generators=()) -> StepGraph:
-        """``step(idx)`` captured with its (B,) sample indices in a static buffer."""
-        idx = torch.zeros(batch_size, dtype=torch.int64, device=self.device)
-        return StepGraph(lambda: step(idx), inputs={"idx": idx}, generators=generators)
-
-    def _forward_epoch(self, name: str, loader, step):
-        """``step(idx)`` (no autograd) over the loader's batches in order,
-        stacked: eager on CPU tensors and for models that are not
-        graph_safe; else its first batch eager on a side stream the first
-        time (the warm-up), and replays of graph `name`."""
-        perm = loader.ordered_permutation()
-        if not self.graphs_forward:
-            return torch.stack([step(torch.as_tensor(idx, device=loader.x.device)) for idx in perm])
-        perm = torch.as_tensor(perm, device=self.device)
-        key = (loader.x, loader.y)
-        graph = self.graphs.get(name)
-        out = None
-        for i in range(len(perm)):
-            if graph is None or not _same_key(graph.key, key):
-                value = on_side_stream(lambda: step(perm[i]), self._side_stream)
-                self.graphs.pop(name, None)
-                graph = self._capture(step, loader.batch_size)
-                graph.key = key
-                self.graphs[name] = graph
-            else:
-                value = graph.run(idx=perm[i])
-            if out is None:
-                out = torch.empty((len(perm),) + value.shape, dtype=value.dtype, device=self.device)
-            out[i].copy_(value)
-        return out
-
-    def drop_graphs(self) -> None:
-        """Throw the captured steps away (after anything that replaces a
-        tensor they read); the next epoch captures again."""
-        self.graphs.clear()
+        return float(self.train_steps(train_loader, train_loader.epoch_permutation(), lr).mean())
 
     @contextlib.contextmanager
     def _profiled(self, epoch_idx: int):
@@ -294,9 +321,11 @@ class TrafficStateExecutor:
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
+            time.sleep(PROFILE_MARGIN_S)
             yield
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            time.sleep(PROFILE_MARGIN_S)
         ensure_dir(profile_dir)
         path = os.path.join(profile_dir, "epoch{}.pt.trace.json".format(epoch_idx))
         prof.export_chrome_trace(path)

@@ -35,7 +35,7 @@ The CPU keeps the plain optimizers: CPU tensors refuse ``capturable=True``.
 """
 
 import math
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -52,9 +52,18 @@ def capture_rule(learner: str) -> str:
     return CAPTURE_RULES.get(str(learner).lower(), "device rate")
 
 
-def build_optimizer(config, params: Iterable[torch.nn.Parameter], device=None) -> torch.optim.Optimizer:
-    """The config's optimizer over `params`; on a CUDA `device`, in the form
-    its ``capture_rule`` asks for."""
+def build_optimizer(config, params: Iterable, device=None) -> torch.optim.Optimizer:
+    """The config's optimizer over `params` (parameters, or parameter
+    groups: dicts of "params"); on a CUDA `device`, in the form its
+    ``capture_rule`` asks for, a device rate of its own for each group."""
+    optimizer = _build_optimizer(config, params, device)
+    for group in optimizer.param_groups[1:]:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"] = group["lr"].clone()
+    return optimizer
+
+
+def _build_optimizer(config, params, device):
     learner = str(config.get("learner", "adam")).lower()
     lr = config.get("learning_rate", 0.01)
     graph = {}
@@ -85,24 +94,39 @@ def build_optimizer(config, params: Iterable[torch.nn.Parameter], device=None) -
 def clip_by_global_norm(params: Iterable[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm on the .grad of `params`, in place; returns
     the global norm. The test is made on the device: no host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return torch.zeros(())
-    norm = torch.sqrt(sum(g.square().sum() for g in grads))
-    keep = norm < max_norm
-    for g in grads:
-        g.copy_(torch.where(keep, g, g / norm * max_norm))
-    return norm
+    return clip_grad_groups([params], max_norm)[0]
 
 
-def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """Every group's rate to `lr`; a device rate is filled in place, so a
-    captured step reads it."""
-    for group in optimizer.param_groups:
+def clip_grad_groups(groups: Sequence[Iterable[torch.nn.Parameter]], max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm on the .grad of each group of parameters,
+    in place, each group by its own global norm (optax's rule under vmap
+    when each group is one seed's parameters); returns the (groups,) norms.
+    One ``_foreach_norm`` over every gradient, then one scale a group,
+    whatever the number of groups; the groups hold as many gradients
+    each. The test is made on the device: no host sync."""
+    grads = [[p.grad for p in params if p.grad is not None] for params in groups]
+    if len({len(g) for g in grads}) != 1:
+        raise ValueError("the groups hold {} gradients: clip_grad_groups needs as many in each".format(
+            [len(g) for g in grads]))
+    if not grads[0]:
+        return torch.zeros(len(grads))
+    per_tensor = torch.stack(torch._foreach_norm([g for group in grads for g in group]))
+    norms = torch.linalg.vector_norm(per_tensor.view(len(grads), -1), dim=1)
+    scales = torch.where(norms < max_norm, 1.0, max_norm / norms)
+    for group, scale in zip(grads, scales.unbind()):
+        torch._foreach_mul_(group, scale)
+    return norms
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
+    """Every group's rate to `lr`, a float or one rate per group; a device
+    rate is filled in place, so a captured step reads it."""
+    rates = lr if isinstance(lr, (list, tuple)) else [lr] * len(optimizer.param_groups)
+    for group, rate in zip(optimizer.param_groups, rates, strict=True):
         if isinstance(group["lr"], torch.Tensor):
-            group["lr"].fill_(lr)
+            group["lr"].fill_(rate)
         else:
-            group["lr"] = lr
+            group["lr"] = rate
 
 
 def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:

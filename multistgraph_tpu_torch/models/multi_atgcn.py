@@ -32,11 +32,17 @@ path, ``fused_atgru_layer_q8``, whose reverse loop launches the transposed
 int8 kernel B2t); ``fused_bptt=False`` takes plain autograd of the step
 loop instead. Dropout acts on the encoder states in train mode.
 
+Seeds: ``forward_seeds`` runs S models of this architecture at once, the
+counterpart of the JAX module under ``jax.vmap`` (parallel/multiseed.py):
+every computation carries a leading seed axis, each seed with its own
+parameters, and ``forward`` is the case S = 1.
+
 Parameter names and layouts are the reference's torch ``state_dict``
 (Linear weights (out, in), ``end_conv.weight`` (out, t_conv, 1, H)), so a
 reference checkpoint loads as it is.
 """
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -56,10 +62,6 @@ from multistgraph_tpu_torch.ops.node_apply import (
 from multistgraph_tpu_torch.utils import resolve_device
 
 HOURS_PER_BLOCK = 24  # the reference hardcodes 24-step fusion blocks (ref :373-393)
-
-_AGG_SPEC = "knm,bmc->bknc"        # supports @ h (per scan step)
-_APPLY_SPEC = "bkni,nkio->bno"     # node-conditioned weight apply
-
 
 def _round(a: torch.Tensor, dtype) -> torch.Tensor:
     """a rounded to `dtype` and widened back to f32 (identity for dtype None)."""
@@ -137,49 +139,120 @@ class _EndConv(nn.Module):
 # without recording a graph and stacks the small per-step intermediates
 # (zr, hc, h_agru, zr2, hc_res) in the compute dtype. Its backward
 # recomputes the two large aggregation stacks hh/hzh in two bulk einsums,
-# runs the reverse loop, whose only accumulators are the supports
-# cotangent (f32) and the residual-GRU kernels, and forms each weight
-# gradient in one contraction over (T, B). Letting autograd trace the loop
+# runs the reverse loop, whose only accumulator is the supports cotangent
+# (f32), and forms each weight gradient in one contraction over (T, B),
+# the residual-GRU kernels' too (a per-step accumulation of those small
+# products runs a long, thin GEMM a step, which cuBLAS splits over K for
+# one seed and not for a batch of seeds). Letting autograd trace the loop
 # instead would accumulate an (N,K,I,O) weight cotangent at every step.
 # Without autograd (serving, validation) the encoder runs the same steps
 # and stacks nothing.
+#
+# Every tensor carries a leading seed axis S, the counterpart of the JAX
+# package's vmap over seeds (parallel/multiseed.py): one model is S = 1,
+# and S seeds trained together run every contraction once over all of
+# them. Each seed keeps its own supports, node-conditioned weights,
+# residual kernels and biases; the node-conditioned applies see the seeds
+# as S*N nodes, so kernels B2/B2t launch as often at any S.
 # --------------------------------------------------------------------------
 
-_BULK_AGG_SPEC = "knm,tbmc->nkbtc"  # bulk recompute of hh/hzh stacks (bwd)
-_DW_SPEC = "nkbti,tbno->nkio"       # one-shot weight-gradient contraction
-_DAPPLY_SPEC = "bno,nkio->bkni"     # W^T apply in the reverse loop
-_DSUP_SPEC = "bknc,bmc->knm"        # supports-cotangent accumulation
-_DAGGT_SPEC = "knm,bknc->bmc"       # supports^T applied to dhh/dhzh
-# the same four for the N-major int8 layer (multi_atgcn.py:396-447)
-_Q8_BULK_AGG_SPEC = "knm,tmbc->nkbtc"
-_Q8_DW_SPEC = "nkbti,tnbo->nkio"
-_Q8_DSUP_SPEC = "nbkc,mbc->knm"
-_Q8_DAGGT_SPEC = "knm,nbkc->mbc"
+_AGG_SPEC = "sknm,sbmc->sbknc"         # supports @ h (per scan step)
+_APPLY_SPEC = "sbkni,snkio->sbno"      # node-conditioned weight apply
+_BULK_AGG_SPEC = "sknm,tsbmc->snkbtc"  # bulk recompute of hh/hzh stacks (bwd)
+_DW_SPEC = "snkbti,tsbno->snkio"       # one-shot weight-gradient contraction
+_DAPPLY_SPEC = "sbno,snkio->sbkni"     # W^T apply in the reverse loop
+_DSUP_SPEC = "sbknc,sbmc->sknm"        # supports-cotangent accumulation
+_DAGGT_SPEC = "sknm,sbknc->sbmc"       # supports^T applied to dhh/dhzh
+# the same for the N-major int8 layer (multi_atgcn.py:396-447)
+_Q8_AGG_SPEC = "sknm,smbc->snbkc"
+_Q8_BULK_AGG_SPEC = "sknm,tsmbc->snkbtc"
+_Q8_DW_SPEC = "snkbti,tsnbo->snkio"
+_Q8_DSUP_SPEC = "snbkc,smbc->sknm"
+_Q8_DAGGT_SPEC = "sknm,snbkc->smbc"
+
+
+def _bmm_split_k(a, b, chunk=4096):
+    """torch.bmm of (S, M, K) @ (S, K, N) with a long K cut into chunks of
+    `chunk` whose products are summed after: cuBLAS splits a long K over
+    blocks for one GEMM but not for a batch of a few, and the per-seed
+    weight gradients are such batches (K = T*N*B rows, M x N a weight).
+    One seed's product stays one GEMM, which cuBLAS splits itself."""
+    s, m, k = a.shape
+    if s == 1:
+        return torch.mm(a[0], b[0])[None]
+    parts = -(-k // chunk)
+    if parts == 1:
+        return torch.bmm(a, b)
+    pad = parts * chunk - k
+    if pad:
+        a, b = F.pad(a, (0, pad)), F.pad(b, (0, 0, 0, pad))
+    a = a.reshape(s, m, parts, chunk).transpose(1, 2).reshape(s * parts, m, chunk)
+    return torch.bmm(a, b.reshape(s * parts, chunk, -1)).view(s, parts, m, -1).sum(1)
+
+
+class _SeedMatmul(torch.autograd.Function):
+    """(S, M, K) @ (S, K, N), each seed its own product; the backward's
+    products of long contraction through ``_bmm_split_k``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = _bmm_split_k(g, b.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        db = _bmm_split_k(a.transpose(1, 2), g) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def _seed_project(x, w, seed_dim):
+    """x (..., C) with its seed axis at `seed_dim` times w (S, C, D), each
+    seed its own w; the seed axis stays where it was."""
+    x = x.movedim(seed_dim, 0)
+    out = _SeedMatmul.apply(x.reshape(x.shape[0], -1, x.shape[-1]), w)
+    return out.reshape(x.shape[:-1] + (w.shape[-1],)).movedim(0, seed_dim)
+
+
+def _seed_mm(a, w):
+    """a (S, ..., I) @ w (S, I, O), each seed with its own w: (S, ..., O)."""
+    s = a.shape[0]
+    return torch.bmm(a.reshape(s, -1, a.shape[-1]), w).reshape(a.shape[:-1] + (w.shape[-1],))
+
+
+def _per_seed(v, ndim):
+    """A (S,) per-seed value shaped to broadcast over (S, ...) of rank `ndim`."""
+    return v.reshape((-1,) + (1,) * (ndim - 1))
 
 
 def _atgru_step(h_prev, xs, supports, wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, dtype):
-    """One B-major ATGRU + residual step; h_prev (B, N, H). Returns the new
-    state and the intermediates the backward reads."""
+    """One B-major ATGRU + residual step; h_prev (S, B, N, H). Returns the
+    new state and the intermediates the backward reads."""
     gate_x_t, upd_x_t, rg_x_t, ru_x_t, w_t = xs
     hh = _mm(_AGG_SPEC, supports, h_prev, dtype)
-    zr = torch.sigmoid(gate_x_t + _mm(_APPLY_SPEC, hh, wg_h, dtype) + bg)
+    zr = torch.sigmoid(gate_x_t + _mm(_APPLY_SPEC, hh, wg_h, dtype) + bg[:, None])
     z, r = torch.chunk(zr, 2, dim=-1)
     hzh = _mm(_AGG_SPEC, supports, z * h_prev, dtype)
-    hc = torch.tanh(upd_x_t + _mm(_APPLY_SPEC, hzh, wu_h, dtype) + bu)
+    hc = torch.tanh(upd_x_t + _mm(_APPLY_SPEC, hzh, wu_h, dtype) + bu[:, None])
     h_agru = r * h_prev + (1.0 - r) * hc
-    zr2 = torch.sigmoid(rg_x_t + h_agru @ rg_h + rg_b)
+    zr2 = torch.sigmoid(rg_x_t + _seed_mm(h_agru, rg_h) + rg_b[:, None, None])
     z2, r2 = torch.chunk(zr2, 2, dim=-1)
-    hc_res = torch.tanh(ru_x_t + (z2 * h_agru) @ ru_h + ru_b)
+    hc_res = torch.tanh(ru_x_t + _seed_mm(z2 * h_agru, ru_h) + ru_b[:, None, None])
     h_res = r2 * h_agru + (1.0 - r2) * hc_res
+    w_t = _per_seed(w_t, h_prev.dim())
     return w_t * h_agru + (1.0 - w_t) * h_res, (zr, hc, h_agru, zr2, hc_res)
 
 
 def _quantize_h_weights(wg_h, wu_h, block=32):
-    """Quantize the h-side weights per forward and zero-pad N to a block
+    """Quantize the h-side weights (..., N, K, I, O) per forward as
+    (nodes, K*I, O), the seeds' nodes one after another (each scale is one
+    node's, so none spans two seeds), and zero-pad the nodes to a block
     multiple, as the JAX package does for its 32-node kernel blocks (the
     CUDA kernel ignores the pad rows)."""
-    n, kk, ii, og = wg_h.shape
-    ou = wu_h.shape[3]
+    kk, ii, og = wg_h.shape[-3:]
+    ou = wu_h.shape[-1]
+    n = wg_h.shape[:-3].numel()
     n_pad = -(-n // block) * block
     wgq, wgs = quantize_node_weights(wg_h.reshape(n, kk * ii, og))
     wuq, wus = quantize_node_weights(wu_h.reshape(n, kk * ii, ou))
@@ -188,13 +261,20 @@ def _quantize_h_weights(wg_h, wu_h, block=32):
 
 
 def _bf16_matmul(a, b_rounded, dtype):
-    """``cast(a) @ cast(b)`` with its result in the compute dtype (bf16 on
-    the bf16 path), as JAX computes it."""
-    return (_round(a, dtype) @ b_rounded).to(dtype)
+    """``cast(a) @ cast(b)`` per seed with its result in the compute dtype
+    (bf16 on the bf16 path), as JAX computes it."""
+    return _seed_mm(_round(a, dtype), b_rounded).to(dtype)
+
+
+def _node_apply(apply, act, wq, scale):
+    """Kernel B2 or B2t on (S, N, B, C) activations, the seeds' nodes as
+    S*N nodes of one launch."""
+    s, n, b, _ = act.shape
+    return apply(act.reshape(s * n, b, -1), wq, scale).reshape(s, n, b, -1)
 
 
 def _atgru_step_q8(h_prev, xs, supports_r, wq8, bg, bu, rg_h_r, ru_h_r, rg_b, ru_b, dtype):
-    """One N-major step streaming int8 weights; h_prev (N, B, H) f32.
+    """One N-major step streaming int8 weights; h_prev (S, N, B, H) f32.
 
     supports_r, rg_h_r, ru_h_r are pre-rounded to the compute dtype (the
     per-step cast of a loop invariant). hh/hzh are cast to it after the
@@ -203,26 +283,40 @@ def _atgru_step_q8(h_prev, xs, supports_r, wq8, bg, bu, rg_h_r, ru_h_r, rg_b, ru
     Returns the new state and the intermediates the backward reads.
     """
     wgq, wgs, wuq, wus = wq8
-    n, b, _ = h_prev.shape
+    s, n, b, _ = h_prev.shape
     gate_x_t, upd_x_t, rg_x_t, ru_x_t, w_t = xs
-    hh = torch.einsum("knm,mbc->nbkc", supports_r, _round(h_prev, dtype))
-    hh = hh.to(dtype).reshape(n, b, -1).contiguous()
-    zr = torch.sigmoid(gate_x_t + node_apply_q8(hh, wgq, wgs) + bg[:, None])
+    hh = torch.einsum(_Q8_AGG_SPEC, supports_r, _round(h_prev, dtype))
+    hh = hh.to(dtype).reshape(s, n, b, -1).contiguous()
+    zr = torch.sigmoid(gate_x_t + _node_apply(node_apply_q8, hh, wgq, wgs) + bg[:, :, None])
     z, r = torch.chunk(zr, 2, dim=-1)
-    hzh = torch.einsum("knm,mbc->nbkc", supports_r, _round(z * h_prev, dtype))
-    hzh = hzh.to(dtype).reshape(n, b, -1).contiguous()
-    hc = torch.tanh(upd_x_t + node_apply_q8(hzh, wuq, wus) + bu[:, None])
+    hzh = torch.einsum(_Q8_AGG_SPEC, supports_r, _round(z * h_prev, dtype))
+    hzh = hzh.to(dtype).reshape(s, n, b, -1).contiguous()
+    hc = torch.tanh(upd_x_t + _node_apply(node_apply_q8, hzh, wuq, wus) + bu[:, :, None])
     h_agru = r * h_prev + (1.0 - r) * hc
-    zr2 = torch.sigmoid(rg_x_t + _bf16_matmul(h_agru, rg_h_r, dtype) + rg_b)
+    zr2 = torch.sigmoid(rg_x_t + _bf16_matmul(h_agru, rg_h_r, dtype) + rg_b[:, None, None])
     z2, r2 = torch.chunk(zr2, 2, dim=-1)
-    hc_res = torch.tanh(ru_x_t + _bf16_matmul(z2 * h_agru, ru_h_r, dtype) + ru_b)
+    hc_res = torch.tanh(ru_x_t + _bf16_matmul(z2 * h_agru, ru_h_r, dtype) + ru_b[:, None, None])
     h_res = r2 * h_agru + (1.0 - r2) * hc_res
+    w_t = _per_seed(w_t, h_prev.dim())
     return w_t * h_agru + (1.0 - w_t) * h_res, (zr, hc, h_agru, zr2, hc_res)
 
 
 def _sum_outer(a, b):
-    """einsum('..c,..o->co') over all leading dims, operands widened to f32."""
-    return a.reshape(-1, a.shape[-1]).float().T @ b.reshape(-1, b.shape[-1]).float()
+    """einsum('ts..c,ts..o->sco') over all dims but the seed's (dim 1 of
+    the per-step stacks), operands widened to f32."""
+    a, b = a.movedim(1, 0), b.movedim(1, 0)
+    s = a.shape[0]
+    return _bmm_split_k(a.reshape(s, -1, a.shape[-1]).float().transpose(1, 2), b.reshape(s, -1, b.shape[-1]).float())
+
+
+def _res_kernel_grads(stacks, dpre_rg_s, dpre_ru_s):
+    """The residual GRU's h-side kernel gradients, each one contraction
+    over (T, nodes, batch) after the reverse loop (the JAX package
+    accumulates them in its loop; only the order of the sums differs):
+    d_rg_h = h_agru^T dpre_rg, d_ru_h = (z2 h_agru)^T dpre_ru."""
+    h_agru_s = stacks[2]
+    z2_s = torch.chunk(stacks[3], 2, dim=-1)[0]
+    return _sum_outer(h_agru_s, dpre_rg_s), _sum_outer(z2_s * h_agru_s, dpre_ru_s)
 
 
 def _step_backward(carry, xs, supports, rg_h, ru_h, dtype, apply_t, dsup_spec, daggt_spec):
@@ -231,27 +325,26 @@ def _step_backward(carry, xs, supports, rg_h, ru_h, dtype, apply_t, dsup_spec, d
     weights of cell ``name`` ("gate" or "update") to a pre-activation
     cotangent. Intermediates may be bf16: every mixed product promotes to
     f32, and a product of two bf16 terms stays bf16, as in JAX."""
-    dh, d_sup, d_rg_h, d_ru_h = carry
+    dh, d_sup = carry
     dy, h_prev, zr, hc, h_agru, zr2, hc_res, w_t = xs
+    w_t = _per_seed(w_t, dh.dim())
     dh = dh + dy
     z, r = torch.chunk(zr, 2, dim=-1)
     z2, r2 = torch.chunk(zr2, 2, dim=-1)
     h_res = r2 * h_agru + (1.0 - r2) * hc_res
     # mix: h_new = w_t h_agru + (1-w_t) h_res
-    dw_t = ((h_agru - h_res) * dh).sum()
+    dw_t = ((h_agru - h_res) * dh).sum(tuple(range(1, dh.dim())))
     dh_agru = w_t * dh
     dh_res = (1.0 - w_t) * dh
     # residual GRU backward
     dr2 = (h_agru - hc_res) * dh_res
     dh_agru = dh_agru + r2 * dh_res
     dpre_ru = (1.0 - r2) * dh_res * (1.0 - hc_res * hc_res)
-    dz2h = dpre_ru @ ru_h.T
+    dz2h = _seed_mm(dpre_ru, ru_h.transpose(1, 2))
     dz2 = dz2h * h_agru
     dh_agru = dh_agru + dz2h * z2
-    d_ru_h = d_ru_h + _sum_outer(z2 * h_agru, dpre_ru)
     dpre_rg = torch.cat([dz2, dr2], dim=-1) * zr2 * (1.0 - zr2)
-    dh_agru = dh_agru + dpre_rg @ rg_h.T
-    d_rg_h = d_rg_h + _sum_outer(h_agru, dpre_rg)
+    dh_agru = dh_agru + _seed_mm(dpre_rg, rg_h.transpose(1, 2))
     # AGRU backward: h_agru = r h_prev + (1-r) hc
     dr = (h_prev - hc) * dh_agru
     dh_prev = r * dh_agru
@@ -265,7 +358,7 @@ def _step_backward(carry, xs, supports, rg_h, ru_h, dtype, apply_t, dsup_spec, d
     dhh = apply_t("gate", dpre_g)
     d_sup = d_sup + _mm(dsup_spec, dhh, h_prev, dtype)
     dh_prev = dh_prev + _mm(daggt_spec, supports, dhh, dtype)
-    return (dh_prev, d_sup, d_rg_h, d_ru_h), (dpre_g, dpre_u, dpre_rg, dpre_ru, dw_t)
+    return (dh_prev, d_sup), (dpre_g, dpre_u, dpre_rg, dpre_ru, dw_t)
 
 
 def _scan_forward(step, state0, xs_seq, keep):
@@ -295,7 +388,8 @@ def _scan_backward(dstates, state0, states, inter_stacks, w_seq, carry, step_bac
 
 class _FusedATGRULayer(torch.autograd.Function):
     """B-major encoder layer (multi_atgcn.py:141-263): gate_x/upd_x/rg_x/ru_x
-    (T,B,N,*), state0 (B,N,H) -> states (T,B,N,H). dtype None (exact f32) or
+    (T,S,B,N,*), w_seq (T,S), supports (S,K,N,N), per-seed weights (S,...),
+    state0 (S,B,N,H) -> states (T,S,B,N,H). dtype None (exact f32) or
     torch.bfloat16 (bf16-rounded contraction operands, f32 sums)."""
 
     @staticmethod
@@ -322,10 +416,11 @@ class _FusedATGRULayer(torch.autograd.Function):
                                   lambda cell, d: _mm(_DAPPLY_SPEC, d, weights[cell], dtype),
                                   _DSUP_SPEC, _DAGGT_SPEC)
 
-        carry0 = tuple(torch.zeros_like(a) for a in (state0, supports, rg_h, ru_h))
-        (dstate0, d_sup, d_rg_h, d_ru_h), cots, h_prev_s = _scan_backward(
+        carry0 = (torch.zeros_like(state0), torch.zeros_like(supports))
+        (dstate0, d_sup), cots, h_prev_s = _scan_backward(
             dstates, state0, states, stacks, w_seq, carry0, step_back)
         dpre_g_s, dpre_u_s, dpre_rg_s, dpre_ru_s, dw_seq = cots
+        d_rg_h, d_ru_h = _res_kernel_grads(stacks, dpre_rg_s, dpre_ru_s)
         # the two large aggregation stacks, recomputed in bulk for the dW
         # contractions only (the reverse loop never reads them)
         hh_s = _mm(_BULK_AGG_SPEC, supports, h_prev_s, dtype)
@@ -336,17 +431,18 @@ class _FusedATGRULayer(torch.autograd.Function):
         d_wu_h = _mm(_DW_SPEC, hzh_s, dpre_u_s, dtype).to(wu_t)
         return (None, dpre_g_s.to(gx_t), dpre_u_s.to(ux_t), dpre_rg_s.to(rgx_t),
                 dpre_ru_s.to(rux_t), dw_seq, d_sup, d_wg_h, d_wu_h,
-                dpre_g_s.sum((0, 1)), dpre_u_s.sum((0, 1)), d_rg_h, d_ru_h,
-                dpre_rg_s.sum((0, 1, 2)), dpre_ru_s.sum((0, 1, 2)), dstate0)
+                dpre_g_s.sum((0, 2)), dpre_u_s.sum((0, 2)), d_rg_h, d_ru_h,
+                dpre_rg_s.sum((0, 2, 3)), dpre_ru_s.sum((0, 2, 3)), dstate0)
 
 
 class _FusedATGRULayerQ8(torch.autograd.Function):
     """N-major, int8-weight-streamed twin (multi_atgcn.py:341-459):
-    gate_x/upd_x/rg_x/ru_x (T,N,B,*) in the compute dtype, state0 (N,B,H) -> states
-    (T,N,B,H). The h-side weights are quantized once per call; the forward
-    applies them with B2 (two launches per step) and the reverse loop with
-    B2t (two per step). The weight gradients are straight-through: the
-    full-precision (T,B) contraction of the exact path."""
+    gate_x/upd_x/rg_x/ru_x (T,S,N,B,*) in the compute dtype, state0
+    (S,N,B,H) -> states (T,S,N,B,H). The h-side weights are quantized once
+    per call; the forward applies them with B2 (two launches per step) and
+    the reverse loop with B2t (two per step), the seeds' nodes in one
+    launch. The weight gradients are straight-through: the full-precision
+    (T,B) contraction of the exact path."""
 
     @staticmethod
     def forward(ctx, dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
@@ -362,7 +458,7 @@ class _FusedATGRULayerQ8(torch.autograd.Function):
                                        lambda a: a.to(dtype))
         ctx.dtype = dtype
         ctx.dtypes = tuple(a.dtype for a in (gate_x, upd_x, rg_x, ru_x, wg_h, wu_h))
-        ctx.kk = wg_h.shape[1]
+        ctx.kk = wg_h.shape[-3]
         ctx.save_for_backward(w_seq, supports, rg_h, ru_h, state0, *wq8, states, *stacks)
         return states
 
@@ -370,20 +466,21 @@ class _FusedATGRULayerQ8(torch.autograd.Function):
     def backward(ctx, dstates):
         w_seq, supports, rg_h, ru_h, state0, wgq, wgs, wuq, wus, states, *stacks = ctx.saved_tensors
         dtype = ctx.dtype
-        n, b, hdim = state0.shape
+        s, n, b, hdim = state0.shape
         weights = {"gate": (wgq, wgs), "update": (wuq, wus)}
 
         def apply_t(cell, dpre):
-            return node_apply_q8_t(dpre.to(dtype), *weights[cell]).reshape(n, b, ctx.kk, hdim)
+            return _node_apply(node_apply_q8_t, dpre.to(dtype), *weights[cell]).reshape(s, n, b, ctx.kk, hdim)
 
         def step_back(carry, xs):
             return _step_backward(carry, xs, supports, rg_h, ru_h, dtype, apply_t,
                                   _Q8_DSUP_SPEC, _Q8_DAGGT_SPEC)
 
-        carry0 = tuple(torch.zeros_like(a) for a in (state0, supports, rg_h, ru_h))
-        (dstate0, d_sup, d_rg_h, d_ru_h), cots, h_prev_s = _scan_backward(
+        carry0 = (torch.zeros_like(state0), torch.zeros_like(supports))
+        (dstate0, d_sup), cots, h_prev_s = _scan_backward(
             dstates, state0, states, stacks, w_seq, carry0, step_back)
         dpre_g_s, dpre_u_s, dpre_rg_s, dpre_ru_s, dw_seq = cots
+        d_rg_h, d_ru_h = _res_kernel_grads(stacks, dpre_rg_s, dpre_ru_s)
         hh_s = _mm(_Q8_BULK_AGG_SPEC, supports, h_prev_s, dtype)
         z_s = torch.chunk(stacks[0], 2, dim=-1)[0]
         hzh_s = _mm(_Q8_BULK_AGG_SPEC, supports, z_s * h_prev_s, dtype)
@@ -392,24 +489,26 @@ class _FusedATGRULayerQ8(torch.autograd.Function):
         d_wu_h = _mm(_Q8_DW_SPEC, hzh_s, dpre_u_s, dtype).to(wu_t)
         return (None, dpre_g_s.to(gx_t), dpre_u_s.to(ux_t), dpre_rg_s.to(rgx_t),
                 dpre_ru_s.to(rux_t), dw_seq, d_sup, d_wg_h, d_wu_h,
-                dpre_g_s.sum((0, 2)), dpre_u_s.sum((0, 2)), d_rg_h, d_ru_h,
-                dpre_rg_s.sum((0, 1, 2)), dpre_ru_s.sum((0, 1, 2)), dstate0)
+                dpre_g_s.sum((0, 3)), dpre_u_s.sum((0, 3)), d_rg_h, d_ru_h,
+                dpre_rg_s.sum((0, 2, 3)), dpre_ru_s.sum((0, 2, 3)), dstate0)
 
 
 def fused_atgru_layer(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
                       wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0):
-    """States (T,B,N,H) of one B-major encoder layer, with the hand-written
-    BPTT; arguments in the order of the JAX ``fused_atgru_layer``."""
-    return _FusedATGRULayer.apply(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
-                                  wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0)
+    """States (T,B,N,H) of one B-major encoder layer of one model, with the
+    hand-written BPTT; arguments in the order of the JAX ``fused_atgru_layer``."""
+    seq = [a.unsqueeze(1) for a in (gate_x, upd_x, rg_x, ru_x, w_seq)]
+    rest = [a.unsqueeze(0) for a in (supports, wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0)]
+    return _FusedATGRULayer.apply(dtype, *seq, *rest)[:, 0]
 
 
 def fused_atgru_layer_q8(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
                          wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0):
-    """States (T,N,B,H) of one N-major int8 encoder layer, with the
-    hand-written BPTT; arguments in the order of the JAX ``fused_atgru_layer_q8``."""
-    return _FusedATGRULayerQ8.apply(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
-                                    wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0)
+    """States (T,N,B,H) of one N-major int8 encoder layer of one model, with
+    the hand-written BPTT; arguments in the order of the JAX ``fused_atgru_layer_q8``."""
+    seq = [a.unsqueeze(1) for a in (gate_x, upd_x, rg_x, ru_x, w_seq)]
+    rest = [a.unsqueeze(0) for a in (supports, wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state0)]
+    return _FusedATGRULayerQ8.apply(dtype, *seq, *rest)[:, 0]
 
 
 class MultiATGCN(nn.Module):
@@ -536,18 +635,28 @@ class MultiATGCN(nn.Module):
             p.copy_(value)
 
     # ------------------------------------------------------------ components
-    def _build_supports(self) -> torch.Tensor:
-        """Stack all supports (K_total, N, N), adaptive terms first (ref :87-101)."""
-        base = self.supports_static
+    def seed_parameters(self) -> dict:
+        """{name: (1, *shape)}: this model's parameters as one seed of
+        ``forward_seeds``. Read by attribute, so ``torch.func.functional_call``
+        (the quantized service's forward) substitutes its tensors."""
+        return {name: functools.reduce(getattr, name.split("."), self)[None]
+                for name, _ in self.named_parameters()}
+
+    def _build_supports(self, p) -> torch.Tensor:
+        """Stack all supports per seed (S, K_total, N, N), adaptive terms
+        first (ref :87-101)."""
+        s = p["weight_tsg"].shape[0]
+        base = self.supports_static[None].expand((s,) + self.supports_static.shape)
         if self.adpadj == "none":
             return base
         if self.adpadj == "unidirection":
-            logits = torch.relu(self.node_vec1 @ self.node_vec2)
+            logits = torch.relu(p["node_vec1"] @ p["node_vec2"])
         elif self.adpadj == "bidirection":
-            logits = torch.relu(self.node_emb @ self.node_emb.T)
+            emb = p["node_emb"]
+            logits = torch.relu(emb @ emb.transpose(1, 2))
         else:
             raise ValueError("unknown adpadj {!r}".format(self.adpadj))
-        adaptive = torch.softmax(logits, dim=1)
+        adaptive = torch.softmax(logits, dim=2)
         eye = torch.eye(self.num_nodes, dtype=torch.float32, device=adaptive.device)
         terms = [adaptive]
         prev2, prev1 = eye, adaptive
@@ -555,13 +664,14 @@ class MultiATGCN(nn.Module):
             nxt = 2.0 * adaptive @ prev1 - prev2
             terms.append(nxt)
             prev2, prev1 = prev1, nxt
-        adaptive_stack = torch.stack(terms, dim=0)
+        adaptive_stack = torch.stack(terms, dim=1)
         if self.adjtype == "multi":
-            return torch.cat([base[:1], adaptive_stack, base[1:]], dim=0)
-        return torch.cat([eye[None], adaptive_stack], dim=0)
+            return torch.cat([base[:, :1], adaptive_stack, base[:, 1:]], dim=1)
+        return torch.cat([eye.expand(s, 1, -1, -1), adaptive_stack], dim=1)
 
-    def _cell_weights(self, cell: _AGCNCell, dtype=None):
-        """Node-conditioned weights split into (W_x, W_h) plus bias.
+    def _cell_weights(self, p, cell: str, dtype=None):
+        """Node-conditioned weights of `cell` (a parameter prefix) per seed,
+        split into (W_x, W_h) (S, N, K, I, O) plus bias (S, N, O).
 
         W[n,k,i,o] = node_emb[n,:] . pool[:,k,i,o], scaled by
         softmax(weights_g) over k when adjtype='multi'. With `dtype` the gate
@@ -569,57 +679,62 @@ class MultiATGCN(nn.Module):
         operands rounded to `dtype` and rounded to it (multi_atgcn.py:652-684).
         """
         h = self.hidden_dim
-        emb = self.node_emb
-        if dtype is None:
-            w = torch.einsum("nd,dkio->nkio", emb, cell.weights_pool)
-            if self.adjtype == "multi":
-                gate = torch.softmax(cell.weights_g, dim=0)  # (K,1,1)
-                w = w * gate[None, :, 0, 0][:, :, None, None]
-            bias = emb @ cell.bias_pool
-            dim_in = w.shape[2] - h
-            return w[:, :, :dim_in], w[:, :, dim_in:], bias
-        pool = cell.weights_pool
+        emb = p["node_emb"]
+        pool = p[cell + ".weights_pool"]
+        bias = torch.bmm(emb, p[cell + ".bias_pool"])
+        gate = None
         if self.adjtype == "multi":
-            gate = torch.softmax(cell.weights_g, dim=0)
-            pool = pool * gate[None, :, 0, 0][:, :, None, None]
+            gate = torch.softmax(p[cell + ".weights_g"], dim=1)[:, None, :, 0, 0, None, None]  # (S,1,K,1,1)
+        if dtype is None:
+            w = _seed_project(emb, pool.flatten(2), 0).unflatten(2, pool.shape[2:])
+            if gate is not None:
+                w = w * gate
+            dim_in = w.shape[3] - h
+            return w[:, :, :, :dim_in], w[:, :, :, dim_in:], bias
+        if gate is not None:
+            pool = pool * gate
         pool = _round(pool, dtype)
         emb_r = _round(emb, dtype)
-        dim_in = pool.shape[2] - h
-        w_x = torch.einsum("nd,dkio->nkio", emb_r, pool[:, :, :dim_in]).to(dtype)
-        w_h = torch.einsum("nd,dkio->nkio", emb_r, pool[:, :, dim_in:]).to(dtype)
-        bias = emb @ cell.bias_pool
+        dim_in = pool.shape[3] - h
+        w_x = _seed_project(emb_r, pool[:, :, :, :dim_in].flatten(2), 0).unflatten(2, (-1, dim_in, pool.shape[4]))
+        w_h = _seed_project(emb_r, pool[:, :, :, dim_in:].flatten(2), 0).unflatten(2, (-1, h, pool.shape[4]))
+        w_x, w_h = w_x.to(dtype), w_h.to(dtype)
         return w_x, w_h, bias
 
-    def _res_weights(self, layer: int, dim_in: int):
-        """Residual GRU kernels (in, out) split into x and h parts, plus biases."""
-        res = self.encoder.res_cells[layer]
-        rgk, ruk = res.gate.weight.T, res.update.weight.T
-        return rgk[:dim_in], ruk[:dim_in], rgk[dim_in:], ruk[dim_in:], res.gate.bias, res.update.bias
+    def _res_weights(self, p, layer: int, dim_in: int):
+        """Residual GRU kernels per seed (S, in, out) split into x and h
+        parts, plus biases (S, out)."""
+        base = "encoder.res_cells.{}.".format(layer)
+        rgk = p[base + "gate.weight"].transpose(1, 2)
+        ruk = p[base + "update.weight"].transpose(1, 2)
+        return (rgk[:, :dim_in], ruk[:, :dim_in], rgk[:, dim_in:], ruk[:, dim_in:],
+                p[base + "gate.bias"], p[base + "update.bias"])
 
-    def _encoder_q8(self, x, init_state, supports):
+    def _encoder_q8(self, p, x, init_state, supports):
         """int8-weight-streamed N-major encoder; every per-step tensor is
-        N-major (T, N, B, *), with one transpose at entry and one at exit."""
+        N-major (T, S, N, B, *), with one transpose at entry and one at exit."""
         dtype = self.compute_dtype
         h = self.hidden_dim
-        weights_gru = torch.sigmoid(self.encoder.weights_gru)
-        current = x.permute(1, 2, 0, 3)  # (T, N, B, C)
+        weights_gru = torch.sigmoid(p["encoder.weights_gru"])  # (S, L, T)
+        current = x.permute(2, 0, 3, 1, 4)  # (T, S, N, B, C)
         supports_r = _round(supports, dtype)
-        for layer_idx, cells in enumerate(self.encoder.agru_cells):
-            state = init_state[layer_idx].permute(1, 0, 2)  # (N, B, H)
+        for layer_idx in range(self.num_layers):
+            cell = "encoder.agru_cells.{}.".format(layer_idx)
+            state = init_state[layer_idx].permute(0, 2, 1, 3)  # (S, N, B, H)
             t_len, dim_in = current.shape[0], current.shape[-1]
-            w_seq = weights_gru[layer_idx][:t_len]
-            rg_xk, ru_xk, rg_h, ru_h, rg_b, ru_b = self._res_weights(layer_idx, dim_in)
-            res_x = torch.einsum("tnbc,cd->tnbd", current, torch.cat([rg_xk, ru_xk], dim=1))
+            w_seq = weights_gru[:, layer_idx, :t_len].T  # (T, S)
+            rg_xk, ru_xk, rg_h, ru_h, rg_b, ru_b = self._res_weights(p, layer_idx, dim_in)
+            res_x = _seed_project(current, torch.cat([rg_xk, ru_xk], dim=2), 1)
             rg_x, ru_x = res_x[..., : 2 * h].to(dtype), res_x[..., 2 * h:].to(dtype)
-            wg_x, wg_h, bg = self._cell_weights(cells.gate, dtype)
-            wu_x, wu_h, bu = self._cell_weights(cells.update, dtype)
-            hx = torch.einsum("knm,tmbc->tnbkc", supports, current)
-            xw = torch.einsum("tnbki,nkio->tnbo", _round(hx, dtype),
-                              torch.cat([wg_x, wu_x], dim=3).float())
+            wg_x, wg_h, bg = self._cell_weights(p, cell + "gate", dtype)
+            wu_x, wu_h, bu = self._cell_weights(p, cell + "update", dtype)
+            hx = torch.einsum("sknm,tsmbc->tsnbkc", supports, current)
+            xw = torch.einsum("tsnbki,snkio->tsnbo", _round(hx, dtype),
+                              torch.cat([wg_x, wu_x], dim=4).float())
             gate_x, upd_x = xw[..., : 2 * h].to(dtype), xw[..., 2 * h:].to(dtype)
             if torch.is_grad_enabled():
-                current = fused_atgru_layer_q8(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
-                                               wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state)
+                current = _FusedATGRULayerQ8.apply(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
+                                                   wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state)
                 continue
             wq8 = _quantize_h_weights(wg_h, wu_h)
             rg_h_r, ru_h_r = _round(rg_h, dtype), _round(ru_h, dtype)
@@ -629,47 +744,48 @@ class MultiATGCN(nn.Module):
                     state, (gate_x[t], upd_x[t], rg_x[t], ru_x[t], w_seq[t]), supports_r, wq8,
                     bg, bu, rg_h_r, ru_h_r, rg_b, ru_b, dtype)
                 states.append(state)
-            current = torch.stack(states)  # (T, N, B, H)
-        return current.permute(2, 0, 1, 3)  # (B, T, N, H)
+            current = torch.stack(states)  # (T, S, N, B, H)
+        return current.permute(1, 3, 0, 2, 4)  # (S, B, T, N, H)
 
-    def _encoder(self, x, init_state, supports):
-        """x: (B, T, N, C) -> per-step states of the last layer (B, T, N, H)."""
-        if x.shape[2] != self.num_nodes:
-            raise ValueError("node-dimension mismatch: {} vs {}".format(x.shape[2], self.num_nodes))
+    def _encoder(self, p, x, init_state, supports):
+        """x: (S, B, T, N, C) -> per-step states of the last layer (S, B, T, N, H)."""
+        if x.shape[3] != self.num_nodes:
+            raise ValueError("node-dimension mismatch: {} vs {}".format(x.shape[3], self.num_nodes))
         if self.uses_int8_stream:
-            return self._encoder_q8(x, init_state, supports)
+            return self._encoder_q8(p, x, init_state, supports)
         dtype = self.compute_dtype
         h = self.hidden_dim
-        weights_gru = torch.sigmoid(self.encoder.weights_gru)
-        current = x.permute(1, 0, 2, 3)  # (T, B, N, C)
+        weights_gru = torch.sigmoid(p["encoder.weights_gru"])  # (S, L, T)
+        current = x.permute(2, 0, 1, 3, 4)  # (T, S, B, N, C)
         for layer_idx in range(self.num_layers):
-            state = init_state[layer_idx]  # (B, N, H)
+            state = init_state[layer_idx]  # (S, B, N, H)
             t_len, dim_in = current.shape[0], current.shape[-1]
-            w_seq = weights_gru[layer_idx][:t_len]
-            rg_xk, ru_xk, rg_h, ru_h, rg_b, ru_b = self._res_weights(layer_idx, dim_in)
-            res_x = torch.einsum("tbnc,cd->tbnd", current, torch.cat([rg_xk, ru_xk], dim=1))
+            w_seq = weights_gru[:, layer_idx, :t_len].T  # (T, S)
+            rg_xk, ru_xk, rg_h, ru_h, rg_b, ru_b = self._res_weights(p, layer_idx, dim_in)
+            res_x = _seed_project(current, torch.cat([rg_xk, ru_xk], dim=2), 1)
             rg_x, ru_x = res_x[..., : 2 * h], res_x[..., 2 * h:]
             states = []
             if not self.gcn_off:
-                cells = self.encoder.agru_cells[layer_idx]
-                wg_x, wg_h, bg = self._cell_weights(cells.gate, dtype)
-                wu_x, wu_h, bu = self._cell_weights(cells.update, dtype)
-                hx = torch.einsum("knm,tbmc->tbknc", supports, current)
-                w_x = torch.cat([wg_x, wu_x], dim=3)
+                cell = "encoder.agru_cells.{}.".format(layer_idx)
+                wg_x, wg_h, bg = self._cell_weights(p, cell + "gate", dtype)
+                wu_x, wu_h, bu = self._cell_weights(p, cell + "update", dtype)
+                hx = torch.einsum("sknm,tsbmc->tsbknc", supports, current)
+                w_x = torch.cat([wg_x, wu_x], dim=4)
                 if dtype is not None:
                     hx, w_x = hx.to(dtype).float(), w_x.float()
-                xw = torch.einsum("tbkni,nkio->tbno", hx, w_x)
+                xw = torch.einsum("tsbkni,snkio->tsbno", hx, w_x)
                 gate_x, upd_x = xw[..., : 2 * h], xw[..., 2 * h:]
                 if dtype is not None:
                     gate_x, upd_x = gate_x.to(dtype), upd_x.to(dtype)
                     rg_x, ru_x = rg_x.to(dtype), ru_x.to(dtype)
                 else:
-                    # one dense copy of each strided per-step stack (kernel B3)
-                    gate_x = layout_ops.force_default_layout(gate_x)
-                    upd_x = layout_ops.force_default_layout(upd_x)
+                    # one dense copy of each strided per-step stack (kernel
+                    # B3), the seeds and the batch as one axis of it
+                    gate_x = layout_ops.force_default_layout(gate_x.flatten(1, 2)).unflatten(1, gate_x.shape[1:3])
+                    upd_x = layout_ops.force_default_layout(upd_x.flatten(1, 2)).unflatten(1, upd_x.shape[1:3])
                 if self.fused_bptt and torch.is_grad_enabled():
-                    current = fused_atgru_layer(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
-                                                wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state)
+                    current = _FusedATGRULayer.apply(dtype, gate_x, upd_x, rg_x, ru_x, w_seq, supports,
+                                                     wg_h, wu_h, bg, bu, rg_h, ru_h, rg_b, ru_b, state)
                     continue
                 # no autograd, or plain autograd of the step loop (fused_bptt off)
                 for t in range(t_len):
@@ -679,13 +795,13 @@ class MultiATGCN(nn.Module):
                     states.append(state)
             else:
                 for t in range(t_len):  # plain GRU only (ref :187-192)
-                    z_r = torch.sigmoid(rg_x[t] + state @ rg_h + rg_b)
+                    z_r = torch.sigmoid(rg_x[t] + _seed_mm(state, rg_h) + rg_b[:, None, None])
                     z, r = torch.chunk(z_r, 2, dim=-1)
-                    hc = torch.tanh(ru_x[t] + (z * state) @ ru_h + ru_b)
+                    hc = torch.tanh(ru_x[t] + _seed_mm(z * state, ru_h) + ru_b[:, None, None])
                     state = r * state + (1.0 - r) * hc
                     states.append(state)
-            current = torch.stack(states)  # (T, B, N, H)
-        return current.permute(1, 0, 2, 3)
+            current = torch.stack(states)  # (T, S, B, N, H)
+        return current.permute(1, 2, 0, 3, 4)
 
     def _dropout(self, states, train: bool, generator: Optional[torch.Generator]):
         """Inverted dropout at ``dropout_rate`` in train mode (flax
@@ -701,17 +817,31 @@ class MultiATGCN(nn.Module):
         """``train`` turns dropout on (rate ``dropout_rate``, keep mask drawn
         from ``generator``, which lies on x's device), as the JAX module's
         ``train`` flag does."""
-        source = x[:, :, :, self.start_dim: self.end_dim]
+        return self.forward_seeds(self.seed_parameters(), x[None], train, [generator])[0]
+
+    def forward_seeds(self, params, x: torch.Tensor, train: bool = False, generators=None) -> torch.Tensor:
+        """The forward of S models of this architecture at once, the
+        counterpart of the JAX module's apply under ``jax.vmap``: `params`
+        maps every parameter name to its S values stacked (S, *shape), x is
+        (S, B, T, N, F) (each seed's own batch), ``generators`` the S dropout
+        generators; returns (S, B, Tout, N, output_dim). The graph buffers
+        are this module's, shared by the seeds."""
+        p = dict(params)
+        s = x.shape[0]
+        if "node_emb" not in p:  # node_specific_off: the frozen buffer
+            p["node_emb"] = self.node_emb.expand((s,) + self.node_emb.shape)
+        source = x[..., self.start_dim: self.end_dim]
         # without the period/trend heads (Tout < 6) only closeness is read
         total_len = (self.len_closeness + self.len_period + self.len_trend
                      if self.output_window >= 6 else self.len_closeness)
-        if source.shape[1] < total_len:
+        if source.shape[2] < total_len:
             raise ValueError("input has {} steps but the active temporal heads need {}".format(
-                source.shape[1], total_len))
+                source.shape[2], total_len))
 
         # multi-head temporal fusion (ref :366-393)
-        head_gate = torch.softmax(self.weight_tsg, dim=0)
-        fused = source.new_zeros((source.shape[0], HOURS_PER_BLOCK, self.num_nodes, self.output_dim))
+        head_gate = torch.softmax(p["weight_tsg"], dim=1)
+        batch = source.shape[1]
+        fused = source.new_zeros((s, batch, HOURS_PER_BLOCK, self.num_nodes, self.output_dim))
         groups = [(0, self.len_closeness)]
         if self.output_window >= 6:
             groups += [(self.len_closeness, self.len_period),
@@ -719,39 +849,42 @@ class MultiATGCN(nn.Module):
         head = 0
         for begin, length in groups:
             for _ in range(length // HOURS_PER_BLOCK):
-                block = source[:, begin: begin + HOURS_PER_BLOCK]
-                fused = fused + head_gate[head] * block * self.weight_ts[head]
+                block = source[:, :, begin: begin + HOURS_PER_BLOCK]
+                gate = head_gate[:, head].reshape(s, 1, 1, 1, 1)
+                fused = fused + gate * block * p["weight_ts.{}".format(head)]
                 begin += HOURS_PER_BLOCK
                 head += 1
 
         # re-append calendar and dynamic external features (ref :396-402)
         parts = [fused]
         if self.time_index_dim:
-            parts.append(x[:, : self.input_window, :, self.end_dim: self.end_dim + self.time_index_dim])
+            parts.append(x[:, :, : self.input_window, :, self.end_dim: self.end_dim + self.time_index_dim])
         if self.load_dynamic:
-            parts.append(x[:, : self.input_window, :, self.end_dim + self.time_index_dim:])
+            parts.append(x[:, :, : self.input_window, :, self.end_dim + self.time_index_dim:])
         enc_in = torch.cat(parts, dim=-1) if len(parts) > 1 else fused
 
-        batch = source.shape[0]
-        shape = (self.num_layers, batch, self.num_nodes, self.hidden_dim)
+        shape = (self.num_layers, s, batch, self.num_nodes, self.hidden_dim)
         if self.static_proj is not None:
-            emb = torch.relu(F.linear(self.static_proj, self.static_initial_gru.embd.weight,
-                                      self.static_initial_gru.embd.bias))  # (N, H)
-            init_state = emb[None, None].expand(shape)
+            emb = torch.relu(torch.baddbmm(p["static_initial_gru.embd.bias"][:, None],
+                                           self.static_proj.expand((s,) + self.static_proj.shape),
+                                           p["static_initial_gru.embd.weight"].transpose(1, 2)))  # (S, N, H)
+            init_state = emb[None, :, None].expand(shape)
         else:
             init_state = x.new_zeros(shape)
 
-        states = self._encoder(enc_in, init_state, self._build_supports())  # (B, T, N, H)
+        states = self._encoder(p, enc_in, init_state, self._build_supports(p))  # (S, B, T, N, H)
         if self.fnn_off:
-            states = states[:, -1:]
-        states = self._dropout(states, train, generator)
+            states = states[:, :, -1:]
+        if train and self.dropout_rate != 0.0:  # each seed's mask from its own generator
+            states = torch.stack([self._dropout(states[i], True, g) for i, g in enumerate(generators)])
 
         # conv output head as a (T*H -> Tout*out) contraction (ref :340-344,416-418)
-        b, t, n, h = states.shape
-        flat = states.permute(0, 2, 1, 3).reshape(b, n, t * h)
-        kernel = self.end_conv.weight.reshape(self.end_conv.weight.shape[0], t * h)
-        out = F.linear(flat, kernel, self.end_conv.bias)
-        return out.reshape(b, n, self.output_window, self.output_dim).permute(0, 2, 1, 3)
+        _, b, t, n, h = states.shape
+        flat = states.permute(0, 1, 3, 2, 4).reshape(s, b * n, t * h)
+        weight = p["end_conv.weight"]
+        kernel = weight.reshape(s, weight.shape[1], t * h)
+        out = torch.baddbmm(p["end_conv.bias"][:, None], flat, kernel.transpose(1, 2))
+        return out.reshape(s, b, n, self.output_window, self.output_dim).permute(0, 1, 3, 2, 4)
 
 
 def build_multi_atgcn(config, data_feature, device=None,

@@ -105,16 +105,25 @@ def explained_variance_score(preds, labels):
     return 1.0 - torch.var(labels - preds, correction=0) / torch.var(labels, correction=0)
 
 
-def make_loss_fn(model, scaler):
-    """A model's own training loss, for every model of the port (JAX
-    multi_atgcn.py:1036-1047, ref :422-427): masked MAE on the
+def make_pred_loss(model, scaler):
+    """A model's own training loss on a prediction, for every model of the
+    port (JAX multi_atgcn.py:1036-1047, ref :422-427): masked MAE on the
     inverse-transformed prediction and truth, null_val 0, the truth cut to
-    the model's target channels ``start_dim:end_dim``.
+    the model's target channels ``start_dim:end_dim``. ``pred_loss(pred, y)``."""
+
+    def pred_loss(pred, y):
+        y_true = y[..., model.start_dim: model.end_dim]
+        return masked_mae(scaler.inverse_transform(pred), scaler.inverse_transform(y_true), 0.0)
+
+    return pred_loss
+
+
+def make_loss_fn(model, scaler):
+    """The model's own training loss (``make_pred_loss``) on a batch,
     ``loss_fn(batch, train, generator)``: ``train`` turns dropout on."""
+    pred_loss = make_pred_loss(model, scaler)
 
     def loss_fn(batch, train: bool = True, generator=None):
-        pred = model(batch["X"], train=train, generator=generator)
-        y_true = batch["y"][..., model.start_dim: model.end_dim]
-        return masked_mae(scaler.inverse_transform(pred), scaler.inverse_transform(y_true), 0.0)
+        return pred_loss(model(batch["X"], train=train, generator=generator), batch["y"])
 
     return loss_fn

@@ -9,6 +9,7 @@ task/model/dataset/exp_id and exposes:
 Example:
     python -m multistgraph_tpu_torch.serve_model --dataset SYN_DC --exp_id 1 \\
         --compute_dtype bfloat16 --weight_stream_quant int8 --port 8800
+    python -m multistgraph_tpu_torch.serve_model --dataset SYN_DC --exp_id 1 --quantize int8
 """
 
 import argparse
@@ -28,14 +29,18 @@ def main(argv=None):
     parser.add_argument("--port", type=int, default=8800)
     parser.add_argument("--host", type=str, default="0.0.0.0")
     parser.add_argument("--max_serve_batch", type=int, default=64)
+    parser.add_argument("--quantize", choices=("int8", "bfloat16"), default=None,
+                        help="weight-only quantization: store the parameters int8 (about 4x "
+                             "smaller) or bfloat16 (2x), dequantized inside the predict forward")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; default CUDA (pass 'cpu' to run without a card)")
     add_general_args(parser)
     args = parser.parse_args(argv)
-    other_args = collect_other_args(args, exclude=("port", "host", "max_serve_batch", "device"))
+    other_args = collect_other_args(args, exclude=("port", "host", "max_serve_batch", "device", "quantize"))
     service = PredictService.from_experiment(
         args.task, args.model, args.dataset, args.config_file,
-        other_args=other_args, max_batch=args.max_serve_batch, device=args.device)
+        other_args=other_args, max_batch=args.max_serve_batch, device=args.device,
+        quantize=args.quantize)
     serve(service, port=args.port, host=args.host)
 
 

@@ -26,7 +26,12 @@ Usage:
     y = service.predict(x)                      # numpy in/out
     serve(service, port=8800)                   # blocking HTTP server
 
-The weight-only ``quantize=`` option of the JAX service is not ported yet.
+Weight-only quantization (``quantize='int8'|'bfloat16'``, ops/quantize.py):
+the service stores the model's parameters quantized, releases the module's
+own full-precision storage, and dequantizes them inside its forward (the
+one each bucket's CUDA graph captures) through
+``torch.func.functional_call``, as the JAX service dequantizes inside its
+jitted predict. The buffers (graph arrays) and activations are untouched.
 """
 
 import json
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from multistgraph_tpu_torch.executor.graphs import StepGraph, on_side_stream
+from multistgraph_tpu_torch.ops.quantize import dequantize_params, quantize_params, quantized_nbytes
 from multistgraph_tpu_torch.utils import resolve_device
 
 
@@ -45,9 +51,18 @@ class PredictService:
     """Wraps a model + scaler into a padded, bucketed predict call."""
 
     def __init__(self, model: torch.nn.Module, scaler, max_batch: int = 64,
-                 ct_visit_mstd=None, clip_negative: bool = True, device=None):
+                 ct_visit_mstd=None, clip_negative: bool = True, device=None, quantize: str = None):
+        """quantize: None | 'int8' | 'bfloat16', weight-only quantization of
+        the model's parameters (module docstring); with it the service owns
+        the model, whose own parameter storage it releases."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.quantize = quantize
+        self.params = {name: p.detach() for name, p in self.model.named_parameters()}
+        if quantize:
+            self.params = quantize_params(self.params, mode=quantize)
+            for p in self.model.parameters():
+                p.data = p.data.new_empty(0)
         self.scaler = scaler
         self.max_batch = max_batch
         self.clip_negative = clip_negative
@@ -66,7 +81,7 @@ class PredictService:
     # -------------------------------------------------------------- factory
     @classmethod
     def from_experiment(cls, task, model_name, dataset_name, config_file=None,
-                        other_args=None, max_batch: int = 64, device=None):
+                        other_args=None, max_batch: int = 64, device=None, quantize: str = None):
         """Rebuild config -> dataset -> model and load the weights from
         outputs/<exp_id>/model_cache/<model>_<dataset>.pt, a
         ``torch.save((state_dict, optimizer_state))`` tuple as the reference
@@ -88,7 +103,7 @@ class PredictService:
         model.load_state_dict(state_dict)
         return cls(model, feature.get("scaler"), max_batch=max_batch,
                    ct_visit_mstd=feature.get("ct_visit_mstd") if config.get("groupstd", False) else None,
-                   device=device)
+                   device=device, quantize=quantize)
 
     # -------------------------------------------------------------- predict
     def _bucket(self, n: int) -> int:
@@ -126,7 +141,11 @@ class PredictService:
         return out
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.scaler.inverse_transform(self.model(x))
+        if not self.quantize:
+            return self.scaler.inverse_transform(self.model(x))
+        # dequantized here, inside the forward a bucket's graph captures
+        full = dequantize_params(self.params)
+        return self.scaler.inverse_transform(torch.func.functional_call(self.model, full, (x,)))
 
     def _forward_bucket(self, bucket: int, x: torch.Tensor) -> torch.Tensor:
         """Inverse-transformed predictions for the padded request `x` (a CPU
@@ -150,8 +169,8 @@ class PredictService:
             "max_batch": self.max_batch,
             "device": self.device.type,
             "group_destandardize": self._group_mstd is not None,
-            "quantize": None,
-            "param_bytes": sum(p.numel() * p.element_size() for p in self.model.parameters()),
+            "quantize": self.quantize,
+            "param_bytes": quantized_nbytes(self.params),
         }
 
 

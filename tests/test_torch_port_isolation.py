@@ -8,6 +8,8 @@ executor, evaluator, losses, optimizers, pipeline, run_model and bench
 among them), writes a small synthetic dataset with the port's generator,
 serves one CPU predict through ``from_experiment``, then takes one int8
 training step through ``get_executor`` and evaluates the test split, and
+trains two seeds for one epoch as one widened step on a few of its batches
+(``parallel.multiseed``) and serves one int8 weight-only quantized predict,
 takes one SparseATGCN training step on the synthetic large-graph dataset,
 in the plain BSR form and in the band form, and runs the node-apply
 harness's numerics on the CPU at its documented reduced size
@@ -54,7 +56,8 @@ _SCRIPT = textwrap.dedent(r"""
                  "ops.spmm", "ops.band", "ops.hybrid", "models.sparse_atgcn", "data.large_graph",
                  "ops.node_dots", "ops.stream_read", "tools.timing", "tools.bench_node_dots",
                  "tools.bench_hbm_peak", "tools.bench_stream_rate", "ops.band_probe", "ops.precision",
-                 "tools.bench_large_graph", "tools.probe_band_stream"):
+                 "tools.bench_large_graph", "tools.probe_band_stream", "parallel.multiseed", "ops.quantize",
+                 "tools.multiseed_run", "run_model_parameter"):
         assert "multistgraph_tpu_torch." + name in sys.modules, name
 
     import numpy as np
@@ -93,6 +96,21 @@ _SCRIPT = textwrap.dedent(r"""
     assert torch.isfinite(loss), loss
     result = executor.evaluate(test)
     assert np.isfinite(result["masked_MAE"]).all(), result
+
+    from multistgraph_tpu_torch.data.loader import DeviceDataLoader
+    from multistgraph_tpu_torch.parallel.multiseed import train_multiseed
+    mcfg = load_config("traffic_state_pred", "MultiATGCN", "SYN",
+                       other_args=dict(args, exp_id="iso_ms", max_epoch=1, tensorboard=False))
+    mexec = get_executor(mcfg, get_model(mcfg, ds.get_data_feature(), device="cpu"), ds.get_data_feature(),
+                         device="cpu")
+    short = DeviceDataLoader(train.x[:8].numpy(), train.y[:8].numpy(), 4, True)
+    results = train_multiseed(mexec, short, DeviceDataLoader(test.x[:4].numpy(), test.y[:4].numpy(), 4, False),
+                              [0, 10], save=True)
+    assert [r.seed for r in results] == [0, 10] and all(os.path.exists(r.checkpoint) for r in results)
+    assert all(np.isfinite(r.history[0]["train_loss"]) for r in results), results
+    qservice = PredictService.from_experiment("traffic_state_pred", "MultiATGCN", "SYN", other_args=args,
+                                              device="cpu", quantize="int8")
+    assert np.isfinite(qservice.predict(test.x[:2].numpy())).all() and qservice.stats()["quantize"] == "int8"
 
     sargs = {"output_dir": os.path.join(work, "out"), "exp_id": "iso_sparse", "num_nodes": 200,
              "avg_degree": 8, "len_time": 40, "input_window": 4, "output_window": 2, "batch_size": 2,
