@@ -201,6 +201,22 @@ package's 1M configuration, at T=12 and batch 2, no adaptive view):
   * at 4,096 nodes, bf16 output, loss and gradients on the card against
     the CPU on planes and packed rows, failed by faults planted in B7, B8
     and B9 dX.
+Last, the model zoo (zoo_phase, then zoo_check_phase), each of the 12 ported names (RNN,
+LSTM, GRU, FNN, Seq2Seq, AGCRN, TGCN, STGCN, GWNET, DCRNN, ASTGCN, MSTGCN)
+built at its defaults through load_config, TrafficStatePointDataset,
+get_model and get_executor on the DC-237 series (24 in, 24 out, batch 16):
+  * training steps replayed from a CUDA graph bit for bit against eager
+    steps, validation likewise, an evaluation, PredictService's graphed
+    replies at buckets 1 and 16 bit for bit against eager ones, with the
+    eager and replayed ms per step, the request ms, one replay's device
+    time and the peak memory, beside the card's name and power limit;
+  * DCRNN's forced teacher-forcing ratios, 1 against teacher forcing and
+    0 against the autoregressive forward, bit for bit;
+  * the output, loss and gradients on the card against the CPU at seed 0's
+    weights, and a swapped pair of GRU gates planted in the GRU's card run
+    that must fail that hold;
+  * no kernel of the port launches (the zoo runs torch ops only), so the
+    kernels line has no zoo row.
 ptxas may serialize the wgmma of a kernel (C7520, C7515): the run fails
 where it does, but for the three kernels whose serialization is known and
 queued (band_dv_tc_kernel, band_slab_tc_kernel,
@@ -2163,18 +2179,12 @@ def band_phase(torch):
     return windows
 
 
-def band_check_phase(torch, label="band", bound_out=BOUND_BAND_OUT, bound_grad=BOUND_BAND_GRAD, **overrides):
-    """Card vs CPU at 4,096 nodes in the band form, on planes and on packed
-    rows, same configuration and weights: the model output, one step's loss
-    and every gradient; a fault planted in each band kernel of the path must
-    fail its check. `overrides` change the configuration (the bf16 phase's
-    compute_dtype and adpadj), `label` names the record."""
-    from unittest import mock
-
+def _band_check_forms(torch, label, overrides):
+    """The band check's models at 4,096 nodes: (feature, batch, the card
+    models by form, the CPU jobs by form for _cpu_runs)."""
     from multistgraph_tpu_torch.config import load_config
     from multistgraph_tpu_torch.data import get_dataset
     from multistgraph_tpu_torch.models import get_model
-    from multistgraph_tpu_torch.ops import band
 
     args = dict(_sparse_args(SP_CHECK_NODES, "chip_smoke_{}_check".format(label.replace(" ", "_"))),
                 graph_split="band", **overrides)
@@ -2182,8 +2192,7 @@ def band_check_phase(torch, label="band", bound_out=BOUND_BAND_OUT, bound_grad=B
     train, _, _ = dataset.get_data()
     feature = dataset.get_data_feature()
     batch = {"X": train.x[:SP_B], "y": train.y[:SP_B]}
-    scaler = feature["scaler"]
-    models, cpu_models, errs = {}, {}, {}
+    models, cpu_models = {}, {}
     for form, packed in (("planes", False), ("packed", True)):
         cfg = load_config(SP_TASK, SP_MODEL, SP_DATASET, other_args=dict(args, graph_band_packed=packed))
         cpu_model = get_model(cfg, feature, device="cpu")
@@ -2191,10 +2200,32 @@ def band_check_phase(torch, label="band", bound_out=BOUND_BAND_OUT, bound_grad=B
             cpu_model.load_state_dict(models["planes"].state_dict())
         card_model = get_model(cfg, feature)
         card_model.load_state_dict(cpu_model.state_dict())
-        models[form], cpu_models[form] = card_model, (cpu_model, scaler, batch)
-    timed_runs = _cpu_runs(torch, cpu_models)
+        models[form], cpu_models[form] = card_model, (cpu_model, feature["scaler"], batch)
+    return feature, batch, models, cpu_models
+
+
+def band_check_phase(torch, label="band", bound_out=BOUND_BAND_OUT, bound_grad=BOUND_BAND_GRAD, prepared=None,
+                     **overrides):
+    """Card vs CPU at 4,096 nodes in the band form, on planes and on packed
+    rows, same configuration and weights: the model output, one step's loss
+    and every gradient; a fault planted in each band kernel of the path must
+    fail its check. `overrides` change the configuration (the bf16 phase's
+    compute_dtype and adpadj), `label` names the record. `prepared`: the
+    forms of _band_check_forms with their CPU runs already taken, (forms,
+    timed runs), where a caller ran them beside its own."""
+    from unittest import mock
+
+    from multistgraph_tpu_torch.ops import band
+
+    if prepared is None:
+        forms = _band_check_forms(torch, label, overrides)
+        prepared = (forms[:3] + (None,), _cpu_runs(torch, forms[3]))
+        del forms   # the CPU models are done with
+    (feature, batch, models, _), timed_runs = prepared
+    scaler = feature["scaler"]
     cpu_runs = {form: run for form, (run, _) in timed_runs.items()}
-    del cpu_models
+    errs = {}
+    del prepared
     for form, card_model in models.items():
         out, grads = _sparse_run(torch, card_model, scaler, batch)
         errs[form] = {"output": _rel_err(out.numpy(), cpu_runs[form][0].numpy()),
@@ -2807,8 +2838,8 @@ def sparse_graph_phase(torch, handles):
     form, built here. For each: 3 replayed steps of ``train_epoch`` against
     3 eager steps from the same state, bit for bit where 5 eager re-runs
     from that state agree bit for bit, else within 2x their largest gap
-    (the atomic sums: the adaptive softmax's row sums, the tail's
-    index_add_, index_select's backward), by loss, parameters and Adam's
+    (the atomic sums: the tail's index_add_, index_select's backward on
+    hub and tail columns), by loss, parameters and Adam's
     state; the captured step's launches equal to the eager per-step
     counts; the median of 20
     replays beside the eager steps, with one replay's and one eager step's
@@ -2841,7 +2872,8 @@ def sparse_bf16_check_phase(torch, ty="bf16"):
     packed rows (band_check_phase, faults in B7, B8 and B9 dX). In f16 the
     tail form runs twice on the card: its index_add_ adds atomically in an
     order that changes between runs, and the two runs' difference is the
-    tail's share of its error."""
+    tail's share of its error. The CPU runs of all five forms (BSR, hub,
+    tail, band planes and packed rows) run at once, each in a thread."""
     from multistgraph_tpu_torch.config import load_config
     from multistgraph_tpu_torch.data import get_dataset
     from multistgraph_tpu_torch.models import get_model
@@ -2868,7 +2900,13 @@ def sparse_bf16_check_phase(torch, ty="bf16"):
         card_model = get_model(cfg, feature)
         card_model.load_state_dict(cpu_model.state_dict())
         forms[split] = (cpu_model, card_model, feature, {"X": train.x[:SP_B], "y": train.y[:SP_B]})
-    cpu_runs = _cpu_runs(torch, {split: (f[0], f[2]["scaler"], f[3]) for split, f in forms.items()})
+    # the band form's CPU runs beside these: every CPU run of the check at once
+    band_label, band_overrides = "band {} adaptive".format(ty), dict(compute_dtype=name, adpadj="unidirection")
+    band_forms = _band_check_forms(torch, band_label, band_overrides)
+    cpu_runs = _cpu_runs(torch, dict({split: (f[0], f[2]["scaler"], f[3]) for split, f in forms.items()},
+                                     **{"band " + form: job for form, job in band_forms[3].items()}))
+    band_runs = {form: cpu_runs.pop("band " + form) for form in band_forms[3]}
+    band_forms = band_forms[:3] + (None,)   # the CPU models are done with
     for split, (cpu_model, card_model, feature, batch) in forms.items():
         scaler = feature["scaler"]
         (cpu_out, cpu_grads), cpu_s[split] = cpu_runs[split]
@@ -2901,8 +2939,8 @@ def sparse_bf16_check_phase(torch, ty="bf16"):
     for fault, c in controls.items():
         if not (c["output"] > bound_out or c["gradients"]["max"] > bound_grad):
             raise AssertionError("{} passes both {} checks ({})".format(fault, ty, c))
-    band = band_check_phase(torch, label="band {} adaptive".format(ty), bound_out=bound_out, bound_grad=bound_grad,
-                            compute_dtype=name, adpadj="unidirection")
+    band = band_check_phase(torch, label=band_label, bound_out=bound_out, bound_grad=bound_grad,
+                            prepared=(band_forms, band_runs), **band_overrides)
     return errs, controls, band
 
 
@@ -4363,6 +4401,281 @@ def multiseed_phase(torch, feature, state_dict, loaders):
     say(json.dumps({"multiseed phase launches": windows}))
     return lines, windows
 
+# ---------------------------------------------------------------- the zoo
+
+ZOO_STEPS = 5            # the graphed executor's first steps: 2 eager warm-ups, then 3 replays
+ZOO_EAGER_TIMED = 5      # eager steps timed after the check, beside the 3 held ones
+ZOO_VAL_HELD = 8         # validation batches held bit for bit against eager ones
+ZOO_TIMED = 10           # replays timed, and graphed requests per bucket
+ZOO_BUCKETS = (1, B)     # the service's buckets
+ZOO_CHECK_BATCH = 4      # card vs CPU: the first 4 samples of the first training batch
+ZOO_FAULT = "GRU"        # its card run swaps the GRU's z and r halves: the hold must fail
+# Card vs CPU in f32 (TF32 off), the relative max error (over the CPU's
+# max |value|) of the model-space output and loss, and of each gradient,
+# at the same weights (seed 0) and batch. Read on an H100: outputs at most
+# 6.7e-7 and losses 1.4e-7 in every family; gradients at most 1.0e-6 but
+# AGCRN's (7.7e-6, its weight pools) and ASTGCN's (8.9e-4, b1_tat_u1). Those
+# two lose as much to f32 rounding on the CPU alone ("cpu_f32_vs_f64" of
+# zoo_check_phase: 5.9e-6 and 3.2e-3; the attention's softmaxes cancel in
+# ASTGCN's, and every block-0 gradient passes through block 1's). Each
+# bound is 5-8x its reading; the planted fault reads 7e-2.
+BOUND_ZOO_OUT = 5e-6
+BOUND_ZOO_GRAD = 5e-6
+BOUND_ZOO_GRAD_OF = {"AGCRN": 4e-5, "ASTGCN": 5e-3}
+
+
+def _zoo_args(raw_dir, name):
+    """The DC-237 windows of bench.py's series for the zoo: 24 steps in and
+    out, batch 16, the time of day as a second feature; every model key
+    at the family's defaults."""
+    return {"data_dir": raw_dir, "output_dir": os.path.join(WORK, "outputs"), "exp_id": "zoo_" + name,
+            "cache_dataset": False, "input_window": T, "output_window": T, "batch_size": B,
+            "load_external": True, "load_dynamic": False, "add_time_in_day": True,
+            "train_rate": 0.7, "eval_rate": 0.15, "seed": 0, "tensorboard": False}
+
+
+def _zoo_run(torch, model, scaler, x, y):
+    """The model-space output on x (eval mode), and the model's own loss
+    (masked MAE, executor's default) and every gradient of it, on the CPU."""
+    from multistgraph_tpu_torch.ops.losses import make_pred_loss
+
+    model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        out = model(x)
+    loss = make_pred_loss(model, scaler)(model(x), y)
+    loss.backward()
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+             for n, p in model.named_parameters()}
+    return out.cpu(), loss.detach().cpu(), grads
+
+
+def _dcrnn_teacher_forced(torch, model, x, targets):
+    """DCRNN's rollout with the truth of step t - 1 as step t's input (the
+    GO symbol at step 0), written out from the model's cells."""
+    b, _, n, _ = x.shape
+    states = [x.new_zeros((b, n, model.hidden_dim)) for _ in range(model.num_layers)]
+    for inp in x[..., : model.input_dim].permute(1, 0, 2, 3):
+        states, _ = model._stack("e", states, inp)
+    truth = targets[..., : model.output_dim]
+    inputs = torch.cat([torch.zeros_like(truth[:, :1]), truth[:, :-1]], dim=1)
+    ys = []
+    for step in range(model.output_window):
+        states, top = model._stack("d", states, inputs[:, step])
+        ys.append(model.linear(top, "proj"))
+    return torch.stack(ys, dim=1)
+
+
+def _zoo_dcrnn_ratios(torch, model, x, y):
+    """A forced ratio of 1 against teacher forcing and of 0 against the
+    autoregressive forward, bit for bit, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        free = model(x)
+        one = model(x, train=True, generator=g, targets=y, tf_ratio=torch.tensor(1.0, device="cuda"))
+        zero = model(x, train=True, generator=g, targets=y, tf_ratio=torch.tensor(0.0, device="cuda"))
+        forced = _dcrnn_teacher_forced(torch, model, x, y)
+    if not torch.equal(one, forced) or not torch.equal(zero, free) or torch.equal(one, free):
+        raise AssertionError("DCRNN: tf_ratio 1 / 0 differ from teacher forcing / the autoregressive forward")
+    return {"ratio_1_is_teacher_forcing": True, "ratio_0_is_autoregressive": True,
+            "teacher_forcing_moves_output": float((one - free).abs().max())}
+
+
+def zoo_phase(torch):
+    """The model zoo's ported families on the card, each built through
+    load_config -> TrafficStatePointDataset -> get_model -> get_executor at
+    its defaults on bench.py's DC-237 series (24 in, 24 out, batch 16):
+    5 training steps of the graphed executor (2 eager, 3 replays) held bit
+    for bit against 5 eager steps (mean loss, parameters, Adam state),
+    graphed validation over the first 8 batches held bit for bit against
+    eager and then over the split, 10 timed replays beside 8 eager steps,
+    one replay's device time, an evaluation, PredictService at buckets 1
+    and 16 (graphed replies against eager ones, bit for bit, and timed),
+    the peak memory above what the family found allocated; DCRNN's forced
+    ratios. The zoo launches no kernel of
+    the port (every launch count stays 0). Returns, per family, what
+    zoo_check_phase holds against the CPU."""
+    import gc
+
+    import numpy as np
+
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.config.defaults import ZOO_MODELS
+    from multistgraph_tpu_torch.data import get_dataset
+    from multistgraph_tpu_torch.data.dataset import TrafficStatePointDataset
+    from multistgraph_tpu_torch.executor import get_executor
+    from multistgraph_tpu_torch.executor.executor import GRAPH_WARMUP_STEPS
+    from multistgraph_tpu_torch.executor.optimizers import set_learning_rate
+    from multistgraph_tpu_torch.models import get_model
+    from multistgraph_tpu_torch.serving import PredictService
+    from multistgraph_tpu_torch.tools.timing import card
+
+    raw = os.path.join(WORK, "raw_data")
+    _reset_counts()
+    shared, records, checks = None, {}, {}
+    for name in ZOO_MODELS:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()   # what earlier phases (and the windows) still hold
+        t_family = time.perf_counter()
+        cfg = load_config("traffic_state_pred", name, "SYN_DC237", other_args=_zoo_args(raw, name))
+        ds = get_dataset(cfg, device="cuda")
+        if not isinstance(ds, TrafficStatePointDataset):
+            raise AssertionError("{}: dataset {}".format(name, type(ds).__name__))
+        if shared is None:   # one set of windows: every family's data keys are the same
+            shared = (ds.cache_file_name, ds.get_data(), ds.get_data_feature())
+        elif ds.cache_file_name != shared[0]:
+            raise AssertionError("{}'s windows are not the first family's".format(name))
+        _, (train, val, test), feature = shared
+        state0 = get_model(cfg, feature, device="cpu").state_dict()   # seed 0's weights
+        graphed, eager = [get_executor(cfg, get_model(cfg, feature, device="cuda"), feature, device="cuda")
+                          for _ in range(2)]
+        for ex in (graphed, eager):
+            ex.model.load_state_dict(state0)
+        if not graphed.graphs_train:
+            raise AssertionError("{}: the executor does not capture its train step".format(name))
+        lr = cfg.get("learning_rate")
+        first = _First(train, ZOO_STEPS)
+        got = graphed.train_epoch(first, lr)
+        set_learning_rate(eager.optimizer, lr)
+        losses = []
+        rows = np.concatenate([first.epoch_permutation(), train.epoch_permutation()[:ZOO_EAGER_TIMED]])
+
+        def eager_step(i):
+            eager.before_train_step()
+            losses.append(eager.train_step(eager.batch(train, rows[i])))
+
+        eager_ms = _ms_each(torch, eager_step, ZOO_STEPS)[GRAPH_WARMUP_STEPS:]
+        want = float(torch.stack(losses).mean())
+        if got != want or not _same_state(torch, graphed, eager):
+            raise AssertionError("{}: replayed steps differ from eager ones (mean loss {} vs {})".format(
+                name, got, want))
+        # validation: the capture and replays over the first batches against
+        # eager ones, then the whole split on the same graph
+        head = _First(val, ZOO_VAL_HELD, ordered=True)
+        val_graphed, val_eager = graphed._valid_epoch(head), _eager_validation(torch, eager, head)
+        if val_graphed != val_eager:
+            raise AssertionError("{}: graphed validation {} differs from eager {}".format(
+                name, val_graphed, val_eager))
+        val_graphed = graphed._valid_epoch(val)
+        eager_ms += _ms_each(torch, lambda i: eager_step(ZOO_STEPS + i), ZOO_EAGER_TIMED)
+        graph = graphed.graphs["train"]
+        perm = torch.as_tensor(train.epoch_permutation(), device="cuda")
+
+        def replay(i):
+            graphed.before_train_step()
+            graph.run(idx=perm[i % len(perm)])
+
+        replay_ms = _ms_each(torch, replay, ZOO_TIMED)
+        ms, ms_eager = statistics.median(replay_ms), statistics.median(eager_ms)
+        dev = _device_time(torch, lambda: replay(0), ms)
+        result = graphed.evaluate(test)
+        if not np.isfinite(result["masked_MAE"]).all():
+            raise AssertionError("{}: evaluation {}".format(name, result["masked_MAE"]))
+
+        svc = PredictService(graphed.model, feature["scaler"], max_batch=B)
+        ref = PredictService(graphed.model, feature["scaler"], max_batch=B)
+        ref.graphed = False
+        x_all = val.x[:B].cpu().numpy()
+        latency = {}
+        for batch in ZOO_BUCKETS:
+            want_reply = ref.predict(x_all[:batch])
+            for _ in range(2):   # the capture, then a replay
+                if not np.array_equal(svc.predict(x_all[:batch]), want_reply):
+                    raise AssertionError("{}: graphed reply at bucket {} differs from the eager one".format(
+                        name, batch))
+            latency[str(batch)] = _bucket_ms(svc, x_all[:batch], ZOO_TIMED)
+        if svc.stats()["compiled_buckets"] != list(ZOO_BUCKETS) or not np.isfinite(want_reply).all():
+            raise AssertionError("{}: service {}".format(name, svc.stats()))
+
+        idx = torch.as_tensor(train.ordered_permutation()[0][:ZOO_CHECK_BATCH], device="cuda")
+        x, y = train.x.index_select(0, idx), train.y.index_select(0, idx)
+        check_model = get_model(cfg, feature, device="cuda")
+        check_model.load_state_dict(state0)
+        card_run = _zoo_run(torch, check_model, feature["scaler"], x, y)
+        record = {"eager_ms_per_step": ms_eager, "eager_step_ms": eager_ms,
+                  "replayed_ms_per_step": ms, "replay_step_ms": replay_ms, "graph_speedup": ms_eager / ms,
+                  "replay_device_busy_ms": dev["device_busy_ms"], "replay_device_idle_share": dev["device_idle_share"],
+                  "replay_device_ops": dev["device_ops"], "ms_per_request_by_bucket": latency,
+                  "val_loss": val_graphed, "test_masked_MAE_h1": float(result["masked_MAE"][0]),
+                  "params": sum(p.numel() for p in check_model.parameters())}
+        if name == "DCRNN":
+            record["scheduled_sampling"] = _zoo_dcrnn_ratios(torch, check_model, x, y)
+        record["peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        record["seconds"] = time.perf_counter() - t_family
+        say(json.dumps({"zoo": name, **record}))
+        records[name] = record
+        checks[name] = (cfg, feature, state0, (x.cpu(), y.cpu()), card_run)
+        if name == ZOO_FAULT:
+            from unittest import mock
+
+            from multistgraph_tpu_torch.models import baselines
+
+            def swapped(hidden, x_t, wk, wb, _step=baselines.gru_step):
+                h = hidden.shape[-1]   # z and r trade places: the gate columns' halves swapped
+                return _step(hidden, x_t, torch.cat([wk[:, h: 2 * h], wk[:, :h], wk[:, 2 * h:]], dim=1),
+                             torch.cat([wb[h: 2 * h], wb[:h], wb[2 * h:]]))
+
+            with mock.patch.object(baselines, "gru_step", swapped):
+                checks[name] += (_zoo_run(torch, check_model, feature["scaler"], x, y),)
+        del graphed, eager, svc, ref, graph, check_model
+        gc.collect()
+        torch.cuda.empty_cache()
+    launched = {k: v for k, v in _read_counts().items() if v}
+    say(json.dumps({"zoo kernels": "none: the zoo's families run torch ops only (no Pallas kernel on their "
+                                   "JAX path either), so the kernels line holds no zoo row",
+                    "port kernel launches in zoo_phase": launched}))
+    if launched:
+        raise AssertionError("the zoo launched kernels of the port: {}".format(launched))
+    summary = {n: {"eager_ms": r["eager_ms_per_step"], "graphed_ms": r["replayed_ms_per_step"],
+                   "request_ms": r["ms_per_request_by_bucket"], "peak_gb": r["peak_gb"]} for n, r in records.items()}
+    say(json.dumps({"zoo on the card": summary, "card": card()}))
+    return checks
+
+
+def zoo_check_phase(torch, checks):
+    """Each family's model-space output, loss and gradients on the card
+    against the port on the CPU, at the same weights (seed 0) and batch (4
+    samples), f32 (TF32 off) within BOUND_ZOO_OUT and the family's
+    gradient bound; the fault planted in ZOO_FAULT's card run must fail
+    the hold."""
+    from multistgraph_tpu_torch.models import get_model
+
+    def rel(a, ref):
+        e = float((a - ref).abs().max() / ref.abs().max())
+        return e if math.isfinite(e) else float("inf")
+
+    def errs(name, card_run, cpu_run):
+        """The errors, and the largest of them over its bound."""
+        grads = {n: rel(card_run[2][n], g) for n, g in cpu_run[2].items() if g.abs().max() > 0}
+        worst = max(grads, key=grads.get)
+        e = {"out": rel(card_run[0], cpu_run[0]), "loss": rel(card_run[1], cpu_run[1]),
+             "grad": grads[worst], "worst_param": worst}
+        e["of_bound"] = max(max(e["out"], e["loss"]) / BOUND_ZOO_OUT,
+                            grads[worst] / BOUND_ZOO_GRAD_OF.get(name, BOUND_ZOO_GRAD))
+        return e
+
+    readings, failed = {}, []
+    for name, (cfg, feature, state0, (x, y), card_run, *fault) in checks.items():
+        t0 = time.perf_counter()
+        model = get_model(cfg, feature, device="cpu")
+        model.load_state_dict(state0)
+        cpu_run = _zoo_run(torch, model, feature["scaler"], x, y)
+        readings[name] = dict(errs(name, card_run, cpu_run), cpu_s=time.perf_counter() - t0)
+        if name in BOUND_ZOO_GRAD_OF:
+            # what f32 rounding alone costs these gradients: the CPU's f32 against its f64
+            exact = _zoo_run(torch, model.double(), feature["scaler"], x.double(), y.double())
+            readings[name]["cpu_f32_vs_f64"] = errs(name, cpu_run, exact)
+        if readings[name]["of_bound"] > 1:
+            failed.append("{}: card vs CPU over the bounds".format(name))
+        if fault:
+            readings[name + " (planted fault)"] = errs(name, fault[0], cpu_run)
+            if readings[name + " (planted fault)"]["of_bound"] <= 1:
+                failed.append("{}: the planted fault passed the hold".format(name))
+    say(json.dumps({"zoo card vs cpu": readings, "bounds": {"out": BOUND_ZOO_OUT, "grad": BOUND_ZOO_GRAD,
+                                                            **BOUND_ZOO_GRAD_OF}}))
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 
 def main():
     import torch
@@ -4451,6 +4764,8 @@ def main():
     run("sparse f16 check", sparse_bf16_check_phase, "f16")
     harness_lines, windows["node harness"] = run("node harness", node_harness_phase)
     lines += harness_lines
+    # the zoo last: every earlier phase runs as it ran before the zoo came
+    run("zoo check", zoo_check_phase, run("zoo", zoo_phase))
     say(json.dumps({"phase_seconds": phase_s}))
 
     kernels = []

@@ -1,10 +1,14 @@
 """Default configuration values for the port's slice, layered like the JAX package.
 
 A copy of the part of multistgraph_tpu/config/defaults.py that the port's
-two paths read: ``traffic_state_pred/MultiATGCN`` -> ``MTHDataset`` and
-``traffic_state_pred/SparseATGCN`` -> ``SyntheticLargeGraphDataset``, with
-their task bindings, model and data defaults, and the executor and
-evaluator defaults, which also merge into a run's config.
+paths read: ``traffic_state_pred/MultiATGCN`` -> ``MTHDataset``,
+``traffic_state_pred/SparseATGCN`` -> ``SyntheticLargeGraphDataset`` and
+the ported zoo families (RNN with its LSTM and GRU aliases, FNN, Seq2Seq,
+AGCRN, TGCN, STGCN, GWNET, DCRNN, ASTGCN, MSTGCN) ->
+``TrafficStatePointDataset``, with their task bindings, model and data
+defaults, and the executor and evaluator defaults, which also merge into a
+run's config. The zoo families still to port stay out of ``allowed_model``,
+so asking for one fails in the parser.
 Values reproduce the reference defaults
 (ref: libcity/config/model/traffic_state_pred/MultiATGCN.json:1-31,
  libcity/config/data/MTHDataset.json:1-21,
@@ -12,9 +16,13 @@ Values reproduce the reference defaults
  libcity/config/evaluator/TrafficStateEvaluator.json:1-5).
 """
 
+# the model zoo's families ported so far, as the task registry names them
+ZOO_MODELS = ("RNN", "LSTM", "GRU", "FNN", "Seq2Seq", "AGCRN", "TGCN", "STGCN", "GWNET", "DCRNN",
+              "ASTGCN", "MSTGCN")
+
 TASK_CONFIG = {
     "traffic_state_pred": {
-        "allowed_model": ["MultiATGCN", "SparseATGCN"],
+        "allowed_model": ["MultiATGCN", "SparseATGCN"] + list(ZOO_MODELS),
         "models": {
             "MultiATGCN": {
                 "dataset_class": "MTHDataset",
@@ -26,6 +34,13 @@ TASK_CONFIG = {
                 "executor": "TrafficStateExecutor",
                 "evaluator": "TrafficStateEvaluator",
             },
+            # the comparison set ported so far (LSTM and GRU alias RNN
+            # through rnn_type, config/parser.py)
+            **{name: {
+                "dataset_class": "TrafficStatePointDataset",
+                "executor": "TrafficStateExecutor",
+                "evaluator": "TrafficStateEvaluator",
+            } for name in ZOO_MODELS},
         },
     },
 }
@@ -75,6 +90,30 @@ MODEL_DEFAULTS = {
     },
 }
 
+_ZOO_COMMON = {
+    "use_3tu": False, "batch_size": 16, "scaler": "standard",
+    "ext_scaler": "none", "learner": "adam", "learning_rate": 0.003,
+    "clip_grad_norm": True, "max_grad_norm": 5,
+}
+
+# the zoo's defaults, value for value those of the JAX package
+MODEL_DEFAULTS.update({
+    "traffic_state_pred/RNN": {"rnn_units": 64, "num_layers": 1, "rnn_type": "GRU", **_ZOO_COMMON},
+    "traffic_state_pred/FNN": {"rnn_units": 64, "num_layers": 2, **_ZOO_COMMON},
+    "traffic_state_pred/Seq2Seq": {"rnn_units": 64, **_ZOO_COMMON},
+    "traffic_state_pred/AGCRN": {"rnn_units": 64, "num_layers": 2, "embed_dim_node": 10, "cheb_order": 2,
+                                 **_ZOO_COMMON},
+    "traffic_state_pred/TGCN": {"rnn_units": 64, **_ZOO_COMMON},
+    "traffic_state_pred/STGCN": {"Ks": 3, "Kt": 3, "dropout": 0.0, **_ZOO_COMMON},
+    "traffic_state_pred/DCRNN": {"rnn_units": 64, "num_rnn_layers": 2, "max_diffusion_step": 2,
+                                 "filter_type": "dual_random_walk", "cl_decay_steps": 2000, **_ZOO_COMMON},
+    "traffic_state_pred/ASTGCN": {"nb_block": 2, "nb_filter": 64, "cheb_order": 3, **_ZOO_COMMON},
+    "traffic_state_pred/MSTGCN": {"nb_block": 2, "nb_filter": 64, "cheb_order": 3, **_ZOO_COMMON},
+    "traffic_state_pred/GWNET": {"residual_channels": 32, "dilation_channels": 32, "skip_channels": 256,
+                                 "end_channels": 512, "blocks": 4, "layers": 2, "diffusion_order": 2,
+                                 "adpadj": "adaptive", "embed_dim_adj": 10, "dropout": 0.3, **_ZOO_COMMON},
+})
+
 DATA_DEFAULTS = {
     "SyntheticLargeGraphDataset": {
         "num_nodes": 4096,
@@ -112,6 +151,23 @@ DATA_DEFAULTS = {
         "len_trend": 2,
         "interval_period": 1,
         "interval_trend": 7,
+    },
+    # plain sliding windows (use_3tu=False), the zoo's dataset
+    "TrafficStatePointDataset": {
+        "batch_size": 64,
+        "cache_dataset": True,
+        "num_workers": 0,
+        "pad_with_last_sample": True,
+        "train_rate": 0.7,
+        "eval_rate": 0.1,
+        "scaler": "standard",
+        "load_external": False,
+        "normal_external": False,
+        "ext_scaler": "none",
+        "input_window": 12,
+        "output_window": 12,
+        "add_time_in_day": False,
+        "add_day_in_week": False,
     },
 }
 

@@ -102,6 +102,11 @@ def load_config(
     bindings = task_config["models"][model]
     for key in ("dataset_class", "executor", "evaluator"):
         config.setdefault(key, bindings[key])
+    # LSTM, GRU and RNN are one model class told apart by rnn_type
+    # (ref: libcity/config/config_parser.py:90-93)
+    if config["model"].upper() in ("LSTM", "GRU", "RNN"):
+        config.setdefault("rnn_type", config["model"])
+        config["model"] = "RNN"
 
     model_key = "{}/{}".format(task, config["model"])
     for table, key in (

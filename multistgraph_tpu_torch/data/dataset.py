@@ -232,6 +232,13 @@ class TrafficStateDataset:
         }
 
 
+class TrafficStatePointDataset(TrafficStateDataset):
+    """The zoo's dataset: plain sliding windows with ``use_3tu=False``
+    truncation, the base class's (JAX dataset.py:272-273). Its split cache
+    is the base class's ``torch_point_`` file, apart from MTHDataset's
+    ``torch_mth_`` one."""
+
+
 class MTHDataset(TrafficStateDataset):
     """Multi-temporal-head dataset: closeness/period/trend strided sampling."""
 
@@ -286,6 +293,7 @@ def _large_graph_dataset(config, device=None):
 
 DATASET_REGISTRY = {
     "TrafficStateDataset": TrafficStateDataset,
+    "TrafficStatePointDataset": TrafficStatePointDataset,
     "MTHDataset": MTHDataset,
     "SyntheticLargeGraphDataset": _large_graph_dataset,
 }

@@ -36,6 +36,16 @@ epoch scan, the validation and prediction scans; executor.py:159-164):
   * dropout draws from a ``torch.Generator`` that the executor owns,
     seeded from ``config['seed']``, registered with the train graph, so a
     replay draws what the eager step would;
+  * scheduled sampling (a model with ``cl_decay_steps > 0``: DCRNN), the
+    counterpart of JAX's ``training_apply_kwargs`` and ``_tf_ratio``
+    (multi_atgcn.py:1018-1033, executor.py:223-230): a train step hands
+    the model the batch's targets (``start_dim:end_dim``) and the
+    teacher-forcing ratio cl/(cl + exp(i/cl)) at global step
+    i = epoch * batches + batch, computed on the host in f32
+    (``teacher_forcing_ratio``) and written before each step into a device
+    scalar (``tf_ratio``) that the eager step and the captured one read;
+    the model draws its coins from the dropout generator. Validation and
+    prediction roll out autoregressively;
   * ``profile_dir`` (and ``profile_epoch``, default 1) writes a
     ``torch.profiler`` trace of that epoch's train and validation phases
     (CPU activity, and CUDA activity on the card) to
@@ -111,17 +121,26 @@ class StepLoops:
     ``graphs_forward``, ``graphs_train``, ``capture_rule``, ``graphs``,
     ``_warm_steps``, ``_side_stream`` and ``generators`` (the dropout
     generators its train step draws from), and defines ``batch(loader,
-    idx)`` and ``train_step(batch)``."""
+    idx)`` and ``train_step(batch)``; ``before_train_step()`` refills what a
+    step reads besides its batch."""
+
+    def before_train_step(self) -> None:
+        """Called before each train step, eager or replayed."""
 
     def train_steps(self, loader, perm, rate) -> torch.Tensor:
         """One train step per row of `perm` (the sample indices of one step
         each), the losses stacked on the device. `rate` keys the captured
         step where the learner bakes its rate into it."""
         if not self.graphs_train:
-            return torch.stack([self.train_step(self.batch(loader, idx)) for idx in perm])
+            losses = []
+            for idx in perm:
+                self.before_train_step()
+                losses.append(self.train_step(self.batch(loader, idx)))
+            return torch.stack(losses)
         perm = torch.as_tensor(perm, device=self.device)  # the epoch's one upload
         out = None
         for i in range(len(perm)):
+            self.before_train_step()
             graph = self._train_graph(loader, rate, perm.shape[1:])
             if graph is None:
                 loss = on_side_stream(lambda: self.train_step(self.batch(loader, perm[i])), self._side_stream)
@@ -233,6 +252,13 @@ class TrafficStateExecutor(StepLoops):
 
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(int(config.get("seed", 0)))
         self.generators = (self.dropout_generator,)
+        # scheduled sampling (module docstring): the global step and the
+        # device scalar of its teacher-forcing ratio, which every step reads
+        self.cl_decay_steps = int(getattr(model, "cl_decay_steps", 0) or 0)
+        self.global_step = 0
+        self.tf_ratio = None
+        if self.cl_decay_steps > 0:
+            self.tf_ratio = torch.tensor(float(teacher_forcing_ratio(self.cl_decay_steps, 0)), device=self.device)
         num_params = 0
         for name, p in model.named_parameters():
             self._logger.info("%s\t%s", name, tuple(p.shape))
@@ -278,8 +304,21 @@ class TrafficStateExecutor(StepLoops):
         return pred_loss
 
     def loss_fn(self, batch, train: bool = True, generator=None) -> torch.Tensor:
-        """The train loss of the model on `batch` (``train`` turns dropout on)."""
-        return self.pred_loss(self.model(batch["X"], train=train, generator=generator), batch["y"])
+        """The train loss of the model on `batch` (``train`` turns dropout on,
+        and with a generator scheduled sampling, where the model has it)."""
+        extra = {}
+        if train and generator is not None and self.tf_ratio is not None:
+            extra = {"targets": batch["y"][..., self.model.start_dim: self.model.end_dim],
+                     "tf_ratio": self.tf_ratio}
+        return self.pred_loss(self.model(batch["X"], train=train, generator=generator, **extra), batch["y"])
+
+    def before_train_step(self) -> None:
+        """Write the teacher-forcing ratio of the coming step into the device
+        scalar the step reads (a fill queued on the stream, no sync), and
+        count the step."""
+        if self.tf_ratio is not None:
+            self.tf_ratio.fill_(float(teacher_forcing_ratio(self.cl_decay_steps, self.global_step)))
+        self.global_step += 1
 
     # ------------------------------------------------------------- train step
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -345,6 +384,7 @@ class TrafficStateExecutor(StepLoops):
                 f.write("epoch,train_loss,val_loss,lr,seconds\n")
 
         for epoch_idx in range(self._epoch_num, self.epochs):
+            self.global_step = epoch_idx * len(train_dataloader)
             with self._profiled(epoch_idx):
                 start_time = time.time()
                 lr = (self.lr_scheduler.lr_for_epoch(epoch_idx) if self.lr_scheduler is not None
@@ -517,6 +557,14 @@ class TrafficStateExecutor(StepLoops):
         load_optimizer_state(self.optimizer, blob["optimizer"])
         self.drop_graphs()
         self._logger.info("Loaded model at %d", epoch)
+
+
+def teacher_forcing_ratio(cl_decay_steps, steps):
+    """Scheduled sampling's teacher-forcing ratio cl/(cl + exp(i/cl)) at
+    global step(s) i (the DCRNN paper's eq. 9), in f32 as the JAX executor
+    computes it; numpy's exp and XLA's may differ in the last bit."""
+    cl = np.float32(cl_decay_steps)
+    return cl / (cl + np.exp(np.asarray(steps, np.float32) / cl))
 
 
 def _same_key(a, b) -> bool:

@@ -106,6 +106,8 @@ class SparseATGCN(nn.Module):
     # read by the executor and the service: they record its steps as CUDA
     # graphs on the card (module docstring)
     graph_safe = True
+    # read by utils/jax_import.py: the parameters carry the JAX names
+    jax_names = True
 
     def __init__(self, num_nodes: int, output_window: int, output_dim: int, hidden_dim: int,
                  num_layers: int, embed_dim_adj: int, supports=(), adaptive_pattern=None,
@@ -238,9 +240,9 @@ class SparseATGCN(nn.Module):
                             transpose=(self.adaptive_row_ptr_t, self._schedule("adaptive_schedule_t")))
         nb = self.num_nodes // self.block
         if self.adaptive_softmax == "dense_corrected":
-            vals, background = sparse_row_softmax_dense_corrected(scores, row, nb, self.num_nodes)
+            vals, background = sparse_row_softmax_dense_corrected(scores, row, nb, self.num_nodes, row_ptr)
             return self._cast(vals), self._cast(background)
-        return self._cast(sparse_row_softmax(scores, row, nb)), None
+        return self._cast(sparse_row_softmax(scores, row, nb, row_ptr)), None
 
     def _precompute_transposes(self, adaptive):
         """Block transposes of every loop-invariant operand, once per forward

@@ -503,29 +503,66 @@ def sddmm_relu(e1, e2, row_of, col_of, block: int = BLOCK, row_ptr=None, schedul
 
 
 # ---------------------------------------------------------------- softmaxes
-def _row_sums(per_block_rowsum, row_of, num_row_blocks):
-    """segment_sum over the tiles of each row block: (num_row_blocks, block)."""
+def _segment_sum(x, row_ptr):
+    """Sum of each row block's tiles, row_ptr[r] to row_ptr[r + 1], in
+    order: (num_row_blocks, ...). One thread sums a segment, so repeats are
+    bit-identical, where index_add's atomics add in the order the threads
+    arrive (``unsafe``: row_ptr is the pattern's own, no checks that sync)."""
+    return torch.segment_reduce(x, "sum", offsets=row_ptr.long(), axis=0, unsafe=True)
+
+
+class _RowGather(torch.autograd.Function):
+    """totals[row_of] for sorted tiles, whose backward sums each row's tiles
+    by ``_segment_sum`` instead of index_select's atomic index_add."""
+
+    @staticmethod
+    def forward(ctx, totals, row_of, row_ptr):
+        ctx.save_for_backward(row_ptr)
+        return totals.index_select(0, row_of)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (row_ptr,) = ctx.saved_tensors
+        return _segment_sum(grad, row_ptr), None, None
+
+
+def _row_sums(per_block_rowsum, row_of, num_row_blocks, row_ptr=None):
+    """segment_sum over the tiles of each row block: (num_row_blocks, block).
+    With the pattern's row offsets (its tiles sorted by row), in a fixed
+    order forward and backward; else by index_add."""
+    if row_ptr is not None:
+        return _segment_sum(per_block_rowsum, row_ptr)
     zeros = per_block_rowsum.new_zeros(num_row_blocks, per_block_rowsum.shape[1])
     return zeros.index_add(0, row_of, per_block_rowsum)
 
 
-def sparse_row_softmax(values, row_of, num_row_blocks: int):
+def _row_gather(totals, row_of, row_ptr=None):
+    """totals[row_of] (nnz, block); with row_ptr its backward adds in a fixed order."""
+    if row_ptr is not None:
+        return _RowGather.apply(totals, row_of, row_ptr)
+    return totals.index_select(0, row_of)
+
+
+def sparse_row_softmax(values, row_of, num_row_blocks: int, row_ptr=None):
     """Row-normalise BSR scores: exp(v) / sum over the row's sampled entries
     with v > 0 (JAX spmm.py:311-331; the deviation from the dense
     reference's softmax is documented there). exp stays in the input dtype,
     the row sums are f32, and the denominator is cast to the input dtype
-    before the division, as JAX places the roundings."""
+    before the division, as JAX places the roundings. With the pattern's
+    row offsets `row_ptr` the row sums and their gradients add in a fixed
+    order (bit-identical repeats on the card)."""
     exp_vals = torch.where(values > 0, torch.exp(values), 0.0)
-    totals = _row_sums(exp_vals.sum(dim=2, dtype=torch.float32), row_of, num_row_blocks)
-    denom = totals.index_select(0, row_of).clamp_min(1e-9)
+    totals = _row_sums(exp_vals.sum(dim=2, dtype=torch.float32), row_of, num_row_blocks, row_ptr)
+    denom = _row_gather(totals, row_of, row_ptr).clamp_min(1e-9)
     return exp_vals / denom.to(exp_vals.dtype)[:, :, None]
 
 
-def sparse_row_softmax_dense_corrected(values, row_of, num_row_blocks: int, num_nodes: int):
+def sparse_row_softmax_dense_corrected(values, row_of, num_row_blocks: int, num_nodes: int, row_ptr=None):
     """The exact sparse form of the dense softmax(relu(E1 E2)) (JAX
     spmm.py:334-353): (exp(v)-1)/Z_i at the pattern plus the rank-1
     background 1/Z_i, Z_i = N + sum (exp(v)-1), Z in f32. Returns (values,
-    background (num_row_blocks, block)), both in the input dtype."""
+    background (num_row_blocks, block)), both in the input dtype. `row_ptr`
+    as in sparse_row_softmax."""
     expm1 = torch.where(values > 0, torch.expm1(values), 0.0)
-    z = num_nodes + _row_sums(expm1.sum(dim=2, dtype=torch.float32), row_of, num_row_blocks)
-    return expm1 / z.index_select(0, row_of).to(expm1.dtype)[:, :, None], (1.0 / z).to(expm1.dtype)
+    z = num_nodes + _row_sums(expm1.sum(dim=2, dtype=torch.float32), row_of, num_row_blocks, row_ptr)
+    return expm1 / _row_gather(z, row_of, row_ptr).to(expm1.dtype)[:, :, None], (1.0 / z).to(expm1.dtype)

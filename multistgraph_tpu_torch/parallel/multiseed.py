@@ -28,8 +28,9 @@ step). Per seed, as in JAX:
 
 On CUDA the train step, the validation forward and the predict forward
 replay CUDA graphs, as the single-seed executor's do (``StepLoops``).
-Graph-collection models are refused: SparseATGCN keeps its graph in
-buffers, and has no seed axis.
+Models without a seed axis (``forward_seeds``) are refused: SparseATGCN,
+whose graph lives in buffers the seeds would share, and the zoo's
+families, which JAX vmaps (ROADMAP.md A.5).
 """
 
 import itertools
@@ -114,9 +115,8 @@ class MultiSeedTrainer(StepLoops):
     def __init__(self, executor, seeds: Sequence[int], initial_states=None):
         if not hasattr(executor.model, "forward_seeds"):
             raise NotImplementedError(
-                "multi-seed training widens the step over a seed axis, which {} lacks: its "
-                "graph lives in buffers the seeds would share, not stack; train it per "
-                "seed".format(type(executor.model).__name__))
+                "multi-seed training widens the step over a seed axis (forward_seeds), which {} "
+                "lacks: train it per seed".format(type(executor.model).__name__))
         self.config = executor.config
         self.device = executor.device
         self.seeds = [int(s) for s in seeds]

@@ -8,10 +8,15 @@ the layout transposes of multistgraph_tpu/utils/torch_import.py
 and the conv head's (t_conv*H, out) kernel becomes the Conv2d weight (out,
 t_conv, 1, H).
 
-SparseATGCN has no reference torch model, so the port keeps the JAX names
-and shapes: its weights carry over as they are. The JAX 'graph'
-collection is not a parameter and is not carried: both packages rebuild
-it from the dataset.
+SparseATGCN and the zoo's families (``jax_names`` on the class) have no
+reference torch model, so the port keeps the JAX names and shapes: their
+weights carry over as they are, under one flattening rule for flax
+submodules, whose path joins with "/" in the flat names. A flax
+``LayerNorm`` ``b0_ln`` is the torch ``nn.LayerNorm`` ``b0_ln``: its
+``b0_ln/scale`` becomes ``b0_ln.weight`` and ``b0_ln/bias`` becomes
+``b0_ln.bias``. The JAX 'graph' collection and the zoo's graph constants
+(supports, adjacencies) are not parameters and are not carried: both
+packages rebuild them from the dataset.
 """
 
 from typing import Dict, Tuple
@@ -19,11 +24,14 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from multistgraph_tpu_torch.models.sparse_atgcn import SparseATGCN
+_SUBMODULE_LEAVES = {"scale": "weight", "bias": "bias"}   # flax LayerNorm -> nn.LayerNorm
 
 
 def _torch_entry(name: str, value: np.ndarray, model) -> Tuple[str, np.ndarray]:
-    if isinstance(model, SparseATGCN):
+    if getattr(model, "jax_names", False):
+        if "/" in name:
+            module, leaf = name.rsplit("/", 1)
+            return "{}.{}".format(module, _SUBMODULE_LEAVES.get(leaf, leaf)), value
         return name, value
     if name in ("node_emb", "node_vec1", "node_vec2", "weight_tsg"):
         return name, value

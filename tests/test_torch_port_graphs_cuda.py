@@ -13,8 +13,8 @@ and the service's replies.
 SparseATGCN (SYN_LARGE_TINY at 300 nodes; the BSR form, the tail form and
 the band on packed rows, each with the adaptive view, in f32 and bf16) is
 held the same way where its eager steps are bit-reproducible. Its atomic
-sums (the adaptive softmax's row sums, the tail's index_add_, the backward
-of index_select) change from run to run, so each graphed result is held
+sums (the tail's index_add_, the backward of index_select on hub and tail
+columns) change from run to run, so each graphed result is held
 against 5 eager runs from the same state: bit for bit where they agree bit
 for bit, else within twice the largest gap between two of them.
 """
@@ -284,8 +284,7 @@ def _assert_held(replay, runs):
     """The replay against the first of the eager runs from the same state:
     bit for bit in every group where the eager runs agree bit for bit, else
     within 2x the largest gap between two of them (the atomic sums of the
-    adaptive softmax's row sums, the tail's index_add_ and index_select's
-    backward change from run to run)."""
+    tail's index_add_ and index_select's backward change from run to run)."""
     eager = {group: 0.0 for group in replay}
     for i, a in enumerate(runs):
         for b in runs[i + 1:]:

@@ -15,7 +15,10 @@ in the plain BSR form and in the band form, and runs the node-apply
 harness's numerics on the CPU at its documented reduced size
 (``bench_node_dots --device cpu --small``), the band-stream probes'
 (``probe_band_stream --small``) and one bf16 band step of the large-graph
-bench (``bench_large_graph ... --dtype bf16 --device cpu``).
+bench (``bench_large_graph ... --dtype bf16 --device cpu``); trains a zoo
+family (GRU, through the LSTM/GRU alias) for one epoch of a few batches
+through ``run_model`` on the CPU and serves one predict of it, and runs
+the zoo bench at its tiny size (``bench_zoo --device cpu --small``).
 """
 
 import os
@@ -57,7 +60,8 @@ _SCRIPT = textwrap.dedent(r"""
                  "ops.node_dots", "ops.stream_read", "tools.timing", "tools.bench_node_dots",
                  "tools.bench_hbm_peak", "tools.bench_stream_rate", "ops.band_probe", "ops.precision",
                  "tools.bench_large_graph", "tools.probe_band_stream", "parallel.multiseed", "ops.quantize",
-                 "tools.multiseed_run", "run_model_parameter"):
+                 "tools.multiseed_run", "run_model_parameter", "models.baselines", "models.graph_baselines",
+                 "models.conv_baselines", "models.dcrnn", "models.astgcn", "models.zoo", "tools.bench_zoo"):
         assert "multistgraph_tpu_torch." + name in sys.modules, name
 
     import numpy as np
@@ -132,6 +136,22 @@ _SCRIPT = textwrap.dedent(r"""
     record = bench_large_graph.main(["512", "8", "2", "1", "band", "--dtype", "bf16", "--adpadj", "none",
                                      "--hidden", "4", "--iters", "1", "--device", "cpu"])
     assert np.isfinite(record["extras"]["losses"]).all(), record
+
+    from multistgraph_tpu_torch.pipeline import run_model
+    zargs = {"data_dir": os.path.join(work, "raw"), "cache_dir": os.path.join(work, "cache"),
+             "output_dir": os.path.join(work, "out"), "exp_id": "iso_zoo", "cache_dataset": False,
+             "input_window": 12, "output_window": 3, "load_external": True, "load_dynamic": False,
+             "add_time_in_day": True, "rnn_units": 4, "batch_size": 4, "max_epoch": 1,
+             "train_rate": 0.03, "eval_rate": 0.02, "tensorboard": False}
+    zresult = run_model("traffic_state_pred", "GRU", "SYN", other_args=zargs, device="cpu")
+    assert np.isfinite(zresult["masked_MAE"]).all(), zresult
+    zservice = PredictService.from_experiment("traffic_state_pred", "GRU", "SYN", other_args=zargs, device="cpu")
+    assert type(zservice.model).__name__ == "RNNModel" and zservice.model.kind == "GRU"
+    zy = zservice.predict(np.zeros((2, 12, 6, 2), np.float32))
+    assert zy.shape == (2, 3, 6, 1) and np.isfinite(zy).all(), zy.shape
+    from multistgraph_tpu_torch.tools import bench_zoo
+    zoo = bench_zoo.main(["--device", "cpu", "--small"])
+    assert len(zoo["extras"]["models"]) == 12 and np.isfinite(zoo["value"]), zoo
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED_OK")
 """)
