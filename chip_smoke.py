@@ -36,7 +36,7 @@ from a seeded generator):
   * CUDA graphs (``graph_phase``, right after training): in int8, int8
     f32, bf16 and f32, 3 replays of the captured train step held bit for
     bit against 3 eager steps (mean loss, every parameter, Adam's state),
-    the median of 20 replays, one replay's device time by kernel (its
+    the median of 10 replays, one replay's device time by kernel (its
     q8_kernel and strided_copy_kernel counts must be the eager counters'
     per step: 96 + 96 B2/B2t, 4 + 4 B3) beside one eager step's; in int8
     a graphed validation pass against an eager one, a graphed epoch
@@ -136,7 +136,7 @@ Then the same in f16 (compute_dtype 'float16'), on the same two forms:
     memory;
   * at 4,096 nodes, f16 output, loss and gradients on the card against the
     CPU on the BSR, hub and tail forms (the tail run twice on the card: its
-    f16 index_add_ adds in an order that changes) and on the band's planes
+    sums in a fixed order, the runs bit for bit) and on the band's planes
     and packed rows, failed by the same planted faults.
 The sparse phases' validation and evaluation passes and their services
 replay captured forwards after one eager batch or request (CUDA graphs,
@@ -145,11 +145,11 @@ SparseATGCN's steps as CUDA graphs at 49,152 nodes (``sparse_graph_phase``),
 on the executors of the f32 BSR, bf16 BSR, bf16 band planes, f16 BSR and
 f16 band planes phases and on a bf16 tail form built there:
   * 3 replays of the captured train step (``train_epoch``) against 3
-    eager steps from the same state, bit for bit where 5 eager re-runs
+    eager steps from the same state, bit for bit where 3 eager re-runs
     from that state agree bit for bit, else within 2x their largest gap
     (atomic sums), by loss, parameters and Adam's state; the captured
     launches equal to the eager per-step counts;
-  * the median of 20 replays beside the eager steps, with one replay's and
+  * the median of 10 replays beside the eager steps, with one replay's and
     one eager step's device busy time and idle share;
   * a graphed validation pass on 4 batches and requests at buckets 1 and 2
     held against eager ones by the same rule, graphed and eager latency.
@@ -197,7 +197,7 @@ package's 1M configuration, at T=12 and batch 2, no adaptive view):
     losses, and its packed serving at buckets 1 and 2 (B8, no B7; replays
     of a captured call), the replies held against the planes'; each timed
     eagerly too, with the peak memory of both forms, and its replays held
-    against 5 eager re-runs from one state by the sparse graphs' rule;
+    against 3 eager re-runs from one state by the sparse graphs' rule;
   * at 4,096 nodes, bf16 output, loss and gradients on the card against
     the CPU on planes and packed rows, failed by faults planted in B7, B8
     and B9 dX.
@@ -898,7 +898,7 @@ def serving_phase(torch):
     latency = {}
     for name, svc in (("int8", service), ("bf16", bf16_service), ("f32", f32_service),
                       ("int8 f32", int8_f32_service)):
-        latency[name] = {str(svc._bucket(batch)): _bucket_ms(svc, x_all[:batch]) for batch in (1, 3, B)}
+        latency[name] = {str(svc._bucket(batch)): _bucket_ms(svc, x_all[:batch], GRAPH_TIMED) for batch in (1, 3, B)}
     say(json.dumps({"ms_per_request_by_bucket": latency}))
     for name, svc in (("int8", service), ("f32", f32_service), ("int8 f32", int8_f32_service)):
         share = _device_share(torch, svc, x_all[:B], latency[name][str(B)])
@@ -1141,7 +1141,7 @@ def training_phase(torch):
 
 # ------------------------------------------------------------------ graphs
 GRAPH_CHECK_REPLAYS = 3     # replayed steps held bit for bit against as many eager steps
-GRAPH_TIMED = 20            # replayed steps timed (after 3), and the requests per bucket
+GRAPH_TIMED = 10            # replayed steps timed (after 3), and the requests per bucket
 GRAPH_EAGER_EPOCH = 24      # batches of the eager int8 epoch (the graphed one runs them all)
 PROFILE_BATCHES = 8         # the profile_dir run's epochs: the first 8 batches
 # kernels of one captured step, by profiler name: B2 and B2t are q8_kernel
@@ -1206,7 +1206,7 @@ def _eager_validation(torch, executor, loader):
 
 def _graph_serving(torch, model, scaler, feature, x_all, eager_latency):
     """PredictService's bucket graphs against eager replies (bit for bit) at
-    buckets 1, 4 and 16, the median of 20 requests each (and of 20 eager
+    buckets 1, 4 and 16, the median of 10 requests each (and of 10 eager
     ones with `eager_latency`), one bucket-16 request's device time; and
     the service's graphs."""
     import numpy as np
@@ -1268,7 +1268,7 @@ def _adam_gap(torch, steps=5, lr=3e-3, b1=0.9, b2=0.999, eps=1e-8):
 def graph_phase(torch, feature, state_dict, loaders):
     """The executor's and the service's CUDA graphs at the flagship width.
     For each configuration: 3 replayed steps against 3 eager steps, bit for
-    bit (mean loss, parameters, optimizer state); the median of 20 replays
+    bit (mean loss, parameters, optimizer state); the median of 10 replays
     after 3; one replay's device time by kernel, whose B2/B2t/B3 kernels
     must be the eager counts, beside one eager step's. In int8 also a
     graphed validation pass against an eager one (bit for bit, and timed),
@@ -1695,6 +1695,30 @@ def _schedule_summary(torch, schedule):
             "longest_row": int(rows.max()), "workspace_slots": schedule.ws_slots}
 
 
+def _warm_library_bsr(torch):
+    """Call torch.sparse's f32 BSR product (the library call timed beside
+    B4/B6 in sparse_kernel_phase) once at each of that phase's shapes, on
+    the same 49,152-node pattern: it compiles its Triton kernels at first
+    use, several seconds a width, and main() runs this while nvcc builds
+    the port's kernels. Launches no kernel of the port; returns seconds."""
+    from multistgraph_tpu_torch.ops import spmm as sp
+    from multistgraph_tpu_torch.ops.bsr import random_spatial_graph
+
+    t0 = time.time()
+    graph, _ = random_spatial_graph(SP_NODES, 16, seed=0)
+    nb, n_pad = graph.num_row_blocks, graph.padded_nodes
+    values = torch.from_numpy(graph.values).cuda()
+    row = torch.from_numpy(graph.row_of).cuda()
+    col = torch.from_numpy(graph.col_of).cuda()
+    v_t, r_t, c_t = sp.bsr_transpose(values, row, col, nb)
+    for v, r, c, widths in ((values, row, col, SP_SPMM_WIDTHS), (v_t, r_t, c_t, SP_DX_WIDTHS)):
+        bsr = torch.sparse_bsr_tensor(sp.row_ptr_of(r, nb), c, v, size=(n_pad, n_pad))
+        for feat in widths:
+            _library_ms(torch, lambda: bsr @ torch.ones(n_pad, feat, device="cuda"), "warm-up")
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
 def _library_ms(torch, fn, label):
     """Time one PyTorch library call, or (None, the reason) if it refuses
     these inputs: a yardstick only, never called by the port."""
@@ -1822,40 +1846,59 @@ def _sparse_counts_of(counts):
     return {k: counts[k] for k in SPARSE_KERNELS}
 
 
-def _sparse_run(torch, model, scaler, batch):
-    """The model output on batch X (no autograd), then one step's loss and
-    every parameter gradient, as host tensors."""
+def _sparse_output(torch, model, batch):
+    """The model output on batch X (no autograd), as a host tensor."""
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        return model(batch["X"].to(dev)).float().cpu()
+
+
+def _sparse_grads(torch, model, scaler, batch):
+    """One step's loss and every parameter gradient, as host tensors."""
     from multistgraph_tpu_torch.ops.losses import make_loss_fn
 
     dev = next(model.parameters()).device
     b = {k: v.to(dev) for k, v in batch.items()}
-    with torch.no_grad():
-        out = model(b["X"]).float().cpu()
     model.zero_grad(set_to_none=True)
     loss = make_loss_fn(model, scaler)(b, train=True)
     loss.backward()
     grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
              for n, p in model.named_parameters()}
-    return out, (loss.detach().float().cpu(), grads)
+    return loss.detach().float().cpu(), grads
+
+
+def _sparse_run(torch, model, scaler, batch):
+    """The model output on batch X (no autograd), then one step's loss and
+    every parameter gradient, as host tensors."""
+    return _sparse_output(torch, model, batch), _sparse_grads(torch, model, scaler, batch)
 
 
 def _cpu_runs(torch, jobs):
     """_sparse_run of each CPU model of `jobs` ({name: (model, scaler,
-    batch)}), each in a thread of its own: the CPU's f16 matrix products
+    batch)}), its output and its gradients each in a thread of its own
+    (the output on a copy of the model): the CPU's f16 matrix products
     take a single-threaded path (about a minute a run at 4,096 nodes on
     the card's host), and its ops release the interpreter lock, so the
     runs overlap. Returns {name: ((output, (loss, gradients)), seconds)}
-    once every thread has ended."""
-    def timed(model, scaler, batch):
+    once every thread has ended; the seconds are the longer thread's."""
+    import copy
+
+    def timed(fn, *args):
         t0 = time.perf_counter()
-        return _sparse_run(torch, model, scaler, batch), time.perf_counter() - t0
+        return fn(torch, *args), time.perf_counter() - t0
 
     threads = torch.get_num_threads()
-    torch.set_num_threads(max(1, threads // len(jobs)))   # the cores shared out among the runs
+    torch.set_num_threads(max(1, threads // (2 * len(jobs))))   # the cores shared out among the runs
     try:
-        with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-            futures = {name: pool.submit(timed, *job) for name, job in jobs.items()}
-            return {name: future.result() for name, future in futures.items()}
+        with concurrent.futures.ThreadPoolExecutor(max_workers=2 * len(jobs)) as pool:
+            futures = {name: (pool.submit(timed, _sparse_output, copy.deepcopy(model), batch),
+                              pool.submit(timed, _sparse_grads, model, scaler, batch))
+                       for name, (model, scaler, batch) in jobs.items()}
+            out = {}
+            for name, (output, grads) in futures.items():
+                (o, o_s), (g, g_s) = output.result(), grads.result()
+                out[name] = ((o, g), max(o_s, g_s))
+            return out
     finally:
         torch.set_num_threads(threads)
 
@@ -2629,8 +2672,8 @@ def sparse_bf16_phase(torch, split, ty="bf16"):
 
 # ------------------------------------------------------------ sparse graphs
 SPG_REPLAYS = 3          # replayed steps held against as many eager steps from one state
-SPG_EAGER_RUNS = 5       # eager re-runs from one state: the gap that atomic sums leave between them
-SPG_TIMED = 20           # replays timed (after 3), and graphed requests per bucket
+SPG_EAGER_RUNS = 3       # eager re-runs from one state: the gap that atomic sums would leave between them
+SPG_TIMED = 10           # replays timed (after 3), and graphed requests per bucket
 SPG_VAL_BATCHES = 4      # validation batches held against eager ones
 SPG_EAGER_REQUESTS = 5   # eager requests timed per bucket
 # the forms the phase replays: the sparse phases' executors, and the bf16
@@ -2725,7 +2768,7 @@ def _sparse_graph_form(torch, label, executor, train, val, test, scaler):
     graphs = []
 
     # 3 replayed steps against 3 eager steps from the same state (after the
-    # executor's 2 eager warm-up steps), and 5 eager re-runs from it
+    # executor's 2 eager warm-up steps), and SPG_EAGER_RUNS eager re-runs from it
     ex.train_epoch(warm, lr)
     state = _train_state(torch, model, ex.optimizer)
     start = _copy_state(torch, state)
@@ -2753,7 +2796,7 @@ def _sparse_graph_form(torch, label, executor, train, val, test, scaler):
         runs.append(dict(_copy_state(torch, state), loss=[float(torch.stack(losses).mean())]))
     record["train_replay_vs_eager"] = _hold_replay(torch, label + " training", replay, runs)
 
-    # timing: the median of 20 replays after 3, eager steps from the runs
+    # timing: the median of SPG_TIMED replays after 3, eager steps from the runs
     # above; one replay's and one eager step's device time
     idx = torch.as_tensor(perm, device=ex.device)
     _ms_each(torch, lambda i: graph.run(idx=idx[i]), 3)
@@ -2836,12 +2879,11 @@ def sparse_graph_phase(torch, handles):
     loaders of the f32 BSR, bf16 BSR, bf16 band planes, f16 BSR and f16
     band planes phases, all with the adaptive view, and of the bf16 tail
     form, built here. For each: 3 replayed steps of ``train_epoch`` against
-    3 eager steps from the same state, bit for bit where 5 eager re-runs
+    3 eager steps from the same state, bit for bit where SPG_EAGER_RUNS eager re-runs
     from that state agree bit for bit, else within 2x their largest gap
-    (the atomic sums: the tail's index_add_, index_select's backward on
-    hub and tail columns), by loss, parameters and Adam's
+    (atomic sums), by loss, parameters and Adam's
     state; the captured step's launches equal to the eager per-step
-    counts; the median of 20
+    counts; the median of SPG_TIMED
     replays beside the eager steps, with one replay's and one eager step's
     busy time and idle share; a graphed validation pass on 4 batches and
     requests at buckets 1 and 2 held to eager ones in the same way.
@@ -2870,10 +2912,11 @@ def sparse_bf16_check_phase(torch, ty="bf16"):
     gradient on the BSR, hub and tail forms, faults planted inside B4/B6 and
     B5 (on the BSR form) failing the checks; then the band's planes and
     packed rows (band_check_phase, faults in B7, B8 and B9 dX). In f16 the
-    tail form runs twice on the card: its index_add_ adds atomically in an
-    order that changes between runs, and the two runs' difference is the
-    tail's share of its error. The CPU runs of all five forms (BSR, hub,
-    tail, band planes and packed rows) run at once, each in a thread."""
+    tail form runs twice on the card, and the two runs' difference is
+    printed: 0 since its sums run in a fixed order (ops/hybrid.spmm_tail's
+    `order`), where index_add_'s atomics changed them from run to run. The
+    CPU runs of all five forms (BSR, hub, tail, band planes and packed
+    rows) run at once (_cpu_runs)."""
     from multistgraph_tpu_torch.config import load_config
     from multistgraph_tpu_torch.data import get_dataset
     from multistgraph_tpu_torch.models import get_model
@@ -2967,8 +3010,9 @@ F16_DV_SUMS_REL = 1e-5
 # f16 step of the largest output, 2^-10) and 1.12e-2 / 1.43e-2 / 1.43e-2
 # for the gradients, node_vec2's each time: the adaptive embeddings'
 # gradients sum softmax terms that cancel (ROADMAP.md §C), and the tail
-# form's two card runs differ from each other by as much (1.04e-3 and
-# 1.43e-2: its f16 index_add_ adds in an order that changes). The bounds
+# form's two card runs differed from each other by as much (1.04e-3 and
+# 1.43e-2, while its index_add_ added atomically; 0 since its sums run in a
+# fixed order). The bounds
 # are 2.9x and 2.8x the largest readings; the planted faults read at least
 # 0.125 (output) and 0.459 (gradients).
 BOUND_SPARSE_F16_OUT = 3e-3
@@ -3512,7 +3556,7 @@ def band_bf16_phase(torch):
     record["extras"]["device_time_per_step"] = _device_time(torch, train["again"], step_ms)
     record["extras"]["launches_per_step"] = {k: v for k, v in per_step.items() if v}
     # the same steps eagerly (timed, with their peak memory), and the replay
-    # held against 5 eager re-runs from one state
+    # held against SPG_EAGER_RUNS eager re-runs from one state
     _reset_counts()
     held_from = step_graph.replays
     torch.cuda.reset_peak_memory_stats()
@@ -4409,19 +4453,23 @@ ZOO_VAL_HELD = 8         # validation batches held bit for bit against eager one
 ZOO_TIMED = 10           # replays timed, and graphed requests per bucket
 ZOO_BUCKETS = (1, B)     # the service's buckets
 ZOO_CHECK_BATCH = 4      # card vs CPU: the first 4 samples of the first training batch
-ZOO_FAULT = "GRU"        # its card run swaps the GRU's z and r halves: the hold must fail
+# faults planted in a second card run of these families, each of which must
+# fail the hold: the GRU's z and r halves swapped; MTGNN's learned graph
+# keeping k - 1 neighbours a row (its top-k threshold one place late)
+ZOO_FAULTS = ("GRU", "MTGNN")
 # Card vs CPU in f32 (TF32 off), the relative max error (over the CPU's
 # max |value|) of the model-space output and loss, and of each gradient,
 # at the same weights (seed 0) and batch. Read on an H100: outputs at most
-# 6.7e-7 and losses 1.4e-7 in every family; gradients at most 1.0e-6 but
-# AGCRN's (7.7e-6, its weight pools) and ASTGCN's (8.9e-4, b1_tat_u1). Those
-# two lose as much to f32 rounding on the CPU alone ("cpu_f32_vs_f64" of
-# zoo_check_phase: 5.9e-6 and 3.2e-3; the attention's softmaxes cancel in
-# ASTGCN's, and every block-0 gradient passes through block 1's). Each
-# bound is 5-8x its reading; the planted fault reads 7e-2.
+# 1.1e-6 and losses 1.4e-7 in every family; gradients at most 1.9e-6 but
+# AGCRN's (7.7e-6, its weight pools), STTN's (2.2e-5, b1_tffn_w1) and
+# ASTGCN's (8.9e-4, b1_tat_u1). Those three lose as much to f32 rounding
+# on the CPU alone ("cpu_f32_vs_f64" of zoo_check_phase: 5.9e-6 for AGCRN,
+# 3.2e-3 for ASTGCN, whose attention softmaxes cancel and whose block-0
+# gradients pass through block 1). Each bound is 5-8x its reading; the
+# planted faults read 7e-2 (GRU) and 0.44 (MTGNN).
 BOUND_ZOO_OUT = 5e-6
 BOUND_ZOO_GRAD = 5e-6
-BOUND_ZOO_GRAD_OF = {"AGCRN": 4e-5, "ASTGCN": 5e-3}
+BOUND_ZOO_GRAD_OF = {"AGCRN": 4e-5, "STTN": 1.5e-4, "ASTGCN": 5e-3}
 
 
 def _zoo_args(raw_dir, name):
@@ -4478,6 +4526,27 @@ def _zoo_dcrnn_ratios(torch, model, x, y):
         raise AssertionError("DCRNN: tf_ratio 1 / 0 differ from teacher forcing / the autoregressive forward")
     return {"ratio_1_is_teacher_forcing": True, "ratio_0_is_autoregressive": True,
             "teacher_forcing_moves_output": float((one - free).abs().max())}
+
+
+def _zoo_fault(torch, name):
+    """The context under which ZOO_FAULTS' card run of `name` computes."""
+    from unittest import mock
+
+    if name == "GRU":
+        from multistgraph_tpu_torch.models import baselines
+
+        def swapped(hidden, x_t, wk, wb, _step=baselines.gru_step):
+            h = hidden.shape[-1]   # z and r trade places: the gate columns' halves swapped
+            return _step(hidden, x_t, torch.cat([wk[:, h: 2 * h], wk[:, :h], wk[:, 2 * h:]], dim=1),
+                         torch.cat([wb[h: 2 * h], wb[:h], wb[2 * h:]]))
+
+        return mock.patch.object(baselines, "gru_step", swapped)
+    from multistgraph_tpu_torch.models import mtgnn
+
+    def late(e1, e2, w1, w2, alpha, k, _adjacency=mtgnn.learned_adjacency):
+        return _adjacency(e1, e2, w1, w2, alpha, k - 1)
+
+    return mock.patch.object(mtgnn, "learned_adjacency", late)
 
 
 def zoo_phase(torch):
@@ -4604,17 +4673,8 @@ def zoo_phase(torch):
         say(json.dumps({"zoo": name, **record}))
         records[name] = record
         checks[name] = (cfg, feature, state0, (x.cpu(), y.cpu()), card_run)
-        if name == ZOO_FAULT:
-            from unittest import mock
-
-            from multistgraph_tpu_torch.models import baselines
-
-            def swapped(hidden, x_t, wk, wb, _step=baselines.gru_step):
-                h = hidden.shape[-1]   # z and r trade places: the gate columns' halves swapped
-                return _step(hidden, x_t, torch.cat([wk[:, h: 2 * h], wk[:, :h], wk[:, 2 * h:]], dim=1),
-                             torch.cat([wb[h: 2 * h], wb[:h], wb[2 * h:]]))
-
-            with mock.patch.object(baselines, "gru_step", swapped):
+        if name in ZOO_FAULTS:
+            with _zoo_fault(torch, name):
                 checks[name] += (_zoo_run(torch, check_model, feature["scaler"], x, y),)
         del graphed, eager, svc, ref, graph, check_model
         gc.collect()
@@ -4635,8 +4695,9 @@ def zoo_check_phase(torch, checks):
     """Each family's model-space output, loss and gradients on the card
     against the port on the CPU, at the same weights (seed 0) and batch (4
     samples), f32 (TF32 off) within BOUND_ZOO_OUT and the family's
-    gradient bound; the fault planted in ZOO_FAULT's card run must fail
-    the hold."""
+    gradient bound; the faults planted in ZOO_FAULTS' card runs must fail
+    the hold. Beside a gradient bound of the family's own, the CPU's f32
+    run against its f64 run."""
     from multistgraph_tpu_torch.models import get_model
 
     def rel(a, ref):
@@ -4693,8 +4754,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
-    reports = _cuda.build()
-    say("kernels built in {:.1f}s".format(time.time() - t0))
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as beside:
+        warm = beside.submit(_warm_library_bsr, torch)
+        reports = _cuda.build()
+        say("kernels built in {:.1f}s".format(time.time() - t0))
+        say("torch.sparse's BSR products compiled beside the build in {:.1f}s".format(warm.result()))
     for name in _cuda.SOURCES:
         say("  {}: {}".format(name, _ptxas_summary(reports[name]) if name in reports else "built before this run"))
     # the tensor-core and SIMT f32 kernels of the sources, one by one, and

@@ -3,12 +3,11 @@
 A copy of the part of multistgraph_tpu/config/defaults.py that the port's
 paths read: ``traffic_state_pred/MultiATGCN`` -> ``MTHDataset``,
 ``traffic_state_pred/SparseATGCN`` -> ``SyntheticLargeGraphDataset`` and
-the ported zoo families (RNN with its LSTM and GRU aliases, FNN, Seq2Seq,
-AGCRN, TGCN, STGCN, GWNET, DCRNN, ASTGCN, MSTGCN) ->
-``TrafficStatePointDataset``, with their task bindings, model and data
-defaults, and the executor and evaluator defaults, which also merge into a
-run's config. The zoo families still to port stay out of ``allowed_model``,
-so asking for one fails in the parser.
+the model zoo's 18 names (RNN with its LSTM and GRU aliases, FNN, Seq2Seq,
+AGCRN, TGCN, STGCN, GWNET, DCRNN, ASTGCN, MSTGCN, MTGNN, STSGCN, STTN,
+GMAN, STGODE, STGNCDE) -> ``TrafficStatePointDataset``, with their task
+bindings, model and data defaults, and the executor and evaluator
+defaults, which also merge into a run's config.
 Values reproduce the reference defaults
 (ref: libcity/config/model/traffic_state_pred/MultiATGCN.json:1-31,
  libcity/config/data/MTHDataset.json:1-21,
@@ -16,9 +15,9 @@ Values reproduce the reference defaults
  libcity/config/evaluator/TrafficStateEvaluator.json:1-5).
 """
 
-# the model zoo's families ported so far, as the task registry names them
+# the model zoo's families, as the task registry names them
 ZOO_MODELS = ("RNN", "LSTM", "GRU", "FNN", "Seq2Seq", "AGCRN", "TGCN", "STGCN", "GWNET", "DCRNN",
-              "ASTGCN", "MSTGCN")
+              "ASTGCN", "MSTGCN", "MTGNN", "STSGCN", "STTN", "GMAN", "STGODE", "STGNCDE")
 
 TASK_CONFIG = {
     "traffic_state_pred": {
@@ -34,8 +33,8 @@ TASK_CONFIG = {
                 "executor": "TrafficStateExecutor",
                 "evaluator": "TrafficStateEvaluator",
             },
-            # the comparison set ported so far (LSTM and GRU alias RNN
-            # through rnn_type, config/parser.py)
+            # the comparison set (LSTM and GRU alias RNN through
+            # rnn_type, config/parser.py)
             **{name: {
                 "dataset_class": "TrafficStatePointDataset",
                 "executor": "TrafficStateExecutor",
@@ -112,6 +111,20 @@ MODEL_DEFAULTS.update({
     "traffic_state_pred/GWNET": {"residual_channels": 32, "dilation_channels": 32, "skip_channels": 256,
                                  "end_channels": 512, "blocks": 4, "layers": 2, "diffusion_order": 2,
                                  "adpadj": "adaptive", "embed_dim_adj": 10, "dropout": 0.3, **_ZOO_COMMON},
+    "traffic_state_pred/STSGCN": {"rnn_units": 64, "gcn_depth": 3, "num_layers": 2, "stsg_window": 3,
+                                  "module_type": "individual", **_ZOO_COMMON},
+    "traffic_state_pred/STTN": {"rnn_units": 64, "num_heads": 4, "num_blocks": 2, "ffn_dim": 128, "dropout": 0.0,
+                                **_ZOO_COMMON},
+    "traffic_state_pred/GMAN": {"num_heads": 4, "head_dim": 8, "num_blocks": 1, "se_dim": 16, **_ZOO_COMMON},
+    "traffic_state_pred/STGODE": {"rnn_units": 64, "kt": 3, "stgode_blocks": 3, "ode_steps": 6,
+                                  "stgode_head_dim": 128, "stgode_dtw_band": 4, "stgode_sparsity": 0.1,
+                                  **_ZOO_COMMON},
+    "traffic_state_pred/STGNCDE": {"rnn_units": 64, "ncde_field_dim": 64, "embed_dim_node": 10, "cheb_order": 2,
+                                   "ncde_substeps": 1, **_ZOO_COMMON},
+    "traffic_state_pred/MTGNN": {"embed_dim_node": 40, "subgraph_size": 20, "conv_channels": 32,
+                                 "residual_channels": 32, "skip_channels": 64, "end_channels": 128, "layers": 3,
+                                 "dilation_exponential": 1, "gcn_depth": 2, "tanhalpha": 3.0, "propalpha": 0.05,
+                                 "dropout": 0.3, **_ZOO_COMMON},
 })
 
 DATA_DEFAULTS = {

@@ -74,7 +74,8 @@ from torch.utils.checkpoint import checkpoint
 from multistgraph_tpu_torch.models.initializers import torch_style_init
 from multistgraph_tpu_torch.ops.band import BandGraph, band_radius, pack_band_rows, spmm_band, spmm_band_packed
 from multistgraph_tpu_torch.ops.bsr import BSRGraph, row_ptr_from_rows
-from multistgraph_tpu_torch.ops.hybrid import HybridGraph, TailGraph, spmm_hub, spmm_tail, split_hub_columns
+from multistgraph_tpu_torch.ops.hybrid import (HybridGraph, TailGraph, spmm_hub, spmm_tail, split_hub_columns,
+                                               tail_order)
 from multistgraph_tpu_torch.ops.precision import round_cotangent
 from multistgraph_tpu_torch.ops.spmm import (
     BsrSchedule,
@@ -159,6 +160,9 @@ class SparseATGCN(nn.Module):
             parts = {k: v for k, v in support.items() if not k.endswith("_static")}
             if "values" in parts:
                 parts["row_ptr"] = row_ptr_from_rows(parts["row"], nb)
+            if "tail_src" in parts:   # the tail's fixed summation orders (ops/hybrid.py)
+                parts.update(zip(("tail_ptr_src", "tail_by_dst", "tail_ptr_dst"),
+                                 tail_order(parts["tail_src"], parts["tail_dst"], num_nodes)))
             for part, arr in parts.items():
                 buffer("support{}_{}".format(i, part), arr)
             self._support_parts.append(tuple(parts))
@@ -293,7 +297,11 @@ class SparseATGCN(nn.Module):
             if "hub_values" in sv:
                 y = y + spmm_hub(sv["hub_values"], sv["hub_cols"], x_flat)
             if "tail_w" in sv:
-                y = y + spmm_tail(sv["tail_w"], sv["tail_src"], sv["tail_dst"], x_flat, x_flat.shape[0])
+                # on the card in a fixed order (index_add_'s atomics are not); on
+                # the CPU index_add_'s edge order, with JAX's per-add rounding
+                order = ((sv["tail_ptr_src"], sv["tail_by_dst"], sv["tail_ptr_dst"]) if x_flat.is_cuda
+                         else None)
+                y = y + spmm_tail(sv["tail_w"], sv["tail_src"], sv["tail_dst"], x_flat, x_flat.shape[0], order)
             outs.append(y)
         if adaptive is not None:
             vals, background = adaptive

@@ -1,8 +1,10 @@
 """What the model zoo's families share: parameters under the JAX names,
-their initialisers, dropout, and the time-shifted views of the conv models.
+their initialisers, dropout, the time-shifted views of the conv models and
+the attention models' multi-head attention.
 
 The zoo's families (models/baselines.py, graph_baselines.py,
-conv_baselines.py, dcrnn.py, astgcn.py) have no reference torch model, so
+conv_baselines.py, dcrnn.py, astgcn.py, mtgnn.py, stsgcn.py, sttn.py,
+gman.py, stgode.py, stgncde.py) have no reference torch model, so
 each keeps the JAX package's flat parameter names and shapes: a kernel
 stays (in, out), a pool (e, K, in, out). A flax ``LayerNorm`` submodule
 ``b0_ln`` is an ``nn.LayerNorm`` named ``b0_ln`` here (its ``scale`` and
@@ -10,15 +12,18 @@ stays (in, out), a pool (e, K, in, out). A flax ``LayerNorm`` submodule
 flax's epsilon 1e-6.
 
 Each parameter is drawn as the JAX package draws it, from an explicit CPU
-``torch.Generator``: the same distributions, not the same numbers.
+``torch.Generator``: the same distributions, not the same numbers (a
+"dense" kernel of more than two axes takes JAX's bound from its first two).
 
 Every family's forward is plain torch ops of static shapes that neither
-read the device back nor branch on data, and its random draws (dropout,
-DCRNN's coins) come from the generator the caller passes: on the card the
+read the device back nor branch on data (MTGNN's top-k, STGNCDE's
+checkpointed steps included), and its random draws (dropout, DCRNN's
+coins) come from the generator the caller passes: on the card the
 executor and the service record its steps as CUDA graphs (``graph_safe``,
 executor/graphs.py).
 """
 
+import math
 from typing import List, Optional
 
 import numpy as np
@@ -33,6 +38,9 @@ LAYER_NORM_EPS = 1e-6   # flax.linen.LayerNorm's default
 def _draw(init: str, shape, generator: torch.Generator) -> torch.Tensor:
     if init == "torch":
         return torch_style_init(shape, generator)
+    if init == "dense" and len(shape) > 2:   # the JAX rule on more axes: the bound of (shape[0], shape[1])
+        bound = math.sqrt(6.0 / (shape[0] + shape[1]))
+        return torch.rand(shape, generator=generator, dtype=torch.float32) * (2 * bound) - bound
     if init == "dense":     # a flax Dense kernel (in, out)
         return dense_kernel_init(shape, generator).t().contiguous()
     if init == "uniform05":  # the JAX heads' bias, U[-0.05, 0.05)
@@ -111,6 +119,24 @@ def temporal_slices(x: torch.Tensor, kt: int, dilation: int = 1) -> List[torch.T
     t = x.shape[1]
     span = (kt - 1) * dilation
     return [x[:, j * dilation: t - (span - j * dilation)] for j in range(kt)]
+
+
+def attend(q, k, v, num_heads: int, over: str) -> torch.Tensor:
+    """Multi-head attention of q (B, Tq, N, C) on k, v (B, Tk, N, C), over
+    the nodes ('n', Tq = Tk) or the steps ('t'): (B, Tq, N, C)."""
+    b, tq, n, c = q.shape
+    tk = k.shape[1]
+    dh = c // num_heads
+    q = q.reshape(b, tq, n, num_heads, dh)
+    k = k.reshape(b, tk, n, num_heads, dh)
+    v = v.reshape(b, tk, n, num_heads, dh)
+    if over == "n":
+        att = torch.softmax(torch.einsum("btnhd,btmhd->bthnm", q, k) / math.sqrt(dh), dim=-1)
+        out = torch.einsum("bthnm,btmhd->btnhd", att, v)
+    else:
+        att = torch.softmax(torch.einsum("btnhd,bsnhd->bnhts", q, k) / math.sqrt(dh), dim=-1)
+        out = torch.einsum("bnhts,bsnhd->btnhd", att, v)
+    return out.reshape(b, tq, n, c)
 
 
 def to_horizons(out: torch.Tensor, b: int, n: int, output_window: int, output_dim: int) -> torch.Tensor:

@@ -11,7 +11,12 @@ a plain matmul. Edges scattered one per tile go to a COO tail:
     y[tail_src] += tail_w * x[tail_dst]   # gather, scale, index_add_
 
 Both are plain torch ops, as they are XLA ops in JAX, and autograd closes
-over them; the BSR remainder goes through ops/spmm.py's kernel. The
+over them; the BSR remainder goes through ops/spmm.py's kernel. On the
+card index_add_ (and the gather's backward, an index_add_) adds with
+atomics in the order the threads arrive; given the tail's fixed orders
+(``tail_order``, built once) the tail sums each row's edges, and the
+gather's backward each column's, by segment sums, one thread a segment,
+so repeated steps are bit-identical, as JAX's sorted segment_sum is. The
 builders reproduce the JAX package's arrays bit for bit (numpy builder;
 the native C++ builder of the JAX package is not ported, ROADMAP.md A.6).
 """
@@ -142,13 +147,51 @@ def split_scattered_tail(src: np.ndarray, dst: np.ndarray, weights: np.ndarray, 
                      tail_dst=dst[in_tail][order].astype(np.int32), tail_w=w[in_tail][order])
 
 
-def spmm_tail(tail_w, tail_src, tail_dst, x, num_out: int):
+def tail_order(tail_src: np.ndarray, tail_dst: np.ndarray, num_out: int):
+    """The tail's fixed summation orders, from its static edges (sorted by
+    row): (the rows' edge offsets, the edges in column order (stable), the
+    columns' offsets in that order), int32 arrays (the graph's index
+    dtype) for spmm_tail's `order`."""
+    src = np.asarray(tail_src, np.int64)
+    dst = np.asarray(tail_dst, np.int64)
+    by_dst = np.argsort(dst, kind="stable")
+    bounds = np.arange(num_out + 1)
+    return tuple(a.astype(np.int32) for a in (np.searchsorted(src, bounds), by_dst,
+                                              np.searchsorted(dst[by_dst], bounds)))
+
+
+class _OrderedGather(torch.autograd.Function):
+    """x[idx], whose backward sums each row of x's cotangent over its
+    gathered edges in edge order (segment sums over the edges sorted by
+    idx) instead of index_select's atomic index_add_."""
+
+    @staticmethod
+    def forward(ctx, x, idx, by_idx, idx_ptr):
+        ctx.save_for_backward(by_idx, idx_ptr)
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        by_idx, idx_ptr = ctx.saved_tensors
+        return (torch.segment_reduce(grad.index_select(0, by_idx), "sum", offsets=idx_ptr.long(), axis=0,
+                                     unsafe=True), None, None, None)
+
+
+def spmm_tail(tail_w, tail_src, tail_dst, x, num_out: int, order=None):
     """Y[tail_src] += tail_w * X[tail_dst]: one gather, one scale and one
     index_add_ (JAX: take, scale, segment_sum), in x's dtype (JAX casts the
-    sum to it, hybrid.py:228-231). On the CPU the sums run in edge order, as
-    segment_sum's; on the card index_add_ adds with atomics."""
-    contrib = tail_w.to(x.dtype)[:, None] * x.index_select(0, tail_dst)
-    return x.new_zeros(num_out, x.shape[1]).index_add_(0, tail_src, contrib)
+    sum to it, hybrid.py:228-231). On the CPU index_add_ sums in edge order,
+    as segment_sum does; on the card its atomics add in an order that
+    changes from run to run. With `order` (tail_order's arrays as tensors on
+    x's device, num_out rows) each row's and, in the backward, each
+    column's sum runs in edge order by segment sums, on any device (16-bit
+    sums may round otherwise than index_add_'s, which rounds each add)."""
+    if order is None:
+        contrib = tail_w.to(x.dtype)[:, None] * x.index_select(0, tail_dst)
+        return x.new_zeros(num_out, x.shape[1]).index_add_(0, tail_src, contrib)
+    src_ptr, by_dst, dst_ptr = order
+    contrib = tail_w.to(x.dtype)[:, None] * _OrderedGather.apply(x, tail_dst, by_dst, dst_ptr)
+    return torch.segment_reduce(contrib, "sum", offsets=src_ptr.long(), axis=0, unsafe=True)
 
 
 def spmm_hub(hub_values, hub_cols, x):

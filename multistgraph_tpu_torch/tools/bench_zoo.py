@@ -1,13 +1,13 @@
-"""The model zoo's train step: one loss + grad + Adam step of each ported family.
+"""The model zoo's train step: one loss + grad + Adam step of each family.
 
-Counterpart of tools/bench_zoo.py for the names the port has
+Counterpart of tools/bench_zoo.py, over the zoo's 18 names
 (config/defaults.ZOO_MODELS). Each name is built from the registry with
 its shipped defaults at DC-237 scale (B=16, Tin=24, Tout=24, N=237, F=2,
 a random 5%-dense graph from seed 0), and its eager step (the loss
 mean |pred - y|, backward, Adam at 1e-3) is timed on the card by
 ``timing.slope_time`` (trips 2, 4, 8), which cancels the fixed cost of a
 timed run. One line per name on stderr, then one JSON line with the card's
-name and power limit. A name of the zoo not ported yet raises.
+name and power limit.
 
 On the CPU (``--device cpu``) each name takes one step after a warm-up
 one, timed on the host clock (no device metric); ``--small`` runs tiny shapes (B=2, Tin=12,
@@ -32,9 +32,6 @@ from multistgraph_tpu_torch.models.registry import MODEL_REGISTRY
 from multistgraph_tpu_torch.tools.timing import card, slope_time
 from multistgraph_tpu_torch.utils.device import resolve_device
 
-# the JAX package's zoo, in its bench's order
-ZOO = ("RNN", "LSTM", "GRU", "FNN", "Seq2Seq", "TGCN", "AGCRN", "STGCN", "GWNET", "DCRNN", "ASTGCN", "MSTGCN",
-       "MTGNN", "STSGCN", "STTN", "GMAN", "STGODE", "STGNCDE")
 FULL = dict(batch=16, tin=24, tout=24, nodes=237)
 SMALL = dict(batch=2, tin=12, tout=3, nodes=8)
 FEATURES = 2
@@ -42,8 +39,6 @@ FEATURES = 2
 
 def build(name, shape, device, rng):
     """(model, x, y) of `name` at `shape`, its weights from seed 0."""
-    if name not in ZOO_MODELS:
-        raise NotImplementedError("{} is not ported yet (ROADMAP.md A.5)".format(name))
     builder = "RNN" if name in ("LSTM", "GRU") else name
     config = dict(MODEL_DEFAULTS["traffic_state_pred/{}".format(builder)])
     config.update(output_window=shape["tout"], input_window=shape["tin"], add_time_in_day=True,
@@ -94,7 +89,7 @@ def main(argv=None):
     parser.add_argument("--device", default=None, help="'cpu' for the CPU; the card otherwise")
     parser.add_argument("--small", action="store_true", help="tiny shapes (B=2, Tin=12, Tout=3, N=8)")
     args = parser.parse_args(argv)
-    unknown = [n for n in args.names if n not in ZOO]
+    unknown = [n for n in args.names if n not in ZOO_MODELS]
     if unknown:
         raise ValueError("not in the zoo: {}".format(unknown))
     device = resolve_device(args.device)

@@ -361,6 +361,29 @@ def test_hybrid_products_values_and_gradients_match_jax(form):
     _hy_close(xx.grad, want_dx, "dx")
 
 
+def test_spmm_tail_in_its_fixed_order_equals_index_add():
+    """The card's tail path (segment sums in tail_order's orders, forward
+    and in the gather's backward) against index_add_'s edge order: f32
+    output and every gradient bit for bit, 16-bit within one rounding."""
+    src, dst, w, x, dy = _hy_inputs(seed=9)
+    g = hybrid.split_scattered_tail(src, dst, w, N, BLOCK)
+    order = tuple(_t(a) for a in hybrid.tail_order(g.tail_src, g.tail_dst, 1024))
+    assert [len(a) for a in order] == [1025, len(g.tail_dst), 1025]
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = []
+        for o in (None, order):
+            e, xx = _t(g.tail_w).requires_grad_(), _t(x).to(dtype).requires_grad_()
+            y = hybrid.spmm_tail(e, _t(g.tail_src), _t(g.tail_dst), xx, 1024, o)
+            y.backward(_t(dy).to(dtype))
+            runs.append((y.detach(), e.grad, xx.grad))
+        for got, want, what in zip(runs[1], runs[0], ("y", "dtail_w", "dx"), strict=True):
+            if dtype == torch.float32:
+                assert torch.equal(got, want), what
+            else:
+                torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=2 ** -7 * float(
+                    want.float().abs().max()), msg=what)
+
+
 def test_spmm_tail_alone_matches_jax_segment_sum():
     src, dst, w, x, dy = _hy_inputs(seed=9)
     g = hybrid.split_scattered_tail(src, dst, w, N, BLOCK)

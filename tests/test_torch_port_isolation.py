@@ -18,7 +18,8 @@ harness's numerics on the CPU at its documented reduced size
 bench (``bench_large_graph ... --dtype bf16 --device cpu``); trains a zoo
 family (GRU, through the LSTM/GRU alias) for one epoch of a few batches
 through ``run_model`` on the CPU and serves one predict of it, and runs
-the zoo bench at its tiny size (``bench_zoo --device cpu --small``).
+the zoo bench over all 18 names at its tiny size (``bench_zoo --device cpu
+--small``).
 """
 
 import os
@@ -61,7 +62,9 @@ _SCRIPT = textwrap.dedent(r"""
                  "tools.bench_hbm_peak", "tools.bench_stream_rate", "ops.band_probe", "ops.precision",
                  "tools.bench_large_graph", "tools.probe_band_stream", "parallel.multiseed", "ops.quantize",
                  "tools.multiseed_run", "run_model_parameter", "models.baselines", "models.graph_baselines",
-                 "models.conv_baselines", "models.dcrnn", "models.astgcn", "models.zoo", "tools.bench_zoo"):
+                 "models.conv_baselines", "models.dcrnn", "models.astgcn", "models.zoo", "tools.bench_zoo",
+                 "models.mtgnn", "models.stsgcn", "models.sttn", "models.gman", "models.stgode", "models.stgncde",
+                 "graph.node2vec"):
         assert "multistgraph_tpu_torch." + name in sys.modules, name
 
     import numpy as np
@@ -151,7 +154,7 @@ _SCRIPT = textwrap.dedent(r"""
     assert zy.shape == (2, 3, 6, 1) and np.isfinite(zy).all(), zy.shape
     from multistgraph_tpu_torch.tools import bench_zoo
     zoo = bench_zoo.main(["--device", "cpu", "--small"])
-    assert len(zoo["extras"]["models"]) == 12 and np.isfinite(zoo["value"]), zoo
+    assert len(zoo["extras"]["models"]) == 18 and np.isfinite(zoo["value"]), zoo
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED_OK")
 """)

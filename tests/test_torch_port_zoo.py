@@ -7,7 +7,8 @@ by ``state_dict_from_jax``; the forward and every parameter's gradient of
 mean(out * w) (a mean, as the training losses are) are held to atol
 1e-5, rtol 1e-4 (test_torch_port_model.py's limits), the JAX references
 jitted. Also: the graph helpers bit for bit,
-the configuration of all 12 names, TrafficStatePointDataset's splits,
+the configuration of all 18 names (and the registry's names, JAX's),
+TrafficStatePointDataset's splits,
 DCRNN's teacher-forcing ratio, coins and forced ratios, GWNET's dropout,
 and a short executor run of AGCRN and DCRNN against the JAX executor
 (losses rtol 2e-5, metrics 1e-3, test_torch_port_training.py's Adam
@@ -35,6 +36,7 @@ from multistgraph_tpu.models import conv_baselines as jax_conv
 from multistgraph_tpu.models import graph_baselines as jax_graph
 from multistgraph_tpu.models.registry import MODEL_REGISTRY as JAX_REGISTRY
 from multistgraph_tpu_torch.config import load_config
+from multistgraph_tpu_torch.config.defaults import ZOO_MODELS
 from multistgraph_tpu_torch.config.parser import ConfigError
 from multistgraph_tpu_torch.data import get_dataset
 from multistgraph_tpu_torch.data.dataset import TrafficStatePointDataset
@@ -51,6 +53,7 @@ TASK = "traffic_state_pred"
 B, TIN, TOUT, N, F = 4, 12, 3, 5, 2
 ATOL, RTOL = 1e-5, 1e-4
 ZOO = ("RNN", "LSTM", "GRU", "FNN", "Seq2Seq", "AGCRN", "TGCN", "STGCN", "GWNET", "DCRNN", "ASTGCN", "MSTGCN")
+ZOO_REST = ("MTGNN", "STSGCN", "STTN", "GMAN", "STGODE", "STGNCDE")   # test_torch_port_zoo_rest.py's families
 
 # each family's config at the tiny shapes (the builders' other keys keep their defaults)
 CONFIGS = {
@@ -259,7 +262,7 @@ def test_graph_helpers_are_bit_identical():
 
 
 def test_config_of_every_zoo_name_matches_jax(tmp_path):
-    for name in ZOO:
+    for name in ZOO + ZOO_REST:
         args = {"data_dir": str(tmp_path), "seed": 3}
         ours = load_config(TASK, name, "SYN_ZOO", other_args=args).to_dict()
         ref = jax_load_config(TASK, name, "SYN_ZOO", other_args=args).to_dict()
@@ -268,9 +271,11 @@ def test_config_of_every_zoo_name_matches_jax(tmp_path):
         assert {k: ours[k] for k in shared} == {k: ref[k] for k in shared}, name
         assert ours["dataset_class"] == "TrafficStatePointDataset"
     assert load_config(TASK, "LSTM", "SYN_ZOO")["rnn_type"] == "LSTM"
-    # the families still to port fail in the parser
+    # the port's registry holds every name of JAX's, and the parser refuses a name of neither
+    assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
+    assert set(ZOO_MODELS) == set(ZOO + ZOO_REST)
     with pytest.raises(ConfigError):
-        load_config(TASK, "MTGNN", "SYN_ZOO")
+        load_config(TASK, "NOT_A_MODEL", "SYN_ZOO")
 
 
 def test_point_dataset_matches_jax(synthetic_dataset, tmp_path):
