@@ -24,7 +24,7 @@ from a seeded generator):
     those checks; the int8 f32 model's per-forward int8 weights are
     compared with the CPU's, level by level;
   * training: the int8 configuration trained through ``get_executor`` (3
-    warm-up and 20 timed steps at batch 16, one validation pass), the same
+    warm-up and 10 timed steps at batch 16, one validation pass), the same
     at f32 activations (B2's and B2t's f32 forms only), then a few f32 and
     bf16 steps, each with exact launch counts per step. One step's loss and
     every parameter gradient on the card are held against the CPU at the
@@ -36,7 +36,7 @@ from a seeded generator):
   * CUDA graphs (``graph_phase``, right after training): in int8, int8
     f32, bf16 and f32, 3 replays of the captured train step held bit for
     bit against 3 eager steps (mean loss, every parameter, Adam's state),
-    the median of 10 replays, one replay's device time by kernel (its
+    the median of 3 replays, one replay's device time by kernel (its
     q8_kernel and strided_copy_kernel counts must be the eager counters'
     per step: 96 + 96 B2/B2t, 4 + 4 B3) beside one eager step's; in int8
     a graphed validation pass against an eager one, a graphed epoch
@@ -75,7 +75,7 @@ synthetic large graph of 49,152 nodes (4,946 tiles of 128x128):
     B5 (a k16 slice dropped, a tile skipped, a row block zeroed; on B4/B6's
     transposed graph also a split row's last segment dropped) must fail
     the holds;
-  * training through ``get_executor`` (2 warm-up and 10 timed steps at
+  * training through ``get_executor`` (2 warm-up and 5 timed steps at
     batch 2) with exact launch counts derived from the model and the
     step's device time by kernel name, one validation and one evaluation
     pass, and serving the saved experiment through ``from_experiment`` at
@@ -90,7 +90,7 @@ Then the band form of the same graph (graph_split 'band': diagonals -2..2,
     inside B9 dV's f32 kernel (a k16 slice dropped, the main diagonal
     skipped, the graph's last row block read as outside it) must fail the
     holds;
-  * training on the planes through ``get_executor`` (2 warm-up and 10 timed
+  * training on the planes through ``get_executor`` (2 warm-up and 5 timed
     steps) with exact launch counts, one validation and one evaluation
     pass, and the saved experiment served from packed rows
     (graph_band_packed) at buckets 1 and 2, launching B8 and no B7, its
@@ -108,7 +108,7 @@ planes:
     copy a chunk); three faults planted inside each kernel (a k16 slice
     dropped, a tile skipped, a row block zeroed; B4/B6 on its transposed
     graph also a split row's last segment dropped) must fail the holds;
-  * for each form, training through ``get_executor`` (2 warm-up and 5
+  * for each form, training through ``get_executor`` (2 warm-up and 3
     timed steps) with exact launch counts of the bf16 kernels, one
     validation pass, and the saved experiment served through
     ``from_experiment`` at buckets 1 and 2, with device busy time, idle
@@ -127,7 +127,7 @@ Then the same in f16 (compute_dtype 'float16'), on the same two forms:
     outputs within one f16 step, each row with its +-inf outputs and the
     nonzero sums it rounded to 0), timed beside their bounds and a library
     call each; the faults planted inside each kernel must fail the holds;
-  * for each form, training (2 warm-up and 5 timed steps) with exact launch
+  * for each form, training (2 warm-up and 3 timed steps) with exact launch
     counts on the f16 counters (the SDDMM's dE1 and dE2 on the f32 B4/B6:
     their dS is f32), one step with the range of every f16 product watched
     and its loss and gradients held finite, one validation pass, and the
@@ -137,7 +137,8 @@ Then the same in f16 (compute_dtype 'float16'), on the same two forms:
   * at 4,096 nodes, f16 output, loss and gradients on the card against the
     CPU on the BSR, hub and tail forms (the tail run twice on the card: its
     sums in a fixed order, the runs bit for bit) and on the band's planes
-    and packed rows, failed by the same planted faults.
+    and packed rows, failed by the same planted faults (the CPU runs, a
+    minute of single-threaded f16 products each, run beside the 1M phase).
 The sparse phases' validation and evaluation passes and their services
 replay captured forwards after one eager batch or request (CUDA graphs,
 executor/graphs.py); their windows count the replays' launches. Then
@@ -149,7 +150,7 @@ f16 band planes phases and on a bf16 tail form built there:
     from that state agree bit for bit, else within 2x their largest gap
     (atomic sums), by loss, parameters and Adam's state; the captured
     launches equal to the eager per-step counts;
-  * the median of 10 replays beside the eager steps, with one replay's and
+  * the median of 3 replays beside the eager steps, with one replay's and
     one eager step's device busy time and idle share;
   * a graphed validation pass on 4 batches and requests at buckets 1 and 2
     held against eager ones by the same rule, graphed and eager latency.
@@ -192,7 +193,7 @@ package's 1M configuration, at T=12 and batch 2, no adaptive view):
     dropped) and two inside band_slab's (a k16 slice dropped, the window
     read one row block late) must fail the checks;
   * the port's probe_band_stream on the card, every probe launched and OK;
-  * bench_large_graph's training (2 eager warm-up steps, then 5 timed
+  * bench_large_graph's training (2 eager warm-up steps, then 3 timed
     replays of its captured step) with exact launch counts and finite
     losses, and its packed serving at buckets 1 and 2 (B8, no B7; replays
     of a captured call), the replies held against the planes'; each timed
@@ -217,6 +218,26 @@ get_model and get_executor on the DC-237 series (24 in, 24 out, batch 16):
     that must fail that hold;
   * no kernel of the port launches (the zoo runs torch ops only), so the
     kernels line has no zoo row.
+Then the zoo under multi-seed training (zoo_multiseed_phase): each of the
+18 names at seeds 0 and 10 as one step of the multi-seed trainer (each
+seed's own forward, generator, loss, clip and Adam group), its 2 eager
+warm-ups and 3 replays held bit for bit against each seed's single-seed
+executor stepped through the same batches (losses, parameters, Adam's
+state), each seed's graphed validation and predictions against eager
+forwards, DCRNN's ratio shared by the seeds (its coins deciding: the run
+starts at global step ZMS_DCRNN_STEP); faults planted in GRU (seed 1 on
+seed 0's batches) and MTGNN (seed 1 on seed 0's generator) must fail the
+hold; GRU, DCRNN, MTGNN and STGNCDE timed at 2 and 4 seeds beside the
+single-seed executor's replay (S = 1). Last, the paper's quality protocol
+(quality_phase): the port's tools/quality_run.py at the dc shape and full
+width, the series cut to 31 days, 1 epoch, seeds 0 and 10, MultiATGCN,
+MultiATGCN-C, GRU, DCRNN and STGNCDE into a temporary root; no run may
+fail, its table must have every model x horizon and the naive rows, finite
+numbers, MultiATGCN's margin 0, means and stds equal to a recomputation
+from the per-seed tables, naive rows equal to a recomputation from the
+CPU's test split, and a resumed run must train nothing and write the same
+table; the MultiATGCN runs launch B3 4 + 4 a step and 4 a forward, which
+the kernels line's B3 launches include.
 ptxas may serialize the wgmma of a kernel (C7520, C7515): the run fails
 where it does, but for the three kernels whose serialization is known and
 queued (band_dv_tc_kernel, band_slab_tc_kernel,
@@ -275,7 +296,7 @@ POOL_GAIN = 30.0
 BOUND_F32 = 1e-5               # f32 on the card vs on the CPU
 BOUND_BF16 = 5e-3              # int8 or bf16 on the card vs on the CPU; int8 vs bf16
 
-TRAIN_WARMUP, TRAIN_STEPS = 3, 20   # int8 training steps at batch B
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10   # int8 training steps at batch B
 MODE_STEPS = 3                      # timed f32 and bf16 training steps (after 1 warm-up)
 LEARNING_RATE = 3e-3                # bench.py's fixed rate
 LARGE_BATCH = 256                   # B2 and B2t at a batch the first B2 kernel refused
@@ -1141,8 +1162,8 @@ def training_phase(torch):
 
 # ------------------------------------------------------------------ graphs
 GRAPH_CHECK_REPLAYS = 3     # replayed steps held bit for bit against as many eager steps
-GRAPH_TIMED = 10            # replayed steps timed (after 3), and the requests per bucket
-GRAPH_EAGER_EPOCH = 24      # batches of the eager int8 epoch (the graphed one runs them all)
+GRAPH_TIMED = 3             # replayed steps timed (after 3), and the requests per bucket
+GRAPH_EAGER_EPOCH = 8       # batches of the eager int8 epoch (the graphed one runs them all)
 PROFILE_BATCHES = 8         # the profile_dir run's epochs: the first 8 batches
 # kernels of one captured step, by profiler name: B2 and B2t are q8_kernel
 # instantiations, B3 strided_copy_kernel (csrc/layout_copy.cu)
@@ -1206,7 +1227,7 @@ def _eager_validation(torch, executor, loader):
 
 def _graph_serving(torch, model, scaler, feature, x_all, eager_latency):
     """PredictService's bucket graphs against eager replies (bit for bit) at
-    buckets 1, 4 and 16, the median of 10 requests each (and of 10 eager
+    buckets 1, 4 and 16, the median of 3 requests each (and of 3 eager
     ones with `eager_latency`), one bucket-16 request's device time; and
     the service's graphs."""
     import numpy as np
@@ -1268,11 +1289,11 @@ def _adam_gap(torch, steps=5, lr=3e-3, b1=0.9, b2=0.999, eps=1e-8):
 def graph_phase(torch, feature, state_dict, loaders):
     """The executor's and the service's CUDA graphs at the flagship width.
     For each configuration: 3 replayed steps against 3 eager steps, bit for
-    bit (mean loss, parameters, optimizer state); the median of 10 replays
+    bit (mean loss, parameters, optimizer state); the median of 3 replays
     after 3; one replay's device time by kernel, whose B2/B2t/B3 kernels
     must be the eager counts, beside one eager step's. In int8 also a
     graphed validation pass against an eager one (bit for bit, and timed),
-    a graphed epoch against eager steps over its first 24 batches, and the
+    a graphed epoch against eager steps over its first 8 batches, and the
     service at buckets 1, 4 and 16 (replies bit for bit, latency graphed
     and eager); in int8 f32 the service, graphed. Then a profile_dir run.
     Returns the window of launches: the eager counters plus every replay's
@@ -1471,7 +1492,7 @@ def gradient_phase(torch, feature, state_dict, batch):
 SP_TASK, SP_MODEL, SP_DATASET = "traffic_state_pred", "SparseATGCN", "SYN_LARGE_49K"
 SP_NODES, SP_CHECK_NODES = 49152, 4096
 SP_T, SP_B, SP_H = 12, 2, 64
-SP_WARMUP, SP_STEPS = 2, 10
+SP_WARMUP, SP_STEPS = 2, 5
 SP_SPMM_WIDTHS = (16, 24, 64, 128, 1536)   # sddmm dE, layer-0 hoist, serving step, step, layer-1 hoist
 SP_DX_WIDTHS = (128, 1536)                 # transposed (dX) of the per-step aggregations and of layer 1's hoist
 SP_FAULT_WIDTH = 128                       # faults planted inside B4/B6 (f32) must fail the holds at this width
@@ -2332,7 +2353,7 @@ SPB_SPMM_WIDTHS = (12, 16, 24, 64, 128, 768, 1536)  # bucket-1 layer-0 hoist, sd
 #                                                     bucket-1 step, step, bucket-1 layer-1 hoist, layer-1 hoist
 SPB_DX_WIDTHS = (128, 1536)                # transposed (dX) of the per-step aggregations and of layer 1's hoist
 SPB_B5_WIDTHS = (16, 24, 128, 1536)        # forward scores, then the adaptive dV at each training width
-SPB_STEPS = 5                              # timed bf16 training steps (after SP_WARMUP)
+SPB_STEPS = 3                              # timed bf16 training steps (after SP_WARMUP)
 # widths at which each fault planted in the bf16 kernels must fail the hold:
 # x by element loads (F=12) and by TMA (F=128); B5 at d = 16 and 24 (the
 # second k16 slice half past d)
@@ -2556,7 +2577,7 @@ def _bsr_widths(fn):
 def sparse_bf16_phase(torch, split, ty="bf16"):
     """SparseATGCN in bf16 (or, with ty 'f16', in f16) at 49,152 nodes with
     the adaptive view, on the BSR form (split 'none') or the band's planes
-    ('band'): 2 warm-up and 5 timed training steps through get_executor
+    ('band'): 2 warm-up and 3 timed training steps through get_executor
     with exact launch counts, one validation pass, and the saved experiment
     served through from_experiment at buckets 1 and 2 (in f16 the band form
     from packed rows: B8, no B7); device busy time, idle share and peak
@@ -2673,7 +2694,7 @@ def sparse_bf16_phase(torch, split, ty="bf16"):
 # ------------------------------------------------------------ sparse graphs
 SPG_REPLAYS = 3          # replayed steps held against as many eager steps from one state
 SPG_EAGER_RUNS = 3       # eager re-runs from one state: the gap that atomic sums would leave between them
-SPG_TIMED = 10           # replays timed (after 3), and graphed requests per bucket
+SPG_TIMED = 3            # replays timed (after 3), and graphed requests per bucket
 SPG_VAL_BATCHES = 4      # validation batches held against eager ones
 SPG_EAGER_REQUESTS = 5   # eager requests timed per bucket
 # the forms the phase replays: the sparse phases' executors, and the bf16
@@ -2906,31 +2927,16 @@ def sparse_graph_phase(torch, handles):
     return windows
 
 
-def sparse_bf16_check_phase(torch, ty="bf16"):
-    """Card vs CPU at 4,096 nodes in bf16 (or, with ty 'f16', in f16) with
-    the adaptive view: the model output, one step's loss (finite) and every
-    gradient on the BSR, hub and tail forms, faults planted inside B4/B6 and
-    B5 (on the BSR form) failing the checks; then the band's planes and
-    packed rows (band_check_phase, faults in B7, B8 and B9 dX). In f16 the
-    tail form runs twice on the card, and the two runs' difference is
-    printed: 0 since its sums run in a fixed order (ops/hybrid.spmm_tail's
-    `order`), where index_add_'s atomics changed them from run to run. The
-    CPU runs of all five forms (BSR, hub, tail, band planes and packed
-    rows) run at once (_cpu_runs)."""
+def _sparse_check_forms(torch, ty):
+    """The bf16 (or, with ty 'f16', f16) check's models at 4,096 nodes with
+    the adaptive view: {split: (CPU model, card model, feature, batch)} of
+    the BSR, hub and tail forms, the band forms (_band_check_forms) and
+    every CPU job of the check for _cpu_runs."""
     from multistgraph_tpu_torch.config import load_config
     from multistgraph_tpu_torch.data import get_dataset
     from multistgraph_tpu_torch.models import get_model
-    from multistgraph_tpu_torch.ops import spmm as sp
 
-    half = ty == "f16"
-    name = "float16" if half else "bfloat16"
-    bound_out, bound_grad = ((BOUND_SPARSE_F16_OUT, BOUND_SPARSE_F16_GRAD) if half
-                             else (BOUND_SPARSE_BF16_OUT, BOUND_SPARSE_BF16_GRAD))
-    errs, controls, cpu_s = {}, {}, {}
-    faults = {"B4/B6 row block 0 zeroed": ("row", "bsr_spmm"), "B4/B6 k16 slice dropped": ("k16", "bsr_spmm"),
-              "B4/B6 last tile of each row skipped": ("tile", "bsr_spmm"),
-              "B5 k16 slice dropped": ("k16", "sampled_matmul"),
-              "B5 row block 0's tiles zeroed": ("row", "sampled_matmul")}
+    name = "float16" if ty == "f16" else "bfloat16"
     forms = {}
     for split in ("none", "hub", "tail"):
         args = dict(_sparse_args(SP_CHECK_NODES, "chip_smoke_sparse_{}_check".format(ty)), graph_split=split,
@@ -2943,11 +2949,45 @@ def sparse_bf16_check_phase(torch, ty="bf16"):
         card_model = get_model(cfg, feature)
         card_model.load_state_dict(cpu_model.state_dict())
         forms[split] = (cpu_model, card_model, feature, {"X": train.x[:SP_B], "y": train.y[:SP_B]})
-    # the band form's CPU runs beside these: every CPU run of the check at once
-    band_label, band_overrides = "band {} adaptive".format(ty), dict(compute_dtype=name, adpadj="unidirection")
-    band_forms = _band_check_forms(torch, band_label, band_overrides)
-    cpu_runs = _cpu_runs(torch, dict({split: (f[0], f[2]["scaler"], f[3]) for split, f in forms.items()},
-                                     **{"band " + form: job for form, job in band_forms[3].items()}))
+    band_forms = _band_check_forms(torch, "band {} adaptive".format(ty), _band_check_overrides(ty))
+    jobs = dict({split: (f[0], f[2]["scaler"], f[3]) for split, f in forms.items()},
+                **{"band " + form: job for form, job in band_forms[3].items()})
+    return forms, band_forms, jobs
+
+
+def _band_check_overrides(ty):
+    return dict(compute_dtype="float16" if ty == "f16" else "bfloat16", adpadj="unidirection")
+
+
+def sparse_bf16_check_phase(torch, ty="bf16", prepared=None):
+    """Card vs CPU at 4,096 nodes in bf16 (or, with ty 'f16', in f16) with
+    the adaptive view: the model output, one step's loss (finite) and every
+    gradient on the BSR, hub and tail forms, faults planted inside B4/B6 and
+    B5 (on the BSR form) failing the checks; then the band's planes and
+    packed rows (band_check_phase, faults in B7, B8 and B9 dX). In f16 the
+    tail form runs twice on the card, and the two runs' difference is
+    printed: 0 since its sums run in a fixed order (ops/hybrid.spmm_tail's
+    `order`), where index_add_'s atomics changed them from run to run. The
+    CPU runs of all five forms (BSR, hub, tail, band planes and packed
+    rows) run at once (_cpu_runs); with `prepared`, the forms of
+    _sparse_check_forms and their CPU runs, done beforehand (main() runs
+    the f16 check's beside the 1M phase), the phase does the card's half."""
+    from multistgraph_tpu_torch.ops import spmm as sp
+
+    half = ty == "f16"
+    bound_out, bound_grad = ((BOUND_SPARSE_F16_OUT, BOUND_SPARSE_F16_GRAD) if half
+                             else (BOUND_SPARSE_BF16_OUT, BOUND_SPARSE_BF16_GRAD))
+    errs, controls, cpu_s = {}, {}, {}
+    faults = {"B4/B6 row block 0 zeroed": ("row", "bsr_spmm"), "B4/B6 k16 slice dropped": ("k16", "bsr_spmm"),
+              "B4/B6 last tile of each row skipped": ("tile", "bsr_spmm"),
+              "B5 k16 slice dropped": ("k16", "sampled_matmul"),
+              "B5 row block 0's tiles zeroed": ("row", "sampled_matmul")}
+    if prepared is None:
+        forms, band_forms, jobs = _sparse_check_forms(torch, ty)
+        cpu_runs = _cpu_runs(torch, jobs)
+    else:
+        forms, band_forms, cpu_runs = prepared
+    band_label, band_overrides = "band {} adaptive".format(ty), _band_check_overrides(ty)
     band_runs = {form: cpu_runs.pop("band " + form) for form in band_forms[3]}
     band_forms = band_forms[:3] + (None,)   # the CPU models are done with
     for split, (cpu_model, card_model, feature, batch) in forms.items():
@@ -3209,7 +3249,7 @@ def _f16_band_rows(torch):
 # adaptive view. Widths each band kernel takes on that path:
 BF_ARGV = ["1000000", "16", "12", "2", "band", "--dtype", "bf16", "--adpadj", "none"]
 BF_T, BF_B = 12, 2
-BF_STEPS, BF_CALLS = 5, 3                        # timed training steps and serving calls per bucket
+BF_STEPS, BF_CALLS = 3, 3                        # timed training steps and serving calls per bucket
 BF_B7_WIDTHS = (24, 128, 1536)                   # layer-0 hoist T*B, per-step B*H, layer-1 hoist T*B*H
 BF_B8_WIDTHS = (12, 64, 768, 24, 128, 1536)      # the same at serving buckets 1 and 2
 BF_DX_WIDTHS = (128, 1536)                       # dX of the per-step aggregations and of layer 1's hoist
@@ -3949,7 +3989,7 @@ MS_FORMS = {"int8": 4, "f32": 2}    # seeds each form trains in one widened step
 MS_SCALING = (1, 2, 4, 8)           # seeds of the timed int8 steps
 MS_WIDTHS = (2, 4, 8)               # seeds of B2/B2t's rows at S*N nodes (4: the int8 form's)
 MS_CHECK_REPLAYS = 3                # replayed steps held against single-seed steps from one state
-MS_TIMED = 10                       # replays timed at each S
+MS_TIMED = 3                        # replays timed at each S
 MS_BENCH_EPOCHS = 1                 # bench.py --multiseed's timed epochs (after its warm-up)
 MS_EPOCH_BATCHES = 6                # train_multiseed's epoch: the first 6 batches' samples, shuffled per seed
 MS_EVAL_BATCHES = 4                 # its validation and predict passes: the first 4 batches, in order
@@ -4448,9 +4488,8 @@ def multiseed_phase(torch, feature, state_dict, loaders):
 # ---------------------------------------------------------------- the zoo
 
 ZOO_STEPS = 5            # the graphed executor's first steps: 2 eager warm-ups, then 3 replays
-ZOO_EAGER_TIMED = 5      # eager steps timed after the check, beside the 3 held ones
-ZOO_VAL_HELD = 8         # validation batches held bit for bit against eager ones
-ZOO_TIMED = 10           # replays timed, and graphed requests per bucket
+ZOO_VAL_HELD = 4         # validation batches held bit for bit against eager ones
+ZOO_TIMED = 3            # replays timed, and graphed requests per bucket
 ZOO_BUCKETS = (1, B)     # the service's buckets
 ZOO_CHECK_BATCH = 4      # card vs CPU: the first 4 samples of the first training batch
 # faults planted in a second card run of these families, each of which must
@@ -4555,14 +4594,15 @@ def zoo_phase(torch):
     its defaults on bench.py's DC-237 series (24 in, 24 out, batch 16):
     5 training steps of the graphed executor (2 eager, 3 replays) held bit
     for bit against 5 eager steps (mean loss, parameters, Adam state),
-    graphed validation over the first 8 batches held bit for bit against
-    eager and then over the split, 10 timed replays beside 8 eager steps,
+    graphed validation over the first 4 batches held bit for bit against
+    eager, 3 timed replays beside the 3 eager steps after the warm-ups,
     one replay's device time, an evaluation, PredictService at buckets 1
     and 16 (graphed replies against eager ones, bit for bit, and timed),
     the peak memory above what the family found allocated; DCRNN's forced
     ratios. The zoo launches no kernel of
     the port (every launch count stays 0). Returns, per family, what
-    zoo_check_phase holds against the CPU."""
+    zoo_check_phase holds against the CPU, and the windows (loaders and
+    data feature) for zoo_multiseed_phase."""
     import gc
 
     import numpy as np
@@ -4606,7 +4646,7 @@ def zoo_phase(torch):
         got = graphed.train_epoch(first, lr)
         set_learning_rate(eager.optimizer, lr)
         losses = []
-        rows = np.concatenate([first.epoch_permutation(), train.epoch_permutation()[:ZOO_EAGER_TIMED]])
+        rows = first.epoch_permutation()
 
         def eager_step(i):
             eager.before_train_step()
@@ -4624,8 +4664,6 @@ def zoo_phase(torch):
         if val_graphed != val_eager:
             raise AssertionError("{}: graphed validation {} differs from eager {}".format(
                 name, val_graphed, val_eager))
-        val_graphed = graphed._valid_epoch(val)
-        eager_ms += _ms_each(torch, lambda i: eager_step(ZOO_STEPS + i), ZOO_EAGER_TIMED)
         graph = graphed.graphs["train"]
         perm = torch.as_tensor(train.epoch_permutation(), device="cuda")
 
@@ -4688,7 +4726,7 @@ def zoo_phase(torch):
     summary = {n: {"eager_ms": r["eager_ms_per_step"], "graphed_ms": r["replayed_ms_per_step"],
                    "request_ms": r["ms_per_request_by_bucket"], "peak_gb": r["peak_gb"]} for n, r in records.items()}
     say(json.dumps({"zoo on the card": summary, "card": card()}))
-    return checks
+    return checks, shared[1:]
 
 
 def zoo_check_phase(torch, checks):
@@ -4735,6 +4773,347 @@ def zoo_check_phase(torch, checks):
                                                             **BOUND_ZOO_GRAD_OF}}))
     if failed:
         raise AssertionError("; ".join(failed))
+
+
+# ------------------------------------------------- the zoo under multi-seed
+
+ZMS_SEEDS = (0, 10)          # the seeds each family trains as one step: the protocol's first two
+ZMS_STEPS = 5                # the trainer's and each single-seed executor's steps: 2 eager, then 3 replays
+ZMS_HEAD = 2                 # validation and predict batches held against eager forwards
+ZMS_TIMED = 3                # replays timed at each S, and the single-seed executor's replays
+ZMS_SCALING = (2, 4)         # seeds of the timed steps beside the single-seed executor's (S = 1)
+ZMS_TIMED_FAMILIES = ("GRU", "DCRNN", "MTGNN", "STGNCDE")
+# faults planted in a second trainer of these families, each of which must
+# break its seed 1's hold: GRU's seed 1 trained on seed 0's batches; MTGNN's
+# seed 1 drawing its dropout masks from seed 0's generator
+ZMS_FAULTS = {"GRU": "seed 1 handed seed 0's batches", "MTGNN": "seed 1 handed seed 0's generator"}
+# DCRNN's first global step here (trainer and single-seed executors alike):
+# its teacher-forcing ratio 0.40, so that each seed's coins decide the
+# step (at step 0 the default cl_decay_steps 2000 gives 0.9995)
+ZMS_DCRNN_STEP = 16000
+
+
+def _zms_same(torch, trainer, i, ref, got, want):
+    """Whether seed i of `trainer` holds the single-seed executor `ref`'s
+    losses, parameters and Adam state bit for bit; with the losses' gap."""
+    same = torch.equal(got, want) and all(
+        torch.equal(p, q) for p, q in zip(trainer.model.members[i].parameters(), ref.model.parameters()))
+    mine, theirs = trainer.seed_state(i)[1]["state"], ref.optimizer.state_dict()["state"]
+    same = same and mine.keys() == theirs.keys() and all(
+        torch.equal(torch.as_tensor(v), torch.as_tensor(theirs[j][k])) for j, st in mine.items() for k, v in st.items())
+    return same, _rel_gap(torch, got, want)
+
+
+def zoo_multiseed_phase(torch, windows):
+    """The zoo's 18 names under multi-seed training on the card, each at its
+    defaults on the DC-237 windows of zoo_phase (24 in, 24 out, batch 16,
+    f32 without TF32): ZMS_SEEDS trained as one step ("members": each
+    seed's own forward, generator, loss, clip and Adam group), 2 eager
+    warm-ups and 3 replays of the captured step, held bit for bit against
+    each seed's single-seed executor (weights drawn and dropout generator
+    seeded at its seed) stepped graphed through the same batches: losses,
+    parameters and Adam's state; then each seed's graphed validation and
+    predictions over ZMS_HEAD batches against eager forwards, bit for bit;
+    DCRNN's teacher-forcing ratio one for both seeds; no kernel of the port
+    captured or launched. ZMS_FAULTS planted in a second trainer must break
+    the hold. ZMS_TIMED_FAMILIES' replays timed at S = 2, 4 beside the
+    single-seed executor's (S = 1). `windows` are zoo_phase's loaders and data
+    feature."""
+    import gc
+
+    import numpy as np
+
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.config.defaults import ZOO_MODELS
+    from multistgraph_tpu_torch.executor import get_executor
+    from multistgraph_tpu_torch.executor.executor import GRAPH_WARMUP_STEPS, teacher_forcing_ratio
+    from multistgraph_tpu_torch.models import get_model
+    from multistgraph_tpu_torch.parallel.multiseed import MultiSeedTrainer, protocol_seeds
+    from multistgraph_tpu_torch.tools.timing import card
+
+    raw = os.path.join(WORK, "raw_data")
+    _reset_counts()
+    (train, val, _), feature = windows
+    records = {}
+    for name in ZOO_MODELS:
+        t_family = time.perf_counter()
+        cfg = load_config("traffic_state_pred", name, "SYN_DC237",
+                          other_args=dict(_zoo_args(raw, name), exp_id="zoo_ms_" + name))
+        lr = cfg.get("learning_rate")
+
+        def executor(seed):
+            """The single-seed executor at `seed`, as run_model --seed would build it."""
+            model = get_model(cfg, feature, device="cuda", generator=torch.Generator().manual_seed(seed))
+            ex = get_executor(cfg, model, feature, device="cuda")
+            ex.dropout_generator.manual_seed(seed)
+            return ex
+
+        refs = [executor(s) for s in ZMS_SEEDS]
+        trainer = MultiSeedTrainer(refs[0], ZMS_SEEDS)
+        start = ZMS_DCRNN_STEP if trainer.tf_ratio is not None else 0
+        for ex in [trainer] + refs:
+            ex.global_step = start
+        if trainer.form != "members" or not trainer.graphs_train:
+            raise AssertionError("{}: form {}, graphs {}".format(name, trainer.form, trainer.graphs_train))
+        perm = _seed_perm(train, len(ZMS_SEEDS), ZMS_STEPS)
+        got = trainer.train_steps(train, perm, lr)
+        holds, record = [], {}
+        for i, ref in enumerate(refs):
+            want = ref.train_steps(train, perm[:, i], lr)
+            holds.append(_zms_same(torch, trainer, i, ref, got[:, i], want))
+        graphs = [trainer.graphs["train"]] + [ref.graphs["train"] for ref in refs]
+        replays = ZMS_STEPS - GRAPH_WARMUP_STEPS
+        if [g.replays for g in graphs] != [replays] * 3 or any(any(g.captured.values()) for g in graphs):
+            raise AssertionError("{}: replays {}, captured {}".format(
+                name, [g.replays for g in graphs], [g.captured for g in graphs]))
+        if not all(same for same, _ in holds):
+            raise AssertionError("{}: seeds against their single-seed steps {}".format(name, holds))
+        # validation and predictions, graphed, against eager forwards of each seed's executor
+        head = _First(val, ZMS_HEAD, ordered=True)
+        vals, preds = trainer.valid_epoch(head), trainer.predict(head)
+        with torch.no_grad():
+            rows = [torch.as_tensor(idx, device="cuda") for idx in head.ordered_permutation()]
+            eager_preds = [torch.cat([ref.model(head.x.index_select(0, idx)) for idx in rows]).cpu().numpy()
+                           for ref in refs]
+        eager_vals = [_eager_validation(torch, ref, head) for ref in refs]
+        if list(vals) != eager_vals or not all(np.array_equal(p, q) for p, q in zip(preds, eager_preds)):
+            raise AssertionError("{}: graphed validation {} / predictions differ from eager {}".format(
+                name, vals.tolist(), eager_vals))
+        record.update(bit_for_bit=True, losses=got.mean(0).tolist(), val=vals.tolist(),
+                      captured_port_launches=0, replays=replays)
+        if trainer.tf_ratio is not None:
+            ratio = float(teacher_forcing_ratio(trainer.cl_decay_steps, start + ZMS_STEPS - 1))
+            if float(trainer.tf_ratio) != ratio or any(float(ref.tf_ratio) != ratio for ref in refs):
+                raise AssertionError("{}: teacher-forcing ratio {} differs from {}".format(
+                    name, float(trainer.tf_ratio), ratio))
+            record["shared_tf_ratio"] = ratio
+        if name in ZMS_FAULTS:
+            fault = MultiSeedTrainer(refs[0], ZMS_SEEDS)
+            fault.global_step = start
+            fault_perm = perm.copy()
+            if name == "GRU":
+                fault_perm[:, 1] = perm[:, 0]
+            else:
+                fault.generators = (fault.generators[0], torch.Generator(device="cuda").manual_seed(ZMS_SEEDS[0]))
+            fault_got = fault.train_steps(train, fault_perm, lr)
+            same, gap = _zms_same(torch, fault, 1, refs[1], fault_got[:, 1], got[:, 1])
+            record["planted_fault"] = {"fault": ZMS_FAULTS[name], "held": same, "loss_gap": gap}
+            if same:
+                raise AssertionError("{}: the planted fault ({}) passed the hold".format(name, ZMS_FAULTS[name]))
+            del fault
+        if name in ZMS_TIMED_FAMILIES:
+            idx = torch.as_tensor(perm[0, 0], device="cuda")
+            graph = refs[0].graphs["train"]
+            single = _ms_each(torch, lambda i: (refs[0].before_train_step(), graph.run(idx=idx)), ZMS_TIMED)
+            record["single_seed_replay_ms"] = statistics.median(single)
+            scaling = {}
+            for count in ZMS_SCALING:
+                t = trainer if count == len(ZMS_SEEDS) else MultiSeedTrainer(refs[0], protocol_seeds(count))
+                if t is not trainer:   # 2 eager warm-ups, then the capture
+                    t.global_step = start
+                    t.train_steps(train, _seed_perm(train, count, GRAPH_WARMUP_STEPS), lr)
+                    t._train_graph(train, lr, (count, B))
+                g, rows_s = t.graphs["train"], torch.as_tensor(_seed_perm(train, count, 1)[0], device="cuda")
+                ms = statistics.median(_ms_each(torch, lambda i: (t.before_train_step(), g.run(idx=rows_s)),
+                                                ZMS_TIMED))
+                scaling[str(count)] = {"replay_ms": ms, "over_single_seed_replays": ms / (count * record[
+                    "single_seed_replay_ms"])}
+                del t, g
+            record["seeds_replay"] = scaling
+        record["seconds"] = time.perf_counter() - t_family
+        say(json.dumps({"zoo multiseed": name, **record}))
+        records[name] = record
+        del trainer, refs, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+    launched = {k: v for k, v in _read_counts().items() if v}
+    if launched:
+        raise AssertionError("the zoo's multi-seed steps launched kernels of the port: {}".format(launched))
+    say(json.dumps({"zoo multiseed on the card": {n: r.get("seeds_replay") for n, r in records.items()
+                                                  if "seeds_replay" in r}, "card": card()}))
+
+
+# -------------------------------------------------- the quality protocol
+
+QUALITY_MODELS = "MultiATGCN,MultiATGCN-C,GRU,DCRNN,STGNCDE"
+QUALITY_SEEDS = "0,10"
+# the series cut to 31 days: the trend head reaches back 28 days, so
+# MultiATGCN has 49 windows (3 training batches) and the point datasets 697
+QUALITY_LEN_TIME = 24 * 31
+QUALITY_HORIZONS = (3, 6, 12, 24)
+
+
+def _naive_metrics(np, x, y, scaler, mstd, len_c, tout, horizons):
+    """The persistence and seasonal rows' MAE, RMSE and MAPE means per
+    horizon, recomputed from the test split: {label: {h: (MAE, RMSE, MAPE)}}."""
+    truth = scaler.inverse_transform(y[:, :tout, :, 0:1])
+    preds = {"persistence": np.repeat(scaler.inverse_transform(x[:, len_c - 1: len_c, :, 0:1]), tout, axis=1),
+             "seasonal": scaler.inverse_transform(x[:, len_c - 24: len_c - 24 + tout, :, 0:1])}
+    m = np.asarray(mstd["All_m"])[None, :, None]
+    s = np.asarray(mstd["All_std"])[None, :, None]
+    out = {}
+    for label, pred in preds.items():
+        per_step = []
+        for step in range(tout):
+            t = truth[:, step] * s + m
+            p = np.maximum(pred[:, step] * s + m, 0.0)
+            keep = t > 10.0
+            d = p[keep] - t[keep]
+            per_step.append((np.abs(d).mean(), np.sqrt((d ** 2).mean()), np.abs(d / t[keep]).mean()))
+        out[label] = {h: tuple(float(np.mean([v[k] for v in per_step[:h]])) for k in range(3)) for h in horizons}
+    return out
+
+
+def quality_phase(torch):
+    """The port's quality protocol (tools/quality_run.py, main) at the dc
+    shape and full width (237 nodes, DC237_visit_mstd.csv's per-node
+    marginals, 24 steps in and out, batch 16, closeness 2, period 1, trend
+    1) on the card, the depth cut: QUALITY_LEN_TIME hours, 1 epoch, seeds
+    0 and 10, QUALITY_MODELS, into a temporary root. Holds: no run failed;
+    a row for every model x horizon and the persistence and seasonal rows;
+    every number finite; MultiATGCN's MAE_vs_ref_pct 0; each mean and std
+    a numpy recomputation from the per-seed *_trans.csv files; the naive
+    rows a recomputation from the test split on the CPU; a second main on
+    the root trains nothing and writes the same table; the MultiATGCN runs'
+    B3 launches 4 + 4 a train step and 4 a forward (eager and replayed).
+    Prints each model's seconds per epoch. Returns the B3 window."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+
+    from multistgraph_tpu_torch.config import load_config
+    from multistgraph_tpu_torch.data import atomic, get_dataset
+    from multistgraph_tpu_torch.executor.executor import StepLoops, TrafficStateExecutor
+    from multistgraph_tpu_torch.executor.graphs import StepGraph
+    from multistgraph_tpu_torch.models.multi_atgcn import MultiATGCN
+    from multistgraph_tpu_torch.tools import aggregate_results, quality_run
+    from multistgraph_tpu_torch.tools.timing import card
+
+    steps = collections.Counter()
+    replayed = collections.Counter()
+    real_steps, real_forward, real_run = StepLoops.train_steps, StepLoops._forward_epoch, StepGraph.run
+
+    def train_steps(self, loader, perm, rate):
+        if isinstance(self.model, MultiATGCN):
+            steps["train"] += len(perm)
+        return real_steps(self, loader, perm, rate)
+
+    def forward_epoch(self, name, loader, step):
+        if isinstance(self.model, MultiATGCN):
+            steps["forward"] += len(loader.ordered_permutation())
+        return real_forward(self, name, loader, step)
+
+    def run(self, **inputs):   # a replay launches what its capture recorded
+        replayed.update(self.captured)
+        return real_run(self, **inputs)
+
+    with tempfile.TemporaryDirectory() as root:
+        argv = ["dc", "--len_time", str(QUALITY_LEN_TIME), "--max_epoch", "1", "--seeds", QUALITY_SEEDS,
+                "--models", QUALITY_MODELS, "--root", root]
+        _reset_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(StepLoops, "train_steps", train_steps), \
+                mock.patch.object(StepLoops, "_forward_epoch", forward_epoch), mock.patch.object(StepGraph, "run", run):
+            failures, summary = quality_run.main(argv)
+        seconds = time.perf_counter() - t0
+        eager = _read_counts()
+        replays = _named(dict(replayed))
+        window = {"force_default_layout": eager["force_default_layout"] + replays["force_default_layout"],
+                  "force_default_layout_bwd": eager["force_default_layout_bwd"] + replays["force_default_layout_bwd"]}
+        want = {"force_default_layout": 4 * (steps["train"] + steps["forward"]),
+                "force_default_layout_bwd": 4 * steps["train"]}
+        if failures or window != want or not steps["train"]:
+            raise AssertionError("quality runs failed {}, B3 launches {} want {}".format(failures, window, want))
+        others = {k: v for k, v in eager.items() if v and k not in window}
+        if others or any(v for k, v in replays.items() if k not in window):
+            raise AssertionError("the quality runs launched other kernels: {} {}".format(others, replays))
+
+        ds_name = "SYN_DC237_S{}x{}".format(N, QUALITY_LEN_TIME)
+        labels = QUALITY_MODELS.split(",") + ["persistence", "seasonal"]
+        names = [str(n) for n in summary["Model_name"]]
+        rows = sorted(zip(summary["horizon"].tolist(), names))
+        if rows != sorted((h, m) for h in QUALITY_HORIZONS for m in labels):
+            raise AssertionError("summary rows {}".format(rows))
+        numeric = [c for c in summary if c not in ("Model_name",)]
+        if not all(np.isfinite(summary[c].astype(np.float64)).all() for c in numeric):
+            raise AssertionError("non-finite summary: {}".format({c: summary[c].tolist() for c in numeric}))
+        if any(summary["MAE_vs_ref_pct"][i] != 0.0 for i, n in enumerate(names) if n == "MultiATGCN"):
+            raise AssertionError("MultiATGCN's MAE_vs_ref_pct is not 0")
+        # each mean and std from the per-seed tables, by numpy
+        outputs = os.path.join(root, "outputs")
+        worst = 0.0
+        for i, (label, h) in enumerate(zip(names, summary["horizon"].tolist())):
+            per_seed = []
+            for seed in QUALITY_SEEDS.split(","):
+                (path,) = [p for p in os.listdir(os.path.join(outputs, "q_{}_{}_s{}".format(ds_name, label, seed),
+                                                                 "evaluate_cache")) if p.endswith("_trans.csv")]
+                t = aggregate_results.read_table(os.path.join(outputs, "q_{}_{}_s{}".format(ds_name, label, seed),
+                                                              "evaluate_cache", path))
+                per_seed.append([np.mean(np.asarray(t[m], np.float64)[np.asarray(t["index"]) < h])
+                                 for m in aggregate_results.METRICS])
+            per_seed = np.asarray(per_seed)
+            for k, m in enumerate(aggregate_results.METRICS):
+                for got, want_v in ((summary[m + "_mean"][i], per_seed[:, k].mean()),
+                                    (summary[m + "_std"][i], per_seed[:, k].std(ddof=1))):
+                    gap = abs(float(got) - want_v) / max(abs(want_v), 1e-30)
+                    worst = max(worst, gap if abs(want_v) > 1e-12 else abs(float(got) - want_v))
+        if worst > 1e-12:
+            raise AssertionError("aggregated means and stds off their recomputation by {}".format(worst))
+        # the naive rows from the test split, read on the CPU
+        args = dict(quality_run._base_args(dict(quality_run.SHAPES["dc"], name=ds_name), root, 1), seed=0)
+        cfg = load_config("traffic_state_pred", "MultiATGCN", ds_name, other_args=args)
+        cpu = get_dataset(cfg, device="cpu")
+        _, _, test = cpu.get_data()
+        feat = cpu.get_data_feature()
+        order = test.ordered_permutation().reshape(-1)
+        naive = _naive_metrics(np, test.x.numpy()[order], test.y.numpy()[order], feat["scaler"],
+                               atomic.load_gbst(os.path.join(root, "raw_data", ds_name, ds_name + ".gbst")),
+                               feat["len_closeness"], T, QUALITY_HORIZONS)
+        naive_gap = 0.0
+        for i, (label, h) in enumerate(zip(names, summary["horizon"].tolist())):
+            if label in naive:
+                got = [float(summary[m][i]) for m in ("MAE_mean", "RMSE_mean", "MAPE_mean")]
+                naive_gap = max(naive_gap, max(abs(a - b) / abs(b) for a, b in zip(got, naive[label][h])))
+        if naive_gap > 1e-9:
+            raise AssertionError("naive rows off their CPU recomputation by {}".format(naive_gap))
+        # resume: every run cached, nothing trains, the same table
+        summary_csv = os.path.join(root, "RESULTS_{}_summary.csv".format(ds_name))
+        with open(summary_csv) as f:
+            first = f.read()
+
+        def no_training(self, *a):
+            raise AssertionError("the second quality run trained a cached run again")
+
+        t1 = time.perf_counter()
+        with mock.patch.object(TrafficStateExecutor, "train", no_training):
+            again_failures, _ = quality_run.main(argv)
+        with open(summary_csv) as f:
+            if again_failures or f.read() != first:
+                raise AssertionError("the resumed quality run wrote another table ({})".format(again_failures))
+        resume_s = time.perf_counter() - t1
+        # seconds per epoch (train and validation) of each model, from its runs' metrics logs
+        epoch_s = {}
+        for label in QUALITY_MODELS.split(","):
+            epoch_s[label] = [float(row[-1]) for seed in QUALITY_SEEDS.split(",")
+                              for row in _csv_rows(os.path.join(outputs, "q_{}_{}_s{}".format(ds_name, label, seed),
+                                                                "train_metrics.csv"))]
+        say(json.dumps({"quality": ds_name, "models": QUALITY_MODELS, "seeds": QUALITY_SEEDS,
+                        "seconds_per_epoch": epoch_s, "b3_launches": window,
+                        "multiatgcn_train_steps": steps["train"], "multiatgcn_forwards": steps["forward"],
+                        "mean_std_recomputed_worst_gap": worst, "naive_rows_cpu_worst_gap": naive_gap,
+                        "first_run_s": seconds, "resumed_run_s": resume_s, "card": card()}))
+        with open(os.path.join(root, "RESULTS_{}.md".format(ds_name))) as f:
+            say(f.read())
+    return window
+
+
+def _csv_rows(path):
+    """The data rows of a CSV file, as lists of strings."""
+    import csv
+
+    with open(path) as f:
+        return list(csv.reader(f))[1:]
 
 
 
@@ -4815,7 +5194,15 @@ def main():
         windows.update(result)
     windows.update(run("sparse graphs", sparse_graph_phase, handles))
     del handles
-    bf16_lines, bf16_windows = run("band bf16 1M", band_bf16_phase)
+    # the f16 check's CPU runs (single-threaded f16 products, about a minute
+    # each on the card's host) beside the 1M phase, which keeps the card busy
+    # and the host's cores idle; the check's card half runs in its place below
+    f16_forms, f16_bands, f16_jobs = run("sparse f16 check set-up", _sparse_check_forms, "f16")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as beside:
+        f16_cpu = beside.submit(_cpu_runs, torch, f16_jobs)
+        bf16_lines, bf16_windows = run("band bf16 1M", band_bf16_phase)
+        f16_runs = f16_cpu.result()
+    del f16_jobs
     lines += bf16_lines
     windows.update(bf16_windows)
     serving_launches, windows["int8 f32 serving"] = run("serving", serving_phase)
@@ -4825,11 +5212,15 @@ def main():
     run("band check", band_check_phase)
     run("band bf16 check", band_bf16_check_phase)
     run("sparse bf16 check", sparse_bf16_check_phase)
-    run("sparse f16 check", sparse_bf16_check_phase, "f16")
+    run("sparse f16 check", sparse_bf16_check_phase, "f16", (f16_forms, f16_bands, f16_runs))
+    del f16_forms, f16_bands, f16_runs
     harness_lines, windows["node harness"] = run("node harness", node_harness_phase)
     lines += harness_lines
     # the zoo last: every earlier phase runs as it ran before the zoo came
-    run("zoo check", zoo_check_phase, run("zoo", zoo_phase))
+    checks, zoo_windows = run("zoo", zoo_phase)
+    run("zoo check", zoo_check_phase, checks)
+    run("zoo multiseed", zoo_multiseed_phase, zoo_windows)
+    windows["quality"] = run("quality", quality_phase)
     say(json.dumps({"phase_seconds": phase_s}))
 
     kernels = []

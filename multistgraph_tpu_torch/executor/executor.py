@@ -120,12 +120,26 @@ class StepLoops:
     CUDA graphs (module docstring). The executor sets ``device``,
     ``graphs_forward``, ``graphs_train``, ``capture_rule``, ``graphs``,
     ``_warm_steps``, ``_side_stream`` and ``generators`` (the dropout
-    generators its train step draws from), and defines ``batch(loader,
-    idx)`` and ``train_step(batch)``; ``before_train_step()`` refills what a
-    step reads besides its batch."""
+    generators its train step draws from), with a model that has scheduled
+    sampling also ``cl_decay_steps`` and ``tf_ratio``, and defines
+    ``batch(loader, idx)`` and ``train_step(batch)``; ``before_train_step()``
+    refills what a step reads besides its batch."""
+
+    # scheduled sampling (module docstring): the teacher-forcing ratio's
+    # decay, the global step, and the device scalar every step reads (None:
+    # the model has no scheduled sampling)
+    cl_decay_steps = 0
+    global_step = 0
+    tf_ratio = None
 
     def before_train_step(self) -> None:
-        """Called before each train step, eager or replayed."""
+        """Called before each train step, eager or replayed: write the
+        teacher-forcing ratio of the coming step into the device scalar the
+        step reads (a fill queued on the stream, no sync), and count the
+        step."""
+        if self.tf_ratio is not None:
+            self.tf_ratio.fill_(float(teacher_forcing_ratio(self.cl_decay_steps, self.global_step)))
+        self.global_step += 1
 
     def train_steps(self, loader, perm, rate) -> torch.Tensor:
         """One train step per row of `perm` (the sample indices of one step
@@ -311,14 +325,6 @@ class TrafficStateExecutor(StepLoops):
             extra = {"targets": batch["y"][..., self.model.start_dim: self.model.end_dim],
                      "tf_ratio": self.tf_ratio}
         return self.pred_loss(self.model(batch["X"], train=train, generator=generator, **extra), batch["y"])
-
-    def before_train_step(self) -> None:
-        """Write the teacher-forcing ratio of the coming step into the device
-        scalar the step reads (a fill queued on the stream, no sync), and
-        count the step."""
-        if self.tf_ratio is not None:
-            self.tf_ratio.fill_(float(teacher_forcing_ratio(self.cl_decay_steps, self.global_step)))
-        self.global_step += 1
 
     # ------------------------------------------------------------- train step
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -519,6 +519,9 @@ class MultiATGCN(nn.Module):
     # shape, no CPU tensor made inside forward or the BPTT Functions, and
     # dropout draws from the generator it is handed.
     graph_safe = True
+    # read by the multi-seed trainer (parallel/multiseed.py): S seeds run as
+    # one widened forward through ``forward_seeds``
+    seed_form = "widened"
 
     def __init__(self, *, num_nodes, input_window, output_window, start_dim, end_dim, ext_dim,
                  hidden_dim, num_layers, cheb_k, embed_dim_node, embed_dim_adj, adjtype, adpadj,

@@ -21,6 +21,13 @@ checkpointed steps included), and its random draws (dropout, DCRNN's
 coins) come from the generator the caller passes: on the card the
 executor and the service record its steps as CUDA graphs (``graph_safe``,
 executor/graphs.py).
+
+Seeds: the multi-seed trainer (parallel/multiseed.py) runs S seeds of a
+family as members of one step (``seed_form``), each member built by its
+family's builder, with its own copy of the graph constants. They are the
+same in every member: the only constant drawn from a seed, GMAN's node2vec
+embedding, is drawn from ``config['seed']``, as JAX's one vmapped module
+shares it.
 """
 
 import math
@@ -59,6 +66,9 @@ class ZooModule(nn.Module):
     graph_safe = True
     # read by utils/jax_import.py: the parameters carry the JAX names
     jax_names = True
+    # read by the multi-seed trainer (parallel/multiseed.py): S seeds run as
+    # S members, each its own forward with its own generator, in one step
+    seed_form = "members"
 
     def __init__(self, output_dim: int, device=None):
         super().__init__()

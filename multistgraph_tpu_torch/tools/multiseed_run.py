@@ -48,7 +48,7 @@ def main(argv=None):
     feature = dataset.get_data_feature()
     executor = get_executor(config, get_model(config, feature, device=device), feature, device=device)
 
-    results = train_multiseed(executor, train_data, valid_data, args.seeds, save=True)
+    results = train_multiseed(executor, train_data, valid_data, args.seeds, save=True, model_name=args.model)
     print("seed  best_epoch  min_val_loss  stopped  checkpoint")
     for r in results:
         print("{:>4}  {:>10}  {:>12.4f}  {!s:>7}  {}".format(

@@ -19,7 +19,10 @@ bench (``bench_large_graph ... --dtype bf16 --device cpu``); trains a zoo
 family (GRU, through the LSTM/GRU alias) for one epoch of a few batches
 through ``run_model`` on the CPU and serves one predict of it, and runs
 the zoo bench over all 18 names at its tiny size (``bench_zoo --device cpu
---small``).
+--small``); aggregates the MultiATGCN run's group-retransformed table
+(``tools.aggregate_results``) and trains GRU's seeds 0 and 10 for one
+epoch as one step, each seed then evaluated from its checkpoint
+(``tools.multiseed_run --model GRU --device cpu``).
 """
 
 import os
@@ -64,7 +67,7 @@ _SCRIPT = textwrap.dedent(r"""
                  "tools.multiseed_run", "run_model_parameter", "models.baselines", "models.graph_baselines",
                  "models.conv_baselines", "models.dcrnn", "models.astgcn", "models.zoo", "tools.bench_zoo",
                  "models.mtgnn", "models.stsgcn", "models.sttn", "models.gman", "models.stgode", "models.stgncde",
-                 "graph.node2vec"):
+                 "graph.node2vec", "tools.aggregate_results", "tools.quality_run"):
         assert "multistgraph_tpu_torch." + name in sys.modules, name
 
     import numpy as np
@@ -155,6 +158,19 @@ _SCRIPT = textwrap.dedent(r"""
     from multistgraph_tpu_torch.tools import bench_zoo
     zoo = bench_zoo.main(["--device", "cpu", "--small"])
     assert len(zoo["extras"]["models"]) == 18 and np.isfinite(zoo["value"]), zoo
+    from multistgraph_tpu_torch.tools import aggregate_results, multiseed_run
+    summary = aggregate_results.main([os.path.join(work, "out"), "--horizons", "3", "6", "--reference", "MultiATGCN",
+                                      "--out", os.path.join(work, "summary.csv")])
+    assert list(summary["Model_name"]) == ["MultiATGCN"] * 2 and list(summary["MAE_vs_ref_pct"]) == [0.0, 0.0]
+    import json
+    with open(os.path.join(work, "config_ms.json"), "w") as f:
+        json.dump({"max_epoch": 1, "input_window": 12, "output_window": 3, "rnn_units": 4, "batch_size": 4,
+                   "train_rate": 0.03, "eval_rate": 0.02, "tensorboard": False, "cache_dataset": False}, f)
+    seeds = multiseed_run.main(["--model", "GRU", "--dataset", "SYN", "--config_file", "config_ms",
+                                "--seeds", "0", "10", "--exp_id", "iso_ms_zoo", "--device", "cpu",
+                                "--data_dir", os.path.join(work, "raw"), "--output_dir", os.path.join(work, "out")])
+    assert [r.seed for r in seeds] == [0, 10] and all(os.path.exists(r.checkpoint) for r in seeds)
+    assert all(np.isfinite(r.history[0]["train_loss"]) for r in seeds), seeds
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED_OK")
 """)

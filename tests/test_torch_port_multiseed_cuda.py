@@ -14,7 +14,9 @@ chip_smoke.py's MS_BOUND: the losses within the card-vs-CPU output bound
 of the dtype (f32 1e-5, int8 5e-3), the parameters and Adam's moments
 (exp_avg and the root of exp_avg_sq) within the larger of its two bounds
 (1e-5, 3e-2). The batched contractions of the seeds may sum in another
-order, and in int8 a flipped bf16 rounding moves an Adam step.
+order, and in int8 a flipped bf16 rounding moves an Adam step. A zoo
+family (GRU, the "members" form: each seed's own forward in the one step)
+holds bit for bit against its single-seed executors, graphed both.
 """
 
 import numpy as np
@@ -146,3 +148,42 @@ def test_cuda_train_multiseed_writes_checkpoints_the_executor_reads(cuda, tmp_pa
         assert np.isfinite([h["train_loss"] for h in res.history]).all() and res.best_epoch == 0
         executor.load_model(res.checkpoint)
         assert np.isfinite(executor._valid_epoch(val))
+
+
+@pytest.mark.cuda
+def test_cuda_zoo_members_step_bit_for_bit_with_single_seed_steps(cuda, tmp_path):
+    """GRU (a zoo family, the "members" form) at S=2: the trainer's 2 eager
+    warm-ups and 3 replays against each seed's single-seed executor at that
+    seed (weights and dropout generator seeded with it) stepped through the
+    same batches, itself 2 eager and 3 replayed: losses, parameters and
+    Adam's state bit for bit; no kernel of the port launched."""
+    raw = tmp_path / "raw"
+    make_synthetic_dataset(str(raw), DATASET, num_nodes=12, len_time=24 * 35, seed=3)
+    cfg = load_config("traffic_state_pred", "GRU", DATASET, other_args={
+        "data_dir": str(raw), "output_dir": str(tmp_path / "out"), "exp_id": "zoo_ms", "cache_dataset": False,
+        "input_window": 24, "output_window": 6, "load_external": True, "load_dynamic": False,
+        "add_time_in_day": True, "batch_size": 8, "rnn_units": 16, "clip_grad_norm": True,
+        "tensorboard": False, "max_epoch": 1, "saved_model": False, "seed": SEEDS[0]})
+    ds = get_dataset(cfg)
+    train, _, _ = ds.get_data()
+    feature = ds.get_data_feature()
+    trainer = MultiSeedTrainer(get_executor(cfg, get_model(cfg, feature), feature), SEEDS)
+    assert trainer.form == "members" and trainer.graphs_train
+    steps = GRAPH_WARMUP_STEPS + REPLAYS
+    rng = np.random.default_rng(0)
+    perm = np.stack([rng.permutation(train.num_samples)[: steps * 8].reshape(steps, 8) for _ in SEEDS], axis=1)
+    got = trainer.train_steps(train, perm, None)
+    assert {k: v for k, v in trainer.graphs["train"].captured.items() if v} == {}
+    for i, seed in enumerate(SEEDS):
+        model = get_model(cfg, feature, generator=torch.Generator().manual_seed(seed))
+        ref = get_executor(cfg, model, feature)
+        ref.dropout_generator.manual_seed(seed)
+        want = ref.train_steps(train, perm[:, i], None)
+        assert ref.graphs["train"].replays == REPLAYS
+        assert torch.equal(got[:, i], want)
+        for p, q in zip(trainer.model.members[i].parameters(), model.parameters()):
+            assert torch.equal(p, q)
+        mine, theirs = trainer.seed_state(i)[1]["state"], ref.optimizer.state_dict()["state"]
+        for j, st in mine.items():
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(st[key], theirs[j][key]), (seed, j, key)
